@@ -1,0 +1,106 @@
+"""2D solver CLI — the batch-test and single-solve surface of the reference's
+2d_nonlocal_serial binary (src/2d_nonlocal_serial.cpp:382-415), on the port.
+
+    echo "1
+    50 50 45 5 1 0.0005 0.02" | python -m nonlocalheatequation_torch.cli.solve2d --test_batch
+
+runs on the CUDA card (``--platform cpu`` for the CPU) and prints
+"Tests Passed" when every row meets error_l2/#points <= 1e-6.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+from nonlocalheatequation_torch.cli.common import (
+    add_platform_flags,
+    add_precision_flags,
+    announce_stable_dt,
+    bool_flag,
+    platform_kwargs,
+    precision_kwargs,
+    run_batch,
+    version_banner,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="2d_nonlocal", add_help=True)
+    p.add_argument("--test", action="store_true",
+                   help="use the manufactured solution for testing")
+    p.add_argument("--test_batch", action="store_true", help="run batch tests from stdin")
+    p.add_argument("--results", action="store_true", help="print the final state")
+    bool_flag(p, "cmp", True, "print expected vs actual outputs")
+    p.add_argument("--nx", type=int, default=50)
+    p.add_argument("--ny", type=int, default=50)
+    p.add_argument("--nt", type=int, default=45)
+    p.add_argument("--eps", type=int, default=5)
+    p.add_argument("--k", type=float, default=1.0)
+    p.add_argument("--dt", type=float, default=0.0005)
+    p.add_argument("--dh", type=float, default=0.02)
+    p.add_argument("--method", default="auto",
+                   choices=("auto", "cuda", "conv", "shift", "sat"),
+                   help="neighbour-sum evaluation: auto (cuda on the card, conv on "
+                        "the CPU), cuda (the hand-written kernels), conv, shift, sat")
+    add_platform_flags(p)
+    add_precision_flags(p)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    version_banner("2d_nonlocal")
+    if not args.test_batch:
+        announce_stable_dt(2, args.k, args.eps, args.dh, args.dt)
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+
+    try:
+        kw = {"method": args.method, **platform_kwargs(args),
+              **precision_kwargs(args)}
+    except RuntimeError as e:  # no card for --platform gpu
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    if args.test_batch:
+        # row: nx ny nt eps k dt dh  (tests/2d.txt)
+        def read_case(toks, pos):
+            v = toks[pos:pos + 7]
+            return ((int(v[0]), int(v[1]), int(v[2]), int(v[3]),
+                     float(v[4]), float(v[5]), float(v[6])), pos + 7)
+
+        def run_case(case):
+            nx, ny, nt, eps, k, dt, dh = case
+            s = Solver2D(nx, ny, nt, eps, k=k, dt=dt, dh=dh, **kw)
+            s.test_init()
+            s.do_work()
+            return s.error_l2, nx * ny
+
+        return run_batch(read_case, run_case, row_tokens=7)
+
+    s = Solver2D(args.nx, args.ny, args.nt, args.eps, k=args.k,
+                 dt=args.dt, dh=args.dh, **kw)
+    if args.test:
+        s.test_init()
+    else:
+        s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[: args.nx * args.ny])
+    t0 = time.perf_counter()
+    s.do_work()
+    elapsed = time.perf_counter() - t0
+    if args.test:
+        s.print_error(args.cmp)
+    if args.results:
+        s.print_soln()
+
+    from nonlocalheatequation_torch.utils.timing import print_time_results_2d
+
+    print_time_results_2d(os.cpu_count() or 1, elapsed, args.nx, args.ny, args.nt)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+"""Wall-clock timing reports in the reference's CSV layouts
+(include/print_time_results.hpp:65-97).  ``elapsed_s`` is in seconds."""
+
+from __future__ import annotations
+
+
+def print_time_results_2d(num_os_threads: int, elapsed_s: float, nx: int, ny: int,
+                          nt: int):
+    """print_time_results.hpp:65-82."""
+    print("OS_Threads,       Execution_Time_sec,"
+          "       x dimension,        y dimension,        Time_Steps")
+    print(
+        f"{num_os_threads},".ljust(22)
+        + f"{elapsed_s:10.12g},        "
+        + f"{nx},".ljust(22)
+        + f"{ny},".ljust(22)
+        + f"{nt} ".ljust(22).rstrip(),
+        flush=True,
+    )
+
+
+def print_time_results_1d(num_os_threads: int, elapsed_s: float, nx: int, nt: int):
+    """print_time_results.hpp:84-97."""
+    print("OS_Threads,       Execution_Time_sec,"
+          "       x dimension,        y dimension,        Time_Steps")
+    print(
+        f"{num_os_threads},".ljust(22)
+        + f"{elapsed_s:10.12g},        "
+        + f"{nx},".ljust(22)
+        + f"{nt} ".ljust(22).rstrip(),
+        flush=True,
+    )
