@@ -13,23 +13,37 @@ line is printed):
    float32 and the bf16 operand tier, over eps in {1, 3, 5, 8, 10, 16, 40}
    and ragged shapes (1x1, non tile multiples, nx < 2*eps, eps above the
    32-point tile).  Tolerance: max|kernel - plain| <= 1e-12 (float64) or
-   1e-5 (float32) times the largest magnitude of the plain result.
+   1e-5 (float32) times the largest magnitude of the plain result.  Then the
+   multi-step kernels (carried2d; superstep2d at K = 1-4 and a 7-step run
+   with a remainder; resident2d, which has no bf16 tier) over the same
+   shapes and eps up to 60 where each takes it: each held to its plain
+   version with the same tolerances (in the bf16 tier, plus one bfloat16
+   rounding flip per step after the first, see phase_multistep_checks), and
+   each held BITWISE to the same number of step2d launches.  resident2d on
+   a grid beyond its gate must raise ValueError.
 3. The main path's correctness: the reference's batch tables (CASES_2D and
    CASES_1D of tests/cases.py) through the port's CLIs on the card in
    float64, each must print "Tests Passed"; then CASES_2D in float32
    through Solver2D, reporting the largest error_l2/#points.
 4. The headline configuration: 4096^2, eps=8, float32, method="cuda".  At
-   the main path's shapes every kernel form (nsum2d f32 and bf16 operand,
+   the main path's shape every kernel form (nsum2d f32 and bf16 operand,
    and in float64 on the padded G the test-form solve gives it; step2d
-   production and test form, f32 and bf16 operand) is held against its plain
-   version with the phase-2 tolerances.  The kernels are timed with CUDA
-   events beside their plain versions, their byte/operation bound and
-   F.conv2d (the library yardstick, with TF32 disabled; the port never calls
+   production and test form, f32 and bf16 operand; carried2d and
+   superstep2d at K = 2 and 3) is held against its plain version with the
+   phase-2 tolerances.  The kernels are timed with CUDA events beside their
+   plain versions, their byte/operation bound and F.conv2d (the library
+   yardstick for the neighbour sum, with TF32 disabled; the port never calls
    it), and the test-form source's set-up is timed on the card and in NumPy.
-   Then the launch counts are reset and the main path runs through Solver2D:
-   the production solve on a seeded random state and a test-form solve
-   (whose L(G) goes through nsum2d); the counts must show every kernel
-   launched.
+   Every multi-step candidate of the tuner is timed in ms/step at 4096^2
+   (resident does not fit there) and at 512^2, eps=8, f32, where resident
+   fits; there the per-step, carried and superstep kernels are also timed
+   alone, as a replayed CUDA graph of launches, since a loop of launches
+   from Python times the host at that size.  Then the launch counts and the tuner's records are reset and the
+   main path runs through Solver2D: the production solve at 4096^2 and at
+   512^2 (each tunes its shape, as a first production call does, and runs
+   the winner) and a test-form solve at 4096^2 (whose L(G) goes through
+   nsum2d); the counts must show every kernel launched, and exactly the
+   probes' and the winners' launches.  The tuner's records are printed.
 5. The kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
@@ -46,11 +60,15 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 NX, EPS, STEPS, TEST_STEPS = 4096, 8, 500, 20
+SMALL = 512        # the small production grid, where resident fits
+VARIANT_STEPS = 100  # steps per timed multi-step run at 4096^2 (500 at 512^2)
+GRAPH_LAUNCHES = 100  # launches per CUDA graph when timing a kernel alone at 512^2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
@@ -103,7 +121,8 @@ def bound(nbytes: float, ops: float) -> tuple:
 
 
 def kernel_ops(eps: int, epilogue: int) -> float:
-    """Operations per output point of the kernels' algorithm (csrc/nsum2d.cu):
+    """Operations per output point of the kernels' algorithm (the tile body,
+    csrc/stencil_tile.cuh):
     the row window sums add 2*eps terms into each cell of a tile's
     (32+2eps) x 32 window rows, shared by its 32 output rows; each output then
     adds 2*eps+1 of them, and the step ``epilogue`` more: 41 + epilogue at
@@ -157,6 +176,101 @@ def phase_checks(torch, ck, np) -> dict:
     say("kernel checks (max |kernel-plain| / max|plain|): "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
         + f"; cases nsum2d {n['nsum2d']}, step2d {n['step2d']}: pass")
+    return n
+
+
+def rel_err(torch, got, ref) -> tuple:
+    """(max|got - ref|, that over max|ref|), after a synchronize."""
+    torch.cuda.synchronize()
+    abs_err = float((got.double() - ref.double()).abs().max())
+    return abs_err, abs_err / (float(ref.abs().max()) or 1.0)
+
+
+def phase_multistep_checks(torch, ck, np) -> dict:
+    """Phase 2, multi-step kernels: each against its plain version and,
+    bitwise, against the same number of step2d launches.
+
+    In the bf16 tier a kernel and its plain version sum in different orders,
+    so after the first step their states differ in the last bits, and a value
+    on a bfloat16 rounding boundary can round the other way: the next
+    operand then differs by one bfloat16 ulp (2^-8 relative), passed on with
+    the operator's gain dt*scale*wsum.  The tolerance there grows by that
+    much per step after the first; the bitwise check against step2d is the
+    exact one."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 1)
+    shapes = [(1, 1), (37, 50), (64, 64), (13, 45), (3, 100), (70, 90)]
+    plan = [(e, s) for e in (1, 3, 5, 8, 10, 16) for s in shapes]
+    plan += [(40, (50, 45)), (60, (20, 90))]  # eps above the tile; about the largest in f64
+    worst, n = {}, {"carried2d": 0, "superstep2d": 0, "resident2d": 0}
+
+    def hold(name, form, got, plain, tol, bits):
+        _abs, err = rel_err(torch, got, plain)
+        if not torch.equal(got, bits):
+            fail(f"{name} {form}: not bitwise equal to the same number of step2d launches")
+        if not err <= tol:
+            fail(f"{name} {form}: |kernel-plain| / max|plain| {err:.3e} > {tol:.3e}")
+        key = f"{name}/{form.split()[0]}/{form.split()[1]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        n[name] += 1
+
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL[str(dtype).split(".")[1]]
+        for prec in ("f32", "bf16"):
+            for e, (nx, ny) in plan:
+                u = torch.tensor(rng.standard_normal((nx, ny)), dtype=dtype, device="cuda")
+                wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(e)))
+                scale, dt = 2.0 + e, 0.8 / ((2.0 + e) * wsum)
+                flip = dt * scale * wsum * 2.0 ** -8 if prec == "bf16" else 0.0
+                form = f"{str(dtype).split('.')[1]} {prec} eps={e} {nx}x{ny}"
+                op = types.SimpleNamespace(eps=e, c=scale, dh=1.0, wsum=wsum, dt=dt,
+                                           precision=prec)
+                steps = [u]
+                for _ in range(7):
+                    steps.append(ck.step2d(steps[-1], e, scale, wsum, dt, precision=prec))
+                # carried: three launches, the last against one plain step
+                frame = F.pad(u, (e,) * 4).contiguous()
+                pair = (frame, ck.shadow_of(frame) if prec == "bf16" else None)
+                for _ in range(3):
+                    prev = pair
+                    res = ck.carried2d(pair[0], e, scale, wsum, dt, shadow=pair[1])
+                    pair = res if prec == "bf16" else (res, None)
+                plain = ck.carried2d_plain(prev[0], e, scale, wsum, dt, prev[1])
+                bits = F.pad(steps[3], (e,) * 4)
+                hold("carried2d", form, pair[0], plain[0] if prec == "bf16" else plain, tol,
+                     bits)
+                if prec == "bf16" and not torch.equal(pair[1], ck.shadow_of(pair[0])):
+                    fail(f"carried2d {form}: the shadow is not the master's rounding")
+                # superstep: one launch at each K it takes, and 7 steps at K=3 (3+3+1)
+                for k in (1, 2, 3, 4):
+                    if ck.fits_superstep(nx, ny, e, k, dtype, prec):
+                        hold("superstep2d", f"{form} K={k}",
+                             ck.superstep2d(u, e, scale, wsum, dt, k, prec),
+                             ck.superstep2d_plain(u, e, scale, wsum, dt, k, prec),
+                             tol + (k - 1) * flip, steps[k])
+                if ck.fits_superstep(nx, ny, e, 3, dtype, prec):
+                    hold("superstep2d", f"{form} 7 steps K=3",
+                         ck.make_superstep_multi_step_fn(op, 7, ksteps=3)(u, 0),
+                         ck.superstep2d_plain(u, e, scale, wsum, dt, 7, prec),
+                         tol + 6 * flip, steps[7])
+                # resident: the whole run in one launch (no bf16 tier)
+                if prec == "f32" and ck.fits_resident(nx, ny, e, dtype):
+                    for k in (1, 2, 5):
+                        hold("resident2d", f"{form} {k} steps",
+                             ck.resident2d(u, e, scale, wsum, dt, k),
+                             ck.resident2d_plain(u, e, scale, wsum, dt, k), tol, steps[k])
+    try:  # a grid beyond the gate raises, naming the kernel; nothing falls back
+        ck.resident2d(torch.zeros(NX, NX, device="cuda"), EPS, 1.0, 197.0, 1e-3, 2)
+        fail(f"resident2d accepted a {NX}^2 grid, beyond its gate, on the card")
+    except ValueError as e:
+        if "resident kernel" not in str(e):
+            fail(f"resident2d's refusal does not name the kernel: {e}")
+    say("multi-step kernel checks (max |kernel-plain| / max|plain|; every case bitwise "
+        "equal to step2d launches): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+        + f"; cases carried2d {n['carried2d']}, superstep2d {n['superstep2d']}, resident2d "
+        f"{n['resident2d']}; resident2d refuses {NX}^2: pass")
     return n
 
 
@@ -217,6 +331,7 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
         full_fp32,
         make_multi_step_fn,
     )
+    from nonlocalheatequation_torch.utils import autotune
 
     dh = 1.0 / NX
     probe = NonlocalOp2D(EPS, 1.0, 1.0, dh)
@@ -231,7 +346,7 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
     isz, npts = 4, NX * NX
 
     # every form at the main path's shape against its plain version
-    held = {"nsum2d": [], "step2d": []}
+    held = {k: [] for k in ck.LAUNCHES}
 
     def hold(name, form, got, ref, tol):
         torch.cuda.synchronize()
@@ -309,57 +424,240 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
     say(f"step2d {NX}^2 eps={EPS} f32 test form: kernel {step_test_ms:.4f} ms, "
         f"bound {step_test_bound[0]:.4f} ms ({step_test_bound[1]})")
 
+    # the multi-step kernels at the main path's shape: against their plain
+    # versions, and bitwise against step2d launches
+    bits = [u]
+    for _ in range(3):
+        bits.append(ck.step2d(bits[-1], EPS, scale, wsum, dt))
+    frame = F.pad(u, (EPS,) * 4).contiguous()
+    fout = torch.empty_like(frame)
+    hold("carried2d", "float32 f32 one launch", ck.carried2d(frame, EPS, scale, wsum, dt),
+         ck.carried2d_plain(frame, EPS, scale, wsum, dt), tol32)
+    shadow = ck.shadow_of(frame)
+    hold("carried2d", "float32 bf16 one launch",
+         ck.carried2d(frame, EPS, scale, wsum, dt, shadow=shadow)[0],
+         ck.carried2d_plain(frame, EPS, scale, wsum, dt, shadow)[0], tol32)
+    del shadow
+    bitwise = {"carried2d 3 steps": torch.equal(
+        ck.make_carried_multi_step_fn(op, 3)(u, 0), bits[3])}
+    for k in (2, 3):
+        got = ck.superstep2d(u, EPS, scale, wsum, dt, k)
+        hold("superstep2d", f"float32 f32 K={k}", got,
+             ck.superstep2d_plain(u, EPS, scale, wsum, dt, k), tol32)
+        bitwise[f"superstep2d K={k}"] = torch.equal(got, bits[k])
+    del bits, got
+    if not all(bitwise.values()):
+        fail(f"multi-step kernels at {NX}^2 eps={EPS}: bitwise equal to step2d launches "
+             f"{bitwise}")
+    say(f"multi-step kernels at {NX}^2 eps={EPS}: bitwise equal to step2d launches "
+        f"{json.dumps(bitwise)}; |kernel-plain| / max|plain| "
+        + "; ".join(f"{n} {c['form']} {c['rel_err']:.2e}" for n in ("carried2d", "superstep2d")
+                    for c in held[n]))
+
+    carried_ms = cuda_ms(torch, lambda: ck.carried2d(frame, EPS, scale, wsum, dt, out=fout),
+                         200)
+    carried_plain_ms = cuda_ms(torch, lambda: ck.carried2d_plain(frame, EPS, scale, wsum, dt),
+                               5, 1)
+    sup_ms = {k: cuda_ms(torch, lambda k=k: ck.superstep2d(u, EPS, scale, wsum, dt, k,
+                                                           out=out), 100) for k in (2, 3)}
+    sup_plain_ms = {k: cuda_ms(torch, lambda k=k: ck.superstep2d_plain(u, EPS, scale, wsum,
+                                                                       dt, k), 3, 1)
+                    for k in (2, 3)}
+    # bounds: one frame read and one written per launch; K levels of the
+    # step's operations for a K-step launch
+    carried_bound = bound(2 * frame.numel() * isz, npts * kernel_ops(EPS, 5))
+    sup_bound = {k: bound(2 * npts * isz, k * npts * kernel_ops(EPS, 5)) for k in (2, 3)}
+    say(f"carried2d {NX}^2 eps={EPS} f32: kernel {carried_ms:.4f} ms/launch (one step), "
+        f"plain {carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms "
+        f"({carried_bound[1]})")
+    for k in (2, 3):
+        say(f"superstep2d {NX}^2 eps={EPS} f32 K={k}: kernel {sup_ms[k]:.4f} ms/launch "
+            f"({sup_ms[k] / k:.4f} ms/step), plain {sup_plain_ms[k]:.3f} ms, bound "
+            f"{sup_bound[k][0]:.4f} ms ({sup_bound[k][1]})")
+    del frame, fout
+    big = time_variants(torch, op, u, VARIANT_STEPS)
+    fits_big = ck.fits_resident(NX, NX, EPS, torch.float32)
+    say(f"multi-step candidates {NX}^2 eps={EPS} f32, {VARIANT_STEPS}-step runs (CUDA events), "
+        f"ms/step: {json.dumps(big)}; resident2d "
+        + ("fits" if fits_big else "does not fit (its two frames exceed the card's L2)"))
+
+    # the small production grid, where the whole run fits the resident kernel
+    dh_s = 1.0 / SMALL
+    probe_s = NonlocalOp2D(EPS, 1.0, 1.0, dh_s)
+    dt_s = 0.8 / (probe_s.c * dh_s * dh_s * probe_s.wsum)
+    op_s = NonlocalOp2D(EPS, 1.0, dt_s, dh_s, method="cuda")
+    scale_s, npts_s = case_scale(op_s), SMALL * SMALL
+    us0 = np.random.default_rng(SEED + 2).standard_normal((SMALL, SMALL))
+    us = torch.as_tensor(us0, device="cuda").to(torch.float32)
+    if not ck.fits_resident(SMALL, SMALL, EPS, torch.float32):
+        fail(f"resident2d does not fit {SMALL}^2 eps={EPS} f32 on this card")
+    ref = us
+    for _ in range(TEST_STEPS):
+        ref = ck.step2d(ref, EPS, scale_s, wsum, dt_s)
+    got = ck.resident2d(us, EPS, scale_s, wsum, dt_s, TEST_STEPS)
+    hold("resident2d", f"float32 f32 {SMALL}^2 {TEST_STEPS} steps", got,
+         ck.resident2d_plain(us, EPS, scale_s, wsum, dt_s, TEST_STEPS), tol32)
+    if not torch.equal(got, ref):
+        fail(f"resident2d at {SMALL}^2: not bitwise equal to {TEST_STEPS} step2d launches")
+    small = time_variants(torch, op_s, us, STEPS)
+    res_ms = cuda_ms(torch, lambda: ck.resident2d(us, EPS, scale_s, wsum, dt_s, STEPS), 3, 1)
+    res_plain_ms = cuda_ms(torch, lambda: ck.resident2d_plain(us, EPS, scale_s, wsum, dt_s,
+                                                              STEPS), 1, 0)
+    res_bound = bound(2 * npts_s * isz, STEPS * npts_s * kernel_ops(EPS, 5))
+    say(f"resident2d {SMALL}^2 eps={EPS} f32, {STEPS} steps in one launch: kernel "
+        f"{res_ms:.4f} ms/launch ({res_ms / STEPS:.5f} ms/step), plain {res_plain_ms:.1f} ms, "
+        f"bound {res_bound[0]:.4f} ms ({res_bound[1]}); |kernel-plain| / max|plain| "
+        f"{held['resident2d'][0]['rel_err']:.2e}, bitwise equal to {TEST_STEPS} step2d launches")
+    say(f"multi-step candidates {SMALL}^2 eps={EPS} f32, {STEPS}-step runs (CUDA events), "
+        f"ms/step: {json.dumps(small)}")
+    small_kernel_ms = kernels_alone(torch, ck, us, EPS, scale_s, wsum, dt_s)
+    say(f"kernels alone at {SMALL}^2 eps={EPS} f32 (a CUDA graph of {GRAPH_LAUNCHES} launches "
+        f"replayed, CUDA events), ms/launch: {json.dumps(small_kernel_ms)}")
+
     multi = make_multi_step_fn(op, STEPS, dtype=torch.float32)
-    make_multi_step_fn(op, 10, dtype=torch.float32)(u, 0)  # warm-up
+    multi(u, 0)  # the first call tunes the shape and runs the winner
     loop_ms = cuda_ms(torch, lambda: multi(u, 0), 1, 0) / STEPS
-    say(f"headline {NX}^2 eps={EPS} f32, {STEPS} steps (make_multi_step_fn, CUDA events): "
-        f"{loop_ms:.4f} ms/step, {npts / (loop_ms * 1e-3):.4e} points*steps/s; "
+    say(f"headline {NX}^2 eps={EPS} f32, {STEPS} steps (make_multi_step_fn, tuned, CUDA "
+        f"events): {loop_ms:.4f} ms/step, {npts / (loop_ms * 1e-3):.4e} points*steps/s; "
         f"byte bound {2 * npts * isz / HBM_BYTES_PER_S * 1e3:.4f} ms/step")
     say(f"clocks/power after timing: {nvidia_smi('clocks.sm,power.draw,power.limit')}")
 
-    # the main path, through the solver entry points, counted
+    # the main path, through the solver entry points, counted: a first
+    # production call per shape tunes it (every fitting candidate runs its
+    # probe program) and then runs the winner
+    autotune.reset()
     ck.reset_launch_counts()
-    s = Solver2D(NX, NX, STEPS, EPS, k=1.0, dt=dt, dh=dh, method="cuda",
-                 dtype=torch.float32, device="cuda")
-    s.input_init(u0)
-    t0 = time.perf_counter()
-    res = s.do_work()
-    wall = time.perf_counter() - t0
-    if res.shape != (NX, NX) or not np.isfinite(res).all():
-        fail("headline solve: result not finite or of the wrong shape")
-    if not float(np.abs(res).max()) <= float(np.abs(u0).max()):
-        fail("headline solve: the free decay grew (max|u| rose)")
+    walls = {}
+    for n, x0, step_dt, step_dh in ((NX, u0, dt, dh), (SMALL, us0, dt_s, dh_s)):
+        s = Solver2D(n, n, STEPS, EPS, k=1.0, dt=step_dt, dh=step_dh, method="cuda",
+                     dtype=torch.float32, device="cuda")
+        s.input_init(x0)
+        t0 = time.perf_counter()
+        res = s.do_work()
+        walls[n] = time.perf_counter() - t0
+        if res.shape != (n, n) or not np.isfinite(res).all():
+            fail(f"production solve {n}^2: result not finite or of the wrong shape")
+        if not float(np.abs(res).max()) <= float(np.abs(x0).max()):
+            fail(f"production solve {n}^2: the free decay grew (max|u| rose)")
     st = Solver2D(NX, NX, TEST_STEPS, EPS, k=1.0, dt=dt, dh=dh, method="cuda",
                   dtype=torch.float32, device="cuda")
     st.test_init()
     st.do_work()
     counts = ck.launch_counts()
+    recs = autotune.records()
     test_err = st.error_l2 / (NX * NX)
-    if counts["step2d"] != STEPS + TEST_STEPS:
-        fail(f"step2d launches {counts['step2d']} != {STEPS + TEST_STEPS} steps")
-    if counts["nsum2d"] < 1:
-        fail("nsum2d was not launched on the main path")
+    if len(recs) != 2:
+        fail(f"the production solves tuned {len(recs)} shapes, not 2: {sorted(recs)}")
+    expected = dict.fromkeys(counts, 0)
+    expected["step2d"] = TEST_STEPS
+    for entry in recs.values():
+        for name in entry["ms_per_step"]:
+            kernel, k = variant_launches(name, autotune.PROBE_STEPS)
+            expected[kernel] += (1 + autotune.PROBE_ITERS) * k
+        kernel, k = variant_launches(entry["winner"], STEPS)
+        expected[kernel] += k
+    wrong = {k: (counts[k], expected[k]) for k in counts
+             if k != "nsum2d" and counts[k] != expected[k]}
+    if wrong:
+        fail(f"main-path launches (got, expected from the probes and the winners): {wrong}")
+    if not all(counts.values()):
+        fail(f"a kernel of the main path was not launched: {json.dumps(counts)}")
     if not test_err <= l2_threshold:
         fail(f"test-form headline solve: error_l2/#points {test_err:.3e} > {l2_threshold:g}")
-    say(f"main path: Solver2D {NX}^2 eps={EPS} f32 method=cuda, {STEPS} production steps "
-        f"(do_work wall {wall:.3f} s incl. host<->device copies) + {TEST_STEPS} test-form "
-        f"steps (error_l2/#points {test_err:.3e}); launches {json.dumps(counts)}")
-    def row(name, **kw):
+    say(f"tuner records: {json.dumps(recs)}")
+    winner = {n: recs[autotune.tuning_key(o, (n, n), torch.float32, "cuda")]["winner"]
+              for n, o in ((NX, op), (SMALL, op_s))}
+    say(f"main path: Solver2D eps={EPS} f32 method=cuda production solves of {STEPS} steps, "
+        f"tuned, at {NX}^2 (winner {winner[NX]}, do_work wall {walls[NX]:.3f} s incl. tuning "
+        f"and host<->device copies) and {SMALL}^2 (winner {winner[SMALL]}, "
+        f"{walls[SMALL]:.3f} s) + {TEST_STEPS} test-form steps at {NX}^2 (error_l2/#points "
+        f"{test_err:.3e}); launches {json.dumps(counts)} = the probes' and the winners'")
+
+    def row(name, source, line, **kw):
         cs = held[name]
         return {"name": name, "route": "cuda",
-                "source": "nonlocalheatequation_torch/csrc/nsum2d.cu", **kw,
+                "source": f"nonlocalheatequation_torch/csrc/{source}",
+                "replaces": f"nonlocalheatequation_tpu/ops/pallas_kernel.py:{line}", **kw,
                 "launches": counts[name], "max_abs_err": max(c["max_abs_err"] for c in cs),
                 "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
                 "main_shape_forms": len(cs)}
 
+    no_call = "no one PyTorch call takes Euler steps"
     return [
-        {**row("nsum2d", replaces="nonlocalheatequation_tpu/ops/pallas_kernel.py:468"),
+        {**row("nsum2d", "nsum2d.cu", 468),
          "ms": nsum_ms, "plain_ms": nsum_plain_ms, "bound_ms": nsum_bound[0],
          "bound_by": nsum_bound[1], "library_ms": conv_ms},
-        {**row("step2d", replaces="nonlocalheatequation_tpu/ops/pallas_kernel.py:515"),
+        {**row("step2d", "nsum2d.cu", 515),
          "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound[0],
-         "bound_by": step_bound[1], "library_ms": None},
+         "bound_by": step_bound[1], "library_ms": None, "library_note": no_call,
+         "ms_512_graph": small_kernel_ms["step2d"]},
+        {**row("carried2d", "carried2d.cu", 856),
+         "ms": carried_ms, "plain_ms": carried_plain_ms, "bound_ms": carried_bound[0],
+         "bound_by": carried_bound[1], "library_ms": None, "library_note": no_call,
+         "shape": f"{NX}^2", "ms_512_graph": small_kernel_ms["carried2d"]},
+        {**row("superstep2d", "superstep2d.cu", 1032),
+         "ms": sup_ms[3], "plain_ms": sup_plain_ms[3], "bound_ms": sup_bound[3][0],
+         "bound_by": sup_bound[3][1], "library_ms": None, "library_note": no_call,
+         "shape": f"{NX}^2", "ksteps": 3, "ms_k2": sup_ms[2], "bound_ms_k2": sup_bound[2][0],
+         "ms_512_graph": small_kernel_ms["superstep2d K=3"],
+         "ms_512_graph_k2": small_kernel_ms["superstep2d K=2"]},
+        {**row("resident2d", "resident2d.cu", 1292),
+         "ms": res_ms, "plain_ms": res_plain_ms, "bound_ms": res_bound[0],
+         "bound_by": res_bound[1], "library_ms": None, "library_note": no_call,
+         "shape": f"{SMALL}^2", "steps_per_launch": STEPS},
     ]
+
+
+def variant_launches(name: str, nsteps: int) -> tuple:
+    """(kernel, launches) of an nsteps run of the tuner's candidate ``name``."""
+    if name == "per-step":
+        return "step2d", nsteps
+    if name == "carried":
+        return "carried2d", nsteps
+    if name == "resident":
+        return "resident2d", 1
+    return "superstep2d", -(-nsteps // int(name[len("superstep"):]))
+
+
+def graph_ms(torch, fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+    """Device milliseconds per call of fn: a CUDA graph of ``launches`` calls,
+    replayed ``reps`` times, so the host's cost per launch is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(torch, graph.replay, reps, 1) / launches
+
+
+def kernels_alone(torch, ck, u, eps: int, scale: float, wsum: float, dt: float) -> dict:
+    """ms per launch of the per-step, carried and superstep kernels on u,
+    without the host's cost per launch (at a small grid that cost is larger
+    than the kernel's, so a loop of launches times the host)."""
+    import torch.nn.functional as F
+
+    out = torch.empty_like(u)
+    frame = F.pad(u, (eps,) * 4).contiguous()
+    fout = torch.empty_like(frame)
+    runs = {"step2d": lambda: ck.step2d(u, eps, scale, wsum, dt, out=out),
+            "carried2d": lambda: ck.carried2d(frame, eps, scale, wsum, dt, out=fout)}
+    for k in (2, 3):
+        runs[f"superstep2d K={k}"] = lambda k=k: ck.superstep2d(u, eps, scale, wsum, dt, k,
+                                                                out=out)
+    return {name: graph_ms(torch, fn) for name, fn in runs.items()}
+
+
+def time_variants(torch, op, u, nsteps: int) -> dict:
+    """ms/step of every candidate the tuner has for u's shape, each by CUDA
+    events over one nsteps run after a warm-up run."""
+    from nonlocalheatequation_torch.utils import autotune
+
+    out = {}
+    for name, maker in autotune.candidates(op, tuple(u.shape), nsteps, u.dtype, u.device):
+        fn = maker(op, nsteps, u.dtype)
+        out[name] = cuda_ms(torch, lambda fn=fn: fn(u, 0), 1, 1) / nsteps
+    return out
 
 
 def main() -> int:
@@ -377,6 +675,10 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port package nonlocalheatequation_torch is not beside this script: {e}")
     cases_2d, cases_1d, l2_threshold = load_cases()
+    # the default production path: tuned on the card, records kept in this
+    # process only (nothing written outside the checkout)
+    os.environ.pop("NLHEAT_TUNE_PRECISION", None)
+    os.environ["NLHEAT_AUTOTUNE_CACHE"] = ""
     t_start = time.perf_counter()
 
     say(nvidia_smi("name,power.limit"))
@@ -385,15 +687,17 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     say(f"build: {time.perf_counter() - t0:.1f} s ({json.dumps(built)})")
-    log = _build.library_path(ck.SOURCE).with_suffix(".log")
-    if log.exists():
-        text = log.read_text()
-        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", text)})
-        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", text))
-        say(f"ptxas: {len(re.findall('Compiling entry', text))} kernels, registers per "
-            f"thread {regs}, spill stores {spills} bytes")
+    for source in _build.SOURCES:
+        log = _build.library_path(source).with_suffix(".log")
+        if log.exists():
+            text = log.read_text()
+            regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", text)})
+            spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", text))
+            say(f"ptxas {source}: {len(re.findall('Compiling entry', text))} kernels, "
+                f"registers per thread {regs}, spill stores {spills} bytes")
 
     checks = phase_checks(torch, ck, np)
+    checks.update(phase_multistep_checks(torch, ck, np))
     phase_main_path_tables(torch, cases_2d, cases_1d, l2_threshold)
     kernels = phase_headline(torch, np, ck, l2_threshold)
     for k in kernels:

@@ -22,20 +22,13 @@
 // memory about once (the halo overlap of neighbouring tiles is served by
 // L2).  The step reads the UNPADDED state: out-of-domain window cells are
 // loaded as 0, which is the volumetric boundary condition, so no padded copy
-// of the state is made per step.  The sum is built from per-row window
-// sums: for every window row r, W_h(r)[y] = sum_{|j|<=h} tile[r][y+j] grows
-// outward one pair of columns per height h (registers), and each output adds
-// W_{h_i}(x+i) for the 2eps+1 x offsets i whose column half-height is h.
-// That takes about 2eps+1 + (2eps+1)(32+2eps)/32 shared-memory reads per
-// point instead of 197.  Every element's terms are added in one fixed order
-// (heights ascending, then x offsets ascending; within W, centre then pairs
-// outward) that does not depend on where its tile sits, so later multi-step
-// kernels that reuse the tile body stay bit-identical to these.
-//
-// The bf16 operand tier rounds each window cell to bfloat16 once, at the
-// tile load, and accumulates in the state type; the Euler carry reads the
-// unrounded centre.  Types: state float or double, operand the state type
-// or __nv_bfloat16.
+// of the state is made per step.  The window load, the sum (per-row window
+// sums: about 2eps+1 + (2eps+1)(32+2eps)/32 shared-memory reads per point
+// instead of 197) and the Euler epilogue are the shared tile body of
+// stencil_tile.cuh, which the multi-step kernels (carried2d.cu,
+// superstep2d.cu, resident2d.cu) include too, so they stay bit-identical
+// to step2d.  Types: state float or double, operand the state type or
+// __nv_bfloat16.
 //
 // Plain C interface (loaded with ctypes by ops/_build.py and wrapped in
 // ops/cuda_kernel.py).  Each entry point launches on the given stream,
@@ -44,151 +37,36 @@
 // supports.  These limits live here only; the wrapper turns -1 into a
 // ValueError.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstddef>
-#include <type_traits>
+#include "stencil_tile.cuh"
 
 namespace {
 
-constexpr int TILE_X = 32;     // output rows (x, the slow axis) per block
-constexpr int TILE_Y = 32;     // output columns (y, contiguous) per block
-constexpr int THREADS_Y = 8;   // thread rows; one thread column per y
-constexpr int ROWS_PER_THREAD = TILE_X / THREADS_Y;
-constexpr int MAX_EPS = 64;
-
-// Window rows a thread keeps running sums for: (TILE_X + 2eps) / THREADS_Y
-// rounded up.  The kernel is instantiated for a few eps ranges so the
-// register arrays stay short at the common eps (6 rows at eps <= 8).
-constexpr int wrows_for(int eps) { return (TILE_X + 2 * eps + THREADS_Y - 1) / THREADS_Y; }
+using namespace nlheat;
 
 enum Mode { NSUM = 0, STEP = 1, STEP_TEST = 2 };
-
-// The stencil plan, passed by value (kernel parameter space): the x
-// offsets i in [0, 2eps] grouped by column half-height h, ascending in i
-// within a group.  Group h is ord[hstart[h] .. hstart[h+1]).
-struct Plan {
-  int ord[2 * MAX_EPS + 1];
-  int hstart[MAX_EPS + 2];
-};
-
-template <typename T, typename OpT>
-struct Operand {
-  __device__ static T round(T v) { return v; }
-};
-
-template <typename T>
-struct Operand<T, __nv_bfloat16> {
-  // the same double rounding as torch's x.to(torch.bfloat16) for float64:
-  // state -> float -> bfloat16 (round to nearest even) -> state
-  __device__ static T round(T v) {
-    return static_cast<T>(__bfloat162float(__float2bfloat16_rn(static_cast<float>(v))));
-  }
-};
-
-template <typename T>
-size_t smem_bytes(int eps) {
-  const size_t wr = TILE_X + 2 * eps, wc = TILE_Y + 2 * eps;
-  return (wr * wc + wr * TILE_Y) * sizeof(T);
-}
-
-int smem_limit() {
-  static int limit = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return v;
-  }();
-  return limit;
-}
-
-Plan make_plan(int eps) {
-  // h_i = trunc(sqrt(eps^2 - d^2)) in double: ops/stencil.column_half_heights
-  Plan p{};
-  int h_of[2 * MAX_EPS + 1];
-  for (int i = 0; i <= 2 * eps; ++i) {
-    const int d = i - eps;
-    h_of[i] = static_cast<int>(std::sqrt(static_cast<double>(eps * eps - d * d)));
-  }
-  int n = 0;
-  for (int h = 0; h <= eps; ++h) {
-    p.hstart[h] = n;
-    for (int i = 0; i <= 2 * eps; ++i)
-      if (h_of[i] == h) p.ord[n++] = i;
-  }
-  p.hstart[eps + 1] = n;
-  return p;
-}
 
 // src is (src_rows, src_cols) row-major; window cell (a, b) of the tile at
 // output origin (x0, y0) is src[x0 + a - halo][y0 + b - halo], 0 outside.
 // nsum2d passes the halo-padded block with halo = 0; step2d passes the
 // unpadded state with halo = eps.
 template <typename T, typename OpT, int MW>
-__global__ void __launch_bounds__(TILE_Y * THREADS_Y)
+__global__ void __launch_bounds__(THREADS)
 nlheat2d_kernel(const T* __restrict__ src, int src_rows, int src_cols, int halo,
                 T* __restrict__ out, int nx, int ny, int eps, int mode, const Plan plan,
                 const T* __restrict__ g, const T* __restrict__ lg,
                 T scale, T wsum, T dt, T coef_g, T coef_lg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int wr = TILE_X + 2 * eps, wc = TILE_Y + 2 * eps;
+  const int wc = TILE_Y + 2 * eps;
   T* tile = reinterpret_cast<T*>(smem_raw);
-  T* wbuf = tile + wr * wc;  // (wr, TILE_Y): W_h of every window row
-
+  T* wbuf = tile + (TILE_X + 2 * eps) * wc;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TILE_Y + tx;
   const int x0 = blockIdx.y * TILE_X, y0 = blockIdx.x * TILE_Y;
 
-  for (int idx = tid; idx < wr * wc; idx += TILE_Y * THREADS_Y) {
-    const int a = idx / wc, b = idx - a * wc;
-    const int r = x0 + a - halo, c = y0 + b - halo;
-    T v = T(0);
-    if (r >= 0 && r < src_rows && c >= 0 && c < src_cols)
-      v = src[static_cast<size_t>(r) * src_cols + c];
-    tile[idx] = Operand<T, OpT>::round(v);
-  }
+  load_window<T, OpT>(tile, wc, TILE_X + 2 * eps, wc, src, src_rows, src_cols, x0 - halo,
+                      y0 - halo);
   __syncthreads();
-
   T acc[ROWS_PER_THREAD];
-#pragma unroll
-  for (int k = 0; k < ROWS_PER_THREAD; ++k) acc[k] = T(0);
-  T wrow[MW];  // W_h of window rows ty + m*THREADS_Y, column tx
-#pragma unroll
-  for (int m = 0; m < MW; ++m) {
-    const int a = ty + m * THREADS_Y;
-    wrow[m] = a < wr ? tile[a * wc + tx + eps] : T(0);
-  }
-
-  for (int h = 0; h <= eps; ++h) {
-    if (h > 0) {
-#pragma unroll
-      for (int m = 0; m < MW; ++m) {
-        const int a = ty + m * THREADS_Y;
-        if (a < wr) {
-          const T* row = tile + a * wc + tx + eps;
-          wrow[m] = wrow[m] + row[-h];
-          wrow[m] = wrow[m] + row[h];
-        }
-      }
-    }
-    const int p0 = plan.hstart[h], p1 = plan.hstart[h + 1];
-    if (p0 == p1) continue;  // no column of this height; uniform over the block
-    __syncthreads();         // the previous height's reads of wbuf are done
-#pragma unroll
-    for (int m = 0; m < MW; ++m) {
-      const int a = ty + m * THREADS_Y;
-      if (a < wr) wbuf[a * TILE_Y + tx] = wrow[m];
-    }
-    __syncthreads();
-    for (int p = p0; p < p1; ++p) {
-      const int i = plan.ord[p];
-#pragma unroll
-      for (int k = 0; k < ROWS_PER_THREAD; ++k)
-        acc[k] = acc[k] + wbuf[(ty + k * THREADS_Y + i) * TILE_Y + tx];
-    }
-  }
+  window_sums<T, MW>(tile, wc, eps, plan, wbuf, acc);
 
 #pragma unroll
   for (int k = 0; k < ROWS_PER_THREAD; ++k) {
@@ -200,13 +78,10 @@ nlheat2d_kernel(const T* __restrict__ src, int src_rows, int src_cols, int halo,
       out[o] = acc[k];
     } else {
       const T center = tile[(xl + eps) * wc + tx + eps];
-      T du = scale * (acc[k] - wsum * center);
-      if (mode == STEP_TEST) {
-        du = du + coef_g * g[o];
-        du = du + coef_lg * lg[o];
-      }
+      T du = operator_du(acc[k], center, scale, wsum);
+      if (mode == STEP_TEST) du = add_source(du, coef_g, g[o], coef_lg, lg[o]);
       const T carry = std::is_same<T, OpT>::value ? center : src[o];
-      out[o] = carry + dt * du;
+      out[o] = euler(carry, dt, du);
     }
   }
 }
@@ -215,13 +90,9 @@ template <typename T, typename OpT, int MW>
 int launch_mw(const void* src, int src_rows, int src_cols, int halo, void* out, int nx,
               int ny, int eps, int mode, const void* g, const void* lg, double scale,
               double wsum, double dt, double coef_g, double coef_lg, void* stream) {
-  const size_t smem = smem_bytes<T>(eps);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(nlheat2d_kernel<T, OpT, MW>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = tile_smem_bytes<T>(eps);
+  const int e = allow_smem(nlheat2d_kernel<T, OpT, MW>, smem);
+  if (e != 0) return e;
   const dim3 block(TILE_Y, THREADS_Y);
   const dim3 grid((ny + TILE_Y - 1) / TILE_Y, (nx + TILE_X - 1) / TILE_X);
   nlheat2d_kernel<T, OpT, MW><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -237,24 +108,14 @@ int launch(const void* src, int src_rows, int src_cols, int halo, void* out, int
            int eps, int mode, const void* g, const void* lg, double scale, double wsum,
            double dt, double coef_g, double coef_lg, void* stream) {
   if (eps < 0 || eps > MAX_EPS) return -1;
-  if (smem_bytes<T>(eps) > static_cast<size_t>(smem_limit())) return -1;
+  if (tile_smem_bytes<T>(eps) > static_cast<size_t>(smem_limit())) return -1;
   if ((static_cast<long long>(nx) + TILE_X - 1) / TILE_X > 65535) return -1;  // gridDim.y
   if (nx <= 0 || ny <= 0) return 0;
-  if (eps <= 8)
-    return launch_mw<T, OpT, wrows_for(8)>(src, src_rows, src_cols, halo, out, nx, ny, eps,
-                                           mode, g, lg, scale, wsum, dt, coef_g, coef_lg,
-                                           stream);
-  if (eps <= 16)
-    return launch_mw<T, OpT, wrows_for(16)>(src, src_rows, src_cols, halo, out, nx, ny,
-                                            eps, mode, g, lg, scale, wsum, dt, coef_g,
-                                            coef_lg, stream);
-  if (eps <= 32)
-    return launch_mw<T, OpT, wrows_for(32)>(src, src_rows, src_cols, halo, out, nx, ny,
-                                            eps, mode, g, lg, scale, wsum, dt, coef_g,
-                                            coef_lg, stream);
-  return launch_mw<T, OpT, wrows_for(MAX_EPS)>(src, src_rows, src_cols, halo, out, nx, ny,
-                                               eps, mode, g, lg, scale, wsum, dt, coef_g,
-                                               coef_lg, stream);
+  return with_mw(eps, [&](auto mw) {
+    return launch_mw<T, OpT, decltype(mw)::value>(src, src_rows, src_cols, halo, out, nx, ny,
+                                                  eps, mode, g, lg, scale, wsum, dt, coef_g,
+                                                  coef_lg, stream);
+  });
 }
 
 template <typename T>

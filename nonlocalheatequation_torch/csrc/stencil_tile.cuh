@@ -1,0 +1,246 @@
+// The tile body shared by every 2D kernel of the port: the window load, the
+// per-row window sums of the masked-circle neighbour sum in their fixed
+// summation order, and the forward-Euler epilogue.
+//
+// Counterpart of _strip_neighbor_sum (nonlocalheatequation_tpu/ops/
+// pallas_kernel.py:370), which the TPU's per-step, carried, superstep and
+// resident kernels share.  Here nsum2d.cu (nsum2d, step2d), carried2d.cu,
+// superstep2d.cu and resident2d.cu include it, so a multi-step kernel is
+// bit-identical to the same number of step2d launches by construction:
+//
+// * the sum.  One 32 x 32 output tile reads a (32+2eps) x (32+2eps) window.
+//   For every window row r, W_h(r)[y] = sum_{|j|<=h} win[r][y+j] grows
+//   outward one pair of columns per height h (registers), and each output
+//   adds W_{h_i}(x+i) for the 2eps+1 x offsets i whose column half-height is
+//   h.  Every element adds its terms in one fixed order (heights ascending,
+//   then x offsets ascending; within W, centre then pairs outward) that does
+//   not depend on where its tile sits.
+// * the epilogue.  u + dt*(scale*(nsum - wsum*centre) [+ cg*G + clg*L(G)])
+//   with every multiply and add rounded on its own (the _rn intrinsics are
+//   never contracted into an FMA), so it gives the same bits in every kernel
+//   that calls it, and the same bits as the plain PyTorch versions' separate
+//   tensor operations on the same sum.
+//
+// The bf16 operand tier rounds each window cell to bfloat16 once, as it is
+// loaded (or reads it from a bf16 shadow frame, which holds the same
+// rounding), and accumulates in the state type; the carry reads the
+// unrounded centre.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstddef>
+#include <type_traits>
+
+namespace nlheat {
+
+constexpr int TILE_X = 32;     // output rows (x, the slow axis) per tile
+constexpr int TILE_Y = 32;     // output columns (y, contiguous) per tile
+constexpr int THREADS_Y = 8;   // thread rows; one thread column per y
+constexpr int THREADS = TILE_Y * THREADS_Y;
+constexpr int ROWS_PER_THREAD = TILE_X / THREADS_Y;
+constexpr int MAX_EPS = 64;
+
+// Window rows a thread keeps running sums for: (TILE_X + 2eps) / THREADS_Y
+// rounded up.  Kernels are instantiated for a few eps ranges so the
+// register arrays stay short at the common eps (6 rows at eps <= 8).
+constexpr int wrows_for(int eps) { return (TILE_X + 2 * eps + THREADS_Y - 1) / THREADS_Y; }
+
+// The stencil plan, passed by value (kernel parameter space): the x
+// offsets i in [0, 2eps] grouped by column half-height h, ascending in i
+// within a group.  Group h is ord[hstart[h] .. hstart[h+1]).
+struct Plan {
+  int ord[2 * MAX_EPS + 1];
+  int hstart[MAX_EPS + 2];
+};
+
+inline Plan make_plan(int eps) {
+  // h_i = trunc(sqrt(eps^2 - d^2)) in double: ops/stencil.column_half_heights
+  Plan p{};
+  int h_of[2 * MAX_EPS + 1];
+  for (int i = 0; i <= 2 * eps; ++i) {
+    const int d = i - eps;
+    h_of[i] = static_cast<int>(std::sqrt(static_cast<double>(eps * eps - d * d)));
+  }
+  int n = 0;
+  for (int h = 0; h <= eps; ++h) {
+    p.hstart[h] = n;
+    for (int i = 0; i <= 2 * eps; ++i)
+      if (h_of[i] == h) p.ord[n++] = i;
+  }
+  p.hstart[eps + 1] = n;
+  return p;
+}
+
+inline int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, attr, dev);
+  return v;
+}
+
+// The most dynamic shared memory one block may opt in to (227 KB on an H100).
+inline int smem_limit() {
+  static const int limit = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  return limit;
+}
+
+// Raise a kernel's dynamic shared-memory limit when it needs more than the
+// default 48 KB; returns the CUDA status.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+// The sum buffer: W_h of every window row of one tile, (TILE_X + 2eps) x TILE_Y.
+inline size_t wbuf_elems(int eps) {
+  return static_cast<size_t>(TILE_X + 2 * eps) * TILE_Y;
+}
+
+// Shared memory of a kernel that stages one tile's window: the window and
+// the sum buffer.
+template <typename T>
+size_t tile_smem_bytes(int eps) {
+  const size_t w = TILE_X + 2 * eps;
+  return (w * w + wbuf_elems(eps)) * sizeof(T);
+}
+
+template <typename T, typename OpT>
+struct Operand {
+  __device__ static T round(T v) { return v; }
+};
+
+template <typename T>
+struct Operand<T, __nv_bfloat16> {
+  // the same double rounding as torch's x.to(torch.bfloat16) for float64:
+  // state -> float -> bfloat16 (round to nearest even) -> state
+  __device__ static T round(T v) {
+    return static_cast<T>(__bfloat162float(__float2bfloat16_rn(static_cast<float>(v))));
+  }
+};
+
+// A stored value as the state type (a bf16 shadow cell widens exactly).
+template <typename T>
+__device__ inline T to_state(T v) { return v; }
+template <typename T>
+__device__ inline T to_state(__nv_bfloat16 v) { return static_cast<T>(__bfloat162float(v)); }
+
+// Loads that stay coherent with writes other blocks made earlier in the same
+// launch (the resident kernel's frames, between grid syncs): through L2,
+// never the read-only path.
+template <bool L2ONLY, typename S>
+__device__ inline S load(const S* p) {
+  if constexpr (L2ONLY) return __ldcg(p);
+  return *p;
+}
+
+// Separately rounded arithmetic: never contracted into an FMA.
+__device__ inline float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ inline float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ inline float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ inline double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ inline double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ inline double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// du = scale*(acc - wsum*centre), the production operator.
+template <typename T>
+__device__ inline T operator_du(T acc, T centre, T scale, T wsum) {
+  return mul_rn(scale, sub_rn(acc, mul_rn(wsum, centre)));
+}
+
+// du += coef_g*G + coef_lg*L(G), the manufactured source (test form).
+template <typename T>
+__device__ inline T add_source(T du, T coef_g, T g, T coef_lg, T lg) {
+  du = add_rn(du, mul_rn(coef_g, g));
+  return add_rn(du, mul_rn(coef_lg, lg));
+}
+
+// carry + dt*du
+template <typename T>
+__device__ inline T euler(T carry, T dt, T du) {
+  return add_rn(carry, mul_rn(dt, du));
+}
+
+// Copy a rows x cols window into shared memory (row stride ld): cell (a, b)
+// is src[r0 + a][c0 + b] of the (src_rows, src_cols) row-major source, 0
+// outside it, rounded to the operand type.
+template <typename T, typename OpT, bool L2ONLY = false, typename S>
+__device__ void load_window(T* win, int ld, int rows, int cols, const S* src, int src_rows,
+                            int src_cols, int r0, int c0) {
+  const int tid = threadIdx.y * TILE_Y + threadIdx.x;
+  for (int idx = tid; idx < rows * cols; idx += THREADS) {
+    const int a = idx / cols, b = idx - a * cols;
+    const int r = r0 + a, c = c0 + b;
+    T v = T(0);
+    if (r >= 0 && r < src_rows && c >= 0 && c < src_cols)
+      v = to_state<T>(load<L2ONLY>(src + static_cast<size_t>(r) * src_cols + c));
+    win[a * ld + b] = Operand<T, OpT>::round(v);
+  }
+}
+
+// The neighbour sums of one 32 x 32 output tile whose (32+2eps)^2 window
+// starts at win (row stride ld) in shared memory.  acc[k] is the sum for
+// output row threadIdx.y + k*THREADS_Y, column threadIdx.x.  wbuf holds
+// wbuf_elems(eps) values.  Every thread of the block calls it (it holds
+// barriers); it ends with a barrier, so the caller may overwrite wbuf or the
+// window right after.
+template <typename T, int MW>
+__device__ void window_sums(const T* win, int ld, int eps, const Plan& plan, T* wbuf,
+                            T (&acc)[ROWS_PER_THREAD]) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int wr = TILE_X + 2 * eps;
+#pragma unroll
+  for (int k = 0; k < ROWS_PER_THREAD; ++k) acc[k] = T(0);
+  T wrow[MW];  // W_h of window rows ty + m*THREADS_Y, column tx
+#pragma unroll
+  for (int m = 0; m < MW; ++m) {
+    const int a = ty + m * THREADS_Y;
+    wrow[m] = a < wr ? win[a * ld + tx + eps] : T(0);
+  }
+  for (int h = 0; h <= eps; ++h) {
+    if (h > 0) {
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+        const int a = ty + m * THREADS_Y;
+        if (a < wr) {
+          const T* row = win + a * ld + tx + eps;
+          wrow[m] = wrow[m] + row[-h];
+          wrow[m] = wrow[m] + row[h];
+        }
+      }
+    }
+    const int p0 = plan.hstart[h], p1 = plan.hstart[h + 1];
+    if (p0 == p1) continue;  // no column of this height; uniform over the block
+    __syncthreads();         // the previous height's reads of wbuf are done
+#pragma unroll
+    for (int m = 0; m < MW; ++m) {
+      const int a = ty + m * THREADS_Y;
+      if (a < wr) wbuf[a * TILE_Y + tx] = wrow[m];
+    }
+    __syncthreads();
+    for (int p = p0; p < p1; ++p) {
+      const int i = plan.ord[p];
+#pragma unroll
+      for (int k = 0; k < ROWS_PER_THREAD; ++k)
+        acc[k] = acc[k] + wbuf[(ty + k * THREADS_Y + i) * TILE_Y + tx];
+    }
+  }
+  __syncthreads();
+}
+
+// Instantiate f for the register-array length that covers eps: calls
+// f(std::integral_constant<int, MW>{}) and returns its status.
+template <typename F>
+int with_mw(int eps, F f) {
+  if (eps <= 8) return f(std::integral_constant<int, wrows_for(8)>{});
+  if (eps <= 16) return f(std::integral_constant<int, wrows_for(16)>{});
+  if (eps <= 32) return f(std::integral_constant<int, wrows_for(32)>{});
+  return f(std::integral_constant<int, wrows_for(MAX_EPS)>{});
+}
+
+}  // namespace nlheat

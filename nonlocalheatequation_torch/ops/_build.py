@@ -24,7 +24,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("nsum2d.cu",)
+SOURCES = ("nsum2d.cu", "carried2d.cu", "superstep2d.cu", "resident2d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,12 +43,19 @@ def find_nvcc() -> str:
                        "the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def library_path(source: str) -> Path:
-    """Where the library for ``source`` lives: named by a hash of the
-    source text and the compiler flags."""
+def source_digest(source: str) -> str:
+    """A hash of what decides the library built from ``source``: its text,
+    the headers of ``csrc/`` it may include and the compiler flags."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def library_path(source: str) -> Path:
+    """Where the library for ``source`` lives, named by its digest."""
+    return BUILD_DIR / f"lib{Path(source).stem}-{source_digest(source)}.so"
 
 
 def _start(source: str):

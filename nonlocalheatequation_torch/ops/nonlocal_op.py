@@ -54,6 +54,7 @@ from nonlocalheatequation_torch.ops.stencil import (
     horizon_mask_2d,
     influence_weights,
 )
+from nonlocalheatequation_torch.utils import autotune
 
 TWO_PI = 2.0 * np.pi
 METHODS_2D = ("shift", "conv", "sat", "cuda", "auto")
@@ -369,11 +370,55 @@ def make_step_fn(op, g=None, lg=None, dtype=None):
 def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None):
     """``multi(u, t0) -> u`` after ``nsteps`` forward-Euler steps.
 
+    The production (source-free) 2D solve whose method resolves to ``cuda``
+    for ``u``'s device has four interchangeable programs, bit-identical by
+    construction (they share csrc/stencil_tile.cuh): the per-step loop
+    (:func:`make_multi_step_fn_base`, one ``step2d`` per step), the carried
+    frame (``carried2d``), K-step temporal blocking (``superstep2d``) and
+    the whole run in one launch (``resident2d``).  On a CUDA tensor
+    utils/autotune measures the candidates that fit once per (shape, dtype)
+    and runs the fastest, as the JAX package's default does on the TPU.
+
+    Everything else runs the per-step loop: a CPU tensor, the test form
+    with its source, the 1D operator, a method that is not ``cuda``, and the
+    bf16 tier with ``resync_every`` (its periodic full-precision step lives
+    only on the loop).  The JAX package's manual knobs (``NLHEAT_AUTOTUNE``,
+    ``NLHEAT_RESIDENT``, ``NLHEAT_SUPERSTEP``) have no counterpart here: the
+    makers in ops/cuda_kernel.py build one variant directly.  ``u`` is never
+    written.
+    """
+    base = make_multi_step_fn_base(op, nsteps, g, lg, dtype)
+    if (g is not None or nsteps <= 0 or not isinstance(op, NonlocalOp2D)
+            or (op.precision == "bf16" and op.resync_every > 0)):
+        return base
+
+    def variant(u):
+        if u.device.type != "cuda" or op.resolve_method(u.device) != "cuda":
+            return base
+        return autotune.pick_multi_step_fn(op, nsteps, tuple(u.shape), dtype or u.dtype,
+                                           u.device)[0]
+
+    built: dict = {}
+
+    def multi(u, t0):
+        key = (tuple(u.shape), dtype or u.dtype, u.device)
+        fn = built.get(key)
+        if fn is None:
+            fn = built[key] = variant(u)
+        return fn(u, t0)
+
+    return multi
+
+
+def make_multi_step_fn_base(op, nsteps: int, g=None, lg=None, dtype=None):
+    """The per-step loop of :func:`make_multi_step_fn` (always available).
+
     The loop launches one step per iteration into two buffers allocated once
     per call and used in turn, so the fused kernel path allocates no tensor
-    per step; ``u`` itself is never written.  bf16 tier with
-    ``resync_every=R``: every R-th step (absolute step index) runs on the
-    unrounded state through an f32-tier twin operator.
+    per step; ``u`` itself is never written (the JAX package donates its
+    state on the TPU, utils/donation.py; nothing here needs that).  bf16
+    tier with ``resync_every=R``: every R-th step (absolute step index) runs
+    on the unrounded state through an f32-tier twin operator.
     """
     step = make_step_fn(op, g, lg, dtype)
     resync = op.precision == "bf16" and op.resync_every > 0

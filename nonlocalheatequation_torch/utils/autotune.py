@@ -1,0 +1,227 @@
+"""Variant autotuner for the port's production 2D multi-step runs.
+
+The 2D half of ``nonlocalheatequation_tpu/utils/autotune.py``.  The
+production solve has four interchangeable programs, bit-identical by
+construction (ops/cuda_kernel.py): the per-step loop (``step2d``), the
+carried frame (``carried2d``), K-step temporal blocking (``superstep2d``)
+and the whole run in one launch (``resident2d``).  Which is fastest depends
+on the card and the shape: launch overhead dominates small grids, the
+kernel's own costs large ones.  :func:`pick_multi_step_fn` measures the
+candidates that fit, once per (kernel sources, card, shape, eps, dtype,
+tier), and builds the winner; since every candidate computes the same
+function, the swap cannot change results.
+
+On the card a probe is timed with CUDA events.  ``make_multi_step_fn``
+tunes CUDA tensors only; called with ``device="cpu"`` (the tests),
+:func:`pick_multi_step_fn` times the plain versions with the host clock.
+One difference from the JAX tuner, on purpose: a candidate that
+passed its fit gate and then fails to build or launch raises.  That is a
+kernel fault; letting it "not compete" would hide it behind another
+variant.  The JAX rule against tuning float64 is a TPU rule; the port tunes
+float64 on the card like float32.
+
+The winners and every candidate's ms/step persist in a JSON file:
+``NLHEAT_AUTOTUNE_CACHE=/path/file.json`` relocates it, ``""`` keeps the
+cache in the process only, and unset it is
+``$XDG_CACHE_HOME/nlheat/autotune_torch.json`` (``~/.cache`` without
+``XDG_CACHE_HOME``), beside the JAX package's ``autotune.json``.
+
+Not ported yet, and refused by name: the precision dimension
+(``NLHEAT_TUNE_PRECISION=1``), the batched tuner and the 3D branch.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+
+import torch
+
+from nonlocalheatequation_torch.ops import _build, cuda_kernel
+
+# the probe program: long enough that per-launch overhead weighs as it does
+# in a real run, short enough to keep tuning cheap
+PROBE_STEPS = 32
+PROBE_ITERS = 2
+
+_memory_cache: dict = {}
+
+
+def _cache_path() -> str | None:
+    env = os.environ.get("NLHEAT_AUTOTUNE_CACHE")
+    if env is not None:
+        return env or None
+    base = os.environ.get("XDG_CACHE_HOME") or os.path.expanduser("~/.cache")
+    return os.path.join(base, "nlheat", "autotune_torch.json")
+
+
+def _load_file_cache() -> dict:
+    path = _cache_path()
+    if not path or not os.path.exists(path):
+        return {}
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def _store_file_cache(cache: dict) -> None:
+    path = _cache_path()
+    if not path:
+        return
+    # merge on write: processes tuning other shapes keep their entries
+    merged = {**_load_file_cache(), **cache}
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        os.makedirs(os.path.dirname(tmp) or ".", exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(merged, f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+
+
+def records() -> dict:
+    """The tuning records of this process: key -> {"winner", "ms_per_step"}."""
+    return {k: dict(v) for k, v in _memory_cache.items()}
+
+
+def reset() -> None:
+    """Forget this process's tuning records (a file cache stays as it is)."""
+    _memory_cache.clear()
+
+
+def candidates(op, shape, nsteps: int, dtype, device):
+    """[(name, maker(op, nsteps, dtype) -> multi)] that fit this 2D shape:
+    per-step, carried, superstep2 and superstep3 (when K does not exceed
+    ``nsteps`` and the kernel takes the shape) and resident (when the grid
+    passes the card's gate; not in the bf16 tier)."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import make_multi_step_fn_base
+
+    if len(shape) != 2:
+        raise ValueError(f"autotune: the {len(shape)}D branch of the tuner is not ported "
+                         "yet (the port tunes 2D solves only)")
+    precision = op.precision
+    out = [("per-step", lambda o, n, d: make_multi_step_fn_base(o, n, dtype=d)),
+           ("carried", lambda o, n, d: cuda_kernel.make_carried_multi_step_fn(o, n, dtype=d))]
+    for k in (2, 3):
+        if cuda_kernel.superstep_k(k, nsteps) == k and cuda_kernel.fits_superstep(
+                *shape, op.eps, k, dtype, precision, device):
+            out.append((f"superstep{k}",
+                        lambda o, n, d, k=k: cuda_kernel.make_superstep_multi_step_fn(
+                            o, n, ksteps=k, dtype=d)))
+    if precision != "bf16" and cuda_kernel.fits_resident(*shape, op.eps, dtype, device):
+        out.append(("resident",
+                    lambda o, n, d: cuda_kernel.make_resident_multi_step_fn(o, n, dtype=d)))
+    return out
+
+
+def _probe_state(shape, dtype, device) -> torch.Tensor:
+    """The probes' initial state: seeded normal values, made on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float64).to(dtype)
+
+
+def _measure(maker, op, u) -> float:
+    """Best seconds per step of a PROBE_STEPS program from state ``u``
+    (which no candidate writes), its first run, which builds the kernels,
+    excluded."""
+    fn = maker(op, PROBE_STEPS, u.dtype)
+    out = fn(u, 0)
+    on_card = u.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(u.device)
+    best = float("inf")
+    for _ in range(PROBE_ITERS):
+        if on_card:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(out, 0)
+            b.record()
+            b.synchronize()
+            seconds = a.elapsed_time(b) / 1e3
+        else:
+            t = time.perf_counter()
+            out = fn(out, 0)
+            seconds = time.perf_counter() - t
+        best = min(best, seconds)
+    return best / PROBE_STEPS
+
+
+def kernels_digest() -> str:
+    """A hash of every kernel source, header and compiler flag the
+    candidates are built from (ops/_build.py): a change to any kernel may
+    move the crossovers, so it starts new records."""
+    joined = "".join(_build.source_digest(s) for s in _build.SOURCES)
+    return hashlib.sha256(joined.encode()).hexdigest()[:16]
+
+
+def tuning_key(op, shape, dtype, device) -> str:
+    """The record's key: the kernels' digest, the card's name, the shape,
+    eps, dtype and any non-default precision tier.  nsteps is not in it:
+    every candidate is timed on the same PROBE_STEPS program, so the rates
+    do not depend on it."""
+    device = torch.device(device)
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    return "/".join([f"k{kernels_digest()}", card, "cuda", "x".join(map(str, shape)),
+                     f"eps{op.eps}", str(dtype).replace("torch.", "")]
+                    + ([f"prec-{op.precision}"] if op.precision != "f32" else []))
+
+
+def pick_multi_step_fn(op, nsteps: int, shape, dtype, device):
+    """Measure the fitting variants (cached) and build the winner at the
+    real step count.  Returns (fn, winner_name)."""
+    if os.environ.get("NLHEAT_TUNE_PRECISION") == "1":
+        raise ValueError("NLHEAT_TUNE_PRECISION=1 (precision as a tuned dimension) is not "
+                         "ported yet; unset it to tune the operator's own tier")
+    device = torch.device(device)
+    shape = tuple(shape)
+    key = tuning_key(op, shape, dtype, device)
+    cands = dict(candidates(op, shape, nsteps, dtype, device))
+
+    def covers(e) -> bool:
+        # an entry is reusable only if it measured every candidate that fits
+        # THIS call (which candidates fit depends on nsteps)
+        return all(n in e.get("ms_per_step", {}) for n in cands)
+
+    entry = _memory_cache.get(key)
+    partial = None
+    if entry is not None and not covers(entry):
+        partial, entry = entry, None
+    if entry is None:
+        file_cache = _load_file_cache()
+        entry = file_cache.get(key)
+        if entry is None or not covers(entry):
+            # probe only what no record holds, and merge
+            recorded = {**(entry or {}).get("ms_per_step", {}),
+                        **(partial or {}).get("ms_per_step", {})}
+            u = _probe_state(shape, dtype, device)
+            for name, maker in cands.items():
+                if name not in recorded:
+                    recorded[name] = _measure(maker, op, u) * 1e3
+            valid = {n: t for n, t in recorded.items() if isinstance(t, (int, float))}
+            entry = {"winner": min(valid, key=valid.get), "ms_per_step": recorded}
+            file_cache[key] = entry
+            _store_file_cache(file_cache)
+        _memory_cache[key] = entry
+    winner = entry["winner"]
+    if winner not in cands:
+        # the recorded winner does not fit this nsteps (superstep3 won on a
+        # long run, this one has 2 steps): run the fastest one that does
+        rates = {n: t for n, t in entry["ms_per_step"].items()
+                 if n in cands and isinstance(t, (int, float))}
+        winner = min(rates, key=rates.get)
+    return cands[winner](op, nsteps, dtype), winner
+
+
+def pick_batched_multi_step_fn(*_args, **_kwargs):
+    """The batched tuner (NLHEAT_TUNE_BATCH, the ensemble engine's buckets)."""
+    raise ValueError("the batched tuner is not ported yet (the port has no ensemble "
+                     "engine); tune each case with pick_multi_step_fn")

@@ -3,8 +3,8 @@
 On the CPU the JAX kernels run in Pallas interpret mode (the JAX suite's
 own way, tests/conftest.py forces CPU and x64), so the grids stay at 48^2 or
 less.  The port's wrappers route CPU tensors to the plain versions; the
-CUDA kernels themselves run only on a card (the ``cuda``-marked test below,
-and chip_smoke.py).
+CUDA kernels themselves run only on a card (tests/test_torch_card.py and
+chip_smoke.py).
 
 Tolerances: float64 1e-12 relative to the largest magnitude of the result
 (the two sum the stencil in different orders); the bf16 operand forms are
@@ -85,7 +85,7 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     assert torch.equal(got, ck.step2d_plain(u, 2, 1.5, 13.0, 0.01))
     assert torch.equal(ck.nsum2d(torch.nn.functional.pad(u, (2, 2, 2, 2)), 2),
                        ck.nsum2d_plain(torch.nn.functional.pad(u, (2, 2, 2, 2)), 2))
-    assert ck.launch_counts() == {"nsum2d": 0, "step2d": 0}
+    assert set(ck.launch_counts().values()) == {0}
 
 
 def test_wrappers_refuse_bad_arguments():
@@ -127,30 +127,4 @@ def test_build_is_keyed_on_the_source_and_reports_compiler_failure(tmp_path, mon
     first = _build.build()
     assert first[ck.SOURCE] > 0.0 and lib.is_file()
     assert "Used 40 registers" in lib.with_suffix(".log").read_text()
-    assert _build.build() == {ck.SOURCE: 0.0}  # same source and flags: reused
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA CUDA device: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-def test_kernels_match_plain_on_card(card, dtype, tol):
-    ck.reset_launch_counts()
-    for nx, ny, eps in [(37, 50, 3), (64, 64, 8), (13, 45, 10), (1, 1, 1)]:
-        upad = torch.randn(nx + 2 * eps, ny + 2 * eps, dtype=dtype, device=card)
-        u = upad[eps:eps + nx, eps:eps + ny].contiguous()
-        for prec in ("f32", "bf16"):
-            a, b = ck.nsum2d(upad, eps, prec), ck.nsum2d_plain(upad, eps, prec)
-            assert float((a - b).abs().max() / b.abs().max()) <= tol
-            a = ck.step2d(u, eps, 3.0, 50.0, 1e-3, precision=prec, g=u, lg=u, t=2)
-            b = ck.step2d_plain(u, eps, 3.0, 50.0, 1e-3, precision=prec, g=u, lg=u, t=2)
-            assert float((a - b).abs().max() / b.abs().max()) <= tol
-    assert ck.launch_counts() == {"nsum2d": 8, "step2d": 8}
-    with pytest.raises(ValueError, match="beyond what the kernel takes"):
-        ck.nsum2d(torch.zeros(200, 200, dtype=dtype, device=card), 70)
-    assert ck.launch_counts() == {"nsum2d": 8, "step2d": 8}
+    assert _build.build() == {s: 0.0 for s in _build.SOURCES}  # same sources and flags: reused
