@@ -5,27 +5,33 @@ NVIDIA GPU.  Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure exits non-zero before the last
-line is printed):
+line is printed; the phase walls are printed at the end):
 
 1. Device and build: the card's name and power limit, then the kernels built
-   by nvcc from csrc/ (one nvcc per source, started together).
+   by nvcc from csrc/ (one nvcc per source, started together), and each
+   source's ptxas report.  The batch CLIs of phase 3 start right after it.
 2. Kernels against their plain PyTorch versions on the card, in float64,
-   float32 and the bf16 operand tier, over eps in {1, 3, 5, 8, 10, 16, 40}
+   float32 and the bf16 operand tier.  Tolerance: max|kernel - plain| <=
+   1e-12 (float64) or 1e-5 (float32) times the largest magnitude of the
+   plain result.  2D: nsum2d and step2d over eps in {1, 3, 5, 8, 10, 16, 40}
    and ragged shapes (1x1, non tile multiples, nx < 2*eps, eps above the
-   32-point tile).  Tolerance: max|kernel - plain| <= 1e-12 (float64) or
-   1e-5 (float32) times the largest magnitude of the plain result.  Then the
-   multi-step kernels (carried2d; superstep2d at K = 1-4 and a 7-step run
-   with a remainder; resident2d, which has no bf16 tier) over the same
-   shapes and eps up to 60 where each takes it: each held to its plain
-   version with the same tolerances (in the bf16 tier, plus one bfloat16
-   rounding flip per step after the first, see phase_multistep_checks), and
-   each held BITWISE to the same number of step2d launches.  resident2d on
-   a grid beyond its gate must raise ValueError.
-3. The main path's correctness: the reference's batch tables (CASES_2D and
-   CASES_1D of tests/cases.py) through the port's CLIs on the card in
-   float64, each must print "Tests Passed"; then CASES_2D in float32
-   through Solver2D, reporting the largest error_l2/#points.
-4. The headline configuration: 4096^2, eps=8, float32, method="cuda".  At
+   32-point tile); then the multi-step kernels (carried2d; superstep2d at
+   K = 1-4 and a 7-step run with a remainder; resident2d, which has no bf16
+   tier) over the same shapes and eps up to 60 where each takes it, each
+   held to its plain version (in the bf16 tier plus one bfloat16 rounding
+   flip per step after the first, see phase_multistep_checks) and BITWISE
+   to the same number of step2d launches.  3D: nsum3d and step3d
+   (production and test form) over eps in {1, 2, 3, 4, 6, 8} and ragged
+   shapes (1x1x1, non tile multiples, n < 2*eps, nx != ny != nz); carried3d
+   and resident3d (no bf16 tier) held to their plain versions and BITWISE
+   to step3d launches over 1, 2, 3 and 5 steps.  resident2d at 4096^2 and
+   resident3d at 256^3, eps=4, beyond their gates, must raise ValueError.
+3. The main path's correctness: the batch tables (CASES_2D and CASES_1D of
+   tests/cases.py, CASES_3D of tests/test_oracle_3d.py, copied here) through
+   the port's CLIs on the card in float64, each must print "Tests Passed";
+   then CASES_2D and CASES_3D in float32 through Solver2D and Solver3D,
+   reporting the largest error_l2/#points.
+4. The 2D headline configuration: 4096^2, eps=8, float32, method="cuda".  At
    the main path's shape every kernel form (nsum2d f32 and bf16 operand,
    and in float64 on the padded G the test-form solve gives it; step2d
    production and test form, f32 and bf16 operand; carried2d and
@@ -38,13 +44,23 @@ line is printed):
    (resident does not fit there) and at 512^2, eps=8, f32, where resident
    fits; there the per-step, carried and superstep kernels are also timed
    alone, as a replayed CUDA graph of launches, since a loop of launches
-   from Python times the host at that size.  Then the launch counts and the tuner's records are reset and the
-   main path runs through Solver2D: the production solve at 4096^2 and at
-   512^2 (each tunes its shape, as a first production call does, and runs
-   the winner) and a test-form solve at 4096^2 (whose L(G) goes through
-   nsum2d); the counts must show every kernel launched, and exactly the
-   probes' and the winners' launches.  The tuner's records are printed.
-5. The kernels' JSON line, then {"ok": true, "device": {...}}.
+   from Python times the host at that size.  Then the launch counts and the
+   tuner's records are reset and the 2D main path runs through Solver2D:
+   the production solve at 4096^2 and at 512^2 (each tunes its shape, as a
+   first production call does, and runs the winner) and a test-form solve
+   at 4096^2 (whose L(G) goes through nsum2d); the 2D counts must show
+   every 2D kernel launched, and exactly the probes' and the winners'
+   launches.  The tuner's records are printed.
+5. The 3D path, the same way: the kernels at 256^3, eps=4, f32 (every form
+   held to its plain version, carried3d bitwise to step3d launches; timed
+   beside the plain versions, the bound and F.conv3d with TF32 disabled),
+   the tuner's candidates at 256^3 and at 128^3, eps=6 (where resident3d
+   fits; it is held bitwise to step3d launches there and timed), then the
+   counts and records reset and the 3D main path through Solver3D: the
+   production solves at both shapes (each tuned) and a test-form solve at
+   256^3; the 3D counts must equal the probes', the winners' and the test
+   form's launches, every 3D kernel among them.
+6. The kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -52,6 +68,7 @@ or when the port package is not beside this script.
 
 from __future__ import annotations
 
+import atexit
 import importlib.util
 import json
 import os
@@ -72,6 +89,18 @@ GRAPH_LAUNCHES = 100  # launches per CUDA graph when timing a kernel alone at 51
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TOL = {"float64": 1e-12, "float32": 1e-5}
+CHILDREN: list = []    # the CLI processes this run started
+N3, EPS3 = 256, 4      # the 3D headline: 256^3, eps=4, f32 (64 MiB of state)
+N3S, EPS3S = 128, 6    # the small 3D grid, where resident3d fits the L2
+STEPS3 = 200           # steps of the 3D production solves and timed variant runs
+# nx ny nz nt eps k dt dh: a copy of tests/test_oracle_3d.py's CASES_3D (that
+# file imports JAX; tests/test_torch_3d.py holds the copy equal to it)
+CASES_3D = [
+    (16, 16, 16, 20, 3, 1.0, 0.0005, 0.0625),
+    (12, 12, 12, 40, 2, 1.0, 0.0002, 1.0 / 12),
+    (16, 12, 8, 20, 3, 0.5, 0.0005, 0.05),
+    (6, 6, 6, 10, 8, 1.0, 0.0001, 1.0 / 6),   # eps > grid: degenerate halo
+]
 
 
 def fail(msg: str):
@@ -128,6 +157,19 @@ def kernel_ops(eps: int, epilogue: int) -> float:
     adds 2*eps+1 of them, and the step ``epilogue`` more: 41 + epilogue at
     eps=8, where the direct sum over the mask takes 196 adds."""
     return 2 * eps * (32 + 2 * eps) / 32 + (2 * eps + 1) + epilogue
+
+
+def kernel_ops_3d(eps: int, tp: int, epilogue: int) -> float:
+    """Operations per output point of the 3D kernels' algorithm (the tile
+    body, csrc/stencil_tile3d.cuh, at plane width tp): the z window sums add
+    2*eps terms into each of a tile's (tp+2eps)^2 x 32 window cells, shared
+    by its tp^2 x 32 outputs; each output then adds one term per sphere
+    column, and the step ``epilogue`` more: 81 + epilogue at eps=4, tp=8,
+    where the direct sum over the sphere takes 256 adds."""
+    from nonlocalheatequation_torch.ops.stencil import sphere_column_heights
+
+    columns = int((sphere_column_heights(eps) >= 0).sum())
+    return 2 * eps * (tp + 2 * eps) ** 2 / tp ** 2 + columns + epilogue
 
 
 def phase_checks(torch, ck, np) -> dict:
@@ -274,6 +316,89 @@ def phase_multistep_checks(torch, ck, np) -> dict:
     return n
 
 
+def phase_checks_3d(torch, k3, np) -> dict:
+    """Phase 2, the 3D kernels: nsum3d and step3d (production and test form)
+    in float64, float32 and the bf16 operand tier against their plain
+    versions; carried3d and resident3d (no bf16 tier) against theirs and,
+    bitwise, against the same number of step3d launches (carried3d after
+    each of 3 launches, resident3d over 1, 2 and 5 steps); eps in
+    {1, 2, 3, 4, 6, 8} over ragged shapes (1x1x1, non tile multiples,
+    n < 2*eps, nx != ny != nz).  resident3d at 256^3, eps=4 must raise
+    ValueError, and nsum3d beyond its eps limit too."""
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.ops.stencil import horizon_mask_3d
+
+    rng = np.random.default_rng(SEED + 3)
+    shapes = [(1, 1, 1), (5, 7, 9), (9, 17, 33), (3, 12, 40), (20, 11, 6)]
+    plan = [(e, s) for e in (1, 2, 3, 4, 6, 8) for s in shapes]
+    worst, n = {}, dict.fromkeys(("nsum3d", "step3d", "carried3d", "resident3d"), 0)
+
+    def hold(name, form, got, plain, tol, bits=None):
+        _abs, err = rel_err(torch, got, plain)
+        if bits is not None and not torch.equal(got, bits):
+            fail(f"{name} {form}: not bitwise equal to the same number of step3d launches")
+        if not err <= tol:
+            fail(f"{name} {form}: |kernel-plain| / max|plain| {err:.3e} > {tol:g}")
+        key = f"{name}/{form.split()[0]}/{form.split()[1]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        n[name] += 1
+
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[1]
+        tol = TOL[dname]
+        for e, (nx, ny, nz) in plan:
+            wsum = float(horizon_mask_3d(e).sum())
+            scale, dt = 2.0 + e, 0.8 / ((2.0 + e) * wsum)
+            upad = torch.tensor(rng.standard_normal((nx + 2 * e, ny + 2 * e, nz + 2 * e)),
+                                dtype=dtype, device="cuda")
+            u = upad[e:e + nx, e:e + ny, e:e + nz].contiguous()
+            g, lg = torch.randn_like(u), torch.randn_like(u)
+            for prec in ("f32", "bf16"):
+                form = f"{dname} {prec} eps={e} {nx}x{ny}x{nz}"
+                hold("nsum3d", form, k3.nsum3d(upad, e, prec), k3.nsum3d_plain(upad, e, prec),
+                     tol)
+                for kw in ({}, {"g": g, "lg": lg, "t": 7}):
+                    hold("step3d", form + (" test form" if kw else ""),
+                         k3.step3d(u, e, scale, wsum, dt, precision=prec, **kw),
+                         k3.step3d_plain(u, e, scale, wsum, dt, precision=prec, **kw), tol)
+            # the multi-step kernels (no bf16 tier) against one chain of plain
+            # frame steps from u and, bitwise, against step3d launches
+            form = f"{dname} f32 eps={e} {nx}x{ny}x{nz}"
+            steps, plain = [u], [F.pad(u, (e,) * 6)]
+            for _ in range(5):
+                steps.append(k3.step3d(steps[-1], e, scale, wsum, dt))
+                plain.append(k3.carried3d_plain(plain[-1], e, scale, wsum, dt))
+            frame = plain[0].contiguous()
+            for s in range(1, 4):
+                frame = k3.carried3d(frame, e, scale, wsum, dt)
+                hold("carried3d", f"{form} launch {s}", frame, plain[s], tol,
+                     F.pad(steps[s], (e,) * 6))
+            if k3.fits_resident_3d(nx, ny, nz, e, dtype):
+                for k in (1, 2, 5):
+                    hold("resident3d", f"{form} {k} steps", k3.resident3d(u, e, scale, wsum, dt, k),
+                         plain[k][e:e + nx, e:e + ny, e:e + nz], tol, steps[k])
+    if not n["resident3d"]:
+        fail("resident3d took none of the phase-2 grids")
+    try:  # a grid beyond the gate raises, naming the kernel; nothing falls back
+        k3.resident3d(torch.zeros(N3, N3, N3, device="cuda"), EPS3, 1.0, 257.0, 1e-3, 2)
+        fail(f"resident3d accepted {N3}^3 eps={EPS3} f32, beyond its gate, on the card")
+    except ValueError as e:
+        if "resident 3D kernel" not in str(e):
+            fail(f"resident3d's refusal does not name the kernel: {e}")
+    try:
+        k3.nsum3d(torch.zeros(30, 30, 30, device="cuda", dtype=torch.float64), 13)
+        fail("nsum3d accepted eps=13 (beyond its shared-memory tile) on the card")
+    except ValueError:
+        pass
+    say("3D kernel checks (max |kernel-plain| / max|plain|; carried3d and resident3d every "
+        "case bitwise equal to step3d launches): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+        + "; cases " + ", ".join(f"{k} {v}" for k, v in n.items())
+        + f"; resident3d refuses {N3}^3 eps={EPS3}: pass")
+    return n
+
+
 def start_cli(module: str, rows) -> subprocess.Popen:
     """Start a port CLI's batch mode on the card in float64 with ``rows`` as
     its stdin (a temporary file, so the CLIs run side by side)."""
@@ -286,28 +411,39 @@ def start_cli(module: str, rows) -> subprocess.Popen:
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def phase_main_path_tables(torch, cases_2d, cases_1d, l2_threshold):
-    """Phase 3: the batch tables through the CLIs (f64) and CASES_2D in f32."""
-    from nonlocalheatequation_torch.models.solver2d import Solver2D
+def start_clis(cases_2d, cases_1d) -> tuple:
+    """Phase 3's batch tables through the CLIs (CASES_2D, CASES_1D, CASES_3D,
+    float64), started right after the build so that they run beside phase 2;
+    (jobs, start time).  Any still running at exit are stopped."""
+    jobs = {}
+    for name, rows in (("solve2d", cases_2d), ("solve1d", cases_1d), ("solve3d", CASES_3D)):
+        proc = start_cli(f"nonlocalheatequation_torch.cli.{name}", rows)
+        CHILDREN.append(proc)
+        jobs[name] = (rows, proc)
+    return jobs, time.perf_counter()
 
-    t0 = time.perf_counter()
-    jobs = {"solve2d": (cases_2d, None), "solve1d": (cases_1d, None)}
-    try:
-        for name, (rows, _) in jobs.items():
-            jobs[name] = (rows, start_cli(f"nonlocalheatequation_torch.cli.{name}", rows))
-        for name, (rows, proc) in jobs.items():
-            out, err = proc.communicate(timeout=600)
-            if proc.returncode != 0 or "Tests Passed" not in out:
-                fail(f"{name} --test_batch --platform gpu --x64 1: rc {proc.returncode}\n"
-                     f"{out}\n{err[-4000:]}")
-            say(f"cli {name} --test_batch --platform gpu --x64 1: Tests Passed "
-                f"({len(rows)} rows)")
-    finally:
-        for _rows, proc in jobs.values():
-            if proc is not None and proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    say(f"cli wall: {time.perf_counter() - t0:.1f} s")
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_main_path_tables(torch, clis, cases_2d, l2_threshold):
+    """Phase 3: the CLIs' batch tables (f64) must print "Tests Passed", then
+    CASES_2D and CASES_3D in f32 through Solver2D and Solver3D."""
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.models.solver3d import Solver3D
+
+    jobs, t0 = clis
+    for name, (rows, proc) in jobs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0 or "Tests Passed" not in out:
+            fail(f"{name} --test_batch --platform gpu --x64 1: rc {proc.returncode}\n"
+                 f"{out}\n{err[-4000:]}")
+        say(f"cli {name} --test_batch --platform gpu --x64 1: Tests Passed ({len(rows)} rows)")
+    say(f"cli wall (beside phase 2): {time.perf_counter() - t0:.1f} s")
     worst = 0.0
     for nx, ny, nt, eps, k, dt, dh in cases_2d:
         s = Solver2D(nx, ny, nt, eps, k=k, dt=dt, dh=dh, dtype=torch.float32, device="cuda")
@@ -317,6 +453,17 @@ def phase_main_path_tables(torch, cases_2d, cases_1d, l2_threshold):
     if not worst <= l2_threshold:
         fail(f"CASES_2D in float32: error_l2/#points {worst:.3e} > {l2_threshold:g}")
     say(f"CASES_2D float32 through Solver2D (cuda): largest error_l2/#points {worst:.3e} "
+        f"<= {l2_threshold:g}")
+    worst = 0.0
+    for nx, ny, nz, nt, eps, k, dt, dh in CASES_3D:
+        s = Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, dtype=torch.float32,
+                     device="cuda")
+        s.test_init()
+        s.do_work()
+        worst = max(worst, s.error_l2 / (nx * ny * nz))
+    if not worst <= l2_threshold:
+        fail(f"CASES_3D in float32: error_l2/#points {worst:.3e} > {l2_threshold:g}")
+    say(f"CASES_3D float32 through Solver3D (cuda): largest error_l2/#points {worst:.3e} "
         f"<= {l2_threshold:g}")
 
 
@@ -543,7 +690,7 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
                   dtype=torch.float32, device="cuda")
     st.test_init()
     st.do_work()
-    counts = ck.launch_counts()
+    counts = {k: v for k, v in ck.launch_counts().items() if k.endswith("2d")}
     recs = autotune.records()
     test_err = st.error_l2 / (NX * NX)
     if len(recs) != 2:
@@ -608,14 +755,241 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
     ]
 
 
-def variant_launches(name: str, nsteps: int) -> tuple:
-    """(kernel, launches) of an nsteps run of the tuner's candidate ``name``."""
+def op_3d(n: int, eps: int):
+    """The 3D operator on an n^3 unit cube (dh = 1/n) at 0.8x the Euler bound."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp3D
+
+    dh = 1.0 / n
+    probe = NonlocalOp3D(eps, 1.0, 1.0, dh)
+    return NonlocalOp3D(eps, 1.0, 0.8 / (probe.c * dh**3 * probe.wsum), dh, method="cuda")
+
+
+def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
+    """Phase 4, the 3D path: the kernels at 256^3, eps=4 (held to their plain
+    versions, timed beside them, their bound and F.conv3d), the tuner's
+    candidates at 256^3 and at 128^3, eps=6 (where resident3d fits), then
+    the main path through Solver3D, counted."""
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.models.solver3d import Solver3D
+    from nonlocalheatequation_torch.ops.nonlocal_op import case_scale, full_fp32
+    from nonlocalheatequation_torch.utils import autotune
+
+    op = op_3d(N3, EPS3)
+    scale, wsum, dt = case_scale(op), op.wsum, op.dt
+    u0 = np.random.default_rng(SEED + 4).standard_normal((N3,) * 3)
+    u = torch.as_tensor(u0, device="cuda").to(torch.float32)
+    upad = F.pad(u, (EPS3,) * 6)
+    out = torch.empty_like(u)
+    g, lg = torch.randn_like(u), torch.randn_like(u)
+    isz, npts, tol32 = 4, N3 ** 3, TOL["float32"]
+    tp = k3.tile3d(EPS3, torch.float32)
+    held = {k: [] for k in ("nsum3d", "step3d", "carried3d", "resident3d")}
+
+    def hold(name, form, got, ref, tol):
+        abs_err, rel = rel_err(torch, got, ref)
+        held[name].append({"form": form, "max_abs_err": abs_err, "rel_err": rel, "tol": tol})
+        if not rel <= tol:
+            fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol:g}")
+
+    for prec in ("f32", "bf16"):
+        hold("nsum3d", f"float32 {prec} {N3}^3", k3.nsum3d(upad, EPS3, prec),
+             k3.nsum3d_plain(upad, EPS3, prec), tol32)
+        hold("step3d", f"float32 {prec} production {N3}^3",
+             k3.step3d(u, EPS3, scale, wsum, dt, precision=prec),
+             k3.step3d_plain(u, EPS3, scale, wsum, dt, precision=prec), tol32)
+        hold("step3d", f"float32 {prec} test form {N3}^3",
+             k3.step3d(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3, precision=prec),
+             k3.step3d_plain(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3, precision=prec), tol32)
+    gpad = F.pad(torch.as_tensor(op.spatial_profile(N3, N3, N3), device="cuda"), (EPS3,) * 6)
+    hold("nsum3d", f"float64 f32 {N3}^3 (padded G, the test-form source's input)",
+         k3.nsum3d(gpad, EPS3), k3.nsum3d_plain(gpad, EPS3), TOL["float64"])
+    del gpad
+    bits = [u]
+    for _ in range(3):
+        bits.append(k3.step3d(bits[-1], EPS3, scale, wsum, dt))
+    frame = F.pad(u, (EPS3,) * 6).contiguous()
+    fout = torch.empty_like(frame)
+    hold("carried3d", f"float32 f32 {N3}^3 one launch", k3.carried3d(frame, EPS3, scale, wsum, dt),
+         k3.carried3d_plain(frame, EPS3, scale, wsum, dt), tol32)
+    if not torch.equal(k3.make_carried_multi_step_fn_3d(op, 3)(u, 0), bits[3]):
+        fail(f"carried3d at {N3}^3: 3 launches not bitwise equal to 3 step3d launches")
+    del bits
+    say(f"3D kernels at the main path's shape {N3}^3 eps={EPS3} (plane tile {tp}; "
+        "|kernel-plain| / max|plain|): "
+        + "; ".join(f"{n} {c['form']} {c['rel_err']:.2e} <= {c['tol']:g}"
+                    for n, cs in held.items() for c in cs)
+        + "; carried3d 3 launches bitwise equal to 3 step3d launches")
+
+    nsum_ms = cuda_ms(torch, lambda: k3.nsum3d(upad, EPS3), 50)
+    nsum_plain_ms = cuda_ms(torch, lambda: k3.nsum3d_plain(upad, EPS3), 3, 1)
+    step_ms = cuda_ms(torch, lambda: k3.step3d(u, EPS3, scale, wsum, dt, out=out), 50)
+    step_plain_ms = cuda_ms(torch, lambda: k3.step3d_plain(u, EPS3, scale, wsum, dt), 3, 1)
+    step_test_ms = cuda_ms(torch, lambda: k3.step3d(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3,
+                                                    out=out), 50)
+    step_test_plain_ms = cuda_ms(torch, lambda: k3.step3d_plain(u, EPS3, scale, wsum, dt, g=g,
+                                                                lg=lg, t=3), 3, 1)
+    carried_ms = cuda_ms(torch, lambda: k3.carried3d(frame, EPS3, scale, wsum, dt, out=fout), 50)
+    carried_plain_ms = cuda_ms(torch, lambda: k3.carried3d_plain(frame, EPS3, scale, wsum, dt),
+                               3, 1)
+    kern = torch.as_tensor(op.weights, dtype=torch.float32, device="cuda")[None, None]
+    with full_fp32():
+        conv_ms = cuda_ms(torch, lambda: F.conv3d(upad[None, None], kern), 5, 1)
+        conv_out = F.conv3d(upad[None, None], kern)[0, 0]
+    conv_err = float((conv_out - k3.nsum3d_plain(upad, EPS3)).abs().max())
+    del conv_out, kern
+    # epilogue: 5 operations for u + dt*(scale*(nsum - wsum*u)), 4 more for the
+    # test form's source terms
+    nsum_bound = bound((upad.numel() + npts) * isz, npts * kernel_ops_3d(EPS3, tp, 0))
+    step_bound = bound(2 * npts * isz, npts * kernel_ops_3d(EPS3, tp, 5))
+    step_test_bound = bound(4 * npts * isz, npts * kernel_ops_3d(EPS3, tp, 9))
+    carried_bound = bound(2 * frame.numel() * isz, npts * kernel_ops_3d(EPS3, tp, 5))
+    say("TF32 disabled for the F.conv3d yardstick (cudnn.allow_tf32=False, "
+        "cuda.matmul.allow_tf32=False)")
+    say(f"nsum3d {N3}^3 eps={EPS3} f32: kernel {nsum_ms:.4f} ms, plain {nsum_plain_ms:.3f} ms, "
+        f"F.conv3d {conv_ms:.4f} ms (max abs diff to plain {conv_err:.2e}), "
+        f"bound {nsum_bound[0]:.4f} ms ({nsum_bound[1]})")
+    say(f"step3d {N3}^3 eps={EPS3} f32 production: kernel {step_ms:.4f} ms, "
+        f"plain {step_plain_ms:.3f} ms, bound {step_bound[0]:.4f} ms ({step_bound[1]})")
+    say(f"step3d {N3}^3 eps={EPS3} f32 test form: kernel {step_test_ms:.4f} ms, "
+        f"plain {step_test_plain_ms:.3f} ms, bound {step_test_bound[0]:.4f} ms "
+        f"({step_test_bound[1]})")
+    say(f"carried3d {N3}^3 eps={EPS3} f32: kernel {carried_ms:.4f} ms/launch (one step), "
+        f"plain {carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms "
+        f"({carried_bound[1]})")
+    del frame, fout, upad
+    big = time_variants(torch, op, u, STEPS3)
+    say(f"3D multi-step candidates {N3}^3 eps={EPS3} f32, {STEPS3}-step runs (CUDA events), "
+        f"ms/step: {json.dumps(big)}; resident3d "
+        + ("fits" if k3.fits_resident_3d(N3, N3, N3, EPS3, torch.float32)
+           else "does not fit (its two frames exceed the card's L2)"))
+
+    # the small 3D grid, where the whole run fits the resident kernel
+    op_s = op_3d(N3S, EPS3S)
+    scale_s, wsum_s, dt_s, npts_s = case_scale(op_s), op_s.wsum, op_s.dt, N3S ** 3
+    tp_s = k3.tile3d(EPS3S, torch.float32)
+    us0 = np.random.default_rng(SEED + 5).standard_normal((N3S,) * 3)
+    us = torch.as_tensor(us0, device="cuda").to(torch.float32)
+    if not k3.fits_resident_3d(N3S, N3S, N3S, EPS3S, torch.float32):
+        fail(f"resident3d does not fit {N3S}^3 eps={EPS3S} f32 on this card")
+    ref = us
+    for _ in range(TEST_STEPS):
+        ref = k3.step3d(ref, EPS3S, scale_s, wsum_s, dt_s)
+    got = k3.resident3d(us, EPS3S, scale_s, wsum_s, dt_s, TEST_STEPS)
+    hold("resident3d", f"float32 f32 {N3S}^3 eps={EPS3S} {TEST_STEPS} steps", got,
+         k3.resident3d_plain(us, EPS3S, scale_s, wsum_s, dt_s, TEST_STEPS), tol32)
+    if not torch.equal(got, ref):
+        fail(f"resident3d at {N3S}^3: not bitwise equal to {TEST_STEPS} step3d launches")
+    small = time_variants(torch, op_s, us, STEPS3)
+    # one launch of TEST_STEPS steps, beside the plain version's same steps
+    res_ms = cuda_ms(torch, lambda: k3.resident3d(us, EPS3S, scale_s, wsum_s, dt_s, TEST_STEPS),
+                     5, 1)
+    res_plain_ms = cuda_ms(torch, lambda: k3.resident3d_plain(us, EPS3S, scale_s, wsum_s, dt_s,
+                                                              TEST_STEPS), 1, 0)
+    res_bound = bound(2 * npts_s * isz, TEST_STEPS * npts_s * kernel_ops_3d(EPS3S, tp_s, 5))
+    outs = torch.empty_like(us)
+    step_s_ms = cuda_ms(torch, lambda: k3.step3d(us, EPS3S, scale_s, wsum_s, dt_s, out=outs), 50)
+    step_s_bound = bound(2 * npts_s * isz, npts_s * kernel_ops_3d(EPS3S, tp_s, 5))
+    say(f"resident3d {N3S}^3 eps={EPS3S} f32 (plane tile {tp_s}), {TEST_STEPS} steps in one "
+        f"launch: kernel {res_ms:.4f} ms/launch ({res_ms / TEST_STEPS:.5f} ms/step), plain "
+        f"{res_plain_ms:.1f} "
+        f"ms, bound {res_bound[0]:.4f} ms ({res_bound[1]}); "
+        f"step3d there {step_s_ms:.4f} ms/launch, bound {step_s_bound[0]:.4f} ms "
+        f"({step_s_bound[1]}); resident3d {TEST_STEPS} steps bitwise equal to step3d launches")
+    say(f"3D multi-step candidates {N3S}^3 eps={EPS3S} f32, {STEPS3}-step runs (CUDA events), "
+        f"ms/step: {json.dumps(small)}")
+    say(f"clocks/power after the 3D timing: {nvidia_smi('clocks.sm,power.draw,power.limit')}")
+
+    # the 3D main path, through the solver entry points, counted: a first
+    # production call per shape tunes it and then runs the winner
+    autotune.reset()
+    ck.reset_launch_counts()
+    walls = {}
+    for n, x0, o in ((N3, u0, op), (N3S, us0, op_s)):
+        s = Solver3D(n, n, n, STEPS3, o.eps, k=1.0, dt=o.dt, dh=o.dh, method="cuda",
+                     dtype=torch.float32, device="cuda")
+        s.input_init(x0)
+        t0 = time.perf_counter()
+        res = s.do_work()
+        walls[n] = time.perf_counter() - t0
+        if res.shape != (n, n, n) or not np.isfinite(res).all():
+            fail(f"3D production solve {n}^3: result not finite or of the wrong shape")
+        if not float(np.abs(res).max()) <= float(np.abs(x0).max()):
+            fail(f"3D production solve {n}^3: the free decay grew (max|u| rose)")
+    st = Solver3D(N3, N3, N3, TEST_STEPS, EPS3, k=1.0, dt=dt, dh=op.dh, method="cuda",
+                  dtype=torch.float32, device="cuda")
+    st.test_init()
+    st.do_work()
+    counts = {k: v for k, v in ck.launch_counts().items() if k.endswith("3d")}
+    recs = autotune.records()
+    test_err = st.error_l2 / npts
+    if len(recs) != 2:
+        fail(f"the 3D production solves tuned {len(recs)} shapes, not 2: {sorted(recs)}")
+    expected = dict.fromkeys(counts, 0)
+    expected["step3d"], expected["nsum3d"] = TEST_STEPS, 1  # the test form: L(G) once
+    for entry in recs.values():
+        for name in entry["ms_per_step"]:
+            kernel, k = variant_launches(name, autotune.PROBE_STEPS, 3)
+            expected[kernel] += (1 + autotune.PROBE_ITERS) * k
+        kernel, k = variant_launches(entry["winner"], STEPS3, 3)
+        expected[kernel] += k
+    if counts != expected:
+        fail(f"3D main-path launches {counts} != {expected} (the probes', the winners' and "
+             "the test form's)")
+    if not all(counts.values()):
+        fail(f"a kernel of the 3D main path was not launched: {json.dumps(counts)}")
+    if not test_err <= l2_threshold:
+        fail(f"3D test-form solve: error_l2/#points {test_err:.3e} > {l2_threshold:g}")
+    say(f"3D tuner records: {json.dumps(recs)}")
+    winner = {n: recs[autotune.tuning_key(o, (n, n, n), torch.float32, "cuda")]["winner"]
+              for n, o in ((N3, op), (N3S, op_s))}
+    say(f"3D main path: Solver3D f32 method=cuda production solves of {STEPS3} steps, tuned, "
+        f"at {N3}^3 eps={EPS3} (winner {winner[N3]}, do_work wall {walls[N3]:.3f} s incl. "
+        f"tuning and host<->device copies) and {N3S}^3 eps={EPS3S} (winner {winner[N3S]}, "
+        f"{walls[N3S]:.3f} s) + {TEST_STEPS} test-form steps at {N3}^3 (error_l2/#points "
+        f"{test_err:.3e}); launches {json.dumps(counts)} = the probes', the winners' and the "
+        "test form's")
+
+    def row(name, source, line, **kw):
+        cs = held[name]
+        return {"name": name, "route": "cuda",
+                "source": f"nonlocalheatequation_torch/csrc/{source}",
+                "replaces": f"nonlocalheatequation_tpu/ops/pallas_kernel.py:{line}", **kw,
+                "launches": counts[name], "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
+                "main_shape_forms": len(cs)}
+
+    no_call = "no one PyTorch call takes Euler steps"
+    return [
+        {**row("nsum3d", "nsum3d.cu", 793),
+         "ms": nsum_ms, "plain_ms": nsum_plain_ms, "bound_ms": nsum_bound[0],
+         "bound_by": nsum_bound[1], "library_ms": conv_ms, "shape": f"{N3}^3"},
+        {**row("step3d", "nsum3d.cu", 793),
+         "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound[0],
+         "bound_by": step_bound[1], "library_ms": None, "library_note": no_call,
+         "shape": f"{N3}^3", "ms_test_form": step_test_ms,
+         "plain_ms_test_form": step_test_plain_ms, "bound_ms_test_form": step_test_bound[0],
+         f"ms_{N3S}": step_s_ms},
+        {**row("carried3d", "carried3d.cu", 1507),
+         "ms": carried_ms, "plain_ms": carried_plain_ms, "bound_ms": carried_bound[0],
+         "bound_by": carried_bound[1], "library_ms": None, "library_note": no_call,
+         "shape": f"{N3}^3"},
+        {**row("resident3d", "resident3d.cu", 1419),
+         "ms": res_ms, "plain_ms": res_plain_ms, "bound_ms": res_bound[0],
+         "bound_by": res_bound[1], "library_ms": None, "library_note": no_call,
+         "shape": f"{N3S}^3 eps={EPS3S}", "steps_per_launch": TEST_STEPS},
+    ]
+
+
+def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
+    """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
+    for an ``ndim``-D solve."""
     if name == "per-step":
-        return "step2d", nsteps
-    if name == "carried":
-        return "carried2d", nsteps
-    if name == "resident":
-        return "resident2d", 1
+        return f"step{ndim}d", nsteps
+    if name in ("carried", "carried3d"):
+        return f"carried{ndim}d", nsteps
+    if name in ("resident", "resident3d"):
+        return f"resident{ndim}d", 1
     return "superstep2d", -(-nsteps // int(name[len("superstep"):]))
 
 
@@ -672,6 +1046,7 @@ def main() -> int:
     try:
         from nonlocalheatequation_torch.ops import _build
         from nonlocalheatequation_torch.ops import cuda_kernel as ck
+        from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
     except ImportError as e:
         fail(f"the port package nonlocalheatequation_torch is not beside this script: {e}")
     cases_2d, cases_1d, l2_threshold = load_cases()
@@ -696,10 +1071,23 @@ def main() -> int:
             say(f"ptxas {source}: {len(re.findall('Compiling entry', text))} kernels, "
                 f"registers per thread {regs}, spill stores {spills} bytes")
 
-    checks = phase_checks(torch, ck, np)
-    checks.update(phase_multistep_checks(torch, ck, np))
-    phase_main_path_tables(torch, cases_2d, cases_1d, l2_threshold)
-    kernels = phase_headline(torch, np, ck, l2_threshold)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    atexit.register(stop_children)
+    clis = start_clis(cases_2d, cases_1d)
+    checks = timed("checks 2d", phase_checks, torch, ck, np)
+    checks.update(timed("multi-step checks 2d", phase_multistep_checks, torch, ck, np))
+    checks.update(timed("checks 3d", phase_checks_3d, torch, k3, np))
+    timed("tables", phase_main_path_tables, torch, clis, cases_2d, l2_threshold)
+    kernels = timed("headline 2d", phase_headline, torch, np, ck, l2_threshold)
+    kernels += timed("headline 3d", phase_headline_3d, torch, np, ck, k3, l2_threshold)
+    say(f"phase walls, s: {json.dumps(walls)}")
     for k in kernels:
         k["checks"] = checks[k["name"]]
     say(f"total: {time.perf_counter() - t_start:.1f} s")

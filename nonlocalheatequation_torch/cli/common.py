@@ -78,11 +78,11 @@ def announce_stable_dt(dim: int, k: float, eps: int, h: float, dt: float) -> Non
     refuse) when dt exceeds it: several of the reference's own ctest rows sit
     marginally past it and reference parity means accepting them."""
     from nonlocalheatequation_torch.ops import constants as C
-    from nonlocalheatequation_torch.ops.stencil import horizon_mask_1d, horizon_mask_2d
+    from nonlocalheatequation_torch.ops import stencil as S
 
-    mask = {1: horizon_mask_1d, 2: horizon_mask_2d}[dim](eps)
+    mask = {1: S.horizon_mask_1d, 2: S.horizon_mask_2d, 3: S.horizon_mask_3d}[dim](eps)
     wsum = float(np.asarray(mask, np.float64).sum())
-    c = {1: C.c_1d, 2: C.c_2d}[dim](k, eps, h)
+    c = {1: C.c_1d, 2: C.c_2d, 3: C.c_3d}[dim](k, eps, h)
     bound = C.stable_dt(c, h, dim, wsum)
     print(f"stability: dt bound in force {bound:g} (stepper euler); dt {dt:g}",
           file=sys.stderr)

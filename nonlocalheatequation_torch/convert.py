@@ -18,6 +18,7 @@ import numpy as np
 
 from nonlocalheatequation_torch.models.solver1d import Solver1D
 from nonlocalheatequation_torch.models.solver2d import Solver2D
+from nonlocalheatequation_torch.models.solver3d import Solver3D
 
 _KEYS = ("shape", "eps", "k", "dt", "dh", "test")
 
@@ -63,5 +64,17 @@ def solver1d_from_jax_state(params: dict, u: np.ndarray, t: int, *, device, dtyp
     u = _checked(params, u, t, 1)
     s = Solver1D(u.shape[0], t if nt is None else nt, params["eps"], k=params["k"],
                  dt=params["dt"], dx=params["dh"], device=device, dtype=dtype,
+                 **solver_kwargs)
+    return _position(s, params, u, t)
+
+
+def solver3d_from_jax_state(params: dict, u: np.ndarray, t: int, *, device, dtype,
+                            nt: int | None = None, **solver_kwargs) -> Solver3D:
+    """The 3D twin of :func:`solver2d_from_jax_state`: a port ``Solver3D``
+    carrying a JAX ``Solver3D``'s state at step ``t``."""
+    u = _checked(params, u, t, 3)
+    nx, ny, nz = u.shape
+    s = Solver3D(nx, ny, nz, t if nt is None else nt, params["eps"], k=params["k"],
+                 dt=params["dt"], dh=params["dh"], device=device, dtype=dtype,
                  **solver_kwargs)
     return _position(s, params, u, t)

@@ -1,0 +1,267 @@
+// The tile body shared by every 3D kernel of the port: the window load, the
+// masked-sphere neighbour sum in its fixed summation order, and (from
+// stencil_tile.cuh) the forward-Euler epilogue.
+//
+// Counterpart of _block_neighbor_sum_3d (nonlocalheatequation_tpu/ops/
+// pallas_kernel.py:672), which the TPU's per-step, carried and resident 3D
+// kernels share.  Here nsum3d.cu (nsum3d, step3d), carried3d.cu and
+// resident3d.cu include it, so a multi-step kernel is bit-identical to the
+// same number of step3d launches by construction.
+//
+// The state is [x][y][z], z contiguous.  One block owns an output tile of
+// TP x TP points in the (x, y) plane by TZ = 32 along z (one lane each) and
+// stages its (TP+2eps) x (TP+2eps) x (32+2eps) window in shared memory.
+//
+// * The sum.  The sphere is a set of z-columns: column (i, j) of the plane
+//   offsets with i^2 + j^2 <= eps^2 spans |k| <= h(i, j) =
+//   trunc(sqrt(eps^2 - i^2 - j^2)) (49 columns at eps=4, 113 at eps=6).  For
+//   every window line (a, b), W_h(a, b)[z] = sum_{|k|<=h} win[a][b][z+k]
+//   grows in place in shared memory one pair of cells per height (5 distinct
+//   heights at eps=4, 7 at eps=6), and at each height every output adds
+//   W_h(x+i, y+j)[z] for the columns of that height.  That is 2 adds per
+//   height per window cell and one add per column per output, against the
+//   direct sum's 256 (eps=4) or 924 (eps=6) adds per output.  Every element
+//   adds its terms in one fixed order (heights ascending, then columns by
+//   (i, j) ascending; within W, centre then pairs outward) that depends
+//   neither on where its tile sits nor on the tile's width TP, so every
+//   kernel and every tile width gives the same bits.
+// * The tile width.  The window grows as (TP+2eps)^2 (32+2eps), so TP is
+//   the largest of 8, 4, 2, 1 whose window and sum buffer fit the block's
+//   shared memory (f32: TP=8 up to eps=8, TP=1 at eps=12; f64: TP=8 up to
+//   eps=4, TP=2 at eps=8).  Beyond TP=1 the kernels refuse (-1).
+//
+// The bf16 operand tier rounds each window cell to bfloat16 once, as it is
+// loaded, and accumulates in the state type; the carry reads the unrounded
+// centre.
+
+#pragma once
+
+#include "stencil_tile.cuh"
+
+#include <climits>
+
+namespace nlheat {
+
+constexpr int TZ = 32;           // output z (contiguous) per tile, one lane each
+constexpr int TY3 = 8;           // thread rows (threadIdx.y)
+constexpr int THREADS3 = TZ * TY3;
+constexpr int MAX_EPS3 = 12;
+constexpr int MAX_COLS3 = 448;   // 441 columns at eps=12
+
+// The stencil plan, passed by value: the sphere's columns grouped by
+// half-height h, (i, j) ascending within a group, each packed as
+// (i << 8) | j with i, j in [0, 2eps].  Group h is col[hstart[h] ..
+// hstart[h+1]).
+struct Plan3 {
+  int col[MAX_COLS3];
+  int hstart[MAX_EPS3 + 2];
+};
+
+inline Plan3 make_plan3(int eps) {
+  // h(i, j) = trunc(sqrt(eps^2 - i^2 - j^2)) in double:
+  // ops/stencil.sphere_column_heights
+  Plan3 p{};
+  int n = 0;
+  for (int h = 0; h <= eps; ++h) {
+    p.hstart[h] = n;
+    for (int i = 0; i <= 2 * eps; ++i)
+      for (int j = 0; j <= 2 * eps; ++j) {
+        const int rem = eps * eps - (i - eps) * (i - eps) - (j - eps) * (j - eps);
+        if (rem >= 0 && static_cast<int>(std::sqrt(static_cast<double>(rem))) == h)
+          p.col[n++] = (i << 8) | j;
+      }
+  }
+  p.hstart[eps + 1] = n;
+  return p;
+}
+
+// Where a launch's tiles sit.  Arrays are row-major [x][y][z].  The output
+// cell (X, Y, Z) is the step (or sum) of the source cell (X, Y, Z) + shift
+// when it lies in the interior box [lo, lo + n) on every axis, else 0 (the
+// carried frame's halo); cells beyond the output array are not written.  The
+// tiles form a lattice from org, tiles[] of them per axis.
+struct Geom3 {
+  int out[3];
+  int src[3];
+  int shift;
+  int lo;
+  int n[3];
+  int org[3];
+  int tiles[3];
+};
+
+// Elements of shared memory a tile of plane width TP needs: the window and
+// the sum buffer W, (TP+2eps)^2 lines of 32+2eps and of 32.
+inline size_t tile3_elems(int eps, int tp) {
+  const size_t lines = static_cast<size_t>(tp + 2 * eps) * (tp + 2 * eps);
+  return lines * (TZ + 2 * eps) + lines * TZ;
+}
+
+// The plane width the kernels use for eps and an element size: the widest of
+// 8, 4, 2, 1 that fits the block's shared memory, or 0 (refused).
+inline int tile3_width(int eps, size_t elem) {
+  if (eps < 0 || eps > MAX_EPS3) return 0;
+  for (int tp = 8; tp >= 1; tp /= 2)
+    if (tile3_elems(eps, tp) * elem <= static_cast<size_t>(smem_limit())) return tp;
+  return 0;
+}
+
+// Instantiate f for the plane width tp: calls f(std::integral_constant<int, TP>{}).
+template <typename F>
+int with_tp(int tp, F f) {
+  switch (tp) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    default: return -1;
+  }
+}
+
+// The tile lattice over the box [start, start + len) on one axis, with tile
+// length t: the origin and the count.  Used on the interior (step, sum,
+// resident) and, for the carried frame, on the whole frame with the lattice
+// aligned to the interior so that tiles lie either in the interior or
+// wholly (cheaply) in the halo where they can.
+struct Axis {
+  int org, count;
+};
+
+inline Axis axis_over(int start, int len, int t) { return {start, (len + t - 1) / t}; }
+
+inline Axis axis_aligned(int lo, int n, int frame, int t) {
+  const int before = (lo + t - 1) / t;  // tiles below the interior
+  const int org = lo - before * t;
+  return {org, (frame - org + t - 1) / t};
+}
+
+__host__ __device__ inline long long tile_count(const Geom3& g) {
+  return static_cast<long long>(g.tiles[0]) * g.tiles[1] * g.tiles[2];
+}
+
+// The output origin of tile t (z fastest).
+__device__ inline void tile_origin(const Geom3& g, int t, int tp, int& x0, int& y0, int& z0) {
+  const int tz = t % g.tiles[2];
+  t /= g.tiles[2];
+  const int ty = t % g.tiles[1];
+  const int tx = t / g.tiles[1];
+  x0 = g.org[0] + tx * tp;
+  y0 = g.org[1] + ty * tp;
+  z0 = g.org[2] + tz * TZ;
+}
+
+// Copy the window of the tile at output origin (x0, y0, z0) into shared
+// memory: cell (a, b, c) is src[x0 - eps + shift + a][...][...], 0 outside
+// the source, rounded to the operand type.  Each thread row takes window
+// lines (a, b), LOAD_LINES at a time, and each lane two z cells of a line
+// (32 + 2eps <= 64): the loads of a batch are all issued before the
+// first store, so a thread has 2*LOAD_LINES loads in flight.
+constexpr int LOAD_LINES = 4;
+static_assert(TZ + 2 * MAX_EPS3 <= 2 * TZ, "a window line is at most two cells per lane");
+
+template <typename T, typename OpT, bool L2ONLY = false, typename S>
+__device__ void load_window3(T* win, int wp, int wz, const S* src, const Geom3& g, int eps,
+                             int x0, int y0, int z0) {
+  const int r0 = x0 - eps + g.shift, s0 = y0 - eps + g.shift;
+  const int lines = wp * wp;
+  const int ca = threadIdx.x, cb = threadIdx.x + TZ;  // this lane's z cells
+  const int qa = z0 - eps + g.shift + ca, qb = qa + TZ;
+  const bool za = qa >= 0 && qa < g.src[2], zb = cb < wz && qb >= 0 && qb < g.src[2];
+  for (int l0 = threadIdx.y; l0 < lines; l0 += LOAD_LINES * TY3) {
+    T va[LOAD_LINES], vb[LOAD_LINES];
+#pragma unroll
+    for (int k = 0; k < LOAD_LINES; ++k) {
+      const int line = l0 + k * TY3;
+      const int a = line / wp, b = line - a * wp;
+      const int r = r0 + a, s = s0 + b;
+      const bool ok = line < lines && r >= 0 && r < g.src[0] && s >= 0 && s < g.src[1];
+      const S* row = src + (static_cast<size_t>(ok ? r : 0) * g.src[1] + (ok ? s : 0)) * g.src[2];
+      va[k] = ok && za ? to_state<T>(load<L2ONLY>(row + qa)) : T(0);
+      vb[k] = ok && zb ? to_state<T>(load<L2ONLY>(row + qb)) : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < LOAD_LINES; ++k) {
+      const int line = l0 + k * TY3;
+      if (line < lines) {
+        win[line * wz + ca] = Operand<T, OpT>::round(va[k]);
+        if (cb < wz) win[line * wz + cb] = Operand<T, OpT>::round(vb[k]);
+      }
+    }
+  }
+}
+
+// Output points per thread: the tile's TP*TP plane points dealt over the
+// TY3 thread rows (point p = threadIdx.y + k*TY3).
+template <int TP>
+__host__ __device__ constexpr int points_per_thread() { return (TP * TP + TY3 - 1) / TY3; }
+
+// The neighbour sums of one tile whose window starts at win in shared
+// memory.  acc[k] is the sum for plane point threadIdx.y + k*TY3, z lane
+// threadIdx.x.  wbuf holds (TP+2eps)^2 * TZ values.  Every thread of the
+// block calls it (it holds barriers); it ends with a barrier, so the caller
+// may overwrite wbuf or the window right after.
+template <typename T, int TP>
+__device__ void window_sums3(const T* win, int eps, const Plan3& plan, T* wbuf,
+                             T (&acc)[points_per_thread<TP>()]) {
+  constexpr int KP = points_per_thread<TP>();
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int wp = TP + 2 * eps, wz = TZ + 2 * eps;
+  const int lines = wp * wp;
+  int base[KP];  // the window line of each of this thread's points
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const int p = ty + k * TY3;
+    base[k] = (p / TP) * wp + p % TP;
+    acc[k] = T(0);
+  }
+  bool read = false;  // whether the last height's W had readers
+  for (int h = 0; h <= eps; ++h) {
+    if (read) __syncthreads();  // the readers of W_{h-1} are done
+    for (int line = ty; line < lines; line += TY3) {
+      const T* cell = win + line * wz + tx + eps;
+      T* w = wbuf + line * TZ + tx;
+      if (h == 0) {
+        *w = cell[0];
+      } else {
+        T v = *w;
+        v = v + cell[-h];
+        v = v + cell[h];
+        *w = v;
+      }
+    }
+    const int p0 = plan.hstart[h], p1 = plan.hstart[h + 1];
+    read = p0 != p1;  // uniform over the block
+    if (!read) continue;
+    __syncthreads();  // W_h is written everywhere
+    for (int p = p0; p < p1; ++p) {
+      const int col = plan.col[p];
+      const int off = (col >> 8) * wp + (col & 255);
+#pragma unroll
+      for (int k = 0; k < KP; ++k)
+        if (ty + k * TY3 < TP * TP) acc[k] = acc[k] + wbuf[(base[k] + off) * TZ + tx];
+    }
+  }
+  __syncthreads();
+}
+
+// The launch geometry of a step over the interior of an unpadded state
+// (step3d, nsum3d) or of a frame's interior (resident3d): shift and lo as
+// given, the interior tiled from lo.
+inline Geom3 interior_geom(const int out[3], const int src[3], int shift, int lo,
+                           const int n[3], int tp) {
+  Geom3 g{};
+  const int len[3] = {tp, tp, TZ};
+  for (int d = 0; d < 3; ++d) {
+    g.out[d] = out[d];
+    g.src[d] = src[d];
+    g.n[d] = n[d];
+    const Axis a = axis_over(lo, n[d], len[d]);
+    g.org[d] = a.org;
+    g.tiles[d] = a.count;
+  }
+  g.shift = shift;
+  g.lo = lo;
+  return g;
+}
+
+}  // namespace nlheat

@@ -1,8 +1,9 @@
 """Manufactured-solution error metrics (reference: compute_l2/compute_linf,
 src/2d_nonlocal_serial.cpp:96-113), computed on the host from the final state.
 
-Mixed into the 1D and 2D solvers; expects ``self.op``, ``self.u`` (final
-state, a NumPy array) and ``self._grid_shape`` -> (NX,) or (NX, NY).
+Rank-agnostic: mixed into the 1D, 2D and 3D solvers; expects ``self.op``,
+``self.u`` (final state, a NumPy array) and ``self._grid_shape`` -> (NX,),
+(NX, NY) or (NX, NY, NZ).
 """
 
 import numpy as np

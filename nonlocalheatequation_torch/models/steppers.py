@@ -2,8 +2,9 @@
 ``nonlocalheatequation_tpu/models/steppers.py``.
 
 ``euler`` delegates to ops/nonlocal_op (make_step_fn / make_multi_step_fn,
-including the fused ``step2d`` kernel).  ``rkc`` and ``expo`` are not ported
-yet: they are refused by name rather than silently run as Euler.
+including the fused ``step2d``/``step3d`` kernels), for the 1D, 2D and 3D
+operators alike.  ``rkc`` and ``expo`` are not ported yet: they are refused
+by name rather than silently run as Euler.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def validate_stepper(stepper: str, stages: int = 0) -> None:
 
 
 def validate_solver_stepper(op, backend: str, stepper: str, stages: int) -> tuple:
-    """Solver-construction validation; returns the canonical (stepper, stages)."""
+    """Solver-construction validation for a 1D, 2D or 3D operator; returns
+    the canonical (stepper, stages)."""
     validate_stepper(stepper, stages)
     return stepper, int(stages)
 

@@ -2,9 +2,10 @@
 
 Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with ``ctypes``.
-The build happens at first use and is keyed on a hash of the source and
-the flags, so ``python3 chip_smoke.py`` in a fresh checkout builds it and a
-later process of the same checkout reuses it.  The libraries go to
+The build happens at first use and is keyed on a hash of the source, the
+``csrc/`` headers it includes and the flags, so ``python3 chip_smoke.py``
+in a fresh checkout builds it and a later process of the same checkout
+reuses it.  The libraries go to
 ``nonlocalheatequation_torch/_build/`` (listed in ``.gitignore``).
 
 Nothing here runs at import: the CPU tests import every module of the port
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +26,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("nsum2d.cu", "carried2d.cu", "superstep2d.cu", "resident2d.cu")
+SOURCES_2D = ("nsum2d.cu", "carried2d.cu", "superstep2d.cu", "resident2d.cu")
+SOURCES_3D = ("nsum3d.cu", "carried3d.cu", "resident3d.cu")
+SOURCES = SOURCES_2D + SOURCES_3D
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,12 +47,31 @@ def find_nvcc() -> str:
                        "the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: str) -> list[str]:
+    """The headers of ``csrc/`` that ``source`` includes, directly or through
+    another header, sorted by name (``#include "..."`` lines; system headers
+    in angle brackets are not followed)."""
+    seen: set[str] = set()
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall((CSRC / todo.pop()).read_bytes()):
+            name = name.decode()
+            if name not in seen and (CSRC / name).is_file():
+                seen.add(name)
+                todo.append(name)
+    return sorted(seen)
+
+
 def source_digest(source: str) -> str:
     """A hash of what decides the library built from ``source``: its text,
-    the headers of ``csrc/`` it may include and the compiler flags."""
+    the headers of ``csrc/`` it includes and the compiler flags.  A header
+    that ``source`` does not include leaves its digest as it is."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    for header in included_headers(source):
+        digest.update((CSRC / header).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return digest.hexdigest()[:16]
 

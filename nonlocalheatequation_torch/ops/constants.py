@@ -9,6 +9,8 @@ constants, not the paper's:
   integer (k=0.02, eps=40, dx=0.019 truncates to 0).
 * 2D: ``c_2d = (k * 8) / pow(eps * dh, 4)`` kept as double
   (src/2d_nonlocal_serial.cpp:76).
+* 3D: ``c_3d = (k * 15) / (2*pi*pow(eps * dh, 5))``, the JAX package's
+  extension of the same recipe.
 """
 
 import math
@@ -68,3 +70,10 @@ def c_1d(k: float, eps: int, dx: float) -> float:
 def c_2d(k: float, eps: int, dh: float) -> float:
     """2D scaling constant (src/2d_nonlocal_serial.cpp:76), kept as double."""
     return (k * 8) / math.pow(eps * dh, 4)
+
+
+def c_3d(k: float, eps: int, dh: float) -> float:
+    """3D scaling constant (no 3D exists in the reference):
+    c = 2k / integral_{|z|<eps*h} z_x^2 dz = 15k / (2*pi*(eps*h)^5), so the
+    operator converges to k*laplace(u) as the horizon shrinks."""
+    return (k * 15) / (2.0 * math.pi * math.pow(eps * dh, 5))

@@ -54,8 +54,10 @@ from nonlocalheatequation_torch.ops.stencil import column_half_heights
 TWO_PI = 2.0 * math.pi
 SOURCE = "nsum2d.cu"
 
-#: kernel name -> launches since the last reset_launch_counts()
-LAUNCHES = {"nsum2d": 0, "step2d": 0, "carried2d": 0, "superstep2d": 0, "resident2d": 0}
+#: kernel name -> launches since the last reset_launch_counts() (the 3D
+#: kernels' wrappers live in ops/cuda_kernel3d.py)
+LAUNCHES = {"nsum2d": 0, "step2d": 0, "carried2d": 0, "superstep2d": 0, "resident2d": 0,
+            "nsum3d": 0, "step3d": 0, "carried3d": 0, "resident3d": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -71,6 +73,13 @@ _ENTRIES = {
     "nlheat_superstep2d_fits": ("superstep2d.cu", [_I, _I, _I, _I]),
     "nlheat_resident2d": ("resident2d.cu", [_I, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P]),
     "nlheat_resident2d_fits": ("resident2d.cu", [_I, _I, _I, _I]),
+    "nlheat_nsum3d": ("nsum3d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "nlheat_step3d": ("nsum3d.cu", [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D,
+                                    _D, _P]),
+    "nlheat_tile3d": ("nsum3d.cu", [_I, _I]),
+    "nlheat_carried3d": ("carried3d.cu", [_I, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P]),
+    "nlheat_resident3d": ("resident3d.cu", [_I, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _P]),
+    "nlheat_resident3d_fits": ("resident3d.cu", [_I, _I, _I, _I, _I]),
 }
 _entries: dict = {}
 
@@ -173,7 +182,8 @@ def _check_device(x: torch.Tensor):
         raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {x.device}")
 
 
-def _raise_on(rc: int, what: str, eps: int, x: torch.Tensor):
+def _raise_on(rc: int, what: str, eps: int, x: torch.Tensor,
+              remedy: str = "use method='conv' for this horizon"):
     """Turn a C entry point's status into an exception: -1 is the kernel
     library's refusal (eps, the shared-memory tile or the grid beyond its
     limits, which its source in csrc/ alone decides), anything else non-zero
@@ -182,7 +192,7 @@ def _raise_on(rc: int, what: str, eps: int, x: torch.Tensor):
         raise ValueError(
             f"{what}: eps={eps} on a {tuple(x.shape)} {x.dtype} tensor is beyond what "
             f"the kernel takes (its eps, shared-memory or grid limit, "
-            f"csrc/{_ENTRIES['nlheat_' + what][0]}); use method='conv' for this horizon")
+            f"csrc/{_ENTRIES['nlheat_' + what][0]}); {remedy}")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaGetLastError {rc}")
 
@@ -460,13 +470,14 @@ def _production_args(op) -> tuple:
     return int(op.eps), op.c * op.dh * op.dh, op.wsum, op.dt
 
 
-def _reject_bf16_variant(op, what: str) -> None:
+def _reject_bf16_variant(op, what: str,
+                        remedy: str = "the per-step, carried, or superstep 2D paths") -> None:
     """A variant without a bf16 tier refuses a bf16-tier operator: running
     the f32 function instead would break the tier's rule that every variant
     computes the same rounded-operand result."""
     if getattr(op, "precision", "f32") == "bf16":
-        raise ValueError(f"the {what} has no bf16 precision tier; use the per-step, "
-                         "carried, or superstep 2D paths (or precision='f32')")
+        raise ValueError(f"the {what} has no bf16 precision tier; use {remedy} "
+                         "(or precision='f32')")
 
 
 def make_carried_multi_step_fn(op, nsteps: int, dtype=None):

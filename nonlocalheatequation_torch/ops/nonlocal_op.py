@@ -24,7 +24,9 @@ order):
 * ``auto``  — ``cuda`` on a CUDA tensor, ``conv`` on the CPU.
 
 A weighted influence function J demotes ``sat``/``cuda``/``auto`` to
-``conv`` (the kernels sum a 0/1 mask).
+``conv`` (the kernels sum a 0/1 mask).  The 3D operator (:class:`NonlocalOp3D`)
+has ``shift``, ``sat``, ``cuda`` (``nsum3d``/``step3d``) and ``auto`` (``sat``
+on the CPU); its weighted J demotes to ``shift``.
 
 Precision tiers (ops/constants.py): ``"bf16"`` evaluates every neighbour sum
 and the matching ``Wsum*u`` center term on the bfloat16 rounding of the
@@ -45,19 +47,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nonlocalheatequation_torch.ops import cuda_kernel
-from nonlocalheatequation_torch.ops.constants import c_1d, c_2d, validate_precision
+from nonlocalheatequation_torch.ops import cuda_kernel, cuda_kernel3d
+from nonlocalheatequation_torch.ops.constants import c_1d, c_2d, c_3d, validate_precision
 from nonlocalheatequation_torch.ops.cuda_kernel import bf16_round
 from nonlocalheatequation_torch.ops.stencil import (
     column_half_heights,
     horizon_mask_1d,
     horizon_mask_2d,
+    horizon_mask_3d,
     influence_weights,
+    sphere_column_heights,
 )
 from nonlocalheatequation_torch.utils import autotune
 
 TWO_PI = 2.0 * np.pi
 METHODS_2D = ("shift", "conv", "sat", "cuda", "auto")
+METHODS_3D = ("shift", "sat", "cuda", "auto")
 
 
 @contextlib.contextmanager
@@ -306,6 +311,156 @@ class NonlocalOp2D(_PrecisionPolicy):
         return np.cos(TWO_PI * (t * self.dt)) * self.spatial_profile(nx, ny)
 
 
+class NonlocalOp3D(_PrecisionPolicy):
+    """3D horizon operator (no 3D exists in the reference; the JAX package's
+    extension, ``nonlocalheatequation_tpu/ops/nonlocal_op.py:830``): the
+    eps-sphere rasterized column by column (ops/stencil.horizon_mask_3d),
+    node volume dh^3, scaling constant ops/constants.c_3d.  Arrays are
+    [x, y, z] of shape (nx, ny, nz).
+
+    Methods: ``shift`` sums one padded slice per sphere offset; ``sat`` adds
+    a z prefix sum so each column is one window difference (use it in f64);
+    ``cuda`` runs the hand-written kernels (ops/cuda_kernel3d.py: ``nsum3d``
+    for the sum, the fused ``step3d`` for a whole Euler step; their plain
+    versions on a CPU tensor); ``auto`` is ``cuda`` on a CUDA tensor and
+    ``sat`` on the CPU, as the JAX package picks ``sat`` off the TPU.  A
+    weighted J demotes ``sat``/``cuda``/``auto`` to ``shift``.
+    """
+
+    def __init__(self, eps: int, k: float, dt: float, dh: float, influence=None,
+                 method: str = "auto", precision: str = "f32", resync_every: int = 0):
+        if method not in METHODS_3D:
+            raise ValueError(f"unknown method {method!r}; one of {METHODS_3D} "
+                             "(fft is not ported yet)")
+        self.eps = int(eps)
+        self.k = float(k)
+        self.dt = float(dt)
+        self.dh = float(dh)
+        self.c = c_3d(k, eps, dh)
+        self.mask = horizon_mask_3d(self.eps)
+        self._influence = influence
+        self.weights = influence_weights(self.mask, influence, dh)
+        self.wsum = float(self.weights.sum())
+        self.uniform = influence is None
+        if method in ("sat", "cuda", "auto") and not self.uniform:
+            method = "shift"
+        self.method = method
+        self._init_precision(precision, resync_every)
+        self._zh = sphere_column_heights(self.eps)  # -1: column outside the sphere
+
+    def with_precision(self, precision: str, resync_every: int = 0) -> "NonlocalOp3D":
+        """Twin operator differing only in precision tier."""
+        return NonlocalOp3D(self.eps, self.k, self.dt, self.dh, influence=self._influence,
+                            method=self.method, precision=precision,
+                            resync_every=resync_every)
+
+    def resolve_method(self, device: torch.device) -> str:
+        """Concrete method for tensors on ``device``: ``auto`` is ``cuda`` on
+        the card and ``sat`` on the CPU."""
+        if self.method != "auto":
+            return self.method
+        return "cuda" if torch.device(device).type == "cuda" else "sat"
+
+    def _columns(self):
+        """(i, j, h) of every column of the sphere, i then j ascending."""
+        e = self.eps
+        return [(i, j, int(self._zh[i, j])) for i in range(2 * e + 1)
+                for j in range(2 * e + 1) if self._zh[i, j] >= 0]
+
+    # -- neighbour sum --------------------------------------------------------
+    def neighbor_sum_np(self, u: np.ndarray) -> np.ndarray:
+        """Oracle path: per-offset shifted adds over the masked sphere."""
+        nx, ny, nz = u.shape
+        e = self.eps
+        up = np.zeros((nx + 2 * e, ny + 2 * e, nz + 2 * e), dtype=u.dtype)
+        up[e:e + nx, e:e + ny, e:e + nz] = u
+        acc = np.zeros_like(u)
+        for i, j, h in self._columns():
+            for kk in range(e - h, e + h + 1):
+                w = self.weights[i, j, kk]
+                if w == 1.0:
+                    acc += up[i:i + nx, j:j + ny, kk:kk + nz]
+                elif w:
+                    acc += w * up[i:i + nx, j:j + ny, kk:kk + nz]
+        return acc
+
+    def neighbor_sum(self, u: torch.Tensor) -> torch.Tensor:
+        return self.neighbor_sum_padded(F.pad(u, (self.eps,) * 6))
+
+    def neighbor_sum_padded(self, upad: torch.Tensor) -> torch.Tensor:
+        """Valid-mode neighbour sum of a halo-padded (nx+2e, ny+2e, nz+2e) block."""
+        method = self.resolve_method(upad.device)
+        if method == "cuda":
+            return cuda_kernel3d.nsum3d(upad, self.eps, self.precision)
+        if method == "sat":
+            return self._neighbor_sum_sat(upad)
+        return self._neighbor_sum_shift(upad)
+
+    def _neighbor_sum_shift(self, upad: torch.Tensor) -> torch.Tensor:
+        e = self.eps
+        upad = self._operand(upad)
+        nx, ny, nz = (s - 2 * e for s in upad.shape)
+        acc = torch.zeros((nx, ny, nz), dtype=upad.dtype, device=upad.device)
+        for i, j, h in self._columns():
+            for kk in range(e - h, e + h + 1):
+                w = float(self.weights[i, j, kk])
+                if w:
+                    term = upad[i:i + nx, j:j + ny, kk:kk + nz]
+                    acc = acc + (term if w == 1.0 else w * term)
+        return acc
+
+    def _neighbor_sum_sat(self, upad: torch.Tensor) -> torch.Tensor:
+        """z prefix sums: column (i, j) spans z offsets [-h, h]; with an
+        exclusive prefix sum P along z it is P[z + h + 1] - P[z - h] on the
+        padded array."""
+        e = self.eps
+        upad = self._operand(upad)
+        nx, ny, nz = (s - 2 * e for s in upad.shape)
+        p = F.pad(torch.cumsum(upad, dim=2), (1, 0))
+        acc = torch.zeros((nx, ny, nz), dtype=upad.dtype, device=upad.device)
+        for i, j, h in self._columns():
+            hi = p[i:i + nx, j:j + ny, e + h + 1:e + h + 1 + nz]
+            lo = p[i:i + nx, j:j + ny, e - h:e - h + nz]
+            acc = acc + (hi - lo)
+        return acc
+
+    # -- operator and source -----------------------------------------------------
+    def apply_np(self, u: np.ndarray) -> np.ndarray:
+        return self.c * self.dh**3 * (self.neighbor_sum_np(u) - self.wsum * u)
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        return self.c * self.dh**3 * (self.neighbor_sum(u) - self.wsum * self._operand(u))
+
+    def apply_padded(self, upad: torch.Tensor) -> torch.Tensor:
+        """L(u) for a halo-padded block: returns the (nx, ny, nz) interior result."""
+        e = self.eps
+        center = self._operand(upad[e:upad.shape[0] - e, e:upad.shape[1] - e,
+                                    e:upad.shape[2] - e])
+        return self.c * self.dh**3 * (self.neighbor_sum_padded(upad) - self.wsum * center)
+
+    def spatial_profile(self, nx: int, ny: int, nz: int, x0: int = 0, y0: int = 0,
+                        z0: int = 0) -> np.ndarray:
+        """G = sin(2*pi*x*dh) sin(2*pi*y*dh) sin(2*pi*z*dh) on global coords."""
+        ax, ay, az = (np.sin(TWO_PI * (np.arange(o, o + n, dtype=np.float64) * self.dh))
+                      for o, n in ((x0, nx), (y0, ny), (z0, nz)))
+        return ax[:, None, None] * ay[None, :, None] * az[None, None, :]
+
+    def source_parts(self, nx: int, ny: int, nz: int):
+        """(G, L(G)) in NumPy float64, zero extension outside the domain."""
+        g = self.spatial_profile(nx, ny, nz)
+        return g, self.apply_np(g)
+
+    def source_parts_on(self, nx: int, ny: int, nz: int, device) -> tuple:
+        """(G, L(G)) as float64 tensors on ``device``: L(G) is evaluated by
+        this operator's own method there (the ``nsum3d`` kernel on the card)
+        at full precision, whatever the tier."""
+        g = torch.as_tensor(self.spatial_profile(nx, ny, nz), device=device)
+        return g, self.with_precision("f32").apply(g)
+
+    def manufactured_solution(self, nx: int, ny: int, nz: int, t: int) -> np.ndarray:
+        return np.cos(TWO_PI * (t * self.dt)) * self.spatial_profile(nx, ny, nz)
+
+
 def source_at(g, lg, t, dt):
     """b_t from precomputed (G, L(G)); NumPy arrays or tensors."""
     ang = TWO_PI * (t * dt)
@@ -316,9 +471,13 @@ def source_at(g, lg, t, dt):
 
 def case_scale(op) -> float:
     """The node-volume scale c*h^d as one host float, in the same expression
-    order as apply() (the fused kernel multiplies by this)."""
+    order as apply() (the fused kernels multiply by this).  3D is
+    ``c * dh**3``, not ``c*dh*dh*dh``, which rounds twice and can differ in
+    the last bit, as the JAX package writes it."""
     if op.weights.ndim == 1:
         return op.c * op.dx
+    if op.weights.ndim == 3:
+        return op.c * op.dh**3
     return op.c * op.dh * op.dh
 
 
@@ -342,23 +501,23 @@ def make_step_fn(op, g=None, lg=None, dtype=None):
     """The forward-Euler step ``step(u, t, out=None) -> u_next``.
 
     With (g, lg) (NumPy arrays or tensors) the manufactured test source is
-    added.  A 2D operator whose method resolves to ``cuda`` for ``u``'s
-    device runs the fused ``step2d`` kernel, which writes into ``out`` when
-    given (a buffer that must not overlap ``u``); the other methods compute
-    ``u + dt*(L(u) + b_t)`` with tensor ops and return a new tensor.  Use
-    the returned tensor either way.
+    added.  A 2D or 3D operator whose method resolves to ``cuda`` for
+    ``u``'s device runs the fused ``step2d``/``step3d`` kernel, which writes
+    into ``out`` when given (a buffer that must not overlap ``u``); the other
+    methods compute ``u + dt*(L(u) + b_t)`` with tensor ops and return a new
+    tensor.  Use the returned tensor either way.
     """
     sources = _Sources(g, lg) if g is not None else None
-    fused = isinstance(op, NonlocalOp2D)
+    fused = {NonlocalOp2D: cuda_kernel.step2d, NonlocalOp3D: cuda_kernel3d.step3d}.get(type(op))
     scale = case_scale(op)
 
     def step(u, t, out=None):
         if dtype is not None and u.dtype != dtype:
             u = u.to(dtype)
         gd, lgd = sources.on(u) if sources is not None else (None, None)
-        if fused and op.resolve_method(u.device) == "cuda":
-            return cuda_kernel.step2d(u, op.eps, scale, op.wsum, op.dt, g=gd, lg=lgd, t=t,
-                                      precision=op.precision, out=out)
+        if fused is not None and op.resolve_method(u.device) == "cuda":
+            return fused(u, op.eps, scale, op.wsum, op.dt, g=gd, lg=lgd, t=t,
+                         precision=op.precision, out=out)
         du = op.apply(u)
         if sources is not None:
             du = du + source_at(gd, lgd, t, op.dt)
@@ -375,9 +534,12 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None):
     construction (they share csrc/stencil_tile.cuh): the per-step loop
     (:func:`make_multi_step_fn_base`, one ``step2d`` per step), the carried
     frame (``carried2d``), K-step temporal blocking (``superstep2d``) and
-    the whole run in one launch (``resident2d``).  On a CUDA tensor
-    utils/autotune measures the candidates that fit once per (shape, dtype)
-    and runs the fastest, as the JAX package's default does on the TPU.
+    the whole run in one launch (``resident2d``).  The 3D solve has three
+    (csrc/stencil_tile3d.cuh): the per-step loop (``step3d``), the carried
+    frame (``carried3d``) and the whole run in one launch (``resident3d``).
+    On a CUDA tensor utils/autotune measures the candidates that fit once
+    per (shape, dtype) and runs the fastest, as the JAX package's default
+    does on the TPU.
 
     Everything else runs the per-step loop: a CPU tensor, the test form
     with its source, the 1D operator, a method that is not ``cuda``, and the
@@ -388,7 +550,7 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None):
     written.
     """
     base = make_multi_step_fn_base(op, nsteps, g, lg, dtype)
-    if (g is not None or nsteps <= 0 or not isinstance(op, NonlocalOp2D)
+    if (g is not None or nsteps <= 0 or not isinstance(op, (NonlocalOp2D, NonlocalOp3D))
             or (op.precision == "bf16" and op.resync_every > 0)):
         return base
 

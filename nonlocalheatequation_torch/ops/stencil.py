@@ -55,6 +55,36 @@ def horizon_mask_2d(eps: int) -> np.ndarray:
     return out
 
 
+@lru_cache(maxsize=None)
+def horizon_mask_3d(eps: int) -> np.ndarray:
+    """(2*eps+1,)*3 bool mask of the rasterized eps-sphere.
+
+    The column raster once more per axis: mask[i+eps, j+eps, k+eps] is True
+    iff i^2 + j^2 <= eps^2 and |k| <= trunc(sqrt(eps^2 - i^2 - j^2)).  257
+    points at eps=4, 925 at eps=6.
+    """
+    i = np.arange(-eps, eps + 1, dtype=np.int64)
+    rem = np.float64(eps * eps) - i[:, None] ** 2 - i[None, :] ** 2
+    heights = np.where(rem >= 0, np.sqrt(np.maximum(rem.astype(np.float64), 0.0)), -1.0)
+    heights = np.trunc(heights).astype(np.int64)
+    out = np.abs(i)[None, None, :] <= heights[:, :, None]
+    out.setflags(write=False)
+    return out
+
+
+@lru_cache(maxsize=None)
+def sphere_column_heights(eps: int) -> np.ndarray:
+    """(2*eps+1, 2*eps+1) half-heights along z of the sphere's columns, read
+    off the mask itself (so the raster rule lives in horizon_mask_3d only);
+    -1 where the column (i, j) lies outside the sphere.  49 columns at
+    eps=4, 113 at eps=6.  The CUDA kernels compute the same heights in double
+    on the host (csrc/stencil_tile3d.cuh, ``make_plan3``)."""
+    colsum = horizon_mask_3d(eps).sum(axis=2).astype(np.int64)
+    out = np.where(colsum > 0, (colsum - 1) // 2, -1)
+    out.setflags(write=False)
+    return out
+
+
 def influence_weights(mask: np.ndarray, influence=None, dh: float = 1.0) -> np.ndarray:
     """Per-offset weights J(distance) on the stencil, float64.
 

@@ -1,10 +1,13 @@
-"""Variant autotuner for the port's production 2D multi-step runs.
+"""Variant autotuner for the port's production 2D and 3D multi-step runs.
 
-The 2D half of ``nonlocalheatequation_tpu/utils/autotune.py``.  The
-production solve has four interchangeable programs, bit-identical by
+The solo half of ``nonlocalheatequation_tpu/utils/autotune.py``.  The
+production 2D solve has four interchangeable programs, bit-identical by
 construction (ops/cuda_kernel.py): the per-step loop (``step2d``), the
 carried frame (``carried2d``), K-step temporal blocking (``superstep2d``)
-and the whole run in one launch (``resident2d``).  Which is fastest depends
+and the whole run in one launch (``resident2d``).  The 3D solve has three
+(ops/cuda_kernel3d.py): the per-step loop (``step3d``), the carried frame
+(``carried3d``) and the whole run in one launch (``resident3d``); there is
+no 3D superstep, as in the JAX tuner.  Which is fastest depends
 on the card and the shape: launch overhead dominates small grids, the
 kernel's own costs large ones.  :func:`pick_multi_step_fn` measures the
 candidates that fit, once per (kernel sources, card, shape, eps, dtype,
@@ -27,7 +30,7 @@ cache in the process only, and unset it is
 ``XDG_CACHE_HOME``), beside the JAX package's ``autotune.json``.
 
 Not ported yet, and refused by name: the precision dimension
-(``NLHEAT_TUNE_PRECISION=1``), the batched tuner and the 3D branch.
+(``NLHEAT_TUNE_PRECISION=1``) and the batched tuner.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import time
 
 import torch
 
-from nonlocalheatequation_torch.ops import _build, cuda_kernel
+from nonlocalheatequation_torch.ops import _build, cuda_kernel, cuda_kernel3d
 
 # the probe program: long enough that per-launch overhead weighs as it does
 # in a real run, short enough to keep tuning cheap
@@ -98,18 +101,31 @@ def reset() -> None:
 
 
 def candidates(op, shape, nsteps: int, dtype, device):
-    """[(name, maker(op, nsteps, dtype) -> multi)] that fit this 2D shape:
-    per-step, carried, superstep2 and superstep3 (when K does not exceed
+    """[(name, maker(op, nsteps, dtype) -> multi)] that fit this shape.
+
+    2D: per-step, carried, superstep2 and superstep3 (when K does not exceed
     ``nsteps`` and the kernel takes the shape) and resident (when the grid
-    passes the card's gate; not in the bf16 tier)."""
+    passes the card's gate; not in the bf16 tier).  3D: per-step, carried3d
+    and resident3d (when the grid passes the card's gate); the bf16 tier
+    gets per-step only, since the 3D frame kernels have no bf16 tier."""
     from nonlocalheatequation_torch.ops.nonlocal_op import make_multi_step_fn_base
 
-    if len(shape) != 2:
-        raise ValueError(f"autotune: the {len(shape)}D branch of the tuner is not ported "
-                         "yet (the port tunes 2D solves only)")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"autotune: no {len(shape)}D branch (the tuner takes 2D and 3D "
+                         "solves)")
     precision = op.precision
-    out = [("per-step", lambda o, n, d: make_multi_step_fn_base(o, n, dtype=d)),
-           ("carried", lambda o, n, d: cuda_kernel.make_carried_multi_step_fn(o, n, dtype=d))]
+    out = [("per-step", lambda o, n, d: make_multi_step_fn_base(o, n, dtype=d))]
+    if len(shape) == 3:
+        if precision != "bf16":
+            out.append(("carried3d", lambda o, n, d: cuda_kernel3d.make_carried_multi_step_fn_3d(
+                o, n, dtype=d)))
+            if cuda_kernel3d.fits_resident_3d(*shape, op.eps, dtype, device):
+                out.append(("resident3d",
+                            lambda o, n, d: cuda_kernel3d.make_resident_multi_step_fn_3d(
+                                o, n, dtype=d)))
+        return out
+    out.append(("carried",
+                lambda o, n, d: cuda_kernel.make_carried_multi_step_fn(o, n, dtype=d)))
     for k in (2, 3):
         if cuda_kernel.superstep_k(k, nsteps) == k and cuda_kernel.fits_superstep(
                 *shape, op.eps, k, dtype, precision, device):
@@ -155,11 +171,13 @@ def _measure(maker, op, u) -> float:
     return best / PROBE_STEPS
 
 
-def kernels_digest() -> str:
+def kernels_digest(ndim: int = 2) -> str:
     """A hash of every kernel source, header and compiler flag the
-    candidates are built from (ops/_build.py): a change to any kernel may
-    move the crossovers, so it starts new records."""
-    joined = "".join(_build.source_digest(s) for s in _build.SOURCES)
+    candidates of an ``ndim``-D solve are built from (ops/_build.py): a
+    change to any of those kernels may move the crossovers, so it starts new
+    records; a change to the other rank's kernels does not."""
+    sources = _build.SOURCES_3D if ndim == 3 else _build.SOURCES_2D
+    joined = "".join(_build.source_digest(s) for s in sources)
     return hashlib.sha256(joined.encode()).hexdigest()[:16]
 
 
@@ -170,7 +188,7 @@ def tuning_key(op, shape, dtype, device) -> str:
     do not depend on it."""
     device = torch.device(device)
     card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    return "/".join([f"k{kernels_digest()}", card, "cuda", "x".join(map(str, shape)),
+    return "/".join([f"k{kernels_digest(len(shape))}", card, "cuda", "x".join(map(str, shape)),
                      f"eps{op.eps}", str(dtype).replace("torch.", "")]
                     + ([f"prec-{op.precision}"] if op.precision != "f32" else []))
 

@@ -30,3 +30,21 @@ def print_time_results_1d(num_os_threads: int, elapsed_s: float, nx: int, nt: in
         + f"{nt} ".ljust(22).rstrip(),
         flush=True,
     )
+
+
+def print_time_results_3d(num_os_threads: int, elapsed_s: float, nx: int, ny: int, nz: int,
+                          nt: int, header: bool = True):
+    """The JAX package's 3D extension of print_time_results.hpp:65-82."""
+    if header:
+        print("OS_Threads,       Execution_Time_sec,"
+              "       x dimension,        y dimension,        z dimension,"
+              "        Time_Steps")
+    print(
+        f"{num_os_threads},".ljust(22)
+        + f"{elapsed_s:10.12g},        "
+        + f"{nx},".ljust(22)
+        + f"{ny},".ljust(22)
+        + f"{nz},".ljust(22)
+        + f"{nt} ".ljust(22).rstrip(),
+        flush=True,
+    )

@@ -193,8 +193,8 @@ def test_a_failing_candidate_raises(monkeypatch):
 
 
 def test_unported_tuner_dimensions_are_refused(monkeypatch):
-    with pytest.raises(ValueError, match="3D branch of the tuner is not ported"):
-        autotune.candidates(_op(), (8, 8, 8), 4, torch.float64, "cpu")
+    with pytest.raises(ValueError, match="no 1D branch"):
+        autotune.candidates(_op(), (8,), 4, torch.float64, "cpu")
     with pytest.raises(ValueError, match="batched tuner is not ported"):
         autotune.pick_batched_multi_step_fn([_op()], 4, (8, 8), torch.float64)
     monkeypatch.setenv("NLHEAT_TUNE_PRECISION", "1")

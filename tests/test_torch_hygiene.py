@@ -2,7 +2,7 @@
 
 * A subprocess with ``jax`` and ``nonlocalheatequation_tpu`` blocked in
   ``sys.modules`` imports every module of the port and chip_smoke.py and
-  runs a small CPU solve.
+  runs a small 2D and 3D CPU solve.
 * No source file of the port names either package in an import.
 * chip_smoke.py on a host without a CUDA card exits non-zero and prints no
   result line.
@@ -32,6 +32,11 @@ s = Solver2D(24, 24, 10, 4, device="cpu", method="cuda")
 s.test_init()
 s.do_work()
 assert s.error_l2 / 24**2 <= 1e-6, s.error_l2
+from nonlocalheatequation_torch.models.solver3d import Solver3D
+s = Solver3D(10, 9, 8, 6, 2, device="cpu", method="cuda")
+s.test_init()
+s.do_work()
+assert s.error_l2 / (10 * 9 * 8) <= 1e-6, s.error_l2
 assert not any(m == "jax" or m.startswith(("jax.", "nonlocalheatequation_tpu"))
                for m, v in sys.modules.items() if v is not None)
 print("imported", len(names))
@@ -42,7 +47,7 @@ def test_port_imports_and_solves_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=REPO, capture_output=True,
                        text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 14
+    assert int(r.stdout.split()[-1]) >= 23
 
 
 def test_no_source_imports_jax_or_the_jax_package():
