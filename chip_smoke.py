@@ -26,11 +26,17 @@ line is printed; the phase walls are printed at the end):
    and resident3d (no bf16 tier) held to their plain versions and BITWISE
    to step3d launches over 1, 2, 3 and 5 steps.  resident2d at 4096^2 and
    resident3d at 256^3, eps=4, beyond their gates, must raise ValueError.
+   The batched kernels (batched_step2d production and test form,
+   batched_carried2d, batched_superstep2d at K = 1-4), uniform and mixed
+   physics, B in {1, 2, 3, 8}, eps 1-8, 16 and 40 over ragged grids: each
+   held to its plain version and each lane BITWISE to its solo launch
+   (phase_batched_checks).
 3. The main path's correctness: the batch tables (CASES_2D and CASES_1D of
    tests/cases.py, CASES_3D of tests/test_oracle_3d.py, copied here) through
-   the port's CLIs on the card in float64, each must print "Tests Passed";
-   then CASES_2D and CASES_3D in float32 through Solver2D and Solver3D,
-   reporting the largest error_l2/#points.
+   the port's CLIs on the card in float64, each must print "Tests Passed"
+   (CASES_1D and CASES_3D also with --ensemble); then CASES_2D and CASES_3D
+   in float32 through Solver2D and Solver3D, reporting the largest
+   error_l2/#points.
 4. The 2D headline configuration: 4096^2, eps=8, float32, method="cuda".  At
    the main path's shape every kernel form (nsum2d f32 and bf16 operand,
    and in float64 on the padded G the test-form solve gives it; step2d
@@ -60,7 +66,19 @@ line is printed; the phase walls are printed at the end):
    production solves at both shapes (each tuned) and a test-form solve at
    256^3; the 3D counts must equal the probes', the winners' and the test
    form's launches, every 3D kernel among them.
-6. The kernels' JSON line, then {"ok": true, "device": {...}}.
+6. The ensemble engine (phase_ensemble) at the JAX package's ensemble
+   size, 8 production cases of 1024^2, eps=8, f32, 500 steps, and a
+   mixed-physics 8 x 512^2 bucket: the batched kernels at 8 x 1024^2 held to
+   their plain versions and bitwise per lane to the solo kernels, timed
+   beside their plain versions and bounds; the engine's run timed beside the
+   same 8 cases as 8 sequential tuned solves; every lane of both buckets
+   bitwise equal to its solo per-step loop.  Then, counted: CASES_2D through
+   solve2d --ensemble in float64 (it must print "Tests Passed" and launch
+   batched_step2d, never step2d), both buckets through EnsembleEngine (each
+   1 bucket, 1 program, 1 dispatch, 500 batched_step2d launches), and both
+   under NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner); the
+   batched counts must equal the rows', buckets', probes' and winners'.
+7. The kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -93,6 +111,8 @@ CHILDREN: list = []    # the CLI processes this run started
 N3, EPS3 = 256, 4      # the 3D headline: 256^3, eps=4, f32 (64 MiB of state)
 N3S, EPS3S = 128, 6    # the small 3D grid, where resident3d fits the L2
 STEPS3 = 200           # steps of the 3D production solves and timed variant runs
+ENS_B, ENS_N = 8, 1024  # the JAX package's ensemble8x1024: 8 cases of 1024^2 (32 MiB f32)
+ENS_MIXED_N = 512      # the mixed-physics ensemble bucket, 8 cases of 512^2
 # nx ny nz nt eps k dt dh: a copy of tests/test_oracle_3d.py's CASES_3D (that
 # file imports JAX; tests/test_torch_3d.py holds the copy equal to it)
 CASES_3D = [
@@ -399,27 +419,40 @@ def phase_checks_3d(torch, k3, np) -> dict:
     return n
 
 
-def start_cli(module: str, rows) -> subprocess.Popen:
+CLI_ARGS = ["--test_batch", "--platform", "gpu", "--x64", "1"]
+
+
+def batch_text(rows) -> str:
+    """A batch table as the CLIs read it on stdin."""
+    return f"{len(rows)}\n" + "".join(" ".join(map(str, r)) + "\n" for r in rows)
+
+
+def start_cli(module: str, rows, extra=()) -> subprocess.Popen:
     """Start a port CLI's batch mode on the card in float64 with ``rows`` as
     its stdin (a temporary file, so the CLIs run side by side)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryFile("w+") as stdin:
-        stdin.write(f"{len(rows)}\n" + "".join(" ".join(map(str, r)) + "\n" for r in rows))
+        stdin.write(batch_text(rows))
         stdin.seek(0)
-        return subprocess.Popen([sys.executable, "-m", module, "--test_batch", "--platform",
-                                 "gpu", "--x64", "1"], cwd=ROOT, env=env, stdin=stdin,
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return subprocess.Popen([sys.executable, "-m", module, *CLI_ARGS, *extra], cwd=ROOT,
+                                env=env, stdin=stdin, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
 
 
 def start_clis(cases_2d, cases_1d) -> tuple:
     """Phase 3's batch tables through the CLIs (CASES_2D, CASES_1D, CASES_3D,
-    float64), started right after the build so that they run beside phase 2;
-    (jobs, start time).  Any still running at exit are stopped."""
+    float64), and CASES_1D and CASES_3D through the ensemble engine
+    (``--ensemble``; the 2D table runs it in phase 6, counted), started right
+    after the build so that they run beside phase 2; (jobs, start time).
+    Any still running at exit are stopped."""
     jobs = {}
-    for name, rows in (("solve2d", cases_2d), ("solve1d", cases_1d), ("solve3d", CASES_3D)):
-        proc = start_cli(f"nonlocalheatequation_torch.cli.{name}", rows)
+    for name, rows, extra in (("solve2d", cases_2d, ()), ("solve1d", cases_1d, ()),
+                              ("solve3d", CASES_3D, ()),
+                              ("solve1d", cases_1d, ("--ensemble",)),
+                              ("solve3d", CASES_3D, ("--ensemble",))):
+        proc = start_cli(f"nonlocalheatequation_torch.cli.{name}", rows, extra)
         CHILDREN.append(proc)
-        jobs[name] = (rows, proc)
+        jobs[" ".join((name, *extra))] = (rows, proc)
     return jobs, time.perf_counter()
 
 
@@ -442,7 +475,9 @@ def phase_main_path_tables(torch, clis, cases_2d, l2_threshold):
         if proc.returncode != 0 or "Tests Passed" not in out:
             fail(f"{name} --test_batch --platform gpu --x64 1: rc {proc.returncode}\n"
                  f"{out}\n{err[-4000:]}")
-        say(f"cli {name} --test_batch --platform gpu --x64 1: Tests Passed ({len(rows)} rows)")
+        summary = [line for line in err.splitlines() if line.startswith("ensemble: ")]
+        say(f"cli {name} --test_batch --platform gpu --x64 1: Tests Passed ({len(rows)} rows)"
+            + (f"; {summary[-1]}" if summary else ""))
     say(f"cli wall (beside phase 2): {time.perf_counter() - t0:.1f} s")
     worst = 0.0
     for nx, ny, nt, eps, k, dt, dh in cases_2d:
@@ -690,7 +725,8 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
                   dtype=torch.float32, device="cuda")
     st.test_init()
     st.do_work()
-    counts = {k: v for k, v in ck.launch_counts().items() if k.endswith("2d")}
+    counts = {k: v for k, v in ck.launch_counts().items()
+              if k.endswith("2d") and not k.startswith("batched_")}
     recs = autotune.records()
     test_err = st.error_l2 / (NX * NX)
     if len(recs) != 2:
@@ -981,11 +1017,404 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     ]
 
 
+def phase_batched_checks(torch, ck, cb, np) -> dict:
+    """Phase 2, the batched kernels: batched_step2d (production and test
+    form), batched_carried2d and batched_superstep2d (K = 1-4) in float64,
+    float32 and the bf16 operand tier, uniform and mixed physics, B in
+    {1, 2, 3, 8}, eps 1-8 over ragged grids (1x1, smaller than one tile, non
+    tile multiples) plus eps 16 and 40: each against its plain version and
+    each lane BITWISE against one solo launch of the same kernel (step2d,
+    carried2d, superstep2d) on that case.  In the bf16 tier the K-step
+    tolerance grows by one bfloat16 rounding flip per step after the first
+    (see phase_multistep_checks)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 6)
+    shapes = [(1, 1), (13, 45), (37, 50), (70, 90)]
+    plan = [(e, s) for e in (1, 2, 3, 5, 8) for s in shapes] + [(16, (20, 90)), (40, (50, 45))]
+    worst, n = {}, dict.fromkeys(("batched_step2d", "batched_carried2d",
+                                  "batched_superstep2d"), 0)
+
+    def hold(name, form, got, plain, tol, solo):
+        _abs, err = rel_err(torch, got, plain)
+        if not all(torch.equal(got[b], s) for b, s in enumerate(solo)):
+            fail(f"{name} {form}: a lane is not bitwise equal to its solo launch")
+        if not err <= tol:
+            fail(f"{name} {form}: |kernel-plain| / max|plain| {err:.3e} > {tol:.3e}")
+        key = f"{name}/{form.split()[0]}/{form.split()[1]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        n[name] += 1
+
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[1]
+        tol = TOL[dname]
+        for prec in ("f32", "bf16"):
+            for e, (nx, ny) in plan:
+                wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(e)))
+                for batch, mixed in ((1, False), (2, True), (3, False), (3, True), (8, True)):
+                    scales = [2.0 + e + (b if mixed else 0) for b in range(batch)]
+                    dts = [0.8 / (sc * wsum) * (1 + (0.1 * b if mixed else 0))
+                           for b, sc in enumerate(scales)]
+                    flip = max(dt * sc * wsum for sc, dt in zip(scales, dts, strict=True)) \
+                        * 2.0 ** -8 if prec == "bf16" else 0.0
+                    params = cb.case_params(scales, dts, dtype, "cuda")
+                    U = torch.tensor(rng.standard_normal((batch, nx, ny)), dtype=dtype,
+                                     device="cuda")
+                    G, LG = torch.randn_like(U), torch.randn_like(U)
+                    coefs = cb.source_coef_table([7], dts, dtype, "cuda")[0]
+                    lanes = [U[b].contiguous() for b in range(batch)]
+                    form = (f"{dname} {prec} eps={e} {batch}x{nx}x{ny} "
+                            + ("mixed" if mixed else "uniform"))
+                    hold("batched_step2d", form,
+                         cb.batched_step2d(U, e, params, wsum, precision=prec),
+                         cb.batched_step2d_plain(U, e, params, wsum, precision=prec), tol,
+                         [ck.step2d(u, e, scales[b], wsum, dts[b], precision=prec)
+                          for b, u in enumerate(lanes)])
+                    hold("batched_step2d", form + " test form",
+                         cb.batched_step2d(U, e, params, wsum, G=G, LG=LG, coefs=coefs,
+                                           precision=prec),
+                         cb.batched_step2d_plain(U, e, params, wsum, G=G, LG=LG, coefs=coefs,
+                                                 precision=prec), tol,
+                         [ck.step2d(u, e, scales[b], wsum, dts[b], g=G[b].contiguous(),
+                                    lg=LG[b].contiguous(), t=7, precision=prec)
+                          for b, u in enumerate(lanes)])
+                    frames = F.pad(U, (e,) * 4).contiguous()
+                    shadow = ck.shadow_of(frames) if prec == "bf16" else None
+                    got = cb.batched_carried2d(frames, e, params, wsum, shadow=shadow)
+                    plain = cb.batched_carried2d_plain(frames, e, params, wsum, shadow)
+                    solo = [ck.carried2d(frames[b].contiguous(), e, scales[b], wsum, dts[b],
+                                         shadow=None if shadow is None
+                                         else shadow[b].contiguous())
+                            for b in range(batch)]
+                    if prec == "bf16":
+                        if not all(torch.equal(got[1][b], s[1]) for b, s in enumerate(solo)):
+                            fail(f"batched_carried2d {form}: a shadow lane differs from "
+                                 "its solo launch")
+                        got, plain, solo = got[0], plain[0], [s[0] for s in solo]
+                    hold("batched_carried2d", form, got, plain, tol, solo)
+                    for k in (1, 2, 3, 4):
+                        if cb.fits_batched_superstep(e, k, dtype, prec):
+                            hold("batched_superstep2d", f"{form} K={k}",
+                                 cb.batched_superstep2d(U, e, params, wsum, k, prec),
+                                 cb.batched_superstep2d_plain(U, e, params, wsum, k, prec),
+                                 tol + (k - 1) * flip,
+                                 [ck.superstep2d(u, e, scales[b], wsum, dts[b], k, prec)
+                                  for b, u in enumerate(lanes)])
+    try:  # a CUDA tensor the kernel cannot take raises; it never falls back
+        z = torch.zeros(2, 200, 200, device="cuda", dtype=torch.float64)
+        cb.batched_step2d(z, 70, cb.case_params([1.0] * 2, [1e-3] * 2, z.dtype, "cuda"), 1.0)
+        fail("batched_step2d accepted eps=70 (beyond its shared-memory tile) on the card")
+    except ValueError:
+        pass
+    say("batched kernel checks (max |kernel-plain| / max|plain|; every lane bitwise equal to "
+        "its solo launch): " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+        + "; cases " + ", ".join(f"{k} {v}" for k, v in n.items()) + ": pass")
+    return n
+
+
+def ensemble_cases(np, n: int, physics, seed: int, nt: int) -> list:
+    """``len(physics)`` production cases of n^2, eps=EPS, one per (k, dt, dh),
+    each from its own seeded random state."""
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
+
+    rng = np.random.default_rng(seed)
+    return [EnsembleCase(shape=(n, n), nt=nt, eps=EPS, k=k, dt=dt, dh=dh, test=False,
+                         u0=rng.standard_normal((n, n))) for k, dt, dh in physics]
+
+
+def euler_dt(dh: float, k: float = 1.0, frac: float = 0.8) -> float:
+    """dt at which dt*c*dh^2*wsum = frac (at most 1: each step is then a
+    convex combination of zero-extended values, so max|u| cannot grow)."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+
+    probe = NonlocalOp2D(EPS, k, 1.0, dh)
+    return frac / (probe.c * dh * dh * probe.wsum)
+
+
+def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
+    """Phase 6, the ensemble engine at the JAX package's own ensemble size
+    (ensemble8x1024: 8 production cases of 1024^2, eps=8, f32, 500 steps)
+    and a mixed-physics 8 x 512^2 bucket.  First, outside the count: each
+    batched kernel at 8 x 1024^2 held to its plain version and each lane
+    bitwise to the solo kernel, the kernels timed beside their plain
+    versions and bounds, the engine's run timed (device and wall) beside
+    the same 8 cases as 8 sequential tuned Solver2D solves, and each
+    bucket's lanes held bitwise to the solo per-step loop.  Then the counted
+    main path: CASES_2D through the 2D CLI with --ensemble (float64), both
+    buckets through EnsembleEngine(method="cuda"), and both again under
+    NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner)."""
+    import contextlib
+    import io
+
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.cli import solve2d
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.ops.nonlocal_op import (
+        NonlocalOp2D,
+        case_scale,
+        make_multi_step_fn,
+        make_multi_step_fn_base,
+    )
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleEngine
+    from nonlocalheatequation_torch.utils import autotune
+
+    B, N, steps = ENS_B, ENS_N, STEPS
+    dh = 1.0 / N
+    dt = euler_dt(dh)
+    big = ensemble_cases(np, N, [(1.0, dt, dh)] * B, SEED + 7, steps)
+    # eight physics: conductivities, spacings and fractions of each one's bound
+    mixed = ensemble_cases(
+        np, ENS_MIXED_N,
+        [(k, euler_dt(h, k, f), h) for k, f, h in (
+            (1.0, 0.8, 1 / 512), (0.5, 0.6, 1 / 512), (2.0, 0.7, 1 / 512), (1.0, 0.4, 1 / 640),
+            (0.2, 0.8, 1 / 512), (1.0, 0.8, 1 / 400), (0.7, 0.5, 1 / 512), (1.5, 0.3, 1 / 560))],
+        SEED + 8, steps)
+    op = NonlocalOp2D(EPS, 1.0, dt, dh, method="cuda")
+    scale, wsum = case_scale(op), op.wsum
+    U = torch.as_tensor(np.stack([c.u0 for c in big]), device="cuda").to(torch.float32)
+    params = cb.case_params([scale] * B, [dt] * B, torch.float32, "cuda")
+    isz, npts, tol32 = 4, B * N * N, TOL["float32"]
+    held = {k: [] for k in ("batched_step2d", "batched_carried2d", "batched_superstep2d")}
+
+    def hold(name, form, got, ref, solo):
+        abs_err, rel = rel_err(torch, got, ref)
+        held[name].append({"form": form, "max_abs_err": abs_err, "rel_err": rel, "tol": tol32})
+        if not rel <= tol32:
+            fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol32:g}")
+        if not all(torch.equal(got[b], s) for b, s in enumerate(solo)):
+            fail(f"{name} {form}: a lane is not bitwise equal to its solo launch")
+
+    # every batched kernel at the main path's shape: plain and, per lane, solo
+    lanes = [U[b].contiguous() for b in range(B)]
+    G, LG = torch.randn_like(U), torch.randn_like(U)
+    coefs = cb.source_coef_table([3], [dt] * B, torch.float32, "cuda")[0]
+    form = f"float32 f32 {B}x{N}^2 eps={EPS}"
+    hold("batched_step2d", form + " production", cb.batched_step2d(U, EPS, params, wsum),
+         cb.batched_step2d_plain(U, EPS, params, wsum),
+         [ck.step2d(u, EPS, scale, wsum, dt) for u in lanes])
+    hold("batched_step2d", form + " test form",
+         cb.batched_step2d(U, EPS, params, wsum, G=G, LG=LG, coefs=coefs),
+         cb.batched_step2d_plain(U, EPS, params, wsum, G=G, LG=LG, coefs=coefs),
+         [ck.step2d(u, EPS, scale, wsum, dt, g=G[b].contiguous(), lg=LG[b].contiguous(), t=3)
+          for b, u in enumerate(lanes)])
+    frames = F.pad(U, (EPS,) * 4).contiguous()
+    hold("batched_carried2d", form, cb.batched_carried2d(frames, EPS, params, wsum),
+         cb.batched_carried2d_plain(frames, EPS, params, wsum),
+         [ck.carried2d(frames[b].contiguous(), EPS, scale, wsum, dt) for b in range(B)])
+    for k in (2, 3):
+        hold("batched_superstep2d", f"{form} K={k}",
+             cb.batched_superstep2d(U, EPS, params, wsum, k),
+             cb.batched_superstep2d_plain(U, EPS, params, wsum, k),
+             [ck.superstep2d(u, EPS, scale, wsum, dt, k) for u in lanes])
+    del lanes
+    say(f"batched kernels at the main path's shape {B}x{N}^2 eps={EPS} (|kernel-plain| / "
+        "max|plain|; every lane bitwise equal to its solo launch): "
+        + "; ".join(f"{n} {c['form']} {c['rel_err']:.2e}" for n, cs in held.items() for c in cs))
+
+    out, fout = torch.empty_like(U), torch.empty_like(frames)
+    step_ms = cuda_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, out=out), 200)
+    step_test_ms = cuda_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, G=G, LG=LG,
+                                                            coefs=coefs, out=out), 200)
+    step_plain_ms = cuda_ms(torch, lambda: cb.batched_step2d_plain(U, EPS, params, wsum), 5, 1)
+    carried_ms = cuda_ms(torch, lambda: cb.batched_carried2d(frames, EPS, params, wsum,
+                                                             out=fout), 200)
+    carried_plain_ms = cuda_ms(torch, lambda: cb.batched_carried2d_plain(frames, EPS, params,
+                                                                         wsum), 5, 1)
+    sup_ms = {k: cuda_ms(torch, lambda k=k: cb.batched_superstep2d(U, EPS, params, wsum, k,
+                                                                   out=out), 100)
+              for k in (2, 3)}
+    sup_plain_ms = cuda_ms(torch, lambda: cb.batched_superstep2d_plain(U, EPS, params, wsum, 3),
+                           3, 1)
+    solo_step_ms = cuda_ms(torch, lambda: ck.step2d(U[0], EPS, scale, wsum, dt, out=out[0]),
+                           200)
+    step_bound = bound(2 * npts * isz, npts * kernel_ops(EPS, 5))
+    step_test_bound = bound(4 * npts * isz, npts * kernel_ops(EPS, 9))
+    carried_bound = bound(2 * frames.numel() * isz, npts * kernel_ops(EPS, 5))
+    sup_bound = {k: bound(2 * npts * isz, k * npts * kernel_ops(EPS, 5)) for k in (2, 3)}
+    del G, LG, frames, fout
+    say(f"batched_step2d {B}x{N}^2 eps={EPS} f32: kernel {step_ms:.4f} ms/launch "
+        f"({step_ms / B:.5f} ms per case-step; step2d alone at {N}^2 {solo_step_ms:.5f} ms), "
+        f"plain {step_plain_ms:.3f} ms, bound {step_bound[0]:.4f} ms ({step_bound[1]}); "
+        f"test form {step_test_ms:.4f} ms, bound {step_test_bound[0]:.4f} ms "
+        f"({step_test_bound[1]})")
+    say(f"batched_carried2d {B}x{N}^2 eps={EPS} f32: kernel {carried_ms:.4f} ms/launch, plain "
+        f"{carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms ({carried_bound[1]})")
+    for k in (2, 3):
+        say(f"batched_superstep2d {B}x{N}^2 eps={EPS} f32 K={k}: kernel {sup_ms[k]:.4f} "
+            f"ms/launch ({sup_ms[k] / k:.4f} ms/step), bound {sup_bound[k][0]:.4f} ms "
+            f"({sup_bound[k][1]})" + (f", plain {sup_plain_ms:.3f} ms" if k == 3 else ""))
+
+    # the engine's run and the same 8 cases as 8 sequential tuned solves
+    engine = EnsembleEngine(method="cuda", device="cuda", dtype=torch.float32)
+    t0 = time.perf_counter()
+    res = engine.run(big)
+    first_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.run(big)
+    eng_wall = time.perf_counter() - t0
+    multi = engine.build_program(big[0].bucket_key(), big)
+    eng_ms = cuda_ms(torch, lambda: multi(U, 0), 2, 1)
+    for b, case in enumerate(big):
+        ref = make_multi_step_fn_base(op, steps)(U[b], 0)
+        if not np.array_equal(res[b], ref.cpu().numpy()):
+            fail(f"ensemble {B}x{N}^2: lane {b} is not bitwise equal to its solo per-step loop")
+    autotune.pick_multi_step_fn(op, steps, (N, N), torch.float32, "cuda")  # tune the shape once
+    solo = make_multi_step_fn(op, steps, dtype=torch.float32)
+    seq_ms = cuda_ms(torch, lambda: [solo(U[b], 0) for b in range(B)], 2, 1)
+    t0 = time.perf_counter()
+    for case in big:
+        s = Solver2D(N, N, steps, EPS, k=case.k, dt=case.dt, dh=case.dh, method="cuda",
+                     dtype=torch.float32, device="cuda")
+        s.input_init(case.u0)
+        s.do_work()
+    seq_wall = time.perf_counter() - t0
+    solo_winner = autotune.records()[autotune.tuning_key(op, (N, N), torch.float32, "cuda")][
+        "winner"]
+    work = B * N * N * steps
+    say(f"ensemble {B}x{N}^2 eps={EPS} f32, {steps} steps: EnsembleEngine(method='cuda') "
+        f"{eng_ms:.3f} ms on the card ({work / (eng_ms * 1e-3):.4e} cases*points*steps/s), "
+        f"run() wall {eng_wall:.3f} s (first run, building the program, {first_wall:.3f} s); "
+        f"8 sequential tuned solves (winner {solo_winner}) {seq_ms:.3f} ms on the card "
+        f"({work / (seq_ms * 1e-3):.4e} cases*points*steps/s), Solver2D.do_work wall "
+        f"{seq_wall:.3f} s; ratio sequential/ensemble on the card {seq_ms / eng_ms:.3f}")
+    # the lanes held bitwise here are what the counted runs below must return
+    held_res = {"8x1024": res}
+    res = held_res["8x512 mixed"] = EnsembleEngine(method="cuda", device="cuda",
+                                                   dtype=torch.float32).run(mixed)
+    for case, got in zip(mixed, res, strict=True):
+        o = NonlocalOp2D(case.eps, case.k, case.dt, case.dh, method="cuda")
+        ref = make_multi_step_fn_base(o, case.nt)(
+            torch.as_tensor(case.u0, device="cuda").float(), 0)
+        if not np.array_equal(got, ref.cpu().numpy()):
+            fail(f"mixed ensemble 8x{ENS_MIXED_N}^2: a lane is not bitwise equal to its solo "
+                 "per-step loop")
+    del U, out
+    say(f"mixed-physics ensemble 8x{ENS_MIXED_N}^2 eps={EPS} f32, {steps} steps: every lane "
+        "bitwise equal to its solo per-step loop")
+
+    # the counted main path
+    autotune.reset()
+    ck.reset_launch_counts()
+    runs = {}
+
+    def counted(name, fn):
+        before = ck.launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        runs[name] = {"wall_s": round(time.perf_counter() - t0, 3),
+                      "launches": {k: v - before[k] for k, v in ck.launch_counts().items()
+                                   if v != before[k]}}
+        return out
+
+    def cli_2d():
+        stdout, stderr = io.StringIO(), io.StringIO()
+        stdin, sys.stdin = sys.stdin, io.StringIO(batch_text(cases_2d))
+        try:
+            with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+                rc = solve2d.main([*CLI_ARGS, "--ensemble"])
+        finally:
+            sys.stdin = stdin
+        if rc != 0 or stdout.getvalue().splitlines()[-1] != "Tests Passed":
+            fail(f"solve2d --ensemble: rc {rc}\n{stdout.getvalue()}\n{stderr.getvalue()}")
+        return stderr.getvalue().strip().splitlines()[-1]
+
+    cli_summary = counted("cli solve2d --ensemble", cli_2d)
+    ran = runs["cli solve2d --ensemble"]["launches"]
+    if ran.get("step2d", 0) or not ran.get("batched_step2d", 0):
+        fail(f"solve2d --ensemble: launches {ran}; the rows must run batched_step2d, not step2d")
+    reports = {}
+    for name, cases in (("8x1024", big), ("8x512 mixed", mixed)):
+        eng = EnsembleEngine(method="cuda", device="cuda", dtype=torch.float32)
+        res = counted(name, lambda eng=eng, cases=cases: eng.run(cases))
+        r = eng.report
+        reports[name] = r.summary()
+        if (r.buckets, r.programs_built, r.dispatches) != (1, 1, 1) \
+                or runs[name]["launches"] != {"batched_step2d": steps}:
+            fail(f"ensemble {name}: {r.summary()}, launches {runs[name]['launches']}; expected "
+                 f"1 bucket, 1 program, 1 dispatch and {steps} batched_step2d launches")
+        for case, got in zip(cases, res, strict=True):
+            if got.shape != case.shape or not np.isfinite(got).all() \
+                    or not float(np.abs(got).max()) <= float(np.abs(case.u0).max()):
+                fail(f"ensemble {name}: a result is not finite, of the wrong shape, or grew")
+        if not all(np.array_equal(g, h) for g, h in zip(res, held_res[name], strict=True)):
+            fail(f"ensemble {name}: a lane of the counted run is not bitwise equal to the "
+                 "same lane held against its solo per-step loop above")
+    os.environ["NLHEAT_TUNE_BATCH"] = "1"
+    try:
+        for name, cases in (("tuned 8x1024", big), ("tuned 8x512 mixed", mixed)):
+            eng = EnsembleEngine(method="cuda", device="cuda", dtype=torch.float32)
+            res = counted(name, lambda eng=eng, cases=cases: eng.run(cases))
+            reports[name] = f"{eng.report.summary()}; {list(eng.report.strategies.values())}"
+            # every batched winner is bitwise the per-step loop; vmap (an nsum
+            # per case, then the update in PyTorch) is held to the tolerance
+            exact = "tuned:vmap" not in eng.report.strategies.values()
+            for got, want in zip(res, held_res[name[len("tuned "):]], strict=True):
+                ok = (np.array_equal(got, want) if exact else
+                      float(np.abs(got - want).max()) <= tol32 * float(np.abs(want).max()))
+                if not ok:
+                    fail(f"ensemble {name}: a lane differs from the lane held against its "
+                         f"solo per-step loop ({eng.report.strategies})")
+    finally:
+        del os.environ["NLHEAT_TUNE_BATCH"]
+    recs = autotune.records()
+    counts = ck.launch_counts()
+    expected = dict.fromkeys(held, 0)
+    expected["batched_step2d"] = ran["batched_step2d"] + 2 * steps
+    for entry in recs.values():
+        for cand in entry["ms_per_step"]:
+            kernel, k = variant_launches(cand, autotune.PROBE_STEPS)
+            if kernel in expected:
+                expected[kernel] += (1 + autotune.PROBE_ITERS) * k
+        kernel, k = variant_launches(entry["winner"], steps)
+        if kernel in expected:
+            expected[kernel] += k
+    got = {k: counts[k] for k in expected}
+    if len(recs) != 2 or got != expected:
+        fail(f"ensemble main path: batched launches {got} != {expected} (the CLI rows', the "
+             f"buckets', the probes' and the winners'); {len(recs)} tuning records")
+    if not all(got.values()):
+        fail(f"a batched kernel of the ensemble path was not launched: {got}")
+    say(f"batch tuner records: {json.dumps(recs)}")
+    say(f"ensemble main path (counted): CASES_2D through solve2d --ensemble ({cli_summary}); "
+        + "; ".join(f"{k}: {v}" for k, v in reports.items())
+        + f"; runs {json.dumps(runs)}; batched launches {json.dumps(got)} = the rows', the "
+        "buckets', the probes' and the winners'")
+
+    def row(name, line, source, **kw):
+        cs = held[name]
+        return {"name": name, "route": "cuda",
+                "source": f"nonlocalheatequation_torch/csrc/{source}",
+                "replaces": f"nonlocalheatequation_tpu/ops/pallas_kernel.py:{line}", **kw,
+                "launches": counts[name], "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
+                "main_shape_forms": len(cs), "library_ms": None,
+                "library_note": "no one PyTorch call takes a batched Euler step",
+                "shape": f"{B}x{N}^2"}
+
+    return [
+        row("batched_step2d", 1694, "batched_step2d.cu", ms=step_ms, plain_ms=step_plain_ms,
+            bound_ms=step_bound[0], bound_by=step_bound[1], ms_test_form=step_test_ms,
+            bound_ms_test_form=step_test_bound[0], ms_step2d_one_case=solo_step_ms,
+            ensemble_ms=eng_ms, sequential_ms=seq_ms),
+        row("batched_carried2d", 1839, "batched_carried2d.cu", ms=carried_ms,
+            plain_ms=carried_plain_ms, bound_ms=carried_bound[0], bound_by=carried_bound[1]),
+        row("batched_superstep2d", 1963, "batched_superstep2d.cu", ms=sup_ms[3],
+            plain_ms=sup_plain_ms, bound_ms=sup_bound[3][0], bound_by=sup_bound[3][1],
+            ksteps=3, ms_k2=sup_ms[2], bound_ms_k2=sup_bound[2][0]),
+    ]
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
     if name == "per-step":
         return f"step{ndim}d", nsteps
+    if name == "vmap":  # one nsum2d per case per step
+        return "nsum2d", nsteps * ENS_B
+    if name.startswith("batched-"):
+        kernel, k = variant_launches(name[len("batched-"):], nsteps, ndim)
+        return f"batched_{kernel}", k
     if name in ("carried", "carried3d"):
         return f"carried{ndim}d", nsteps
     if name in ("resident", "resident3d"):
@@ -1045,6 +1474,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from nonlocalheatequation_torch.ops import _build
+        from nonlocalheatequation_torch.ops import cuda_batched as cb
         from nonlocalheatequation_torch.ops import cuda_kernel as ck
         from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
     except ImportError as e:
@@ -1084,9 +1514,11 @@ def main() -> int:
     checks = timed("checks 2d", phase_checks, torch, ck, np)
     checks.update(timed("multi-step checks 2d", phase_multistep_checks, torch, ck, np))
     checks.update(timed("checks 3d", phase_checks_3d, torch, k3, np))
+    checks.update(timed("batched checks", phase_batched_checks, torch, ck, cb, np))
     timed("tables", phase_main_path_tables, torch, clis, cases_2d, l2_threshold)
     kernels = timed("headline 2d", phase_headline, torch, np, ck, l2_threshold)
     kernels += timed("headline 3d", phase_headline_3d, torch, np, ck, k3, l2_threshold)
+    kernels += timed("ensemble", phase_ensemble, torch, np, ck, cb, cases_2d)
     say(f"phase walls, s: {json.dumps(walls)}")
     for k in kernels:
         k["checks"] = checks[k["name"]]

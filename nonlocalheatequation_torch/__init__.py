@@ -6,8 +6,10 @@ module has a counterpart there:
 
   ops/       stencil geometry, scaling constants, the nonlocal operator, and
              the hand-written CUDA kernels (csrc/) with their plain versions
-  models/    the 1D/2D solvers (oracle = NumPy f64, torch = the device path)
-  utils/     device resolution, timing reports
+  models/    the 1D/2D/3D solvers (oracle = NumPy f64, torch = the device path)
+  serve/     the ensemble engine: many solves bucketed into batched programs
+  obs/       the counters and spans the ensemble engine reports through
+  utils/     device resolution, timing reports, the variant autotuner
   cli/       the batch-test command-line entry points
   convert.py carries solver state from the JAX package into the port
 

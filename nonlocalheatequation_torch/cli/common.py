@@ -4,8 +4,9 @@
 The batch protocol is the reference's batch_tester
 (src/1d_nonlocal_serial.cpp:239-266): stdin holds ``num_tests`` then one
 parameter row per test; the CLI prints "Tests Passed" or "Tests Failed".
-Only the sequential batch loop is ported; ensemble, serving, observability and
-the distributed launch wait for later slices.
+The sequential batch loop and ``--ensemble`` (the batched ensemble engine,
+serve/ensemble.py) are ported; serving, observability and the distributed
+launch wait for later slices.
 """
 
 from __future__ import annotations
@@ -71,6 +72,55 @@ def add_precision_flags(p: argparse.ArgumentParser):
 
 def precision_kwargs(args) -> dict:
     return {"precision": args.precision, "resync_every": args.resync}
+
+
+def add_ensemble_flag(p: argparse.ArgumentParser):
+    """--ensemble: batch-test cases scheduled through the batched ensemble
+    engine (serve/ensemble.py) instead of the sequential case loop."""
+    p.add_argument(
+        "--ensemble", action="store_true",
+        help="with --test_batch: group the cases into shape buckets and run each bucket "
+             "as one batched multi-step program (serve/ensemble.py); pass criterion and "
+             "output are unchanged")
+
+
+def ensemble_refusal(args) -> str | None:
+    """Why ``--ensemble`` cannot run with these flags, or None."""
+    if not args.ensemble:
+        return None
+    if not args.test_batch:
+        return "--ensemble schedules batch-test cases; it requires --test_batch"
+    if args.resync:
+        # the batched paths have no per-step precision switch
+        # (nonlocal_op.check_bucket_ops refuses it too)
+        return ("--resync is not supported with --ensemble; run the sequential batch, or "
+                "--precision bf16 without --resync")
+    return None
+
+
+def ensemble_runner(make_solver, **engine_kwargs):
+    """``cases -> [(error_l2, n)]`` for :func:`run_batch`: one test-form
+    solver per case, all run by one ensemble engine, each final state fed
+    back through ``s.u`` and ``s.compute_l2`` (the solo path's error code).
+    Prints ``ensemble: <report summary>`` on stderr."""
+    def run_ensemble(cases):
+        from nonlocalheatequation_torch.serve.ensemble import EnsembleEngine
+
+        solvers = []
+        for case in cases:
+            s = make_solver(case)
+            s.test_init()
+            solvers.append(s)
+        engine = EnsembleEngine(**engine_kwargs)
+        states = engine.run([s.ensemble_case() for s in solvers])
+        print(f"ensemble: {engine.report.summary()}", file=sys.stderr)
+        out = []
+        for s, u in zip(solvers, states, strict=True):
+            s.u = u
+            out.append((s.compute_l2(s.nt), u.size))
+        return out
+
+    return run_ensemble
 
 
 def announce_stable_dt(dim: int, k: float, eps: int, h: float, dt: float) -> None:
@@ -171,17 +221,22 @@ def parse_batch_cases(read_case, tokens, row_tokens=None):
     return cases
 
 
-def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6):
-    """The reference's batch_tester protocol, sequential.  ``read_case``
-    parses one row of ``row_tokens`` tokens; ``run_case(case) ->
-    (error_l2, n)``.  Every row is validated before any solve runs.
-    Returns the exit code."""
+def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6, run_ensemble=None):
+    """The reference's batch_tester protocol.  ``read_case`` parses one row
+    of ``row_tokens`` tokens; ``run_case(case) -> (error_l2, n)``.  Every
+    row is validated before any solve runs.  With ``run_ensemble`` (a
+    callable ``cases -> [(error_l2, n)]``, :func:`ensemble_runner`) the
+    cases go to the ensemble engine as one submission, under the same pass
+    criterion, instead of the sequential loop.  Returns the exit code."""
     cases = list(iter_batch_cases(read_case, row_tokens))
-    failed = False
-    for case in cases:
-        error_l2, n = run_case(case)
-        if error_l2 / n > threshold:
-            failed = True
-            break
+    if run_ensemble is not None:
+        failed = any(error_l2 / n > threshold for error_l2, n in run_ensemble(cases))
+    else:
+        failed = False
+        for case in cases:
+            error_l2, n = run_case(case)
+            if error_l2 / n > threshold:
+                failed = True
+                break
     print("Tests Failed" if failed else "Tests Passed")
     return 1 if failed else 0

@@ -15,10 +15,13 @@ import time
 import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
+    add_ensemble_flag,
     add_platform_flags,
     add_precision_flags,
     announce_stable_dt,
     bool_flag,
+    ensemble_refusal,
+    ensemble_runner,
     platform_kwargs,
     precision_kwargs,
     run_batch,
@@ -41,11 +44,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dx", type=float, default=0.02)
     add_platform_flags(p)
     add_precision_flags(p)
+    add_ensemble_flag(p)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    err = ensemble_refusal(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
     version_banner("1d_nonlocal")
     if not args.test_batch:
         announce_stable_dt(1, args.k, args.eps, args.dx, args.dt)
@@ -64,14 +72,21 @@ def main(argv=None) -> int:
             return ((int(v[0]), int(v[1]), int(v[2]),
                      float(v[3]), float(v[4]), float(v[5])), pos + 6)
 
-        def run_case(case):
+        def make_solver(case):
             nx, nt, eps, k, dt, dx = case
-            s = Solver1D(nx, nt, eps, k=k, dt=dt, dx=dx, **kw)
+            return Solver1D(nx, nt, eps, k=k, dt=dt, dx=dx, **kw)
+
+        def run_case(case):
+            s = make_solver(case)
             s.test_init()
             s.do_work()
-            return s.error_l2, nx
+            return s.error_l2, s.nx
 
-        return run_batch(read_case, run_case, row_tokens=6)
+        run_ensemble = None
+        if args.ensemble:
+            run_ensemble = ensemble_runner(make_solver, precision=args.precision,
+                                           device=kw["device"], dtype=kw["dtype"])
+        return run_batch(read_case, run_case, row_tokens=6, run_ensemble=run_ensemble)
 
     s = Solver1D(args.nx, args.nt, args.eps, k=args.k, dt=args.dt,
                  dx=args.dx, **kw)

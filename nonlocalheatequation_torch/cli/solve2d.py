@@ -18,10 +18,13 @@ import time
 import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
+    add_ensemble_flag,
     add_platform_flags,
     add_precision_flags,
     announce_stable_dt,
     bool_flag,
+    ensemble_refusal,
+    ensemble_runner,
     platform_kwargs,
     precision_kwargs,
     run_batch,
@@ -49,11 +52,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "the CPU), cuda (the hand-written kernels), conv, shift, sat")
     add_platform_flags(p)
     add_precision_flags(p)
+    add_ensemble_flag(p)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    err = ensemble_refusal(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
     version_banner("2d_nonlocal")
     if not args.test_batch:
         announce_stable_dt(2, args.k, args.eps, args.dh, args.dt)
@@ -73,14 +81,22 @@ def main(argv=None) -> int:
             return ((int(v[0]), int(v[1]), int(v[2]), int(v[3]),
                      float(v[4]), float(v[5]), float(v[6])), pos + 7)
 
-        def run_case(case):
+        def make_solver(case):
             nx, ny, nt, eps, k, dt, dh = case
-            s = Solver2D(nx, ny, nt, eps, k=k, dt=dt, dh=dh, **kw)
+            return Solver2D(nx, ny, nt, eps, k=k, dt=dt, dh=dh, **kw)
+
+        def run_case(case):
+            s = make_solver(case)
             s.test_init()
             s.do_work()
-            return s.error_l2, nx * ny
+            return s.error_l2, s.nx * s.ny
 
-        return run_batch(read_case, run_case, row_tokens=7)
+        run_ensemble = None
+        if args.ensemble:
+            run_ensemble = ensemble_runner(make_solver, method=args.method,
+                                           precision=args.precision, device=kw["device"],
+                                           dtype=kw["dtype"])
+        return run_batch(read_case, run_case, row_tokens=7, run_ensemble=run_ensemble)
 
     s = Solver2D(args.nx, args.ny, args.nt, args.eps, k=args.k,
                  dt=args.dt, dh=args.dh, **kw)

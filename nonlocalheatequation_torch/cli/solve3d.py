@@ -7,9 +7,10 @@ reference; the 2D serial CLI's surface with an added --nz), on the port.
 
 runs on the CUDA card (``--platform cpu`` for the CPU): rows
 ``nx ny nz nt eps k dt dh`` on stdin, "Tests Passed" when every row meets
-error_l2/#points <= 1e-6.  The JAX CLI's distributed, checkpoint, ensemble,
-serving, network and profiling flags and ``--method fft`` are refused by
-name: they are not ported yet.
+error_l2/#points <= 1e-6; ``--ensemble`` runs the rows through the batched
+ensemble engine.  The JAX CLI's distributed, checkpoint, serving, network
+and profiling flags and ``--method fft`` are refused by name: they are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,10 +23,13 @@ import time
 import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
+    add_ensemble_flag,
     add_platform_flags,
     add_precision_flags,
     announce_stable_dt,
     bool_flag,
+    ensemble_refusal,
+    ensemble_runner,
     platform_kwargs,
     precision_kwargs,
     run_batch,
@@ -40,7 +44,6 @@ NOT_PORTED = {
     "--checkpoint": "checkpointing",
     "--ncheckpoint": "checkpointing",
     "--resume": "checkpointing",
-    "--ensemble": "the batched ensemble engine",
     "--profile": "profiling",
     "--serve": "the serving engine",
     "--listen": "the network front door",
@@ -69,6 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "cuda (the hand-written kernels), shift, sat; fft is not ported yet")
     add_platform_flags(p)
     add_precision_flags(p)
+    add_ensemble_flag(p)
     return p
 
 
@@ -88,7 +92,7 @@ def _refusal(args, rest) -> str | None:
 def main(argv=None) -> int:
     p = build_parser()
     args, rest = p.parse_known_args(argv)
-    err = _refusal(args, rest)
+    err = _refusal(args, rest) or ensemble_refusal(args)
     if err:
         print(err, file=sys.stderr)
         return 1
@@ -113,14 +117,22 @@ def main(argv=None) -> int:
             return ((int(v[0]), int(v[1]), int(v[2]), int(v[3]), int(v[4]),
                      float(v[5]), float(v[6]), float(v[7])), pos + 8)
 
-        def run_case(case):
+        def make_solver(case):
             nx, ny, nz, nt, eps, k, dt, dh = case
-            s = Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **kw)
+            return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **kw)
+
+        def run_case(case):
+            s = make_solver(case)
             s.test_init()
             s.do_work()
-            return s.error_l2, nx * ny * nz
+            return s.error_l2, s.nx * s.ny * s.nz
 
-        return run_batch(read_case, run_case, row_tokens=8)
+        run_ensemble = None
+        if args.ensemble:
+            run_ensemble = ensemble_runner(make_solver, method=args.method,
+                                           precision=args.precision, device=kw["device"],
+                                           dtype=kw["dtype"])
+        return run_batch(read_case, run_case, row_tokens=8, run_ensemble=run_ensemble)
 
     s = Solver3D(args.nx, args.ny, args.nz, args.nt, args.eps, k=args.k, dt=args.dt,
                  dh=args.dh, **kw)

@@ -9,7 +9,12 @@ integer step ``t``.  The returned solver is positioned at ``t0 = t``: its
 nothing left to run until the caller sets ``solver.nt``), with the
 manufactured source on when ``params["test"]`` is set.
 
-This module reads plain dicts and arrays; it imports nothing of JAX.
+:func:`ensemble_case_from_jax` carries one case of the JAX package's
+ensemble engine (its ``EnsembleCase``) into the port's, so both engines run
+the same buckets.
+
+This module reads plain dicts, arrays and attributes; it imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 from nonlocalheatequation_torch.models.solver1d import Solver1D
 from nonlocalheatequation_torch.models.solver2d import Solver2D
 from nonlocalheatequation_torch.models.solver3d import Solver3D
+from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
 
 _KEYS = ("shape", "eps", "k", "dt", "dh", "test")
 
@@ -78,3 +84,17 @@ def solver3d_from_jax_state(params: dict, u: np.ndarray, t: int, *, device, dtyp
                  dt=params["dt"], dh=params["dh"], device=device, dtype=dtype,
                  **solver_kwargs)
     return _position(s, params, u, t)
+
+
+def ensemble_case_from_jax(case) -> EnsembleCase:
+    """The port's EnsembleCase for a JAX ``EnsembleCase`` (any object with its
+    fields): the same shape, step count, eps, physics and test flag, and its
+    ``u0`` as a float64 NumPy array.  A mesh (unstructured) case is refused:
+    the port has no unstructured tier yet."""
+    if getattr(case, "mesh", None) is not None:
+        raise ValueError("mesh (unstructured) ensemble cases are not ported yet to "
+                         "nonlocalheatequation_torch")
+    u0 = None if case.u0 is None else np.array(case.u0, dtype=np.float64)
+    return EnsembleCase(shape=tuple(int(s) for s in case.shape), nt=int(case.nt),
+                        eps=int(case.eps), k=float(case.k), dt=float(case.dt),
+                        dh=float(case.dh), test=bool(case.test), u0=u0)

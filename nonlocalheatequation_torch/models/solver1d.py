@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.models.metrics import ManufacturedMetrics2D
-from nonlocalheatequation_torch.models.solver2d import BACKENDS
+from nonlocalheatequation_torch.models.solver2d import BACKENDS, ensemble_case_of
 from nonlocalheatequation_torch.models.steppers import (
     make_multi_step_fn,
     make_step_fn,
@@ -69,6 +69,11 @@ class Solver1D(ManufacturedMetrics2D):
     def input_init(self, values):
         self.test = False
         self.u0 = np.asarray(values, dtype=np.float64).reshape(self.nx)
+
+    def ensemble_case(self):
+        """This solve as a serve/ensemble batch case (its ``dh`` field carries
+        the 1D dx); see Solver2D.ensemble_case."""
+        return ensemble_case_of(self, self._grid_shape, self.op.dx)
 
     # -- time loop (1d_nonlocal_serial.cpp:209-236) ---------------------------
     def do_work(self) -> np.ndarray:

@@ -40,6 +40,19 @@ def refuse_unported(nd=None, checkpoint_path=None, ncheckpoint=0) -> None:
         raise ValueError("checkpointing is not ported yet (checkpoint_path/ncheckpoint)")
 
 
+def ensemble_case_of(solver, shape, dh):
+    """The port's EnsembleCase of a 1D, 2D or 3D solver (``dh`` is the 1D
+    dx for rank 1); refuses a solve positioned past step 0."""
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
+
+    if solver.t0:
+        raise ValueError("ensemble scheduling starts every case at t0=0; run a solve "
+                         "positioned at a later step with do_work()")
+    op = solver.op
+    return EnsembleCase(shape=tuple(shape), nt=solver.nt, eps=op.eps, k=op.k, dt=op.dt,
+                        dh=dh, test=solver.test, u0=solver.u0)
+
+
 class GridSolver(ManufacturedMetrics2D):
     """The set-up and time loop the 2D and 3D solvers share: the NumPy
     oracle and the device path over ``self.op`` on ``self._grid_shape``."""
@@ -68,6 +81,13 @@ class GridSolver(ManufacturedMetrics2D):
     def input_init(self, values):
         self.test = False
         self.u0 = np.asarray(values, dtype=np.float64).reshape(self._grid_shape)
+
+    def ensemble_case(self):
+        """This solve as a serve/ensemble batch case.  The CLIs' --ensemble
+        mode collects one per solver, runs the batched engine, then feeds
+        each returned state back through ``self.u`` and ``compute_l2``, so
+        the error is computed by the solo path's code."""
+        return ensemble_case_of(self, self._grid_shape, self.op.dh)
 
     # -- time loop (2d_nonlocal_serial.cpp:273-303) ---------------------------
     def do_work(self) -> np.ndarray:

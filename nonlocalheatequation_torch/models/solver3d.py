@@ -14,8 +14,9 @@ axis and is held to the same manufactured-solution contract):
   L(G) is evaluated on the device in float64 by the operator's own method
   (the ``nsum3d`` kernel on the card).  On the CPU ``auto`` is ``sat``.
 
-Arrays are [x, y, z] of shape (nx, ny, nz).  Checkpointing, the
-dispatch-ahead throttle ``nd`` and the ensemble engine (``ensemble_case``)
+Arrays are [x, y, z] of shape (nx, ny, nz).  ``ensemble_case()`` (from
+:class:`GridSolver`) hands the solve to the ensemble engine
+(serve/ensemble.py).  Checkpointing and the dispatch-ahead throttle ``nd``
 are not ported yet; they are refused by name.
 """
 
@@ -56,12 +57,6 @@ class Solver3D(GridSolver):
         op = NonlocalOp3D(eps, k, dt, dh, method=method, precision=precision,
                           resync_every=resync_every)
         self._setup(op, backend, stepper, stages, logger, dtype, device)
-
-    def ensemble_case(self):
-        """The JAX package schedules a solve on its batched ensemble engine
-        (serve/ensemble.py); the port has no such engine yet."""
-        raise ValueError("ensemble_case: the ensemble engine is not ported yet; run the "
-                         "solve with do_work()")
 
     @property
     def _grid_shape(self):

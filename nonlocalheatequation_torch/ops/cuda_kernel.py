@@ -55,9 +55,11 @@ TWO_PI = 2.0 * math.pi
 SOURCE = "nsum2d.cu"
 
 #: kernel name -> launches since the last reset_launch_counts() (the 3D
-#: kernels' wrappers live in ops/cuda_kernel3d.py)
+#: kernels' wrappers live in ops/cuda_kernel3d.py, the batched 2D kernels'
+#: in ops/cuda_batched.py)
 LAUNCHES = {"nsum2d": 0, "step2d": 0, "carried2d": 0, "superstep2d": 0, "resident2d": 0,
-            "nsum3d": 0, "step3d": 0, "carried3d": 0, "resident3d": 0}
+            "nsum3d": 0, "step3d": 0, "carried3d": 0, "resident3d": 0,
+            "batched_step2d": 0, "batched_carried2d": 0, "batched_superstep2d": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -80,6 +82,13 @@ _ENTRIES = {
     "nlheat_carried3d": ("carried3d.cu", [_I, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P]),
     "nlheat_resident3d": ("resident3d.cu", [_I, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _P]),
     "nlheat_resident3d_fits": ("resident3d.cu", [_I, _I, _I, _I, _I]),
+    "nlheat_batched_step2d": ("batched_step2d.cu", [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                                    _I, _I, _D, _P]),
+    "nlheat_batched_carried2d": ("batched_carried2d.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                                          _I, _D, _P]),
+    "nlheat_batched_superstep2d": ("batched_superstep2d.cu", [_I, _I, _P, _P, _P, _I, _I, _I,
+                                                              _I, _I, _D, _P]),
+    "nlheat_batched_superstep2d_fits": ("batched_superstep2d.cu", [_I, _I, _I, _I]),
 }
 _entries: dict = {}
 

@@ -597,3 +597,87 @@ def make_multi_step_fn_base(op, nsteps: int, g=None, lg=None, dtype=None):
         return cur
 
     return multi
+
+
+# -- the ensemble engine's batched compositions (serve/ensemble.py) -------------------
+
+def check_bucket_ops(ops) -> None:
+    """Validate that a batched-ensemble bucket's operators run together:
+    same class and eps (so one mask and wsum), the uniform influence
+    function, one precision tier, and no ``resync_every`` (the periodic
+    full-precision step lives on the solo per-step loop only)."""
+    op0 = ops[0]
+    for i, op in enumerate(ops):
+        if type(op) is not type(op0) or op.eps != op0.eps:
+            raise ValueError(
+                f"ensemble bucket mixes operators (case {i}: {type(op).__name__}/eps={op.eps} "
+                f"vs {type(op0).__name__}/eps={op0.eps}); bucket keys must pin (shape, eps)")
+        if not op.uniform:
+            raise ValueError("the batched ensemble paths serve the uniform influence "
+                             f"function only (case {i} has a weighted J)")
+        if op.precision != op0.precision:
+            raise ValueError(f"ensemble bucket mixes precision tiers (case {i}); the bucket "
+                             "key must pin the tier")
+        if op.resync_every:
+            raise ValueError("resync_every is a solo per-step knob; the batched ensemble "
+                             f"paths refuse it (case {i}) rather than silently dropping the "
+                             "full-precision steps")
+
+
+def make_batched_multi_step_fn_vmap(ops, nsteps: int, dtype=None, test: bool = False,
+                                    gs=None, lgs=None):
+    """``multi(U, t0) -> U`` after ``nsteps`` steps of every case of the
+    ``(B, *shape)`` stack, B = len(ops): the ensemble engine's parity oracle
+    and its composition for 1D and 3D buckets.
+
+    The counterpart of ``jax.vmap`` over the solo step: each step, each case
+    runs the JAX package's ``one_step`` expression op for op,
+    ``scale*(op.neighbor_sum(u) - wsum*op._operand(u))``, then the source
+    ``-2*pi*sin(2*pi*t*dt)*G - cos(2*pi*t*dt)*L(G)``, then ``u + dt*du``,
+    with ``ops[0]`` as the bucket's prototype (:func:`check_bucket_ops`)
+    and each case's own scale and dt.  With the ``cuda`` method that is one
+    ``nsum2d``/``nsum3d`` launch per case per step.  ``U`` is never written.
+    """
+    check_bucket_ops(ops)
+    op = ops[0]
+    wsum = op.wsum
+    scales = [case_scale(o) for o in ops]
+    dts = [o.dt for o in ops]
+
+    def one_step(u, t, scale, dt, g, lg):
+        du = scale * (op.neighbor_sum(u) - wsum * op._operand(u))
+        if test:
+            ang = TWO_PI * (t * dt)
+            du = du + (-TWO_PI * math.sin(ang) * g - math.cos(ang) * lg)
+        return u + dt * du
+
+    src = _Sources(torch.stack([torch.as_tensor(g) for g in gs]),
+                   torch.stack([torch.as_tensor(lg) for lg in lgs])) if test else None
+
+    def multi(U, t0):
+        U = U.to(dtype or U.dtype)
+        gd, lgd = src.on(U) if test else ([None] * len(ops),) * 2
+        lanes = list(U.unbind(0))
+        for t in range(t0, t0 + nsteps):
+            lanes = [one_step(u, t, scales[b], dts[b], gd[b], lgd[b])
+                     for b, u in enumerate(lanes)]
+        return torch.stack(lanes)
+
+    return multi
+
+
+def make_batched_multi_step_fn_stacked(ops, nsteps: int, dtype=None, test: bool = False,
+                                       gs=None, lgs=None):
+    """``multi(U, t0) -> U`` after ``nsteps`` steps: each case's solo
+    per-step loop (:func:`make_multi_step_fn_base`, its own source), in
+    turn, the results stacked.  The bit-exact reference composition: lane b
+    is the solo solve of case b.  ``U`` is never written."""
+    check_bucket_ops(ops)
+    inner = [make_multi_step_fn_base(op, nsteps, gs[i] if test else None,
+                                     lgs[i] if test else None, dtype)
+             for i, op in enumerate(ops)]
+
+    def multi(U, t0):
+        return torch.stack([m(U[i], t0) for i, m in enumerate(inner)])
+
+    return multi

@@ -1,6 +1,7 @@
-"""Variant autotuner for the port's production 2D and 3D multi-step runs.
+"""Variant autotuner for the port's production 2D and 3D multi-step runs and
+the ensemble engine's 2D buckets.
 
-The solo half of ``nonlocalheatequation_tpu/utils/autotune.py``.  The
+Counterpart of ``nonlocalheatequation_tpu/utils/autotune.py``.  The
 production 2D solve has four interchangeable programs, bit-identical by
 construction (ops/cuda_kernel.py): the per-step loop (``step2d``), the
 carried frame (``carried2d``), K-step temporal blocking (``superstep2d``)
@@ -29,12 +30,19 @@ cache in the process only, and unset it is
 ``$XDG_CACHE_HOME/nlheat/autotune_torch.json`` (``~/.cache`` without
 ``XDG_CACHE_HOME``), beside the JAX package's ``autotune.json``.
 
+The batched half, :func:`pick_batched_multi_step_fn`, tunes the ensemble
+engine's 2D ``cuda`` production buckets (``NLHEAT_TUNE_BATCH=1``,
+serve/ensemble.py) over the batched kernels of ops/cuda_batched.py and the
+vmap composition, once per shape and batch size, under the same rule: a
+probe that fails raises.
+
 Not ported yet, and refused by name: the precision dimension
-(``NLHEAT_TUNE_PRECISION=1``) and the batched tuner.
+(``NLHEAT_TUNE_PRECISION=1``).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -193,16 +201,10 @@ def tuning_key(op, shape, dtype, device) -> str:
                     + ([f"prec-{op.precision}"] if op.precision != "f32" else []))
 
 
-def pick_multi_step_fn(op, nsteps: int, shape, dtype, device):
-    """Measure the fitting variants (cached) and build the winner at the
-    real step count.  Returns (fn, winner_name)."""
-    if os.environ.get("NLHEAT_TUNE_PRECISION") == "1":
-        raise ValueError("NLHEAT_TUNE_PRECISION=1 (precision as a tuned dimension) is not "
-                         "ported yet; unset it to tune the operator's own tier")
-    device = torch.device(device)
-    shape = tuple(shape)
-    key = tuning_key(op, shape, dtype, device)
-    cands = dict(candidates(op, shape, nsteps, dtype, device))
+def _winner(key: str, cands: dict, measure) -> str:
+    """The fastest of ``cands`` by the record under ``key``: this process's,
+    else the file cache's, probing (``measure(name)``, seconds per step)
+    only the candidates no record holds and storing the merged record."""
 
     def covers(e) -> bool:
         # an entry is reusable only if it measured every candidate that fits
@@ -220,10 +222,9 @@ def pick_multi_step_fn(op, nsteps: int, shape, dtype, device):
             # probe only what no record holds, and merge
             recorded = {**(entry or {}).get("ms_per_step", {}),
                         **(partial or {}).get("ms_per_step", {})}
-            u = _probe_state(shape, dtype, device)
-            for name, maker in cands.items():
+            for name in cands:
                 if name not in recorded:
-                    recorded[name] = _measure(maker, op, u) * 1e3
+                    recorded[name] = measure(name) * 1e3
             valid = {n: t for n, t in recorded.items() if isinstance(t, (int, float))}
             entry = {"winner": min(valid, key=valid.get), "ms_per_step": recorded}
             file_cache[key] = entry
@@ -236,10 +237,73 @@ def pick_multi_step_fn(op, nsteps: int, shape, dtype, device):
         rates = {n: t for n, t in entry["ms_per_step"].items()
                  if n in cands and isinstance(t, (int, float))}
         winner = min(rates, key=rates.get)
+    return winner
+
+
+def pick_multi_step_fn(op, nsteps: int, shape, dtype, device):
+    """Measure the fitting variants (cached) and build the winner at the
+    real step count.  Returns (fn, winner_name)."""
+    if os.environ.get("NLHEAT_TUNE_PRECISION") == "1":
+        raise ValueError("NLHEAT_TUNE_PRECISION=1 (precision as a tuned dimension) is not "
+                         "ported yet; unset it to tune the operator's own tier")
+    device = torch.device(device)
+    shape = tuple(shape)
+    cands = dict(candidates(op, shape, nsteps, dtype, device))
+    probe = functools.cache(lambda: _probe_state(shape, dtype, device))
+    winner = _winner(tuning_key(op, shape, dtype, device), cands,
+                     lambda name: _measure(cands[name], op, probe()))
     return cands[winner](op, nsteps, dtype), winner
 
 
-def pick_batched_multi_step_fn(*_args, **_kwargs):
-    """The batched tuner (NLHEAT_TUNE_BATCH, the ensemble engine's buckets)."""
-    raise ValueError("the batched tuner is not ported yet (the port has no ensemble "
-                     "engine); tune each case with pick_multi_step_fn")
+def batched_candidates(ops, shape, nsteps: int, dtype, device, ksteps: int = 0):
+    """[(name, maker(ops, nsteps, dtype) -> multi)] for a 2D ``cuda``
+    production bucket of the ensemble engine (NLHEAT_TUNE_BATCH=1): the
+    batched per-step, carried and superstep kernels (superstep at K = 2, 3
+    and the engine's ``ksteps`` where K does not exceed ``nsteps`` and the
+    kernel takes it) and the vmap composition.  Each batched kernel serves
+    uniform and mixed physics in one launch, so a mixed bucket probes the
+    same programs it would run."""
+    from nonlocalheatequation_torch.ops import cuda_batched as cb
+    from nonlocalheatequation_torch.ops.nonlocal_op import make_batched_multi_step_fn_vmap
+
+    op0 = ops[0]
+    out = [("batched-per-step",
+            lambda o, n, d: cb.make_batched_cuda_multi_step_fn(o, n, dtype=d)),
+           ("batched-carried",
+            lambda o, n, d: cb.make_batched_carried_multi_step_fn(o, n, dtype=d))]
+    for k in sorted({2, 3} | ({int(ksteps)} if ksteps >= 2 else set())):
+        if cuda_kernel.superstep_k(k, nsteps) == k and cb.fits_batched_superstep(
+                op0.eps, k, dtype, op0.precision, device):
+            out.append((f"batched-superstep{k}",
+                        lambda o, n, d, k=k: cb.make_batched_superstep_multi_step_fn(
+                            o, n, ksteps=k, dtype=d)))
+    out.append(("vmap", lambda o, n, d: make_batched_multi_step_fn_vmap(o, n, dtype=d)))
+    return out
+
+
+def _measure_batched(maker, ops, shape, dtype, device) -> float:
+    """:func:`_measure` for the batched makers: the probe state gains the
+    leading case axis."""
+    return _measure(lambda _op, n, d: maker(ops, n, d), None,
+                    _probe_state((len(ops),) + tuple(shape), dtype, device))
+
+
+def pick_batched_multi_step_fn(ops, nsteps: int, shape, dtype, device, ksteps: int = 0):
+    """Measure the batched variants once per (kernel sources, card, shape,
+    eps, dtype, B, tier) and build the winner at the real step count.
+    Returns (fn, winner_name).  Every candidate computes the bucket's
+    function (the batched kernels bit-identically to the solo kernels, vmap
+    to 1e-12), so the swap cannot change results beyond that.  Records share
+    the file of :func:`pick_multi_step_fn`, under ``batch{B}`` keys.
+
+    As in :func:`pick_multi_step_fn`, a candidate that fails to build or
+    launch raises.  The JAX tuner instead records the error, lets the
+    candidate not compete and falls back to the stacked composition when
+    every probe errors (tests/test_ensemble.py:243)."""
+    device = torch.device(device)
+    shape = tuple(shape)
+    cands = dict(batched_candidates(ops, shape, nsteps, dtype, device, ksteps))
+    key = f"{tuning_key(ops[0], shape, dtype, device)}/batch{len(ops)}"
+    winner = _winner(key, cands,
+                     lambda name: _measure_batched(cands[name], ops, shape, dtype, device))
+    return cands[winner](ops, nsteps, dtype), winner

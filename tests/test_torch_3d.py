@@ -201,8 +201,12 @@ def test_solver3d_logger_input_init_and_refusals():
         Solver3D(4, 4, 4, 1, 1, device=CPU, stepper="expo")
     with pytest.raises(ValueError, match="checkpointing"):
         Solver3D(4, 4, 4, 1, 1, device=CPU, checkpoint_path="x.npz", ncheckpoint=2)
-    with pytest.raises(ValueError, match="ensemble engine is not ported"):
-        Solver3D(4, 4, 4, 1, 1, device=CPU).ensemble_case()
+    case = Solver3D(4, 4, 4, 1, 1, device=CPU).ensemble_case()
+    assert case.shape == (4, 4, 4) and case.bucket_key() == ((4, 4, 4), 1, 1, False, None)
+    s = Solver3D(4, 4, 4, 3, 1, device=CPU)
+    s.t0 = 1
+    with pytest.raises(ValueError, match="starts every case at t0=0"):
+        s.ensemble_case()
 
 
 @pytest.mark.parametrize("x64", ["1", "0"])
@@ -232,7 +236,7 @@ def test_cli_single_solve_timing_row_and_failure(monkeypatch, capsys):
 @pytest.mark.parametrize("argv,name", [
     (["--distributed"], "--distributed"), (["--comm", "fused"], "--comm"),
     (["--superstep", "2"], "--superstep"), (["--checkpoint", "x.npz"], "--checkpoint"),
-    (["--resume"], "--resume"), (["--ensemble"], "--ensemble"), (["--serve", "2"], "--serve"),
+    (["--resume"], "--resume"), (["--serve", "2"], "--serve"),
     (["--serve-retries=1"], "--serve-retries"), (["--listen", "0"], "--listen"),
     (["--profile", "d"], "--profile"), (["--method", "fft"], "--method fft")])
 def test_cli_refuses_what_is_not_ported_by_name(capsys, argv, name):

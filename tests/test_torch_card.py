@@ -10,9 +10,14 @@ imports JAX, so on such a machine run it without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
 
+The batched kernels (ops/cuda_batched.py) are held per lane, bitwise, to the
+solo kernels, and the ensemble engine runs a mixed-physics bucket in one
+``batched_step2d`` launch per step.
+
 The CPU tests hold the plain versions against the JAX package
 (tests/test_torch_kernels.py, test_torch_multistep.py, test_torch_autotune.py,
-test_torch_kernels3d.py, test_torch_3d.py).
+test_torch_kernels3d.py, test_torch_3d.py, test_torch_batched_kernels.py,
+test_torch_ensemble.py).
 """
 
 import numpy as np
@@ -21,6 +26,7 @@ import torch
 
 from nonlocalheatequation_torch.models.solver2d import Solver2D
 from nonlocalheatequation_torch.models.solver3d import Solver3D
+from nonlocalheatequation_torch.ops import cuda_batched as cb
 from nonlocalheatequation_torch.ops import cuda_kernel as ck
 from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
 from nonlocalheatequation_torch.ops.nonlocal_op import (
@@ -30,6 +36,7 @@ from nonlocalheatequation_torch.ops.nonlocal_op import (
     make_multi_step_fn,
     make_multi_step_fn_base,
 )
+from nonlocalheatequation_torch.serve.ensemble import EnsembleCase, EnsembleEngine
 from nonlocalheatequation_torch.utils import autotune
 
 
@@ -227,3 +234,93 @@ def test_solver3d_production_solve_is_tuned_on_card(card, monkeypatch):
     assert len(probed) == 3
     ref = make_multi_step_fn_base(op, nt)(torch.as_tensor(u0, device=card).float(), 0)
     assert np.array_equal(got, ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_batched_kernels_bitwise_solo_launches_on_card(card, dtype, tol, prec):
+    rng = np.random.default_rng(11)
+    for (nx, ny), eps, batch in [((37, 50), 3, 3), ((64, 64), 8, 8), ((13, 45), 5, 2),
+                                 ((1, 1), 1, 1), ((20, 90), 16, 2)]:
+        wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(eps)))
+        scales = [2.0 + eps + b for b in range(batch)]  # mixed physics
+        dts = [0.8 / (sc * wsum) * (1 + 0.1 * b) for b, sc in enumerate(scales)]
+        params = cb.case_params(scales, dts, dtype, card)
+        U = torch.tensor(rng.standard_normal((batch, nx, ny)), dtype=dtype, device=card)
+        G, LG = torch.randn_like(U), torch.randn_like(U)
+        coefs = cb.source_coef_table([7], dts, dtype, card)[0]
+        frames = torch.nn.functional.pad(U, (eps,) * 4).contiguous()
+        shadow = ck.shadow_of(frames) if prec == "bf16" else None
+        ck.reset_launch_counts()
+        got = {"step": cb.batched_step2d(U, eps, params, wsum, precision=prec),
+               "test": cb.batched_step2d(U, eps, params, wsum, G=G, LG=LG, coefs=coefs,
+                                         precision=prec),
+               "carried": cb.batched_carried2d(frames, eps, params, wsum, shadow=shadow)}
+        plain = {"step": cb.batched_step2d_plain(U, eps, params, wsum, precision=prec),
+                 "test": cb.batched_step2d_plain(U, eps, params, wsum, G=G, LG=LG,
+                                                 coefs=coefs, precision=prec),
+                 "carried": cb.batched_carried2d_plain(frames, eps, params, wsum, shadow)}
+        ks = [k for k in (1, 2, 3, 4) if cb.fits_batched_superstep(eps, k, dtype, prec, card)]
+        for k in ks:
+            got[k] = cb.batched_superstep2d(U, eps, params, wsum, k, prec)
+            plain[k] = cb.batched_superstep2d_plain(U, eps, params, wsum, k, prec)
+        assert {n: v for n, v in ck.launch_counts().items() if v} == {
+            "batched_step2d": 2, "batched_carried2d": 1, "batched_superstep2d": len(ks)}
+        if prec == "bf16":
+            assert torch.equal(got["carried"][1], ck.shadow_of(got["carried"][0]))
+            got["carried"], plain["carried"] = got["carried"][0], plain["carried"][0]
+        for name in got:
+            want = plain[name]
+            assert float((got[name] - want).abs().max() / want.abs().max()) <= tol, name
+        for b in range(batch):
+            u = U[b].contiguous()
+            assert torch.equal(got["step"][b], ck.step2d(u, eps, scales[b], wsum, dts[b],
+                                                         precision=prec))
+            assert torch.equal(got["test"][b], ck.step2d(
+                u, eps, scales[b], wsum, dts[b], g=G[b].contiguous(), lg=LG[b].contiguous(),
+                t=7, precision=prec))
+            solo = ck.carried2d(frames[b].contiguous(), eps, scales[b], wsum, dts[b],
+                                shadow=None if shadow is None else shadow[b].contiguous())
+            assert torch.equal(got["carried"][b], solo if shadow is None else solo[0])
+            for k in ks:
+                assert torch.equal(got[k][b], ck.superstep2d(u, eps, scales[b], wsum, dts[b],
+                                                             k, prec)), (b, k)
+
+
+@pytest.mark.cuda
+def test_mixed_bucket_runs_one_launch_per_step_on_card(card):
+    rng = np.random.default_rng(12)
+    physics = [(1.0, 1e-4, 0.02), (0.5, 2e-4, 0.02), (0.2, 1e-4, 0.01), (1.0, 5e-5, 0.03)]
+    cases = [EnsembleCase(shape=(40, 36), nt=5, eps=3, k=k, dt=dt, dh=dh, test=False,
+                          u0=rng.standard_normal((40, 36)))
+             for k, dt, dh in physics * 2]
+    engine = EnsembleEngine(method="cuda", device=card, dtype=torch.float64)
+    res = engine.run(cases)
+    assert (engine.report.buckets, engine.report.programs_built,
+            engine.report.dispatches) == (1, 1, 1)
+    assert {n: v for n, v in ck.launch_counts().items() if v} == {"batched_step2d": 5}
+    for case, got in zip(cases, res, strict=True):
+        op = NonlocalOp2D(case.eps, case.k, case.dt, case.dh, method="cuda")
+        want = make_multi_step_fn_base(op, case.nt)(torch.as_tensor(case.u0, device=card), 0)
+        assert np.array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_batch_tuner_probes_every_batched_candidate_on_card(card, monkeypatch):
+    monkeypatch.setenv("NLHEAT_TUNE_BATCH", "1")
+    rng = np.random.default_rng(13)
+    cases = [EnsembleCase(shape=(64, 64), nt=9, eps=8, k=1.0, dt=1e-5 * (1 + b), dh=1 / 64,
+                          test=False, u0=rng.standard_normal((64, 64))) for b in range(4)]
+    engine = EnsembleEngine(method="cuda", device=card)
+    res = engine.run(cases)
+    (_key, entry), = autotune.records().items()
+    assert set(entry["ms_per_step"]) == {"batched-per-step", "batched-carried",
+                                        "batched-superstep2", "batched-superstep3", "vmap"}
+    assert engine.report.strategies.popitem()[1] == f"tuned:{entry['winner']}"
+    for case, got in zip(cases, res, strict=True):
+        op = NonlocalOp2D(case.eps, case.k, case.dt, case.dh, method="cuda")
+        want = make_multi_step_fn_base(op, case.nt)(
+            torch.as_tensor(case.u0, device=card).float(), 0)
+        tol = 0.0 if entry["winner"] != "vmap" else 1e-5
+        assert float(np.abs(got - want.cpu().numpy()).max()) <= tol * float(np.abs(got).max())

@@ -2,7 +2,7 @@
 
 * A subprocess with ``jax`` and ``nonlocalheatequation_tpu`` blocked in
   ``sys.modules`` imports every module of the port and chip_smoke.py and
-  runs a small 2D and 3D CPU solve.
+  runs a small 2D and 3D CPU solve and a 2-case ensemble.
 * No source file of the port names either package in an import.
 * chip_smoke.py on a host without a CUDA card exits non-zero and prints no
   result line.
@@ -37,6 +37,10 @@ s = Solver3D(10, 9, 8, 6, 2, device="cpu", method="cuda")
 s.test_init()
 s.do_work()
 assert s.error_l2 / (10 * 9 * 8) <= 1e-6, s.error_l2
+from nonlocalheatequation_torch.serve.ensemble import run_test_cases, EnsembleCase
+errs = run_test_cases([EnsembleCase(shape=(20, 18), nt=4, eps=3, k=k, dt=1e-4, dh=0.05)
+                       for k in (1.0, 0.5)], method="cuda", device="cpu")
+assert all(e / n <= 1e-6 for e, n in errs), errs
 assert not any(m == "jax" or m.startswith(("jax.", "nonlocalheatequation_tpu"))
                for m, v in sys.modules.items() if v is not None)
 print("imported", len(names))
