@@ -78,7 +78,25 @@ line is printed; the phase walls are printed at the end):
    1 bucket, 1 program, 1 dispatch, 500 batched_step2d launches), and both
    under NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner); the
    batched counts must equal the rows', buckets', probes' and winners'.
-7. The kernels' JSON line, then {"ok": true, "device": {...}}.
+7. The unstructured path (phase_unstructured_checks, phase_unstructured):
+   windowed_matvec (f64, f32) and gather_L (f64, f32, bf16 operand) held to
+   their plain versions on small clouds (2D jittered and shuffled, 3D, 1D,
+   n not a multiple of 128, a forced residual, a self-only horizon, a hub
+   node), the windowed operator to the NumPy oracle, and stacked gather
+   lanes bitwise their solo runs.  Then the shuffled jittered 512^2 cloud
+   (262,144 nodes, eps = 3h, f32): the host walls of the edge and plan
+   builds, both kernels held and timed beside their plain versions, their
+   bounds and torch.sparse.mm of a CSR matrix of the same entries, and one
+   L(u) per layout.  The CLI on the card: data/*.msh with --layout auto and
+   windowed in f64 (error_l2/N <= 1e-6; started with phase 3's CLIs and
+   collected after them), then, counted, the 512^2 cloud from a 2.2 .msh
+   with --layout auto, which must choose windowed and launch
+   windowed_matvec once per step.  Last, bench.py's graded cloud at nm=256
+   (65,536 nodes) in a throwaway mesh registry: gather_L held and timed at
+   its shape, then, counted, an 8-case bucket and a mixed-physics 8-case
+   bucket through EnsembleEngine, each 8 x MESH_STEPS gather_L launches, every
+   lane bitwise its solo gather loop and within the manufactured contract.
+8. The kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -1405,6 +1423,482 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
     ]
 
 
+# -- phase 7: the unstructured path ------------------------------------------------
+
+UN_M = 512           # the shuffled jittered 512^2 cloud, eps = 3h: 262,144 nodes
+UN_STEPS = 20        # steps of the CLI run on it (B13 launches exactly this many)
+MESH_NM = 256        # bench.py's graded cloud at grid 512 (nm = grid // 2): 65,536 nodes
+MESH_STEPS = 100     # steps of each 8-case mesh bucket
+MESHES = ("10x10", "50x50", "100x100", "200x200")
+
+
+def jittered_cloud(np, m: int, d: int, seed: int, shuffle: bool = False):
+    """An m^d lattice on [0, 1)^d jittered by +/-0.2 spacings, optionally
+    shuffled; (points, spacing)."""
+    rng = np.random.default_rng(seed)
+    h = 1.0 / m
+    grids = np.meshgrid(*([np.arange(m) * h] * d), indexing="ij")
+    pts = np.stack([g.ravel() for g in grids], axis=1)
+    pts += rng.uniform(-0.2 * h, 0.2 * h, pts.shape)
+    return (pts[rng.permutation(len(pts))] if shuffle else pts), h
+
+
+def graded_cloud(np, nm: int, eps_factor: float = EPS, a: float = 0.6):
+    """bench.py's BENCH_MESH cloud (bench.py:1236-1248), copied: the
+    tensor-product map g(xi) = xi + a*sin(2*pi*xi)/(2*pi) on [0,1]^2, spacing
+    (1-a)/nm at the centre and (1+a)/nm at the edge, eps = eps_factor x the
+    local spacing, vol = the local cell volume; (points, eps, vol)."""
+    xi = (np.arange(nm) + 0.5) / nm
+    gmap = xi + a * np.sin(2 * np.pi * xi) / (2 * np.pi)
+    gp = 1 + a * np.cos(2 * np.pi * xi)
+    X, Y = np.meshgrid(gmap, gmap, indexing="ij")
+    HX, HY = np.meshgrid(gp / nm, gp / nm, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel()], axis=1)
+    return pts, float(eps_factor) * (0.5 * (HX + HY)).ravel(), (HX * HY).ravel()
+
+
+def small_clouds(np):
+    """Phase 7a's clouds: (name, points, eps, vol, windowed-plan kwargs)."""
+    out = []
+    pts, h = jittered_cloud(np, 40, 2, SEED)
+    out.append(("2D jittered", pts, 3 * h * (1 + 0.2 * np.sin(7 * pts[:, 0])), h * h, {}))
+    pts, h = jittered_cloud(np, 40, 2, SEED + 1, shuffle=True)
+    out.append(("2D shuffled", pts, 3 * h, h * h, {}))
+    pts, h = jittered_cloud(np, 12, 3, SEED + 2)
+    out.append(("3D", pts, 2.5 * h, h ** 3, {}))
+    pts, h = jittered_cloud(np, 700, 1, SEED + 3)
+    out.append(("1D", pts, 4 * h, h, {}))
+    rng = np.random.default_rng(SEED + 4)
+    out.append(("n=1000 (not a multiple of 128)", rng.uniform(size=(1000, 2)), 0.08, 1e-3, {}))
+    pts, h = jittered_cloud(np, 40, 2, SEED + 5)
+    out.append(("forced residual (wmax=128)", pts, 3 * h, h * h, {"wmax": 128}))
+    out.append(("self-only horizon", np.stack([np.linspace(0, 1, 300), np.zeros(300)], 1),
+                1e-6, 1.0, {}))
+    pts = rng.uniform(size=(600, 2))
+    eps = 0.06 * (1 + 0.5 * rng.uniform(size=600))
+    eps[0] = 2.0  # a hub sees every node
+    out.append(("variable horizon with a hub", pts, eps, 1.0 / 600, {}))
+    return out
+
+
+def phase_unstructured_checks(torch, np) -> dict:
+    """Phase 7a: windowed_matvec (f64, f32) and gather_L (f64, f32, bf16
+    operand) against their plain versions on small clouds, the windowed
+    operator (residual included) against the NumPy oracle, and each lane of
+    a stacked gather chunk bitwise equal to its solo run."""
+    from nonlocalheatequation_torch.ops import cuda_unstructured as cu
+    from nonlocalheatequation_torch.ops.gather import (
+        GatherTable,
+        make_batched_gather_multi_step_fn,
+        make_gather_multi_step_fn,
+    )
+    from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp
+
+    rng = np.random.default_rng(SEED + 6)
+    worst, n = {}, {"windowed_matvec": 0, "gather_L": 0}
+
+    def held(key, got, ref, tol):
+        err = rel_err(torch, got, ref)[1]
+        if not err <= tol:
+            fail(f"{key}: |kernel-plain| / max|plain| {err:.3e} > {tol:g}")
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    for name, pts, eps, vol, kw in small_clouds(np):
+        op = UnstructuredNonlocalOp(pts, eps, k=1.0, dt=1e-6, vol=vol, device="cuda")
+        plan = op.windowed_plan(**kw)
+        for dtype in (torch.float64, torch.float32):
+            tname = str(dtype).split(".")[1]
+            tol = TOL[tname]
+            u = torch.tensor(rng.standard_normal(op.n), device="cuda", dtype=dtype)
+            ex = plan.for_dtype(dtype, "cuda")
+            held(f"windowed_matvec/{tname}", cu.windowed_matvec(ex.P, ex.s128, u, ex.we),
+                 cu.windowed_matvec_plain(ex.P, ex.s128, u, ex.we), tol)
+            held(f"windowed L vs oracle/{tname}", ex.L(u),
+                 torch.as_tensor(op.apply_np(u.double().cpu().numpy()), device="cuda"), tol)
+            n["windowed_matvec"] += 1
+            table = GatherTable(op, dtype, "cuda")
+            for prec in ("f32", "bf16"):
+                got = cu.gather_L(table.rowptr, table.col, table.w, u, prec)
+                held(f"gather_L/{tname}/{prec}", got,
+                     cu.gather_L_plain(table.rowptr, table.col, table.w, u, prec), tol)
+                if not torch.equal(got, cu.gather_L(table.rowptr, table.col, table.w, u, prec)):
+                    fail(f"gather_L {name} {tname} {prec}: two launches differ")
+                n["gather_L"] += 1
+        say(f"  {name}: {op.n} nodes, {len(op.tgt)} edges, kmax {op.kmax}, windows "
+            f"{plan.R} x {plan.we}, coverage {plan.coverage:.4f}")
+    # a stacked chunk of three physics: every lane bitwise its solo run
+    pts, h = jittered_cloud(np, 30, 2, SEED + 7)
+    ops = [UnstructuredNonlocalOp(pts, 3 * h, k=k, dt=dt, vol=h * h, device="cuda")
+           for k, dt in ((1.0, 1e-5), (0.5, 2e-5), (2.0, 5e-6))]
+    U0 = torch.tensor(rng.standard_normal((3, ops[0].n)), device="cuda")
+    for dtype in (torch.float64, torch.float32):
+        for test in (False, True):
+            out = make_batched_gather_multi_step_fn(ops, 5, dtype=dtype, test=test)(U0, 0)
+            for b, op in enumerate(ops):
+                solo = make_gather_multi_step_fn(op, 5, dtype=dtype, test=test)(U0[b], 0)
+                if not torch.equal(out[b], solo):
+                    fail(f"stacked gather lane {b} ({dtype}, test={test}) is not bitwise its "
+                         "solo run")
+    say("unstructured kernel checks (max |kernel-plain| / max|plain|): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+        + f"; cases windowed_matvec {n['windowed_matvec']}, gather_L {n['gather_L']}; "
+        "stacked gather lanes bitwise solo: pass")
+    return n
+
+
+def csr_library(torch, rowptr, col, w, n: int):
+    """``x -> torch.sparse.mm(A, x)`` for the CSR matrix (rowptr, col, w):
+    the library yardstick (the port never calls it)."""
+    A = torch.sparse_csr_tensor(rowptr, col.long(), w, size=(n, n))
+    return lambda x: torch.sparse.mm(A, x.unsqueeze(1)).squeeze(1)
+
+
+def start_unstructured_clis() -> tuple:
+    """solve_unstructured --test on each data/*.msh on the card in float64,
+    --layout auto then windowed, one process per mesh running the two in
+    turn, started right after the build so that they run beside phase 2;
+    (jobs, start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    jobs = {}
+    for name in MESHES:
+        runs = " && ".join(
+            f"{sys.executable} -m nonlocalheatequation_torch.cli.solve_unstructured --mesh "
+            f"data/{name}.msh --test --platform gpu --x64 1 --layout {lay}"
+            for lay in ("auto", "windowed"))
+        proc = subprocess.Popen(["bash", "-c", runs], cwd=ROOT, env=env, stdin=subprocess.DEVNULL,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(proc)
+        jobs[name] = proc
+    return jobs, time.perf_counter()
+
+
+def phase_unstructured_cli(clis, l2_threshold):
+    """Phase 3b: each data/*.msh solve (f64, auto and windowed) must print
+    error_l2/N <= 1e-6."""
+    jobs, t0 = clis
+    errs = {}
+    for name, proc in jobs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"solve_unstructured on data/{name}.msh: rc {proc.returncode}\n{out}\n"
+                 f"{err[-4000:]}")
+        lines = [x for x in out.splitlines() if x.startswith("error_l2/N ")]
+        if len(lines) != 2:
+            fail(f"solve_unstructured on data/{name}.msh: {len(lines)} error lines\n{out}")
+        for lay, line in zip(("auto", "windowed"), lines, strict=True):
+            errs[f"{name} {lay}"] = cli_error(line, f"solve_unstructured {name} --layout {lay}",
+                                              l2_threshold)
+    say("solve_unstructured --test --platform gpu --x64 1 on data/*.msh (error_l2/N, --layout "
+        "auto and windowed): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; wall (beside phase 2) {time.perf_counter() - t0:.1f} s")
+
+
+def run_cli_unstructured(argv) -> str:
+    """solve_unstructured in-process on the card; its stdout (fails on rc != 0)."""
+    import contextlib
+    import io
+
+    from nonlocalheatequation_torch.cli import solve_unstructured
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = solve_unstructured.main(argv)
+    if rc != 0:
+        fail(f"solve_unstructured {' '.join(argv)}: rc {rc}\n{out.getvalue()}\n"
+             f"{err.getvalue()}")
+    return out.getvalue()
+
+
+def cli_error(text: str, what: str, l2_threshold: float) -> float:
+    line = next((x for x in text.splitlines() if x.startswith("error_l2/N ")), None)
+    if line is None:
+        fail(f"{what}: no error_l2/N line\n{text}")
+    err = float(line.split()[1])
+    if not err <= l2_threshold:
+        fail(f"{what}: error_l2/N {err:.3e} > {l2_threshold:g}")
+    return err
+
+
+def phase_unstructured(torch, np, ck, l2_threshold) -> list:
+    """Phase 7, the unstructured path: (b) the shuffled jittered 512^2 cloud
+    (eps = 3h, f32): host walls of the edge and plan builds, windowed_matvec
+    and gather_L held to their plain versions and timed beside them, their
+    bounds and torch.sparse.mm, and one step of each layout; (c) counted, the
+    CLI on the 512^2 cloud from a 2.2 .msh with --layout auto (windowed,
+    UN_STEPS launches; data/*.msh ran beside phase 2, phase_unstructured_cli);
+    (d) bench.py's graded cloud at nm=256 in a throwaway mesh
+    registry: gather_L held and timed at its shape, then, counted, an 8-case
+    bucket and a mixed-physics 8-case bucket through EnsembleEngine (lanes x
+    MESH_STEPS launches each), every lane bitwise its solo gather loop."""
+    from nonlocalheatequation_torch.ops import cuda_unstructured as cu
+    from nonlocalheatequation_torch.ops.gather import GatherTable, make_gather_multi_step_fn
+    from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase, EnsembleEngine
+    from nonlocalheatequation_torch.serve.meshes import MeshStore, get_mesh_op
+    from nonlocalheatequation_torch.utils.gmsh import write_point_cloud_msh
+
+    f32, tol32, isz = torch.float32, TOL["float32"], 4
+    rng = np.random.default_rng(SEED + 8)
+    t_phase = time.perf_counter()
+    held = {"windowed_matvec": [], "gather_L": []}
+
+    def hold(name, form, got, ref, tol):
+        abs_err, rel = rel_err(torch, got, ref)
+        held[name].append({"form": form, "max_abs_err": abs_err, "rel_err": rel, "tol": tol})
+        if not rel <= tol:
+            fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol:g}")
+
+    # (b) the realistic cloud
+    pts, h = jittered_cloud(np, UN_M, 2, SEED + 9, shuffle=True)
+    t0 = time.perf_counter()
+    op = UnstructuredNonlocalOp(pts, 3 * h, k=1.0, dt=1.0, vol=h * h, device="cuda")
+    edge_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layout = op.choose_layout()
+    gate_wall = time.perf_counter() - t0
+    if layout != "windowed":
+        fail(f"the shuffled {UN_M}^2 cloud: auto chose {layout!r} on the card, not windowed")
+    t0 = time.perf_counter()
+    plan = op.windowed_plan()
+    plan_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = plan.for_dtype(f32, "cuda")
+    torch.cuda.synchronize()
+    fill_wall = time.perf_counter() - t0
+    n, nnz_w = op.n, len(plan.p_vals)
+    shape13 = f"{n} nodes, R={plan.R} windows of we={plan.we}"
+    say(f"shuffled {UN_M}^2 cloud, eps=3h: {n} nodes, {len(op.tgt)} edges, kmax {op.kmax}; "
+        f"host walls: build_edges {edge_wall:.2f} s, auto gate (offset stats + window search) "
+        f"{gate_wall:.2f} s, plan {plan_wall:.2f} s, strips filled on the card "
+        f"{fill_wall:.2f} s; windows {plan.R} x {plan.we}, coverage {plan.coverage:.4f}, "
+        f"P {tuple(ex.P.shape)} f32 ({ex.P.numel() * isz / 2**30:.3f} GiB), residual "
+        f"{plan.ov_tgt.size} edges")
+    u = torch.tensor(rng.standard_normal(n), device="cuda", dtype=f32)
+    mv = cu.windowed_matvec(ex.P, ex.s128, u, ex.we)
+    hold("windowed_matvec", f"float32 shuffled {UN_M}^2", mv,
+         cu.windowed_matvec_plain(ex.P, ex.s128, u, ex.we), tol32)
+    u64 = u.double()
+    ex64 = plan.for_dtype(torch.float64, "cuda")
+    hold("windowed_matvec", f"float64 shuffled {UN_M}^2",
+         cu.windowed_matvec(ex64.P, ex64.s128, u64, ex64.we),
+         cu.windowed_matvec_plain(ex64.P, ex64.s128, u64, ex64.we), TOL["float64"])
+    del ex64
+    torch.cuda.empty_cache()
+    # the library yardstick for B13: the in-window entries as one CSR matrix
+    s128 = plan.s128.astype(np.int64)
+    gcol = s128[plan.p_rows // 128, plan.p_cols // plan.we] * 128 + plan.p_cols % plan.we
+    by = np.lexsort((gcol, plan.p_rows))
+    rowptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(plan.p_rows, minlength=plan.n_pad)[:n], out=rowptr[1:])
+    lib13 = csr_library(torch, torch.as_tensor(rowptr, device="cuda"),
+                        torch.as_tensor(gcol[by], device="cuda"),
+                        torch.as_tensor(plan.p_vals[by], device="cuda", dtype=f32), n)
+    lib_err = rel_err(torch, lib13(u), mv)[1]
+    if not lib_err <= tol32:
+        fail(f"torch.sparse.mm of the in-window entries differs from windowed_matvec: "
+             f"{lib_err:.3e}")
+    out13 = {"ms": cuda_ms(torch, lambda: cu.windowed_matvec(ex.P, ex.s128, u, ex.we), 50),
+             "plain_ms": cuda_ms(torch, lambda: cu.windowed_matvec_plain(ex.P, ex.s128, u,
+                                                                         ex.we), 10, 2),
+             "library_ms": cuda_ms(torch, lambda: lib13(u), 20)}
+    b13 = bound(ex.P.numel() * isz + ex.s128.numel() * 4 + 2 * n * isz, 2 * ex.P.numel())
+    del lib13
+    # B12 at the same cloud (original order)
+    table = GatherTable(op, f32, "cuda")
+    g = cu.gather_L(table.rowptr, table.col, table.w, u)
+    hold("gather_L", f"float32 shuffled {UN_M}^2", g,
+         cu.gather_L_plain(table.rowptr, table.col, table.w, u), tol32)
+    lib12 = csr_library(torch, table.rowptr, table.col, table.w, n)
+    out12s = {"ms": cuda_ms(torch, lambda: cu.gather_L(table.rowptr, table.col, table.w, u),
+                            50),
+              "plain_ms": cuda_ms(torch, lambda: cu.gather_L_plain(table.rowptr, table.col,
+                                                                   table.w, u), 5, 1),
+              "library_ms": cuda_ms(torch, lambda: lib12(u), 20)}
+    b12s = bound(table.nnz * (isz + 4) + (n + 1) * 8 + 2 * n * isz, 2 * table.nnz)
+    del lib12, table
+    say(f"B13 windowed_matvec {UN_M}^2 f32: kernel {out13['ms']:.4f} ms, plain (bmm over the "
+        f"windows) {out13['plain_ms']:.3f} ms, torch.sparse.mm CSR of the {nnz_w} in-window "
+        f"entries {out13['library_ms']:.4f} ms, bound {b13[0]:.4f} ms ({b13[1]}: P "
+        f"{ex.P.numel() * isz} B + u + out)")
+    say(f"B12 gather_L {UN_M}^2 f32 (CSR, {len(op.tgt) + n} entries with the centres): kernel "
+        f"{out12s['ms']:.4f} ms, plain {out12s['plain_ms']:.3f} ms, torch.sparse.mm "
+        f"{out12s['library_ms']:.4f} ms, bound {b12s[0]:.4f} ms ({b12s[1]})")
+    # one L(u) per layout, each held to the float64 NumPy oracle (a random
+    # state: a smooth one cancels in L and leaves float32 noise in its place)
+    steps = {}
+    uo_np = rng.standard_normal(n)
+    uo = torch.tensor(uo_np, device="cuda", dtype=f32)
+    oracle = torch.as_tensor(op.apply_np(uo_np), device="cuda")
+    for lay in ("windowed", "offsets", "ell", "edges"):
+        lay_err = rel_err(torch, op.apply(uo, layout=lay), oracle)[1]
+        if not lay_err <= tol32:
+            fail(f"layout {lay} on the shuffled cloud: |L - oracle| / max|oracle| "
+                 f"{lay_err:.3e} > {tol32:g}")
+        steps[lay] = cuda_ms(torch, lambda lay=lay: op.apply(uo, layout=lay), 5, 1)
+    off = op.offset_plan()
+    say(f"one L(u) per layout at {UN_M}^2 f32, ms: {json.dumps(steps)} (offsets keeps "
+        f"{len(off.offs)} diagonals, coverage {off.coverage:.4f})")
+    del ex, op, off, uo, oracle, u, mv, g
+    plan = None
+    torch.cuda.empty_cache()
+
+    walls = {"b": time.perf_counter() - t_phase}
+
+    # (c) the CLI on the card, counted (data/*.msh ran beside phase 2)
+    counted = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        msh = os.path.join(tmp, f"shuffled{UN_M}.msh")
+        write_point_cloud_msh(msh, pts)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        text = run_cli_unstructured(["--mesh", msh, "--test", "--platform", "gpu", "--layout",
+                                     "auto", "--eps", repr(3 * h), "--nt", str(UN_STEPS)])
+        cli_wall = time.perf_counter() - t0
+        counted["cli"] = {k: v for k, v in ck.launch_counts().items() if v}
+    err = cli_error(text, f"solve_unstructured shuffled {UN_M}^2", l2_threshold)
+    if counted["cli"] != {"windowed_matvec": UN_STEPS}:
+        fail(f"solve_unstructured --layout auto on the shuffled {UN_M}^2 cloud: launches "
+             f"{counted['cli']}, expected windowed_matvec x {UN_STEPS} (auto must choose "
+             "windowed on the card)")
+    say(f"main path (counted): solve_unstructured --layout auto on the shuffled {UN_M}^2 cloud "
+        f"(a 2.2 .msh, f32, {UN_STEPS} steps): launches {json.dumps(counted['cli'])}, "
+        f"error_l2/N {err:.3e}, wall {cli_wall:.2f} s; "
+        + " | ".join(x for x in text.splitlines()[1:2]))
+
+    walls["c"] = time.perf_counter() - t_phase - walls["b"]
+
+    # (d) the mesh buckets on bench.py's graded cloud
+    mpts, meps, mvol = graded_cloud(np, MESH_NM)
+    with tempfile.TemporaryDirectory() as mdir:
+        os.environ["NLHEAT_MESH_DIR"] = mdir
+        try:
+            t0 = time.perf_counter()
+            mhash = MeshStore(mdir).put(mpts, meps, mvol)
+            put_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mop = get_mesh_op(mhash, 1.0, 1.0, device="cuda")
+            op_wall = time.perf_counter() - t0
+            bound1 = float(np.max(mop.c * mop.wsum))
+            dt1 = 0.8 / bound1
+            nm = mop.n
+            # B12 at the bucket's shape, every tier against its plain version, on a
+            # random state as in the other checks (on the smooth profile G, L(G) is a
+            # small difference of large sums, and two float32 orders of the same
+            # sum differ by more than 1e-5 of its largest value: printed below)
+            u = torch.tensor(rng.standard_normal(mop.n), device="cuda", dtype=f32)
+            for dtype, tname in ((torch.float64, "float64"), (f32, "float32")):
+                table = GatherTable(mop, dtype, "cuda")
+                ud = u.to(dtype)
+                for prec in ("f32", "bf16"):
+                    hold("gather_L", f"{tname} {prec} graded nm={MESH_NM}",
+                         cu.gather_L(table.rowptr, table.col, table.w, ud, prec),
+                         cu.gather_L_plain(table.rowptr, table.col, table.w, ud, prec),
+                         TOL[tname])
+            gp = torch.tensor(mop.spatial_profile(), device="cuda", dtype=f32)
+            smooth = rel_err(torch, cu.gather_L(table.rowptr, table.col, table.w, gp),
+                             cu.gather_L_plain(table.rowptr, table.col, table.w, gp))[1]
+            lib12 = csr_library(torch, table.rowptr, table.col, table.w, nm)
+            lib_err = rel_err(torch, lib12(u), cu.gather_L(table.rowptr, table.col, table.w,
+                                                           u))[1]
+            if not lib_err <= tol32:
+                fail(f"torch.sparse.mm of the baked table differs from gather_L: {lib_err:.3e}")
+            out12 = {"ms": cuda_ms(torch, lambda: cu.gather_L(table.rowptr, table.col,
+                                                              table.w, u), 100),
+                     "plain_ms": cuda_ms(torch, lambda: cu.gather_L_plain(
+                         table.rowptr, table.col, table.w, u), 5, 1),
+                     "library_ms": cuda_ms(torch, lambda: lib12(u), 50)}
+            b12 = bound(table.nnz * (isz + 4) + (nm + 1) * 8 + 2 * nm * isz, 2 * table.nnz)
+            kpad = -(-(mop.kmax + 1) // 128) * 128
+            say(f"graded cloud nm={MESH_NM}: {nm} nodes, {len(mop.tgt)} edges, kmax "
+                f"{mop.kmax} (strips kpad {kpad}; CSR {table.nnz} entries with the centres); "
+                f"host walls: MeshStore.put {put_wall:.2f} s, get_mesh_op {op_wall:.2f} s; "
+                f"B12 gather_L f32: kernel {out12['ms']:.4f} ms, plain {out12['plain_ms']:.3f} "
+                f"ms, torch.sparse.mm {out12['library_ms']:.4f} ms, bound {b12[0]:.4f} ms "
+                f"({b12[1]}); on the smooth profile G (not held: cancellation) the float32 "
+                f"|kernel-plain| / max|plain| is {smooth:.3e}")
+            del lib12, table
+            mixed_phys = [(1.0, 0.8), (0.5, 0.6), (2.0, 0.7), (1.0, 0.4), (0.2, 0.8),
+                          (1.5, 0.5), (0.7, 0.5), (3.0, 0.3)]
+            buckets = {
+                "uniform": [EnsembleCase(shape=(nm,), nt=MESH_STEPS, eps=0, k=1.0, dt=dt1,
+                                         dh=0.0, test=True, mesh=mhash)] * 8,
+                "mixed": [EnsembleCase(shape=(nm,), nt=MESH_STEPS, eps=0, k=k,
+                                       dt=f * 0.8 / (k * bound1), dh=0.0, test=True,
+                                       mesh=mhash) for k, f in mixed_phys],
+            }
+            run_wall, dev_ms = {}, {}
+            for name, cases in buckets.items():
+                eng = EnsembleEngine(device="cuda", dtype=f32)
+                ck.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = eng.run(cases)
+                run_wall[name] = time.perf_counter() - t0
+                counted[name] = {k: v for k, v in ck.launch_counts().items() if v}
+                r = eng.report
+                if (r.buckets, r.programs_built, r.dispatches) != (1, 1, 1) \
+                        or counted[name] != {"gather_L": 8 * MESH_STEPS}:
+                    fail(f"mesh bucket {name}: {r.summary()}, launches {counted[name]}; "
+                         f"expected 1 bucket, 1 program, 1 dispatch, gather_L x "
+                         f"{8 * MESH_STEPS}")
+                worst = 0.0
+                for case, got in zip(cases, res, strict=True):
+                    cop = eng._make_op(case)
+                    solo = make_gather_multi_step_fn(cop, MESH_STEPS, dtype=f32, test=True)(
+                        torch.as_tensor(cop.spatial_profile(), device="cuda"), 0)
+                    if got.shape != (nm,) or not np.array_equal(got, solo.cpu().numpy()):
+                        fail(f"mesh bucket {name}: a lane is not bitwise its solo gather loop")
+                    d = got.astype(np.float64) - cop.manufactured_solution(MESH_STEPS)
+                    worst = max(worst, float(np.sum(d * d)) / nm)
+                if not worst <= l2_threshold:
+                    fail(f"mesh bucket {name}: error_l2/#points {worst:.3e} > {l2_threshold:g}")
+                key = cases[0].bucket_key()
+                multi = eng.build_program(key, cases)
+                U0 = eng.stage_inputs(cases)
+                dev_ms[name] = cuda_ms(torch, lambda multi=multi, U0=U0: multi(U0, 0), 1, 1)
+                say(f"mesh bucket {name} (8 x {nm} nodes, f32, {MESH_STEPS} steps; "
+                    f"{r.strategies[key]}): run() wall {run_wall[name]:.3f} s (first run, "
+                    f"building the tables), {dev_ms[name]:.3f} ms on the card per run "
+                    f"({dev_ms[name] / (8 * MESH_STEPS):.4f} ms per case-step); launches "
+                    f"{json.dumps(counted[name])}; every lane bitwise its solo loop; largest "
+                    f"error_l2/#points {worst:.3e}")
+        finally:
+            del os.environ["NLHEAT_MESH_DIR"]
+    walls["d"] = time.perf_counter() - t_phase - walls["b"] - walls["c"]
+    say(f"phase 7 part walls, s: (b) the 512^2 cloud {walls['b']:.1f}, (c) the counted CLI "
+        f"{walls['c']:.1f}, (d) the mesh buckets {walls['d']:.1f}")
+
+    launches = {"windowed_matvec": counted["cli"].get("windowed_matvec", 0),
+                "gather_L": counted["uniform"].get("gather_L", 0)
+                + counted["mixed"].get("gather_L", 0)}
+
+    def row(name, source, replaces, **kw):
+        cs = held[name]
+        return {"name": name, "route": "cuda",
+                "source": f"nonlocalheatequation_torch/csrc/{source}",
+                "replaces": replaces, **kw, "launches": launches[name],
+                "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
+                "main_shape_forms": len(cs)}
+
+    return [
+        row("windowed_matvec", "windowed_matvec.cu",
+            "nonlocalheatequation_tpu/ops/windowed.py:151", ms=out13["ms"],
+            plain_ms=out13["plain_ms"], bound_ms=b13[0], bound_by=b13[1],
+            library_ms=out13["library_ms"],
+            library_note="torch.sparse.mm of the in-window entries as one CSR matrix",
+            shape=f"shuffled {UN_M}^2, eps=3h, {shape13}",
+            layout_step_ms=steps),
+        row("gather_L", "gather_L.cu", "nonlocalheatequation_tpu/ops/pallas_gather.py:144",
+            ms=out12["ms"], plain_ms=out12["plain_ms"], bound_ms=b12[0], bound_by=b12[1],
+            library_ms=out12["library_ms"],
+            library_note="torch.sparse.mm of the baked table as one CSR matrix",
+            shape=f"graded nm={MESH_NM} ({nm} nodes, kpad {kpad})",
+            ms_shuffled=out12s["ms"], plain_ms_shuffled=out12s["plain_ms"],
+            bound_ms_shuffled=b12s[0], library_ms_shuffled=out12s["library_ms"],
+            bucket_ms=dev_ms, bucket_wall_s=run_wall),
+    ]
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -1490,9 +1984,9 @@ def main() -> int:
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(_build.ALL_SOURCES)
     say(f"build: {time.perf_counter() - t0:.1f} s ({json.dumps(built)})")
-    for source in _build.SOURCES:
+    for source in _build.ALL_SOURCES:
         log = _build.library_path(source).with_suffix(".log")
         if log.exists():
             text = log.read_text()
@@ -1511,14 +2005,18 @@ def main() -> int:
 
     atexit.register(stop_children)
     clis = start_clis(cases_2d, cases_1d)
+    uclis = start_unstructured_clis()
     checks = timed("checks 2d", phase_checks, torch, ck, np)
     checks.update(timed("multi-step checks 2d", phase_multistep_checks, torch, ck, np))
     checks.update(timed("checks 3d", phase_checks_3d, torch, k3, np))
     checks.update(timed("batched checks", phase_batched_checks, torch, ck, cb, np))
+    checks.update(timed("unstructured checks", phase_unstructured_checks, torch, np))
     timed("tables", phase_main_path_tables, torch, clis, cases_2d, l2_threshold)
+    timed("unstructured cli", phase_unstructured_cli, uclis, l2_threshold)
     kernels = timed("headline 2d", phase_headline, torch, np, ck, l2_threshold)
     kernels += timed("headline 3d", phase_headline_3d, torch, np, ck, k3, l2_threshold)
     kernels += timed("ensemble", phase_ensemble, torch, np, ck, cb, cases_2d)
+    kernels += timed("unstructured", phase_unstructured, torch, np, ck, l2_threshold)
     say(f"phase walls, s: {json.dumps(walls)}")
     for k in kernels:
         k["checks"] = checks[k["name"]]

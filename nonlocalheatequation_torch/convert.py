@@ -11,7 +11,9 @@ manufactured source on when ``params["test"]`` is set.
 
 :func:`ensemble_case_from_jax` carries one case of the JAX package's
 ensemble engine (its ``EnsembleCase``) into the port's, so both engines run
-the same buckets.
+the same buckets, mesh buckets included.  :func:`unstructured_op_from_jax`
+and :func:`unstructured_solver_from_jax_state` carry an unstructured
+operator and a solve's state.
 
 This module reads plain dicts, arrays and attributes; it imports nothing of
 JAX.
@@ -24,6 +26,7 @@ import numpy as np
 from nonlocalheatequation_torch.models.solver1d import Solver1D
 from nonlocalheatequation_torch.models.solver2d import Solver2D
 from nonlocalheatequation_torch.models.solver3d import Solver3D
+from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp, UnstructuredSolver
 from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
 
 _KEYS = ("shape", "eps", "k", "dt", "dh", "test")
@@ -88,13 +91,47 @@ def solver3d_from_jax_state(params: dict, u: np.ndarray, t: int, *, device, dtyp
 
 def ensemble_case_from_jax(case) -> EnsembleCase:
     """The port's EnsembleCase for a JAX ``EnsembleCase`` (any object with its
-    fields): the same shape, step count, eps, physics and test flag, and its
-    ``u0`` as a float64 NumPy array.  A mesh (unstructured) case is refused:
-    the port has no unstructured tier yet."""
-    if getattr(case, "mesh", None) is not None:
-        raise ValueError("mesh (unstructured) ensemble cases are not ported yet to "
-                         "nonlocalheatequation_torch")
+    fields): the same shape, step count, eps, physics, test flag and mesh
+    hash (a mesh case resolves through the shared ``.npz`` mesh store,
+    serve/meshes.py), and its ``u0`` as a float64 NumPy array."""
     u0 = None if case.u0 is None else np.array(case.u0, dtype=np.float64)
+    mesh = getattr(case, "mesh", None)
     return EnsembleCase(shape=tuple(int(s) for s in case.shape), nt=int(case.nt),
                         eps=int(case.eps), k=float(case.k), dt=float(case.dt),
-                        dh=float(case.dh), test=bool(case.test), u0=u0)
+                        dh=float(case.dh), test=bool(case.test), u0=u0,
+                        mesh=None if mesh is None else str(mesh))
+
+
+def unstructured_op_from_jax(op, *, device) -> UnstructuredNonlocalOp:
+    """The port's operator for a JAX ``UnstructuredNonlocalOp`` (any object
+    with its fields), built from its points, horizon field, volumes, k and
+    dt as NumPy arrays; refuses unless the edge table, ``c`` and ``wsum``
+    come out equal to the JAX operator's (an influence function or a given
+    ``c`` is not carried: the JAX operator keeps neither)."""
+    new = UnstructuredNonlocalOp(np.asarray(op.points), np.asarray(op.eps), k=float(op.k),
+                                 dt=float(op.dt), vol=np.asarray(op.vol), device=device)
+    for name in ("tgt", "src", "c", "wsum"):
+        if not np.array_equal(getattr(new, name), np.asarray(getattr(op, name))):
+            raise ValueError(f"unstructured_op_from_jax: {name} differs from the JAX "
+                             "operator's (an influence function or a given c is not carried)")
+    return new
+
+
+def unstructured_solver_from_jax_state(op, u: np.ndarray, t: int, *, device, dtype=None,
+                                       test: bool = False, nt: int | None = None,
+                                       **solver_kwargs) -> UnstructuredSolver:
+    """A port ``UnstructuredSolver`` carrying a JAX unstructured solve's
+    state ``u`` (n,) at step ``t`` over :func:`unstructured_op_from_jax` of
+    its operator ``op``: ``do_work()`` runs the steps ``t .. nt-1`` (``nt``
+    defaults to ``t``), with the manufactured source when ``test``."""
+    u = np.asarray(u, dtype=np.float64)
+    if u.shape != (int(op.n),):
+        raise ValueError(f"state shape {u.shape} != ({int(op.n)},)")
+    if int(t) < 0:
+        raise ValueError(f"timestep must be >= 0, got {t}")
+    s = UnstructuredSolver(unstructured_op_from_jax(op, device=device),
+                           t if nt is None else nt, dtype=dtype, **solver_kwargs)
+    s.u0 = u.copy()
+    s.test = bool(test)
+    s.t0 = int(t)
+    return s

@@ -29,7 +29,13 @@ BUILD_DIR = PKG / "_build"
 SOURCES_2D = ("nsum2d.cu", "carried2d.cu", "superstep2d.cu", "resident2d.cu",
               "batched_step2d.cu", "batched_carried2d.cu", "batched_superstep2d.cu")
 SOURCES_3D = ("nsum3d.cu", "carried3d.cu", "resident3d.cu")
+#: the stencil kernels (every one includes stencil_tile.cuh)
 SOURCES = SOURCES_2D + SOURCES_3D
+#: the unstructured kernels, a group of their own: they include no stencil
+#: header, so a change to them neither rebuilds the stencil libraries nor
+#: starts new 2D or 3D tuner records
+SOURCES_UNSTRUCTURED = ("windowed_matvec.cu", "gather_L.cu")
+ALL_SOURCES = SOURCES + SOURCES_UNSTRUCTURED
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -56,10 +56,12 @@ SOURCE = "nsum2d.cu"
 
 #: kernel name -> launches since the last reset_launch_counts() (the 3D
 #: kernels' wrappers live in ops/cuda_kernel3d.py, the batched 2D kernels'
-#: in ops/cuda_batched.py)
+#: in ops/cuda_batched.py, the unstructured kernels' in
+#: ops/cuda_unstructured.py)
 LAUNCHES = {"nsum2d": 0, "step2d": 0, "carried2d": 0, "superstep2d": 0, "resident2d": 0,
             "nsum3d": 0, "step3d": 0, "carried3d": 0, "resident3d": 0,
-            "batched_step2d": 0, "batched_carried2d": 0, "batched_superstep2d": 0}
+            "batched_step2d": 0, "batched_carried2d": 0, "batched_superstep2d": 0,
+            "windowed_matvec": 0, "gather_L": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -89,6 +91,8 @@ _ENTRIES = {
     "nlheat_batched_superstep2d": ("batched_superstep2d.cu", [_I, _I, _P, _P, _P, _I, _I, _I,
                                                               _I, _I, _D, _P]),
     "nlheat_batched_superstep2d_fits": ("batched_superstep2d.cu", [_I, _I, _I, _I]),
+    "nlheat_windowed_matvec": ("windowed_matvec.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "nlheat_gather_L": ("gather_L.cu", [_I, _I, _P, _P, _P, _P, _P, _I, _P]),
 }
 _entries: dict = {}
 

@@ -28,8 +28,11 @@ solo path's code.
 per-step kernel, or under ``NLHEAT_TUNE_BATCH=1`` (production buckets) the
 batched tuner's winner (utils/autotune.pick_batched_multi_step_fn); every
 other bucket (1D, 3D, a 2D method that is not ``cuda``) runs the vmap
-composition.  Not ported yet, and refused by name: mesh (unstructured)
-buckets, non-Euler steppers, ``comm='fused'`` and the AOT program store.
+composition.  A mesh bucket (unstructured cases keyed by a registered
+cloud's content hash, serve/meshes.py) runs each case's solo loop of the
+``gather_L`` kernel in turn (ops/gather.py, the stacked composition), as
+the JAX package runs its Pallas gather tier.  Not ported yet, and refused
+by name: non-Euler steppers, ``comm='fused'`` and the AOT program store.
 """
 
 from __future__ import annotations
@@ -66,8 +69,10 @@ class EnsembleCase:
     the 1D operator's dx for rank-1 cases.  ``test=True`` runs the
     manufactured-solution source (the batch_tester protocol); ``u0=None``
     with ``test=True`` starts from the spatial profile G, as
-    ``Solver*.test_init`` does.  ``mesh`` keys an unstructured case in the
-    JAX package; the port refuses it (unstructured is not ported yet).
+    ``Solver*.test_init`` does.  ``mesh`` keys an unstructured case: the
+    content hash of a registered point cloud (serve/meshes.py); ``shape``
+    is then the node count ``(n,)``, ``eps``/``dh`` are carried by the mesh
+    (set them 0), and the hash joins :meth:`bucket_key`.
     """
 
     shape: tuple
@@ -206,8 +211,11 @@ class EnsembleEngine:
         )
 
         if case.mesh is not None:
-            raise ValueError("mesh buckets (unstructured cases) are not ported yet to "
-                             "nonlocalheatequation_torch")
+            # the registered point cloud under this case's physics
+            # (serve/meshes.py caches the op; the stored edge table is checked)
+            from nonlocalheatequation_torch.serve.meshes import get_mesh_op
+
+            return get_mesh_op(case.mesh, case.k, case.dt, device=self.device)
         dim = len(case.shape)
         if dim == 1:
             # the port's 1D operator has one method; the 2D/3D settings map to it
@@ -299,6 +307,9 @@ class EnsembleEngine:
         if not case.test:
             raise ValueError("a production (test=False) EnsembleCase needs an initial "
                              "state u0")
+        if case.mesh is not None:
+            # the unstructured profile is evaluated at the node coordinates
+            return self._make_op(case).spatial_profile()
         return self._make_op(case).spatial_profile(*case.shape)
 
     def _build_program(self, key, chunk, ops, test):
@@ -308,6 +319,8 @@ class EnsembleEngine:
             make_batched_multi_step_fn_vmap,
         )
 
+        if chunk[0].mesh is not None:
+            return self._build_mesh_program(key, ops, test)
         shape, nt = key[0], key[1]
         dim = len(shape)
         op0 = ops[0]
@@ -360,6 +373,26 @@ class EnsembleEngine:
         return cb.make_batched_cuda_multi_step_fn(ops, nt, dtype=self.dtype, test=test,
                                                   gs=gs, lgs=lgs)
 
+    def _build_mesh_program(self, key, ops, test):
+        """A mesh bucket: every case shares the edge table (the hash is in
+        the bucket key), physics may differ per lane.  Euler only, the
+        stacked composition of each case's ``gather_L`` loop; what the tier
+        cannot honour is refused, in the JAX package's words."""
+        from nonlocalheatequation_torch.ops.gather import make_batched_gather_multi_step_fn
+
+        if self.stepper != "euler":
+            raise ValueError(f"mesh buckets are Euler-only (the gather tier has no "
+                             f"{self.stepper!r} schedule)")
+        if self.method not in ("auto", "gather"):
+            raise ValueError(f"mesh buckets need method='gather' or 'auto' (engine has "
+                             f"method={self.method!r})")
+        if self.variant not in ("auto", "per-step", "stacked"):
+            raise ValueError(f"ensemble variant {self.variant!r} has no gather form; mesh "
+                             "buckets run 'auto'/'per-step'/'stacked'")
+        self.report.strategies[key] = "gather[stacked]"
+        return make_batched_gather_multi_step_fn(ops, key[1], dtype=self.dtype, test=test,
+                                                 precision=self.precision, device=self.device)
+
     @staticmethod
     def _label(variant, chunk, cuda2d) -> str:
         """The strategy's name in the report: a batched-kernel variant says
@@ -381,7 +414,9 @@ def run_test_cases(cases, **engine_kwargs):
     states = engine.run(cases)
     out = []
     for case, u in zip(cases, states, strict=True):
-        want = engine._make_op(case).manufactured_solution(*case.shape, case.nt)
+        op = engine._make_op(case)
+        want = (op.manufactured_solution(case.nt) if case.mesh is not None
+                else op.manufactured_solution(*case.shape, case.nt))
         d = np.asarray(u, np.float64) - want
         out.append((float(np.sum(d * d)), int(np.prod(case.shape))))
     return out

@@ -12,12 +12,16 @@ imports JAX, so on such a machine run it without the conftest:
 
 The batched kernels (ops/cuda_batched.py) are held per lane, bitwise, to the
 solo kernels, and the ensemble engine runs a mixed-physics bucket in one
-``batched_step2d`` launch per step.
+``batched_step2d`` launch per step.  The unstructured kernels
+(ops/cuda_unstructured.py) are held to their plain versions, a windowed
+solve to the manufactured contract, and an 8-lane mesh bucket's lanes
+bitwise to their solo gather loops.
 
 The CPU tests hold the plain versions against the JAX package
 (tests/test_torch_kernels.py, test_torch_multistep.py, test_torch_autotune.py,
 test_torch_kernels3d.py, test_torch_3d.py, test_torch_batched_kernels.py,
-test_torch_ensemble.py).
+test_torch_ensemble.py, test_torch_unstructured.py, test_torch_windowed.py,
+test_torch_gather.py).
 """
 
 import numpy as np
@@ -324,3 +328,91 @@ def test_batch_tuner_probes_every_batched_candidate_on_card(card, monkeypatch):
             torch.as_tensor(case.u0, device=card).float(), 0)
         tol = 0.0 if entry["winner"] != "vmap" else 1e-5
         assert float(np.abs(got - want.cpu().numpy()).max()) <= tol * float(np.abs(got).max())
+
+
+# -- the unstructured kernels (ops/cuda_unstructured.py) --------------------------
+
+
+def _cloud(m, d=2, seed=0, shuffle=False):
+    """A jittered lattice cloud with a varying horizon of about 3 spacings."""
+    rng = np.random.default_rng(seed)
+    h = 1.0 / m
+    grids = np.meshgrid(*([np.arange(m) * h] * d), indexing="ij")
+    pts = np.stack([g.ravel() for g in grids], axis=1)
+    pts += rng.uniform(-0.2 * h, 0.2 * h, pts.shape)
+    if shuffle:
+        pts = pts[rng.permutation(len(pts))]
+    return pts, 3.0 * h * (1.0 + 0.2 * np.sin(7.0 * pts[:, 0])), h ** d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_unstructured_kernels_match_plain_on_card(card, dtype, tol):
+    from nonlocalheatequation_torch.ops import cuda_unstructured as cu
+    from nonlocalheatequation_torch.ops.gather import GatherTable
+    from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp
+
+    rng = np.random.default_rng(21)
+    for m, d, shuffle in [(40, 2, False), (40, 2, True), (10, 3, False), (300, 1, False)]:
+        pts, eps, vol = _cloud(m, d, seed=m + d, shuffle=shuffle)
+        op = UnstructuredNonlocalOp(pts, eps, k=1.0, dt=1e-6, vol=vol, device=card)
+        u = torch.tensor(rng.standard_normal(op.n), device=card, dtype=dtype)
+        for wmax in (4096, 128):  # 128: most edges overflow to the residual
+            ex = op.windowed_plan(wmax=wmax).for_dtype(dtype, card)
+            a = cu.windowed_matvec(ex.P, ex.s128, u, ex.we)
+            b = cu.windowed_matvec_plain(ex.P, ex.s128, u, ex.we)
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+            L = ex.L(u).double().cpu().numpy()
+            want = op.apply_np(u.double().cpu().numpy())
+            assert float(np.abs(L - want).max() / np.abs(want).max()) <= tol
+        table = GatherTable(op, dtype, card)
+        for prec in ("f32", "bf16"):
+            a = cu.gather_L(table.rowptr, table.col, table.w, u, prec)
+            b = cu.gather_L_plain(table.rowptr, table.col, table.w, u, prec)
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+            assert torch.equal(a, cu.gather_L(table.rowptr, table.col, table.w, u, prec))
+    # per cloud: two plans x (the matvec + the operator), two tiers x two launches
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {"windowed_matvec": 16,
+                                                                 "gather_L": 16}
+
+
+@pytest.mark.cuda
+def test_windowed_solver_holds_the_contract_on_card(card):
+    from nonlocalheatequation_torch.ops.unstructured import (
+        UnstructuredNonlocalOp,
+        UnstructuredSolver,
+    )
+
+    pts, eps, vol = _cloud(24, seed=2)
+    op = UnstructuredNonlocalOp(pts, eps, k=1.0, dt=1e-6, vol=vol, device=card)
+    for dtype in (torch.float64, torch.float32):
+        ck.reset_launch_counts()
+        s = UnstructuredSolver(op, nt=25, layout="windowed", dtype=dtype)
+        s.test_init()
+        s.do_work()
+        assert s.error_l2 / op.n <= 1e-6
+        assert ck.launch_counts()["windowed_matvec"] == 25
+
+
+@pytest.mark.cuda
+def test_mesh_bucket_lanes_bitwise_solo_on_card(card, tmp_path, monkeypatch):
+    from nonlocalheatequation_torch.ops.gather import make_gather_multi_step_fn
+    from nonlocalheatequation_torch.serve.meshes import MeshStore
+
+    pts, eps, vol = _cloud(30, seed=5)
+    root = str(tmp_path / "meshes")
+    mhash = MeshStore(root).put(pts, eps, vol)
+    monkeypatch.setenv("NLHEAT_MESH_DIR", root)
+    physics = [(1.0, 1e-6), (0.5, 2e-6), (2.0, 5e-7), (1.5, 1e-6)] * 2
+    cases = [EnsembleCase(shape=(len(pts),), nt=7, eps=0, k=k, dt=dt, dh=0.0, test=True,
+                          mesh=mhash) for k, dt in physics]
+    engine = EnsembleEngine(device=card, dtype=torch.float32)
+    res = engine.run(cases)
+    assert (engine.report.buckets, engine.report.programs_built,
+            engine.report.dispatches) == (1, 1, 1)
+    assert {n: v for n, v in ck.launch_counts().items() if v} == {"gather_L": 8 * 7}
+    for case, got in zip(cases, res, strict=True):
+        op = engine._make_op(case)
+        solo = make_gather_multi_step_fn(op, 7, dtype=torch.float32, test=True)(
+            torch.as_tensor(op.spatial_profile(), device=card), 0)
+        assert np.array_equal(got, solo.cpu().numpy())

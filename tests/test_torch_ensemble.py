@@ -198,7 +198,7 @@ def test_vmap_oracle_and_stacked_composition():
         assert torch.equal(got_s[i], solo)
 
 
-def test_refusals():
+def test_refusals(monkeypatch):
     test_cases = [convert.ensemble_case_from_jax(c) for c in _jax_cases(1, MIXED, 50, test=True)]
     prod = [convert.ensemble_case_from_jax(c) for c in _jax_cases(1, MIXED, 51)]
     with pytest.raises(ValueError, match="production-only"):
@@ -215,13 +215,16 @@ def test_refusals():
         EnsembleEngine(method="conv", variant="carried", device=CPU).run(prod)
     with pytest.raises(ValueError, match="unknown ensemble variant"):
         EnsembleEngine(variant="grid", device=CPU)
-    # what the port does not have yet is refused by name
+    # a mesh case resolves through the mesh registry (tests/test_torch_gather.py
+    # runs mesh buckets); with the registry off it is refused, as in the JAX
+    # package, and convert carries its hash
     mesh = EnsembleCase(shape=(10,), nt=2, eps=0, k=1.0, dt=1e-4, dh=0.0, mesh="abc",
                         u0=np.zeros(10))
-    with pytest.raises(ValueError, match="mesh buckets .unstructured cases. are not ported"):
+    monkeypatch.delenv("NLHEAT_MESH_DIR", raising=False)
+    with pytest.raises(RuntimeError, match="no mesh registry configured"):
         EnsembleEngine(device=CPU).run([mesh])
-    with pytest.raises(ValueError, match="mesh .unstructured. ensemble cases are not ported"):
-        convert.ensemble_case_from_jax(mesh)
+    assert convert.ensemble_case_from_jax(mesh).mesh == "abc"
+    # what the port does not have yet is refused by name
     with pytest.raises(ValueError, match="stepper='rkc' is not ported yet"):
         EnsembleEngine(device=CPU, stepper="rkc", stages=4)
     with pytest.raises(ValueError, match="comm='fused' .* is not ported yet"):

@@ -2,7 +2,8 @@
 
 * A subprocess with ``jax`` and ``nonlocalheatequation_tpu`` blocked in
   ``sys.modules`` imports every module of the port and chip_smoke.py and
-  runs a small 2D and 3D CPU solve and a 2-case ensemble.
+  runs a small 2D and 3D CPU solve, a 2-case ensemble, a small windowed
+  unstructured solve and a 2-case mesh-bucket ensemble.
 * No source file of the port names either package in an import.
 * chip_smoke.py on a host without a CUDA card exits non-zero and prints no
   result line.
@@ -40,6 +41,22 @@ assert s.error_l2 / (10 * 9 * 8) <= 1e-6, s.error_l2
 from nonlocalheatequation_torch.serve.ensemble import run_test_cases, EnsembleCase
 errs = run_test_cases([EnsembleCase(shape=(20, 18), nt=4, eps=3, k=k, dt=1e-4, dh=0.05)
                        for k in (1.0, 0.5)], method="cuda", device="cpu")
+assert all(e / n <= 1e-6 for e, n in errs), errs
+import os, tempfile
+import numpy as np
+from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp, UnstructuredSolver
+from nonlocalheatequation_torch.serve.meshes import MeshStore
+ii, jj = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+pts = np.stack([ii.ravel(), jj.ravel()], axis=1) / 16.0
+op = UnstructuredNonlocalOp(pts, 3 / 16.0, k=1.0, dt=1e-4, vol=1 / 256.0, device="cpu")
+s = UnstructuredSolver(op, nt=8, layout="windowed")
+s.test_init()
+s.do_work()
+assert s.error_l2 / op.n <= 1e-6, s.error_l2
+os.environ["NLHEAT_MESH_DIR"] = tempfile.mkdtemp()
+mhash = MeshStore(os.environ["NLHEAT_MESH_DIR"]).put(pts, 3 / 16.0, 1 / 256.0)
+errs = run_test_cases([EnsembleCase(shape=(256,), nt=4, eps=0, k=k, dt=1e-4, dh=0.0, mesh=mhash)
+                       for k in (1.0, 0.5)], device="cpu")
 assert all(e / n <= 1e-6 for e, n in errs), errs
 assert not any(m == "jax" or m.startswith(("jax.", "nonlocalheatequation_tpu"))
                for m, v in sys.modules.items() if v is not None)
