@@ -96,7 +96,27 @@ line is printed; the phase walls are printed at the end):
    its shape, then, counted, an 8-case bucket and a mixed-physics 8-case
    bucket through EnsembleEngine, each 8 x MESH_STEPS gather_L launches, every
    lane bitwise its solo gather loop and within the manufactured contract.
-8. The kernels' JSON line, then {"ok": true, "device": {...}}.
+8. The distributed grid solves (phase_halo_checks, phase_distributed):
+   fused_nsum2d and fused_nsum3d (the halo read inside the kernel from the
+   blocks around it) over meshes of blocks, and split_nsum2d and
+   split_nsum3d (the split kernels, interior then ring, on a filled
+   frame), held to their plain versions in float64, float32 and the bf16
+   tier on normal, degenerate and multi-hop blocks, and BITWISE to the
+   one-pass nsum2d/nsum3d on each halo-exchanged frame; then, at the main
+   path's blocks (2048^2, eps=8 and 128^3, eps=4, f32), held and timed
+   beside their plain versions, their bounds and F.conv2d/F.conv3d over
+   the frame.  Counted: Solver2DDistributed at 4096^2, eps=8, on a 2x2
+   mesh of virtual devices of the card and Solver3DDistributed at 256^3,
+   eps=4, on 2x2x2, 20 production steps each with comm='fused' (the
+   in-kernel exchange, the card's default), comm='fused' with
+   NLHEAT_FUSED_TRANSPORT=interp (band copies, then the split kernels) and
+   comm='collective', all three bitwise equal; and CASES_2D_DISTRIBUTED
+   through solve2d_distributed --test_batch (float64, 8 virtual devices,
+   --comm fused and the default), which must print "Tests Passed"; the
+   counts must be exactly the solves' and the rows'.  Each solve is held
+   within 1e-5 of the tuned single-device Solver2D/Solver3D, and the steps
+   are timed on the card.
+9. The kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -156,13 +176,18 @@ def nvidia_smi(query: str) -> str:
     return r.stdout.strip()
 
 
-def load_cases():
+def cases_module():
     path = ROOT / "tests" / "cases.py"
     if not path.is_file():
         fail(f"{path} not found: run from a checkout of the repository")
     spec = importlib.util.spec_from_file_location("nlheat_cases", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_cases():
+    mod = cases_module()
     return mod.CASES_2D, mod.CASES_1D, mod.L2_THRESHOLD
 
 
@@ -744,7 +769,7 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
     st.test_init()
     st.do_work()
     counts = {k: v for k, v in ck.launch_counts().items()
-              if k.endswith("2d") and not k.startswith("batched_")}
+              if k.endswith("2d") and not k.startswith(("batched_", "split_", "fused_"))}
     recs = autotune.records()
     test_err = st.error_l2 / (NX * NX)
     if len(recs) != 2:
@@ -974,7 +999,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
                   dtype=torch.float32, device="cuda")
     st.test_init()
     st.do_work()
-    counts = {k: v for k, v in ck.launch_counts().items() if k.endswith("3d")}
+    counts = {k: v for k, v in ck.launch_counts().items()
+              if k.endswith("3d") and not k.startswith(("split_", "fused_"))}
     recs = autotune.records()
     test_err = st.error_l2 / npts
     if len(recs) != 2:
@@ -1899,6 +1925,372 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
     ]
 
 
+# -- phase 8: the distributed grid solves ----------------------------------------------
+
+DN, DEPS = 4096, 8       # the 2D distributed solve: 4096^2, eps=8, 2x2 mesh (2048^2 blocks)
+D3N, D3EPS = 256, 4      # the 3D distributed solve: 256^3, eps=4, 2x2x2 mesh (128^3 blocks)
+DSTEPS = 20              # steps of each distributed solve
+
+
+def phase_halo_checks(torch, np) -> dict:
+    """Phase 8 (kernels): split_nsum2d and split_nsum3d on frames, and
+    fused_nsum2d and fused_nsum3d on every block of meshes of virtual
+    devices of the card, against their plain versions in float64, float32
+    and the bf16 operand tier, on normal, degenerate (a side <= 2*eps) and
+    multi-hop (eps above the block edge) blocks, and BITWISE against the
+    one-pass nsum2d/nsum3d on the same (halo-exchanged) frame; the
+    refusals beyond the shared-memory tile and the neighbour table."""
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+    from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
+    from nonlocalheatequation_torch.parallel import halo as thalo
+    from nonlocalheatequation_torch.parallel import mesh as tmesh
+
+    rng = np.random.default_rng(SEED + 20)
+    cases2 = [((70, 45), 5), ((300, 200), 8), ((100, 90), 40), ((2048, 64), 8),
+              ((8, 40), 4), ((33, 33), 16), ((8, 8), 9), ((5, 7), 12)]
+    cases3 = [((20, 12, 40), 3), ((33, 17, 40), 4), ((16, 16, 70), 6), ((12, 12, 12), 1),
+              ((4, 4, 4), 2), ((6, 9, 8), 3), ((4, 4, 4), 5), ((3, 5, 2), 6)]
+    worst, n = {}, {"split_nsum2d": 0, "split_nsum3d": 0}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[1]
+        tol = TOL[dname]
+        for prec in ("f32", "bf16"):
+            for name, cases, split, plain, one_pass in (
+                    ("split_nsum2d", cases2, th.split_nsum2d, th.split_nsum2d_plain, ck.nsum2d),
+                    ("split_nsum3d", cases3, th.split_nsum3d, th.split_nsum3d_plain,
+                     k3.nsum3d)):
+                for block, e in cases:
+                    frame = torch.tensor(rng.standard_normal(tuple(b + 2 * e for b in block)),
+                                         dtype=dtype, device="cuda")
+                    got, ref = split(frame, e, prec), plain(frame, e, prec)
+                    _abs, rel = rel_err(torch, got, ref)
+                    kind = ("degenerate" if th.degenerate(block, e)
+                            else "multi-hop" if e > min(block) else "normal")
+                    if not rel <= tol:
+                        fail(f"{name} {dname} {prec} {block} eps={e} ({kind}): rel err "
+                             f"{rel:.3e} > {tol:g}")
+                    if not torch.equal(got, one_pass(frame, e, prec)):
+                        fail(f"{name} {dname} {prec} {block} eps={e} ({kind}): not bitwise the "
+                             "one-pass sum on the same frame")
+                    key = f"{name}/{dname}/{prec}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    n[name] += 1
+    # the in-kernel exchange: every block of a mesh of virtual devices of
+    # the card, its halo read from the blocks around it
+    meshes = [((2, 2), (70, 45), 5), ((2, 2), (300, 200), 8), ((4, 2), (8, 8), 9),
+              ((3, 3), (2, 2), 5), ((2, 4), (33, 33), 16), ((1, 3), (5, 7), 12),
+              ((2, 2), (8, 40), 4), ((2, 2), (100, 90), 40), ((2, 2, 2), (20, 12, 40), 3),
+              ((2, 2, 2), (33, 17, 40), 4), ((2, 2, 2), (4, 4, 4), 5), ((3, 2, 2), (6, 9, 8), 3),
+              ((2, 2, 2), (12, 12, 12), 1), ((2, 2, 2), (16, 16, 70), 6),
+              ((2, 2, 2), (3, 5, 2), 6)]
+    n.update(fused_nsum2d=0, fused_nsum3d=0)
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for prec in ("f32", "bf16"):
+            for mesh_shape, block, e in meshes:
+                d = len(mesh_shape)
+                name = f"fused_nsum{d}d"
+                fused = th.fused_nsum2d if d == 2 else th.fused_nsum3d
+                one_pass = ck.nsum2d if d == 2 else k3.nsum3d
+                mesh = tmesh.create_mesh(("x", "y", "z")[:d], mesh_shape,
+                                         tmesh.device_list("cuda", int(np.prod(mesh_shape))))
+                u = rng.standard_normal(tuple(m * b for m, b in zip(mesh_shape, block)))
+                blocks = tmesh.put_global(u, mesh, dtype)
+                frames = thalo.halo_pad_nd(blocks, e)
+                kind = ("degenerate" if th.degenerate(block, e)
+                        else "multi-hop" if e > min(block) else "normal")
+                for pos in np.ndindex(*mesh_shape):
+                    got = fused(blocks, pos, e, prec)
+                    if not torch.equal(got, one_pass(frames[pos], e, prec)):
+                        fail(f"{name} {dname} {prec} mesh {mesh_shape} {block} eps={e} ({kind}) "
+                             f"block {pos}: not bitwise the one-pass sum on the exchanged frame")
+                    _abs, rel = rel_err(torch, got, th.fused_nsum_plain(blocks, pos, e, prec))
+                    if not rel <= TOL[dname]:
+                        fail(f"{name} {dname} {prec} mesh {mesh_shape} {block} eps={e} block "
+                             f"{pos}: rel err {rel:.3e} > {TOL[dname]:g}")
+                    key = f"{name}/{dname}/{prec}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    n[name] += 1
+    for what, call in (
+            ("split_nsum2d accepted eps=70 (beyond its shared-memory tile)",
+             lambda: th.split_nsum2d(torch.zeros(200, 200, device="cuda",
+                                                 dtype=torch.float64), 70)),
+            ("fused_nsum2d accepted eps=70 (beyond its shared-memory tile)",
+             lambda: th.fused_nsum2d(tmesh.put_global(
+                 np.zeros((400, 400)), tmesh.make_mesh(2, 2, tmesh.device_list("cuda", 4)),
+                 torch.float64), (0, 0), 70)),
+            ("fused_nsum2d accepted a neighbour table beyond 125 blocks",
+             lambda: th.fused_nsum2d(tmesh.put_global(
+                 np.zeros((12, 12)), tmesh.make_mesh(12, 12, tmesh.device_list("cuda", 144)),
+                 torch.float64), (0, 0), 6))):
+        try:
+            call()
+            fail(f"{what} on the card")
+        except ValueError:
+            pass
+    say("halo kernel checks (max |kernel-plain| / max|plain|; every case bitwise the one-pass "
+        "nsum2d/nsum3d on its halo-exchanged frame; normal, degenerate and multi-hop blocks): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+        + "; cases " + ", ".join(f"{k} {v}" for k, v in n.items()) + ": pass")
+    return n
+
+
+def split_launches(grid, mesh_shape, eps: int, nt: int) -> int:
+    """split_nsum launches of an nt-step comm='fused' solve: one per phase
+    per block per step (interior and ring, or one whole-block pass)."""
+    block = [g // m for g, m in zip(grid, mesh_shape)]
+    nblocks = 1
+    for m in mesh_shape:
+        nblocks *= m
+    phases = 1 if eps == 0 or any(b <= 2 * eps for b in block) else 2
+    return nt * nblocks * phases
+
+
+def phase_distributed(torch, np, ck, l2_threshold) -> list:
+    """Phase 8: (a) the halo kernels at the main path's blocks, f32:
+    fused_nsum2d on the (0, 0) 2048^2 block of a 2x2 mesh of virtual
+    devices at eps=8 and fused_nsum3d on the (0, 0, 0) 128^3 block of a
+    2x2x2 mesh at eps=4, split_nsum2d/3d on that block's exchanged frame,
+    each held to its plain version and bitwise to the one-pass sum on the
+    frame, timed per call (CUDA events; and in a CUDA graph, without the
+    host's cost) beside its plain version, its bound and F.conv2d/F.conv3d
+    over the frame (TF32 off); (b) counted, the main path:
+    Solver2DDistributed at 4096^2, eps=8, on a 2x2 mesh of virtual devices
+    of the card and Solver3DDistributed at 256^3, eps=4, on a 2x2x2 mesh,
+    each DSTEPS production steps in f32 with comm='fused' (the in-kernel
+    exchange), comm='fused' under NLHEAT_FUSED_TRANSPORT=interp (band
+    copies, then the split kernels) and comm='collective', all bitwise
+    equal; then the distributed CLI's CASES_2D_DISTRIBUTED table (float64,
+    8 virtual devices, --comm fused and the collective default); the counts
+    must be exactly the solves' and the rows'; (c) each solve within the
+    f32 tolerance of the tuned single-device Solver2D/Solver3D, and the
+    distributed steps timed on the card."""
+    import contextlib
+    import io
+
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.cli import solve2d_distributed
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.models.solver3d import Solver3D
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+    from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
+    from nonlocalheatequation_torch.ops.nonlocal_op import (
+        NonlocalOp2D,
+        full_fp32,
+        make_multi_step_fn,
+    )
+    from nonlocalheatequation_torch.parallel.distributed2d import (
+        Solver2DDistributed,
+        choose_mesh_shape,
+    )
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.halo import halo_pad_nd
+    from nonlocalheatequation_torch.parallel.mesh import (
+        create_mesh,
+        device_list,
+        make_mesh,
+        make_mesh_3d,
+        put_global,
+    )
+
+    f32, tol32, isz = torch.float32, TOL["float32"], 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    names = ("split_nsum2d", "fused_nsum2d", "split_nsum3d", "fused_nsum3d")
+    held = {k: [] for k in names}
+
+    def hold(name, form, got, ref, tol):
+        abs_err, rel = rel_err(torch, got, ref)
+        held[name].append({"form": form, "max_abs_err": abs_err, "rel_err": rel, "tol": tol})
+        if not rel <= tol:
+            fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol:g}")
+
+    # (a) the kernels at the blocks of the main path
+    timing = {}
+    for d, nblk, e, conv in ((2, DN // 2, DEPS, F.conv2d), (3, D3N // 2, D3EPS, F.conv3d)):
+        block, pos = (nblk,) * d, (0,) * d
+        shape = "x".join(map(str, block))
+        mesh = create_mesh(("x", "y", "z")[:d], (2,) * d, device_list("cuda", 2 ** d))
+        blocks = put_global(torch.randn((2 * nblk,) * d, generator=gen, device="cuda"), mesh,
+                            f32)
+        frame = halo_pad_nd(blocks, e)[pos]
+        one_pass = ck.nsum2d if d == 2 else k3.nsum3d
+        split = th.split_nsum2d if d == 2 else th.split_nsum3d
+        fused = th.fused_nsum2d if d == 2 else th.fused_nsum3d
+        kernels = {
+            f"split_nsum{d}d": (lambda p, split=split: split(frame, e, p),
+                                lambda p, split=split: (th.split_nsum2d_plain if d == 2
+                                                        else th.split_nsum3d_plain)(frame, e, p)),
+            f"fused_nsum{d}d": (lambda p, fused=fused: fused(blocks, pos, e, p),
+                                lambda p: th.fused_nsum_plain(blocks, pos, e, p)),
+        }
+        ops = (NonlocalOp2D(e, 1.0, 1.0, 1.0) if d == 2 else op_3d(8, e))
+        kern = torch.as_tensor(ops.weights, dtype=f32, device="cuda")[None, None]
+        with full_fp32():
+            lib_ms = cuda_ms(torch, lambda: conv(frame[None, None], kern), 5, 1)
+            lib_err = float((conv(frame[None, None], kern)[0, 0] - one_pass(frame, e)).abs().max())
+        one_pass_ms = cuda_ms(torch, lambda: one_pass(frame, e), 50)
+        npts = int(np.prod(block))
+        per_point = kernel_ops(e, 0) if d == 2 else kernel_ops_3d(e, k3.tile3d(e, f32), 0)
+        bnd = bound((frame.numel() + npts) * isz, npts * per_point)
+        for name, (call, plain) in kernels.items():
+            for prec in ("f32", "bf16"):
+                got = call(prec)
+                hold(name, f"float32 {prec} {shape} block eps={e}", got, plain(prec), tol32)
+                if not torch.equal(got, one_pass(frame, e, prec)):
+                    fail(f"{name} {prec} at the {shape} block: not bitwise the one-pass sum on "
+                         "the exchanged frame")
+            ms = cuda_ms(torch, lambda call=call: call("f32"), 50)
+            ms_graph = graph_ms(torch, lambda call=call: call("f32"), 20)
+            plain_ms = cuda_ms(torch, lambda plain=plain: plain("f32"), 3, 1)
+            timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                                library_ms=lib_ms, ms_graph=ms_graph, one_pass_ms=one_pass_ms,
+                                shape=f"{shape} block of a {'x'.join(['2'] * d)} mesh, "
+                                      f"eps={e}, f32")
+            extra = ""
+            if name.startswith("split_"):
+                out = torch.empty(block, dtype=f32, device="cuda")
+                phase_ms = {p: cuda_ms(torch, lambda p=p: th.launch_phase(name, frame, out, e,
+                                                                          "f32", p), 50)
+                            for p in ("interior", "ring")}
+                timing[name].update(ms_interior=phase_ms["interior"], ms_ring=phase_ms["ring"])
+                extra = (f" (interior {phase_ms['interior']:.4f} + ring "
+                         f"{phase_ms['ring']:.4f} ms alone)")
+                del out
+            say(f"{name} {shape} block eps={e} f32: kernel {ms:.4f} ms per call{extra}, "
+                f"{ms_graph:.4f} in a CUDA graph; one-pass nsum on the exchanged frame "
+                f"{one_pass_ms:.4f} ms, plain {plain_ms:.3f} ms, {conv.__name__} {lib_ms:.4f} "
+                f"ms (TF32 off; max abs diff to one-pass {lib_err:.2e}), bound {bnd[0]:.4f} "
+                f"ms ({bnd[1]})")
+        del blocks, frame, kern
+
+    # (b) the main path, counted
+    devs4, devs8 = device_list("cuda", 4), device_list("cuda", 8)
+    dh = 1.0 / DN
+    probe = NonlocalOp2D(DEPS, 1.0, 1.0, dh)
+    dt = 0.8 / (probe.c * dh * dh * probe.wsum)  # 0.8x the Euler bound, as phase 4
+    u2 = np.random.default_rng(SEED + 22).standard_normal((DN, DN))
+    op3 = op_3d(D3N, D3EPS)
+    u3 = np.random.default_rng(SEED + 23).standard_normal((D3N,) * 3)
+    cases = cases_module().CASES_2D_DISTRIBUTED
+    forms = (("fused", ""), ("fused", "interp"), ("collective", ""))
+    solvers, res, walls = {}, {}, {}
+    ck.reset_launch_counts()
+    for comm, transport in forms:
+        os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
+        label = f"{comm} {transport}".strip()
+        for d in ("2d", "3d"):
+            if d == "2d":
+                s = Solver2DDistributed(DN // 2, DN // 2, 2, 2, DSTEPS, DEPS, k=1.0, dt=dt,
+                                        dh=dh, mesh=make_mesh(2, 2, devs4), method="cuda",
+                                        dtype=f32, comm=comm)
+                s.input_init(u2)
+            else:
+                s = Solver3DDistributed(D3N, D3N, D3N, DSTEPS, D3EPS, k=1.0, dt=op3.dt,
+                                        dh=op3.dh, mesh=make_mesh_3d(2, 2, 2, devs8),
+                                        method="cuda", dtype=f32, comm=comm)
+                s.input_init(u3)
+            t0 = time.perf_counter()
+            res[f"{d} {label}"] = s.do_work()
+            walls[f"{d} {label}"] = time.perf_counter() - t0
+            solvers[f"{d} {label}"] = (s, transport)
+    os.environ.pop("NLHEAT_FUSED_TRANSPORT")
+    cli_out = {}
+    for extra in (["--method", "cuda", "--comm", "fused"], []):
+        stdout, stderr = io.StringIO(), io.StringIO()
+        stdin, sys.stdin = sys.stdin, io.StringIO(batch_text(cases))
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+                rc = solve2d_distributed.main([*CLI_ARGS, "--devices", "8", *extra])
+        finally:
+            sys.stdin = stdin
+        label = " ".join(extra) or "--comm collective (default, method auto)"
+        if rc != 0 or stdout.getvalue().splitlines()[-1] != "Tests Passed":
+            fail(f"solve2d_distributed --test_batch {label}: rc {rc}\n{stdout.getvalue()}\n"
+                 f"{stderr.getvalue()[-4000:]}")
+        cli_out[label] = time.perf_counter() - t0
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+
+    # the counts the path must show: the solves' and the rows'
+    row_blocks = sum(nt * int(np.prod(choose_mesh_shape(nx * npx, ny * npy, 8)))
+                     for nx, ny, npx, npy, nt, *_ in cases)
+    expected = {
+        "fused_nsum2d": DSTEPS * 4 + row_blocks,
+        "fused_nsum3d": DSTEPS * 8,
+        "split_nsum2d": split_launches((DN, DN), (2, 2), DEPS, DSTEPS),
+        "split_nsum3d": split_launches((D3N,) * 3, (2, 2, 2), D3EPS, DSTEPS),
+        # the collective solves, the collective CLI rows, and L(G) once per row per run
+        "nsum2d": DSTEPS * 4 + row_blocks + 2 * len(cases),
+        "nsum3d": DSTEPS * 8,
+    }
+    if counts != expected:
+        fail(f"distributed main path: launches {counts} != {expected} (the solves' and the "
+             "CLI rows')")
+    for d in ("2d", "3d"):
+        for label in ("fused", "fused interp"):
+            if not np.array_equal(res[f"{d} {label}"], res[f"{d} collective"]):
+                fail(f"the {d} distributed solve: comm='{label}' is not bitwise "
+                     "comm='collective'")
+        if not np.isfinite(res[f"{d} fused"]).all():
+            fail(f"the {d} distributed solve: non-finite values")
+    say(f"distributed main path: {DN}^2 eps={DEPS} on a 2x2 mesh of virtual devices of the "
+        f"card and {D3N}^3 eps={D3EPS} on 2x2x2, {DSTEPS} production steps f32 each, "
+        "comm='fused' (in-kernel exchange), 'fused' under NLHEAT_FUSED_TRANSPORT=interp (split "
+        "kernels) and 'collective' bitwise equal (do_work walls, s: "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}); CASES_2D_DISTRIBUTED "
+        "through solve2d_distributed --test_batch --platform gpu --x64 1 --devices 8: Tests "
+        f"Passed ({json.dumps({k: round(v, 2) for k, v in cli_out.items()})} s); launches "
+        f"{json.dumps(counts)} = the solves' and the rows'")
+
+    # (c) against the tuned single-device solves, and the steps timed on the card
+    solo = {"2d": Solver2D(DN, DN, DSTEPS, DEPS, k=1.0, dt=dt, dh=dh, method="cuda",
+                           dtype=f32, device="cuda"),
+            "3d": Solver3D(D3N, D3N, D3N, DSTEPS, D3EPS, k=1.0, dt=op3.dt, dh=op3.dh,
+                           method="cuda", dtype=f32, device="cuda")}
+    solo["2d"].input_init(u2)
+    solo["3d"].input_init(u3)
+    step_ms = {}
+    for d, s in solo.items():
+        ref = s.do_work()
+        rel = float(np.abs(res[f"{d} fused"] - ref).max()) / float(np.abs(ref).max())
+        if not rel <= tol32:
+            fail(f"the {d} distributed solve vs the tuned single-device solve: {rel:.3e} > "
+                 f"{tol32:g}")
+        step_ms[f"{d} vs tuned solo, max rel diff"] = rel
+        for comm, transport in forms:
+            label = f"{comm} {transport}".strip()
+            dist, transport = solvers[f"{d} {label}"]
+            os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
+            blocks = dist._device_state()[0]
+            run = dist._make_runner(DSTEPS)
+            step_ms[f"{d} {label}"] = cuda_ms(torch, lambda: run(blocks, 0, ()), 1, 1) / DSTEPS
+        os.environ.pop("NLHEAT_FUSED_TRANSPORT")
+        u_dev = torch.as_tensor(s.u0, device="cuda").to(f32)
+        multi = make_multi_step_fn(s.op, DSTEPS, dtype=f32)
+        step_ms[f"{d} tuned solo"] = cuda_ms(torch, lambda: multi(u_dev, 0), 1, 1) / DSTEPS
+    say(f"distributed steps on the card, ms/step (CUDA events over {DSTEPS}-step runs, the "
+        f"exchange's copies included): {json.dumps(step_ms)}")
+    del res, solvers, solo
+
+    def row(name, source, line):
+        cs = held[name]
+        return {"name": name, "route": "cuda",
+                "source": f"nonlocalheatequation_torch/csrc/{source}",
+                "replaces": f"nonlocalheatequation_tpu/ops/pallas_halo.py:{line}",
+                **timing[name], "launches": counts.get(name, 0),
+                "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
+                "main_shape_forms": len(cs),
+                "library_note": "F.conv over the exchanged frame in full f32 (TF32 off)"}
+
+    return [row("split_nsum2d", "split_nsum2d.cu", 437),
+            row("split_nsum3d", "split_nsum3d.cu", 474),
+            row("fused_nsum2d", "fused_nsum2d.cu", 611),
+            row("fused_nsum3d", "fused_nsum3d.cu", 653)]
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -2011,12 +2403,14 @@ def main() -> int:
     checks.update(timed("checks 3d", phase_checks_3d, torch, k3, np))
     checks.update(timed("batched checks", phase_batched_checks, torch, ck, cb, np))
     checks.update(timed("unstructured checks", phase_unstructured_checks, torch, np))
+    checks.update(timed("halo checks", phase_halo_checks, torch, np))
     timed("tables", phase_main_path_tables, torch, clis, cases_2d, l2_threshold)
     timed("unstructured cli", phase_unstructured_cli, uclis, l2_threshold)
     kernels = timed("headline 2d", phase_headline, torch, np, ck, l2_threshold)
     kernels += timed("headline 3d", phase_headline_3d, torch, np, ck, k3, l2_threshold)
     kernels += timed("ensemble", phase_ensemble, torch, np, ck, cb, cases_2d)
     kernels += timed("unstructured", phase_unstructured, torch, np, ck, l2_threshold)
+    kernels += timed("distributed", phase_distributed, torch, np, ck, l2_threshold)
     say(f"phase walls, s: {json.dumps(walls)}")
     for k in kernels:
         k["checks"] = checks[k["name"]]

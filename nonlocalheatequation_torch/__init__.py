@@ -8,12 +8,16 @@ module has a counterpart there:
              unstructured point-cloud operator and its layouts, and the
              hand-written CUDA kernels (csrc/) with their plain versions
   models/    the 1D/2D/3D solvers (oracle = NumPy f64, torch = the device path)
+  parallel/  device meshes (virtual devices included), the halo exchange and
+             the distributed 2D/3D solvers over a mesh of blocks
   serve/     the ensemble engine (many solves bucketed into batched programs)
              and the mesh registry its unstructured buckets resolve
-  obs/       the counters and spans the ensemble engine reports through
+  obs/       the counters and spans the ensemble engine and the distributed
+             solvers report through
   utils/     device resolution, timing reports, the variant autotuner, the
              GMSH reader and the .vtu writer
-  cli/       the batch-test and unstructured command-line entry points
+  cli/       the batch-test, distributed and unstructured command-line entry
+             points
   convert.py carries solver state from the JAX package into the port
 
 The package imports torch and numpy only: never jax, never the JAX package.

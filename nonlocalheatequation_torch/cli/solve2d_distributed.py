@@ -1,0 +1,195 @@
+"""Distributed 2D solver CLI — the reference's fourth binary,
+2d_nonlocal_distributed (src/2d_nonlocal_distributed.cpp:1415-1458), on the
+port's uniform SPMD path (parallel/distributed2d.py).
+
+    echo "1
+    25 25 2 2 45 5 1 0.0005 0.02" | \\
+        python -m nonlocalheatequation_torch.cli.solve2d_distributed --test_batch
+
+runs on the CUDA card (``--platform cpu`` for the CPU): rows
+``nx ny npx npy nt eps k dt dh`` on stdin (tests/2d_distributed.txt), "Tests
+Passed" when every row meets error_l2/#points <= 1e-6.  The defaults are the
+reference's: ``--test`` true, nx=ny=25, npx=npy=2, dh=0.05.  The mesh is the
+largest whose shape divides the global grid, over ``--devices N`` devices
+(0: every device of the platform; more than there are: virtual devices, one
+device named again in turn, parallel/mesh.py).  ``--comm fused`` runs the
+halo kernels (ops/cuda_halo.py: on cards, the halo read inside the kernel)
+and needs ``--method cuda``.
+
+Not ported yet, and refused by name (rc 1): partition maps (``--file``),
+rebalancing (``--nbalance``, ``--test_load_balance``), checkpoints
+(``--checkpoint``, ``--ncheckpoint``, ``--resume``), ``--log``,
+``--profile``, a non-Euler ``--stepper`` and ``--method fft``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+from nonlocalheatequation_torch.cli.common import (
+    add_platform_flags,
+    add_precision_flags,
+    announce_stable_dt,
+    bool_flag,
+    platform_kwargs,
+    run_batch,
+    version_banner,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="2d_nonlocal_distributed", add_help=True)
+    bool_flag(p, "test", True, "compare against the manufactured solution")
+    p.add_argument("--test_batch", action="store_true", help="run batch tests from stdin")
+    p.add_argument("--test_load_balance", action="store_true",
+                   help="report the balance acceptance check (not ported yet)")
+    p.add_argument("--results", action="store_true", help="print the final state")
+    bool_flag(p, "cmp", False, "print expected vs actual outputs")
+    p.add_argument("--file", default="None",
+                   help="partition-map file (not ported yet)")
+    p.add_argument("--nx", type=int, default=25, help="tile x size")
+    p.add_argument("--ny", type=int, default=25, help="tile y size")
+    p.add_argument("--nt", type=int, default=45)
+    p.add_argument("--npx", type=int, default=2)
+    p.add_argument("--npy", type=int, default=2)
+    p.add_argument("--nlog", type=int, default=5)
+    p.add_argument("--nbalance", type=int, default=0,
+                   help="steps between rebalance passes (0 = never; not ported yet)")
+    p.add_argument("--eps", type=int, default=5)
+    p.add_argument("--k", type=float, default=1.0)
+    p.add_argument("--dt", type=float, default=0.0005)
+    p.add_argument("--dh", type=float, default=0.05)
+    p.add_argument("--no-header", action="store_true", dest="no_header")
+    p.add_argument("--devices", type=int, default=0,
+                   help="the device count (the reference's number of localities); 0 = "
+                        "every device of the platform, more than there are = virtual devices")
+    p.add_argument("--superstep", type=int, default=1, metavar="K",
+                   help="exchange a K*eps-wide halo once per K steps and advance K steps "
+                        "locally (communication-avoiding; collective only)")
+    p.add_argument("--comm", default="collective", choices=("collective", "fused"),
+                   help="halo engine: 'collective' (the exchange, then apply_padded) or "
+                        "'fused' (the halo kernels: on cards the halo is read inside the "
+                        "kernel, elsewhere the exchange, then the split kernel; needs "
+                        "--method cuda)")
+    p.add_argument("--method", default="auto",
+                   choices=("auto", "conv", "shift", "sat", "cuda", "fft"),
+                   help="neighbour-sum evaluation: auto (cuda on the card, conv on the "
+                        "CPU), cuda, conv, shift, sat; fft is not ported yet")
+    p.add_argument("--stepper", default="euler", choices=("euler", "rkc", "expo"),
+                   help="time integrator: euler (rkc and expo are not ported yet)")
+    p.add_argument("--stages", type=int, default=0)
+    p.add_argument("--log", action="store_true", help="CSV logging (not ported yet)")
+    p.add_argument("--checkpoint", default=None, help="checkpoint file (not ported yet)")
+    p.add_argument("--ncheckpoint", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--profile", default=None, metavar="DIR", help="not ported yet")
+    add_platform_flags(p)
+    add_precision_flags(p)
+    return p
+
+
+def _refusal(args) -> str | None:
+    """The message refusing a flag the port does not have yet, or None."""
+    refused = [
+        (args.file != "None", "--file", "partition maps (the elastic executor)"),
+        (args.nbalance > 0, "--nbalance", "rebalancing (the elastic executor)"),
+        (args.test_load_balance, "--test_load_balance", "the elastic executor's balance report"),
+        (args.checkpoint is not None or args.ncheckpoint, "--checkpoint", "checkpointing"),
+        (args.resume, "--resume", "checkpointing"),
+        (args.log, "--log", "CSV logging"),
+        (args.profile is not None, "--profile", "profiling"),
+        (args.stepper != "euler", f"--stepper {args.stepper}", "the stepper tier"),
+        (args.method == "fft", "--method fft", "the sharded spectral tier"),
+    ]
+    for hit, flag, what in refused:
+        if hit:
+            return f"{flag} is not ported yet to nonlocalheatequation_torch ({what})"
+    if args.stages:
+        return "--stages takes a non-Euler --stepper"
+    if args.resync:
+        return ("--resync is not supported on the distributed/elastic paths; run the serial "
+                "solver, or --precision bf16 without --resync")
+    return None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    err = _refusal(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
+    version_banner("2d_nonlocal_distributed")
+    if not args.test_batch:
+        announce_stable_dt(2, args.k, args.eps, args.dh, args.dt)
+    if args.nx <= args.eps:
+        print("[WARNING] Mesh size on a single node (nx * ny) is too small for given "
+              "epsilon (eps)")
+    from nonlocalheatequation_torch.parallel.distributed2d import (
+        Solver2DDistributed,
+        choose_mesh_for_grid,
+    )
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+
+    try:
+        kw = platform_kwargs(args)
+    except RuntimeError as e:  # no card for --platform gpu
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    devices = device_list(kw["device"], args.devices)
+
+    def make_solver(nx, ny, npx, npy, nt, eps, k, dt, dh):
+        mesh = choose_mesh_for_grid(nx * npx, ny * npy, devices)
+        return Solver2DDistributed(nx, ny, npx, npy, nt, eps, nlog=args.nlog, k=k, dt=dt,
+                                   dh=dh, mesh=mesh, method=args.method, dtype=kw["dtype"],
+                                   superstep=args.superstep, precision=args.precision,
+                                   comm=args.comm)
+
+    try:
+        if args.test_batch:
+            # row: nx ny npx npy nt eps k dt dh  (tests/2d_distributed.txt)
+            def read_case(toks, pos):
+                v = toks[pos:pos + 9]
+                return ((int(v[0]), int(v[1]), int(v[2]), int(v[3]), int(v[4]), int(v[5]),
+                         float(v[6]), float(v[7]), float(v[8])), pos + 9)
+
+            def run_case(case):
+                s = make_solver(*case)
+                s.test_init()
+                s.do_work()
+                return s.error_l2, s.NX * s.NY
+
+            return run_batch(read_case, run_case, row_tokens=9)
+
+        s = make_solver(args.nx, args.ny, args.npx, args.npy, args.nt, args.eps, args.k,
+                        args.dt, args.dh)
+    except ValueError as e:  # a configuration the solver refuses
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if args.test:
+        s.test_init()
+    else:
+        n = s.NX * s.NY
+        s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[:n])
+    t0 = time.perf_counter()
+    s.do_work()
+    elapsed = time.perf_counter() - t0
+    if args.test:
+        s.print_error(args.cmp)
+    if args.results:
+        s.print_soln()
+
+    from nonlocalheatequation_torch.utils.timing import print_time_results_distributed
+
+    print_time_results_distributed(s.mesh.size, os.cpu_count() or 1, elapsed, args.nx,
+                                   args.ny, args.npx, args.npy, args.nt,
+                                   header=not args.no_header)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,9 +8,12 @@ reference; the 2D serial CLI's surface with an added --nz), on the port.
 runs on the CUDA card (``--platform cpu`` for the CPU): rows
 ``nx ny nz nt eps k dt dh`` on stdin, "Tests Passed" when every row meets
 error_l2/#points <= 1e-6; ``--ensemble`` runs the rows through the batched
-ensemble engine.  The JAX CLI's distributed, checkpoint, serving, network
-and profiling flags and ``--method fft`` are refused by name: they are not
-ported yet.
+ensemble engine.  ``--distributed`` shards the grid over every device of
+the platform (parallel/distributed3d.py; ``--comm fused`` runs the halo
+kernels of ops/cuda_halo.py and needs ``--method cuda``, ``--superstep K`` the
+communication-avoiding schedule).  The JAX CLI's checkpoint, serving,
+network and profiling flags and ``--method fft`` are refused by name: they
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,9 +41,6 @@ from nonlocalheatequation_torch.cli.common import (
 
 #: the JAX CLI's flags that the port does not have yet -> what they select
 NOT_PORTED = {
-    "--distributed": "the distributed 3D solve",
-    "--comm": "the distributed 3D solve's halo-exchange engine",
-    "--superstep": "the distributed 3D solve's communication-avoiding schedule",
     "--checkpoint": "checkpointing",
     "--ncheckpoint": "checkpointing",
     "--resume": "checkpointing",
@@ -70,6 +70,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", default="auto", choices=("auto", "shift", "sat", "cuda", "fft"),
                    help="neighbour-sum evaluation: auto (cuda on the card, sat on the CPU), "
                         "cuda (the hand-written kernels), shift, sat; fft is not ported yet")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard over the device mesh (blocks + halo exchange)")
+    p.add_argument("--comm", default="collective", choices=("collective", "fused"),
+                   help="with --distributed: halo engine, 'collective' (the exchange, then "
+                        "apply_padded) or 'fused' (the halo kernels of ops/cuda_halo.py; "
+                        "needs --method cuda)")
+    p.add_argument("--superstep", type=int, default=1, metavar="K",
+                   help="with --distributed: exchange a K*eps-wide halo once per K steps "
+                        "(communication-avoiding)")
     add_platform_flags(p)
     add_precision_flags(p)
     add_ensemble_flag(p)
@@ -86,6 +95,25 @@ def _refusal(args, rest) -> str | None:
             return f"{name} is not ported yet to nonlocalheatequation_torch ({what})"
     if args.method == "fft":
         return "--method fft is not ported yet to nonlocalheatequation_torch (the spectral tier)"
+    return _distributed_refusal(args)
+
+
+def _distributed_refusal(args) -> str | None:
+    """The JAX CLI's checks of the distributed flags, or None."""
+    if args.comm != "collective" and not args.distributed:
+        return "--comm fused requires --distributed"
+    if args.superstep > 1 and not args.distributed:
+        return ("--superstep requires --distributed (the serial solvers have no halo "
+                "exchange to avoid)")
+    if args.distributed and args.resync:
+        return ("--resync is not supported with --distributed; run the serial solver, or "
+                "--precision bf16 without --resync")
+    if args.distributed and args.backend == "oracle":
+        return ("--distributed runs the device solver; it has no oracle backend (use the "
+                "serial oracle for ground truth)")
+    if args.ensemble and args.distributed:
+        return ("--ensemble runs the serial batched engine; it cannot be combined with "
+                "--distributed or --resync")
     return None
 
 
@@ -102,6 +130,7 @@ def main(argv=None) -> int:
     if not args.test_batch:
         announce_stable_dt(3, args.k, args.eps, args.dh, args.dt)
     from nonlocalheatequation_torch.models.solver3d import Solver3D
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
 
     try:
         kw = {"backend": args.backend, "method": args.method, "nlog": args.nlog,
@@ -109,6 +138,14 @@ def main(argv=None) -> int:
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
+
+    def solver(nx, ny, nz, nt, eps, k, dt, dh):
+        if args.distributed:
+            return Solver3DDistributed(nx, ny, nz, nt, eps, nlog=args.nlog, k=k, dt=dt, dh=dh,
+                                       method=args.method, dtype=kw["dtype"],
+                                       superstep=args.superstep, precision=args.precision,
+                                       comm=args.comm, device=kw["device"])
+        return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **kw)
 
     if args.test_batch:
         # row: nx ny nz nt eps k dt dh
@@ -118,14 +155,13 @@ def main(argv=None) -> int:
                      float(v[5]), float(v[6]), float(v[7])), pos + 8)
 
         def make_solver(case):
-            nx, ny, nz, nt, eps, k, dt, dh = case
-            return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **kw)
+            return solver(*case)
 
         def run_case(case):
             s = make_solver(case)
             s.test_init()
             s.do_work()
-            return s.error_l2, s.nx * s.ny * s.nz
+            return s.error_l2, int(np.prod(s._grid_shape))
 
         run_ensemble = None
         if args.ensemble:
@@ -134,8 +170,11 @@ def main(argv=None) -> int:
                                            dtype=kw["dtype"])
         return run_batch(read_case, run_case, row_tokens=8, run_ensemble=run_ensemble)
 
-    s = Solver3D(args.nx, args.ny, args.nz, args.nt, args.eps, k=args.k, dt=args.dt,
-                 dh=args.dh, **kw)
+    try:
+        s = solver(args.nx, args.ny, args.nz, args.nt, args.eps, args.k, args.dt, args.dh)
+    except ValueError as e:  # a configuration the distributed solver refuses
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     if args.test:
         s.test_init()
     else:

@@ -13,7 +13,10 @@ manufactured source on when ``params["test"]`` is set.
 ensemble engine (its ``EnsembleCase``) into the port's, so both engines run
 the same buckets, mesh buckets included.  :func:`unstructured_op_from_jax`
 and :func:`unstructured_solver_from_jax_state` carry an unstructured
-operator and a solve's state.
+operator and a solve's state.  :func:`solver2d_distributed_from_jax_state`
+and :func:`solver3d_distributed_from_jax_state` carry a JAX distributed
+solve (the same ``_ckpt_params()`` dict, the global state) onto a port mesh
+of the same shape.
 
 This module reads plain dicts, arrays and attributes; it imports nothing of
 JAX.
@@ -27,6 +30,9 @@ from nonlocalheatequation_torch.models.solver1d import Solver1D
 from nonlocalheatequation_torch.models.solver2d import Solver2D
 from nonlocalheatequation_torch.models.solver3d import Solver3D
 from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp, UnstructuredSolver
+from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+from nonlocalheatequation_torch.parallel.mesh import create_mesh, device_list
 from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
 
 _KEYS = ("shape", "eps", "k", "dt", "dh", "test")
@@ -86,6 +92,43 @@ def solver3d_from_jax_state(params: dict, u: np.ndarray, t: int, *, device, dtyp
     s = Solver3D(nx, ny, nz, t if nt is None else nt, params["eps"], k=params["k"],
                  dt=params["dt"], dh=params["dh"], device=device, dtype=dtype,
                  **solver_kwargs)
+    return _position(s, params, u, t)
+
+
+def _mesh_of(mesh_shape, shape, device):
+    mesh_shape = tuple(int(m) for m in mesh_shape)
+    if len(mesh_shape) != len(shape) or any(n % m for n, m in zip(shape, mesh_shape)):
+        raise ValueError(f"mesh shape {mesh_shape} does not divide the grid {shape}")
+    names = ("x", "y", "z")[:len(shape)]
+    return create_mesh(names, mesh_shape, device_list(device, int(np.prod(mesh_shape))))
+
+
+def solver2d_distributed_from_jax_state(params: dict, u: np.ndarray, t: int,
+                                        mesh_shape: tuple[int, int], *, device, dtype,
+                                        nt: int | None = None,
+                                        **solver_kwargs) -> Solver2DDistributed:
+    """A port ``Solver2DDistributed`` carrying a JAX distributed 2D solve's
+    state at step ``t``, on an (mx, my) mesh of ``device`` (virtual devices
+    when it names fewer, parallel/mesh.py); tiles of NX/mx x NY/my."""
+    u = _checked(params, u, t, 2)
+    mesh = _mesh_of(mesh_shape, u.shape, device)
+    (mx, my), (NX, NY) = mesh.devices.shape, u.shape
+    s = Solver2DDistributed(NX // mx, NY // my, mx, my, t if nt is None else nt,
+                            params["eps"], k=params["k"], dt=params["dt"], dh=params["dh"],
+                            mesh=mesh, dtype=dtype, **solver_kwargs)
+    return _position(s, params, u, t)
+
+
+def solver3d_distributed_from_jax_state(params: dict, u: np.ndarray, t: int,
+                                        mesh_shape: tuple[int, int, int], *, device, dtype,
+                                        nt: int | None = None,
+                                        **solver_kwargs) -> Solver3DDistributed:
+    """The 3D twin of :func:`solver2d_distributed_from_jax_state`."""
+    u = _checked(params, u, t, 3)
+    mesh = _mesh_of(mesh_shape, u.shape, device)
+    s = Solver3DDistributed(*u.shape, t if nt is None else nt, params["eps"], k=params["k"],
+                            dt=params["dt"], dh=params["dh"], mesh=mesh, dtype=dtype,
+                            **solver_kwargs)
     return _position(s, params, u, t)
 
 

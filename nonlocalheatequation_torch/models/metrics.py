@@ -20,12 +20,18 @@ class ManufacturedMetrics2D:
         self.error_linf = float(np.max(np.abs(d))) if d.size else 0.0
         return self.error_linf
 
+    #: the distributed print_error prefixes coordinates (2d_nonlocal_distributed.
+    #: cpp:538-541); the serial binary does not (2d_nonlocal_serial.cpp:122)
+    _cmp_coordinate_prefix = False
+
     def print_error(self, cmp: bool = False):
         print(f"l2: {self.error_l2:g} linfinity: {self.error_linf:g}")
         if cmp:
             expected = self.op.manufactured_solution(*self._grid_shape, self.nt)
             for idx in np.ndindex(*self._grid_shape):
-                print(f"Expected: {expected[idx]:g} Actual: {self.u[idx]:g}")
+                prefix = ("".join(f"s{'xyz'[d]}: {i} " for d, i in enumerate(idx))
+                          if self._cmp_coordinate_prefix else "")
+                print(f"{prefix}Expected: {expected[idx]:g} Actual: {self.u[idx]:g}")
 
     def print_soln(self):
         shape = self._grid_shape

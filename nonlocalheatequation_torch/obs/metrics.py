@@ -1,6 +1,8 @@
 """Named counters and gauges with HPX-style names — the subset of
 ``nonlocalheatequation_tpu/obs/metrics.py`` that the ensemble engine's
-report (serve/ensemble.py ``EnsembleReport``) writes through.
+report (serve/ensemble.py ``EnsembleReport``) writes through, and the
+process-global :data:`REGISTRY` where the distributed solvers publish their
+scheduled halo traffic (``/halo/bytes``, ``/halo/exchanges``).
 
 Names follow the HPX performance-counter shape (``/object/counter``, e.g.
 ``/ensemble/cases``).  A report's fields are :class:`backed` properties over
@@ -27,6 +29,9 @@ class Counter:
 
     def set(self, v):
         self.value = v
+
+    def inc(self, n=1):
+        self.value += n
 
 
 class Gauge(Counter):
@@ -75,3 +80,7 @@ class MetricsRegistry:
 
     def gauge(self, name: str) -> Gauge:
         return self._get(name, Gauge)
+
+
+#: The process-global registry (the distributed solvers' /halo/* counters).
+REGISTRY = MetricsRegistry()

@@ -57,11 +57,12 @@ SOURCE = "nsum2d.cu"
 #: kernel name -> launches since the last reset_launch_counts() (the 3D
 #: kernels' wrappers live in ops/cuda_kernel3d.py, the batched 2D kernels'
 #: in ops/cuda_batched.py, the unstructured kernels' in
-#: ops/cuda_unstructured.py)
+#: ops/cuda_unstructured.py, the split halo kernels' in ops/cuda_halo.py)
 LAUNCHES = {"nsum2d": 0, "step2d": 0, "carried2d": 0, "superstep2d": 0, "resident2d": 0,
             "nsum3d": 0, "step3d": 0, "carried3d": 0, "resident3d": 0,
             "batched_step2d": 0, "batched_carried2d": 0, "batched_superstep2d": 0,
-            "windowed_matvec": 0, "gather_L": 0}
+            "windowed_matvec": 0, "gather_L": 0, "split_nsum2d": 0, "split_nsum3d": 0,
+            "fused_nsum2d": 0, "fused_nsum3d": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -93,6 +94,12 @@ _ENTRIES = {
     "nlheat_batched_superstep2d_fits": ("batched_superstep2d.cu", [_I, _I, _I, _I]),
     "nlheat_windowed_matvec": ("windowed_matvec.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "nlheat_gather_L": ("gather_L.cu", [_I, _I, _P, _P, _P, _P, _P, _I, _P]),
+    "nlheat_split_nsum2d": ("split_nsum2d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "nlheat_split_nsum3d": ("split_nsum3d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "nlheat_fused_nsum2d": ("fused_nsum2d.cu", [_I, _I, _P, _I, _I, _P, _I, _I, _I, _P]),
+    "nlheat_fused_nsum3d": ("fused_nsum3d.cu", [_I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I,
+                                                _P]),
+    "nlheat_enable_peer": ("fused_nsum2d.cu", [_I, _I]),
 }
 _entries: dict = {}
 

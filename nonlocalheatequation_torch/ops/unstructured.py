@@ -103,17 +103,14 @@ def build_edges(points: np.ndarray, eps: np.ndarray):
     if native is not None:
         return native
     keys = np.floor((points - points.min(axis=0)) / cell).astype(np.int64)
-    # cells on a padded dense lattice (a -1 or +1 neighbour key stays in range)
-    dims = keys.max(axis=0) + 3
-    if float(np.prod(dims.astype(np.float64))) >= 2.0 ** 62:
-        raise ValueError(f"build_edges: {tuple(dims)} cells of size {cell:g} overflow the "
-                         "cell index; the horizon is too small for the cloud's extent")
-    strides = np.ones(d, np.int64)
-    for j in range(d - 2, -1, -1):
-        strides[j] = strides[j + 1] * dims[j + 1]
-    lin = (keys + 1) @ strides
-    order = np.argsort(lin, kind="stable")
-    cells, first, count = np.unique(lin[order], return_index=True, return_counts=True)
+    # number the occupied cells only: their key rows, sorted, searched as
+    # one record each (any extent, as the JAX package's dict of cells)
+    rows, cell_of = np.unique(keys, axis=0, return_inverse=True)
+    as_records = [("", np.int64)] * d
+    cells = np.ascontiguousarray(rows).view(as_records).ravel()
+    order = np.argsort(cell_of.ravel(), kind="stable")
+    count = np.bincount(cell_of.ravel(), minlength=len(cells))
+    first = np.cumsum(count) - count
     # the points in cell order, one contiguous array per axis
     axes = [np.ascontiguousarray(points[order, j]) for j in range(d)]
     eps2 = eps[order] ** 2
@@ -121,7 +118,7 @@ def build_edges(points: np.ndarray, eps: np.ndarray):
     # every (cell, neighbour cell) block of candidate pairs
     blocks = []
     for off in offsets:
-        nb = cells + off @ strides
+        nb = np.ascontiguousarray(rows + off).view(as_records).ravel()
         pos = np.minimum(np.searchsorted(cells, nb), len(cells) - 1)
         hit = np.nonzero(cells[pos] == nb)[0]
         blocks.append(np.stack([hit, pos[hit]], axis=1))

@@ -1,0 +1,160 @@
+"""Device meshes and the block scatter and gather — counterpart of
+``nonlocalheatequation_tpu/parallel/mesh.py`` (with the single-granule part
+of ``parallel/mesh_axes.py``) and of ``put_global``/``fetch_global``
+(``parallel/multihost.py``), for one process.
+
+The JAX package places tile (i, j) of the global grid on mesh position
+(i, j) of a ``jax.sharding.Mesh`` and runs one SPMD program over it.  Here
+one process owns every block, as JAX's single-controller ``shard_map``
+does: a :class:`Mesh` is an array of ``torch.device`` of the mesh's shape,
+the global grid is an object array of block tensors of the same shape, each
+on its position's device, and the distributed solvers
+(parallel/distributed2d.py, distributed3d.py) step every block in turn.
+
+A device list may name one device several times: those are virtual
+devices, the counterpart of the JAX suite's
+``--xla_force_host_platform_device_count=8``.  They let the CPU tests, and
+one card, hold a 2x2 or 2x2x2 mesh; a halo band moved between two virtual
+devices of one device is a copy on that device.  Multi-process meshes
+(``parallel/multihost.py``, ``jax.distributed``) are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nonlocalheatequation_torch.utils.devices import resolve_device
+
+
+class Mesh:
+    """A device mesh: ``devices`` is an object array of ``torch.device`` of
+    the mesh's shape, ``axis_names`` names its axes (``("x", "y")`` or
+    ``("x", "y", "z")``).  ``shape`` maps each axis name to its size, as a
+    ``jax.sharding.Mesh`` does."""
+
+    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...]):
+        devices = np.asarray(devices, dtype=object)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"device array of rank {devices.ndim} and axis names "
+                             f"{axis_names} disagree in rank")
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, devices.shape, strict=True))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+def device_list(device=None, count: int = 0) -> list:
+    """The devices a mesh is built from.  ``device`` ``None``/``"gpu"``/
+    ``"cuda"``: every CUDA card (raises when there is none); ``"cpu"``: the
+    CPU.  ``count > 0`` takes that many, naming the devices again in turn
+    when there are fewer (virtual devices)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        devices = ([dev] if dev.index is not None
+                   else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    else:
+        devices = [dev]
+    count = int(count)
+    if count < 0:
+        raise ValueError(f"device count must be >= 0, got {count}")
+    if count:
+        devices = [devices[i % len(devices)] for i in range(count)]
+    return devices
+
+
+def create_mesh(axis_names: tuple[str, ...], shape: tuple[int, ...], devices) -> Mesh:
+    """Mesh of ``shape`` over ``axis_names``: the first prod(shape) devices
+    reshaped row-major (the JAX package's single-granule placement)."""
+    if len(axis_names) != len(shape):
+        raise ValueError(f"axis_names {axis_names} and shape {shape} disagree in rank")
+    devices = list(devices)
+    n = int(np.prod(shape)) if shape else 1
+    if n > len(devices):
+        raise ValueError(f"mesh {dict(zip(axis_names, shape, strict=True))} needs {n} "
+                         f"devices, have {len(devices)}")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices[:n]
+    return Mesh(grid.reshape(shape), axis_names)
+
+
+def factor_devices(n: int) -> tuple[int, int]:
+    """Factor n into the most-square (dx, dy) grid, dx*dy == n."""
+    best = (n, 1)
+    for dx in range(1, int(np.sqrt(n)) + 1):
+        if n % dx == 0:
+            best = (n // dx, dx)
+    return best
+
+
+def make_mesh(npx: int | None = None, npy: int | None = None, devices=None) -> Mesh:
+    """A 2D mesh with axes ('x', 'y'): of exactly (npx, npy), or with no
+    shape over every device of ``devices`` (default :func:`device_list`, the
+    CUDA cards), most-square factorization.  (The JAX package's
+    ``assignment``, a partition map's placement, waits for the elastic
+    executor.)"""
+    devices = list(devices if devices is not None else device_list())
+    if npx is None or npy is None:
+        npx, npy = factor_devices(len(devices))
+    if npx * npy > len(devices):
+        raise ValueError(f"mesh {npx}x{npy} needs {npx * npy} devices, have {len(devices)}")
+    return create_mesh(("x", "y"), (npx, npy), devices)
+
+
+def factor_devices_3d(n: int) -> tuple[int, int, int]:
+    """Factor n into the most-cubic (dx, dy, dz) grid, dx*dy*dz == n."""
+    best, best_score = (n, 1, 1), n  # score: max factor (lower = more cubic)
+    for dx in range(1, n + 1):
+        if n % dx:
+            continue
+        for dy in range(1, n // dx + 1):
+            if (n // dx) % dy:
+                continue
+            dz = n // (dx * dy)
+            score = max(dx, dy, dz)
+            if score < best_score:
+                best, best_score = (dx, dy, dz), score
+    return best
+
+
+def make_mesh_3d(mx: int | None = None, my: int | None = None, mz: int | None = None,
+                 devices=None) -> Mesh:
+    """A 3D mesh with axes ('x', 'y', 'z') for the 3D distributed solver."""
+    devices = list(devices if devices is not None else device_list())
+    if mx is None or my is None or mz is None:
+        mx, my, mz = factor_devices_3d(len(devices))
+    if mx * my * mz > len(devices):
+        raise ValueError(f"mesh {mx}x{my}x{mz} needs {mx * my * mz} devices, "
+                         f"have {len(devices)}")
+    return create_mesh(("x", "y", "z"), (mx, my, mz), devices)
+
+
+def block_shape(mesh: Mesh, grid_shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The per-device block of the uniform sharding of ``grid_shape``."""
+    return tuple(int(n) // int(m) for n, m in zip(grid_shape, mesh.devices.shape, strict=True))
+
+
+def put_global(array, mesh: Mesh, dtype: torch.dtype) -> np.ndarray:
+    """Scatter a global array (NumPy or a tensor) over ``mesh``: an object
+    array of the mesh's shape whose entry at each position is that
+    position's block, a contiguous ``dtype`` tensor on its device."""
+    x = torch.as_tensor(array)
+    blk = block_shape(mesh, tuple(x.shape))
+    blocks = np.empty(mesh.devices.shape, dtype=object)
+    for pos in np.ndindex(*mesh.devices.shape):
+        sl = tuple(slice(p * b, (p + 1) * b) for p, b in zip(pos, blk, strict=True))
+        blocks[pos] = x[sl].to(device=mesh.devices[pos], dtype=dtype).contiguous()
+    return blocks
+
+
+def fetch_global(blocks: np.ndarray) -> np.ndarray:
+    """Gather the blocks into one host NumPy array of their dtype."""
+    def nest(prefix):
+        if len(prefix) == blocks.ndim:
+            return blocks[prefix].cpu().numpy()
+        return [nest(prefix + (i,)) for i in range(blocks.shape[len(prefix)])]
+
+    return np.block(nest(()))

@@ -31,8 +31,11 @@ other bucket (1D, 3D, a 2D method that is not ``cuda``) runs the vmap
 composition.  A mesh bucket (unstructured cases keyed by a registered
 cloud's content hash, serve/meshes.py) runs each case's solo loop of the
 ``gather_L`` kernel in turn (ops/gather.py, the stacked composition), as
-the JAX package runs its Pallas gather tier.  Not ported yet, and refused
-by name: non-Euler steppers, ``comm='fused'`` and the AOT program store.
+the JAX package runs its Pallas gather tier.  ``comm`` joins the program
+key: ``comm='fused'`` needs ``method='cuda'`` (ops/cuda_halo.require_fused),
+and since every case the engine runs is a single-device solve it changes
+the key, not the programs, as in the JAX package.  Not ported yet, and
+refused by name: non-Euler steppers and the AOT program store.
 """
 
 from __future__ import annotations
@@ -160,9 +163,10 @@ class EnsembleEngine:
             raise ValueError("variant='superstep' needs ksteps >= 2")
         if comm not in self.COMMS:
             raise ValueError(f"unknown comm {comm!r}; one of {self.COMMS}")
-        if comm == "fused":
-            raise ValueError("comm='fused' (the fused halo-exchange engine) is not ported yet "
-                             "to nonlocalheatequation_torch; use comm='collective'")
+        if comm == "fused" and method != "cuda":
+            # the halo kernels are cuda-only (require_fused); refused up
+            # front so an unservable key never reaches a program build
+            raise ValueError("comm='fused' needs method='cuda' (ops/cuda_halo.require_fused)")
         validate_stepper(stepper, stages)
         if program_store is not None or store_backend is not None:
             raise ValueError("the AOT program store (program_store, store_backend) is not "
@@ -267,9 +271,9 @@ class EnsembleEngine:
     # -- one chunk = one program, one dispatch ------------------------------
     def build_program(self, key, chunk):
         """The chunk's multi-step callable, cached per (bucket, size,
-        variant, physics, dtype) in a bounded LRU."""
+        variant, physics, dtype, comm) in a bounded LRU."""
         prog_key = (key, len(chunk), self.variant, tuple(c.physics() for c in chunk),
-                    str(self.dtype))
+                    str(self.dtype), self.comm)
         multi = self._programs.get(prog_key)
         if multi is None:
             with obs_trace.span("ensemble.build", cat="ensemble", bucket=str(key),

@@ -48,3 +48,23 @@ def print_time_results_3d(num_os_threads: int, elapsed_s: float, nx: int, ny: in
         + f"{nt} ".ljust(22).rstrip(),
         flush=True,
     )
+
+
+def print_time_results_distributed(num_localities: int, num_os_threads: int, elapsed_s: float,
+                                   nx: int, ny: int, npx: int, npy: int, nt: int,
+                                   header: bool = True):
+    """print_time_results.hpp:19-41."""
+    if header:
+        print("Localities,OS_Threads,Execution_Time_sec,"
+              "       nx,    ny,     npx,    npy,    Time_Steps")
+    print(
+        f"{num_localities},".ljust(7)
+        + f"{num_os_threads},".ljust(7)
+        + f"{elapsed_s:.14g}, "
+        + f"{nx},".ljust(22)
+        + f"{ny},".ljust(22)
+        + f"{npx},".ljust(22)
+        + f"{npy},".ljust(22)
+        + f"{nt} ".ljust(22).rstrip(),
+        flush=True,
+    )

@@ -234,8 +234,8 @@ def test_cli_single_solve_timing_row_and_failure(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--distributed"], "--distributed"), (["--comm", "fused"], "--comm"),
-    (["--superstep", "2"], "--superstep"), (["--checkpoint", "x.npz"], "--checkpoint"),
+    (["--ncheckpoint", "3"], "--ncheckpoint"), (["--listen-host=h"], "--listen-host"),
+    (["--serve-deadline-ms=5"], "--serve-deadline-ms"), (["--checkpoint", "x.npz"], "--checkpoint"),
     (["--resume"], "--resume"), (["--serve", "2"], "--serve"),
     (["--serve-retries=1"], "--serve-retries"), (["--listen", "0"], "--listen"),
     (["--profile", "d"], "--profile"), (["--method", "fft"], "--method fft")])

@@ -15,13 +15,17 @@ solo kernels, and the ensemble engine runs a mixed-physics bucket in one
 ``batched_step2d`` launch per step.  The unstructured kernels
 (ops/cuda_unstructured.py) are held to their plain versions, a windowed
 solve to the manufactured contract, and an 8-lane mesh bucket's lanes
-bitwise to their solo gather loops.
+bitwise to their solo gather loops.  The halo kernels (ops/cuda_halo.py:
+the in-kernel exchange and the split kernels) are held to their plain
+versions and bitwise to the one-pass nsum2d/nsum3d on the exchanged frame,
+and the distributed solves' fused path (both transports) bitwise to their
+collective path on meshes of virtual devices of the one card.
 
 The CPU tests hold the plain versions against the JAX package
 (tests/test_torch_kernels.py, test_torch_multistep.py, test_torch_autotune.py,
 test_torch_kernels3d.py, test_torch_3d.py, test_torch_batched_kernels.py,
 test_torch_ensemble.py, test_torch_unstructured.py, test_torch_windowed.py,
-test_torch_gather.py).
+test_torch_gather.py, test_torch_halo.py, test_torch_distributed.py).
 """
 
 import numpy as np
@@ -416,3 +420,147 @@ def test_mesh_bucket_lanes_bitwise_solo_on_card(card, tmp_path, monkeypatch):
         solo = make_gather_multi_step_fn(op, 7, dtype=torch.float32, test=True)(
             torch.as_tensor(op.spatial_profile(), device=card), 0)
         assert np.array_equal(got, solo.cpu().numpy())
+
+
+# -- the halo kernels and the distributed solves ----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_split_kernels_match_plain_and_the_one_pass_sum_on_card(card, dtype, tol):
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+
+    # a normal block, a degenerate one (a side <= 2*eps) and a multi-hop-sized one
+    for (bx, by), eps, launches in [((70, 45), 5, 2), ((8, 40), 4, 1), ((8, 8), 9, 1)]:
+        for prec in ("f32", "bf16"):
+            frame = torch.randn(bx + 2 * eps, by + 2 * eps, dtype=dtype, device=card)
+            ck.reset_launch_counts()
+            a = th.split_nsum2d(frame, eps, prec)
+            assert ck.launch_counts()["split_nsum2d"] == launches
+            b = th.split_nsum2d_plain(frame, eps, prec)
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+            assert torch.equal(a, ck.nsum2d(frame, eps, prec))
+    for (bx, by, bz), eps, launches in [((20, 12, 40), 3, 2), ((4, 4, 4), 2, 1),
+                                        ((4, 4, 4), 5, 1)]:
+        for prec in ("f32", "bf16"):
+            frame = torch.randn(bx + 2 * eps, by + 2 * eps, bz + 2 * eps, dtype=dtype,
+                                device=card)
+            ck.reset_launch_counts()
+            a = th.split_nsum3d(frame, eps, prec)
+            assert ck.launch_counts()["split_nsum3d"] == launches
+            b = th.split_nsum3d_plain(frame, eps, prec)
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+            assert torch.equal(a, k3.nsum3d(frame, eps, prec))
+    with pytest.raises(ValueError, match="beyond what the kernel takes"):
+        th.split_nsum2d(torch.zeros(200, 200, dtype=dtype, device=card), 70)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_in_kernel_exchange_matches_plain_and_the_one_pass_sum_on_card(card, dtype, tol):
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+    from nonlocalheatequation_torch.parallel import halo as thalo
+    from nonlocalheatequation_torch.parallel import mesh as tmesh
+
+    # every block of meshes of virtual devices: normal, degenerate, multi-hop
+    for mesh_shape, block, eps in [((2, 2), (70, 45), 5), ((2, 2), (8, 40), 4),
+                                   ((4, 2), (8, 8), 9), ((2, 2, 2), (20, 12, 40), 3),
+                                   ((2, 2, 2), (4, 4, 4), 2), ((2, 2, 2), (4, 4, 4), 5)]:
+        d = len(mesh_shape)
+        mesh = tmesh.create_mesh(("x", "y", "z")[:d], mesh_shape,
+                                 tmesh.device_list(card, int(np.prod(mesh_shape))))
+        u = torch.randn([m * b for m, b in zip(mesh_shape, block)], dtype=dtype)
+        blocks = tmesh.put_global(u, mesh, dtype)
+        frames = thalo.halo_pad_nd(blocks, eps)
+        fused = th.fused_nsum2d if d == 2 else th.fused_nsum3d
+        one_pass = ck.nsum2d if d == 2 else k3.nsum3d
+        for prec in ("f32", "bf16"):
+            for pos in np.ndindex(*mesh_shape):
+                ck.reset_launch_counts()
+                a = fused(blocks, pos, eps, prec)
+                assert ck.launch_counts()[f"fused_nsum{d}d"] == 1
+                b = th.fused_nsum_plain(blocks, pos, eps, prec)
+                assert float((a - b).abs().max() / b.abs().max()) <= tol
+                assert torch.equal(a, one_pass(frames[pos], eps, prec))
+    big = tmesh.put_global(torch.zeros(400, 400), tmesh.make_mesh(2, 2, tmesh.device_list(
+        card, 4)), dtype)
+    with pytest.raises(ValueError, match="beyond what the kernel takes"):
+        th.fused_nsum2d(big, (0, 0), 70)
+
+
+@pytest.mark.cuda
+def test_distributed_solves_fused_bitwise_collective_on_card(card, monkeypatch):
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh, make_mesh_3d
+
+    devs = device_list(card, 8)  # virtual devices of the one card
+    u0 = np.random.default_rng(2).standard_normal((64, 48))
+    kw = dict(nt=5, eps=5, k=1.0, dt=1e-5, dh=1.0 / 64, method="cuda", dtype=torch.float32,
+              mesh=make_mesh(2, 2, devs))
+    runs = {}
+    # the card's fused path reads the halo inside the kernel; the split
+    # kernels' transport (band copies, interior then ring) on request
+    for comm, transport in (("fused", ""), ("fused", "interp"), ("collective", "")):
+        monkeypatch.setenv("NLHEAT_FUSED_TRANSPORT", transport)
+        ck.reset_launch_counts()
+        s = Solver2DDistributed(32, 24, 2, 2, comm=comm, **kw)
+        s.input_init(u0)
+        runs[f"{comm} {transport}".strip()] = (s.do_work(), ck.launch_counts())
+    monkeypatch.delenv("NLHEAT_FUSED_TRANSPORT")
+    assert np.array_equal(runs["fused"][0], runs["collective"][0])
+    assert np.array_equal(runs["fused interp"][0], runs["collective"][0])
+    assert runs["fused"][1]["fused_nsum2d"] == 4 * 5
+    assert runs["fused"][1]["split_nsum2d"] == 0
+    assert runs["fused interp"][1]["split_nsum2d"] == 2 * 4 * 5
+    assert runs["collective"][1]["nsum2d"] == 4 * 5
+    solo = Solver2D(64, 48, 5, 5, k=1.0, dt=1e-5, dh=1.0 / 64, method="cuda",
+                    dtype=torch.float32, device=card)
+    solo.input_init(u0)
+    ref = solo.do_work()
+    assert np.abs(runs["fused"][0] - ref).max() <= 1e-5 * np.abs(ref).max()
+    kw3 = dict(nt=3, eps=2, k=1.0, dt=1e-4, dh=0.05, method="cuda", dtype=torch.float64,
+               mesh=make_mesh_3d(2, 2, 2, devs))
+    f = Solver3DDistributed(16, 16, 24, comm="fused", **kw3)
+    c = Solver3DDistributed(16, 16, 24, **kw3)
+    for s in (f, c):
+        s.test_init()
+    ck.reset_launch_counts()
+    assert np.array_equal(f.do_work(), c.do_work())
+    assert ck.launch_counts()["fused_nsum3d"] == 3 * 8
+    assert f.error_l2 / (16 * 16 * 24) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_in_kernel_exchange_across_cards_on_card(card):
+    # blocks on different cards: the kernel reads its neighbours' blocks by
+    # peer access, the streams of the cards meet before and after the reads
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import make_mesh, make_mesh_3d
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    shape = (2, n // 2)
+    if th.fused_transport(cards) != "peer":
+        pytest.skip("these cards cannot read each other's memory")
+    u0 = np.random.default_rng(7).standard_normal((256, 128 * shape[1]))
+    kw = dict(nt=6, eps=8, k=1.0, dt=1e-6, dh=1.0 / 256, method="cuda", dtype=torch.float32,
+              mesh=make_mesh(*shape, cards))
+    runs = {}
+    for comm in ("fused", "collective"):
+        ck.reset_launch_counts()
+        s = Solver2DDistributed(128, 128, *shape, comm=comm, **kw)
+        s.input_init(u0)
+        runs[comm] = (s.do_work(), ck.launch_counts())
+    assert np.array_equal(runs["fused"][0], runs["collective"][0])
+    assert runs["fused"][1]["fused_nsum2d"] == 6 * shape[0] * shape[1]
+    kw3 = dict(nt=3, eps=3, k=1.0, dt=1e-4, dh=0.05, method="cuda", dtype=torch.float64,
+               mesh=make_mesh_3d(*shape, 1, cards))
+    f = Solver3DDistributed(16, 8 * shape[1], 12, comm="fused", **kw3)
+    c = Solver3DDistributed(16, 8 * shape[1], 12, **kw3)
+    for s in (f, c):
+        s.test_init()
+    assert np.array_equal(f.do_work(), c.do_work())

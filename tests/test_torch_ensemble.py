@@ -227,8 +227,11 @@ def test_refusals(monkeypatch):
     # what the port does not have yet is refused by name
     with pytest.raises(ValueError, match="stepper='rkc' is not ported yet"):
         EnsembleEngine(device=CPU, stepper="rkc", stages=4)
-    with pytest.raises(ValueError, match="comm='fused' .* is not ported yet"):
+    # comm='fused' needs method='cuda', as the JAX engine needs method='pallas'
+    with pytest.raises(ValueError, match="comm='fused' needs method='cuda'"):
         EnsembleEngine(device=CPU, comm="fused")
+    with pytest.raises(ValueError, match="unknown comm"):
+        EnsembleEngine(device=CPU, comm="rdma")
     with pytest.raises(ValueError, match="AOT program store .* is not ported yet"):
         EnsembleEngine(device=CPU, program_store="/tmp/store")
     with pytest.raises(ValueError, match="AOT program store"):

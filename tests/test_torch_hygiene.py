@@ -3,8 +3,12 @@
 * A subprocess with ``jax`` and ``nonlocalheatequation_tpu`` blocked in
   ``sys.modules`` imports every module of the port and chip_smoke.py and
   runs a small 2D and 3D CPU solve, a 2-case ensemble, a small windowed
-  unstructured solve and a 2-case mesh-bucket ensemble.
-* No source file of the port names either package in an import.
+  unstructured solve, a 2-case mesh-bucket ensemble and the distributed
+  2D (fused) and 3D solves on meshes of virtual CPU devices.
+* No source file of the port names either package in an import; the
+  distributed slice's modules are among them.
+* The entry points default to the card: without one they raise (or the
+  CLIs exit 2), the distributed solvers, meshes and CLIs included.
 * chip_smoke.py on a host without a CUDA card exits non-zero and prints no
   result line.
 """
@@ -58,6 +62,19 @@ mhash = MeshStore(os.environ["NLHEAT_MESH_DIR"]).put(pts, 3 / 16.0, 1 / 256.0)
 errs = run_test_cases([EnsembleCase(shape=(256,), nt=4, eps=0, k=k, dt=1e-4, dh=0.0, mesh=mhash)
                        for k in (1.0, 0.5)], device="cpu")
 assert all(e / n <= 1e-6 for e, n in errs), errs
+from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh, make_mesh_3d
+from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+s = Solver2DDistributed(8, 8, 2, 2, 3, 2, dh=0.05, method="cuda", comm="fused",
+                        mesh=make_mesh(2, 2, device_list("cpu", 4)))
+s.test_init()
+s.do_work()
+assert s.error_l2 / 256 <= 1e-6, s.error_l2
+s = Solver3DDistributed(8, 8, 8, 3, 2, method="cuda", comm="fused",
+                        mesh=make_mesh_3d(2, 2, 2, device_list("cpu", 8)))
+s.test_init()
+s.do_work()
+assert s.error_l2 / 512 <= 1e-6, s.error_l2
 assert not any(m == "jax" or m.startswith(("jax.", "nonlocalheatequation_tpu"))
                for m, v in sys.modules.items() if v is not None)
 print("imported", len(names))
@@ -68,7 +85,7 @@ def test_port_imports_and_solves_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=REPO, capture_output=True,
                        text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 23
+    assert int(r.stdout.split()[-1]) >= 31
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -84,6 +101,44 @@ def test_no_source_imports_jax_or_the_jax_package():
             for m in mods:
                 root = m.split(".")[0]
                 assert root not in ("jax", "jaxlib", "nonlocalheatequation_tpu"), (path, m)
+
+
+DISTRIBUTED_SLICE = ("parallel/mesh.py", "parallel/halo.py", "parallel/distributed2d.py",
+                     "parallel/distributed3d.py", "ops/cuda_halo.py",
+                     "cli/solve2d_distributed.py")
+
+
+def test_the_distributed_slice_imports_neither_package():
+    for rel in DISTRIBUTED_SLICE:
+        tree = ast.parse((PKG / rel).read_text(), rel)
+        roots = {(a.name if isinstance(node, ast.Import) else node.module or "").split(".")[0]
+                 for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+                 for a in (node.names if isinstance(node, ast.Import) else [node])}
+        assert "nonlocalheatequation_torch" in roots or "torch" in roots, rel
+        assert not roots & {"jax", "jaxlib", "nonlocalheatequation_tpu"}, (rel, roots)
+
+
+def test_distributed_entry_points_default_to_the_card():
+    import torch
+
+    from nonlocalheatequation_torch.cli import solve2d_distributed
+    from nonlocalheatequation_torch.parallel import distributed2d, distributed3d, mesh
+
+    if torch.cuda.is_available():
+        assert mesh.device_list()[0].type == "cuda"
+        return
+    for call in (lambda: mesh.device_list(), lambda: mesh.make_mesh(),
+                 lambda: mesh.make_mesh_3d(),
+                 lambda: distributed2d.Solver2DDistributed(4, 4, 2, 2, 1, 1),
+                 lambda: distributed3d.Solver3DDistributed(4, 4, 4, 1, 1),
+                 lambda: distributed2d.choose_mesh_for_grid(8, 8)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "is_available() is false" in str(e)
+        else:
+            raise AssertionError("an entry point ran on the CPU without being asked to")
+    assert solve2d_distributed.main(["--nt", "1"]) == 2
 
 
 def test_chip_smoke_refuses_without_a_card():

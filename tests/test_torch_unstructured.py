@@ -150,6 +150,20 @@ def test_edges_weights_and_constants_bitwise(name, points, eps, vol):
     assert np.array_equal(top.manufactured_solution(7), jop.manufactured_solution(7))
 
 
+def test_edges_of_two_far_clusters_bitwise(monkeypatch):
+    # 50 + 50 uniform points in the unit cube, the second cluster 1e7 away
+    # on each axis: far more cells than a dense lattice can number
+    monkeypatch.setattr(tun, "_build_edges_native", lambda points, eps: None)
+    monkeypatch.setattr(jun, "_build_edges_native", lambda points, eps: None)
+    rng = np.random.default_rng(0)
+    a = rng.uniform(size=(50, 3))
+    pts = np.concatenate([a, rng.uniform(size=(50, 3)) + 1e7])
+    tgt, src = tun.build_edges(pts, 0.3)
+    jt, js = jun.build_edges(pts, 0.3)
+    assert len(jt) == 432
+    assert tgt.dtype == np.int32 and np.array_equal(tgt, jt) and np.array_equal(src, js)
+
+
 def test_edges_accept_a_weighted_influence():
     pts, h = _lattice(20, seed=6)
     J = lambda r: 1.0 - 0.5 * r  # noqa: E731
