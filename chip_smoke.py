@@ -29,8 +29,8 @@ line is printed; the phase walls are printed at the end):
    The batched kernels (batched_step2d production and test form,
    batched_carried2d, batched_superstep2d at K = 1-4), uniform and mixed
    physics, B in {1, 2, 3, 8}, eps 1-8, 16 and 40 over ragged grids: each
-   held to its plain version and each lane BITWISE to its solo launch
-   (phase_batched_checks).
+   held to its plain version (batched_step2d BITWISE) and each lane
+   BITWISE to its solo launch (phase_batched_checks).
 3. The main path's correctness: the batch tables (CASES_2D and CASES_1D of
    tests/cases.py, CASES_3D of tests/test_oracle_3d.py, copied here) through
    the port's CLIs on the card in float64, each must print "Tests Passed"
@@ -69,8 +69,11 @@ line is printed; the phase walls are printed at the end):
 6. The ensemble engine (phase_ensemble) at the JAX package's ensemble
    size, 8 production cases of 1024^2, eps=8, f32, 500 steps, and a
    mixed-physics 8 x 512^2 bucket: the batched kernels at 8 x 1024^2 held to
-   their plain versions and bitwise per lane to the solo kernels, timed
-   beside their plain versions and bounds; the engine's run timed beside the
+   their plain versions (batched_step2d bitwise) and bitwise per lane to the
+   solo kernels, timed beside their plain versions and bounds;
+   batched_step2d at B=1 timed against step2d on the same 1024^2 and 4096^2
+   planes (its register design against the shared tile body, in turns); the
+   engine's run timed beside the
    same 8 cases as 8 sequential tuned solves; every lane of both buckets
    bitwise equal to its solo per-step loop.  Then, counted: CASES_2D through
    solve2d --ensemble in float64 (it must print "Tests Passed" and launch
@@ -85,11 +88,14 @@ line is printed; the phase walls are printed at the end):
    node), the windowed operator to the NumPy oracle, and stacked gather
    lanes bitwise their solo runs.  Then the shuffled jittered 512^2 cloud
    (262,144 nodes, eps = 3h, f32): the host walls of the edge and plan
-   builds, both kernels held and timed beside their plain versions, their
-   bounds and torch.sparse.mm of a CSR matrix of the same entries, and one
-   L(u) per layout.  The CLI on the card: data/*.msh with --layout auto and
-   windowed in f64 (error_l2/N <= 1e-6; started with phase 3's CLIs and
-   collected after them), then, counted, the 512^2 cloud from a 2.2 .msh
+   builds, the card memory of building the windowed exec (its packed
+   in-window entries; it must not allocate the dense strips), both kernels
+   held and timed beside their plain versions, their bounds and
+   torch.sparse.mm of a CSR matrix of the same entries (in turns, in CUDA
+   graphs and in loops of launches), one L(u) per layout and one
+   auto-picked L(u) (counted: one windowed_matvec).  The CLI on the card:
+   data/*.msh with --layout auto and windowed in f64 (error_l2/N <= 1e-6;
+   started with phase 3's CLIs and collected after them), then, counted, the 512^2 cloud from a 2.2 .msh
    with --layout auto, which must choose windowed and launch
    windowed_matvec once per step.  Last, bench.py's graded cloud at nm=256
    (65,536 nodes) in a throwaway mesh registry: gather_L held and timed at
@@ -1066,7 +1072,9 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
     form), batched_carried2d and batched_superstep2d (K = 1-4) in float64,
     float32 and the bf16 operand tier, uniform and mixed physics, B in
     {1, 2, 3, 8}, eps 1-8 over ragged grids (1x1, smaller than one tile, non
-    tile multiples) plus eps 16 and 40: each against its plain version and
+    tile multiples) plus eps 16 and 40: each against its plain version
+    (batched_step2d BITWISE: its register design at eps <= 16 and the
+    shared tile body above sum in the plain versions' disc_sum order) and
     each lane BITWISE against one solo launch of the same kernel (step2d,
     carried2d, superstep2d) on that case.  In the bf16 tier the K-step
     tolerance grows by one bfloat16 rounding flip per step after the first
@@ -1083,6 +1091,9 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
         _abs, err = rel_err(torch, got, plain)
         if not all(torch.equal(got[b], s) for b, s in enumerate(solo)):
             fail(f"{name} {form}: a lane is not bitwise equal to its solo launch")
+        if name == "batched_step2d" and not torch.equal(got, plain):
+            fail(f"batched_step2d {form}: not bitwise equal to its plain version (largest "
+                 f"|kernel-plain| / max|plain| {err:.3e})")
         if not err <= tol:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {err:.3e} > {tol:.3e}")
         key = f"{name}/{form.split()[0]}/{form.split()[1]}"
@@ -1183,7 +1194,10 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
     bitwise to the solo kernel, the kernels timed beside their plain
     versions and bounds, the engine's run timed (device and wall) beside
     the same 8 cases as 8 sequential tuned Solver2D solves, and each
-    bucket's lanes held bitwise to the solo per-step loop.  Then the counted
+    bucket's lanes held bitwise to the solo per-step loop; batched_step2d
+    (bitwise its plain version) is also timed at B=1 against step2d on the
+    same 1024^2 and 4096^2 planes (the register design against the shared
+    tile body, in one run).  Then the counted
     main path: CASES_2D through the 2D CLI with --ensemble (float64), both
     buckets through EnsembleEngine(method="cuda"), and both again under
     NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner)."""
@@ -1226,6 +1240,8 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         held[name].append({"form": form, "max_abs_err": abs_err, "rel_err": rel, "tol": tol32})
         if not rel <= tol32:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol32:g}")
+        if name == "batched_step2d" and not torch.equal(got, ref):
+            fail(f"batched_step2d {form}: not bitwise equal to its plain version")
         if not all(torch.equal(got[b], s) for b, s in enumerate(solo)):
             fail(f"{name} {form}: a lane is not bitwise equal to its solo launch")
 
@@ -1258,6 +1274,7 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
 
     out, fout = torch.empty_like(U), torch.empty_like(frames)
     step_ms = cuda_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, out=out), 200)
+    step_graph_ms = graph_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, out=out))
     step_test_ms = cuda_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, G=G, LG=LG,
                                                             coefs=coefs, out=out), 200)
     step_plain_ms = cuda_ms(torch, lambda: cb.batched_step2d_plain(U, EPS, params, wsum), 5, 1)
@@ -1270,18 +1287,55 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
               for k in (2, 3)}
     sup_plain_ms = cuda_ms(torch, lambda: cb.batched_superstep2d_plain(U, EPS, params, wsum, 3),
                            3, 1)
-    solo_step_ms = cuda_ms(torch, lambda: ck.step2d(U[0], EPS, scale, wsum, dt, out=out[0]),
-                           200)
+    # the A/B of the two 2D bodies in this run: batched_step2d at B=1 (the
+    # register design) against step2d (the shared tile body) on the same
+    # plane, in turns step2d, batched, batched, step2d
+    ab = {}
+    for n_ab in (N, NX):
+        plane = U[:1] if n_ab == N else torch.as_tensor(
+            np.random.default_rng(SEED + 9).standard_normal((1, n_ab, n_ab)),
+            device="cuda").float()
+        one = cb.case_params([scale], [dt], torch.float32, "cuda")
+        if not torch.equal(cb.batched_step2d(plane, EPS, one, wsum)[0],
+                           ck.step2d(plane[0], EPS, scale, wsum, dt)):
+            fail(f"batched_step2d 1x{n_ab}^2: not bitwise equal to step2d")
+        o1 = torch.empty_like(plane)
+        solo_fn = lambda plane=plane, o1=o1: ck.step2d(plane[0], EPS, scale, wsum, dt,  # noqa: E731
+                                                     out=o1[0])
+        batch_fn = lambda plane=plane, o1=o1, one=one: cb.batched_step2d(  # noqa: E731
+            plane, EPS, one, wsum, out=o1)
+        times = [cuda_ms(torch, f, 200) for f in (solo_fn, batch_fn, batch_fn, solo_fn)]
+        graph = [graph_ms(torch, f) for f in (solo_fn, batch_fn, batch_fn, solo_fn)]
+        ab[f"1x{n_ab}^2"] = {"step2d_ms": (times[0] + times[3]) / 2,
+                             "batched_step2d_ms": (times[1] + times[2]) / 2, "turns": times,
+                             "step2d_ms_graph": (graph[0] + graph[3]) / 2,
+                             "batched_step2d_ms_graph": (graph[1] + graph[2]) / 2,
+                             "turns_graph": graph,
+                             "bound_ms": bound(2 * n_ab * n_ab * isz,
+                                               n_ab * n_ab * kernel_ops(EPS, 5))[0]}
+        del plane, o1
+    solo_step_ms = ab[f"1x{N}^2"]["step2d_ms"]
     step_bound = bound(2 * npts * isz, npts * kernel_ops(EPS, 5))
     step_test_bound = bound(4 * npts * isz, npts * kernel_ops(EPS, 9))
     carried_bound = bound(2 * frames.numel() * isz, npts * kernel_ops(EPS, 5))
     sup_bound = {k: bound(2 * npts * isz, k * npts * kernel_ops(EPS, 5)) for k in (2, 3)}
     del G, LG, frames, fout
-    say(f"batched_step2d {B}x{N}^2 eps={EPS} f32: kernel {step_ms:.4f} ms/launch "
+    say(f"batched_step2d {B}x{N}^2 eps={EPS} f32: kernel {step_ms:.4f} ms/launch (in a CUDA "
+        f"graph {step_graph_ms:.4f}) "
         f"({step_ms / B:.5f} ms per case-step; step2d alone at {N}^2 {solo_step_ms:.5f} ms), "
         f"plain {step_plain_ms:.3f} ms, bound {step_bound[0]:.4f} ms ({step_bound[1]}); "
         f"test form {step_test_ms:.4f} ms, bound {step_test_bound[0]:.4f} ms "
         f"({step_test_bound[1]})")
+    say("A/B of the register design (batched_step2d, B=1) against the shared tile body "
+        f"(step2d) on the same plane, eps={EPS} f32, ms per launch in a loop and in a CUDA "
+        "graph (turns step2d, batched, batched, step2d): " + "; ".join(
+            f"{k}: batched_step2d {v['batched_step2d_ms']:.4f}, step2d {v['step2d_ms']:.4f} "
+            f"(ratio {v['step2d_ms'] / v['batched_step2d_ms']:.3f}); graph "
+            f"{v['batched_step2d_ms_graph']:.4f} against {v['step2d_ms_graph']:.4f} (ratio "
+            f"{v['step2d_ms_graph'] / v['batched_step2d_ms_graph']:.3f}); bound "
+            f"{v['bound_ms']:.4f}; turns {json.dumps([round(t, 5) for t in v['turns']])}, "
+            f"graph {json.dumps([round(t, 5) for t in v['turns_graph']])}"
+            for k, v in ab.items()))
     say(f"batched_carried2d {B}x{N}^2 eps={EPS} f32: kernel {carried_ms:.4f} ms/launch, plain "
         f"{carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms ({carried_bound[1]})")
     for k in (2, 3):
@@ -1440,7 +1494,8 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         row("batched_step2d", 1694, "batched_step2d.cu", ms=step_ms, plain_ms=step_plain_ms,
             bound_ms=step_bound[0], bound_by=step_bound[1], ms_test_form=step_test_ms,
             bound_ms_test_form=step_test_bound[0], ms_step2d_one_case=solo_step_ms,
-            ensemble_ms=eng_ms, sequential_ms=seq_ms),
+            ms_graph=step_graph_ms, ab_b1_against_step2d=ab, ensemble_ms=eng_ms,
+            sequential_ms=seq_ms),
         row("batched_carried2d", 1839, "batched_carried2d.cu", ms=carried_ms,
             plain_ms=carried_plain_ms, bound_ms=carried_bound[0], bound_by=carried_bound[1]),
         row("batched_superstep2d", 1963, "batched_superstep2d.cu", ms=sup_ms[3],
@@ -1537,8 +1592,9 @@ def phase_unstructured_checks(torch, np) -> dict:
             tol = TOL[tname]
             u = torch.tensor(rng.standard_normal(op.n), device="cuda", dtype=dtype)
             ex = plan.for_dtype(dtype, "cuda")
-            held(f"windowed_matvec/{tname}", cu.windowed_matvec(ex.P, ex.s128, u, ex.we),
-                 cu.windowed_matvec_plain(ex.P, ex.s128, u, ex.we), tol)
+            packed = (ex.rowptr, ex.cols, ex.vals, ex.s128)
+            held(f"windowed_matvec/{tname}", cu.windowed_matvec(*packed, u, ex.we),
+                 cu.windowed_matvec_plain(*packed, u, ex.we), tol)
             held(f"windowed L vs oracle/{tname}", ex.L(u),
                  torch.as_tensor(op.apply_np(u.double().cpu().numpy()), device="cuda"), tol)
             n["windowed_matvec"] += 1
@@ -1647,9 +1703,11 @@ def cli_error(text: str, what: str, l2_threshold: float) -> float:
 
 def phase_unstructured(torch, np, ck, l2_threshold) -> list:
     """Phase 7, the unstructured path: (b) the shuffled jittered 512^2 cloud
-    (eps = 3h, f32): host walls of the edge and plan builds, windowed_matvec
-    and gather_L held to their plain versions and timed beside them, their
-    bounds and torch.sparse.mm, and one step of each layout; (c) counted, the
+    (eps = 3h, f32): host walls of the edge and plan builds, the card memory
+    of building the windowed exec (the packed in-window entries; the dense
+    strips are never allocated), windowed_matvec and gather_L held to their
+    plain versions and timed beside them, their bounds and torch.sparse.mm,
+    one step of each layout and one auto-picked step (counted); (c) counted, the
     CLI on the 512^2 cloud from a 2.2 .msh with --layout auto (windowed,
     UN_STEPS launches; data/*.msh ran beside phase 2, phase_unstructured_cli);
     (d) bench.py's graded cloud at nm=256 in a throwaway mesh
@@ -1687,28 +1745,42 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
     t0 = time.perf_counter()
     plan = op.windowed_plan()
     plan_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     ex = plan.for_dtype(f32, "cuda")
     torch.cuda.synchronize()
     fill_wall = time.perf_counter() - t0
+    exec_peak = torch.cuda.max_memory_allocated() - mem0
     n, nnz_w = op.n, len(plan.p_vals)
-    shape13 = f"{n} nodes, R={plan.R} windows of we={plan.we}"
+    packed = (ex.rowptr, ex.cols, ex.vals, ex.s128)
+    packed_bytes = sum(t.numel() * t.element_size() for t in packed)
+    if hasattr(ex, "P") or exec_peak >= plan.p_bytes_f32:
+        fail(f"the windowed exec allocated {exec_peak} B on the card: the dense strips "
+             f"({plan.p_bytes_f32} B) must never be allocated")
+    shape13 = f"{n} nodes, R={plan.R} windows of we={plan.we}, {nnz_w} packed entries"
     say(f"shuffled {UN_M}^2 cloud, eps=3h: {n} nodes, {len(op.tgt)} edges, kmax {op.kmax}; "
         f"host walls: build_edges {edge_wall:.2f} s, auto gate (offset stats + window search) "
-        f"{gate_wall:.2f} s, plan {plan_wall:.2f} s, strips filled on the card "
+        f"{gate_wall:.2f} s, plan {plan_wall:.2f} s, exec built (packed on the host, copied) "
         f"{fill_wall:.2f} s; windows {plan.R} x {plan.we}, coverage {plan.coverage:.4f}, "
-        f"P {tuple(ex.P.shape)} f32 ({ex.P.numel() * isz / 2**30:.3f} GiB), residual "
-        f"{plan.ov_tgt.size} edges")
+        f"{nnz_w} in-window entries ({nnz_w / (plan.n_pad * plan.W):.4f} of the dense "
+        f"strips' {plan.p_bytes_f32} B), packed rowptr+cols+vals+s128 {packed_bytes} B; "
+        f"torch.cuda.max_memory_allocated while building the f32 windowed exec: {exec_peak} B "
+        f"above the {mem0} B before it; residual {plan.ov_tgt.size} edges")
     u = torch.tensor(rng.standard_normal(n), device="cuda", dtype=f32)
-    mv = cu.windowed_matvec(ex.P, ex.s128, u, ex.we)
+    mv = cu.windowed_matvec(*packed, u, ex.we)
     hold("windowed_matvec", f"float32 shuffled {UN_M}^2", mv,
-         cu.windowed_matvec_plain(ex.P, ex.s128, u, ex.we), tol32)
+         cu.windowed_matvec_plain(*packed, u, ex.we), tol32)
+    if not torch.equal(mv, cu.windowed_matvec(*packed, u, ex.we)):
+        fail("windowed_matvec: two launches on the same input differ")
     u64 = u.double()
     ex64 = plan.for_dtype(torch.float64, "cuda")
+    packed64 = (ex64.rowptr, ex64.cols, ex64.vals, ex64.s128)
     hold("windowed_matvec", f"float64 shuffled {UN_M}^2",
-         cu.windowed_matvec(ex64.P, ex64.s128, u64, ex64.we),
-         cu.windowed_matvec_plain(ex64.P, ex64.s128, u64, ex64.we), TOL["float64"])
-    del ex64
+         cu.windowed_matvec(*packed64, u64, ex64.we),
+         cu.windowed_matvec_plain(*packed64, u64, ex64.we), TOL["float64"])
+    del ex64, packed64
     torch.cuda.empty_cache()
     # the library yardstick for B13: the in-window entries as one CSR matrix
     s128 = plan.s128.astype(np.int64)
@@ -1723,11 +1795,23 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
     if not lib_err <= tol32:
         fail(f"torch.sparse.mm of the in-window entries differs from windowed_matvec: "
              f"{lib_err:.3e}")
-    out13 = {"ms": cuda_ms(torch, lambda: cu.windowed_matvec(ex.P, ex.s128, u, ex.we), 50),
-             "plain_ms": cuda_ms(torch, lambda: cu.windowed_matvec_plain(ex.P, ex.s128, u,
-                                                                         ex.we), 10, 2),
-             "library_ms": cuda_ms(torch, lambda: lib13(u), 20)}
-    b13 = bound(ex.P.numel() * isz + ex.s128.numel() * 4 + 2 * n * isz, 2 * ex.P.numel())
+    # in turns: library, kernel, kernel, library; each as a replayed CUDA
+    # graph of launches (the wrapper's host cost per call is of the order of
+    # the kernel's time here) and as a loop of launches from Python
+    k13 = lambda: cu.windowed_matvec(*packed, u, ex.we)  # noqa: E731
+    l13 = lambda: lib13(u)  # noqa: E731
+    t13 = [graph_ms(torch, f) for f in (l13, k13, k13, l13)]
+    t13_loop = [cuda_ms(torch, f, 100) for f in (l13, k13, k13, l13)]
+    out13 = {"ms": (t13[1] + t13[2]) / 2, "library_ms": (t13[0] + t13[3]) / 2, "turns": t13,
+             "ms_loop": (t13_loop[1] + t13_loop[2]) / 2,
+             "library_ms_loop": (t13_loop[0] + t13_loop[3]) / 2, "turns_loop": t13_loop,
+             "plain_ms": cuda_ms(torch, lambda: cu.windowed_matvec_plain(*packed, u, ex.we),
+                                 10, 2)}
+    # the same work done the least way: each packed entry (value, uint16
+    # column), the row pointer and the window starts read once, u read once,
+    # out written once; a multiply-add an entry
+    b13_bytes = nnz_w * (isz + 2) + packed[0].numel() * 4 + packed[3].numel() * 4 + 2 * n * isz
+    b13 = bound(b13_bytes, 2 * nnz_w)
     del lib13
     # B12 at the same cloud (original order)
     table = GatherTable(op, f32, "cuda")
@@ -1742,10 +1826,14 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
               "library_ms": cuda_ms(torch, lambda: lib12(u), 20)}
     b12s = bound(table.nnz * (isz + 4) + (n + 1) * 8 + 2 * n * isz, 2 * table.nnz)
     del lib12, table
-    say(f"B13 windowed_matvec {UN_M}^2 f32: kernel {out13['ms']:.4f} ms, plain (bmm over the "
-        f"windows) {out13['plain_ms']:.3f} ms, torch.sparse.mm CSR of the {nnz_w} in-window "
-        f"entries {out13['library_ms']:.4f} ms, bound {b13[0]:.4f} ms ({b13[1]}: P "
-        f"{ex.P.numel() * isz} B + u + out)")
+    say(f"B13 windowed_matvec {UN_M}^2 f32: kernel {out13['ms']:.4f} ms in a CUDA graph "
+        f"({out13['ms_loop']:.4f} in a loop of launches), plain (gather from the windows, row "
+        f"segment sum) {out13['plain_ms']:.3f} ms, torch.sparse.mm CSR of the {nnz_w} "
+        f"in-window entries {out13['library_ms']:.4f} ms in a graph "
+        f"({out13['library_ms_loop']:.4f} in a loop; turns library, kernel, kernel, library: "
+        f"graph {json.dumps([round(t, 5) for t in t13])}, loop "
+        f"{json.dumps([round(t, 5) for t in t13_loop])}), bound {b13[0]:.4f} ms ({b13[1]}: "
+        f"{b13_bytes} B = the packed entries at {isz + 2} B, rowptr, s128, u, out)")
     say(f"B12 gather_L {UN_M}^2 f32 (CSR, {len(op.tgt) + n} entries with the centres): kernel "
         f"{out12s['ms']:.4f} ms, plain {out12s['plain_ms']:.3f} ms, torch.sparse.mm "
         f"{out12s['library_ms']:.4f} ms, bound {b12s[0]:.4f} ms ({b12s[1]})")
@@ -1761,10 +1849,21 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
             fail(f"layout {lay} on the shuffled cloud: |L - oracle| / max|oracle| "
                  f"{lay_err:.3e} > {tol32:g}")
         steps[lay] = cuda_ms(torch, lambda lay=lay: op.apply(uo, layout=lay), 5, 1)
+    # one auto-picked L(u), counted: the layout the card's policy takes
+    ck.reset_launch_counts()
+    auto_err = rel_err(torch, op.apply(uo), oracle)[1]
+    auto_launches = {k: v for k, v in ck.launch_counts().items() if v}
+    if not auto_err <= tol32 or auto_launches != {"windowed_matvec": 1}:
+        fail(f"auto L(u) on the shuffled cloud: error {auto_err:.3e}, launches {auto_launches}"
+             " (the policy picks windowed on the card)")
+    steps["auto"] = cuda_ms(torch, lambda: op.apply(uo), 5, 1)
     off = op.offset_plan()
-    say(f"one L(u) per layout at {UN_M}^2 f32, ms: {json.dumps(steps)} (offsets keeps "
-        f"{len(off.offs)} diagonals, coverage {off.coverage:.4f})")
-    del ex, op, off, uo, oracle, u, mv, g
+    say(f"one L(u) per layout at {UN_M}^2 f32, ms: {json.dumps(steps)} (auto picks "
+        f"{op.choose_layout()!r}, launches {json.dumps(auto_launches)}, |L - oracle| / "
+        f"max|oracle| {auto_err:.3e}; offsets keeps {len(off.offs)} diagonals, coverage "
+        f"{off.coverage:.4f})")
+    plan_strip_bytes = plan.p_bytes_f32
+    del ex, op, off, uo, oracle, u, mv, g, packed
     plan = None
     torch.cuda.empty_cache()
 
@@ -1911,9 +2010,12 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
             "nonlocalheatequation_tpu/ops/windowed.py:151", ms=out13["ms"],
             plain_ms=out13["plain_ms"], bound_ms=b13[0], bound_by=b13[1],
             library_ms=out13["library_ms"],
-            library_note="torch.sparse.mm of the in-window entries as one CSR matrix",
+            library_note="torch.sparse.mm of the in-window entries as one CSR matrix; ms "
+                         "and library_ms in a replayed CUDA graph, *_loop in a loop of launches",
+            ms_loop=out13["ms_loop"], library_ms_loop=out13["library_ms_loop"],
             shape=f"shuffled {UN_M}^2, eps=3h, {shape13}",
-            layout_step_ms=steps),
+            layout_step_ms=steps, exec_peak_bytes=exec_peak, packed_bytes=packed_bytes,
+            dense_strip_bytes_f32=plan_strip_bytes),
         row("gather_L", "gather_L.cu", "nonlocalheatequation_tpu/ops/pallas_gather.py:144",
             ms=out12["ms"], plain_ms=out12["plain_ms"], bound_ms=b12[0], bound_by=b12[1],
             library_ms=out12["library_ms"],

@@ -49,11 +49,11 @@ from nonlocalheatequation_torch.ops.cuda_kernel import (
     _entry,
     _raise_on,
     bf16_round,
+    disc_sum,
     shadow_of,
     source_coefs,
     superstep_k,
 )
-from nonlocalheatequation_torch.ops.stencil import column_half_heights
 
 
 def case_params(scales, dts, dtype, device) -> torch.Tensor:
@@ -75,26 +75,12 @@ def source_coef_table(ts, dts, dtype, device) -> torch.Tensor:
 
 # -- plain versions -----------------------------------------------------------
 
-def _nsum_stack(upad: torch.Tensor, eps: int) -> torch.Tensor:
-    """nsum2d_plain over a (B, nx+2e, ny+2e) stack: the same slice-adds in
-    the same order, on every case at once."""
-    e = int(eps)
-    nx, ny = upad.shape[1] - 2 * e, upad.shape[2] - 2 * e
-    acc = torch.zeros((upad.shape[0], nx, ny), dtype=upad.dtype, device=upad.device)
-    heights = column_half_heights(e)
-    for i in range(2 * e + 1):
-        h = int(heights[i])
-        for j in range(e - h, e + h + 1):
-            acc = acc + upad[:, i:i + nx, j:j + ny]
-    return acc
-
-
 def _euler_stack(opnd, carry, eps, params, wsum, G=None, LG=None, coefs=None):
     """carry + dt*(scale*(nsum(opnd) - wsum*opnd) [+ coef_g*G + coef_lg*L(G)])
     per case, each case's scalars from its row of ``params`` (``coefs``):
     the tile body's epilogue, one rounding per operation."""
     e = int(eps)
-    acc = _nsum_stack(F.pad(opnd, (e, e, e, e)), e)
+    acc = disc_sum(F.pad(opnd, (e, e, e, e)), e)
     du = params[:, 0, None, None] * (acc - wsum * opnd)
     if G is not None:
         du = du + coefs[:, 0, None, None] * G

@@ -92,7 +92,8 @@ _ENTRIES = {
     "nlheat_batched_superstep2d": ("batched_superstep2d.cu", [_I, _I, _P, _P, _P, _I, _I, _I,
                                                               _I, _I, _D, _P]),
     "nlheat_batched_superstep2d_fits": ("batched_superstep2d.cu", [_I, _I, _I, _I]),
-    "nlheat_windowed_matvec": ("windowed_matvec.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "nlheat_windowed_matvec": ("windowed_matvec.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                                      _I, _P]),
     "nlheat_gather_L": ("gather_L.cu", [_I, _I, _P, _P, _P, _P, _P, _I, _P]),
     "nlheat_split_nsum2d": ("split_nsum2d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _P]),
     "nlheat_split_nsum3d": ("split_nsum3d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
@@ -145,19 +146,32 @@ def shadow_of(x: torch.Tensor) -> torch.Tensor:
 
 # -- plain versions -----------------------------------------------------------
 
-def nsum2d_plain(upad: torch.Tensor, eps: int, precision: str = "f32") -> torch.Tensor:
-    """Neighbour sum of a halo-padded block by one slice-add per mask offset."""
+def disc_sum(upad: torch.Tensor, eps: int) -> torch.Tensor:
+    """The masked-disc sum of the halo-padded ``(..., nx+2e, ny+2e)`` block(s)
+    in the tile body's order (csrc/stencil_tile.cuh), so that the kernels
+    give its bits: every window row's column sums ``W_h = (W_{h-1} +
+    row[-h]) + row[+h]`` grow one pair of columns per height, and each
+    output adds ``W_{h_i}`` of its x offsets i, heights ascending, then i
+    ascending, from 0."""
     e = int(eps)
+    nx, ny = upad.shape[-2] - 2 * e, upad.shape[-1] - 2 * e
+    acc = torch.zeros((*upad.shape[:-2], nx, ny), dtype=upad.dtype, device=upad.device)
+    heights = [int(h) for h in column_half_heights(e)]
+    W = upad[..., e:e + ny]
+    for h in range(e + 1):
+        if h:
+            W = (W + upad[..., e - h:e - h + ny]) + upad[..., e + h:e + h + ny]
+        for i in range(2 * e + 1):
+            if heights[i] == h:
+                acc = acc + W[..., i:i + nx, :]
+    return acc
+
+
+def nsum2d_plain(upad: torch.Tensor, eps: int, precision: str = "f32") -> torch.Tensor:
+    """Neighbour sum of a halo-padded block (:func:`disc_sum`)."""
     if precision == "bf16":
         upad = bf16_round(upad)
-    nx, ny = upad.shape[0] - 2 * e, upad.shape[1] - 2 * e
-    acc = torch.zeros((nx, ny), dtype=upad.dtype, device=upad.device)
-    heights = column_half_heights(e)
-    for i in range(2 * e + 1):
-        h = int(heights[i])
-        for j in range(e - h, e + h + 1):
-            acc = acc + upad[i:i + nx, j:j + ny]
-    return acc
+    return disc_sum(upad, eps)
 
 
 def step2d_plain(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float, *,

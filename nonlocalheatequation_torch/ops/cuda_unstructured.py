@@ -6,7 +6,9 @@ unstructured path:
 
 * :func:`windowed_matvec` replaces ``_build_windowed_matvec``
   (nonlocalheatequation_tpu/ops/windowed.py:151): the Morton-order windowed
-  strip matvec of ``layout="windowed"`` (ops/windowed.py);
+  matvec of ``layout="windowed"`` (ops/windowed.py), over the plan's
+  in-window entries packed by row instead of the TPU kernel's dense strips
+  (:func:`dense_matvec_plain` keeps that form for the tests);
 * :func:`gather_L` replaces ``build_gather_L``
   (nonlocalheatequation_tpu/ops/pallas_gather.py:144): the CSR strip gather
   over the baked ``c_i*w_ij`` and centre entries of ops/gather.py, with
@@ -16,8 +18,8 @@ As in ops/cuda_kernel.py (which holds the launch counts and the C entry
 points): each wrapper checks its arguments, allocates its output with
 ``torch.empty``, launches on the current stream, raises on a non-zero
 launch status and counts the launch in ``LAUNCHES``.  A CPU tensor goes to
-the plain version beside it (shifted dot products over the windows; a
-gather and a row sum); a CUDA tensor launches the kernel or raises.
+the plain version beside it (a gather from the windows and a row segment
+sum; a gather and a row sum); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -53,9 +55,9 @@ def _raise_status(rc: int, what: str, detail: str):
         raise RuntimeError(f"{what} launch failed: cudaGetLastError {rc}")
 
 
-# -- windowed strip matvec (B13) ------------------------------------------------
+# -- windowed matvec (B13) -------------------------------------------------------
 
-def _check_windowed(P, s128, u, we, bm):
+def _check_windowed(rowptr, cols, vals, s128, u, we, bm):
     if u.dtype not in _DTYPE_CODE or u.dim() != 1:
         raise TypeError(f"windowed_matvec: u must be a 1-D float32/float64 tensor, got "
                         f"{tuple(u.shape)} {u.dtype}")
@@ -63,40 +65,63 @@ def _check_windowed(P, s128, u, we, bm):
         raise ValueError(f"windowed_matvec: bm must be {LANE} and we a multiple of {LANE}, "
                          f"got bm={bm}, we={we}")
     _check("windowed_matvec s128", s128, torch.int32, u, 2)
-    _check("windowed_matvec P", P, u.dtype, u, 2)
+    _check("windowed_matvec rowptr", rowptr, torch.int32, u, 1)
+    _check("windowed_matvec cols", cols, torch.int16, u, 1)
+    _check("windowed_matvec vals", vals, u.dtype, u, 1)
     nb, R = s128.shape
-    if tuple(P.shape) != (nb * bm, R * we) or nb * bm < u.shape[0]:
-        raise ValueError(f"windowed_matvec: P {tuple(P.shape)} does not match s128 "
-                         f"{tuple(s128.shape)}, we={we}, bm={bm} and n={u.shape[0]}")
+    if rowptr.shape[0] != nb * bm + 1 or nb * bm < u.shape[0] or cols.shape != vals.shape:
+        raise ValueError(f"windowed_matvec: rowptr {tuple(rowptr.shape)}, cols "
+                         f"{tuple(cols.shape)} and vals {tuple(vals.shape)} do not match s128 "
+                         f"{tuple(s128.shape)}, bm={bm} and n={u.shape[0]}")
 
 
-def windowed_matvec_plain(P: torch.Tensor, s128: torch.Tensor, u: torch.Tensor, we: int,
+def windows_of(s128: torch.Tensor, u: torch.Tensor, we: int, bm: int = LANE) -> torch.Tensor:
+    """Each row block's R windows of ``u`` side by side, ``(nb, R*we)``:
+    window r of block b is ``u[s128[b, r]*128 :][:we]``, 0 past n."""
+    nb, R = s128.shape
+    upad = F.pad(u, (0, nb * bm + we - u.shape[0]))
+    return upad.unfold(0, we, LANE)[s128.long()].reshape(nb, R * we)
+
+
+def dense_matvec_plain(P: torch.Tensor, s128: torch.Tensor, u: torch.Tensor, we: int,
+                       bm: int = LANE) -> torch.Tensor:
+    """The TPU kernel's form: the dense strips ``P`` (nb*bm, R*we) times
+    each row block's windows of ``u``, one batched product over the
+    blocks."""
+    nb, _ = s128.shape
+    out = torch.bmm(P.view(nb, bm, -1), windows_of(s128, u, we, bm).unsqueeze(2))
+    return out.reshape(nb * bm)[:u.shape[0]]
+
+
+def windowed_matvec_plain(rowptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                          s128: torch.Tensor, u: torch.Tensor, we: int,
                           bm: int = LANE) -> torch.Tensor:
-    """The strip matvec as dot products of each row block's strips with its
-    windows of ``u`` (zero past n): one batched product over the blocks."""
+    """The packed matvec as a gather of each entry's window value and a
+    segment sum over the rows."""
     n = u.shape[0]
-    nb, R = s128.shape
-    upad = F.pad(u, (0, nb * bm + we - n))
-    windows = upad.unfold(0, we, LANE)[s128.long()]  # (nb, R, we)
-    out = torch.bmm(P.view(nb, bm, R * we), windows.reshape(nb, R * we, 1))
-    return out.reshape(nb * bm)[:n]
+    counts = rowptr.diff().long()
+    rows = torch.repeat_interleave(torch.arange(counts.shape[0], device=u.device), counts)
+    g = windows_of(s128, u, we, bm)[rows // bm, cols.long() & 0xFFFF]
+    return torch.zeros(counts.shape[0], dtype=u.dtype, device=u.device).index_add_(
+        0, rows, vals * g)[:n]
 
 
-def windowed_matvec(P: torch.Tensor, s128: torch.Tensor, u: torch.Tensor, we: int,
+def windowed_matvec(rowptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                    s128: torch.Tensor, u: torch.Tensor, we: int,
                     bm: int = LANE) -> torch.Tensor:
-    """``out[b*bm+i] = sum_r sum_c P[b*bm+i, r*we+c] * u[s128[b,r]*128+c]``
-    for the rows below n = len(u): the strips ``P`` (nb*bm, R*we) in u's
-    dtype, the window starts ``s128`` (nb, R) int32 in 128-value units, u
-    in Morton order.  Window cells past n read 0."""
-    _check_windowed(P, s128, u, we, bm)
+    """``out[row] = sum_{k in row} vals[k] * win_b[cols[k]]`` for the rows
+    below n = len(u), over the packed in-window entries of a windowed plan
+    (``WindowedPlan.packed``): ``rowptr`` (nb*bm+1,) int32, ``cols`` int16
+    holding each entry's uint16 column in its row block's concatenated R*we
+    window, ``vals`` in u's dtype; ``win_b`` is block b's windows
+    (:func:`windows_of`: starts ``s128`` (nb, R) int32 in 128-value units,
+    0 past n); u in Morton order."""
+    _check_windowed(rowptr, cols, vals, s128, u, we, bm)
     if u.device.type == "cpu":
-        return windowed_matvec_plain(P, s128, u, we, bm)
+        return windowed_matvec_plain(rowptr, cols, vals, s128, u, we, bm)
     _check_device(u)
     if not u.is_contiguous():
         raise ValueError("windowed_matvec u: the kernel takes contiguous tensors")
-    if P.data_ptr() % 16:
-        raise ValueError("windowed_matvec: P must be 16-byte aligned (its rows are read "
-                         "16 bytes at a time)")
     n = u.shape[0]
     nb, R = s128.shape
     out = torch.empty(n, dtype=u.dtype, device=u.device)
@@ -104,8 +129,9 @@ def windowed_matvec(P: torch.Tensor, s128: torch.Tensor, u: torch.Tensor, we: in
         return out
     with torch.cuda.device(u.device):
         rc = _entry("nlheat_windowed_matvec")(
-            _DTYPE_CODE[u.dtype], P.data_ptr(), s128.data_ptr(), u.data_ptr(),
-            out.data_ptr(), n, nb, R, we, torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[u.dtype], rowptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            s128.data_ptr(), u.data_ptr(), out.data_ptr(), n, nb, R, we,
+            torch.cuda.current_stream().cuda_stream)
     _raise_status(rc, "windowed_matvec", f"R={R} windows of we={we} {u.dtype} values")
     LAUNCHES["windowed_matvec"] += 1
     return out

@@ -206,6 +206,7 @@ class UnstructuredNonlocalOp:
         self._windowed_stats = None  # cached (coverage, p_bytes) precheck
         self._windowed_search = None  # the gate's ladder search, reused
         self._offset_plan = None  # built lazily; see offset_plan()
+        self._offset_stats = None  # cached (coverage, kept, w_bytes) precheck
         self._tensors: dict = {}  # (name, dtype, device) -> tensor
 
     def _on(self, name: str, array, like: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -302,9 +303,11 @@ class UnstructuredNonlocalOp:
             return False
         if self.device.type != "cuda":
             return False
-        from nonlocalheatequation_torch.ops.windowed import offset_stats
+        if self._offset_stats is None:  # a histogram of every edge: once per op
+            from nonlocalheatequation_torch.ops.windowed import offset_stats
 
-        coverage, _, w_bytes = offset_stats(self.tgt, self.src, self.n)
+            self._offset_stats = offset_stats(self.tgt, self.src, self.n)
+        coverage, _, w_bytes = self._offset_stats
         return (coverage >= self._OFFSETS_MIN_COVERAGE
                 and w_bytes <= self._WINDOWED_BUDGET_BYTES)
 

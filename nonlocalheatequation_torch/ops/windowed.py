@@ -8,13 +8,15 @@ the per-edge gather with streams the device reads in order:
 * **windowed** — nodes reordered along a Morton (Z-order) curve over
   horizon-sized cells, so each run of ``bm`` = 128 consecutive rows draws
   its neighbours from R short windows of the reordered state; per row block
-  the weights sit in a dense ``(bm, R*we)`` strip P whose column groups
-  align to the block's 128-aligned window starts ``s128[b, r]``.  The step
-  is one launch of the ``windowed_matvec`` kernel
+  the weights sit in a ``(bm, R*we)`` strip P whose column groups align to
+  the block's 128-aligned window starts ``s128[b, r]``.  The card keeps only
+  P's non-zeros, packed by row (:meth:`WindowedPlan.packed`), and the step
+  is one launch of the ``windowed_matvec`` kernel over them
   (ops/cuda_unstructured.py, csrc/windowed_matvec.cu; it replaces the
-  Pallas ``_build_windowed_matvec``).  Edges outside their block's windows
-  go to a residual edge list summed with ``index_add_`` outside the kernel
-  (the JAX package's ``segment_sum``), so any ordering stays exact.
+  Pallas ``_build_windowed_matvec``, which streams the dense P).  Edges
+  outside their block's windows go to a residual edge list summed with
+  ``index_add_`` outside the kernel (the JAX package's ``segment_sum``), so
+  any ordering stays exact.
 * **offsets** — when the index offsets ``src - tgt`` cluster on a small set
   O (a jittered grid in its natural order), the operator is a sum of |O|
   diagonals: ``acc = sum_o W_o * shift(u, o)``, static shifted slices of a
@@ -23,12 +25,12 @@ the per-edge gather with streams the device reads in order:
 
 The host-side plan search (Morton order, per-block window starts, the
 width ladder) is the JAX package's NumPy code, so ``perm``, ``s128``,
-``we``, R and P come out equal to its plan.  The port fills P on the device
-in the target dtype from the in-window edge list, never as a dense float64
-host array.  The reduction order differs from ``apply_np`` (per-window
-accumulation; on the card the residual ``index_add_`` adds with atomics in
-an order that changes from run to run), so both layouts are held to the
-oracle by tolerance, not bitwise.
+``we``, R and P come out equal to its plan.  The port never allocates the
+dense P on the device: the exec holds the packed entries in the target
+dtype (rounded from float64 once).  The reduction order differs from
+``apply_np`` (per-row accumulation; on the card the residual ``index_add_``
+adds with atomics in an order that changes from run to run), so both
+layouts are held to the oracle by tolerance, not bitwise.
 """
 
 from __future__ import annotations
@@ -84,7 +86,10 @@ class _WindowedExec:
             device=device, dtype=dt).contiguous()
         self.perm = as_t(plan.perm, torch.int64)
         self.rank = as_t(plan.rank, torch.int64)
-        self.P = plan.strips(dtype, device)
+        rowptr, cols, vals = plan.packed()
+        self.rowptr = as_t(rowptr, torch.int32)
+        self.cols = as_t(cols.view(np.int16), torch.int16)
+        self.vals = as_t(vals)
         self.s128 = as_t(plan.s128, torch.int32)
         self.c_p = as_t(plan.c_p)
         self.wsum_p = as_t(plan.wsum_p)
@@ -95,7 +100,8 @@ class _WindowedExec:
 
     def neighbor_sum_perm(self, u_perm: torch.Tensor) -> torch.Tensor:
         """sum_j w_ij u_j in Morton order (targets AND sources permuted)."""
-        acc = cuda_unstructured.windowed_matvec(self.P, self.s128, u_perm, self.we, self.bm)
+        acc = cuda_unstructured.windowed_matvec(self.rowptr, self.cols, self.vals, self.s128,
+                                                u_perm, self.we, self.bm)
         if self.has_overflow:
             acc = acc + _segment_sum(self.ov_w * u_perm[self.ov_src], self.ov_tgt, self.n)
         return acc
@@ -115,7 +121,8 @@ class WindowedPlan:
     ``W`` is the TOTAL strip width (R windows of ``we`` columns each);
     ``s128[b, r]`` is window r's start for block b in 128-row units.  The
     strips are kept as their in-window entries (``p_rows``, ``p_cols``,
-    ``p_vals``) and laid out densely by :meth:`strips` on the device."""
+    ``p_vals``), packed by row for the kernel by :meth:`packed`; :meth:`strips`
+    lays them out densely (the JAX package's P, for the tests)."""
 
     def __init__(self, *, n, n_pad, bm, we, R, nb, perm, rank, s128, p_rows, p_cols,
                  p_vals, ov_tgt, ov_src, ov_w, c_p, wsum_p, coverage):
@@ -127,10 +134,31 @@ class WindowedPlan:
         self.c_p, self.wsum_p = c_p, wsum_p
         self.coverage = coverage  # fraction of edges inside windows
         self._execs: dict = {}
+        self._packed = None
 
     @property
     def p_bytes_f32(self) -> int:
         return self.n_pad * self.W * 4
+
+    def packed(self) -> tuple:
+        """The in-window entries packed by row, as the kernel reads them:
+        ``(rowptr, cols, vals)`` NumPy arrays, ``rowptr`` (n_pad+1,) int32,
+        per entry its column in the block's R*we window (uint16) and its
+        float64 weight, each row's entries by ascending column.  Computed
+        once per plan."""
+        if self._packed is None:
+            if self.W > 1 << 16:
+                raise ValueError(f"windowed plan: R*we = {self.W} columns exceed a uint16 "
+                                 "column")
+            order = np.lexsort((self.p_cols, self.p_rows))
+            rowptr = np.zeros(self.n_pad + 1, np.int64)
+            np.cumsum(np.bincount(self.p_rows, minlength=self.n_pad), out=rowptr[1:])
+            if rowptr[-1] >= 1 << 31:
+                raise ValueError(f"windowed plan: {rowptr[-1]} entries exceed an int32 row "
+                                 "pointer")
+            self._packed = (rowptr.astype(np.int32), self.p_cols[order].astype(np.uint16),
+                            np.asarray(self.p_vals, np.float64)[order])
+        return self._packed
 
     def strips(self, dtype: torch.dtype, device) -> torch.Tensor:
         """The dense ``(n_pad, R*we)`` strips P in ``dtype`` on ``device``:

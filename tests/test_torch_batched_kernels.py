@@ -162,6 +162,32 @@ def test_plain_lanes_are_the_solo_plain_versions(dtype, shape, eps, batch, prec)
         assert torch.equal(sup[b], ck.superstep2d(*args, 3, prec))
 
 
+@pytest.mark.parametrize("eps", [0, 1, 2, 5, 8])
+def test_disc_sum_adds_in_the_tile_body_order(eps):
+    # the kernels' contract (csrc/stencil_tile.cuh, csrc/batched_step2d.cu),
+    # written out one float32 scalar at a time: W_0 = row[0], W_h = (W_{h-1}
+    # + row[-h]) + row[+h]; each output adds W_{h_i} at x offset i from 0,
+    # heights ascending, then i ascending
+    rng = np.random.default_rng(eps)
+    upad = rng.standard_normal((2, 5 + 2 * eps, 4 + 2 * eps)).astype(np.float32)
+    heights = [int(h) for h in ck.column_half_heights(eps)]
+    want = np.zeros((2, 5, 4), np.float32)
+    for b, x, y in np.ndindex(want.shape):
+        acc = np.float32(0)
+        for h in range(eps + 1):
+            for i in range(2 * eps + 1):
+                if heights[i] == h:
+                    row = upad[b, x + i]
+                    w = row[y + eps]
+                    for k in range(1, h + 1):
+                        w = (w + row[y + eps - k]) + row[y + eps + k]
+                    acc = acc + w
+        want[b, x, y] = acc
+    got = ck.disc_sum(torch.from_numpy(upad), eps)
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(ck.nsum2d_plain(torch.from_numpy(upad[1]), eps), got[1])
+
+
 def test_tables_round_once_from_float64():
     dts = [1e-4, 3e-4 / 7]
     table = cb.source_coef_table(range(2, 5), dts, torch.float32, "cpu")

@@ -11,11 +11,14 @@ imports JAX, so on such a machine run it without the conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
 
 The batched kernels (ops/cuda_batched.py) are held per lane, bitwise, to the
-solo kernels, and the ensemble engine runs a mixed-physics bucket in one
-``batched_step2d`` launch per step.  The unstructured kernels
-(ops/cuda_unstructured.py) are held to their plain versions, a windowed
-solve to the manufactured contract, and an 8-lane mesh bucket's lanes
-bitwise to their solo gather loops.  The halo kernels (ops/cuda_halo.py:
+solo kernels (``batched_step2d`` also bitwise to its plain version, in its
+register design and its tile body), and the ensemble engine runs a
+mixed-physics bucket in one ``batched_step2d`` launch per step.  The
+unstructured kernels (ops/cuda_unstructured.py) are held to their plain
+versions (the packed windowed matvec also on empty rows, ragged n,
+duplicate edges and an unaligned state), a windowed solve to the
+manufactured contract, and an 8-lane mesh bucket's lanes bitwise to their
+solo gather loops.  The halo kernels (ops/cuda_halo.py:
 the in-kernel exchange and the split kernels) are held to their plain
 versions and bitwise to the one-pass nsum2d/nsum3d on the exchanged frame,
 and the distributed solves' fused path (both transports) bitwise to their
@@ -297,6 +300,55 @@ def test_batched_kernels_bitwise_solo_launches_on_card(card, dtype, tol, prec):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,prec", [(torch.float64, "f32"), (torch.float32, "f32"),
+                                        (torch.float64, "bf16"), (torch.float32, "bf16")])
+def test_batched_step2d_bitwise_plain_and_solo_on_card(card, dtype, prec):
+    # the register design (eps <= 16) and the shared tile body (eps 33, 64)
+    # alike: bitwise the plain version, step2d on every lane, and the first
+    # step of batched_carried2d and batched_superstep2d; ragged planes (f32
+    # tiles are 128 x 32, f64 64 x 32), mixed physics, both forms
+    rng = np.random.default_rng(19)
+    for eps in (1, 3, 8, 16, 33, 64):
+        wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(eps)))
+        for batch, (nx, ny) in ((1, (37, 50)), (3, (130, 45)), (8, (70, 33))):
+            scales = [2.0 + eps + b for b in range(batch)]
+            dts = [0.8 / (sc * wsum) * (1 + 0.1 * b) for b, sc in enumerate(scales)]
+            params = cb.case_params(scales, dts, dtype, card)
+            U = torch.tensor(rng.standard_normal((batch, nx, ny)), dtype=dtype, device=card)
+            if dtype == torch.float64 and eps == 64:  # the 2D tile exceeds shared memory
+                with pytest.raises(ValueError):
+                    cb.batched_step2d(U, eps, params, wsum, precision=prec)
+                continue
+            G, LG = torch.randn_like(U), torch.randn_like(U)
+            coefs = cb.source_coef_table([5], dts, dtype, card)[0]
+            step = cb.batched_step2d(U, eps, params, wsum, precision=prec)
+            test = cb.batched_step2d(U, eps, params, wsum, G=G, LG=LG, coefs=coefs,
+                                     precision=prec)
+            form = (eps, batch, nx, ny)
+            assert torch.equal(step, cb.batched_step2d_plain(U, eps, params, wsum,
+                                                             precision=prec)), form
+            assert torch.equal(test, cb.batched_step2d_plain(
+                U, eps, params, wsum, G=G, LG=LG, coefs=coefs, precision=prec)), form
+            assert torch.equal(step, cb.batched_step2d(U, eps, params, wsum, precision=prec))
+            for b in range(batch):
+                u = U[b].contiguous()
+                assert torch.equal(step[b], ck.step2d(u, eps, scales[b], wsum, dts[b],
+                                                      precision=prec)), form
+                assert torch.equal(test[b], ck.step2d(
+                    u, eps, scales[b], wsum, dts[b], g=G[b].contiguous(),
+                    lg=LG[b].contiguous(), t=5, precision=prec)), form
+            frames = torch.nn.functional.pad(U, (eps,) * 4).contiguous()
+            shadow = ck.shadow_of(frames) if prec == "bf16" else None
+            carried = cb.batched_carried2d(frames, eps, params, wsum, shadow=shadow)
+            if shadow is not None:
+                carried = carried[0]
+            assert torch.equal(carried[:, eps:eps + nx, eps:eps + ny], step), form
+            if cb.fits_batched_superstep(eps, 1, dtype, prec, card):
+                assert torch.equal(cb.batched_superstep2d(U, eps, params, wsum, 1, prec),
+                                   step), form
+
+
+@pytest.mark.cuda
 def test_mixed_bucket_runs_one_launch_per_step_on_card(card):
     rng = np.random.default_rng(12)
     physics = [(1.0, 1e-4, 0.02), (0.5, 2e-4, 0.02), (0.2, 1e-4, 0.01), (1.0, 5e-5, 0.03)]
@@ -363,8 +415,9 @@ def test_unstructured_kernels_match_plain_on_card(card, dtype, tol):
         u = torch.tensor(rng.standard_normal(op.n), device=card, dtype=dtype)
         for wmax in (4096, 128):  # 128: most edges overflow to the residual
             ex = op.windowed_plan(wmax=wmax).for_dtype(dtype, card)
-            a = cu.windowed_matvec(ex.P, ex.s128, u, ex.we)
-            b = cu.windowed_matvec_plain(ex.P, ex.s128, u, ex.we)
+            packed = (ex.rowptr, ex.cols, ex.vals, ex.s128)
+            a = cu.windowed_matvec(*packed, u, ex.we)
+            b = cu.windowed_matvec_plain(*packed, u, ex.we)
             assert float((a - b).abs().max() / b.abs().max()) <= tol
             L = ex.L(u).double().cpu().numpy()
             want = op.apply_np(u.double().cpu().numpy())
@@ -378,6 +431,42 @@ def test_unstructured_kernels_match_plain_on_card(card, dtype, tol):
     # per cloud: two plans x (the matvec + the operator), two tiers x two launches
     assert {k: v for k, v in ck.launch_counts().items() if v} == {"windowed_matvec": 16,
                                                                  "gather_L": 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_packed_windowed_matvec_edge_cases_on_card(card, dtype, tol):
+    # the packed kernel against its plain version where the layout is
+    # awkward: every row empty (a self-only horizon), n not a multiple of
+    # 128 (rows and window cells past n), duplicate edges, a forced residual,
+    # and a state that is not 16-byte aligned (no bulk copy of the windows)
+    from nonlocalheatequation_torch.ops import cuda_unstructured as cu
+    from nonlocalheatequation_torch.ops import windowed as tw
+    from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp
+
+    rng = np.random.default_rng(23)
+    clouds = [(np.stack([np.linspace(0, 1, 300), np.zeros(300)], 1), 1e-6, 1.0, {}),
+              (rng.uniform(size=(1000, 2)), 0.08, 1e-3, {}),
+              (rng.uniform(size=(1000, 2)), 0.08, 1e-3, {"wmax": 128})]
+    for pts, eps, vol, kw in clouds:
+        op = UnstructuredNonlocalOp(pts, eps, k=1.0, dt=1e-6, vol=vol, device=card)
+        ex = op.windowed_plan(**kw).for_dtype(dtype, card)
+        packed = (ex.rowptr, ex.cols, ex.vals, ex.s128)
+        full = torch.tensor(rng.standard_normal(op.n + 1), device=card, dtype=dtype)
+        for u in (full[:-1], full[1:]):  # aligned, then off by one value
+            a = cu.windowed_matvec(*packed, u, ex.we)
+            b = cu.windowed_matvec_plain(*packed, u, ex.we)
+            scale = max(float(b.abs().max()), 1.0)
+            assert float((a - b).abs().max()) / scale <= tol
+            assert torch.equal(a, cu.windowed_matvec(*packed, u, ex.we))
+    tgt = np.array([0, 0, 1, 1, 1], np.int32)
+    src = np.array([1, 1, 0, 1, 1], np.int32)
+    plan = tw.build_plan(np.array([[0.0, 0.0], [0.1, 0.0]]), np.array([0.2, 0.2]), tgt, src,
+                         np.array([1.0, 2.0, 3.0, 4.0, 0.5]), np.ones(2), np.zeros(2))
+    ex = plan.for_dtype(dtype, card)
+    u = torch.tensor([0.5, -2.0], device=card, dtype=dtype)
+    got = cu.windowed_matvec(ex.rowptr, ex.cols, ex.vals, ex.s128, u, ex.we)
+    assert got.cpu().tolist() == [3.0 * -2.0, 3.0 * 0.5 + 4.5 * -2.0]
 
 
 @pytest.mark.cuda

@@ -5,8 +5,10 @@ against the JAX package's ``ops/windowed.py``.
 On the CPU: ``morton_perm``, the plan search (``perm``, ``s128``, ``we``,
 R, coverage) and the strips P are equal to the JAX plan's for 1D, 2D, 3D,
 shuffled, ragged (n not a multiple of 128), self-only and forced-overflow
-clouds, one and two windows; the plain matvec holds the JAX
-``_build_windowed_matvec`` (Pallas in interpret mode) to 1e-12 in float64;
+clouds, one and two windows; the packed in-window entries the kernel reads
+unpack to exactly those strips; the plain matvec over them holds the JAX
+``_build_windowed_matvec`` (Pallas in interpret mode) and the dense strips'
+product to 1e-12 in float64;
 the offset layout's plan and residual equal the JAX plan's and hold the
 oracle to 1e-12.
 """
@@ -111,9 +113,13 @@ def test_plain_matvec_matches_the_jax_kernel(name):
     want = np.asarray(jmv(jnp.asarray(jp.s128), jnp.asarray(jp.P),
                           jnp.asarray(upad.reshape(-1, 128))))[:top.n, 0]
     ck.reset_launch_counts()
-    got = cu.windowed_matvec(ex.P, ex.s128, torch.tensor(u), ex.we)
+    got = cu.windowed_matvec(ex.rowptr, ex.cols, ex.vals, ex.s128, torch.tensor(u), ex.we)
     assert ck.launch_counts()["windowed_matvec"] == 0  # the plain version ran
     assert got.shape == (top.n,) and _rel(got.numpy(), want) <= 1e-12
+    # the packed plain version against the dense strips' product
+    dense = cu.dense_matvec_plain(tp.strips(torch.float64, CPU), ex.s128, torch.tensor(u),
+                                  ex.we)
+    assert _rel(got.numpy(), dense.numpy()) <= 1e-12
     # and the whole windowed operator, residual included
     want_L = jop.apply_np(u)
     assert _rel(ex.L(torch.tensor(u)).numpy(), want_L) <= 1e-12
@@ -127,16 +133,78 @@ def test_matvec_wrapper_checks_its_arguments():
     _, top = _ops(points, eps, vol)
     ex = top.windowed_plan().for_dtype(torch.float64, CPU)
     u = torch.zeros(top.n, dtype=torch.float64)
-    with pytest.raises(ValueError, match="needs a 2-D torch.float64"):
-        cu.windowed_matvec(ex.P.float(), ex.s128, u, ex.we)
+    packed = (ex.rowptr, ex.cols, ex.vals)
+    with pytest.raises(ValueError, match="needs a 1-D torch.float64"):
+        cu.windowed_matvec(ex.rowptr, ex.cols, ex.vals.float(), ex.s128, u, ex.we)
     with pytest.raises(ValueError, match="int32"):
-        cu.windowed_matvec(ex.P, ex.s128.long(), u, ex.we)
-    with pytest.raises(ValueError, match="does not match"):
-        cu.windowed_matvec(ex.P, ex.s128, u, ex.we * 2)
+        cu.windowed_matvec(*packed, ex.s128.long(), u, ex.we)
+    with pytest.raises(ValueError, match="int32"):
+        cu.windowed_matvec(ex.rowptr.long(), ex.cols, ex.vals, ex.s128, u, ex.we)
+    with pytest.raises(ValueError, match="int16"):
+        cu.windowed_matvec(ex.rowptr, ex.cols.int(), ex.vals, ex.s128, u, ex.we)
+    with pytest.raises(ValueError, match="do not match"):
+        cu.windowed_matvec(ex.rowptr[:-1], ex.cols, ex.vals, ex.s128, u, ex.we)
+    with pytest.raises(ValueError, match="do not match"):
+        cu.windowed_matvec(ex.rowptr, ex.cols[:-1], ex.vals, ex.s128, u, ex.we)
     with pytest.raises(ValueError, match="multiple of 128"):
-        cu.windowed_matvec(ex.P, ex.s128, u, 100)
+        cu.windowed_matvec(*packed, ex.s128, u, 100)
     with pytest.raises(TypeError, match="1-D float32/float64"):
-        cu.windowed_matvec(ex.P, ex.s128, u.int(), ex.we)
+        cu.windowed_matvec(*packed, ex.s128, u.int(), ex.we)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_packed_entries_unpack_to_the_strips(name):
+    (points, eps, vol), kw = CASES[name]
+    jop, top = _ops(points, eps, vol)
+    jp, tp = _plans(jop, top, **kw)
+    rowptr, cols, vals = tp.packed()
+    assert tp.packed() is tp.packed()  # built once per plan
+    assert rowptr.dtype == np.int32 and cols.dtype == np.uint16 and vals.dtype == np.float64
+    assert rowptr.shape == (tp.n_pad + 1,) and rowptr[0] == 0 and rowptr[-1] == len(vals)
+    assert np.all(np.diff(rowptr) >= 0) and np.all(np.diff(rowptr)[tp.n:] == 0)
+    rows = np.repeat(np.arange(tp.n_pad), np.diff(rowptr))
+    # each row's entries by ascending column, each (row, column) once
+    assert np.all((np.diff(rows) > 0) | (np.diff(cols.astype(np.int64)) > 0))
+    dense = np.zeros((tp.n_pad, tp.W))
+    dense[rows, cols] = vals
+    assert np.array_equal(dense, jp.P)
+    for dtype in (torch.float64, torch.float32):
+        ex = tp.for_dtype(dtype, CPU)
+        assert ex.vals.dtype == dtype and ex.cols.dtype == torch.int16
+        assert np.array_equal(ex.cols.numpy().view(np.uint16), cols)
+        dense_t = torch.zeros((tp.n_pad, tp.W), dtype=dtype)
+        dense_t[torch.as_tensor(rows), torch.as_tensor(cols.astype(np.int64))] = ex.vals
+        assert torch.equal(dense_t, tp.strips(dtype, CPU))
+        assert not hasattr(ex, "P")  # no dense strips in the exec
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", ["2d-overflow", "ragged", "self-only", "2d-shuffled-2win"])
+def test_packed_plain_equals_the_dense_plain(name, dtype, tol):
+    (points, eps, vol), kw = CASES[name]
+    _, top = _ops(points, eps, vol)
+    plan = top.windowed_plan(**kw)
+    ex = plan.for_dtype(dtype, CPU)
+    u = torch.tensor(np.random.default_rng(3).normal(size=top.n), dtype=dtype)
+    got = cu.windowed_matvec_plain(ex.rowptr, ex.cols, ex.vals, ex.s128, u, ex.we)
+    want = cu.dense_matvec_plain(plan.strips(dtype, CPU), ex.s128, u, ex.we)
+    assert got.shape == (top.n,) and got.dtype == dtype
+    assert _rel(got.numpy(), want.numpy()) <= tol
+
+
+def test_packed_columns_past_int16_stay_unsigned():
+    # row 0 holds the only entry, at window column 40000 (> int16's 32767):
+    # the plain version reads the column as unsigned
+    nb, we = 320, 40064
+    s128 = torch.zeros((nb, 1), dtype=torch.int32)
+    u = torch.arange(nb * 128, dtype=torch.float64)
+    rowptr = torch.ones(nb * 128 + 1, dtype=torch.int32)
+    rowptr[0] = 0
+    cols = torch.tensor(np.array([40000], np.uint16).view(np.int16))
+    assert int(cols[0]) < 0
+    got = cu.windowed_matvec(rowptr, cols, torch.tensor([2.0], dtype=torch.float64), s128, u,
+                             we)
+    assert got[0] == 80000.0 and torch.all(got[1:] == 0)
 
 
 def test_plan_cache_rebuilds_on_different_kwargs():
@@ -206,3 +274,10 @@ def test_windowed_plan_duplicate_edges_accumulate():
     a = jw.build_plan(pts, eps, tgt, src, w, c, wsum)
     b = tw.build_plan(pts, eps, tgt, src, w, c, wsum)
     assert np.array_equal(b.strips(torch.float64, CPU).numpy(), a.P)
+    rowptr, cols, vals = b.packed()
+    assert rowptr[:3].tolist() == [0, 1, 3] and cols[:3].tolist() == [1, 0, 1]
+    assert vals.tolist() == [3.0, 3.0, 4.5]
+    ex = b.for_dtype(torch.float64, CPU)
+    u = torch.tensor([0.5, -2.0], dtype=torch.float64)
+    got = cu.windowed_matvec(ex.rowptr, ex.cols, ex.vals, ex.s128, u, ex.we)
+    assert got.tolist() == [3.0 * -2.0, 3.0 * 0.5 + 4.5 * -2.0]
