@@ -20,11 +20,14 @@ line is printed; the phase walls are printed at the end):
    tier) over the same shapes and eps up to 60 where each takes it, each
    held to its plain version (in the bf16 tier plus one bfloat16 rounding
    flip per step after the first, see phase_multistep_checks) and BITWISE
-   to the same number of step2d launches.  3D: nsum3d and step3d
-   (production and test form) over eps in {1, 2, 3, 4, 6, 8} and ragged
-   shapes (1x1x1, non tile multiples, n < 2*eps, nx != ny != nz); carried3d
-   and resident3d (no bf16 tier) held to their plain versions and BITWISE
-   to step3d launches over 1, 2, 3 and 5 steps.  resident2d at 4096^2 and
+   to the same number of step2d launches (superstep2d, the register design
+   up to eps 8, also BITWISE to its plain version).  3D: nsum3d and step3d
+   (production and test form; the register design up to eps 6, the tile
+   body at 8) over eps in {0, 1, 2, 3, 4, 5, 6, 8} and ragged shapes
+   (1x1x1, non tile multiples, n < 2*eps, nx != ny != nz), BITWISE to their
+   plain versions (sphere_sum's order); carried3d and resident3d (no bf16
+   tier) held to their plain versions and BITWISE to step3d launches over
+   1, 2, 3 and 5 steps.  resident2d at 4096^2 and
    resident3d at 256^3, eps=4, beyond their gates, must raise ValueError.
    The batched kernels (batched_step2d production and test form,
    batched_carried2d, batched_superstep2d at K = 1-4), uniform and mixed
@@ -41,16 +44,19 @@ line is printed; the phase walls are printed at the end):
    the main path's shape every kernel form (nsum2d f32 and bf16 operand,
    and in float64 on the padded G the test-form solve gives it; step2d
    production and test form, f32 and bf16 operand; carried2d and
-   superstep2d at K = 2 and 3) is held against its plain version with the
-   phase-2 tolerances.  The kernels are timed with CUDA events beside their
+   superstep2d at K = 2 and 3, also BITWISE to its plain version and to K
+   step2d launches) is held against its plain version with the phase-2
+   tolerances.  The kernels are timed with CUDA events beside their
    plain versions, their byte/operation bound and F.conv2d (the library
    yardstick for the neighbour sum, with TF32 disabled; the port never calls
    it), and the test-form source's set-up is timed on the card and in NumPy.
    Every multi-step candidate of the tuner is timed in ms/step at 4096^2
    (resident does not fit there) and at 512^2, eps=8, f32, where resident
-   fits; there the per-step, carried and superstep kernels are also timed
-   alone, as a replayed CUDA graph of launches, since a loop of launches
-   from Python times the host at that size.  Then the launch counts and the
+   fits.  At both shapes step2d, carried2d, superstep2d at K = 2 and 3 and
+   batched_step2d at B=1 (the register design at one case) are timed in
+   turns, as a replayed CUDA graph of launches (the device alone: a loop of
+   launches from Python times the host at 512^2) and in a loop of
+   launches.  Then the launch counts and the
    tuner's records are reset and the 2D main path runs through Solver2D:
    the production solve at 4096^2 and at 512^2 (each tunes its shape, as a
    first production call does, and runs the winner) and a test-form solve
@@ -58,8 +64,10 @@ line is printed; the phase walls are printed at the end):
    every 2D kernel launched, and exactly the probes' and the winners'
    launches.  The tuner's records are printed.
 5. The 3D path, the same way: the kernels at 256^3, eps=4, f32 (every form
-   held to its plain version, carried3d bitwise to step3d launches; timed
-   beside the plain versions, the bound and F.conv3d with TF32 disabled),
+   held to its plain version, nsum3d and step3d BITWISE, carried3d bitwise
+   to step3d launches; timed beside the plain versions, the bound and
+   F.conv3d with TF32 disabled; step3d's register design and carried3d's
+   tile body in turns, also at 128^3, eps=6),
    the tuner's candidates at 256^3 and at 128^3, eps=6 (where resident3d
    fits; it is held bitwise to step3d launches there and timed), then the
    counts and records reset and the 3D main path through Solver3D: the
@@ -299,15 +307,16 @@ def rel_err(torch, got, ref) -> tuple:
 
 def phase_multistep_checks(torch, ck, np) -> dict:
     """Phase 2, multi-step kernels: each against its plain version and,
-    bitwise, against the same number of step2d launches.
+    bitwise, against the same number of step2d launches; superstep2d also
+    bitwise against its plain version (K plain steps in disc_sum's order).
 
-    In the bf16 tier a kernel and its plain version sum in different orders,
-    so after the first step their states differ in the last bits, and a value
-    on a bfloat16 rounding boundary can round the other way: the next
-    operand then differs by one bfloat16 ulp (2^-8 relative), passed on with
-    the operator's gain dt*scale*wsum.  The tolerance there grows by that
-    much per step after the first; the bitwise check against step2d is the
-    exact one."""
+    Where a kernel and its plain version summed in different orders, in the
+    bf16 tier their states differed in the last bits after the first step,
+    and a value on a bfloat16 rounding boundary could round the other way:
+    the next operand then differed by one bfloat16 ulp (2^-8 relative),
+    passed on with the operator's gain dt*scale*wsum.  The tolerance there
+    grows by that much per step after the first; the bitwise checks are the
+    exact ones."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED + 1)
@@ -320,6 +329,8 @@ def phase_multistep_checks(torch, ck, np) -> dict:
         _abs, err = rel_err(torch, got, plain)
         if not torch.equal(got, bits):
             fail(f"{name} {form}: not bitwise equal to the same number of step2d launches")
+        if name == "superstep2d" and not torch.equal(got, plain):
+            fail(f"{name} {form}: not bitwise equal to its plain version")
         if not err <= tol:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {err:.3e} > {tol:.3e}")
         key = f"{name}/{form.split()[0]}/{form.split()[1]}"
@@ -378,7 +389,7 @@ def phase_multistep_checks(torch, ck, np) -> dict:
         if "resident kernel" not in str(e):
             fail(f"resident2d's refusal does not name the kernel: {e}")
     say("multi-step kernel checks (max |kernel-plain| / max|plain|; every case bitwise "
-        "equal to step2d launches): "
+        "equal to step2d launches, superstep2d also to its plain version): "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
         + f"; cases carried2d {n['carried2d']}, superstep2d {n['superstep2d']}, resident2d "
         f"{n['resident2d']}; resident2d refuses {NX}^2: pass")
@@ -387,12 +398,13 @@ def phase_multistep_checks(torch, ck, np) -> dict:
 
 def phase_checks_3d(torch, k3, np) -> dict:
     """Phase 2, the 3D kernels: nsum3d and step3d (production and test form)
-    in float64, float32 and the bf16 operand tier against their plain
-    versions; carried3d and resident3d (no bf16 tier) against theirs and,
-    bitwise, against the same number of step3d launches (carried3d after
-    each of 3 launches, resident3d over 1, 2 and 5 steps); eps in
-    {1, 2, 3, 4, 6, 8} over ragged shapes (1x1x1, non tile multiples,
-    n < 2*eps, nx != ny != nz).  resident3d at 256^3, eps=4 must raise
+    in float64, float32 and the bf16 operand tier BITWISE against their
+    plain versions (which sum in the tile body's order, sphere_sum);
+    carried3d and resident3d (no bf16 tier) against theirs and, bitwise,
+    against the same number of step3d launches (carried3d after each of 3
+    launches, resident3d over 1, 2 and 5 steps); eps in {0, 1, 2, 3, 4, 5, 6,
+    8} (the register design up to 6, the tile body at 8) over ragged shapes
+    (1x1x1, non tile multiples, n < 2*eps, nx != ny != nz).  resident3d at 256^3, eps=4 must raise
     ValueError, and nsum3d beyond its eps limit too."""
     import torch.nn.functional as F
 
@@ -400,13 +412,15 @@ def phase_checks_3d(torch, k3, np) -> dict:
 
     rng = np.random.default_rng(SEED + 3)
     shapes = [(1, 1, 1), (5, 7, 9), (9, 17, 33), (3, 12, 40), (20, 11, 6)]
-    plan = [(e, s) for e in (1, 2, 3, 4, 6, 8) for s in shapes]
+    plan = [(e, s) for e in (0, 1, 2, 3, 4, 5, 6, 8) for s in shapes]
     worst, n = {}, dict.fromkeys(("nsum3d", "step3d", "carried3d", "resident3d"), 0)
 
     def hold(name, form, got, plain, tol, bits=None):
         _abs, err = rel_err(torch, got, plain)
         if bits is not None and not torch.equal(got, bits):
-            fail(f"{name} {form}: not bitwise equal to the same number of step3d launches")
+            fail(f"{name} {form}: not bitwise equal to "
+                 + ("its plain version" if bits is plain else
+                    "the same number of step3d launches"))
         if not err <= tol:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {err:.3e} > {tol:g}")
         key = f"{name}/{form.split()[0]}/{form.split()[1]}"
@@ -425,12 +439,13 @@ def phase_checks_3d(torch, k3, np) -> dict:
             g, lg = torch.randn_like(u), torch.randn_like(u)
             for prec in ("f32", "bf16"):
                 form = f"{dname} {prec} eps={e} {nx}x{ny}x{nz}"
-                hold("nsum3d", form, k3.nsum3d(upad, e, prec), k3.nsum3d_plain(upad, e, prec),
-                     tol)
+                plain = k3.nsum3d_plain(upad, e, prec)
+                hold("nsum3d", form, k3.nsum3d(upad, e, prec), plain, tol, plain)
                 for kw in ({}, {"g": g, "lg": lg, "t": 7}):
+                    plain = k3.step3d_plain(u, e, scale, wsum, dt, precision=prec, **kw)
                     hold("step3d", form + (" test form" if kw else ""),
-                         k3.step3d(u, e, scale, wsum, dt, precision=prec, **kw),
-                         k3.step3d_plain(u, e, scale, wsum, dt, precision=prec, **kw), tol)
+                         k3.step3d(u, e, scale, wsum, dt, precision=prec, **kw), plain, tol,
+                         plain)
             # the multi-step kernels (no bf16 tier) against one chain of plain
             # frame steps from u and, bitwise, against step3d launches
             form = f"{dname} f32 eps={e} {nx}x{ny}x{nz}"
@@ -460,8 +475,8 @@ def phase_checks_3d(torch, k3, np) -> dict:
         fail("nsum3d accepted eps=13 (beyond its shared-memory tile) on the card")
     except ValueError:
         pass
-    say("3D kernel checks (max |kernel-plain| / max|plain|; carried3d and resident3d every "
-        "case bitwise equal to step3d launches): "
+    say("3D kernel checks (max |kernel-plain| / max|plain|; nsum3d and step3d every case "
+        "bitwise equal to their plain versions, carried3d and resident3d to step3d launches): "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
         + "; cases " + ", ".join(f"{k} {v}" for k, v in n.items())
         + f"; resident3d refuses {N3}^3 eps={EPS3}: pass")
@@ -551,7 +566,7 @@ def phase_main_path_tables(torch, clis, cases_2d, l2_threshold):
         f"<= {l2_threshold:g}")
 
 
-def phase_headline(torch, np, ck, l2_threshold) -> list:
+def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
     """Phase 4: kernel timings at the headline shape, then the main path."""
     import torch.nn.functional as F
 
@@ -673,10 +688,11 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
         ck.make_carried_multi_step_fn(op, 3)(u, 0), bits[3])}
     for k in (2, 3):
         got = ck.superstep2d(u, EPS, scale, wsum, dt, k)
-        hold("superstep2d", f"float32 f32 K={k}", got,
-             ck.superstep2d_plain(u, EPS, scale, wsum, dt, k), tol32)
+        plain = ck.superstep2d_plain(u, EPS, scale, wsum, dt, k)
+        hold("superstep2d", f"float32 f32 K={k}", got, plain, tol32)
         bitwise[f"superstep2d K={k}"] = torch.equal(got, bits[k])
-    del bits, got
+        bitwise[f"superstep2d K={k} = plain"] = torch.equal(got, plain)
+    del bits, got, plain
     if not all(bitwise.values()):
         fail(f"multi-step kernels at {NX}^2 eps={EPS}: bitwise equal to step2d launches "
              f"{bitwise}")
@@ -706,6 +722,8 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
             f"({sup_ms[k] / k:.4f} ms/step), plain {sup_plain_ms[k]:.3f} ms, bound "
             f"{sup_bound[k][0]:.4f} ms ({sup_bound[k][1]})")
     del frame, fout
+    ab_big = kernels_ab(torch, ck, cb, u, EPS, scale, wsum, dt, 50)
+    say(ab_line(f"{NX}^2", ab_big))
     big = time_variants(torch, op, u, VARIANT_STEPS)
     fits_big = ck.fits_resident(NX, NX, EPS, torch.float32)
     say(f"multi-step candidates {NX}^2 eps={EPS} f32, {VARIANT_STEPS}-step runs (CUDA events), "
@@ -741,9 +759,10 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
         f"{held['resident2d'][0]['rel_err']:.2e}, bitwise equal to {TEST_STEPS} step2d launches")
     say(f"multi-step candidates {SMALL}^2 eps={EPS} f32, {STEPS}-step runs (CUDA events), "
         f"ms/step: {json.dumps(small)}")
-    small_kernel_ms = kernels_alone(torch, ck, us, EPS, scale_s, wsum, dt_s)
-    say(f"kernels alone at {SMALL}^2 eps={EPS} f32 (a CUDA graph of {GRAPH_LAUNCHES} launches "
-        f"replayed, CUDA events), ms/launch: {json.dumps(small_kernel_ms)}")
+    ab_small = kernels_ab(torch, ck, cb, us, EPS, scale_s, wsum, dt_s, 200)
+    say(ab_line(f"{SMALL}^2", ab_small))
+    small_kernel_ms = {n: sum(v) / len(v) for n, v in ab_small["graph"].items()}
+    big_graph_ms = {n: sum(v) / len(v) for n, v in ab_big["graph"].items()}
 
     multi = make_multi_step_fn(op, STEPS, dtype=torch.float32)
     multi(u, 0)  # the first call tunes the shape and runs the winner
@@ -822,7 +841,7 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
         {**row("step2d", "nsum2d.cu", 515),
          "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound[0],
          "bound_by": step_bound[1], "library_ms": None, "library_note": no_call,
-         "ms_512_graph": small_kernel_ms["step2d"]},
+         "ms_graph": big_graph_ms["step2d"], "ms_512_graph": small_kernel_ms["step2d"]},
         {**row("carried2d", "carried2d.cu", 856),
          "ms": carried_ms, "plain_ms": carried_plain_ms, "bound_ms": carried_bound[0],
          "bound_by": carried_bound[1], "library_ms": None, "library_note": no_call,
@@ -831,8 +850,12 @@ def phase_headline(torch, np, ck, l2_threshold) -> list:
          "ms": sup_ms[3], "plain_ms": sup_plain_ms[3], "bound_ms": sup_bound[3][0],
          "bound_by": sup_bound[3][1], "library_ms": None, "library_note": no_call,
          "shape": f"{NX}^2", "ksteps": 3, "ms_k2": sup_ms[2], "bound_ms_k2": sup_bound[2][0],
+         "ms_graph": big_graph_ms["superstep2d K=3"],
+         "ms_graph_k2": big_graph_ms["superstep2d K=2"],
          "ms_512_graph": small_kernel_ms["superstep2d K=3"],
-         "ms_512_graph_k2": small_kernel_ms["superstep2d K=2"]},
+         "ms_512_graph_k2": small_kernel_ms["superstep2d K=2"],
+         "step2d_ms_graph": big_graph_ms["step2d"],
+         "batched_step2d_b1_ms_graph": big_graph_ms["batched_step2d B=1"]},
         {**row("resident2d", "resident2d.cu", 1292),
          "ms": res_ms, "plain_ms": res_plain_ms, "bound_ms": res_bound[0],
          "bound_by": res_bound[1], "library_ms": None, "library_note": no_call,
@@ -877,19 +900,29 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
         if not rel <= tol:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol:g}")
 
+    bitwise = {}  # every form BITWISE its plain version (sphere_sum's order)
+
+    def hold_exact(name, form, got, ref, tol):
+        hold(name, form, got, ref, tol)
+        bitwise[f"{name} {form}"] = torch.equal(got, ref)
+
     for prec in ("f32", "bf16"):
-        hold("nsum3d", f"float32 {prec} {N3}^3", k3.nsum3d(upad, EPS3, prec),
-             k3.nsum3d_plain(upad, EPS3, prec), tol32)
-        hold("step3d", f"float32 {prec} production {N3}^3",
-             k3.step3d(u, EPS3, scale, wsum, dt, precision=prec),
-             k3.step3d_plain(u, EPS3, scale, wsum, dt, precision=prec), tol32)
-        hold("step3d", f"float32 {prec} test form {N3}^3",
-             k3.step3d(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3, precision=prec),
-             k3.step3d_plain(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3, precision=prec), tol32)
+        hold_exact("nsum3d", f"float32 {prec} {N3}^3", k3.nsum3d(upad, EPS3, prec),
+                   k3.nsum3d_plain(upad, EPS3, prec), tol32)
+        hold_exact("step3d", f"float32 {prec} production {N3}^3",
+                   k3.step3d(u, EPS3, scale, wsum, dt, precision=prec),
+                   k3.step3d_plain(u, EPS3, scale, wsum, dt, precision=prec), tol32)
+        hold_exact("step3d", f"float32 {prec} test form {N3}^3",
+                   k3.step3d(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3, precision=prec),
+                   k3.step3d_plain(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3, precision=prec),
+                   tol32)
     gpad = F.pad(torch.as_tensor(op.spatial_profile(N3, N3, N3), device="cuda"), (EPS3,) * 6)
-    hold("nsum3d", f"float64 f32 {N3}^3 (padded G, the test-form source's input)",
-         k3.nsum3d(gpad, EPS3), k3.nsum3d_plain(gpad, EPS3), TOL["float64"])
+    hold_exact("nsum3d", f"float64 f32 {N3}^3 (padded G, the test-form source's input)",
+               k3.nsum3d(gpad, EPS3), k3.nsum3d_plain(gpad, EPS3), TOL["float64"])
     del gpad
+    if not all(bitwise.values()):
+        fail(f"3D kernels at {N3}^3 eps={EPS3}: not bitwise equal to their plain versions "
+             f"{bitwise}")
     bits = [u]
     for _ in range(3):
         bits.append(k3.step3d(bits[-1], EPS3, scale, wsum, dt))
@@ -904,17 +937,23 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
         "|kernel-plain| / max|plain|): "
         + "; ".join(f"{n} {c['form']} {c['rel_err']:.2e} <= {c['tol']:g}"
                     for n, cs in held.items() for c in cs)
-        + "; carried3d 3 launches bitwise equal to 3 step3d launches")
+        + f"; nsum3d and step3d bitwise equal to their plain versions ({len(bitwise)} forms); "
+        "carried3d 3 launches bitwise equal to 3 step3d launches")
 
     nsum_ms = cuda_ms(torch, lambda: k3.nsum3d(upad, EPS3), 50)
     nsum_plain_ms = cuda_ms(torch, lambda: k3.nsum3d_plain(upad, EPS3), 3, 1)
-    step_ms = cuda_ms(torch, lambda: k3.step3d(u, EPS3, scale, wsum, dt, out=out), 50)
+    # step3d (its register design) and carried3d (the tile body) in turns
+    pair = {"step3d": lambda: k3.step3d(u, EPS3, scale, wsum, dt, out=out),
+            "carried3d": lambda: k3.carried3d(frame, EPS3, scale, wsum, dt, out=fout)}
+    turns = {n: [cuda_ms(torch, pair[n], 50) for _ in range(2)] for n in pair}
+    turns["step3d"].append(cuda_ms(torch, pair["step3d"], 50))
+    step_ms = sum(turns["step3d"]) / 3
     step_plain_ms = cuda_ms(torch, lambda: k3.step3d_plain(u, EPS3, scale, wsum, dt), 3, 1)
     step_test_ms = cuda_ms(torch, lambda: k3.step3d(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3,
                                                     out=out), 50)
     step_test_plain_ms = cuda_ms(torch, lambda: k3.step3d_plain(u, EPS3, scale, wsum, dt, g=g,
                                                                 lg=lg, t=3), 3, 1)
-    carried_ms = cuda_ms(torch, lambda: k3.carried3d(frame, EPS3, scale, wsum, dt, out=fout), 50)
+    carried_ms = sum(turns["carried3d"]) / 2
     carried_plain_ms = cuda_ms(torch, lambda: k3.carried3d_plain(frame, EPS3, scale, wsum, dt),
                                3, 1)
     kern = torch.as_tensor(op.weights, dtype=torch.float32, device="cuda")[None, None]
@@ -942,6 +981,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     say(f"carried3d {N3}^3 eps={EPS3} f32: kernel {carried_ms:.4f} ms/launch (one step), "
         f"plain {carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms "
         f"({carried_bound[1]})")
+    say(f"step3d (register design) and carried3d (tile body) {N3}^3 eps={EPS3} f32 in turns, "
+        f"ms/launch: {json.dumps(turns)}")
     del frame, fout, upad
     big = time_variants(torch, op, u, STEPS3)
     say(f"3D multi-step candidates {N3}^3 eps={EPS3} f32, {STEPS3}-step runs (CUDA events), "
@@ -973,7 +1014,14 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
                                                               TEST_STEPS), 1, 0)
     res_bound = bound(2 * npts_s * isz, TEST_STEPS * npts_s * kernel_ops_3d(EPS3S, tp_s, 5))
     outs = torch.empty_like(us)
-    step_s_ms = cuda_ms(torch, lambda: k3.step3d(us, EPS3S, scale_s, wsum_s, dt_s, out=outs), 50)
+    frame_s = F.pad(us, (EPS3S,) * 6).contiguous()
+    fout_s = torch.empty_like(frame_s)
+    pair = {"step3d": lambda: k3.step3d(us, EPS3S, scale_s, wsum_s, dt_s, out=outs),
+            "carried3d": lambda: k3.carried3d(frame_s, EPS3S, scale_s, wsum_s, dt_s, out=fout_s)}
+    turns_s = {n: [cuda_ms(torch, pair[n], 50) for _ in range(2)] for n in pair}
+    turns_s["step3d"].append(cuda_ms(torch, pair["step3d"], 50))
+    step_s_ms = sum(turns_s["step3d"]) / 3
+    del frame_s, fout_s
     step_s_bound = bound(2 * npts_s * isz, npts_s * kernel_ops_3d(EPS3S, tp_s, 5))
     say(f"resident3d {N3S}^3 eps={EPS3S} f32 (plane tile {tp_s}), {TEST_STEPS} steps in one "
         f"launch: kernel {res_ms:.4f} ms/launch ({res_ms / TEST_STEPS:.5f} ms/step), plain "
@@ -981,6 +1029,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
         f"ms, bound {res_bound[0]:.4f} ms ({res_bound[1]}); "
         f"step3d there {step_s_ms:.4f} ms/launch, bound {step_s_bound[0]:.4f} ms "
         f"({step_s_bound[1]}); resident3d {TEST_STEPS} steps bitwise equal to step3d launches")
+    say(f"step3d (register design) and carried3d (tile body) {N3S}^3 eps={EPS3S} f32 in "
+        f"turns, ms/launch: {json.dumps(turns_s)}")
     say(f"3D multi-step candidates {N3S}^3 eps={EPS3S} f32, {STEPS3}-step runs (CUDA events), "
         f"ms/step: {json.dumps(small)}")
     say(f"clocks/power after the 3D timing: {nvidia_smi('clocks.sm,power.draw,power.limit')}")
@@ -1055,7 +1105,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
          "bound_by": step_bound[1], "library_ms": None, "library_note": no_call,
          "shape": f"{N3}^3", "ms_test_form": step_test_ms,
          "plain_ms_test_form": step_test_plain_ms, "bound_ms_test_form": step_test_bound[0],
-         f"ms_{N3S}": step_s_ms},
+         f"ms_{N3S}": step_s_ms, f"bound_ms_{N3S}": step_s_bound[0],
+         f"carried3d_ms_{N3S}": sum(turns_s["carried3d"]) / 2},
         {**row("carried3d", "carried3d.cu", 1507),
          "ms": carried_ms, "plain_ms": carried_plain_ms, "bound_ms": carried_bound[0],
          "bound_by": carried_bound[1], "library_ms": None, "library_note": no_call,
@@ -2422,21 +2473,45 @@ def graph_ms(torch, fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     return cuda_ms(torch, graph.replay, reps, 1) / launches
 
 
-def kernels_alone(torch, ck, u, eps: int, scale: float, wsum: float, dt: float) -> dict:
-    """ms per launch of the per-step, carried and superstep kernels on u,
-    without the host's cost per launch (at a small grid that cost is larger
-    than the kernel's, so a loop of launches times the host)."""
+def kernels_ab(torch, ck, cb, u, eps: int, scale: float, wsum: float, dt: float,
+               reps: int) -> dict:
+    """ms per launch of the per-step, carried and superstep kernels and of
+    batched_step2d at B=1 on u: as a replayed CUDA graph of launches (the
+    device alone; at a small grid the host's cost per launch is larger than
+    the kernel's) and in a loop of ``reps`` launches (CUDA events), each
+    twice, in turns (the order, then the order reversed).  Returns
+    {"graph": {name: [ms, ms]}, "loop": {...}}."""
     import torch.nn.functional as F
 
     out = torch.empty_like(u)
     frame = F.pad(u, (eps,) * 4).contiguous()
     fout = torch.empty_like(frame)
+    one = u[None].contiguous()
+    bout = torch.empty_like(one)
+    params = cb.case_params([scale], [dt], u.dtype, u.device)
     runs = {"step2d": lambda: ck.step2d(u, eps, scale, wsum, dt, out=out),
-            "carried2d": lambda: ck.carried2d(frame, eps, scale, wsum, dt, out=fout)}
+            "carried2d": lambda: ck.carried2d(frame, eps, scale, wsum, dt, out=fout),
+            "batched_step2d B=1": lambda: cb.batched_step2d(one, eps, params, wsum, out=bout)}
     for k in (2, 3):
         runs[f"superstep2d K={k}"] = lambda k=k: ck.superstep2d(u, eps, scale, wsum, dt, k,
                                                                 out=out)
-    return {name: graph_ms(torch, fn) for name, fn in runs.items()}
+    order = list(runs) + list(runs)[::-1]
+    res = {"graph": {n: [] for n in runs}, "loop": {n: [] for n in runs}}
+    for name in order:
+        res["graph"][name].append(graph_ms(torch, runs[name]))
+    for name in order:
+        res["loop"][name].append(cuda_ms(torch, runs[name], reps))
+    return res
+
+
+def ab_line(shape: str, ab: dict) -> str:
+    """The kernels_ab timings as one line, superstep also per step."""
+    per_step = {n: [round(t / int(n[-1]), 6) for t in v]
+                for n, v in ab["graph"].items() if n.startswith("superstep")}
+    return (f"kernels at {shape} eps={EPS} f32, in turns (two runs each), ms/launch: in a CUDA "
+            f"graph of {GRAPH_LAUNCHES} launches replayed {json.dumps(ab['graph'])}; in a loop "
+            f"of launches {json.dumps(ab['loop'])}; superstep per step in the graph "
+            f"{json.dumps(per_step)}")
 
 
 def time_variants(torch, op, u, nsteps: int) -> dict:
@@ -2508,7 +2583,7 @@ def main() -> int:
     checks.update(timed("halo checks", phase_halo_checks, torch, np))
     timed("tables", phase_main_path_tables, torch, clis, cases_2d, l2_threshold)
     timed("unstructured cli", phase_unstructured_cli, uclis, l2_threshold)
-    kernels = timed("headline 2d", phase_headline, torch, np, ck, l2_threshold)
+    kernels = timed("headline 2d", phase_headline, torch, np, ck, cb, l2_threshold)
     kernels += timed("headline 3d", phase_headline_3d, torch, np, ck, k3, l2_threshold)
     kernels += timed("ensemble", phase_ensemble, torch, np, ck, cb, cases_2d)
     kernels += timed("unstructured", phase_unstructured, torch, np, ck, l2_threshold)

@@ -69,19 +69,6 @@ constexpr int FAST_MAX_EPS = 16;  // the register design's largest eps
 constexpr int FAST_TY = 4;        // thread rows of a register-design block
 constexpr int FAST_THREADS = 32 * FAST_TY;
 
-// trunc(sqrt(v)) of a small non-negative integer: the same value as
-// make_plan's double-precision sqrt for every eps <= MAX_EPS
-__host__ __device__ constexpr int isqrt(int v) {
-  int r = 0;
-  while ((r + 1) * (r + 1) <= v) ++r;
-  return r;
-}
-
-// the column half-height h_i of x offset i (ops/stencil.column_half_heights)
-__host__ __device__ constexpr int col_height(int eps, int i) {
-  return isqrt(eps * eps - (i - eps) * (i - eps));
-}
-
 template <typename T>
 struct Fast {
   static constexpr int RUN = sizeof(T) == 4 ? 32 : 16;  // output rows a thread
@@ -92,27 +79,6 @@ struct Fast {
 template <typename T, int EPS>
 __host__ __device__ constexpr size_t fast_buffer_elems() {
   return static_cast<size_t>(Fast<T>::ROWS + 2 * EPS) * (Fast<T>::COLS + 2 * EPS);
-}
-
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One value from global to shared memory; valid == false fills 0 and reads
-// nothing.
-template <typename T>
-__device__ inline void cp_async_value(T* dst, const T* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? static_cast<int>(sizeof(T)) : 0;
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-                 "r"(bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
-                 "r"(bytes) : "memory");
 }
 
 struct TileIndex {
@@ -151,7 +117,6 @@ batched_step2d_fast(const T* __restrict__ u, T* __restrict__ out, int nx, int ny
                     const T* __restrict__ coefs) {
   constexpr int RUN = Fast<T>::RUN, ROWS = Fast<T>::ROWS, COLS = Fast<T>::COLS;
   constexpr int WC = COLS + 2 * EPS;
-  constexpr int NW = RUN + 2 * EPS;  // window rows a thread sums
   constexpr size_t BUF = fast_buffer_elems<T, EPS>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* bufs = reinterpret_cast<T*>(smem_raw);
@@ -177,29 +142,8 @@ batched_step2d_fast(const T* __restrict__ u, T* __restrict__ out, int nx, int ny
 
     // steps 1 and 2 of the order in the header, W_h in registers
     const T* col = win + r0 * WC + tx + EPS;
-    T W[NW];
     T acc[RUN];
-#pragma unroll
-    for (int a = 0; a < NW; ++a) W[a] = col[a * WC];
-#pragma unroll
-    for (int r = 0; r < RUN; ++r) acc[r] = T(0);
-#pragma unroll
-    for (int h = 0; h <= EPS; ++h) {
-      if (h > 0) {
-#pragma unroll
-        for (int a = 0; a < NW; ++a) {
-          W[a] = W[a] + col[a * WC - h];
-          W[a] = W[a] + col[a * WC + h];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i <= 2 * EPS; ++i) {
-        if (col_height(EPS, i) == h) {
-#pragma unroll
-          for (int r = 0; r < RUN; ++r) acc[r] = acc[r] + W[r + i];
-        }
-      }
-    }
+    register_sums<T, T, EPS, RUN>(col, WC, acc);
 
     // step 3
     const TileIndex ti = tile_of(t, ntx, nty, ROWS, COLS);

@@ -243,4 +243,88 @@ int with_mw(int eps, F f) {
   return f(std::integral_constant<int, wrows_for(MAX_EPS)>{});
 }
 
+// -- the register design (batched_step2d.cu, superstep2d.cu, nsum3d.cu) ------
+//
+// eps is a template parameter, so every offset below is a constant and every
+// register index is fixed at compile time.  Windows are staged by cp.async:
+// a copy whose source size is 0 writes a zero and reads nothing, so cells
+// outside the domain (the boundary condition) cost no branch around the copy.
+
+// trunc(sqrt(v)) of a small non-negative integer: the same value as
+// make_plan's double-precision sqrt for every eps <= MAX_EPS
+__host__ __device__ constexpr int isqrt(int v) {
+  int r = 0;
+  while ((r + 1) * (r + 1) <= v) ++r;
+  return r;
+}
+
+// the column half-height h_i of x offset i (ops/stencil.column_half_heights)
+__host__ __device__ constexpr int col_height(int eps, int i) {
+  return isqrt(eps * eps - (i - eps) * (i - eps));
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One value from global to shared memory; valid == false fills 0 and reads
+// nothing.
+template <typename T>
+__device__ inline void cp_async_value(T* dst, const T* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? static_cast<int>(sizeof(T)) : 0;
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(bytes) : "memory");
+}
+
+// Sixteen bytes from global to shared memory, both 16-byte aligned; valid ==
+// false fills zeros and reads nothing.
+__device__ inline void cp_async_16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0) : "memory");
+}
+
+// The 2D neighbour sums of RUN outputs down one column, in the order of the
+// tile body (window_sums) with W_h in registers.  col points at the centre
+// column of window row 0 (row stride ld); window rows 0 .. RUN+2EPS-1 feed
+// outputs 0 .. RUN-1.  Each window row's W_h grows from W_0 = row[0] as
+// (W_{h-1} + row[-h]) + row[+h], two shared-memory reads a height, and each
+// output adds W_{h_i} of its x offsets i from 0, heights ascending, then i
+// ascending, straight from the registers.  Every cell read is rounded to the
+// operand type OpT (a no-op when OpT is the state type).  No barrier.
+template <typename T, typename OpT, int EPS, int RUN>
+__device__ __forceinline__ void register_sums(const T* col, int ld, T (&acc)[RUN]) {
+  constexpr int NW = RUN + 2 * EPS;  // window rows the column sums
+  T W[NW];
+#pragma unroll
+  for (int a = 0; a < NW; ++a) W[a] = Operand<T, OpT>::round(col[a * ld]);
+#pragma unroll
+  for (int r = 0; r < RUN; ++r) acc[r] = T(0);
+#pragma unroll
+  for (int h = 0; h <= EPS; ++h) {
+    if (h > 0) {
+#pragma unroll
+      for (int a = 0; a < NW; ++a) {
+        W[a] = W[a] + Operand<T, OpT>::round(col[a * ld - h]);
+        W[a] = W[a] + Operand<T, OpT>::round(col[a * ld + h]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i <= 2 * EPS; ++i) {
+      if (col_height(EPS, i) == h) {
+#pragma unroll
+        for (int r = 0; r < RUN; ++r) acc[r] = acc[r] + W[r + i];
+      }
+    }
+  }
+}
+
 }  // namespace nlheat

@@ -1,12 +1,14 @@
-// The tile body shared by every 3D kernel of the port: the window load, the
-// masked-sphere neighbour sum in its fixed summation order, and (from
-// stencil_tile.cuh) the forward-Euler epilogue.
+// The tile body of the port's 3D kernels: the window load, the masked-sphere
+// neighbour sum in its fixed summation order, and (from stencil_tile.cuh)
+// the forward-Euler epilogue.
 //
 // Counterpart of _block_neighbor_sum_3d (nonlocalheatequation_tpu/ops/
 // pallas_kernel.py:672), which the TPU's per-step, carried and resident 3D
-// kernels share.  Here nsum3d.cu (nsum3d, step3d), carried3d.cu and
-// resident3d.cu include it, so a multi-step kernel is bit-identical to the
-// same number of step3d launches by construction.
+// kernels share.  carried3d.cu, resident3d.cu, split_nsum3d.cu and
+// fused_nsum3d.cu run it at every eps, and nsum3d.cu (nsum3d, step3d) above
+// eps 6; below, nsum3d.cu runs its register design, which adds the same
+// terms in the same order (below), so every 3D kernel gives the bits of
+// step3d and of the plain versions' sphere_sum (ops/cuda_kernel.py).
 //
 // The state is [x][y][z], z contiguous.  One block owns an output tile of
 // TP x TP points in the (x, y) plane by TZ = 32 along z (one lane each) and
@@ -25,6 +27,11 @@
 //   (i, j) ascending; within W, centre then pairs outward) that depends
 //   neither on where its tile sits nor on the tile's width TP, so every
 //   kernel and every tile width gives the same bits.
+// * The cost.  Each height is a read-modify-write of wbuf plus two window
+//   reads over every window line-cell, and each output reads its columns'
+//   W values from wbuf: about 127 shared-memory accesses per point at eps=4,
+//   the 8 x 8 x 32 tile, with two barriers a height; step3d ran at 12.6x its
+//   byte bound on this body at 256^3, eps=4, f32 (PERF.md).
 // * The tile width.  The window grows as (TP+2eps)^2 (32+2eps), so TP is
 //   the largest of 8, 4, 2, 1 whose window and sum buffer fit the block's
 //   shared memory (f32: TP=8 up to eps=8, TP=1 at eps=12; f64: TP=8 up to

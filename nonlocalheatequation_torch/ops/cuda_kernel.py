@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from nonlocalheatequation_torch.ops import _build
 from nonlocalheatequation_torch.ops.constants import validate_precision
-from nonlocalheatequation_torch.ops.stencil import column_half_heights
+from nonlocalheatequation_torch.ops.stencil import column_half_heights, sphere_column_heights
 
 TWO_PI = 2.0 * math.pi
 SOURCE = "nsum2d.cu"
@@ -164,6 +164,28 @@ def disc_sum(upad: torch.Tensor, eps: int) -> torch.Tensor:
         for i in range(2 * e + 1):
             if heights[i] == h:
                 acc = acc + W[..., i:i + nx, :]
+    return acc
+
+
+def sphere_sum(upad: torch.Tensor, eps: int) -> torch.Tensor:
+    """The masked-sphere sum of the halo-padded ``(nx+2e, ny+2e, nz+2e)``
+    block in the 3D tile body's order (csrc/stencil_tile3d.cuh, csrc/nsum3d.cu),
+    so that the kernels give its bits: every window line's z sums ``W_h =
+    (W_{h-1} + line[-h]) + line[+h]`` grow one pair of cells per height, and
+    each output adds ``W_{h(i,j)}`` of its plane offsets (i, j), heights
+    ascending, then (i, j) ascending, from 0."""
+    e = int(eps)
+    nx, ny, nz = (s - 2 * e for s in upad.shape)
+    acc = torch.zeros((nx, ny, nz), dtype=upad.dtype, device=upad.device)
+    heights = sphere_column_heights(e)
+    W = upad[..., e:e + nz]
+    for h in range(e + 1):
+        if h:
+            W = (W + upad[..., e - h:e - h + nz]) + upad[..., e + h:e + h + nz]
+        for i in range(2 * e + 1):
+            for j in range(2 * e + 1):
+                if heights[i, j] == h:
+                    acc = acc + W[i:i + nx, j:j + ny]
     return acc
 
 

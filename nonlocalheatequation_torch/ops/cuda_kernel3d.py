@@ -2,8 +2,10 @@
 resident kernel's gate.
 
 Counterpart of the 3D part of ``nonlocalheatequation_tpu/ops/pallas_kernel.py``.
-Three hand-written CUDA kernels (csrc/, all on the tile body of
-csrc/stencil_tile3d.cuh) replace three Pallas kernels:
+Three hand-written CUDA kernels (csrc/) replace three Pallas kernels; all
+add in the order of the tile body of csrc/stencil_tile3d.cuh, which carried3d
+and resident3d run and nsum3d/step3d run above eps 6 (below, their register
+design in csrc/nsum3d.cu, which gives the same bits):
 
 * :func:`nsum3d` replaces ``build_neighbor_sum_3d`` (pallas_kernel.py:793):
   the masked-sphere neighbour sum of a halo-padded ``(nx+2e, ny+2e, nz+2e)``
@@ -27,9 +29,10 @@ the JAX package's names.
 
 As in ops/cuda_kernel.py (which holds the launch counts and the C entry
 points): a CPU tensor goes to the plain version beside each wrapper (plain
-PyTorch: one shifted slice-add per sphere offset; for a multi-step kernel,
-the per-step plain loop in the kernel's frame bookkeeping); a CUDA tensor
-launches the kernel or raises.
+PyTorch that sums the sphere in the tile body's order,
+``cuda_kernel.sphere_sum``, so that the kernels give its bits; for a
+multi-step kernel, the per-step plain loop in the kernel's frame
+bookkeeping); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -49,8 +52,8 @@ from nonlocalheatequation_torch.ops.cuda_kernel import (
     _reject_bf16_variant,
     bf16_round,
     source_coefs,
+    sphere_sum,
 )
-from nonlocalheatequation_torch.ops.stencil import sphere_column_heights
 
 _REMEDY = "use method='shift' or 'sat' for this horizon"
 _NO_BF16 = "the per-step 3D path"
@@ -68,19 +71,10 @@ def _interior(frame: torch.Tensor, e: int) -> torch.Tensor:
 # -- plain versions -----------------------------------------------------------
 
 def nsum3d_plain(upad: torch.Tensor, eps: int, precision: str = "f32") -> torch.Tensor:
-    """Neighbour sum of a halo-padded block by one slice-add per sphere offset."""
-    e = int(eps)
+    """Neighbour sum of a halo-padded block (:func:`sphere_sum`)."""
     if precision == "bf16":
         upad = bf16_round(upad)
-    nx, ny, nz = (s - 2 * e for s in upad.shape)
-    acc = torch.zeros((nx, ny, nz), dtype=upad.dtype, device=upad.device)
-    heights = sphere_column_heights(e)
-    for i in range(2 * e + 1):
-        for j in range(2 * e + 1):
-            h = int(heights[i, j])
-            for k in range(e - h, e + h + 1):
-                acc = acc + upad[i:i + nx, j:j + ny, k:k + nz]
-    return acc
+    return sphere_sum(upad, eps)
 
 
 def _euler3_plain(opnd, carry, eps, scale, wsum, dt, *, g=None, lg=None, t=0):
@@ -252,9 +246,11 @@ def resident3d(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
 # -- gates and makers (the JAX package's names) -----------------------------------
 
 def tile3d(eps: int, dtype=torch.float32, device="cuda") -> int:
-    """The plane width (8, 4, 2 or 1) of the 3D kernels' output tiles for
+    """The plane width (8, 4, 2 or 1) of the 3D tile body's output tiles for
     this eps and dtype on ``device``, as csrc/stencil_tile3d.cuh chooses it
-    from the card's shared memory; 0 when the kernels refuse eps."""
+    from the card's shared memory (the tiles of carried3d, resident3d, the
+    halo kernels, and nsum3d/step3d above eps 6); 0 when the kernels refuse
+    eps."""
     device = torch.device(device)
     if device.type != "cuda" or dtype not in _DTYPE_CODE:
         raise ValueError(f"tile3d: the tile is the card's, for float32/float64 on a CUDA "

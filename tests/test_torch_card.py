@@ -1,7 +1,10 @@
 """The port's tests that need the card: every kernel against its plain
 version and the multi-step kernels bitwise against step2d (step3d)
 launches, the resident kernels' gates, and the tuner as the default
-production path, in 2D and 3D.
+production path, in 2D and 3D.  step3d/nsum3d (their register design and
+the tile body) are held bitwise to their plain versions and to carried3d,
+and superstep2d bitwise to K step2d launches, over eps, ragged shapes and
+every tier.
 
 Each test carries the ``cuda`` marker and skips inside the test when
 ``torch.cuda.is_available()`` is false.  The file imports torch, numpy and
@@ -47,6 +50,7 @@ from nonlocalheatequation_torch.ops.nonlocal_op import (
     make_multi_step_fn,
     make_multi_step_fn_base,
 )
+from nonlocalheatequation_torch.ops.stencil import horizon_mask_3d
 from nonlocalheatequation_torch.serve.ensemble import EnsembleCase, EnsembleEngine
 from nonlocalheatequation_torch.utils import autotune
 
@@ -218,6 +222,39 @@ def test_3d_multistep_kernels_bitwise_step3d_on_card(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_step3d_bitwise_plain_and_carried3d_on_card(card, dtype, prec):
+    # the register design (eps <= 6) and the tile body (eps 7-12) of
+    # csrc/nsum3d.cu alike: nsum3d and step3d (both forms) bitwise their
+    # sphere_sum plain versions, and (no bf16 tier there) one carried3d
+    # launch; ragged shapes (the register design's tiles are 8 x 8 x 32 in
+    # f32), 16-byte staging (nz = 40 at even eps) and one cell at a time,
+    # heights without columns (eps=5), narrower tiles (f64)
+    for eps in range(13):
+        wsum = float(horizon_mask_3d(eps).sum())
+        scale, dt = 2.0 + eps, 0.8 / ((2.0 + eps) * wsum)
+        for shape in ((1, 1, 1), (9, 17, 33), (20, 11, 6), (13, 5, 70), (7, 10, 40)):
+            u = _state3(shape, card, dtype, eps + sum(shape))
+            upad = torch.nn.functional.pad(u, (eps,) * 6)
+            form = (eps, shape, prec)
+            if not k3.tile3d(eps, dtype, card):  # beyond the tile body's shared memory
+                with pytest.raises(ValueError, match="beyond what the kernel takes"):
+                    k3.step3d(u, eps, scale, wsum, dt, precision=prec)
+                continue
+            g, lg = torch.randn_like(u), torch.randn_like(u)
+            assert torch.equal(k3.nsum3d(upad, eps, prec), k3.nsum3d_plain(upad, eps, prec)), form
+            for kw in ({}, {"g": g, "lg": lg, "t": 5}):
+                got = k3.step3d(u, eps, scale, wsum, dt, precision=prec, **kw)
+                assert torch.equal(got, k3.step3d_plain(u, eps, scale, wsum, dt,
+                                                        precision=prec, **kw)), (form, kw)
+            if prec == "f32":
+                nxt = k3.carried3d(upad.contiguous(), eps, scale, wsum, dt)
+                inner = nxt[eps:eps + shape[0], eps:eps + shape[1], eps:eps + shape[2]]
+                assert torch.equal(inner, k3.step3d(u, eps, scale, wsum, dt)), form
+
+
+@pytest.mark.cuda
 def test_resident3d_refuses_a_large_grid_on_card(card):
     assert k3.fits_resident_3d(128, 128, 128, 6, torch.float32, card)
     assert not k3.fits_resident_3d(256, 256, 256, 4, torch.float32, card)
@@ -245,6 +282,35 @@ def test_solver3d_production_solve_is_tuned_on_card(card, monkeypatch):
     assert len(probed) == 3
     ref = make_multi_step_fn_base(op, nt)(torch.as_tensor(u0, device=card).float(), 0)
     assert np.array_equal(got, ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_superstep2d_bitwise_step2d_launches_on_card(card, dtype, prec):
+    # the register design (eps <= 8) and the tile body (16, 17, 33) of
+    # csrc/superstep2d.cu alike: K = 1-4 levels bitwise K step2d launches and
+    # superstep2d_plain; ragged planes (f32 items 32 x 32, f64 16 x 32; a
+    # band's last item shifted back), every tier; a K the gate refuses raises
+    rng = np.random.default_rng(29)
+    for eps in (0, 1, 3, 8, 16, 17, 33):
+        wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(eps)))
+        scale, dt = 2.0 + eps, 0.8 / ((2.0 + eps) * wsum)
+        for nx, ny in ((1, 1), (37, 50), (70, 90), (130, 45)):
+            u = torch.tensor(rng.standard_normal((nx, ny)), dtype=dtype, device=card)
+            steps = [u]
+            for _ in range(4):
+                steps.append(ck.step2d(steps[-1], eps, scale, wsum, dt, precision=prec))
+            for k in (1, 2, 3, 4):
+                form = (eps, nx, ny, k)
+                if not ck.fits_superstep(nx, ny, eps, k, dtype, prec, card):
+                    with pytest.raises(ValueError, match="beyond what the kernel takes"):
+                        ck.superstep2d(u, eps, scale, wsum, dt, k, prec)
+                    continue
+                got = ck.superstep2d(u, eps, scale, wsum, dt, k, prec)
+                assert torch.equal(got, steps[k]), form
+                assert torch.equal(got, ck.superstep2d_plain(u, eps, scale, wsum, dt, k,
+                                                             prec)), form
 
 
 @pytest.mark.cuda

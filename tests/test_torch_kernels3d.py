@@ -7,9 +7,11 @@ forces CPU and x64, as tests/test_pallas.py runs them), so the grids stay at
 the plain versions; the CUDA kernels themselves run only on a card
 (tests/test_torch_card.py and chip_smoke.py).
 
-Tolerances, relative to the largest magnitude of the result (the two
-packages sum the sphere in different orders): 1e-12 in float64, 1e-5 in
-float32; the bf16 operand forms are compared in float32 at 1e-5, since both
+The port's plain versions sum the sphere in the tile body's order
+(``cuda_kernel.sphere_sum``), so the card holds the kernels to them bitwise.
+Tolerances against the JAX package, relative to the largest magnitude of
+the result (the two packages sum the sphere in different orders): 1e-12 in
+float64, 1e-5 in float32; the bf16 operand forms are compared in float32 at 1e-5, since both
 round the same float32 operand to bfloat16 and accumulate in float32.
 """
 
@@ -29,6 +31,7 @@ from nonlocalheatequation_torch.ops.nonlocal_op import (
     case_scale,
     make_multi_step_fn_base,
 )
+from nonlocalheatequation_torch.ops.stencil import sphere_column_heights
 from nonlocalheatequation_tpu.ops import pallas_kernel as jpk
 from nonlocalheatequation_tpu.ops.nonlocal_op import NonlocalOp3D as JaxOp3D
 from nonlocalheatequation_tpu.ops.nonlocal_op import make_step_fn as jax_make_step_fn
@@ -70,6 +73,60 @@ def test_plain_nsum3d_matches_pallas(nx, ny, nz, eps, precision, dtype):
     got = k3.nsum3d(torch.from_numpy(upad), eps, precision)  # CPU tensor -> plain
     assert got.dtype == torch.from_numpy(upad).dtype and got.shape == (nx, ny, nz)
     assert _rel(got.numpy(), ref) <= (1e-12 if dtype == np.float64 else 1e-5)
+
+
+def _slice_order_sum(upad, eps):
+    """The sphere sum by one shifted slice-add per offset, (i, j, k)
+    ascending: the plain versions' order before they took the tile body's."""
+    e = int(eps)
+    nx, ny, nz = (s - 2 * e for s in upad.shape)
+    acc = torch.zeros((nx, ny, nz), dtype=upad.dtype)
+    heights = sphere_column_heights(e)
+    for i in range(2 * e + 1):
+        for j in range(2 * e + 1):
+            h = int(heights[i, j])
+            for k in range(e - h, e + h + 1):
+                acc = acc + upad[i:i + nx, j:j + ny, k:k + nz]
+    return acc
+
+
+@pytest.mark.parametrize("eps", range(7))
+def test_sphere_sum_matches_pallas_and_the_slice_order(eps):
+    nx, ny, nz = 4, 5, 6
+    upad = _state((nx + 2 * eps, ny + 2 * eps, nz + 2 * eps), np.float64, 40 + eps)
+    ref = jpk.build_neighbor_sum_3d(eps, nx, ny, nz, "float64")(jnp.asarray(upad))
+    got = ck.sphere_sum(torch.from_numpy(upad), eps)
+    assert got.dtype == torch.float64 and got.shape == (nx, ny, nz)
+    assert _rel(got.numpy(), ref) <= 1e-12
+    assert _rel(got.numpy(), _slice_order_sum(torch.from_numpy(upad), eps).numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("eps", [0, 1, 3, 5])
+def test_sphere_sum_adds_in_the_tile_body_order(eps):
+    # the kernels' contract (csrc/stencil_tile3d.cuh, csrc/nsum3d.cu), written
+    # out one float32 scalar at a time: W_0 = line[0], W_h = (W_{h-1} +
+    # line[-h]) + line[+h] along z; each output adds W_{h(i,j)} of its plane
+    # offsets from 0, heights ascending, then (i, j) ascending.  eps=5 has a
+    # height with no column (h=1)
+    rng = np.random.default_rng(eps)
+    nx, ny, nz = 3, 4, 5
+    upad = rng.standard_normal((nx + 2 * eps, ny + 2 * eps, nz + 2 * eps)).astype(np.float32)
+    heights = sphere_column_heights(eps)
+    want = np.zeros((nx, ny, nz), np.float32)
+    for x, y, z in np.ndindex(want.shape):
+        acc = np.float32(0)
+        for h in range(eps + 1):
+            for i, j in np.ndindex(heights.shape):
+                if heights[i, j] == h:
+                    line = upad[x + i, y + j]
+                    w = line[z + eps]
+                    for k in range(1, h + 1):
+                        w = (w + line[z + eps - k]) + line[z + eps + k]
+                    acc = acc + w
+        want[x, y, z] = acc
+    got = ck.sphere_sum(torch.from_numpy(upad), eps)
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(k3.nsum3d_plain(torch.from_numpy(upad), eps), got)
 
 
 @pytest.mark.parametrize("nx,ny,nz,eps", SHAPES[:3])
