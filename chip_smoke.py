@@ -31,9 +31,9 @@ line is printed; the phase walls are printed at the end):
    resident3d at 256^3, eps=4, beyond their gates, must raise ValueError.
    The batched kernels (batched_step2d production and test form,
    batched_carried2d, batched_superstep2d at K = 1-4), uniform and mixed
-   physics, B in {1, 2, 3, 8}, eps 1-8, 16 and 40 over ragged grids: each
-   held to its plain version (batched_step2d BITWISE) and each lane
-   BITWISE to its solo launch (phase_batched_checks).
+   physics, B in {1, 2, 3, 8}, eps 0-9, 16 and 40 over ragged grids: each
+   held to its plain version (batched_step2d and batched_superstep2d
+   BITWISE) and each lane BITWISE to its solo launch (phase_batched_checks).
 3. The main path's correctness: the batch tables (CASES_2D and CASES_1D of
    tests/cases.py, CASES_3D of tests/test_oracle_3d.py, copied here) through
    the port's CLIs on the card in float64, each must print "Tests Passed"
@@ -77,8 +77,10 @@ line is printed; the phase walls are printed at the end):
 6. The ensemble engine (phase_ensemble) at the JAX package's ensemble
    size, 8 production cases of 1024^2, eps=8, f32, 500 steps, and a
    mixed-physics 8 x 512^2 bucket: the batched kernels at 8 x 1024^2 held to
-   their plain versions (batched_step2d bitwise) and bitwise per lane to the
-   solo kernels, timed beside their plain versions and bounds;
+   their plain versions (batched_step2d and batched_superstep2d bitwise)
+   and bitwise per lane to the solo kernels, timed beside their plain
+   versions and bounds, batched_superstep2d at K=2 and 3 also beside its
+   earlier form (the tile body, in turns);
    batched_step2d at B=1 timed against step2d on the same 1024^2 and 4096^2
    planes (its register design against the shared tile body, in turns); the
    engine's run timed beside the
@@ -89,6 +91,7 @@ line is printed; the phase walls are printed at the end):
    1 bucket, 1 program, 1 dispatch, 500 batched_step2d launches), and both
    under NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner); the
    batched counts must equal the rows', buckets', probes' and winners'.
+   Each bucket's tuned program is then timed beside its untuned one.
 7. The unstructured path (phase_unstructured_checks, phase_unstructured):
    windowed_matvec (f64, f32) and gather_L (f64, f32, bf16 operand) held to
    their plain versions on small clouds (2D jittered and shuffled, 3D, 1D,
@@ -119,7 +122,8 @@ line is printed; the phase walls are printed at the end):
    one-pass nsum2d/nsum3d on each halo-exchanged frame; then, at the main
    path's blocks (2048^2, eps=8 and 128^3, eps=4, f32), held and timed
    beside their plain versions, their bounds and F.conv2d/F.conv3d over
-   the frame.  Counted: Solver2DDistributed at 4096^2, eps=8, on a 2x2
+   the frame, fused_nsum2d also beside its earlier form (the tile body, in a
+   CUDA graph in turns).  Counted: Solver2DDistributed at 4096^2, eps=8, on a 2x2
    mesh of virtual devices of the card and Solver3DDistributed at 256^3,
    eps=4, on 2x2x2, 20 production steps each with comm='fused' (the
    in-kernel exchange, the card's default), comm='fused' with
@@ -129,7 +133,7 @@ line is printed; the phase walls are printed at the end):
    --comm fused and the default), which must print "Tests Passed"; the
    counts must be exactly the solves' and the rows'.  Each solve is held
    within 1e-5 of the tuned single-device Solver2D/Solver3D, and the steps
-   are timed on the card.
+   are timed on the card, three runs each.
 9. The kernels' JSON line, then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
@@ -777,13 +781,13 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
     # probe program) and then runs the winner
     autotune.reset()
     ck.reset_launch_counts()
-    walls = {}
+    walls, by = {}, {}
     for n, x0, step_dt, step_dh in ((NX, u0, dt, dh), (SMALL, us0, dt_s, dh_s)):
         s = Solver2D(n, n, STEPS, EPS, k=1.0, dt=step_dt, dh=step_dh, method="cuda",
                      dtype=torch.float32, device="cuda")
         s.input_init(x0)
         t0 = time.perf_counter()
-        res = s.do_work()
+        res = launches_of(ck, by, f"{n}^2 production", s.do_work)
         walls[n] = time.perf_counter() - t0
         if res.shape != (n, n) or not np.isfinite(res).all():
             fail(f"production solve {n}^2: result not finite or of the wrong shape")
@@ -792,25 +796,25 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
     st = Solver2D(NX, NX, TEST_STEPS, EPS, k=1.0, dt=dt, dh=dh, method="cuda",
                   dtype=torch.float32, device="cuda")
     st.test_init()
-    st.do_work()
+    launches_of(ck, by, f"{NX}^2 test form", st.do_work)
     counts = {k: v for k, v in ck.launch_counts().items()
               if k.endswith("2d") and not k.startswith(("batched_", "split_", "fused_"))}
     recs = autotune.records()
     test_err = st.error_l2 / (NX * NX)
     if len(recs) != 2:
         fail(f"the production solves tuned {len(recs)} shapes, not 2: {sorted(recs)}")
-    expected = dict.fromkeys(counts, 0)
-    expected["step2d"] = TEST_STEPS
-    for entry in recs.values():
-        for name in entry["ms_per_step"]:
-            kernel, k = variant_launches(name, autotune.PROBE_STEPS)
-            expected[kernel] += (1 + autotune.PROBE_ITERS) * k
-        kernel, k = variant_launches(entry["winner"], STEPS)
-        expected[kernel] += k
-    wrong = {k: (counts[k], expected[k]) for k in counts
-             if k != "nsum2d" and counts[k] != expected[k]}
+    expected = {f"{NX}^2 test form": {"step2d": TEST_STEPS}}
+    for n, o in ((NX, op), (SMALL, op_s)):
+        expected[f"{n}^2 production"] = record_launches(
+            autotune, recs[autotune.tuning_key(o, (n, n), torch.float32, "cuda")], STEPS)
+    wrong = {}
+    for label, want in expected.items():
+        got = {k: v for k, v in by[label].items() if k in counts and k != "nsum2d"}
+        if got != {k: v for k, v in want.items() if v}:
+            wrong[label] = (got, want)
     if wrong:
-        fail(f"main-path launches (got, expected from the probes and the winners): {wrong}")
+        fail(f"main-path launches by part (got, expected from the probes and the winners): "
+             f"{wrong}")
     if not all(counts.values()):
         fail(f"a kernel of the main path was not launched: {json.dumps(counts)}")
     if not test_err <= l2_threshold:
@@ -829,7 +833,8 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
         return {"name": name, "route": "cuda",
                 "source": f"nonlocalheatequation_torch/csrc/{source}",
                 "replaces": f"nonlocalheatequation_tpu/ops/pallas_kernel.py:{line}", **kw,
-                "launches": counts[name], "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "launches": counts[name], "launches_by_shape": by_label(by, name),
+                "max_abs_err": max(c["max_abs_err"] for c in cs),
                 "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
                 "main_shape_forms": len(cs)}
 
@@ -1039,13 +1044,13 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     # production call per shape tunes it and then runs the winner
     autotune.reset()
     ck.reset_launch_counts()
-    walls = {}
+    walls, by = {}, {}
     for n, x0, o in ((N3, u0, op), (N3S, us0, op_s)):
         s = Solver3D(n, n, n, STEPS3, o.eps, k=1.0, dt=o.dt, dh=o.dh, method="cuda",
                      dtype=torch.float32, device="cuda")
         s.input_init(x0)
         t0 = time.perf_counter()
-        res = s.do_work()
+        res = launches_of(ck, by, f"{n}^3 eps={o.eps} production", s.do_work)
         walls[n] = time.perf_counter() - t0
         if res.shape != (n, n, n) or not np.isfinite(res).all():
             fail(f"3D production solve {n}^3: result not finite or of the wrong shape")
@@ -1054,24 +1059,22 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     st = Solver3D(N3, N3, N3, TEST_STEPS, EPS3, k=1.0, dt=dt, dh=op.dh, method="cuda",
                   dtype=torch.float32, device="cuda")
     st.test_init()
-    st.do_work()
+    launches_of(ck, by, f"{N3}^3 eps={EPS3} test form", st.do_work)
     counts = {k: v for k, v in ck.launch_counts().items()
               if k.endswith("3d") and not k.startswith(("split_", "fused_"))}
     recs = autotune.records()
     test_err = st.error_l2 / npts
     if len(recs) != 2:
         fail(f"the 3D production solves tuned {len(recs)} shapes, not 2: {sorted(recs)}")
-    expected = dict.fromkeys(counts, 0)
-    expected["step3d"], expected["nsum3d"] = TEST_STEPS, 1  # the test form: L(G) once
-    for entry in recs.values():
-        for name in entry["ms_per_step"]:
-            kernel, k = variant_launches(name, autotune.PROBE_STEPS, 3)
-            expected[kernel] += (1 + autotune.PROBE_ITERS) * k
-        kernel, k = variant_launches(entry["winner"], STEPS3, 3)
-        expected[kernel] += k
-    if counts != expected:
-        fail(f"3D main-path launches {counts} != {expected} (the probes', the winners' and "
-             "the test form's)")
+    # the test form: L(G) once, then the steps
+    expected = {f"{N3}^3 eps={EPS3} test form": {"step3d": TEST_STEPS, "nsum3d": 1}}
+    for n, o in ((N3, op), (N3S, op_s)):
+        expected[f"{n}^3 eps={o.eps} production"] = record_launches(
+            autotune, recs[autotune.tuning_key(o, (n, n, n), torch.float32, "cuda")], STEPS3, 3)
+    got = {label: {k: v for k, v in by[label].items() if k in counts} for label in expected}
+    if got != {label: {k: v for k, v in want.items() if v} for label, want in expected.items()}:
+        fail(f"3D main-path launches by part {got} != {expected} (the probes', the winners' "
+             "and the test form's)")
     if not all(counts.values()):
         fail(f"a kernel of the 3D main path was not launched: {json.dumps(counts)}")
     if not test_err <= l2_threshold:
@@ -1091,7 +1094,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
         return {"name": name, "route": "cuda",
                 "source": f"nonlocalheatequation_torch/csrc/{source}",
                 "replaces": f"nonlocalheatequation_tpu/ops/pallas_kernel.py:{line}", **kw,
-                "launches": counts[name], "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "launches": counts[name], "launches_by_shape": by_label(by, name),
+                "max_abs_err": max(c["max_abs_err"] for c in cs),
                 "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
                 "main_shape_forms": len(cs)}
 
@@ -1123,18 +1127,21 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
     form), batched_carried2d and batched_superstep2d (K = 1-4) in float64,
     float32 and the bf16 operand tier, uniform and mixed physics, B in
     {1, 2, 3, 8}, eps 1-8 over ragged grids (1x1, smaller than one tile, non
-    tile multiples) plus eps 16 and 40: each against its plain version
-    (batched_step2d BITWISE: its register design at eps <= 16 and the
-    shared tile body above sum in the plain versions' disc_sum order) and
-    each lane BITWISE against one solo launch of the same kernel (step2d,
-    carried2d, superstep2d) on that case.  In the bf16 tier the K-step
-    tolerance grows by one bfloat16 rounding flip per step after the first
-    (see phase_multistep_checks)."""
+    tile multiples) plus eps 0, 9, 16 and 40: each against its plain version
+    (batched_step2d and batched_superstep2d BITWISE: their register designs,
+    at eps <= 16 and eps <= 8, and the shared tile body above sum in the
+    plain versions' disc_sum order) and each lane BITWISE against one solo
+    launch of the same kernel (step2d, carried2d, superstep2d) on that case.
+    In the bf16 tier the K-step tolerance grows by one bfloat16 rounding
+    flip per step after the first (see phase_multistep_checks)."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED + 6)
     shapes = [(1, 1), (13, 45), (37, 50), (70, 90)]
-    plan = [(e, s) for e in (1, 2, 3, 5, 8) for s in shapes] + [(16, (20, 90)), (40, (50, 45))]
+    plan = ([(e, s) for e in (1, 2, 3, 5, 8) for s in shapes]
+            + [(0, (13, 45)), (0, (70, 90)), (9, (37, 50)), (9, (70, 90)), (16, (20, 90)),
+               (40, (50, 45))])
+    bitwise_plain = ("batched_step2d", "batched_superstep2d")
     worst, n = {}, dict.fromkeys(("batched_step2d", "batched_carried2d",
                                   "batched_superstep2d"), 0)
 
@@ -1142,8 +1149,8 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
         _abs, err = rel_err(torch, got, plain)
         if not all(torch.equal(got[b], s) for b, s in enumerate(solo)):
             fail(f"{name} {form}: a lane is not bitwise equal to its solo launch")
-        if name == "batched_step2d" and not torch.equal(got, plain):
-            fail(f"batched_step2d {form}: not bitwise equal to its plain version (largest "
+        if name in bitwise_plain and not torch.equal(got, plain):
+            fail(f"{name} {form}: not bitwise equal to its plain version (largest "
                  f"|kernel-plain| / max|plain| {err:.3e})")
         if not err <= tol:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {err:.3e} > {tol:.3e}")
@@ -1251,7 +1258,8 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
     tile body, in one run).  Then the counted
     main path: CASES_2D through the 2D CLI with --ensemble (float64), both
     buckets through EnsembleEngine(method="cuda"), and both again under
-    NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner)."""
+    NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner); after the
+    count, each bucket's tuned program timed beside its untuned one."""
     import contextlib
     import io
 
@@ -1291,8 +1299,8 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         held[name].append({"form": form, "max_abs_err": abs_err, "rel_err": rel, "tol": tol32})
         if not rel <= tol32:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol32:g}")
-        if name == "batched_step2d" and not torch.equal(got, ref):
-            fail(f"batched_step2d {form}: not bitwise equal to its plain version")
+        if name in ("batched_step2d", "batched_superstep2d") and not torch.equal(got, ref):
+            fail(f"{name} {form}: not bitwise equal to its plain version")
         if not all(torch.equal(got[b], s) for b, s in enumerate(solo)):
             fail(f"{name} {form}: a lane is not bitwise equal to its solo launch")
 
@@ -1333,9 +1341,29 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
                                                              out=fout), 200)
     carried_plain_ms = cuda_ms(torch, lambda: cb.batched_carried2d_plain(frames, EPS, params,
                                                                          wsum), 5, 1)
-    sup_ms = {k: cuda_ms(torch, lambda k=k: cb.batched_superstep2d(U, EPS, params, wsum, k,
-                                                                   out=out), 100)
-              for k in (2, 3)}
+    # B8 beside its earlier form (the shared tile body at every eps, reached
+    # only through its timing entry point), the same bits, in turns: the
+    # register design, the tile body, the tile body, the register design
+    def b8_tile_form(k, o):
+        rc = ck._entry("nlheat_batched_superstep2d_tile")(
+            0, 0, U.data_ptr(), o.data_ptr(), params.data_ptr(), B, N, N, EPS, k, float(wsum),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"batched_superstep2d tile-body form K={k}: rc {rc}")
+        return o
+
+    sup_ms, sup_ab = {}, {}
+    for k in (2, 3):
+        o4 = torch.empty_like(U)
+        if not torch.equal(b8_tile_form(k, o4), cb.batched_superstep2d(U, EPS, params, wsum, k)):
+            fail(f"batched_superstep2d K={k}: the tile-body form's bits differ")
+        new = lambda k=k: cb.batched_superstep2d(U, EPS, params, wsum, k, out=out)  # noqa: E731
+        old = lambda k=k, o4=o4: b8_tile_form(k, o4)  # noqa: E731
+        turns = [cuda_ms(torch, f, 100) for f in (new, old, old, new)]
+        sup_ms[k] = (turns[0] + turns[3]) / 2
+        sup_ab[k] = {"ms": sup_ms[k], "tile_form_ms": (turns[1] + turns[2]) / 2,
+                     "turns": turns}
+        del o4
     sup_plain_ms = cuda_ms(torch, lambda: cb.batched_superstep2d_plain(U, EPS, params, wsum, 3),
                            3, 1)
     # the A/B of the two 2D bodies in this run: batched_step2d at B=1 (the
@@ -1391,8 +1419,12 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         f"{carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms ({carried_bound[1]})")
     for k in (2, 3):
         say(f"batched_superstep2d {B}x{N}^2 eps={EPS} f32 K={k}: kernel {sup_ms[k]:.4f} "
-            f"ms/launch ({sup_ms[k] / k:.4f} ms/step), bound {sup_bound[k][0]:.4f} ms "
-            f"({sup_bound[k][1]})" + (f", plain {sup_plain_ms:.3f} ms" if k == 3 else ""))
+            f"ms/launch ({sup_ms[k] / k:.4f} ms/step), earlier form (the tile body) "
+            f"{sup_ab[k]['tile_form_ms']:.4f} ms/launch (ratio "
+            f"{sup_ab[k]['tile_form_ms'] / sup_ms[k]:.3f}; turns "
+            f"{json.dumps([round(t, 5) for t in sup_ab[k]['turns']])}), bound "
+            f"{sup_bound[k][0]:.4f} ms ({sup_bound[k][1]})"
+            + (f", plain {sup_plain_ms:.3f} ms" if k == 3 else ""))
 
     # the engine's run and the same 8 cases as 8 sequential tuned solves
     engine = EnsembleEngine(method="cuda", device="cuda", dtype=torch.float32)
@@ -1508,23 +1540,43 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         del os.environ["NLHEAT_TUNE_BATCH"]
     recs = autotune.records()
     counts = ck.launch_counts()
-    expected = dict.fromkeys(held, 0)
-    expected["batched_step2d"] = ran["batched_step2d"] + 2 * steps
-    for entry in recs.values():
-        for cand in entry["ms_per_step"]:
-            kernel, k = variant_launches(cand, autotune.PROBE_STEPS)
-            if kernel in expected:
-                expected[kernel] += (1 + autotune.PROBE_ITERS) * k
-        kernel, k = variant_launches(entry["winner"], steps)
-        if kernel in expected:
-            expected[kernel] += k
-    got = {k: counts[k] for k in expected}
-    if len(recs) != 2 or got != expected:
-        fail(f"ensemble main path: batched launches {got} != {expected} (the CLI rows', the "
-             f"buckets', the probes' and the winners'); {len(recs)} tuning records")
+    if len(recs) != 2:
+        fail(f"ensemble main path: {len(recs)} tuning records, not 2: {sorted(recs)}")
+    # each tuned run: its bucket's probes (every round) and its winner's run
+    for name, n in (("tuned 8x1024", N), ("tuned 8x512 mixed", ENS_MIXED_N)):
+        entry = [e for key, e in recs.items() if f"/{n}x{n}/" in key]
+        want = {k: v for k, v in record_launches(autotune, entry[0], steps,
+                                                 rounds=autotune.BATCH_PROBE_ROUNDS).items()
+                if k in held and v} if len(entry) == 1 else None
+        got = {k: v for k, v in runs[name]["launches"].items() if k in held}
+        if got != want:
+            fail(f"ensemble {name}: batched launches {got} != {want} (the probes' and the "
+                 "winner's)")
+    got = {k: counts[k] for k in held}
+    if got != {k: sum(r["launches"].get(k, 0) for r in runs.values()) for k in held}:
+        fail(f"ensemble main path: batched launches {got} outside the counted runs {runs}")
     if not all(got.values()):
         fail(f"a batched kernel of the ensemble path was not launched: {got}")
     say(f"batch tuner records: {json.dumps(recs)}")
+    # each bucket's tuned program (the winner above, from the records in
+    # memory) beside its untuned per-step program on the card, in turns
+    # untuned, tuned, tuned, untuned; after the count, so not in it
+    programs_ms = {}
+    for name, cases in (("8x1024", big), ("8x512 mixed", mixed)):
+        Ub = torch.as_tensor(np.stack([c.u0 for c in cases]), device="cuda").to(torch.float32)
+        progs = []
+        for tune in ("", "1"):
+            os.environ["NLHEAT_TUNE_BATCH"] = tune
+            eng = EnsembleEngine(method="cuda", device="cuda", dtype=torch.float32)
+            progs.append(eng.build_program(cases[0].bucket_key(), cases))
+        del os.environ["NLHEAT_TUNE_BATCH"]
+        turns = [cuda_ms(torch, lambda f=f: f(Ub, 0), 2, 1)
+                 for f in (progs[0], progs[1], progs[1], progs[0])]
+        programs_ms[name] = {"per-step": (turns[0] + turns[3]) / 2,
+                             "tuned": (turns[1] + turns[2]) / 2, "turns": turns}
+        del Ub
+    say(f"ensemble programs on the card, {steps} steps, ms (untuned per-step program against "
+        f"the tuned winner's, in turns): {json.dumps(programs_ms)}")
     say(f"ensemble main path (counted): CASES_2D through solve2d --ensemble ({cli_summary}); "
         + "; ".join(f"{k}: {v}" for k, v in reports.items())
         + f"; runs {json.dumps(runs)}; batched launches {json.dumps(got)} = the rows', the "
@@ -1535,7 +1587,9 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         return {"name": name, "route": "cuda",
                 "source": f"nonlocalheatequation_torch/csrc/{source}",
                 "replaces": f"nonlocalheatequation_tpu/ops/pallas_kernel.py:{line}", **kw,
-                "launches": counts[name], "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "launches": counts[name],
+                "launches_by_shape": by_label({k: r["launches"] for k, r in runs.items()}, name),
+                "max_abs_err": max(c["max_abs_err"] for c in cs),
                 "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
                 "main_shape_forms": len(cs), "library_ms": None,
                 "library_note": "no one PyTorch call takes a batched Euler step",
@@ -1546,12 +1600,13 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
             bound_ms=step_bound[0], bound_by=step_bound[1], ms_test_form=step_test_ms,
             bound_ms_test_form=step_test_bound[0], ms_step2d_one_case=solo_step_ms,
             ms_graph=step_graph_ms, ab_b1_against_step2d=ab, ensemble_ms=eng_ms,
-            sequential_ms=seq_ms),
+            sequential_ms=seq_ms, programs_ms=programs_ms),
         row("batched_carried2d", 1839, "batched_carried2d.cu", ms=carried_ms,
             plain_ms=carried_plain_ms, bound_ms=carried_bound[0], bound_by=carried_bound[1]),
         row("batched_superstep2d", 1963, "batched_superstep2d.cu", ms=sup_ms[3],
             plain_ms=sup_plain_ms, bound_ms=sup_bound[3][0], bound_by=sup_bound[3][1],
-            ksteps=3, ms_k2=sup_ms[2], bound_ms_k2=sup_bound[2][0]),
+            ksteps=3, ms_k2=sup_ms[2], bound_ms_k2=sup_bound[2][0],
+            ms_tile_form=sup_ab[3]["tile_form_ms"], ms_k2_tile_form=sup_ab[2]["tile_form_ms"]),
     ]
 
 
@@ -2131,9 +2186,14 @@ def phase_halo_checks(torch, np) -> dict:
                     n[name] += 1
     # the in-kernel exchange: every block of a mesh of virtual devices of
     # the card, its halo read from the blocks around it
+    # fused_nsum2d: its register design up to eps 10 (16-byte staging of
+    # interior windows at (300, 200) eps 8; a row across two block edges at
+    # (40, 12); multi-hop and degenerate blocks), the tile body from eps 11
     meshes = [((2, 2), (70, 45), 5), ((2, 2), (300, 200), 8), ((4, 2), (8, 8), 9),
               ((3, 3), (2, 2), 5), ((2, 4), (33, 33), 16), ((1, 3), (5, 7), 12),
-              ((2, 2), (8, 40), 4), ((2, 2), (100, 90), 40), ((2, 2, 2), (20, 12, 40), 3),
+              ((2, 2), (8, 40), 4), ((2, 2), (100, 90), 40), ((2, 2), (40, 12), 8),
+              ((2, 2), (24, 24), 10), ((2, 3), (200, 70), 10), ((2, 2), (50, 30), 11),
+              ((1, 3), (5, 7), 10), ((2, 2, 2), (20, 12, 40), 3),
               ((2, 2, 2), (33, 17, 40), 4), ((2, 2, 2), (4, 4, 4), 5), ((3, 2, 2), (6, 9, 8), 3),
               ((2, 2, 2), (12, 12, 12), 1), ((2, 2, 2), (16, 16, 70), 6),
               ((2, 2, 2), (3, 5, 2), 6)]
@@ -2302,6 +2362,34 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
                                 shape=f"{shape} block of a {'x'.join(['2'] * d)} mesh, "
                                       f"eps={e}, f32")
             extra = ""
+            if name == "fused_nsum2d":
+                # beside its earlier form (one 32 x 32 tile a block, the window
+                # loaded cell by cell, the tile body; reached only through its
+                # timing entry point), the same bits, in a CUDA graph in turns
+                hops, grid, _cards = th._pointer_grid(name, blocks, e, d)
+                table = np.ascontiguousarray(
+                    grid[tuple(slice(p, p + 2 * h + 1) for p, h in zip(pos, hops))])
+                o6 = torch.empty(block, dtype=f32, device="cuda")
+
+                def tile_form(o6=o6, table=table, hops=hops):
+                    rc = ck._entry("nlheat_fused_nsum2d_tile")(
+                        0, 0, table.ctypes.data, *hops, o6.data_ptr(), *block, e,
+                        torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        fail(f"fused_nsum2d tile-body form: rc {rc}")
+                    return o6
+
+                if not torch.equal(tile_form(), call("f32")):
+                    fail("fused_nsum2d tile-body form: its bits differ from the register design's")
+                new = lambda call=call: call("f32")  # noqa: E731
+                turns = [graph_ms(torch, f, 20) for f in (new, tile_form, tile_form, new)]
+                ms_graph = timing[name]["ms_graph"] = (turns[0] + turns[3]) / 2
+                timing[name].update(ms_graph_tile_form=(turns[1] + turns[2]) / 2,
+                                    turns_graph=turns)
+                extra = (" (earlier form, the tile body, in a CUDA graph "
+                         f"{(turns[1] + turns[2]) / 2:.4f}; turns "
+                         f"{json.dumps([round(t, 5) for t in turns])})")
+                del o6
             if name.startswith("split_"):
                 out = torch.empty(block, dtype=f32, device="cuda")
                 phase_ms = {p: cuda_ms(torch, lambda p=p: th.launch_phase(name, frame, out, e,
@@ -2328,7 +2416,8 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
     u3 = np.random.default_rng(SEED + 23).standard_normal((D3N,) * 3)
     cases = cases_module().CASES_2D_DISTRIBUTED
     forms = (("fused", ""), ("fused", "interp"), ("collective", ""))
-    solvers, res, walls = {}, {}, {}
+    solvers, res, walls, by = {}, {}, {}, {}
+    blocks_of = {"2d": f"{DN // 2}^2 blocks f32", "3d": f"{D3N // 2}^3 blocks f32"}
     ck.reset_launch_counts()
     for comm, transport in forms:
         os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
@@ -2345,7 +2434,7 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
                                         method="cuda", dtype=f32, comm=comm)
                 s.input_init(u3)
             t0 = time.perf_counter()
-            res[f"{d} {label}"] = s.do_work()
+            res[f"{d} {label}"] = launches_of(ck, by, f"{blocks_of[d]}, {label}", s.do_work)
             walls[f"{d} {label}"] = time.perf_counter() - t0
             solvers[f"{d} {label}"] = (s, transport)
     os.environ.pop("NLHEAT_FUSED_TRANSPORT")
@@ -2353,34 +2442,43 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
     for extra in (["--method", "cuda", "--comm", "fused"], []):
         stdout, stderr = io.StringIO(), io.StringIO()
         stdin, sys.stdin = sys.stdin, io.StringIO(batch_text(cases))
+        label = " ".join(extra) or "--comm collective (default, method auto)"
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
-                rc = solve2d_distributed.main([*CLI_ARGS, "--devices", "8", *extra])
+                rc = launches_of(ck, by, f"CASES_2D_DISTRIBUTED rows f64, {label}",
+                                 lambda: solve2d_distributed.main(
+                                     [*CLI_ARGS, "--devices", "8", *extra]))
         finally:
             sys.stdin = stdin
-        label = " ".join(extra) or "--comm collective (default, method auto)"
         if rc != 0 or stdout.getvalue().splitlines()[-1] != "Tests Passed":
             fail(f"solve2d_distributed --test_batch {label}: rc {rc}\n{stdout.getvalue()}\n"
                  f"{stderr.getvalue()[-4000:]}")
         cli_out[label] = time.perf_counter() - t0
     counts = {k: v for k, v in ck.launch_counts().items() if v}
 
-    # the counts the path must show: the solves' and the rows'
+    # the counts each part must show: each solve's, and each CLI run's (its
+    # rows' steps, a launch a block a step, and L(G) once a row)
     row_blocks = sum(nt * int(np.prod(choose_mesh_shape(nx * npx, ny * npy, 8)))
                      for nx, ny, npx, npy, nt, *_ in cases)
+    rows = "CASES_2D_DISTRIBUTED rows f64"
     expected = {
-        "fused_nsum2d": DSTEPS * 4 + row_blocks,
-        "fused_nsum3d": DSTEPS * 8,
-        "split_nsum2d": split_launches((DN, DN), (2, 2), DEPS, DSTEPS),
-        "split_nsum3d": split_launches((D3N,) * 3, (2, 2, 2), D3EPS, DSTEPS),
-        # the collective solves, the collective CLI rows, and L(G) once per row per run
-        "nsum2d": DSTEPS * 4 + row_blocks + 2 * len(cases),
-        "nsum3d": DSTEPS * 8,
+        f"{blocks_of['2d']}, fused": {"fused_nsum2d": DSTEPS * 4},
+        f"{blocks_of['3d']}, fused": {"fused_nsum3d": DSTEPS * 8},
+        f"{blocks_of['2d']}, fused interp": {
+            "split_nsum2d": split_launches((DN, DN), (2, 2), DEPS, DSTEPS)},
+        f"{blocks_of['3d']}, fused interp": {
+            "split_nsum3d": split_launches((D3N,) * 3, (2, 2, 2), D3EPS, DSTEPS)},
+        f"{blocks_of['2d']}, collective": {"nsum2d": DSTEPS * 4},
+        f"{blocks_of['3d']}, collective": {"nsum3d": DSTEPS * 8},
+        f"{rows}, --method cuda --comm fused": {"fused_nsum2d": row_blocks,
+                                                "nsum2d": len(cases)},
+        f"{rows}, --comm collective (default, method auto)": {
+            "nsum2d": row_blocks + len(cases)},
     }
-    if counts != expected:
-        fail(f"distributed main path: launches {counts} != {expected} (the solves' and the "
-             "CLI rows')")
+    if by != expected:
+        fail(f"distributed main path: launches by part {by} != {expected} (each solve's and "
+             "each CLI run's)")
     for d in ("2d", "3d"):
         for label in ("fused", "fused interp"):
             if not np.array_equal(res[f"{d} {label}"], res[f"{d} collective"]):
@@ -2404,7 +2502,7 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
                            method="cuda", dtype=f32, device="cuda")}
     solo["2d"].input_init(u2)
     solo["3d"].input_init(u3)
-    step_ms = {}
+    step_ms, profiles = {}, {}
     for d, s in solo.items():
         ref = s.do_work()
         rel = float(np.abs(res[f"{d} fused"] - ref).max()) / float(np.abs(ref).max())
@@ -2418,13 +2516,19 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
             os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
             blocks = dist._device_state()[0]
             run = dist._make_runner(DSTEPS)
-            step_ms[f"{d} {label}"] = cuda_ms(torch, lambda: run(blocks, 0, ()), 1, 1) / DSTEPS
+            step_ms[f"{d} {label}"] = [cuda_ms(torch, lambda: run(blocks, 0, ()), 1, 1) / DSTEPS
+                                       for _ in range(3)]
+            if label == "fused":
+                profiles[d] = device_profile(torch, lambda: run(blocks, 0, ()), DSTEPS)
         os.environ.pop("NLHEAT_FUSED_TRANSPORT")
         u_dev = torch.as_tensor(s.u0, device="cuda").to(f32)
         multi = make_multi_step_fn(s.op, DSTEPS, dtype=f32)
-        step_ms[f"{d} tuned solo"] = cuda_ms(torch, lambda: multi(u_dev, 0), 1, 1) / DSTEPS
-    say(f"distributed steps on the card, ms/step (CUDA events over {DSTEPS}-step runs, the "
-        f"exchange's copies included): {json.dumps(step_ms)}")
+        step_ms[f"{d} tuned solo"] = [cuda_ms(torch, lambda: multi(u_dev, 0), 1, 1) / DSTEPS
+                                      for _ in range(3)]
+    say(f"distributed steps on the card, ms/step (CUDA events over {DSTEPS}-step runs, three "
+        f"runs each, the exchange's copies included): {json.dumps(step_ms)}")
+    say("the comm='fused' steps under torch.profiler, per step (device time by kernel, the "
+        f"device's busy and idle share of the window): {json.dumps(profiles)}")
     del res, solvers, solo
 
     def row(name, source, line):
@@ -2433,6 +2537,7 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
                 "source": f"nonlocalheatequation_torch/csrc/{source}",
                 "replaces": f"nonlocalheatequation_tpu/ops/pallas_halo.py:{line}",
                 **timing[name], "launches": counts.get(name, 0),
+                "launches_by_shape": by_label(by, name),
                 "max_abs_err": max(c["max_abs_err"] for c in cs),
                 "verdict": "pass" if all(c["rel_err"] <= c["tol"] for c in cs) else "fail",
                 "main_shape_forms": len(cs),
@@ -2459,6 +2564,74 @@ def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     if name in ("resident", "resident3d"):
         return f"resident{ndim}d", 1
     return "superstep2d", -(-nsteps // int(name[len("superstep"):]))
+
+
+def record_launches(autotune, entry: dict, nsteps: int, ndim: int = 2, rounds: int = 1) -> dict:
+    """The launches, by kernel, of a tuner record's probes (``rounds`` of
+    each candidate) and of its winner's nsteps run."""
+    out = {}
+    for name in entry["ms_per_step"]:
+        kernel, k = variant_launches(name, autotune.PROBE_STEPS, ndim)
+        out[kernel] = out.get(kernel, 0) + rounds * (1 + autotune.PROBE_ITERS) * k
+    kernel, k = variant_launches(entry["winner"], nsteps, ndim)
+    out[kernel] = out.get(kernel, 0) + k
+    return out
+
+
+def launches_of(ck, by: dict, label: str, fn):
+    """fn(), its launches (by kernel, the nonzero ones) put in by[label]."""
+    before = ck.launch_counts()
+    out = fn()
+    by[label] = {k: v - before[k] for k, v in ck.launch_counts().items() if v != before[k]}
+    return out
+
+
+def by_label(by: dict, name: str) -> dict:
+    """The launches of kernel ``name`` in each counted part of a run where it ran."""
+    return {label: d[name] for label, d in by.items() if d.get(name)}
+
+
+def device_profile(torch, fn, nsteps: int) -> dict:
+    """One run of fn (nsteps steps) under torch.profiler after a warm-up
+    run: per step, the device milliseconds of the kernels (the five
+    largest by name, the rest summed), the window's milliseconds (CUDA
+    events inside the profile) and the device's busy and idle share of it.
+    Where the profiler records no device time, says so: not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+    window_us = a.elapsed_time(b) * 1e3
+    kernels = {}  # the device's own events (kernels, copies), not the host ops above them
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + us
+    busy_us = sum(kernels.values())
+    if busy_us == 0:
+        return {"window_ms_per_step": window_us / 1e3 / nsteps,
+                "device_time": "not measured (the profiler recorded no device time)"}
+    named = {}  # by the name's first 60 characters (templates differ further on)
+    for k, us in kernels.items():
+        named[k[:60]] = named.get(k[:60], 0.0) + us
+    top = sorted(named.items(), key=lambda kv: -kv[1])
+    by_kernel = {k: us / 1e3 / nsteps for k, us in top[:5]}
+    by_kernel["the rest"] = sum(us for _, us in top[5:]) / 1e3 / nsteps
+    return {"window_ms_per_step": window_us / 1e3 / nsteps,
+            "device_busy_ms_per_step": busy_us / 1e3 / nsteps,
+            "busy_share": busy_us / window_us, "idle_share": 1 - busy_us / window_us,
+            "by_kernel_ms_per_step": by_kernel}
 
 
 def graph_ms(torch, fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:

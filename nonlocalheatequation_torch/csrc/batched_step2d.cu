@@ -66,20 +66,6 @@ using namespace nlheat;
 
 constexpr int MAX_CASES = 65535;  // gridDim.z of the shared tile body
 constexpr int FAST_MAX_EPS = 16;  // the register design's largest eps
-constexpr int FAST_TY = 4;        // thread rows of a register-design block
-constexpr int FAST_THREADS = 32 * FAST_TY;
-
-template <typename T>
-struct Fast {
-  static constexpr int RUN = sizeof(T) == 4 ? 32 : 16;  // output rows a thread
-  static constexpr int ROWS = RUN * FAST_TY;              // output rows a tile
-  static constexpr int COLS = 32;                         // output columns a tile
-};
-
-template <typename T, int EPS>
-__host__ __device__ constexpr size_t fast_buffer_elems() {
-  return static_cast<size_t>(Fast<T>::ROWS + 2 * EPS) * (Fast<T>::COLS + 2 * EPS);
-}
 
 struct TileIndex {
   int b, x0, y0;
@@ -98,10 +84,10 @@ __device__ inline TileIndex tile_of(long long t, int ntx, int nty, int rows, int
 // + c), 0 outside the plane.
 template <typename T, int EPS>
 __device__ void stage_window(T* buf, const T* u, int nx, int ny, TileIndex ti) {
-  constexpr int WR = Fast<T>::ROWS + 2 * EPS, WC = Fast<T>::COLS + 2 * EPS;
+  constexpr int WR = RegTile<T>::ROWS + 2 * EPS, WC = RegTile<T>::COLS + 2 * EPS;
   const T* ub = u + static_cast<size_t>(ti.b) * nx * ny;
   const int tid = threadIdx.y * 32 + threadIdx.x;
-  for (int idx = tid; idx < WR * WC; idx += FAST_THREADS) {
+  for (int idx = tid; idx < WR * WC; idx += REG_THREADS) {
     const int a = idx / WC, c = idx - a * WC;
     const int x = ti.x0 - EPS + a, y = ti.y0 - EPS + c;
     const bool in = x >= 0 && x < nx && y >= 0 && y < ny;
@@ -110,14 +96,14 @@ __device__ void stage_window(T* buf, const T* u, int nx, int ny, TileIndex ti) {
 }
 
 template <typename T, typename OpT, int EPS>
-__global__ void __launch_bounds__(FAST_THREADS)
+__global__ void __launch_bounds__(REG_THREADS)
 batched_step2d_fast(const T* __restrict__ u, T* __restrict__ out, int nx, int ny, int ntx,
                     int nty, long long ntiles, const T* __restrict__ params, T wsum,
                     const T* __restrict__ g, const T* __restrict__ lg,
                     const T* __restrict__ coefs) {
-  constexpr int RUN = Fast<T>::RUN, ROWS = Fast<T>::ROWS, COLS = Fast<T>::COLS;
+  constexpr int RUN = RegTile<T>::RUN, ROWS = RegTile<T>::ROWS, COLS = RegTile<T>::COLS;
   constexpr int WC = COLS + 2 * EPS;
-  constexpr size_t BUF = fast_buffer_elems<T, EPS>();
+  constexpr size_t BUF = reg_window_elems<T, EPS>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* bufs = reinterpret_cast<T*>(smem_raw);
   const int tx = threadIdx.x, r0 = threadIdx.y * RUN;
@@ -135,7 +121,7 @@ batched_step2d_fast(const T* __restrict__ u, T* __restrict__ out, int nx, int ny
     __syncthreads();
     T* win = bufs + cur * BUF;
     if constexpr (!std::is_same<T, OpT>::value) {
-      for (int idx = threadIdx.y * 32 + tx; idx < static_cast<int>(BUF); idx += FAST_THREADS)
+      for (int idx = threadIdx.y * 32 + tx; idx < static_cast<int>(BUF); idx += REG_THREADS)
         win[idx] = Operand<T, OpT>::round(win[idx]);
       __syncthreads();
     }
@@ -173,7 +159,7 @@ template <typename T, typename OpT, int EPS>
 int launch_fast(const T* u, T* out, const T* g, const T* lg, const T* coefs, const T* params,
                 int batch, int nx, int ny, double wsum, cudaStream_t stream) {
   auto kernel = batched_step2d_fast<T, OpT, EPS>;
-  const size_t smem = 2 * fast_buffer_elems<T, EPS>() * sizeof(T);
+  const size_t smem = 2 * reg_window_elems<T, EPS>() * sizeof(T);
   if (smem > static_cast<size_t>(smem_limit())) return -1;
   const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
@@ -182,32 +168,19 @@ int launch_fast(const T* u, T* out, const T* g, const T* lg, const T* coefs, con
   if (per_sm < 0) {
     int n = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kernel, FAST_THREADS, smem);
+        &n, kernel, REG_THREADS, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     per_sm = n > 0 ? n : 1;
   }
-  const int ntx = (nx + Fast<T>::ROWS - 1) / Fast<T>::ROWS;
-  const int nty = (ny + Fast<T>::COLS - 1) / Fast<T>::COLS;
+  const int ntx = (nx + RegTile<T>::ROWS - 1) / RegTile<T>::ROWS;
+  const int nty = (ny + RegTile<T>::COLS - 1) / RegTile<T>::COLS;
   const long long ntiles = static_cast<long long>(batch) * ntx * nty;
   static const int sms = device_attr(cudaDevAttrMultiProcessorCount);
   const long long grid = ntiles < static_cast<long long>(per_sm) * sms
                              ? ntiles : static_cast<long long>(per_sm) * sms;
-  kernel<<<static_cast<unsigned>(grid), dim3(32, FAST_TY), smem, stream>>>(
+  kernel<<<static_cast<unsigned>(grid), dim3(32, REG_TY), smem, stream>>>(
       u, out, nx, ny, ntx, nty, ntiles, params, static_cast<T>(wsum), g, lg, coefs);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Instantiate launch_fast for eps 0..FAST_MAX_EPS by a compile-time switch.
-template <typename T, typename OpT, int EPS = 0>
-int dispatch_fast(int eps, const T* u, T* out, const T* g, const T* lg, const T* coefs,
-                  const T* params, int batch, int nx, int ny, double wsum,
-                  cudaStream_t stream) {
-  if (eps == EPS)
-    return launch_fast<T, OpT, EPS>(u, out, g, lg, coefs, params, batch, nx, ny, wsum, stream);
-  if constexpr (EPS < FAST_MAX_EPS)
-    return dispatch_fast<T, OpT, EPS + 1>(eps, u, out, g, lg, coefs, params, batch, nx, ny,
-                                          wsum, stream);
-  return -1;
 }
 
 // The shared tile body (stencil_tile.cuh), for eps above FAST_MAX_EPS.
@@ -259,10 +232,12 @@ int launch(const void* u, void* out, const void* g, const void* lg, const void* 
   if (batch == 0 || nx <= 0 || ny <= 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
   if (eps <= FAST_MAX_EPS)
-    return dispatch_fast<T, OpT>(eps, static_cast<const T*>(u), static_cast<T*>(out),
-                                 static_cast<const T*>(g), static_cast<const T*>(lg),
-                                 static_cast<const T*>(coefs), static_cast<const T*>(params),
-                                 batch, nx, ny, wsum, st);
+    return with_eps<FAST_MAX_EPS>(eps, [&](auto e) {
+      return launch_fast<T, OpT, decltype(e)::value>(
+          static_cast<const T*>(u), static_cast<T*>(out), static_cast<const T*>(g),
+          static_cast<const T*>(lg), static_cast<const T*>(coefs),
+          static_cast<const T*>(params), batch, nx, ny, wsum, st);
+    });
   return with_mw(eps, [&](auto mw) {
     auto kernel = batched_step2d_tile<T, OpT, decltype(mw)::value>;
     const int e = allow_smem(kernel, smem);

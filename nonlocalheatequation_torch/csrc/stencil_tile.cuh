@@ -4,9 +4,12 @@
 //
 // Counterpart of _strip_neighbor_sum (nonlocalheatequation_tpu/ops/
 // pallas_kernel.py:370), which the TPU's per-step, carried, superstep and
-// resident kernels share.  Here nsum2d.cu (nsum2d, step2d), carried2d.cu,
-// superstep2d.cu and resident2d.cu include it, so a multi-step kernel is
-// bit-identical to the same number of step2d launches by construction:
+// resident kernels share.  Every 2D kernel of the port includes it (and
+// the 3D header the epilogue), so a multi-step kernel is bit-identical to
+// the same number of step2d launches by construction.  Below the tile body
+// it holds the register design (register_sums) and the superstep levels
+// that superstep2d.cu and batched_superstep2d.cu share, which add the same
+// terms in the same order:
 //
 // * the sum.  One 32 x 32 output tile reads a (32+2eps) x (32+2eps) window.
 //   For every window row r, W_h(r)[y] = sum_{|j|<=h} win[r][y+j] grows
@@ -243,12 +246,44 @@ int with_mw(int eps, F f) {
   return f(std::integral_constant<int, wrows_for(MAX_EPS)>{});
 }
 
-// -- the register design (batched_step2d.cu, superstep2d.cu, nsum3d.cu) ------
+// Instantiate f for eps itself, 0 <= eps <= MAX: calls
+// f(std::integral_constant<int, eps>{}) and returns its status, or -1 for an
+// eps outside that range.
+template <int MAX, int E = 0, typename F>
+int with_eps(int eps, F f) {
+  if (eps == E) return f(std::integral_constant<int, E>{});
+  if constexpr (E < MAX) return with_eps<MAX, E + 1>(eps, f);
+  return -1;
+}
+
+// -- the register design (batched_step2d.cu, superstep2d.cu,
+// batched_superstep2d.cu, fused_nsum2d.cu, nsum3d.cu) ---------------------------
 //
 // eps is a template parameter, so every offset below is a constant and every
 // register index is fixed at compile time.  Windows are staged by cp.async:
 // a copy whose source size is 0 writes a zero and reads nothing, so cells
 // outside the domain (the boundary condition) cost no branch around the copy.
+
+// The one-step tile of batched_step2d.cu and fused_nsum2d.cu: a block of 32
+// x REG_TY threads owns ROWS x COLS outputs, each thread one column of RUN
+// rows (RUN = 32 in float32, 16 in float64, which keeps RUN + 2eps window
+// sums and RUN outputs in registers up to eps 16; superstep_levels' items
+// are RUN rows too).
+constexpr int REG_TY = 4;
+constexpr int REG_THREADS = 32 * REG_TY;
+
+template <typename T>
+struct RegTile {
+  static constexpr int RUN = sizeof(T) == 4 ? 32 : 16;  // output rows a thread
+  static constexpr int ROWS = RUN * REG_TY;              // output rows a tile
+  static constexpr int COLS = 32;                        // output columns a tile
+};
+
+// Cells of one tile's (ROWS + 2eps) x (COLS + 2eps) window.
+template <typename T, int EPS>
+__host__ __device__ constexpr size_t reg_window_elems() {
+  return static_cast<size_t>(RegTile<T>::ROWS + 2 * EPS) * (RegTile<T>::COLS + 2 * EPS);
+}
 
 // trunc(sqrt(v)) of a small non-negative integer: the same value as
 // make_plan's double-precision sqrt for every eps <= MAX_EPS
@@ -325,6 +360,196 @@ __device__ __forceinline__ void register_sums(const T* col, int ld, T (&acc)[RUN
       }
     }
   }
+}
+
+// -- K steps by temporal blocking in the register design (superstep2d.cu,
+// batched_superstep2d.cu) -------------------------------------------------------
+//
+// A block owns an OT x OT output tile of one (nx, ny) plane and stages the
+// window widened by K*eps per side, S = OT + 2K*eps, in shared memory; level
+// j computes the band of side OT + 2(K-j)*eps from level j-1's band, masked
+// to the plane (0 outside, the boundary condition re-applied every level),
+// so level j is what j step2d launches give.  Only level K, the output
+// tile, is written to device memory.  superstep2d.cu describes the design.
+
+constexpr int SUPERSTEP_MAX_K = 4;
+constexpr int SUPERSTEP_FAST_MAX_EPS = 8;  // the register design's largest eps
+
+// Shared memory of a launch: the register design's two S x S state buffers
+// (fast), or the tile body's two (three in the bf16 tier) and its sum buffer.
+template <typename T>
+size_t superstep_smem(int ot, int eps, int ksteps, bool bf16, bool fast) {
+  const size_t s = ot + 2 * ksteps * eps;
+  if (fast) return 2 * s * s * sizeof(T);
+  return ((bf16 ? 3 : 2) * s * s + wbuf_elems(eps)) * sizeof(T);
+}
+
+// The output tile side of a launch (64, or 32 where two 64-tiles do not fit
+// one SM), or 0 when not even a 32-point tile fits a block's shared memory.
+template <typename T>
+int superstep_ot(int eps, int ksteps, bool bf16, bool fast) {
+  const size_t limit = static_cast<size_t>(smem_limit());
+  if (superstep_smem<T>(64, eps, ksteps, bf16, fast) <= limit / 2) return 64;
+  if (superstep_smem<T>(32, eps, ksteps, bf16, fast) <= limit) return 32;
+  return 0;
+}
+
+// The K levels of block (blockIdx.x, blockIdx.y)'s tile of the plane u into
+// out, in the register design: every thread of the 32 x WARPS block calls
+// it.  The widened window is staged by cp.async; each level's band is cut
+// into items of 32 columns by RUN rows dealt over the warps, a thread
+// summing one column of an item with register_sums (the bf16 tier rounds
+// every cell it reads for the sums and the operator's centre, the carry
+// reads the unrounded state); one barrier separates the levels.
+template <typename T, typename OpT, int EPS, int WARPS>
+__device__ __forceinline__ void superstep_levels(const T* __restrict__ u, T* __restrict__ out,
+                                                 int nx, int ny, int K, int ot, T scale,
+                                                 T wsum, T dt) {
+  constexpr int RUN = RegTile<T>::RUN;  // an item's rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = ot + 2 * K * EPS;
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  T* nxt = cur + S * S;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int x0 = blockIdx.y * ot, y0 = blockIdx.x * ot;  // the output tile
+  const int bx0 = x0 - K * EPS, by0 = y0 - K * EPS;      // buffer cell (0, 0)
+
+  for (int idx = warp * 32 + lane; idx < S * S; idx += 32 * WARPS) {
+    const int a = idx / S, c = idx - a * S;
+    const int x = bx0 + a, y = by0 + c;
+    const bool in = x >= 0 && x < nx && y >= 0 && y < ny;
+    cp_async_value(cur + idx, in ? u + static_cast<size_t>(x) * ny + y : u, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll 1
+  for (int j = 1; j <= K; ++j) {
+    const int band = ot + 2 * (K - j) * EPS;  // level j's band: buffer [j*EPS, j*EPS + band)
+    const int lo = (j - 1) * EPS;             // its window: level j-1's band
+    const int nstrip = (band + 31) / 32, nrun = (band + RUN - 1) / RUN;
+#pragma unroll 1
+    for (int item = warp; item < nstrip * nrun; item += WARPS) {
+      const int sx = item / nstrip, sy = item - sx * nstrip;
+      // the last item of a row (column) ends at the band's edge; the rows
+      // (columns) it shares with the item before it are written by that one
+      const int ox = min(sx * RUN, band - RUN), oy = min(sy * 32, band - 32);
+      const T* col = cur + (lo + ox) * S + lo + oy + lane + EPS;
+      T acc[RUN];
+      register_sums<T, OpT, EPS, RUN>(col, S, acc);
+      const int by = j * EPS + oy + lane, y = by0 + by;
+      const bool own_col = oy + lane >= sy * 32;
+#pragma unroll
+      for (int r = 0; r < RUN; ++r) {
+        const int bx = j * EPS + ox + r, x = bx0 + bx;
+        if (!own_col || ox + r < sx * RUN) continue;
+        const bool inside = x >= 0 && x < nx && y >= 0 && y < ny;
+        const int o = bx * S + by;
+        const T du = operator_du(acc[r], Operand<T, OpT>::round(cur[o]), scale, wsum);
+        const T v = inside ? euler(cur[o], dt, du) : T(0);
+        if (j < K)
+          nxt[o] = v;
+        else if (inside)
+          out[static_cast<size_t>(x) * ny + y] = v;
+      }
+    }
+    __syncthreads();  // level j is written before level j+1 reads it
+    T* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+}
+
+// The K levels of block (blockIdx.x, blockIdx.y)'s tile in the shared tile
+// body, for eps above SUPERSTEP_FAST_MAX_EPS: every thread of the 32 x
+// THREADS_Y block calls it.  Each level's band is summed as 32 x 32
+// sub-tiles one after another (window_sums, two barriers a height); the
+// bf16 tier first rounds the band a level reads into a third buffer.
+template <typename T, typename OpT, int MW, int K>
+__device__ __forceinline__ void superstep_tile_levels(const T* __restrict__ u,
+                                                      T* __restrict__ out, int nx, int ny,
+                                                      int eps, int ot, const Plan& plan,
+                                                      T scale, T wsum, T dt) {
+  constexpr bool BF16 = !std::is_same<T, OpT>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = ot + 2 * K * eps;
+  T* cur = reinterpret_cast<T*>(smem_raw);
+  T* nxt = cur + S * S;
+  T* opnd = nxt + S * S;  // bf16 tier only
+  T* wbuf = opnd + (BF16 ? S * S : 0);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.y * ot, y0 = blockIdx.x * ot;  // the output tile
+  const int bx0 = x0 - K * eps, by0 = y0 - K * eps;      // buffer cell (0, 0)
+
+  load_window<T, T>(cur, S, S, S, u, nx, ny, bx0, by0);
+  __syncthreads();
+
+#pragma unroll 1
+  for (int j = 1; j <= K; ++j) {
+    const int band = ot + 2 * (K - j) * eps;  // level j's band: buffer [j*eps, j*eps + band)
+    const int lo = (j - 1) * eps;             // its window: level j-1's band
+    const T* op = cur;
+    if constexpr (BF16) {
+      const int w = band + 2 * eps;
+      const int tid = ty * TILE_Y + tx;
+      for (int idx = tid; idx < w * w; idx += THREADS) {
+        const int a = idx / w, c = idx - a * w;
+        const int o = (lo + a) * S + lo + c;
+        opnd[o] = Operand<T, OpT>::round(cur[o]);
+      }
+      __syncthreads();
+      op = opnd;
+    }
+    const int nsub = (band + TILE_X - 1) / TILE_X;
+    for (int sx = 0; sx < nsub; ++sx) {
+      for (int sy = 0; sy < nsub; ++sy) {
+        const int ox = min(sx * TILE_X, band - TILE_X), oy = min(sy * TILE_Y, band - TILE_Y);
+        T acc[ROWS_PER_THREAD];
+        window_sums<T, MW>(op + (lo + ox) * S + lo + oy, S, eps, plan, wbuf, acc);
+#pragma unroll
+        for (int k = 0; k < ROWS_PER_THREAD; ++k) {
+          const int bx = j * eps + ox + ty + k * THREADS_Y, by = j * eps + oy + tx;
+          const int x = bx0 + bx, y = by0 + by;
+          const bool inside = x >= 0 && x < nx && y >= 0 && y < ny;
+          const int o = bx * S + by;
+          const T du = operator_du(acc[k], op[o], scale, wsum);
+          const T v = inside ? euler(cur[o], dt, du) : T(0);
+          if (j < K)
+            nxt[o] = v;
+          else if (inside)
+            out[static_cast<size_t>(x) * ny + y] = v;
+        }
+      }
+    }
+    __syncthreads();  // level j is written before level j+1 reads it
+    T* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+}
+
+// Launch a register-design superstep kernel (four and six warps, the same
+// template) on an OT-tile grid: four warps a block, or six where the shared
+// memory admits just two blocks an SM (K=3 at eps=8 in float32), where four
+// leave the SM too few warps to hide the shared-memory reads (six ran faster
+// there on an H100, and slower with one block or three an SM).
+template <typename Four, typename Six, typename... Args>
+int superstep_launch(Four four, Six six, dim3 grid, size_t smem, cudaStream_t stream,
+                     Args... args) {
+  int e = allow_smem(four, smem);
+  if (e != 0) return e;
+  int per_sm = 0;
+  e = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, four, 128, smem));
+  if (e != 0) return e;
+  if (per_sm == 2) {
+    e = allow_smem(six, smem);
+    if (e != 0) return e;
+    six<<<grid, dim3(32, 6), smem, stream>>>(args...);
+  } else {
+    four<<<grid, dim3(32, 4), smem, stream>>>(args...);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace nlheat

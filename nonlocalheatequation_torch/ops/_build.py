@@ -93,48 +93,56 @@ def library_path(source: str) -> Path:
 
 
 def _start(source: str):
-    """Start nvcc for ``source`` unless its library exists; returns
-    ``(target, tmp, process)`` or ``None``."""
+    """Start nvcc for ``source`` unless its library exists, its output to a
+    file beside the library; returns ``(target, tmp, process)`` or
+    ``None``."""
     target = library_path(source)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    with open(tmp.with_suffix(".out"), "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True)
     return target, tmp, proc
 
 
 def build(sources=SOURCES) -> dict:
     """Compile every source whose library is missing, one nvcc per source,
-    all started together.  Returns ``{source: seconds}`` (0.0 when the
-    library was already built).  The compiler's report (``-Xptxas -v``:
-    registers, shared memory, spills) is kept beside each library as
-    ``.log``.  Raises RuntimeError with the compiler output on failure."""
+    all started together.  Returns ``{source: seconds}``, the wall from the
+    start to that source's compiler exiting (0.0 when the library was
+    already built).  The compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside each library as ``.log``.
+    Raises RuntimeError with the compiler output on failure."""
     t0 = time.perf_counter()
     jobs = {s: _start(s) for s in sources}
-    out = {}
+    out = {s: 0.0 for s, job in jobs.items() if job is None}
+    pending = {s: job for s, job in jobs.items() if job is not None}
     try:
-        for source, job in jobs.items():
-            if job is None:
-                out[source] = 0.0
-                continue
-            target, tmp, proc = job
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n{log}")
-            target.with_suffix(".log").write_text(log)
-            os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-            out[source] = time.perf_counter() - t0
-    finally:  # a failed build leaves no compiler running
-        for job in jobs.values():
-            if job is not None and job[2].poll() is None:
-                job[2].kill()
-                job[2].wait()
-                job[1].unlink(missing_ok=True)
-    return out
+        while pending:
+            for source, (target, tmp, proc) in list(pending.items()):
+                if proc.poll() is None:
+                    continue
+                del pending[source]
+                out[source] = time.perf_counter() - t0
+                report = tmp.with_suffix(".out")
+                log = report.read_text()
+                report.unlink()
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n{log}")
+                target.with_suffix(".log").write_text(log)
+                os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+            if pending:
+                time.sleep(0.05)
+    finally:  # a failed build leaves no compiler running and no partial file
+        for target, tmp, proc in pending.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+            tmp.with_suffix(".out").unlink(missing_ok=True)
+    return {s: out[s] for s in sources}
 
 
 def load(source: str) -> ctypes.CDLL:

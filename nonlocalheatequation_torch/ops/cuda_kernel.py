@@ -92,6 +92,10 @@ _ENTRIES = {
     "nlheat_batched_superstep2d": ("batched_superstep2d.cu", [_I, _I, _P, _P, _P, _I, _I, _I,
                                                               _I, _I, _D, _P]),
     "nlheat_batched_superstep2d_fits": ("batched_superstep2d.cu", [_I, _I, _I, _I]),
+    # the tile body at every eps: for timing the redesigned kernel beside its
+    # earlier design (chip_smoke.py); no wrapper calls it
+    "nlheat_batched_superstep2d_tile": ("batched_superstep2d.cu", [_I, _I, _P, _P, _P, _I, _I,
+                                                                   _I, _I, _I, _D, _P]),
     "nlheat_windowed_matvec": ("windowed_matvec.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                                       _I, _P]),
     "nlheat_gather_L": ("gather_L.cu", [_I, _I, _P, _P, _P, _P, _P, _I, _P]),
@@ -100,6 +104,8 @@ _ENTRIES = {
     "nlheat_fused_nsum2d": ("fused_nsum2d.cu", [_I, _I, _P, _I, _I, _P, _I, _I, _I, _P]),
     "nlheat_fused_nsum3d": ("fused_nsum3d.cu", [_I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                                                 _P]),
+    "nlheat_fused_nsum2d_tile": ("fused_nsum2d.cu", [_I, _I, _P, _I, _I, _P, _I, _I, _I,
+                                                     _P]),
     "nlheat_enable_peer": ("fused_nsum2d.cu", [_I, _I]),
 }
 _entries: dict = {}

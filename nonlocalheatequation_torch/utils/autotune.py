@@ -56,6 +56,12 @@ from nonlocalheatequation_torch.ops import _build, cuda_kernel, cuda_kernel3d
 # in a real run, short enough to keep tuning cheap
 PROBE_STEPS = 32
 PROBE_ITERS = 2
+# the batched tuner probes every candidate in rounds, in turns, and keeps
+# each one's best; a candidate beats the batched per-step program only by
+# BATCH_MARGIN of that program's time.  One round and no margin let the
+# host's noise on a 32-step probe pick a program slower on the real run.
+BATCH_PROBE_ROUNDS = 2
+BATCH_MARGIN = 0.2
 
 _memory_cache: dict = {}
 
@@ -201,10 +207,13 @@ def tuning_key(op, shape, dtype, device) -> str:
                     + ([f"prec-{op.precision}"] if op.precision != "f32" else []))
 
 
-def _winner(key: str, cands: dict, measure) -> str:
+def _winner(key: str, cands: dict, measure, default: str | None = None,
+            margin: float = 0.0) -> str:
     """The fastest of ``cands`` by the record under ``key``: this process's,
     else the file cache's, probing (``measure(name)``, seconds per step)
-    only the candidates no record holds and storing the merged record."""
+    only the candidates no record holds and storing the merged record.
+    ``default`` keeps the win unless another candidate is faster by
+    ``margin`` of its time."""
 
     def covers(e) -> bool:
         # an entry is reusable only if it measured every candidate that fits
@@ -226,7 +235,10 @@ def _winner(key: str, cands: dict, measure) -> str:
                 if name not in recorded:
                     recorded[name] = measure(name) * 1e3
             valid = {n: t for n, t in recorded.items() if isinstance(t, (int, float))}
-            entry = {"winner": min(valid, key=valid.get), "ms_per_step": recorded}
+            best = min(valid, key=valid.get)
+            if default in valid and valid[best] > (1.0 - margin) * valid[default]:
+                best = default
+            entry = {"winner": best, "ms_per_step": recorded}
             file_cache[key] = entry
             _store_file_cache(file_cache)
         _memory_cache[key] = entry
@@ -295,6 +307,9 @@ def pick_batched_multi_step_fn(ops, nsteps: int, shape, dtype, device, ksteps: i
     function (the batched kernels bit-identically to the solo kernels, vmap
     to 1e-12), so the swap cannot change results beyond that.  Records share
     the file of :func:`pick_multi_step_fn`, under ``batch{B}`` keys.
+    Every candidate is probed in BATCH_PROBE_ROUNDS rounds, in turns, and
+    a candidate wins over the batched per-step program only when its best
+    probe is BATCH_MARGIN faster than that program's.
 
     As in :func:`pick_multi_step_fn`, a candidate that fails to build or
     launch raises.  The JAX tuner instead records the error, lets the
@@ -304,6 +319,16 @@ def pick_batched_multi_step_fn(ops, nsteps: int, shape, dtype, device, ksteps: i
     shape = tuple(shape)
     cands = dict(batched_candidates(ops, shape, nsteps, dtype, device, ksteps))
     key = f"{tuning_key(ops[0], shape, dtype, device)}/batch{len(ops)}"
-    winner = _winner(key, cands,
-                     lambda name: _measure_batched(cands[name], ops, shape, dtype, device))
+    best: dict = {}
+
+    def measure(name):
+        # the first call probes every candidate, BATCH_PROBE_ROUNDS rounds
+        if not best:
+            for _ in range(BATCH_PROBE_ROUNDS):
+                for n, maker in cands.items():
+                    t = _measure_batched(maker, ops, shape, dtype, device)
+                    best[n] = min(best.get(n, t), t)
+        return best[name]
+
+    winner = _winner(key, cands, measure, default="batched-per-step", margin=BATCH_MARGIN)
     return cands[winner](ops, nsteps, dtype), winner

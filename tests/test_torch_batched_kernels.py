@@ -36,11 +36,11 @@ PHYSICS = {"uniform": MIXED[:1] * 3, "mixed": MIXED[:3]}
 DTYPES = [(np.float64, torch.float64, 1e-12), (np.float32, torch.float32, 1e-5)]
 
 
-def _ops(physics, precision="f32"):
+def _ops(physics, precision="f32", eps=EPS):
     """The JAX and port operators of one bucket, one per case."""
-    return ([JaxOp2D(EPS, k, dt, dh, method="pallas", precision=precision)
+    return ([JaxOp2D(eps, k, dt, dh, method="pallas", precision=precision)
              for k, dt, dh in physics],
-            [NonlocalOp2D(EPS, k, dt, dh, method="cuda", precision=precision)
+            [NonlocalOp2D(eps, k, dt, dh, method="cuda", precision=precision)
              for k, dt, dh in physics])
 
 
@@ -92,11 +92,17 @@ def test_plain_batched_carried_matches_jax(np_dtype, dtype, tol, physics):
     assert _rel(got.numpy(), ref) <= tol
 
 
-@pytest.mark.parametrize("ksteps,nsteps", [(2, 5), (3, 5), (4, 4)])
+# eps 8 and 9: the two sides of csrc/batched_superstep2d.cu's register
+# design (eps <= 8) and its tile body
+@pytest.mark.parametrize("ksteps,nsteps,eps", [
+    pytest.param(2, 5, EPS, id="2-5"), pytest.param(3, 5, EPS, id="3-5"),
+    pytest.param(4, 4, EPS, id="4-4"), pytest.param(3, 3, 8, id="3-3-eps8"),
+    pytest.param(3, 3, 9, id="3-3-eps9")])
 @pytest.mark.parametrize("physics", ["uniform", "mixed"])
 @pytest.mark.parametrize("np_dtype,dtype,tol", DTYPES, ids=["f64", "f32"])
-def test_plain_batched_superstep_matches_jax(np_dtype, dtype, tol, physics, ksteps, nsteps):
-    jops, tops = _ops(PHYSICS[physics])
+def test_plain_batched_superstep_matches_jax(np_dtype, dtype, tol, physics, ksteps, nsteps,
+                                             eps):
+    jops, tops = _ops(PHYSICS[physics], eps=eps)
     U = _stack(len(jops), np_dtype, 3)
     ref = jpk.make_batched_superstep_multi_step_fn(jops, nsteps, ksteps=ksteps,
                                                    dtype=jnp.dtype(np_dtype))(

@@ -14,8 +14,9 @@ imports JAX, so on such a machine run it without the conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
 
 The batched kernels (ops/cuda_batched.py) are held per lane, bitwise, to the
-solo kernels (``batched_step2d`` also bitwise to its plain version, in its
-register design and its tile body), and the ensemble engine runs a
+solo kernels (``batched_step2d`` and ``batched_superstep2d`` also bitwise to
+their plain versions, in their register designs and their tile bodies), and
+the ensemble engine runs a
 mixed-physics bucket in one ``batched_step2d`` launch per step.  The
 unstructured kernels (ops/cuda_unstructured.py) are held to their plain
 versions (the packed windowed matvec also on empty rows, ragged n,
@@ -23,8 +24,9 @@ duplicate edges and an unaligned state), a windowed solve to the
 manufactured contract, and an 8-lane mesh bucket's lanes bitwise to their
 solo gather loops.  The halo kernels (ops/cuda_halo.py:
 the in-kernel exchange and the split kernels) are held to their plain
-versions and bitwise to the one-pass nsum2d/nsum3d on the exchanged frame,
-and the distributed solves' fused path (both transports) bitwise to their
+versions and bitwise to the one-pass nsum2d/nsum3d on the exchanged frame
+(fused_nsum2d in its register design and its tile body), and the
+distributed solves' fused path (both transports) bitwise to their
 collective path on meshes of virtual devices of the one card.
 
 The CPU tests hold the plain versions against the JAX package
@@ -640,6 +642,67 @@ def test_in_kernel_exchange_matches_plain_and_the_one_pass_sum_on_card(card, dty
         card, 4)), dtype)
     with pytest.raises(ValueError, match="beyond what the kernel takes"):
         th.fused_nsum2d(big, (0, 0), 70)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_in_kernel_exchange_both_designs_bitwise_the_one_pass_sum_on_card(card, dtype):
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+    from nonlocalheatequation_torch.parallel import halo as thalo
+    from nonlocalheatequation_torch.parallel import mesh as tmesh
+
+    # csrc/fused_nsum2d.cu's register design (eps <= 10: interior windows
+    # staged 16 bytes a copy at (300, 200) eps 8 and 10 in float64, rows
+    # across two block edges at (40, 12), multi-hop (1, 3) x (5, 7) and
+    # degenerate (8, 8) blocks, eps 0) and its tile body (eps 11, 12):
+    # every block bitwise nsum2d on its exchanged frame, one launch each
+    for mesh_shape, block, eps in [((2, 2), (300, 200), 8), ((2, 2), (300, 200), 10),
+                                   ((2, 2), (40, 12), 8), ((2, 2), (24, 24), 10),
+                                   ((1, 3), (5, 7), 10), ((4, 2), (8, 8), 9),
+                                   ((3, 3), (2, 2), 5), ((2, 3), (150, 70), 0),
+                                   ((2, 2), (50, 30), 11), ((1, 3), (5, 7), 12)]:
+        mesh = tmesh.create_mesh(("x", "y"), mesh_shape,
+                                 tmesh.device_list(card, int(np.prod(mesh_shape))))
+        u = np.random.default_rng(eps).standard_normal(
+            [m * b for m, b in zip(mesh_shape, block)])
+        blocks = tmesh.put_global(u, mesh, dtype)
+        frames = thalo.halo_pad_nd(blocks, eps)
+        for prec in ("f32", "bf16"):
+            for pos in np.ndindex(*mesh_shape):
+                ck.reset_launch_counts()
+                got = th.fused_nsum2d(blocks, pos, eps, prec)
+                assert ck.launch_counts()["fused_nsum2d"] == 1
+                assert torch.equal(got, ck.nsum2d(frames[pos], eps, prec)), (
+                    mesh_shape, block, eps, prec, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_batched_superstep2d_lanes_bitwise_superstep2d_in_both_designs_on_card(card, dtype,
+                                                                               prec):
+    # csrc/batched_superstep2d.cu's register design (eps <= 8) and its tile
+    # body (9, 16): mixed physics, K = 1-4, ragged planes; every lane bitwise
+    # one superstep2d launch of the same K, the stack bitwise the plain version
+    rng = np.random.default_rng(31)
+    for eps in (0, 1, 3, 5, 8, 9, 16):
+        wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(eps)))
+        scales = [2.0 + eps + b for b in range(3)]
+        dts = [0.8 / (sc * wsum) * (1 + 0.1 * b) for b, sc in enumerate(scales)]
+        params = cb.case_params(scales, dts, dtype, card)
+        for nx, ny in ((37, 50), (70, 90), (130, 45)):
+            U = torch.tensor(rng.standard_normal((3, nx, ny)), dtype=dtype, device=card)
+            for k in (1, 2, 3, 4):
+                if not cb.fits_batched_superstep(eps, k, dtype, prec, card):
+                    continue
+                got = cb.batched_superstep2d(U, eps, params, wsum, k, prec)
+                form = (eps, nx, ny, k)
+                assert torch.equal(got, cb.batched_superstep2d_plain(U, eps, params, wsum, k,
+                                                                     prec)), form
+                for b in range(3):
+                    assert torch.equal(got[b], ck.superstep2d(U[b].contiguous(), eps,
+                                                              scales[b], wsum, dts[b], k,
+                                                              prec)), (form, b)
 
 
 @pytest.mark.cuda

@@ -333,6 +333,37 @@ def test_batch_tuner_raises_on_a_failing_candidate(monkeypatch):
     assert autotune.records() == {}
 
 
+@pytest.mark.parametrize("lead,winner", [
+    (0.9, "batched-per-step"),       # 10% faster: inside the margin, per-step keeps it
+    (0.7, "batched-superstep3"),     # 30% faster: beyond it
+], ids=["inside-margin", "beyond-margin"])
+def test_batch_tuner_probes_in_rounds_and_keeps_per_step_by_a_margin(monkeypatch, lead, winner):
+    monkeypatch.setattr(autotune, "_memory_cache", {})
+    monkeypatch.setenv("NLHEAT_AUTOTUNE_CACHE", "")
+    names = ["batched-per-step", "batched-carried", "batched-superstep3", "vmap"]
+    cands = [(n, lambda _o, _n, _d, n=n: n) for n in names]
+    maker_name = {id(m): n for n, m in cands}
+    # seconds a step: the first round's per-step probe is a spike, and the
+    # rounds keep each candidate's best
+    first = {"batched-per-step": 5.0, "batched-superstep3": lead}
+    later = {"batched-per-step": 1.0, "batched-superstep3": lead}
+    order = []
+
+    def measure(maker, *_a):
+        order.append(maker_name[id(maker)])
+        return (first if len(order) <= len(names) else later).get(order[-1], 2.0)
+
+    monkeypatch.setattr(autotune, "batched_candidates", lambda *_a: cands)
+    monkeypatch.setattr(autotune, "_measure_batched", measure)
+    ops = [NonlocalOp2D(EPS, 1.0, 1e-4, 0.02, method="cuda")] * 2
+    fn, got = autotune.pick_batched_multi_step_fn(ops, 6, (NX, NY), torch.float64, CPU)
+    assert order == names * autotune.BATCH_PROBE_ROUNDS  # in turns, round after round
+    assert (got, fn) == (winner, winner)
+    (entry,) = autotune.records().values()
+    assert entry["ms_per_step"] == {"batched-per-step": 1e3, "batched-carried": 2e3,
+                                    "batched-superstep3": lead * 1e3, "vmap": 2e3}
+
+
 def _batch(rows) -> str:
     return f"{len(rows)}\n" + "".join(" ".join(map(str, r)) + "\n" for r in rows)
 

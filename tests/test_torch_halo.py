@@ -253,9 +253,12 @@ def test_ensemble_comm_joins_the_program_key():
 
 # -- the in-kernel exchange (fused_nsum2d/3d) ---------------------------------------------
 
+# the last two: a block narrower than a window row of csrc/fused_nsum2d.cu's
+# register design (a row crosses two block edges in y), and a block at the
+# design's largest eps, 10
 FUSED_MESHES = [((2, 2), (8, 8), 2), ((2, 2), (8, 8), 4), ((4, 2), (8, 8), 9),
                 ((2, 4), (6, 16), 3), ((4, 2), (2, 2), 5), ((2, 2, 2), (4, 4, 4), 1),
-                ((2, 2, 2), (4, 4, 4), 5)]
+                ((2, 2, 2), (4, 4, 4), 5), ((2, 2), (40, 12), 8), ((2, 2), (24, 24), 10)]
 
 
 @pytest.mark.parametrize("mesh_shape,block,eps", FUSED_MESHES)
