@@ -23,17 +23,19 @@ line is printed; the phase walls are printed at the end):
    to the same number of step2d launches (superstep2d, the register design
    up to eps 8, also BITWISE to its plain version).  3D: nsum3d and step3d
    (production and test form; the register design up to eps 6, the tile
-   body at 8) over eps in {0, 1, 2, 3, 4, 5, 6, 8} and ragged shapes
-   (1x1x1, non tile multiples, n < 2*eps, nx != ny != nz), BITWISE to their
-   plain versions (sphere_sum's order); carried3d and resident3d (no bf16
-   tier) held to their plain versions and BITWISE to step3d launches over
-   1, 2, 3 and 5 steps.  resident2d at 4096^2 and
+   body at 7 and 8) over eps 0-8 and ragged shapes (1x1x1, non tile
+   multiples, n < 2*eps, nx != ny != nz, a frame z that is odd), BITWISE to
+   their plain versions (sphere_sum's order); carried3d (the same two
+   designs) BITWISE to its plain version and to step3d launches over 1, 2
+   and 3 steps, resident3d (no bf16 tier either) held to its plain version
+   and BITWISE to step3d launches over 1, 2 and 5 steps.  resident2d at 4096^2 and
    resident3d at 256^3, eps=4, beyond their gates, must raise ValueError.
    The batched kernels (batched_step2d production and test form,
    batched_carried2d, batched_superstep2d at K = 1-4), uniform and mixed
-   physics, B in {1, 2, 3, 8}, eps 0-9, 16 and 40 over ragged grids: each
-   held to its plain version (batched_step2d and batched_superstep2d
-   BITWISE) and each lane BITWISE to its solo launch (phase_batched_checks).
+   physics, B in {1, 2, 3, 8}, eps 0-9, 16, 17 and 40 over ragged grids:
+   each held BITWISE to its plain version and each lane BITWISE to its solo
+   launch (batched_carried2d's also to batched_step2d's, and its next bf16
+   shadow to the rounding of its next masters; phase_batched_checks).
 3. The main path's correctness: the batch tables (CASES_2D and CASES_1D of
    tests/cases.py, CASES_3D of tests/test_oracle_3d.py, copied here) through
    the port's CLIs on the card in float64, each must print "Tests Passed"
@@ -64,23 +66,25 @@ line is printed; the phase walls are printed at the end):
    every 2D kernel launched, and exactly the probes' and the winners'
    launches.  The tuner's records are printed.
 5. The 3D path, the same way: the kernels at 256^3, eps=4, f32 (every form
-   held to its plain version, nsum3d and step3d BITWISE, carried3d bitwise
-   to step3d launches; timed beside the plain versions, the bound and
-   F.conv3d with TF32 disabled; step3d's register design and carried3d's
-   tile body in turns, also at 128^3, eps=6),
+   held BITWISE to its plain version, carried3d also to step3d launches;
+   timed beside the plain versions, the bound and F.conv3d with TF32
+   disabled; step3d and carried3d, both the register design, in turns, also
+   at 128^3, eps=6),
    the tuner's candidates at 256^3 and at 128^3, eps=6 (where resident3d
    fits; it is held bitwise to step3d launches there and timed), then the
    counts and records reset and the 3D main path through Solver3D: the
    production solves at both shapes (each tuned) and a test-form solve at
    256^3; the 3D counts must equal the probes', the winners' and the test
-   form's launches, every 3D kernel among them.
+   form's launches, every 3D kernel among them.  Each shape's tuned
+   program is then timed beside the per-step program, in turns.
 6. The ensemble engine (phase_ensemble) at the JAX package's ensemble
    size, 8 production cases of 1024^2, eps=8, f32, 500 steps, and a
    mixed-physics 8 x 512^2 bucket: the batched kernels at 8 x 1024^2 held to
-   their plain versions (batched_step2d and batched_superstep2d bitwise)
-   and bitwise per lane to the solo kernels, timed beside their plain
-   versions and bounds, batched_superstep2d at K=2 and 3 also beside its
-   earlier form (the tile body, in turns);
+   their plain versions and per lane to the solo kernels, bitwise
+   (batched_carried2d's lanes also to batched_step2d's), timed beside their
+   plain versions and bounds, batched_carried2d in turns with
+   batched_step2d at 8 x 1024^2 and at the mixed 8 x 512^2 bucket (in a
+   loop of launches and in a CUDA graph);
    batched_step2d at B=1 timed against step2d on the same 1024^2 and 4096^2
    planes (its register design against the shared tile body, in turns); the
    engine's run timed beside the
@@ -122,9 +126,8 @@ line is printed; the phase walls are printed at the end):
    one-pass nsum2d/nsum3d on each halo-exchanged frame; then, at the main
    path's blocks (2048^2, eps=8 and 128^3, eps=4, f32), held and timed
    beside their plain versions, their bounds and F.conv2d/F.conv3d over
-   the frame, fused_nsum2d also beside its earlier form (the tile body, in a
-   CUDA graph in turns).  Counted: Solver2DDistributed at 4096^2, eps=8, on a 2x2
-   mesh of virtual devices of the card and Solver3DDistributed at 256^3,
+   the frame, the split kernels also per phase.  Counted:
+   Solver2DDistributed at 4096^2, eps=8, on a 2x2 mesh of virtual devices of the card and Solver3DDistributed at 256^3,
    eps=4, on 2x2x2, 20 production steps each with comm='fused' (the
    in-kernel exchange, the card's default), comm='fused' with
    NLHEAT_FUSED_TRANSPORT=interp (band copies, then the split kernels) and
@@ -167,6 +170,7 @@ CHILDREN: list = []    # the CLI processes this run started
 N3, EPS3 = 256, 4      # the 3D headline: 256^3, eps=4, f32 (64 MiB of state)
 N3S, EPS3S = 128, 6    # the small 3D grid, where resident3d fits the L2
 STEPS3 = 200           # steps of the 3D production solves and timed variant runs
+REPICKS = 5            # fresh 3D tuner picks a shape, after the main path
 ENS_B, ENS_N = 8, 1024  # the JAX package's ensemble8x1024: 8 cases of 1024^2 (32 MiB f32)
 ENS_MIXED_N = 512      # the mixed-physics ensemble bucket, 8 cases of 512^2
 # nx ny nz nt eps k dt dh: a copy of tests/test_oracle_3d.py's CASES_3D (that
@@ -406,17 +410,21 @@ def phase_checks_3d(torch, k3, np) -> dict:
     plain versions (which sum in the tile body's order, sphere_sum);
     carried3d and resident3d (no bf16 tier) against theirs and, bitwise,
     against the same number of step3d launches (carried3d after each of 3
-    launches, resident3d over 1, 2 and 5 steps); eps in {0, 1, 2, 3, 4, 5, 6,
-    8} (the register design up to 6, the tile body at 8) over ragged shapes
-    (1x1x1, non tile multiples, n < 2*eps, nx != ny != nz).  resident3d at 256^3, eps=4 must raise
-    ValueError, and nsum3d beyond its eps limit too."""
+    launches, each into a NaN-filled ``out``, also bitwise its plain
+    version; resident3d over 1, 2 and 5
+    steps); eps 0-8 (the register design up to 6, the tile body at 7 and 8)
+    over ragged shapes (1x1x1, non tile multiples, n < 2*eps, nx != ny !=
+    nz; nz = 9, whose frame z 9 + 2eps is odd, so carried3d stages one cell a
+    copy, and nz = 40, 16 bytes a copy at even eps in float32).  resident3d
+    at 256^3, eps=4 must raise ValueError, and nsum3d beyond its eps limit
+    too."""
     import torch.nn.functional as F
 
     from nonlocalheatequation_torch.ops.stencil import horizon_mask_3d
 
     rng = np.random.default_rng(SEED + 3)
     shapes = [(1, 1, 1), (5, 7, 9), (9, 17, 33), (3, 12, 40), (20, 11, 6)]
-    plan = [(e, s) for e in (0, 1, 2, 3, 4, 5, 6, 8) for s in shapes]
+    plan = [(e, s) for e in range(9) for s in shapes]
     worst, n = {}, dict.fromkeys(("nsum3d", "step3d", "carried3d", "resident3d"), 0)
 
     def hold(name, form, got, plain, tol, bits=None):
@@ -458,10 +466,13 @@ def phase_checks_3d(torch, k3, np) -> dict:
                 steps.append(k3.step3d(steps[-1], e, scale, wsum, dt))
                 plain.append(k3.carried3d_plain(plain[-1], e, scale, wsum, dt))
             frame = plain[0].contiguous()
-            for s in range(1, 4):
-                frame = k3.carried3d(frame, e, scale, wsum, dt)
+            for s in range(1, 4):  # out NaN-filled: the wrapper zeroes its halo
+                frame = k3.carried3d(frame, e, scale, wsum, dt,
+                                     out=torch.full_like(frame, float("nan")))
                 hold("carried3d", f"{form} launch {s}", frame, plain[s], tol,
                      F.pad(steps[s], (e,) * 6))
+                if not torch.equal(frame, plain[s]):
+                    fail(f"carried3d {form} launch {s}: not bitwise equal to its plain version")
             if k3.fits_resident_3d(nx, ny, nz, e, dtype):
                 for k in (1, 2, 5):
                     hold("resident3d", f"{form} {k} steps", k3.resident3d(u, e, scale, wsum, dt, k),
@@ -480,7 +491,8 @@ def phase_checks_3d(torch, k3, np) -> dict:
     except ValueError:
         pass
     say("3D kernel checks (max |kernel-plain| / max|plain|; nsum3d and step3d every case "
-        "bitwise equal to their plain versions, carried3d and resident3d to step3d launches): "
+        "bitwise equal to their plain versions, carried3d to its plain version and step3d "
+        "launches, resident3d to step3d launches): "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
         + "; cases " + ", ".join(f"{k} {v}" for k, v in n.items())
         + f"; resident3d refuses {N3}^3 eps={EPS3}: pass")
@@ -885,7 +897,12 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     import torch.nn.functional as F
 
     from nonlocalheatequation_torch.models.solver3d import Solver3D
-    from nonlocalheatequation_torch.ops.nonlocal_op import case_scale, full_fp32
+    from nonlocalheatequation_torch.ops.nonlocal_op import (
+        case_scale,
+        full_fp32,
+        make_multi_step_fn,
+        make_multi_step_fn_base,
+    )
     from nonlocalheatequation_torch.utils import autotune
 
     op = op_3d(N3, EPS3)
@@ -932,9 +949,12 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     for _ in range(3):
         bits.append(k3.step3d(bits[-1], EPS3, scale, wsum, dt))
     frame = F.pad(u, (EPS3,) * 6).contiguous()
-    fout = torch.empty_like(frame)
-    hold("carried3d", f"float32 f32 {N3}^3 one launch", k3.carried3d(frame, EPS3, scale, wsum, dt),
-         k3.carried3d_plain(frame, EPS3, scale, wsum, dt), tol32)
+    fout = torch.zeros_like(frame)  # carried3d writes the interior: out's halo is zero
+    hold_exact("carried3d", f"float32 f32 {N3}^3 one launch",
+               k3.carried3d(frame, EPS3, scale, wsum, dt),
+               k3.carried3d_plain(frame, EPS3, scale, wsum, dt), tol32)
+    if not bitwise[f"carried3d float32 f32 {N3}^3 one launch"]:
+        fail(f"carried3d at {N3}^3: not bitwise equal to its plain version")
     if not torch.equal(k3.make_carried_multi_step_fn_3d(op, 3)(u, 0), bits[3]):
         fail(f"carried3d at {N3}^3: 3 launches not bitwise equal to 3 step3d launches")
     del bits
@@ -942,17 +962,18 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
         "|kernel-plain| / max|plain|): "
         + "; ".join(f"{n} {c['form']} {c['rel_err']:.2e} <= {c['tol']:g}"
                     for n, cs in held.items() for c in cs)
-        + f"; nsum3d and step3d bitwise equal to their plain versions ({len(bitwise)} forms); "
-        "carried3d 3 launches bitwise equal to 3 step3d launches")
+        + f"; nsum3d, step3d and carried3d bitwise equal to their plain versions "
+        f"({len(bitwise)} forms); carried3d 3 launches bitwise equal to 3 step3d launches")
 
     nsum_ms = cuda_ms(torch, lambda: k3.nsum3d(upad, EPS3), 50)
     nsum_plain_ms = cuda_ms(torch, lambda: k3.nsum3d_plain(upad, EPS3), 3, 1)
-    # step3d (its register design) and carried3d (the tile body) in turns
+    # step3d and carried3d (one register design, on the state and on the
+    # frame) in turns; carried3d as its multi-step maker launches it, into a
+    # frame whose halo is already zero
     pair = {"step3d": lambda: k3.step3d(u, EPS3, scale, wsum, dt, out=out),
-            "carried3d": lambda: k3.carried3d(frame, EPS3, scale, wsum, dt, out=fout)}
-    turns = {n: [cuda_ms(torch, pair[n], 50) for _ in range(2)] for n in pair}
-    turns["step3d"].append(cuda_ms(torch, pair["step3d"], 50))
-    step_ms = sum(turns["step3d"]) / 3
+            "carried3d": lambda: k3._carried3d(frame, fout, EPS3, scale, wsum, dt)}
+    turns = turns_of(torch, pair, ("step3d", "carried3d", "carried3d", "step3d"), 50)
+    step_ms = sum(turns["step3d"]) / 2
     step_plain_ms = cuda_ms(torch, lambda: k3.step3d_plain(u, EPS3, scale, wsum, dt), 3, 1)
     step_test_ms = cuda_ms(torch, lambda: k3.step3d(u, EPS3, scale, wsum, dt, g=g, lg=lg, t=3,
                                                     out=out), 50)
@@ -972,7 +993,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     nsum_bound = bound((upad.numel() + npts) * isz, npts * kernel_ops_3d(EPS3, tp, 0))
     step_bound = bound(2 * npts * isz, npts * kernel_ops_3d(EPS3, tp, 5))
     step_test_bound = bound(4 * npts * isz, npts * kernel_ops_3d(EPS3, tp, 9))
-    carried_bound = bound(2 * frame.numel() * isz, npts * kernel_ops_3d(EPS3, tp, 5))
+    # the frame read once, the interior written once
+    carried_bound = bound((frame.numel() + npts) * isz, npts * kernel_ops_3d(EPS3, tp, 5))
     say("TF32 disabled for the F.conv3d yardstick (cudnn.allow_tf32=False, "
         "cuda.matmul.allow_tf32=False)")
     say(f"nsum3d {N3}^3 eps={EPS3} f32: kernel {nsum_ms:.4f} ms, plain {nsum_plain_ms:.3f} ms, "
@@ -986,8 +1008,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     say(f"carried3d {N3}^3 eps={EPS3} f32: kernel {carried_ms:.4f} ms/launch (one step), "
         f"plain {carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms "
         f"({carried_bound[1]})")
-    say(f"step3d (register design) and carried3d (tile body) {N3}^3 eps={EPS3} f32 in turns, "
-        f"ms/launch: {json.dumps(turns)}")
+    say(f"step3d and carried3d {N3}^3 eps={EPS3} f32 in turns (step3d, carried3d, carried3d, "
+        f"step3d), ms/launch: {json.dumps(turns)}")
     del frame, fout, upad
     big = time_variants(torch, op, u, STEPS3)
     say(f"3D multi-step candidates {N3}^3 eps={EPS3} f32, {STEPS3}-step runs (CUDA events), "
@@ -1020,22 +1042,36 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     res_bound = bound(2 * npts_s * isz, TEST_STEPS * npts_s * kernel_ops_3d(EPS3S, tp_s, 5))
     outs = torch.empty_like(us)
     frame_s = F.pad(us, (EPS3S,) * 6).contiguous()
-    fout_s = torch.empty_like(frame_s)
+    fout_s = torch.zeros_like(frame_s)
+    # carried3d at the shape where the tuner can pick it: one launch bitwise
+    # its plain version and one step3d launch
+    form_s = f"float32 f32 {N3S}^3 eps={EPS3S} one launch"
+    got = k3.carried3d(frame_s, EPS3S, scale_s, wsum_s, dt_s)
+    hold_exact("carried3d", form_s, got,
+               k3.carried3d_plain(frame_s, EPS3S, scale_s, wsum_s, dt_s), tol32)
+    if not bitwise[f"carried3d {form_s}"]:
+        fail(f"carried3d at {N3S}^3 eps={EPS3S}: not bitwise equal to its plain version")
+    if not torch.equal(got[EPS3S:-EPS3S, EPS3S:-EPS3S, EPS3S:-EPS3S],
+                       k3.step3d(us, EPS3S, scale_s, wsum_s, dt_s)):
+        fail(f"carried3d at {N3S}^3 eps={EPS3S}: not bitwise equal to a step3d launch")
+    del got
     pair = {"step3d": lambda: k3.step3d(us, EPS3S, scale_s, wsum_s, dt_s, out=outs),
-            "carried3d": lambda: k3.carried3d(frame_s, EPS3S, scale_s, wsum_s, dt_s, out=fout_s)}
-    turns_s = {n: [cuda_ms(torch, pair[n], 50) for _ in range(2)] for n in pair}
-    turns_s["step3d"].append(cuda_ms(torch, pair["step3d"], 50))
-    step_s_ms = sum(turns_s["step3d"]) / 3
-    del frame_s, fout_s
+            "carried3d": lambda: k3._carried3d(frame_s, fout_s, EPS3S, scale_s, wsum_s,
+                                               dt_s)}
+    turns_s = turns_of(torch, pair, ("step3d", "carried3d", "carried3d", "step3d"), 50)
+    step_s_ms = sum(turns_s["step3d"]) / 2
     step_s_bound = bound(2 * npts_s * isz, npts_s * kernel_ops_3d(EPS3S, tp_s, 5))
+    carried_s_bound = bound((frame_s.numel() + npts_s) * isz,
+                            npts_s * kernel_ops_3d(EPS3S, tp_s, 5))
+    del frame_s, fout_s
     say(f"resident3d {N3S}^3 eps={EPS3S} f32 (plane tile {tp_s}), {TEST_STEPS} steps in one "
         f"launch: kernel {res_ms:.4f} ms/launch ({res_ms / TEST_STEPS:.5f} ms/step), plain "
         f"{res_plain_ms:.1f} "
         f"ms, bound {res_bound[0]:.4f} ms ({res_bound[1]}); "
         f"step3d there {step_s_ms:.4f} ms/launch, bound {step_s_bound[0]:.4f} ms "
         f"({step_s_bound[1]}); resident3d {TEST_STEPS} steps bitwise equal to step3d launches")
-    say(f"step3d (register design) and carried3d (tile body) {N3S}^3 eps={EPS3S} f32 in "
-        f"turns, ms/launch: {json.dumps(turns_s)}")
+    say(f"step3d and carried3d {N3S}^3 eps={EPS3S} f32 in turns, ms/launch: "
+        f"{json.dumps(turns_s)}")
     say(f"3D multi-step candidates {N3S}^3 eps={EPS3S} f32, {STEPS3}-step runs (CUDA events), "
         f"ms/step: {json.dumps(small)}")
     say(f"clocks/power after the 3D timing: {nvidia_smi('clocks.sm,power.draw,power.limit')}")
@@ -1088,6 +1124,35 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
         f"{walls[N3S]:.3f} s) + {TEST_STEPS} test-form steps at {N3}^3 (error_l2/#points "
         f"{test_err:.3e}); launches {json.dumps(counts)} = the probes', the winners' and the "
         "test form's")
+    # each shape's tuned program (the winner above, from the records in
+    # memory) beside the per-step program: bitwise the same run, then in
+    # turns per-step, tuned, tuned, per-step; after the count, so not in it
+    programs_ms = {}
+    for n, x, o in ((N3, u, op), (N3S, us, op_s)):
+        progs = {"per-step": make_multi_step_fn_base(o, STEPS3, dtype=torch.float32),
+                 "tuned": make_multi_step_fn(o, STEPS3, dtype=torch.float32)}
+        if not torch.equal(progs["tuned"](x, 0), progs["per-step"](x, 0)):
+            fail(f"3D tuned program at {n}^3 ({winner[n]}): not bitwise equal to the per-step "
+                 f"program over {STEPS3} steps")
+        t = turns_of(torch, {k: (lambda f=f, x=x: f(x, 0)) for k, f in progs.items()},
+                     ("per-step", "tuned", "tuned", "per-step"), 2, 1)
+        programs_ms[f"{n}^3"] = {"winner": winner[n], "per-step": sum(t["per-step"]) / 2,
+                                 "tuned": sum(t["tuned"]) / 2, "turns": t}
+    say(f"3D programs on the card, {STEPS3} steps, ms (the per-step program against the tuned "
+        f"winner's, bitwise the same run, in turns): {json.dumps(programs_ms)}")
+    # the tuner's pick, made anew REPICKS times a shape: each pass forgets
+    # this process's records (the file cache is off) and probes again, so a
+    # pick that follows the probes' noise shows as a change of winner
+    repicks = {}
+    for _ in range(REPICKS):
+        for n, o in ((N3, op), (N3S, op_s)):
+            autotune.reset()
+            name = autotune.pick_multi_step_fn(o, STEPS3, (n, n, n), torch.float32, "cuda")[1]
+            rec = autotune.records()[autotune.tuning_key(o, (n, n, n), torch.float32, "cuda")]
+            repicks.setdefault(f"{n}^3", []).append(
+                {"winner": name, "ms_per_step": rec["ms_per_step"]})
+    say(f"3D tuner picks made anew, {REPICKS} a shape (winner, each probe's ms/step): "
+        f"{json.dumps(repicks)}")
 
     def row(name, source, line, **kw):
         cs = held[name]
@@ -1110,11 +1175,13 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
          "shape": f"{N3}^3", "ms_test_form": step_test_ms,
          "plain_ms_test_form": step_test_plain_ms, "bound_ms_test_form": step_test_bound[0],
          f"ms_{N3S}": step_s_ms, f"bound_ms_{N3S}": step_s_bound[0],
-         f"carried3d_ms_{N3S}": sum(turns_s["carried3d"]) / 2},
+         f"carried3d_ms_{N3S}": sum(turns_s["carried3d"]) / 2, "programs_ms": programs_ms},
         {**row("carried3d", "carried3d.cu", 1507),
          "ms": carried_ms, "plain_ms": carried_plain_ms, "bound_ms": carried_bound[0],
          "bound_by": carried_bound[1], "library_ms": None, "library_note": no_call,
-         "shape": f"{N3}^3"},
+         "shape": f"{N3}^3", f"ms_{N3S}": sum(turns_s["carried3d"]) / 2,
+         f"bound_ms_{N3S}": carried_s_bound[0], "turns_with_step3d": turns,
+         f"turns_with_step3d_{N3S}": turns_s, "tuner_repicks": repicks},
         {**row("resident3d", "resident3d.cu", 1419),
          "ms": res_ms, "plain_ms": res_plain_ms, "bound_ms": res_bound[0],
          "bound_by": res_bound[1], "library_ms": None, "library_note": no_call,
@@ -1127,21 +1194,26 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
     form), batched_carried2d and batched_superstep2d (K = 1-4) in float64,
     float32 and the bf16 operand tier, uniform and mixed physics, B in
     {1, 2, 3, 8}, eps 1-8 over ragged grids (1x1, smaller than one tile, non
-    tile multiples) plus eps 0, 9, 16 and 40: each against its plain version
-    (batched_step2d and batched_superstep2d BITWISE: their register designs,
-    at eps <= 16 and eps <= 8, and the shared tile body above sum in the
-    plain versions' disc_sum order) and each lane BITWISE against one solo
-    launch of the same kernel (step2d, carried2d, superstep2d) on that case.
-    In the bf16 tier the K-step tolerance grows by one bfloat16 rounding
-    flip per step after the first (see phase_multistep_checks)."""
+    tile multiples) plus eps 0, 9, 16, 17 and 40: each against its plain
+    version (all three BITWISE: their register designs, at eps <= 16 and
+    eps <= 8, and the shared tile body above sum in the plain versions'
+    disc_sum order) and each lane BITWISE against one solo launch of the
+    same kernel (step2d, carried2d, superstep2d) on that case;
+    batched_carried2d's lanes also BITWISE batched_step2d's, each into a
+    NaN-filled ``out``; in the bf16 tier, where the plain version and
+    carried2d carry (master, shadow) pairs and batched_carried2d the masters
+    alone, each next shadow of carried2d must be the rounding of its next
+    master.  In the bf16 tier the K-step
+    tolerance grows by one bfloat16 rounding flip per step after the first
+    (see phase_multistep_checks)."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED + 6)
     shapes = [(1, 1), (13, 45), (37, 50), (70, 90)]
     plan = ([(e, s) for e in (1, 2, 3, 5, 8) for s in shapes]
             + [(0, (13, 45)), (0, (70, 90)), (9, (37, 50)), (9, (70, 90)), (16, (20, 90)),
-               (40, (50, 45))])
-    bitwise_plain = ("batched_step2d", "batched_superstep2d")
+               (16, (150, 45)), (17, (20, 90)), (17, (150, 45)), (40, (50, 45))])
+    bitwise_plain = ("batched_step2d", "batched_superstep2d", "batched_carried2d")
     worst, n = {}, dict.fromkeys(("batched_step2d", "batched_carried2d",
                                   "batched_superstep2d"), 0)
 
@@ -1178,8 +1250,8 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
                     lanes = [U[b].contiguous() for b in range(batch)]
                     form = (f"{dname} {prec} eps={e} {batch}x{nx}x{ny} "
                             + ("mixed" if mixed else "uniform"))
-                    hold("batched_step2d", form,
-                         cb.batched_step2d(U, e, params, wsum, precision=prec),
+                    step = cb.batched_step2d(U, e, params, wsum, precision=prec)
+                    hold("batched_step2d", form, step,
                          cb.batched_step2d_plain(U, e, params, wsum, precision=prec), tol,
                          [ck.step2d(u, e, scales[b], wsum, dts[b], precision=prec)
                           for b, u in enumerate(lanes)])
@@ -1193,18 +1265,27 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
                           for b, u in enumerate(lanes)])
                     frames = F.pad(U, (e,) * 4).contiguous()
                     shadow = ck.shadow_of(frames) if prec == "bf16" else None
-                    got = cb.batched_carried2d(frames, e, params, wsum, shadow=shadow)
+                    # out NaN-filled: the wrapper zeroes its halos
+                    got = cb.batched_carried2d(frames, e, params, wsum, precision=prec,
+                                               out=torch.full_like(frames, float("nan")))
                     plain = cb.batched_carried2d_plain(frames, e, params, wsum, shadow)
                     solo = [ck.carried2d(frames[b].contiguous(), e, scales[b], wsum, dts[b],
                                          shadow=None if shadow is None
                                          else shadow[b].contiguous())
                             for b in range(batch)]
                     if prec == "bf16":
-                        if not all(torch.equal(got[1][b], s[1]) for b, s in enumerate(solo)):
-                            fail(f"batched_carried2d {form}: a shadow lane differs from "
-                                 "its solo launch")
-                        got, plain, solo = got[0], plain[0], [s[0] for s in solo]
+                        # the plain version and carried2d carry (master, shadow)
+                        # pairs; B7 keeps the masters and rounds them as it
+                        # stages them, the same only if each next shadow is
+                        # the rounding of its next master
+                        if not all(torch.equal(s[1], ck.shadow_of(s[0])) for s in solo):
+                            fail(f"batched_carried2d {form}: a next shadow of carried2d is "
+                                 "not the rounding of its next master")
+                        plain, solo = plain[0], [s[0] for s in solo]
                     hold("batched_carried2d", form, got, plain, tol, solo)
+                    if not torch.equal(got[:, e:e + nx, e:e + ny], step):
+                        fail(f"batched_carried2d {form}: a lane is not bitwise equal to "
+                             "batched_step2d's")
                     for k in (1, 2, 3, 4):
                         if cb.fits_batched_superstep(e, k, dtype, prec):
                             hold("batched_superstep2d", f"{form} K={k}",
@@ -1299,7 +1380,7 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         held[name].append({"form": form, "max_abs_err": abs_err, "rel_err": rel, "tol": tol32})
         if not rel <= tol32:
             fail(f"{name} {form}: |kernel-plain| / max|plain| {rel:.3e} > {tol32:g}")
-        if name in ("batched_step2d", "batched_superstep2d") and not torch.equal(got, ref):
+        if not torch.equal(got, ref):
             fail(f"{name} {form}: not bitwise equal to its plain version")
         if not all(torch.equal(got[b], s) for b, s in enumerate(solo)):
             fail(f"{name} {form}: a lane is not bitwise equal to its solo launch")
@@ -1318,9 +1399,13 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
          [ck.step2d(u, EPS, scale, wsum, dt, g=G[b].contiguous(), lg=LG[b].contiguous(), t=3)
           for b, u in enumerate(lanes)])
     frames = F.pad(U, (EPS,) * 4).contiguous()
-    hold("batched_carried2d", form, cb.batched_carried2d(frames, EPS, params, wsum),
-         cb.batched_carried2d_plain(frames, EPS, params, wsum),
+    carried = cb.batched_carried2d(frames, EPS, params, wsum)
+    hold("batched_carried2d", form, carried, cb.batched_carried2d_plain(frames, EPS, params, wsum),
          [ck.carried2d(frames[b].contiguous(), EPS, scale, wsum, dt) for b in range(B)])
+    if not torch.equal(carried[:, EPS:EPS + N, EPS:EPS + N], cb.batched_step2d(U, EPS, params,
+                                                                                wsum)):
+        fail(f"batched_carried2d {form}: a lane is not bitwise equal to batched_step2d's")
+    del carried
     for k in (2, 3):
         hold("batched_superstep2d", f"{form} K={k}",
              cb.batched_superstep2d(U, EPS, params, wsum, k),
@@ -1331,39 +1416,20 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         "max|plain|; every lane bitwise equal to its solo launch): "
         + "; ".join(f"{n} {c['form']} {c['rel_err']:.2e}" for n, cs in held.items() for c in cs))
 
-    out, fout = torch.empty_like(U), torch.empty_like(frames)
+    out = torch.empty_like(U)
     step_ms = cuda_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, out=out), 200)
     step_graph_ms = graph_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, out=out))
     step_test_ms = cuda_ms(torch, lambda: cb.batched_step2d(U, EPS, params, wsum, G=G, LG=LG,
                                                             coefs=coefs, out=out), 200)
     step_plain_ms = cuda_ms(torch, lambda: cb.batched_step2d_plain(U, EPS, params, wsum), 5, 1)
-    carried_ms = cuda_ms(torch, lambda: cb.batched_carried2d(frames, EPS, params, wsum,
-                                                             out=fout), 200)
     carried_plain_ms = cuda_ms(torch, lambda: cb.batched_carried2d_plain(frames, EPS, params,
                                                                          wsum), 5, 1)
-    # B8 beside its earlier form (the shared tile body at every eps, reached
-    # only through its timing entry point), the same bits, in turns: the
-    # register design, the tile body, the tile body, the register design
-    def b8_tile_form(k, o):
-        rc = ck._entry("nlheat_batched_superstep2d_tile")(
-            0, 0, U.data_ptr(), o.data_ptr(), params.data_ptr(), B, N, N, EPS, k, float(wsum),
-            torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            fail(f"batched_superstep2d tile-body form K={k}: rc {rc}")
-        return o
-
-    sup_ms, sup_ab = {}, {}
-    for k in (2, 3):
-        o4 = torch.empty_like(U)
-        if not torch.equal(b8_tile_form(k, o4), cb.batched_superstep2d(U, EPS, params, wsum, k)):
-            fail(f"batched_superstep2d K={k}: the tile-body form's bits differ")
-        new = lambda k=k: cb.batched_superstep2d(U, EPS, params, wsum, k, out=out)  # noqa: E731
-        old = lambda k=k, o4=o4: b8_tile_form(k, o4)  # noqa: E731
-        turns = [cuda_ms(torch, f, 100) for f in (new, old, old, new)]
-        sup_ms[k] = (turns[0] + turns[3]) / 2
-        sup_ab[k] = {"ms": sup_ms[k], "tile_form_ms": (turns[1] + turns[2]) / 2,
-                     "turns": turns}
-        del o4
+    b7_ab = batched_carried_ab(torch, np, cb, {f"{B}x{N}^2": big,
+                                               f"{B}x{ENS_MIXED_N}^2 mixed": mixed})
+    carried_ms = b7_ab[f"{B}x{N}^2"]["ms"]
+    sup_ms = {k: cuda_ms(torch, lambda k=k: cb.batched_superstep2d(U, EPS, params, wsum, k,
+                                                                    out=out), 100)
+              for k in (2, 3)}
     sup_plain_ms = cuda_ms(torch, lambda: cb.batched_superstep2d_plain(U, EPS, params, wsum, 3),
                            3, 1)
     # the A/B of the two 2D bodies in this run: batched_step2d at B=1 (the
@@ -1396,9 +1462,10 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
     solo_step_ms = ab[f"1x{N}^2"]["step2d_ms"]
     step_bound = bound(2 * npts * isz, npts * kernel_ops(EPS, 5))
     step_test_bound = bound(4 * npts * isz, npts * kernel_ops(EPS, 9))
-    carried_bound = bound(2 * frames.numel() * isz, npts * kernel_ops(EPS, 5))
+    # the frames read once, the interiors written once
+    carried_bound = bound((frames.numel() + npts) * isz, npts * kernel_ops(EPS, 5))
     sup_bound = {k: bound(2 * npts * isz, k * npts * kernel_ops(EPS, 5)) for k in (2, 3)}
-    del G, LG, frames, fout
+    del G, LG, frames
     say(f"batched_step2d {B}x{N}^2 eps={EPS} f32: kernel {step_ms:.4f} ms/launch (in a CUDA "
         f"graph {step_graph_ms:.4f}) "
         f"({step_ms / B:.5f} ms per case-step; step2d alone at {N}^2 {solo_step_ms:.5f} ms), "
@@ -1417,12 +1484,17 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
             for k, v in ab.items()))
     say(f"batched_carried2d {B}x{N}^2 eps={EPS} f32: kernel {carried_ms:.4f} ms/launch, plain "
         f"{carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms ({carried_bound[1]})")
+    say("batched_carried2d in turns with batched_step2d (B6, B7, B7, B6), eps=8, ms per "
+        "launch in a loop and in a CUDA graph, each bitwise B6 and its plain version: "
+        + "; ".join(
+            f"{k} {p}: batched_carried2d {v['ms']:.5f} (graph {v['ms_graph']:.5f}), "
+            f"batched_step2d {v['batched_step2d_ms']:.5f} (graph "
+            f"{v['batched_step2d_ms_graph']:.5f}), bound {v['bound_ms']:.5f}; turns "
+            f"{json.dumps(v['turns'])}, graph {json.dumps(v['turns_graph'])}"
+            for k, w in b7_ab.items() for p, v in (("f32", w), ("bf16", w["bf16"]))))
     for k in (2, 3):
         say(f"batched_superstep2d {B}x{N}^2 eps={EPS} f32 K={k}: kernel {sup_ms[k]:.4f} "
-            f"ms/launch ({sup_ms[k] / k:.4f} ms/step), earlier form (the tile body) "
-            f"{sup_ab[k]['tile_form_ms']:.4f} ms/launch (ratio "
-            f"{sup_ab[k]['tile_form_ms'] / sup_ms[k]:.3f}; turns "
-            f"{json.dumps([round(t, 5) for t in sup_ab[k]['turns']])}), bound "
+            f"ms/launch ({sup_ms[k] / k:.4f} ms/step), bound "
             f"{sup_bound[k][0]:.4f} ms ({sup_bound[k][1]})"
             + (f", plain {sup_plain_ms:.3f} ms" if k == 3 else ""))
 
@@ -1602,11 +1674,11 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
             ms_graph=step_graph_ms, ab_b1_against_step2d=ab, ensemble_ms=eng_ms,
             sequential_ms=seq_ms, programs_ms=programs_ms),
         row("batched_carried2d", 1839, "batched_carried2d.cu", ms=carried_ms,
-            plain_ms=carried_plain_ms, bound_ms=carried_bound[0], bound_by=carried_bound[1]),
+            plain_ms=carried_plain_ms, bound_ms=carried_bound[0], bound_by=carried_bound[1],
+            ab_with_batched_step2d=b7_ab),
         row("batched_superstep2d", 1963, "batched_superstep2d.cu", ms=sup_ms[3],
             plain_ms=sup_plain_ms, bound_ms=sup_bound[3][0], bound_by=sup_bound[3][1],
-            ksteps=3, ms_k2=sup_ms[2], bound_ms_k2=sup_bound[2][0],
-            ms_tile_form=sup_ab[3]["tile_form_ms"], ms_k2_tile_form=sup_ab[2]["tile_form_ms"]),
+            ksteps=3, ms_k2=sup_ms[2], bound_ms_k2=sup_bound[2][0]),
     ]
 
 
@@ -2362,34 +2434,6 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
                                 shape=f"{shape} block of a {'x'.join(['2'] * d)} mesh, "
                                       f"eps={e}, f32")
             extra = ""
-            if name == "fused_nsum2d":
-                # beside its earlier form (one 32 x 32 tile a block, the window
-                # loaded cell by cell, the tile body; reached only through its
-                # timing entry point), the same bits, in a CUDA graph in turns
-                hops, grid, _cards = th._pointer_grid(name, blocks, e, d)
-                table = np.ascontiguousarray(
-                    grid[tuple(slice(p, p + 2 * h + 1) for p, h in zip(pos, hops))])
-                o6 = torch.empty(block, dtype=f32, device="cuda")
-
-                def tile_form(o6=o6, table=table, hops=hops):
-                    rc = ck._entry("nlheat_fused_nsum2d_tile")(
-                        0, 0, table.ctypes.data, *hops, o6.data_ptr(), *block, e,
-                        torch.cuda.current_stream().cuda_stream)
-                    if rc != 0:
-                        fail(f"fused_nsum2d tile-body form: rc {rc}")
-                    return o6
-
-                if not torch.equal(tile_form(), call("f32")):
-                    fail("fused_nsum2d tile-body form: its bits differ from the register design's")
-                new = lambda call=call: call("f32")  # noqa: E731
-                turns = [graph_ms(torch, f, 20) for f in (new, tile_form, tile_form, new)]
-                ms_graph = timing[name]["ms_graph"] = (turns[0] + turns[3]) / 2
-                timing[name].update(ms_graph_tile_form=(turns[1] + turns[2]) / 2,
-                                    turns_graph=turns)
-                extra = (" (earlier form, the tile body, in a CUDA graph "
-                         f"{(turns[1] + turns[2]) / 2:.4f}; turns "
-                         f"{json.dumps([round(t, 5) for t in turns])})")
-                del o6
             if name.startswith("split_"):
                 out = torch.empty(block, dtype=f32, device="cuda")
                 phase_ms = {p: cuda_ms(torch, lambda p=p: th.launch_phase(name, frame, out, e,
@@ -2632,6 +2676,71 @@ def device_profile(torch, fn, nsteps: int) -> dict:
             "device_busy_ms_per_step": busy_us / 1e3 / nsteps,
             "busy_share": busy_us / window_us, "idle_share": 1 - busy_us / window_us,
             "by_kernel_ms_per_step": by_kernel}
+
+
+def batched_carried_ab(torch, np, cb, buckets: dict) -> dict:
+    """batched_carried2d (B7) in turns with batched_step2d (B6): B6, B7, B7,
+    B6, each bucket's stack (``{label: [EnsembleCase]}``, eps=EPS, f32 and
+    the bf16 tier) one step a launch, in a loop of launches and in a CUDA
+    graph (the device alone: at 512^2 the host's cost per launch nears the
+    kernel's), with B7's bound (the frames read once, the interiors written
+    once).  B7 launches as its multi-step maker does, into a stack whose
+    halos are already zero; the last timed launch of each, B7's interiors
+    and whole frames, is then held bitwise to B6's and to B7's plain
+    version."""
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, case_scale
+
+    out = {}
+    for label, cases in buckets.items():
+        U = torch.as_tensor(np.stack([c.u0 for c in cases]), device="cuda").to(torch.float32)
+        ops = [NonlocalOp2D(c.eps, c.k, c.dt, c.dh, method="cuda") for c in cases]
+        params = cb.case_params([case_scale(o) for o in ops], [o.dt for o in ops],
+                                torch.float32, "cuda")
+        wsum = ops[0].wsum
+        frames = F.pad(U, (EPS,) * 4).contiguous()
+        o6, o7 = torch.empty_like(U), torch.zeros_like(frames)  # B7 writes the interiors
+        for prec in ("f32", "bf16"):
+            pair = {"batched_step2d": lambda p=prec: cb.batched_step2d(U, EPS, params, wsum,
+                                                                       precision=p, out=o6),
+                    "batched_carried2d": lambda p=prec: cb._batched_carried2d(
+                        frames, o7, EPS, params, wsum, p)}
+            order = ("batched_step2d", "batched_carried2d", "batched_carried2d",
+                     "batched_step2d")
+            loop = turns_of(torch, pair, order, 200)
+            graph = {n: [] for n in pair}
+            for n in order:
+                graph[n].append(graph_ms(torch, pair[n]))
+            plain = cb.batched_carried2d_plain(
+                frames, EPS, params, wsum, cb.shadow_of(frames) if prec == "bf16" else None)
+            if not (torch.equal(o7[:, EPS:-EPS, EPS:-EPS], o6)
+                    and torch.equal(o7, plain if prec == "f32" else plain[0])):
+                fail(f"batched_carried2d {label} {prec}: its timed launches are not bitwise "
+                     "batched_step2d's (interiors) and its plain version's (frames)")
+            res = {
+                "ms": sum(loop["batched_carried2d"]) / 2,
+                "ms_graph": sum(graph["batched_carried2d"]) / 2,
+                "batched_step2d_ms": sum(loop["batched_step2d"]) / 2,
+                "batched_step2d_ms_graph": sum(graph["batched_step2d"]) / 2,
+                "turns": loop, "turns_graph": graph,
+                "bound_ms": bound((frames.numel() + U.numel()) * 4,
+                                  U.numel() * kernel_ops(EPS, 5))[0]}
+            if prec == "f32":
+                out[label] = res
+            else:
+                out[label]["bf16"] = res
+        del U, frames, o6, o7
+    return out
+
+
+def turns_of(torch, fns: dict, order, reps: int, warm: int = 3) -> dict:
+    """{name: [ms per call, ...]}: cuda_ms of fns[name] for each name of
+    ``order`` in that order (turns such as a, b, b, a)."""
+    out = {n: [] for n in fns}
+    for n in order:
+        out[n].append(cuda_ms(torch, fns[n], reps, warm))
+    return out
 
 
 def graph_ms(torch, fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:

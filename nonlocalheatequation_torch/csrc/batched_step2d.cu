@@ -22,22 +22,22 @@
 //   3. the epilogue u + dt*(scale*(nsum - wsum*u) [+ cg*G + clg*L(G)]), every
 //      multiply and add rounded on its own (stencil_tile.cuh).
 //
-// Design, for 0 <= eps <= FAST_MAX_EPS (16).  A persistent grid walks the
-// (case, row tile, column tile) lattice; a block of 32 x 4 threads owns a
-// tile of RUN*4 rows x 32 columns (RUN = 32 rows a thread in float32, 16 in
-// float64).  Its (tile + 2eps)^2 window is staged by cp.async (4- or 8-byte
-// copies, the out-of-domain cells zero-filled by the copy itself) into one
-// of two shared-memory buffers while the block computes the previous tile
-// from the other, so the load of tile t+1 overlaps the sums of tile t.  A
+// Design, for 0 <= eps <= REG_TILES_MAX_EPS (16): the register walk of
+// stencil_tile.cuh (reg_tiles, which batched_carried2d.cu runs too). A
+// persistent grid walks the (case, row tile, column tile) lattice; a block of
+// 32 x 4 threads owns a tile of RUN*4 rows x 32 columns (RUN = 32 rows a thread
+// in float32, 16 in float64). Its (tile + 2eps)^2 window is staged by cp.async
+// (4- or 8-byte copies, the out-of-domain cells zero-filled by the copy itself)
+// into one of two shared-memory buffers while the block computes the previous
+// tile from the other, so the load of tile t+1 overlaps the sums of tile t. A
 // thread owns one column and RUN output rows: it keeps W_h of the RUN + 2eps
-// window rows it needs in registers, advances every one a height at a time
-// (two shared-memory reads each), and adds each height's x offsets to its RUN
-// sums straight from those registers.  eps is a template parameter, so the
-// offsets of a height are constants and every register index is fixed at
-// compile time.  No barrier falls inside a tile's sums.  In the bf16
-// operand tier the block rounds its staged window in place once (the same
-// float -> bfloat16 -> state rounding as stencil_tile.cuh) and the carry is
-// read unrounded from the state.
+// window rows it needs in registers, advances every one a height at a time (two
+// shared-memory reads each), and adds each height's x offsets to its RUN sums
+// straight from those registers. eps is a template parameter, so the offsets of
+// a height are constants and every register index is fixed at compile time. No
+// barrier falls inside a tile's sums. In the bf16 operand tier the block rounds
+// its staged window in place once (the same float -> bfloat16 -> state rounding
+// as stencil_tile.cuh) and the carry is read unrounded from the state.
 //
 // eps 17-64 run the shared tile body (stencil_tile.cuh: one 32 x 32 tile a
 // block, the case as blockIdx.z), which gives the same bits; eps 0-16 run
@@ -58,42 +58,11 @@
 
 #include "stencil_tile.cuh"
 
-#include <cstdint>
-
 namespace {
 
 using namespace nlheat;
 
 constexpr int MAX_CASES = 65535;  // gridDim.z of the shared tile body
-constexpr int FAST_MAX_EPS = 16;  // the register design's largest eps
-
-struct TileIndex {
-  int b, x0, y0;
-};
-
-__device__ inline TileIndex tile_of(long long t, int ntx, int nty, int rows, int cols) {
-  const long long tx = t / nty;
-  TileIndex ti;
-  ti.y0 = static_cast<int>(t - tx * nty) * cols;
-  ti.b = static_cast<int>(tx / ntx);
-  ti.x0 = static_cast<int>(tx - static_cast<long long>(ti.b) * ntx) * rows;
-  return ti;
-}
-
-// Stage tile ti's window: cell (a, c) is case ti.b's (x0 - EPS + a, y0 - EPS
-// + c), 0 outside the plane.
-template <typename T, int EPS>
-__device__ void stage_window(T* buf, const T* u, int nx, int ny, TileIndex ti) {
-  constexpr int WR = RegTile<T>::ROWS + 2 * EPS, WC = RegTile<T>::COLS + 2 * EPS;
-  const T* ub = u + static_cast<size_t>(ti.b) * nx * ny;
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  for (int idx = tid; idx < WR * WC; idx += REG_THREADS) {
-    const int a = idx / WC, c = idx - a * WC;
-    const int x = ti.x0 - EPS + a, y = ti.y0 - EPS + c;
-    const bool in = x >= 0 && x < nx && y >= 0 && y < ny;
-    cp_async_value(buf + idx, in ? ub + static_cast<size_t>(x) * ny + y : ub, in);
-  }
-}
 
 template <typename T, typename OpT, int EPS>
 __global__ void __launch_bounds__(REG_THREADS)
@@ -101,41 +70,14 @@ batched_step2d_fast(const T* __restrict__ u, T* __restrict__ out, int nx, int ny
                     int nty, long long ntiles, const T* __restrict__ params, T wsum,
                     const T* __restrict__ g, const T* __restrict__ lg,
                     const T* __restrict__ coefs) {
-  constexpr int RUN = RegTile<T>::RUN, ROWS = RegTile<T>::ROWS, COLS = RegTile<T>::COLS;
-  constexpr int WC = COLS + 2 * EPS;
-  constexpr size_t BUF = reg_window_elems<T, EPS>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* bufs = reinterpret_cast<T*>(smem_raw);
-  const int tx = threadIdx.x, r0 = threadIdx.y * RUN;
-
-  long long t = blockIdx.x;
-  if (t < ntiles) stage_window<T, EPS>(bufs, u, nx, ny, tile_of(t, ntx, nty, ROWS, COLS));
-  cp_async_commit();
-  int cur = 0;
-  for (; t < ntiles; t += gridDim.x) {
-    const long long tn = t + gridDim.x;
-    if (tn < ntiles)
-      stage_window<T, EPS>(bufs + (cur ^ 1) * BUF, u, nx, ny, tile_of(tn, ntx, nty, ROWS, COLS));
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies have landed (the next tile's may not)
-    __syncthreads();
-    T* win = bufs + cur * BUF;
-    if constexpr (!std::is_same<T, OpT>::value) {
-      for (int idx = threadIdx.y * 32 + tx; idx < static_cast<int>(BUF); idx += REG_THREADS)
-        win[idx] = Operand<T, OpT>::round(win[idx]);
-      __syncthreads();
-    }
-
-    // steps 1 and 2 of the order in the header, W_h in registers
-    const T* col = win + r0 * WC + tx + EPS;
-    T acc[RUN];
-    register_sums<T, T, EPS, RUN>(col, WC, acc);
-
-    // step 3
-    const TileIndex ti = tile_of(t, ntx, nty, ROWS, COLS);
+  constexpr int RUN = RegTile<T>::RUN, WC = RegTile<T>::COLS + 2 * EPS;
+  const int r0 = threadIdx.y * RUN;
+  // steps 1 and 2 of the order in the header (reg_tiles), then step 3
+  reg_tiles<T, OpT, EPS>(u, nx, ny, 0, ntx, nty, ntiles,
+                         [&](TileIndex ti, const T* col, const T (&acc)[RUN]) {
     const size_t base = static_cast<size_t>(ti.b) * nx * ny;
     const T scale = params[2 * ti.b], dt = params[2 * ti.b + 1];
-    const int y = ti.y0 + tx;
+    const int y = ti.y0 + threadIdx.x;
 #pragma unroll
     for (int r = 0; r < RUN; ++r) {
       const int x = ti.x0 + r0 + r;
@@ -149,41 +91,22 @@ batched_step2d_fast(const T* __restrict__ u, T* __restrict__ out, int nx, int ny
         out[o] = euler(carry, dt, du);
       }
     }
-    __syncthreads();  // every read of this buffer is done before it is staged again
-    cur ^= 1;
-  }
-  cp_async_wait<0>();
+  });
 }
 
 template <typename T, typename OpT, int EPS>
 int launch_fast(const T* u, T* out, const T* g, const T* lg, const T* coefs, const T* params,
                 int batch, int nx, int ny, double wsum, cudaStream_t stream) {
-  auto kernel = batched_step2d_fast<T, OpT, EPS>;
-  const size_t smem = 2 * reg_window_elems<T, EPS>() * sizeof(T);
-  if (smem > static_cast<size_t>(smem_limit())) return -1;
-  const int e = allow_smem(kernel, smem);
-  if (e != 0) return e;
-  // blocks an SM holds, asked once per instantiation (one card type a process)
-  static int per_sm = -1;
-  if (per_sm < 0) {
-    int n = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kernel, REG_THREADS, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    per_sm = n > 0 ? n : 1;
-  }
+  static int per_sm = -1;  // blocks an SM holds, asked once per instantiation
   const int ntx = (nx + RegTile<T>::ROWS - 1) / RegTile<T>::ROWS;
   const int nty = (ny + RegTile<T>::COLS - 1) / RegTile<T>::COLS;
   const long long ntiles = static_cast<long long>(batch) * ntx * nty;
-  static const int sms = device_attr(cudaDevAttrMultiProcessorCount);
-  const long long grid = ntiles < static_cast<long long>(per_sm) * sms
-                             ? ntiles : static_cast<long long>(per_sm) * sms;
-  kernel<<<static_cast<unsigned>(grid), dim3(32, REG_TY), smem, stream>>>(
-      u, out, nx, ny, ntx, nty, ntiles, params, static_cast<T>(wsum), g, lg, coefs);
-  return static_cast<int>(cudaGetLastError());
+  return reg_tiles_launch<T, EPS>(batched_step2d_fast<T, OpT, EPS>, ntiles, per_sm, stream, u,
+                                  out, nx, ny, ntx, nty, ntiles, params, static_cast<T>(wsum),
+                                  g, lg, coefs);
 }
 
-// The shared tile body (stencil_tile.cuh), for eps above FAST_MAX_EPS.
+// The shared tile body (stencil_tile.cuh), for eps above REG_TILES_MAX_EPS.
 template <typename T, typename OpT, int MW>
 __global__ void __launch_bounds__(THREADS)
 batched_step2d_tile(const T* __restrict__ u, T* __restrict__ out, int nx, int ny, int eps,
@@ -231,8 +154,8 @@ int launch(const void* u, void* out, const void* g, const void* lg, const void* 
   if ((static_cast<long long>(nx) + TILE_X - 1) / TILE_X > 65535) return -1;  // gridDim.y
   if (batch == 0 || nx <= 0 || ny <= 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  if (eps <= FAST_MAX_EPS)
-    return with_eps<FAST_MAX_EPS>(eps, [&](auto e) {
+  if (eps <= REG_TILES_MAX_EPS)
+    return with_eps<REG_TILES_MAX_EPS>(eps, [&](auto e) {
       return launch_fast<T, OpT, decltype(e)::value>(
           static_cast<const T*>(u), static_cast<T*>(out), static_cast<const T*>(g),
           static_cast<const T*>(lg), static_cast<const T*>(coefs),

@@ -44,10 +44,7 @@
 // given stream, allocates nothing, returns cudaGetLastError() or -1 when K,
 // eps, the shared memory, the grid or the case count is beyond the
 // kernel's limits.  nlheat_batched_superstep2d_fits is the fit gate: the
-// output tile side, or 0.  nlheat_batched_superstep2d_tile runs the tile
-// body at every eps (below eps 9 in float32, f32 tier), the design this
-// kernel had before the register design: it serves only to time the two
-// in one run.
+// output tile side, or 0.
 
 #include "stencil_tile.cuh"
 
@@ -78,24 +75,23 @@ batched_superstep2d_kernel(const T* __restrict__ u, T* __restrict__ out, int nx,
                                        params[2 * b], wsum, params[2 * b + 1]);
 }
 
-// fast: the register design (eps <= SUPERSTEP_FAST_MAX_EPS), else the tile body.
 template <typename T, typename OpT>
 int launch(const void* u, void* out, const void* params, int batch, int nx, int ny, int eps,
-           int ksteps, double wsum, bool fast, void* stream) {
+           int ksteps, double wsum, void* stream) {
   if (eps < 0 || eps > MAX_EPS || ksteps < 1 || ksteps > SUPERSTEP_MAX_K) return -1;
   if (batch < 0 || batch > MAX_CASES) return -1;
   constexpr bool BF16 = !std::is_same<T, OpT>::value;
-  const int ot = superstep_ot<T>(eps, ksteps, BF16, fast);
+  const int ot = superstep_ot<T>(eps, ksteps, BF16);
   if (ot == 0) return -1;
   if ((static_cast<long long>(nx) + ot - 1) / ot > 65535) return -1;  // gridDim.y
   if (batch == 0 || nx <= 0 || ny <= 0) return 0;
-  const size_t smem = superstep_smem<T>(ot, eps, ksteps, BF16, fast);
+  const size_t smem = superstep_smem<T>(ot, eps, ksteps, BF16);
   const dim3 grid((ny + ot - 1) / ot, (nx + ot - 1) / ot, batch);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto pu = static_cast<const T*>(u);
   const auto po = static_cast<T*>(out);
   const auto pp = static_cast<const T*>(params);
-  if (fast)
+  if (eps <= SUPERSTEP_FAST_MAX_EPS)
     return with_eps<SUPERSTEP_FAST_MAX_EPS>(eps, [&](auto e) {
       constexpr int EPS = decltype(e)::value;
       return superstep_launch(batched_superstep2d_fast<T, OpT, EPS, 4>,
@@ -119,27 +115,16 @@ int launch(const void* u, void* out, const void* params, int batch, int nx, int 
       default: return go(batched_superstep2d_kernel<T, OpT, MW, 4>);
     }
   };
-  if (eps <= SUPERSTEP_FAST_MAX_EPS) {
-    // only the timing entry point runs the tile body there, in float32 and
-    // the f32 tier: fewer instantiations keep this source's build short
-    if constexpr (std::is_same<T, float>::value && std::is_same<OpT, float>::value)
-      return body(std::integral_constant<int, wrows_for(SUPERSTEP_FAST_MAX_EPS)>{});
-    return -1;
-  }
   if (eps <= 16) return body(std::integral_constant<int, wrows_for(16)>{});
   if (eps <= 32) return body(std::integral_constant<int, wrows_for(32)>{});
   return body(std::integral_constant<int, wrows_for(MAX_EPS)>{});
 }
 
-int launch_typed(int dtype, int bf16, const void* u, void* out, const void* params, int batch,
-                 int nx, int ny, int eps, int ksteps, double wsum, bool fast, void* stream) {
-  if (dtype == 0)
-    return (bf16 ? &launch<float, __nv_bfloat16> : &launch<float, float>)(
-        u, out, params, batch, nx, ny, eps, ksteps, wsum, fast, stream);
-  if (dtype == 1)
-    return (bf16 ? &launch<double, __nv_bfloat16> : &launch<double, double>)(
-        u, out, params, batch, nx, ny, eps, ksteps, wsum, fast, stream);
-  return -1;
+template <typename T>
+int launch_typed(int bf16, const void* u, void* out, const void* params, int batch, int nx,
+                 int ny, int eps, int ksteps, double wsum, void* stream) {
+  return (bf16 ? &launch<T, __nv_bfloat16> : &launch<T, T>)(u, out, params, batch, nx, ny, eps,
+                                                           ksteps, wsum, stream);
 }
 
 }  // namespace
@@ -150,28 +135,18 @@ int launch_typed(int dtype, int bf16, const void* u, void* out, const void* para
 extern "C" int nlheat_batched_superstep2d(int dtype, int bf16, const void* u, void* out,
                                           const void* params, int batch, int nx, int ny,
                                           int eps, int ksteps, double wsum, void* stream) {
-  return launch_typed(dtype, bf16, u, out, params, batch, nx, ny, eps, ksteps, wsum,
-                      eps <= SUPERSTEP_FAST_MAX_EPS, stream);
-}
-
-// The same launch in the shared tile body at every eps (the design before
-// the register design), for timing the two side by side; the same bits.
-// Below eps 9 it takes float32 in the f32 tier only (dtype 0, bf16 0), else
-// returns -1.
-extern "C" int nlheat_batched_superstep2d_tile(int dtype, int bf16, const void* u, void* out,
-                                               const void* params, int batch, int nx, int ny,
-                                               int eps, int ksteps, double wsum,
-                                               void* stream) {
-  return launch_typed(dtype, bf16, u, out, params, batch, nx, ny, eps, ksteps, wsum, false,
-                      stream);
+  if (dtype == 0)
+    return launch_typed<float>(bf16, u, out, params, batch, nx, ny, eps, ksteps, wsum, stream);
+  if (dtype == 1)
+    return launch_typed<double>(bf16, u, out, params, batch, nx, ny, eps, ksteps, wsum, stream);
+  return -1;
 }
 
 // The output tile side a K-step launch would use at this eps, dtype and
 // tier (64 or 32), or 0 when it does not fit the card's shared memory.
 extern "C" int nlheat_batched_superstep2d_fits(int dtype, int bf16, int eps, int ksteps) {
   if (eps < 0 || eps > MAX_EPS || ksteps < 1 || ksteps > SUPERSTEP_MAX_K) return 0;
-  const bool fast = eps <= SUPERSTEP_FAST_MAX_EPS;
-  if (dtype == 0) return superstep_ot<float>(eps, ksteps, bf16 != 0, fast);
-  if (dtype == 1) return superstep_ot<double>(eps, ksteps, bf16 != 0, fast);
+  if (dtype == 0) return superstep_ot<float>(eps, ksteps, bf16 != 0);
+  if (dtype == 1) return superstep_ot<double>(eps, ksteps, bf16 != 0);
   return 0;
 }

@@ -8,19 +8,29 @@
 //
 // The frame is (nx + 2eps, ny + 2eps, nz + 2eps) with the state in its
 // interior (the TPU kernel's dead bands, which keep its block offsets
-// 8-aligned, have no purpose here).  The tiles form a lattice aligned to the
-// interior that covers the whole frame: an interior cell gets the step, a
-// halo cell gets 0, so the output frame is written whole and may come from
-// torch.empty.  A tile that lies wholly in the halo writes its zeros and
-// skips the sum.  The tile body (window load, sums, epilogue) is
-// stencil_tile3d.cuh's, so a run of carried3d launches is bit-identical to
-// the same number of step3d launches.  There is no bf16 tier (the wrapper
-// refuses a bf16 operator), as on the TPU.
+// 8-aligned, have no purpose here).  The sums and the epilogue are those of
+// the 3D tile bodies (stencil_tile3d.cuh), so a run of carried3d launches is
+// bit-identical to the same number of step3d launches.  There is no bf16
+// tier (the wrapper refuses a bf16 operator), as on the TPU.
+//
+// Design, for 0 <= eps <= FAST_MAX_EPS3 (6): step3d's register design
+// (stencil_tile3d.cuh, fast3_tile) on a TP x TP x 32 tile lattice aligned to
+// the frame's interior, the frame as the source with shift = eps.  Each
+// window's z origin is then a multiple of 32 in frame coordinates, so the
+// window stages 16 bytes a copy wherever the frame's z extent nz + 2eps is a
+// multiple of 16/sizeof(T) and the window line 32 + 2eps too (264 at 256^3
+// eps=4 and 140 at 128^3 eps=6 in float32), else one cell a copy.  eps
+// 7-12: the shared tile body on the same lattice and source.  Either writes
+// the interior only: the output frame's halo must already be zero (the
+// wrapper zeroes it; the multi-step maker's two frames keep the zero
+// halos they were made with).
 //
 // What bounds it on an H100 SXM (published peaks, computed, not measured):
-// the same as step3d, one frame read and one written per step (about 44 us
-// at 256^3, eps=4, f32: the halo adds (264^3 - 256^3)/256^3 = 9.7% of bytes
-// to the state's 2 x 64 MiB), against about the same operations.
+// the same as step3d, one frame read and one interior written per step
+// (about 42 us at 256^3, eps=4, f32: the halo adds (264^3 - 256^3)/256^3 =
+// 9.7% to the bytes read), against about the same operations.  Inside the
+// SM the shared-memory traffic binds first, as in step3d: about 70 accesses
+// per point at eps=4 in the register design, 127 in the tile body.
 //
 // Plain C interface (ops/_build.py, ops/cuda_kernel3d.py): launches on the
 // given stream, allocates nothing, returns cudaGetLastError() or -1 when
@@ -32,6 +42,43 @@ namespace {
 
 using namespace nlheat;
 
+// -- the register design (stencil_tile3d.cuh, fast3_tile), eps 0-6 -----------------
+
+template <typename T, int EPS, int TP>
+__global__ void __launch_bounds__(TZ * TP)
+carried3d_fast(const T* __restrict__ frame, T* __restrict__ out, const Geom3 g, bool vec,
+               T scale, T wsum, T dt) {
+  int x0, y0, z0;  // interior coordinates
+  tile_origin(g, blockIdx.x, TP, x0, y0, z0);
+  T acc[TP];
+  const T* win = fast3_tile<T, T, EPS, TP>(frame, g, vec, x0, y0, z0, acc);
+
+  const int x = x0 + threadIdx.y, z = z0 + threadIdx.x;
+  if (x >= g.n[0] || z >= g.n[2]) return;
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    const int y = y0 + r;
+    if (y >= g.n[1]) continue;
+    const T center = fast3_centre<EPS, TP>(win, r);
+    out[(static_cast<size_t>(x + EPS) * g.out[1] + y + EPS) * g.out[2] + z + EPS] =
+        euler(center, dt, operator_du(acc[r], center, scale, wsum));
+  }
+}
+
+template <typename T, int EPS>
+int launch_fast(const void* frame, void* out, const int n[3], double scale, double wsum,
+                double dt, cudaStream_t stream) {
+  constexpr int TP = fast3_tp<T, EPS>();
+  const int f[3] = {n[0] + 2 * EPS, n[1] + 2 * EPS, n[2] + 2 * EPS};
+  const Geom3 g = interior_geom(f, f, EPS, 0, n, TP);
+  return fast3_launch<T, EPS, TP>(carried3d_fast<T, EPS, TP>, g, stream,
+                                  static_cast<const T*>(frame), static_cast<T*>(out), g,
+                                  fast3_vec<T, EPS>(g, frame), static_cast<T>(scale),
+                                  static_cast<T>(wsum), static_cast<T>(dt));
+}
+
+// -- the shared tile body (stencil_tile3d.cuh), eps above FAST_MAX_EPS3 -----------
+
 template <typename T, int TP>
 __global__ void __launch_bounds__(THREADS3)
 carried3d_kernel(const T* __restrict__ frame, T* __restrict__ out, const Geom3 g, int eps,
@@ -42,32 +89,23 @@ carried3d_kernel(const T* __restrict__ frame, T* __restrict__ out, const Geom3 g
   T* win = reinterpret_cast<T*>(smem_raw);
   T* wbuf = win + wp * wp * wz;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  int x0, y0, z0;
+  int x0, y0, z0;  // interior coordinates
   tile_origin(g, blockIdx.x, TP, x0, y0, z0);
-  const int hi[3] = {g.lo + g.n[0], g.lo + g.n[1], g.lo + g.n[2]};
-  const bool halo_only = x0 + TP <= g.lo || x0 >= hi[0] || y0 + TP <= g.lo || y0 >= hi[1] ||
-                         z0 + TZ <= g.lo || z0 >= hi[2];  // uniform over the block
 
+  load_window3<T, T>(win, wp, wz, frame, g, eps, x0, y0, z0);
+  __syncthreads();
   T acc[KP];
-  if (!halo_only) {
-    load_window3<T, T>(win, wp, wz, frame, g, eps, x0, y0, z0);
-    __syncthreads();
-    window_sums3<T, TP>(win, eps, plan, wbuf, acc);
-  }
+  window_sums3<T, TP>(win, eps, plan, wbuf, acc);
 #pragma unroll
   for (int k = 0; k < KP; ++k) {
     const int p = ty + k * TY3;
     if (p >= TP * TP) continue;
     const int xl = p / TP, yl = p % TP;
     const int x = x0 + xl, y = y0 + yl, z = z0 + tx;
-    if (x < 0 || y < 0 || z < 0 || x >= g.out[0] || y >= g.out[1] || z >= g.out[2]) continue;
-    T val = T(0);
-    if (!halo_only && x >= g.lo && x < hi[0] && y >= g.lo && y < hi[1] && z >= g.lo &&
-        z < hi[2]) {
-      const T center = win[((xl + eps) * wp + yl + eps) * wz + tx + eps];
-      val = euler(center, dt, operator_du(acc[k], center, scale, wsum));
-    }
-    out[(static_cast<size_t>(x) * g.out[1] + y) * g.out[2] + z] = val;
+    if (x >= g.n[0] || y >= g.n[1] || z >= g.n[2]) continue;
+    const T center = win[((xl + eps) * wp + yl + eps) * wz + tx + eps];
+    out[(static_cast<size_t>(x + eps) * g.out[1] + y + eps) * g.out[2] + z + eps] =
+        euler(center, dt, operator_du(acc[k], center, scale, wsum));
   }
 }
 
@@ -77,20 +115,16 @@ int launch(const void* frame, void* out, int nx, int ny, int nz, int eps, double
   const int tp = tile3_width(eps, sizeof(T));
   if (tp == 0) return -1;
   if (nx <= 0 || ny <= 0 || nz <= 0) return 0;
+  const int n[3] = {nx, ny, nz};
+  if (eps <= FAST_MAX_EPS3)
+    return with_eps<FAST_MAX_EPS3>(eps, [&](auto e) {
+      return launch_fast<T, decltype(e)::value>(frame, out, n, scale, wsum, dt,
+                                                static_cast<cudaStream_t>(stream));
+    });
   return with_tp(tp, [&](auto tpc) {
     constexpr int TP = decltype(tpc)::value;
-    Geom3 g{};
-    const int n[3] = {nx, ny, nz};
-    const int len[3] = {TP, TP, TZ};
-    for (int d = 0; d < 3; ++d) {
-      g.out[d] = g.src[d] = n[d] + 2 * eps;
-      g.n[d] = n[d];
-      const Axis a = axis_aligned(eps, n[d], n[d] + 2 * eps, len[d]);
-      g.org[d] = a.org;
-      g.tiles[d] = a.count;
-    }
-    g.shift = 0;
-    g.lo = eps;
+    const int f[3] = {nx + 2 * eps, ny + 2 * eps, nz + 2 * eps};
+    const Geom3 g = interior_geom(f, f, eps, 0, n, TP);
     const long long tiles = tile_count(g);
     if (tiles > INT_MAX) return -1;
     auto kernel = carried3d_kernel<T, TP>;
@@ -108,7 +142,8 @@ int launch(const void* frame, void* out, int nx, int ny, int nz, int eps, double
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64.  frame and out are (nx+2eps, ny+2eps,
-// nz+2eps) frames of the state type with the state in the interior.
+// nz+2eps) frames of the state type with the state in the interior; out's
+// halo must be zero (the kernel writes the interior only).
 extern "C" int nlheat_carried3d(int dtype, const void* frame, void* out, int nx, int ny, int nz,
                                 int eps, double scale, double wsum, double dt, void* stream) {
   if (dtype == 0) return launch<float>(frame, out, nx, ny, nz, eps, scale, wsum, dt, stream);

@@ -55,11 +55,9 @@
 // Each thread then sums one column of RUN outputs with W_h of its RUN + 2eps
 // window rows in registers (register_sums; eps a template parameter), with
 // no sum buffer and no barrier inside the sum.  The bf16 tier rounds the
-// staged window in place once.  Above eps 10, and through
-// nlheat_fused_nsum2d_tile at every eps (the design this kernel had before,
-// kept to time the two in one run), one 32 x 32 tile a block: the window
-// loaded cell by cell, each ring cell's block resolved on its own (two
-// floor divisions), then the tile body (window_sums).
+// staged window in place once.  Above eps 10, one 32 x 32 tile a block:
+// the window loaded cell by cell, each ring cell's block resolved on its own
+// (two floor divisions), then the tile body (window_sums).
 //
 // What bounds it on an H100 SXM (NVIDIA's published peaks at the card's
 // 700 W limit: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside the tensor cores;
@@ -316,7 +314,7 @@ int launch_tile(void* out, int bx, int by, int eps, const Neighbours& nb, cudaSt
   const size_t smem = tile_smem_bytes<T>(eps);
   if (smem > static_cast<size_t>(smem_limit())) return -1;
   if ((static_cast<long long>(bx) + TILE_X - 1) / TILE_X > 65535) return -1;  // gridDim.y
-  return with_mw(eps, [&](auto mw) {
+  auto body = [&](auto mw) {
     auto kernel = fused_nsum2d_tile<T, OpT, decltype(mw)::value>;
     const int e = allow_smem(kernel, smem);
     if (e != 0) return e;
@@ -324,36 +322,26 @@ int launch_tile(void* out, int bx, int by, int eps, const Neighbours& nb, cudaSt
     kernel<<<grid, dim3(TILE_Y, THREADS_Y), smem, st>>>(static_cast<T*>(out), bx, by, eps,
                                                          make_plan(eps), nb);
     return static_cast<int>(cudaGetLastError());
-  });
+  };
+  // eps above FAST_MAX_EPS only
+  if (eps <= 16) return body(std::integral_constant<int, wrows_for(16)>{});
+  if (eps <= 32) return body(std::integral_constant<int, wrows_for(32)>{});
+  return body(std::integral_constant<int, wrows_for(MAX_EPS)>{});
 }
 
-// fast: the register design where eps allows it, else the tile body.
+// The register design where eps allows it, else the tile body.
 template <typename T>
-int launch(bool bf16, void* out, int bx, int by, int eps, const Neighbours& nb, bool fast,
-           void* stream) {
+int launch(bool bf16, void* out, int bx, int by, int eps, const Neighbours& nb, void* stream) {
   if (eps < 0 || eps > MAX_EPS) return -1;
   if (tile_smem_bytes<T>(eps) > static_cast<size_t>(smem_limit())) return -1;
   if (bx <= 0 || by <= 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  if (fast && eps <= FAST_MAX_EPS)
+  if (eps <= FAST_MAX_EPS)
     return with_eps<FAST_MAX_EPS>(eps, [&](auto e) {
       return launch_fast<T, decltype(e)::value>(out, bx, by, bf16, nb, st);
     });
   return bf16 ? launch_tile<T, __nv_bfloat16>(out, bx, by, eps, nb, st)
               : launch_tile<T, T>(out, bx, by, eps, nb, st);
-}
-
-int launch_typed(int dtype, int bf16, const void* const* table, int hx, int hy, void* out,
-                 int bx, int by, int eps, bool fast, void* stream) {
-  if (hx < 0 || hy < 0 || (2 * hx + 1) * (2 * hy + 1) > MAX_NB) return -1;
-  Neighbours nb{};
-  for (int i = 0; i < (2 * hx + 1) * (2 * hy + 1); ++i) nb.p[i] = table[i];
-  nb.hx = hx;
-  nb.hy = hy;
-  if (nb.p[hx * (2 * hy + 1) + hy] == nullptr) return -1;
-  if (dtype == 0) return launch<float>(bf16 != 0, out, bx, by, eps, nb, fast, stream);
-  if (dtype == 1) return launch<double>(bf16 != 0, out, bx, by, eps, nb, fast, stream);
-  return -1;
 }
 
 }  // namespace
@@ -363,15 +351,15 @@ int launch_typed(int dtype, int bf16, const void* const* table, int hx, int hy, 
 // centre entry this block's.
 extern "C" int nlheat_fused_nsum2d(int dtype, int bf16, const void* const* table, int hx,
                                    int hy, void* out, int bx, int by, int eps, void* stream) {
-  return launch_typed(dtype, bf16, table, hx, hy, out, bx, by, eps, true, stream);
-}
-
-// The same sum by the tile body at every eps (the design before the
-// register design), for timing the two side by side; the same bits.
-extern "C" int nlheat_fused_nsum2d_tile(int dtype, int bf16, const void* const* table, int hx,
-                                        int hy, void* out, int bx, int by, int eps,
-                                        void* stream) {
-  return launch_typed(dtype, bf16, table, hx, hy, out, bx, by, eps, false, stream);
+  if (hx < 0 || hy < 0 || (2 * hx + 1) * (2 * hy + 1) > MAX_NB) return -1;
+  Neighbours nb{};
+  for (int i = 0; i < (2 * hx + 1) * (2 * hy + 1); ++i) nb.p[i] = table[i];
+  nb.hx = hx;
+  nb.hy = hy;
+  if (nb.p[hx * (2 * hy + 1) + hy] == nullptr) return -1;
+  if (dtype == 0) return launch<float>(bf16 != 0, out, bx, by, eps, nb, stream);
+  if (dtype == 1) return launch<double>(bf16 != 0, out, bx, by, eps, nb, stream);
+  return -1;
 }
 
 // Let the current card read the memory of card `peer` (NVLink or PCIe peer

@@ -32,29 +32,15 @@
 //   3. the epilogue u + dt*(scale*(nsum - wsum*u) [+ (cg*G + clg*L(G))]), every
 //      multiply and add rounded on its own (stencil_tile.cuh).
 //
-// Design, for 0 <= eps <= FAST_MAX_EPS3 (6): a register design.  A block of
-// 32 x TP threads owns a TP x TP x 32 output tile (TP = 8 in float32; in
-// float64 8 up to eps=4, then 4) and stages its (TP+2eps)^2 x (32+2eps)
-// window by cp.async, the cells outside the source zero-filled by the copy
-// itself: 16 bytes a copy where the source's rows and the window's z
-// origin fall on 16-byte boundaries (nz a multiple of 4 at even eps in
-// float32, as the 256^3 eps=4 step), else one cell a copy.  Thread (z lane,
-// row x) owns the window rows x + TP*m, every line of them, and the TP
-// outputs (x, 0 .. TP-1) of its lane.  It advances W_h of its lines in
-// registers (two window reads a height, only for the lines a column of that
-// height or above can reach) and writes W_h to one of two W buffers in
-// shared memory, by the parity of h, so one barrier a height separates the
-// writers from the readers.  Each output row then reads W_h of window row
-// x + i into registers once and adds it over every column (i, j) of height
-// h and every output of the row: about 29 W reads a point at eps=4 against
-// 49 adds.  eps is a template parameter, so every offset is a constant and
-// every register index fixed.  Shared-memory accesses per point at eps=4,
-// f32: about 5 (staging) + 23 (window reads) + 13 (W writes) + 29 (W
-// reads), 70 in all, against the tile body's 127.  Up to eps=4 in float32
-// two blocks share an SM (104 KB each), so one block's load overlaps the
-// other's sums; the second W buffer takes the room a second, prefetched
-// window would need.  In the bf16 tier the block rounds its staged window
-// in place once.
+// Design, for 0 <= eps <= FAST_MAX_EPS3 (6): the register design of
+// stencil_tile3d.cuh (fast3_tile, which carried3d.cu runs too): a block of
+// 32 x TP threads owns a TP x TP x 32 output tile, stages its window by
+// cp.async (16 bytes a copy where the source's rows and the window's z
+// origin are aligned: nz a multiple of 4 at eps 0 and 4 in float32, as the
+// 256^3 eps=4 step), and keeps W_h of its window lines in registers, one
+// barrier a height: about 70 shared-memory accesses per point at eps=4, f32,
+// against the tile body's 127.  In the bf16 tier the block rounds its staged
+// window in place once.
 //
 // eps 7-12 run the shared tile body (stencil_tile3d.cuh), which gives the
 // same bits.  Types: state float or double, operand the state type or
@@ -71,175 +57,26 @@
 
 #include "stencil_tile3d.cuh"
 
-#include <cstdint>
-
 namespace {
 
 using namespace nlheat;
 
 enum Mode { NSUM = 0, STEP = 1, STEP_TEST = 2 };
 
-// -- the register design, 0 <= eps <= FAST_MAX_EPS3 ----------------------------------
-
-constexpr int FAST_MAX_EPS3 = 6;
-constexpr size_t FAST3_FULL = 232448;  // the shared memory a block may opt in to on an H100
-
-// whether the column (i, j) of the plane offsets [0, 2eps]^2 has half-height
-// h: trunc(sqrt(eps^2 - (i-eps)^2 - (j-eps)^2)) == h, without the sqrt
-__host__ __device__ constexpr bool col_is(int eps, int h, int i, int j) {
-  const int rem = eps * eps - (i - eps) * (i - eps) - (j - eps) * (j - eps);
-  return rem >= h * h && rem < (h + 1) * (h + 1);
-}
-
-__host__ __device__ constexpr bool height_has_cols(int eps, int h) {
-  for (int i = 0; i <= 2 * eps; ++i)
-    for (int j = 0; j <= 2 * eps; ++j)
-      if (col_is(eps, h, i, j)) return true;
-  return false;
-}
-
-// Elements of shared memory a tile of plane width tp needs: the window,
-// (tp+2eps)^2 lines of 32+2eps, and two W buffers of (tp+2eps)^2 lines of 32.
-__host__ __device__ constexpr size_t fast3_elems(int eps, int tp) {
-  return static_cast<size_t>(tp + 2 * eps) * (tp + 2 * eps) * (TZ + 2 * eps + 2 * TZ);
-}
-
-// The plane width: the widest of 8, 4, 2, 1 whose tile fits a block's shared
-// memory, or 0.
-template <typename T, int EPS>
-__host__ __device__ constexpr int fast3_tp() {
-  for (int tp = 8; tp >= 1; tp /= 2)
-    if (fast3_elems(EPS, tp) * sizeof(T) <= FAST3_FULL) return tp;
-  return 0;
-}
-
-template <int EPS, int TP>
-struct Fast3 {
-  static constexpr int WP = TP + 2 * EPS;               // window lines a side
-  static constexpr int WZ = TZ + 2 * EPS;               // cells a window line
-  static constexpr int LINES = WP * WP;
-  static constexpr int NR = (WP + TP - 1) / TP;         // window rows a thread owns
-  static_assert(NR * WP <= 64, "the W registers of a thread");
-};
-
-// Heights H .. EPS of the sums (steps 1 and 2 of the order in the header).
-// Thread (z lane tx, row ty) owns window rows ty + TP*m, every line (a, b)
-// of them, and the outputs (ty, 0 .. TP-1) of its lane.  It grows W_H of its
-// lines in registers, for the lines within reach of a column of height >= H,
-// and writes them to the W buffer of H's parity when a column has height H;
-// after one barrier each output adds W_H over those columns, (i, j)
-// ascending: row i's W values are read into registers once and serve every
-// j and every output of the row.  The line b of a row is a constant, so
-// every offset is.
-template <typename T, int EPS, int TP, int H>
-__device__ __forceinline__ void sums3_from(const T* win, T* wbuf,
-                                           T (&W)[Fast3<EPS, TP>::NR * Fast3<EPS, TP>::WP],
-                                           T (&acc)[TP]) {
-  using F = Fast3<EPS, TP>;
-  constexpr int R = isqrt(EPS * EPS - H * H);  // columns of height >= H reach R from the centre
-  constexpr bool READ = height_has_cols(EPS, H);
-  constexpr bool PREV = H > 0 && height_has_cols(EPS, H - 1);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  T* wb = wbuf + (H & 1) * F::LINES * TZ;
-#pragma unroll
-  for (int m = 0; m < F::NR; ++m) {
-    const int a = ty + TP * m;
-    if (a < F::WP && a >= EPS - R && a < TP + EPS + R) {  // uniform over the warp
-      const T* c = win + a * F::WP * F::WZ + tx + EPS;
-      T* w = wb + a * F::WP * TZ + tx;
-#pragma unroll
-      for (int b = EPS - R; b < TP + EPS + R; ++b) {
-        T& v = W[m * F::WP + b];
-        if constexpr (H == 0) {
-          v = c[b * F::WZ];
-        } else {
-          v = v + c[b * F::WZ - H];
-          v = v + c[b * F::WZ + H];
-        }
-        if constexpr (READ) w[b * TZ] = v;
-      }
-    }
-  }
-  // W_H is written everywhere; and the readers of the buffer H+1 writes
-  // (last read at H-1) are done
-  if constexpr (READ || PREV) __syncthreads();
-  if constexpr (READ) {
-    const T* wrow = wb + ty * F::WP * TZ + tx;
-#pragma unroll
-    for (int i = 0; i <= 2 * EPS; ++i) {
-      T w[F::WP];  // W_H of window row ty + i; the loads no column uses are dropped
-#pragma unroll
-      for (int b = 0; b < F::WP; ++b) w[b] = wrow[(i * F::WP + b) * TZ];
-#pragma unroll
-      for (int j = 0; j <= 2 * EPS; ++j) {
-        if (col_is(EPS, H, i, j)) {
-#pragma unroll
-          for (int r = 0; r < TP; ++r) acc[r] = acc[r] + w[r + j];
-        }
-      }
-    }
-  }
-  if constexpr (H < EPS) sums3_from<T, EPS, TP, H + 1>(win, wbuf, W, acc);
-}
-
-// values a 16-byte copy moves
-template <typename T>
-__host__ __device__ constexpr int vec_width() { return 16 / static_cast<int>(sizeof(T)); }
+// -- the register design (stencil_tile3d.cuh, fast3_tile), eps 0-6 -----------------
 
 template <typename T, typename OpT, int EPS, int TP>
 __global__ void __launch_bounds__(TZ * TP)
 nlheat3d_fast(const T* __restrict__ src, T* __restrict__ out, const Geom3 g, bool vec, int mode,
               const T* __restrict__ gsrc, const T* __restrict__ lgsrc, T scale, T wsum, T dt,
               T coef_g, T coef_lg) {
-  using F = Fast3<EPS, TP>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* win = reinterpret_cast<T*>(smem_raw);
-  T* wbuf = win + F::LINES * F::WZ;
-  const int tx = threadIdx.x, ty = threadIdx.y;
   int x0, y0, z0;
   tile_origin(g, blockIdx.x, TP, x0, y0, z0);
-
-  // the window: cell (a, b, c) is src[x0 - EPS + shift + a][...][...], 0
-  // outside the source; consecutive threads stage consecutive cells, in
-  // 16-byte chunks where every chunk lies wholly inside or outside the
-  // source and is aligned (vec, from the host), else one at a time
-  const int r0 = x0 - EPS + g.shift, s0 = y0 - EPS + g.shift, q0 = z0 - EPS + g.shift;
-  auto stage = [&](auto chunk) {  // chunk: values a copy moves, 1 or vec_width<T>()
-    constexpr int C = decltype(chunk)::value, PER_LINE = F::WZ / C;
-    for (int idx = ty * TZ + tx; idx < F::LINES * PER_LINE; idx += TZ * TP) {
-      const int l = idx / PER_LINE, c = (idx - l * PER_LINE) * C;
-      const int a = l / F::WP, b = l - a * F::WP;
-      const int r = r0 + a, s = s0 + b, q = q0 + c;
-      const bool ok =
-          r >= 0 && r < g.src[0] && s >= 0 && s < g.src[1] && q >= 0 && q < g.src[2];
-      const T* from = ok ? src + (static_cast<size_t>(r) * g.src[1] + s) * g.src[2] + q : src;
-      if constexpr (C == 1)
-        cp_async_value(win + l * F::WZ + c, from, ok);
-      else
-        cp_async_16(win + l * F::WZ + c, from, ok);
-    }
-  };
-  if (vec)
-    stage(std::integral_constant<int, vec_width<T>()>{});
-  else
-    stage(std::integral_constant<int, 1>{});
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if constexpr (!std::is_same<T, OpT>::value) {
-    for (int idx = ty * TZ + tx; idx < F::LINES * F::WZ; idx += TZ * TP)
-      win[idx] = Operand<T, OpT>::round(win[idx]);
-    __syncthreads();
-  }
-
-  T W[F::NR * F::WP];
   T acc[TP];
-#pragma unroll
-  for (int r = 0; r < TP; ++r) acc[r] = T(0);
-  sums3_from<T, EPS, TP, 0>(win, wbuf, W, acc);
+  const T* win = fast3_tile<T, OpT, EPS, TP>(src, g, vec, x0, y0, z0, acc);
 
   // step 3
-  const int x = x0 + ty, z = z0 + tx;
+  const int x = x0 + threadIdx.y, z = z0 + threadIdx.x;
   if (x >= g.out[0] || z >= g.out[2]) return;
 #pragma unroll
   for (int r = 0; r < TP; ++r) {
@@ -249,7 +86,7 @@ nlheat3d_fast(const T* __restrict__ src, T* __restrict__ out, const Geom3 g, boo
     if (mode == NSUM) {
       out[o] = acc[r];
     } else {
-      const T center = win[((ty + EPS) * F::WP + r + EPS) * F::WZ + tx + EPS];
+      const T center = fast3_centre<EPS, TP>(win, r);
       T du = operator_du(acc[r], center, scale, wsum);
       if (mode == STEP_TEST)
         du = add_rn(du, add_rn(mul_rn(coef_g, gsrc[o]), mul_rn(coef_lg, lgsrc[o])));
@@ -264,40 +101,12 @@ int launch_fast(const void* src, const int sdim[3], int shift, void* out, const 
                 int mode, const void* g, const void* lg, double scale, double wsum, double dt,
                 double coef_g, double coef_lg, cudaStream_t stream) {
   constexpr int TP = fast3_tp<T, EPS>();
-  static_assert(TP > 0, "every eps of the register design fits a block");
-  const size_t smem = fast3_elems(EPS, TP) * sizeof(T);
-  if (smem > static_cast<size_t>(smem_limit())) return -1;
   const Geom3 geom = interior_geom(n, sdim, shift, 0, n, TP);
-  const long long tiles = tile_count(geom);
-  if (tiles > INT_MAX) return -1;
-  // 16-byte staging: the window's lines and z origins (z0 - EPS + shift, z0
-  // a multiple of 32) and the source's rows on 16-byte boundaries, so that
-  // no chunk straddles the source's z edges
-  constexpr int V = vec_width<T>();
-  const bool vec = (TZ + 2 * EPS) % V == 0 && (shift - EPS) % V == 0 && sdim[2] % V == 0 &&
-                   reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  auto kernel = nlheat3d_fast<T, OpT, EPS, TP>;
-  const int e = allow_smem(kernel, smem);
-  if (e != 0) return e;
-  kernel<<<static_cast<unsigned>(tiles), dim3(TZ, TP), smem, stream>>>(
-      static_cast<const T*>(src), static_cast<T*>(out), geom, vec, mode, static_cast<const T*>(g),
+  return fast3_launch<T, EPS, TP>(
+      nlheat3d_fast<T, OpT, EPS, TP>, geom, stream, static_cast<const T*>(src),
+      static_cast<T*>(out), geom, fast3_vec<T, EPS>(geom, src), mode, static_cast<const T*>(g),
       static_cast<const T*>(lg), static_cast<T>(scale), static_cast<T>(wsum),
       static_cast<T>(dt), static_cast<T>(coef_g), static_cast<T>(coef_lg));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Instantiate launch_fast for eps 0..FAST_MAX_EPS3 by a compile-time switch.
-template <typename T, typename OpT, int EPS = 0>
-int dispatch_fast(int eps, const void* src, const int sdim[3], int shift, void* out,
-                  const int n[3], int mode, const void* g, const void* lg, double scale,
-                  double wsum, double dt, double coef_g, double coef_lg, cudaStream_t stream) {
-  if (eps == EPS)
-    return launch_fast<T, OpT, EPS>(src, sdim, shift, out, n, mode, g, lg, scale, wsum, dt,
-                                    coef_g, coef_lg, stream);
-  if constexpr (EPS < FAST_MAX_EPS3)
-    return dispatch_fast<T, OpT, EPS + 1>(eps, src, sdim, shift, out, n, mode, g, lg, scale,
-                                          wsum, dt, coef_g, coef_lg, stream);
-  return -1;
 }
 
 // -- the shared tile body (stencil_tile3d.cuh), eps above FAST_MAX_EPS3 -----------
@@ -350,8 +159,11 @@ int launch(const void* src, const int sdim[3], int shift, void* out, const int n
   if (tp == 0) return -1;
   if (n[0] <= 0 || n[1] <= 0 || n[2] <= 0) return 0;
   if (eps <= FAST_MAX_EPS3)
-    return dispatch_fast<T, OpT>(eps, src, sdim, shift, out, n, mode, g, lg, scale, wsum, dt,
-                                 coef_g, coef_lg, static_cast<cudaStream_t>(stream));
+    return with_eps<FAST_MAX_EPS3>(eps, [&](auto e) {
+      return launch_fast<T, OpT, decltype(e)::value>(src, sdim, shift, out, n, mode, g, lg,
+                                                     scale, wsum, dt, coef_g, coef_lg,
+                                                     static_cast<cudaStream_t>(stream));
+    });
   return with_tp(tp, [&](auto tpc) {
     constexpr int TP = decltype(tpc)::value;
     const Geom3 geom = interior_geom(n, sdim, shift, 0, n, TP);

@@ -7,9 +7,10 @@
 // resident kernels share.  Every 2D kernel of the port includes it (and
 // the 3D header the epilogue), so a multi-step kernel is bit-identical to
 // the same number of step2d launches by construction.  Below the tile body
-// it holds the register design (register_sums) and the superstep levels
-// that superstep2d.cu and batched_superstep2d.cu share, which add the same
-// terms in the same order:
+// it holds the register design (register_sums), the one-step walk over a
+// case stack that batched_step2d.cu and batched_carried2d.cu share
+// (reg_tiles) and the superstep levels that superstep2d.cu and
+// batched_superstep2d.cu share, which add the same terms in the same order:
 //
 // * the sum.  One 32 x 32 output tile reads a (32+2eps) x (32+2eps) window.
 //   For every window row r, W_h(r)[y] = sum_{|j|<=h} win[r][y+j] grows
@@ -256,8 +257,8 @@ int with_eps(int eps, F f) {
   return -1;
 }
 
-// -- the register design (batched_step2d.cu, superstep2d.cu,
-// batched_superstep2d.cu, fused_nsum2d.cu, nsum3d.cu) ---------------------------
+// -- the register design (batched_step2d.cu, batched_carried2d.cu,
+// superstep2d.cu, batched_superstep2d.cu, fused_nsum2d.cu) ----------------------
 //
 // eps is a template parameter, so every offset below is a constant and every
 // register index is fixed at compile time.  Windows are staged by cp.async:
@@ -362,6 +363,122 @@ __device__ __forceinline__ void register_sums(const T* col, int ld, T (&acc)[RUN
   }
 }
 
+// -- one step of a case stack in the register design (batched_step2d.cu,
+// batched_carried2d.cu) --------------------------------------------------------
+//
+// A persistent grid walks the (case, row tile, column tile) lattice of each
+// case's plane, RegTile<T> tiles of ROWS x COLS outputs; a block stages the
+// window of tile t+1 by cp.async into one of two buffers while it sums tile
+// t from the other, so the load overlaps the sums.  The source is a (B,
+// rows, cols) stack whose case plane holds the case's cell (x, y) at (x +
+// off, y + off): off = 0 for an unpadded stack, eps for a stack of frames.
+
+// The largest eps of the walk: a thread's RUN + 2eps column sums and RUN
+// outputs stay in registers up to it.
+constexpr int REG_TILES_MAX_EPS = 16;
+
+struct TileIndex {
+  int b, x0, y0;  // the case and the tile's first output row and column
+};
+
+__device__ inline TileIndex tile_of(long long t, int ntx, int nty, int rows, int cols) {
+  const long long tx = t / nty;
+  TileIndex ti;
+  ti.y0 = static_cast<int>(t - tx * nty) * cols;
+  ti.b = static_cast<int>(tx / ntx);
+  ti.x0 = static_cast<int>(tx - static_cast<long long>(ti.b) * ntx) * rows;
+  return ti;
+}
+
+// Stage tile ti's window: cell (a, c) is case ti.b's cell (x0 - EPS + a, y0
+// - EPS + c), read at (x + off, y + off) of its (rows, cols) plane, 0 outside
+// the plane.
+template <typename T, int EPS>
+__device__ void stage_window(T* buf, const T* src, int rows, int cols, int off, TileIndex ti) {
+  constexpr int WR = RegTile<T>::ROWS + 2 * EPS, WC = RegTile<T>::COLS + 2 * EPS;
+  const T* plane = src + static_cast<size_t>(ti.b) * rows * cols;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  for (int idx = tid; idx < WR * WC; idx += REG_THREADS) {
+    const int a = idx / WC, c = idx - a * WC;
+    const int x = ti.x0 - EPS + off + a, y = ti.y0 - EPS + off + c;
+    const bool in = x >= 0 && x < rows && y >= 0 && y < cols;
+    cp_async_value(buf + idx, in ? plane + static_cast<size_t>(x) * cols + y : plane, in);
+  }
+}
+
+// The persistent walk over ntiles tiles (ntx row tiles by nty column tiles a
+// case): every thread of the 32 x REG_TY block calls it.  For each tile the
+// block rounds the staged window to the operand type in place (the bf16
+// tier), sums it with register_sums, and calls epilogue(ti, col, acc): col
+// is this thread's column of the window at the centre of its first output
+// row's window row (the centre of output r is col[(r + EPS) * WC], WC =
+// COLS + 2EPS), acc its RUN sums.  The shared memory holds two windows.
+template <typename T, typename OpT, int EPS, typename Epilogue>
+__device__ __forceinline__ void reg_tiles(const T* __restrict__ src, int rows, int cols, int off,
+                                          int ntx, int nty, long long ntiles,
+                                          Epilogue epilogue) {
+  constexpr int RUN = RegTile<T>::RUN, ROWS = RegTile<T>::ROWS, COLS = RegTile<T>::COLS;
+  constexpr int WC = COLS + 2 * EPS;
+  constexpr size_t BUF = reg_window_elems<T, EPS>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* bufs = reinterpret_cast<T*>(smem_raw);
+  const int tx = threadIdx.x, r0 = threadIdx.y * RUN;
+
+  long long t = blockIdx.x;
+  if (t < ntiles)
+    stage_window<T, EPS>(bufs, src, rows, cols, off, tile_of(t, ntx, nty, ROWS, COLS));
+  cp_async_commit();
+  int cur = 0;
+  for (; t < ntiles; t += gridDim.x) {
+    const long long tn = t + gridDim.x;
+    if (tn < ntiles)
+      stage_window<T, EPS>(bufs + (cur ^ 1) * BUF, src, rows, cols, off,
+                           tile_of(tn, ntx, nty, ROWS, COLS));
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed (the next tile's may not)
+    __syncthreads();
+    T* win = bufs + cur * BUF;
+    if constexpr (!std::is_same<T, OpT>::value) {
+      for (int idx = threadIdx.y * 32 + tx; idx < static_cast<int>(BUF); idx += REG_THREADS)
+        win[idx] = Operand<T, OpT>::round(win[idx]);
+      __syncthreads();
+    }
+    const T* col = win + r0 * WC + tx + EPS;
+    T acc[RUN];
+    register_sums<T, T, EPS, RUN>(col, WC, acc);
+    epilogue(tile_of(t, ntx, nty, ROWS, COLS), col, acc);
+    __syncthreads();  // every read of this buffer is done before it is staged again
+    cur ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+// Launch kernel, a reg_tiles kernel of this T and EPS, over ntiles tiles: as
+// many 32 x REG_TY blocks as the card holds at once (per_sm: the caller's
+// cache of the blocks an SM holds, -1 until asked; one card type a
+// process), at most one a tile.  -1 when the two windows exceed a block's
+// shared memory, else the CUDA status.
+template <typename T, int EPS, typename Kernel, typename... Args>
+int reg_tiles_launch(Kernel kernel, long long ntiles, int& per_sm, cudaStream_t stream,
+                     Args... args) {
+  const size_t smem = 2 * reg_window_elems<T, EPS>() * sizeof(T);
+  if (smem > static_cast<size_t>(smem_limit())) return -1;
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  if (per_sm < 0) {
+    int n = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, REG_THREADS, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    per_sm = n > 0 ? n : 1;
+  }
+  static const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  const long long cap = static_cast<long long>(per_sm) * sms;
+  const long long grid = ntiles < cap ? ntiles : cap;
+  kernel<<<static_cast<unsigned>(grid), dim3(32, REG_TY), smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // -- K steps by temporal blocking in the register design (superstep2d.cu,
 // batched_superstep2d.cu) -------------------------------------------------------
 //
@@ -376,21 +493,22 @@ constexpr int SUPERSTEP_MAX_K = 4;
 constexpr int SUPERSTEP_FAST_MAX_EPS = 8;  // the register design's largest eps
 
 // Shared memory of a launch: the register design's two S x S state buffers
-// (fast), or the tile body's two (three in the bf16 tier) and its sum buffer.
+// (eps <= SUPERSTEP_FAST_MAX_EPS), or the tile body's two (three in the bf16
+// tier) and its sum buffer.
 template <typename T>
-size_t superstep_smem(int ot, int eps, int ksteps, bool bf16, bool fast) {
+size_t superstep_smem(int ot, int eps, int ksteps, bool bf16) {
   const size_t s = ot + 2 * ksteps * eps;
-  if (fast) return 2 * s * s * sizeof(T);
+  if (eps <= SUPERSTEP_FAST_MAX_EPS) return 2 * s * s * sizeof(T);
   return ((bf16 ? 3 : 2) * s * s + wbuf_elems(eps)) * sizeof(T);
 }
 
 // The output tile side of a launch (64, or 32 where two 64-tiles do not fit
 // one SM), or 0 when not even a 32-point tile fits a block's shared memory.
 template <typename T>
-int superstep_ot(int eps, int ksteps, bool bf16, bool fast) {
+int superstep_ot(int eps, int ksteps, bool bf16) {
   const size_t limit = static_cast<size_t>(smem_limit());
-  if (superstep_smem<T>(64, eps, ksteps, bf16, fast) <= limit / 2) return 64;
-  if (superstep_smem<T>(32, eps, ksteps, bf16, fast) <= limit) return 32;
+  if (superstep_smem<T>(64, eps, ksteps, bf16) <= limit / 2) return 64;
+  if (superstep_smem<T>(32, eps, ksteps, bf16) <= limit) return 32;
   return 0;
 }
 

@@ -4,11 +4,12 @@
 //
 // Counterpart of _block_neighbor_sum_3d (nonlocalheatequation_tpu/ops/
 // pallas_kernel.py:672), which the TPU's per-step, carried and resident 3D
-// kernels share.  carried3d.cu, resident3d.cu, split_nsum3d.cu and
-// fused_nsum3d.cu run it at every eps, and nsum3d.cu (nsum3d, step3d) above
-// eps 6; below, nsum3d.cu runs its register design, which adds the same
-// terms in the same order (below), so every 3D kernel gives the bits of
-// step3d and of the plain versions' sphere_sum (ops/cuda_kernel.py).
+// kernels share.  resident3d.cu, split_nsum3d.cu and fused_nsum3d.cu run it
+// at every eps, and nsum3d.cu (nsum3d, step3d) and carried3d.cu above eps 6;
+// below, those two run the register design at the end of this header
+// (fast3_tile), which adds the same terms in the same order, so every 3D
+// kernel gives the bits of step3d and of the plain versions' sphere_sum
+// (ops/cuda_kernel.py).
 //
 // The state is [x][y][z], z contiguous.  One block owns an output tile of
 // TP x TP points in the (x, y) plane by TZ = 32 along z (one lane each) and
@@ -31,7 +32,8 @@
 //   reads over every window line-cell, and each output reads its columns'
 //   W values from wbuf: about 127 shared-memory accesses per point at eps=4,
 //   the 8 x 8 x 32 tile, with two barriers a height; step3d ran at 12.6x its
-//   byte bound on this body at 256^3, eps=4, f32 (PERF.md).
+//   byte bound on this body at 256^3, eps=4, f32 (PERF.md), and 5.7x on the
+//   register design.
 // * The tile width.  The window grows as (TP+2eps)^2 (32+2eps), so TP is
 //   the largest of 8, 4, 2, 1 whose window and sum buffer fit the block's
 //   shared memory (f32: TP=8 up to eps=8, TP=1 at eps=12; f64: TP=8 up to
@@ -46,6 +48,7 @@
 #include "stencil_tile.cuh"
 
 #include <climits>
+#include <cstdint>
 
 namespace nlheat {
 
@@ -82,11 +85,10 @@ inline Plan3 make_plan3(int eps) {
   return p;
 }
 
-// Where a launch's tiles sit.  Arrays are row-major [x][y][z].  The output
-// cell (X, Y, Z) is the step (or sum) of the source cell (X, Y, Z) + shift
-// when it lies in the interior box [lo, lo + n) on every axis, else 0 (the
-// carried frame's halo); cells beyond the output array are not written.  The
-// tiles form a lattice from org, tiles[] of them per axis.
+// Where a launch's tiles sit.  Arrays are row-major [x][y][z].  The tiles
+// form a lattice from org, tiles[] of them per axis, over the box [lo, lo +
+// n) of output cells; the output cell (X, Y, Z) is the step (or sum) of the
+// source cell (X, Y, Z) + shift.
 struct Geom3 {
   int out[3];
   int src[3];
@@ -126,21 +128,12 @@ int with_tp(int tp, F f) {
 }
 
 // The tile lattice over the box [start, start + len) on one axis, with tile
-// length t: the origin and the count.  Used on the interior (step, sum,
-// resident) and, for the carried frame, on the whole frame with the lattice
-// aligned to the interior so that tiles lie either in the interior or
-// wholly (cheaply) in the halo where they can.
+// length t: the origin and the count.
 struct Axis {
   int org, count;
 };
 
 inline Axis axis_over(int start, int len, int t) { return {start, (len + t - 1) / t}; }
-
-inline Axis axis_aligned(int lo, int n, int frame, int t) {
-  const int before = (lo + t - 1) / t;  // tiles below the interior
-  const int org = lo - before * t;
-  return {org, (frame - org + t - 1) / t};
-}
 
 __host__ __device__ inline long long tile_count(const Geom3& g) {
   return static_cast<long long>(g.tiles[0]) * g.tiles[1] * g.tiles[2];
@@ -252,8 +245,8 @@ __device__ void window_sums3(const T* win, int eps, const Plan3& plan, T* wbuf,
 }
 
 // The launch geometry of a step over the interior of an unpadded state
-// (step3d, nsum3d) or of a frame's interior (resident3d): shift and lo as
-// given, the interior tiled from lo.
+// (step3d, nsum3d), of a frame read at shift eps (carried3d) or of a frame's
+// interior (resident3d): shift and lo as given, the interior tiled from lo.
 inline Geom3 interior_geom(const int out[3], const int src[3], int shift, int lo,
                            const int n[3], int tp) {
   Geom3 g{};
@@ -269,6 +262,225 @@ inline Geom3 interior_geom(const int out[3], const int src[3], int shift, int lo
   g.shift = shift;
   g.lo = lo;
   return g;
+}
+
+// -- the register design (nsum3d.cu: nsum3d, step3d; carried3d.cu), eps 0-6 ------------
+//
+// A block of 32 x TP threads owns a TP x TP x 32 output tile (TP = 8 in
+// float32; in float64 8 up to eps=4, then 4) and stages its (TP+2eps)^2 x
+// (32+2eps) window by cp.async, the cells outside the source zero-filled by
+// the copy itself: 16 bytes a copy where the source's rows and the window's
+// z origin fall on 16-byte boundaries (fast3_vec), else one cell a copy.
+// Thread (z lane, row x) owns the window rows x + TP*m, every line of them,
+// and the TP outputs (x, 0 .. TP-1) of its lane.  It advances W_h of its
+// lines in registers (two window reads a height, only for the lines a column
+// of that height or above can reach) and writes W_h to one of two W buffers
+// in shared memory, by the parity of h, so one barrier a height separates
+// the writers from the readers.  Each output row then reads W_h of window
+// row x + i into registers once and adds it over every column (i, j) of
+// height h and every output of the row: about 29 W reads a point at eps=4
+// against 49 adds.  eps is a template parameter, so every offset is a
+// constant and every register index fixed.  Shared-memory accesses per point
+// at eps=4, f32: about 5 (staging) + 23 (window reads) + 13 (W writes) + 29
+// (W reads), 70 in all, against the tile body's 127.  Up to eps=4 in float32
+// two blocks share an SM (104 KB each), so one block's load overlaps the
+// other's sums; the second W buffer takes the room a second, prefetched
+// window would need.  In the bf16 tier the block rounds its staged window in
+// place once.  The terms and their order are the tile body's (above), so
+// both designs give the same bits.
+
+constexpr int FAST_MAX_EPS3 = 6;
+constexpr size_t FAST3_FULL = 232448;  // the shared memory a block may opt in to on an H100
+
+// whether the column (i, j) of the plane offsets [0, 2eps]^2 has half-height
+// h: trunc(sqrt(eps^2 - (i-eps)^2 - (j-eps)^2)) == h, without the sqrt
+__host__ __device__ constexpr bool col_is(int eps, int h, int i, int j) {
+  const int rem = eps * eps - (i - eps) * (i - eps) - (j - eps) * (j - eps);
+  return rem >= h * h && rem < (h + 1) * (h + 1);
+}
+
+__host__ __device__ constexpr bool height_has_cols(int eps, int h) {
+  for (int i = 0; i <= 2 * eps; ++i)
+    for (int j = 0; j <= 2 * eps; ++j)
+      if (col_is(eps, h, i, j)) return true;
+  return false;
+}
+
+// Elements of shared memory a tile of plane width tp needs: the window,
+// (tp+2eps)^2 lines of 32+2eps, and two W buffers of (tp+2eps)^2 lines of 32.
+__host__ __device__ constexpr size_t fast3_elems(int eps, int tp) {
+  return static_cast<size_t>(tp + 2 * eps) * (tp + 2 * eps) * (TZ + 2 * eps + 2 * TZ);
+}
+
+// The plane width: the widest of 8, 4, 2, 1 whose tile fits a block's shared
+// memory, or 0.
+template <typename T, int EPS>
+__host__ __device__ constexpr int fast3_tp() {
+  for (int tp = 8; tp >= 1; tp /= 2)
+    if (fast3_elems(EPS, tp) * sizeof(T) <= FAST3_FULL) return tp;
+  return 0;
+}
+
+template <int EPS, int TP>
+struct Fast3 {
+  static constexpr int WP = TP + 2 * EPS;               // window lines a side
+  static constexpr int WZ = TZ + 2 * EPS;               // cells a window line
+  static constexpr int LINES = WP * WP;
+  static constexpr int NR = (WP + TP - 1) / TP;         // window rows a thread owns
+  static_assert(NR * WP <= 64, "the W registers of a thread");
+};
+
+// Heights H .. EPS of the sums (steps 1 and 2 of the order above).  Thread
+// (z lane tx, row ty) owns window rows ty + TP*m, every line (a, b) of them,
+// and the outputs (ty, 0 .. TP-1) of its lane.  It grows W_H of its lines in
+// registers, for the lines within reach of a column of height >= H, and
+// writes them to the W buffer of H's parity when a column has height H;
+// after one barrier each output adds W_H over those columns, (i, j)
+// ascending: row i's W values are read into registers once and serve every
+// j and every output of the row.  The line b of a row is a constant, so
+// every offset is.
+template <typename T, int EPS, int TP, int H>
+__device__ __forceinline__ void sums3_from(const T* win, T* wbuf,
+                                           T (&W)[Fast3<EPS, TP>::NR * Fast3<EPS, TP>::WP],
+                                           T (&acc)[TP]) {
+  using F = Fast3<EPS, TP>;
+  constexpr int R = isqrt(EPS * EPS - H * H);  // columns of height >= H reach R from the centre
+  constexpr bool READ = height_has_cols(EPS, H);
+  constexpr bool PREV = H > 0 && height_has_cols(EPS, H - 1);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  T* wb = wbuf + (H & 1) * F::LINES * TZ;
+#pragma unroll
+  for (int m = 0; m < F::NR; ++m) {
+    const int a = ty + TP * m;
+    if (a < F::WP && a >= EPS - R && a < TP + EPS + R) {  // uniform over the warp
+      const T* c = win + a * F::WP * F::WZ + tx + EPS;
+      T* w = wb + a * F::WP * TZ + tx;
+#pragma unroll
+      for (int b = EPS - R; b < TP + EPS + R; ++b) {
+        T& v = W[m * F::WP + b];
+        if constexpr (H == 0) {
+          v = c[b * F::WZ];
+        } else {
+          v = v + c[b * F::WZ - H];
+          v = v + c[b * F::WZ + H];
+        }
+        if constexpr (READ) w[b * TZ] = v;
+      }
+    }
+  }
+  // W_H is written everywhere; and the readers of the buffer H+1 writes
+  // (last read at H-1) are done
+  if constexpr (READ || PREV) __syncthreads();
+  if constexpr (READ) {
+    const T* wrow = wb + ty * F::WP * TZ + tx;
+#pragma unroll
+    for (int i = 0; i <= 2 * EPS; ++i) {
+      T w[F::WP];  // W_H of window row ty + i; the loads no column uses are dropped
+#pragma unroll
+      for (int b = 0; b < F::WP; ++b) w[b] = wrow[(i * F::WP + b) * TZ];
+#pragma unroll
+      for (int j = 0; j <= 2 * EPS; ++j) {
+        if (col_is(EPS, H, i, j)) {
+#pragma unroll
+          for (int r = 0; r < TP; ++r) acc[r] = acc[r] + w[r + j];
+        }
+      }
+    }
+  }
+  if constexpr (H < EPS) sums3_from<T, EPS, TP, H + 1>(win, wbuf, W, acc);
+}
+
+// values a 16-byte copy moves
+template <typename T>
+__host__ __device__ constexpr int vec_width() { return 16 / static_cast<int>(sizeof(T)); }
+
+// Whether a launch of geometry g stages 16 bytes a copy: the window's lines
+// and z origins (z0 - EPS + shift, z0 a multiple of 32) and the source's rows
+// on 16-byte boundaries, so that no chunk straddles the source's z edges.
+template <typename T, int EPS>
+inline bool fast3_vec(const Geom3& g, const void* src) {
+  constexpr int V = vec_width<T>();
+  return (TZ + 2 * EPS) % V == 0 && (g.shift - EPS) % V == 0 && g.src[2] % V == 0 &&
+         reinterpret_cast<uintptr_t>(src) % 16 == 0;
+}
+
+// The tile at output origin (x0, y0, z0): stage its window (cell (a, b, c)
+// is src[x0 - EPS + shift + a][...][...], 0 outside the source), round it to
+// the operand type, and sum it: acc[r] is the neighbour sum of output (x0 +
+// threadIdx.y, y0 + r, z0 + threadIdx.x).  Returns the window in shared
+// memory, which stays as staged (fast3_centre reads it).  Every thread of the
+// 32 x TP block calls it (it holds barriers).
+template <typename T, typename OpT, int EPS, int TP>
+__device__ __forceinline__ const T* fast3_tile(const T* __restrict__ src, const Geom3& g,
+                                               bool vec, int x0, int y0, int z0,
+                                               T (&acc)[TP]) {
+  using F = Fast3<EPS, TP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* win = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = win + F::LINES * F::WZ;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+
+  // consecutive threads stage consecutive cells, in 16-byte chunks where
+  // every chunk lies wholly inside or outside the source and is aligned
+  // (vec, from the host), else one at a time
+  const int r0 = x0 - EPS + g.shift, s0 = y0 - EPS + g.shift, q0 = z0 - EPS + g.shift;
+  auto stage = [&](auto chunk) {  // chunk: values a copy moves, 1 or vec_width<T>()
+    constexpr int C = decltype(chunk)::value, PER_LINE = F::WZ / C;
+    for (int idx = ty * TZ + tx; idx < F::LINES * PER_LINE; idx += TZ * TP) {
+      const int l = idx / PER_LINE, c = (idx - l * PER_LINE) * C;
+      const int a = l / F::WP, b = l - a * F::WP;
+      const int r = r0 + a, s = s0 + b, q = q0 + c;
+      const bool ok =
+          r >= 0 && r < g.src[0] && s >= 0 && s < g.src[1] && q >= 0 && q < g.src[2];
+      const T* from = ok ? src + (static_cast<size_t>(r) * g.src[1] + s) * g.src[2] + q : src;
+      if constexpr (C == 1)
+        cp_async_value(win + l * F::WZ + c, from, ok);
+      else
+        cp_async_16(win + l * F::WZ + c, from, ok);
+    }
+  };
+  if (vec)
+    stage(std::integral_constant<int, vec_width<T>()>{});
+  else
+    stage(std::integral_constant<int, 1>{});
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if constexpr (!std::is_same<T, OpT>::value) {
+    for (int idx = ty * TZ + tx; idx < F::LINES * F::WZ; idx += TZ * TP)
+      win[idx] = Operand<T, OpT>::round(win[idx]);
+    __syncthreads();
+  }
+
+  T W[F::NR * F::WP];
+#pragma unroll
+  for (int r = 0; r < TP; ++r) acc[r] = T(0);
+  sums3_from<T, EPS, TP, 0>(win, wbuf, W, acc);
+  return win;
+}
+
+// The staged (operand) value of output (x0 + threadIdx.y, y0 + r, z0 +
+// threadIdx.x) in the window fast3_tile returned.
+template <int EPS, int TP, typename T>
+__device__ __forceinline__ T fast3_centre(const T* win, int r) {
+  using F = Fast3<EPS, TP>;
+  return win[((threadIdx.y + EPS) * F::WP + r + EPS) * F::WZ + threadIdx.x + EPS];
+}
+
+// Launch kernel, a register-design kernel of plane width TP, over the tiles
+// of g, one 32 x TP block a tile; -1 when its shared memory or grid is
+// beyond the card, else the CUDA status.
+template <typename T, int EPS, int TP, typename Kernel, typename... Args>
+int fast3_launch(Kernel kernel, const Geom3& g, cudaStream_t stream, Args... args) {
+  static_assert(TP > 0, "every eps of the register design fits a block");
+  const size_t smem = fast3_elems(EPS, TP) * sizeof(T);
+  if (smem > static_cast<size_t>(smem_limit())) return -1;
+  const long long tiles = tile_count(g);
+  if (tiles > INT_MAX) return -1;
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  kernel<<<static_cast<unsigned>(tiles), dim3(TZ, TP), smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace nlheat

@@ -98,17 +98,16 @@ int launch(const void* u, void* out, int nx, int ny, int eps, int ksteps, double
            double wsum, double dt, void* stream) {
   if (eps < 0 || eps > MAX_EPS || ksteps < 1 || ksteps > SUPERSTEP_MAX_K) return -1;
   constexpr bool BF16 = !std::is_same<T, OpT>::value;
-  const bool fast = eps <= SUPERSTEP_FAST_MAX_EPS;
-  const int ot = superstep_ot<T>(eps, ksteps, BF16, fast);
+  const int ot = superstep_ot<T>(eps, ksteps, BF16);
   if (ot == 0) return -1;
   if ((static_cast<long long>(nx) + ot - 1) / ot > 65535) return -1;  // gridDim.y
   if (nx <= 0 || ny <= 0) return 0;
-  const size_t smem = superstep_smem<T>(ot, eps, ksteps, BF16, fast);
+  const size_t smem = superstep_smem<T>(ot, eps, ksteps, BF16);
   const dim3 grid((ny + ot - 1) / ot, (nx + ot - 1) / ot);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto pu = static_cast<const T*>(u);
   const auto po = static_cast<T*>(out);
-  if (fast)
+  if (eps <= SUPERSTEP_FAST_MAX_EPS)
     return with_eps<SUPERSTEP_FAST_MAX_EPS>(eps, [&](auto e) {
       constexpr int EPS = decltype(e)::value;
       return superstep_launch(superstep2d_fast<T, OpT, EPS, 4>, superstep2d_fast<T, OpT, EPS, 6>,
@@ -157,8 +156,7 @@ extern "C" int nlheat_superstep2d(int dtype, int bf16, const void* u, void* out,
 // tier (64 or 32), or 0 when it does not fit the card's shared memory.
 extern "C" int nlheat_superstep2d_fits(int dtype, int bf16, int eps, int ksteps) {
   if (eps < 0 || eps > MAX_EPS || ksteps < 1 || ksteps > SUPERSTEP_MAX_K) return 0;
-  const bool fast = eps <= SUPERSTEP_FAST_MAX_EPS;
-  if (dtype == 0) return superstep_ot<float>(eps, ksteps, bf16 != 0, fast);
-  if (dtype == 1) return superstep_ot<double>(eps, ksteps, bf16 != 0, fast);
+  if (dtype == 0) return superstep_ot<float>(eps, ksteps, bf16 != 0);
+  if (dtype == 1) return superstep_ot<double>(eps, ksteps, bf16 != 0);
   return 0;
 }

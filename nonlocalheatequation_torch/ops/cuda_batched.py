@@ -3,16 +3,20 @@ the superstep gate, for the ensemble engine (serve/ensemble.py).
 
 Counterpart of the batched section of
 ``nonlocalheatequation_tpu/ops/pallas_kernel.py``.  Three hand-written CUDA
-kernels (csrc/, on the tile body of csrc/stencil_tile.cuh) advance a
-``(B, nx, ny)`` stack of independent 2D solves that share (shape, eps,
-dtype, precision tier) in one launch:
+kernels (csrc/, on csrc/stencil_tile.cuh: batched_step2d and
+batched_carried2d on its register walk ``reg_tiles`` up to eps 16,
+batched_superstep2d on its superstep levels up to eps 8, each on the tile
+body above) advance a ``(B, nx, ny)`` stack of independent 2D solves that
+share (shape, eps, dtype, precision tier) in one launch:
 
 * :func:`batched_step2d` replaces ``_build_batched_step_kernel``
   (pallas_kernel.py:1694, via ``make_batched_pallas_multi_step_fn``
   :1765): one fused Euler step per case, production or test form;
 * :func:`batched_carried2d` replaces ``_build_batched_carried_kernel``
   (:1839, ``make_batched_carried_multi_step_fn`` :1915): one step of a
-  stack of halo-padded frames (pairs in the bf16 tier);
+  stack of halo-padded frames (the JAX package's bf16 tier carries a
+  (master, shadow) pair; here the kernel rounds the master as it stages
+  it, so no shadow stack is kept);
 * :func:`batched_superstep2d` replaces ``_build_batched_superstep_kernel``
   (:1963, ``make_batched_superstep_multi_step_fn`` :2068): K = 1-4 steps
   per launch by trapezoidal temporal blocking.
@@ -48,6 +52,7 @@ from nonlocalheatequation_torch.ops.cuda_kernel import (
     _check_state,
     _entry,
     _raise_on,
+    _zero_halo,
     bf16_round,
     disc_sum,
     shadow_of,
@@ -172,51 +177,46 @@ def batched_step2d(U: torch.Tensor, eps: int, params: torch.Tensor, wsum: float,
     return out
 
 
-def batched_carried2d(frames: torch.Tensor, eps: int, params: torch.Tensor, wsum: float, *,
-                      shadow: torch.Tensor | None = None, out: torch.Tensor | None = None,
-                      out_shadow: torch.Tensor | None = None):
+def batched_carried2d(frames: torch.Tensor, eps: int, params: torch.Tensor, wsum: float,
+                      precision: str = "f32", out: torch.Tensor | None = None) -> torch.Tensor:
     """One production step of every frame of the (B, nx+2e, ny+2e) stack:
-    returns the next stack, its halos zero.  With ``shadow`` (the stack's
-    bf16 rounding) it runs the bf16 tier and returns the pair (next stack,
-    next shadow).  ``out``/``out_shadow`` are optional buffers that must
-    not overlap the inputs."""
+    returns the next stack, its halos zero.  ``precision="bf16"`` runs the
+    bf16 tier: the operand is the stack's :func:`shadow_of`, rounded from
+    the masters as the window is staged.  ``out`` is an optional buffer that
+    must not overlap ``frames``; its halos are zeroed here."""
     eps = int(eps)
+    validate_precision(precision)
     _check_stack("batched_carried2d", frames, eps, frame=True)
+    if frames.device.type != "cpu":
+        out = (torch.zeros_like(frames) if out is None else _zero_halo(
+            _buffer("batched_carried2d out", out, frames, frames.dtype, (frames,)), eps, 2))
+    return _batched_carried2d(frames, out, eps, params, wsum, precision)
+
+
+def _batched_carried2d(frames, out, eps: int, params, wsum: float, precision: str):
+    """:func:`batched_carried2d` into ``out``, whose halos must already be
+    zero: the kernel writes the interiors only (csrc/batched_carried2d.cu).
+    The multi-step maker's two stacks, made with zero halos, keep them."""
     _check_table("batched_carried2d params", params, frames.shape[0], frames)
-    if shadow is not None and (shadow.dtype != torch.bfloat16
-                               or tuple(shadow.shape) != tuple(frames.shape)):
-        raise ValueError(f"batched_carried2d: the shadow must be a {tuple(frames.shape)} "
-                         f"bfloat16 stack, got {tuple(shadow.shape)} {shadow.dtype}")
     if frames.device.type == "cpu":
+        shadow = shadow_of(frames) if precision == "bf16" else None
         res = batched_carried2d_plain(frames, eps, params, wsum, shadow)
-        if shadow is None:
-            return res if out is None else out.copy_(res)
-        return (res[0] if out is None else out.copy_(res[0]),
-                res[1] if out_shadow is None else out_shadow.copy_(res[1]))
+        res = res if shadow is None else res[0]
+        return res if out is None else out.copy_(res)
     _check_state("batched_carried2d frames", frames, frames.shape)
     _check_device(frames)
     batch = frames.shape[0]
     nx, ny = frames.shape[1] - 2 * eps, frames.shape[2] - 2 * eps
-    ins = (frames, shadow)
-    out = _buffer("batched_carried2d out", out, frames, frames.dtype, ins)
-    if shadow is not None:
-        if shadow.device != frames.device or not shadow.is_contiguous():
-            raise ValueError("batched_carried2d: the shadow must be contiguous, on the "
-                             "frames' device")
-        out_shadow = _buffer("batched_carried2d out_shadow", out_shadow, frames,
-                             torch.bfloat16, ins)
     if nx <= 0 or ny <= 0:  # no interior: every next frame is all halo
-        out.zero_()
-        return out if shadow is None else (out, out_shadow.zero_())
+        return out.zero_()
     with torch.cuda.device(frames.device):
         rc = _entry("nlheat_batched_carried2d")(
-            _DTYPE_CODE[frames.dtype], frames.data_ptr(),
-            None if shadow is None else shadow.data_ptr(), out.data_ptr(),
-            None if shadow is None else out_shadow.data_ptr(), params.data_ptr(), batch, nx,
-            ny, eps, float(wsum), torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[frames.dtype], int(precision == "bf16"), frames.data_ptr(),
+            out.data_ptr(), params.data_ptr(), batch, nx, ny, eps, float(wsum),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "batched_carried2d", eps, frames)
     LAUNCHES["batched_carried2d"] += 1
-    return out if shadow is None else (out, out_shadow)
+    return out
 
 
 def batched_superstep2d(U: torch.Tensor, eps: int, params: torch.Tensor, wsum: float,
@@ -318,10 +318,10 @@ def make_batched_cuda_multi_step_fn(ops, nsteps: int, dtype=None, test: bool = F
 def make_batched_carried_multi_step_fn(ops, nsteps: int, dtype=None):
     """``multi(U, t0) -> U`` after ``nsteps`` production steps, the stack
     carried in halo-padded frames: one ``batched_carried2d`` launch per step
-    into two frame stacks (pairs in the bf16 tier) used in turn.  ``t0`` is
-    accepted for signature parity; ``U`` is never written."""
+    into two frame stacks used in turn, whose halos stay the zeros they were
+    made with.  ``t0`` is accepted for signature parity; ``U`` is never
+    written."""
     eps, wsum, precision, scales, dts = _bucket(ops)
-    bf16 = precision == "bf16"
 
     def multi(U, t0):
         del t0
@@ -329,15 +329,10 @@ def make_batched_carried_multi_step_fn(ops, nsteps: int, dtype=None):
         nx, ny = U.shape[1:]
         params = case_params(scales, dts, U.dtype, U.device)
         frames = F.pad(U, (eps, eps, eps, eps)).contiguous()
-        shadow = shadow_of(frames) if bf16 else None
-        spare = spare_shadow = None
+        spare = torch.zeros_like(frames)
         for _ in range(nsteps):
-            if bf16:
-                nxt, nxt_shadow = batched_carried2d(frames, eps, params, wsum, shadow=shadow,
-                                                    out=spare, out_shadow=spare_shadow)
-            else:
-                nxt, nxt_shadow = batched_carried2d(frames, eps, params, wsum, out=spare), None
-            spare, spare_shadow, frames, shadow = frames, shadow, nxt, nxt_shadow
+            nxt = _batched_carried2d(frames, spare, eps, params, wsum, precision)
+            spare, frames = frames, nxt
         return frames[:, eps:eps + nx, eps:eps + ny].contiguous()
 
     return multi

@@ -87,15 +87,11 @@ _ENTRIES = {
     "nlheat_resident3d_fits": ("resident3d.cu", [_I, _I, _I, _I, _I]),
     "nlheat_batched_step2d": ("batched_step2d.cu", [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                                     _I, _I, _D, _P]),
-    "nlheat_batched_carried2d": ("batched_carried2d.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                                          _I, _D, _P]),
+    "nlheat_batched_carried2d": ("batched_carried2d.cu", [_I, _I, _P, _P, _P, _I, _I, _I, _I,
+                                                          _D, _P]),
     "nlheat_batched_superstep2d": ("batched_superstep2d.cu", [_I, _I, _P, _P, _P, _I, _I, _I,
                                                               _I, _I, _D, _P]),
     "nlheat_batched_superstep2d_fits": ("batched_superstep2d.cu", [_I, _I, _I, _I]),
-    # the tile body at every eps: for timing the redesigned kernel beside its
-    # earlier design (chip_smoke.py); no wrapper calls it
-    "nlheat_batched_superstep2d_tile": ("batched_superstep2d.cu", [_I, _I, _P, _P, _P, _I, _I,
-                                                                   _I, _I, _I, _D, _P]),
     "nlheat_windowed_matvec": ("windowed_matvec.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                                       _I, _P]),
     "nlheat_gather_L": ("gather_L.cu", [_I, _I, _P, _P, _P, _P, _P, _I, _P]),
@@ -104,8 +100,6 @@ _ENTRIES = {
     "nlheat_fused_nsum2d": ("fused_nsum2d.cu", [_I, _I, _P, _I, _I, _P, _I, _I, _I, _P]),
     "nlheat_fused_nsum3d": ("fused_nsum3d.cu", [_I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                                                 _P]),
-    "nlheat_fused_nsum2d_tile": ("fused_nsum2d.cu", [_I, _I, _P, _I, _I, _P, _I, _I, _I,
-                                                     _P]),
     "nlheat_enable_peer": ("fused_nsum2d.cu", [_I, _I]),
 }
 _entries: dict = {}
@@ -275,6 +269,16 @@ def _buffer(name: str, buf: torch.Tensor | None, like: torch.Tensor, dtype, inpu
             raise ValueError(f"{name} overlaps an input (the step reads neighbours of "
                              "every point it writes)")
     return buf
+
+
+def _zero_halo(frame: torch.Tensor, eps: int, ndim: int) -> torch.Tensor:
+    """``frame`` with the eps-wide halo of its last ``ndim`` axes set to zero
+    in place, its interior left as it was."""
+    if eps:
+        for d in range(frame.dim() - ndim, frame.dim()):
+            frame.narrow(d, 0, eps).zero_()
+            frame.narrow(d, frame.shape[d] - eps, eps).zero_()
+    return frame
 
 
 def nsum2d(upad: torch.Tensor, eps: int, precision: str = "f32") -> torch.Tensor:

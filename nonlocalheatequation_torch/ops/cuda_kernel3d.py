@@ -3,9 +3,9 @@ resident kernel's gate.
 
 Counterpart of the 3D part of ``nonlocalheatequation_tpu/ops/pallas_kernel.py``.
 Three hand-written CUDA kernels (csrc/) replace three Pallas kernels; all
-add in the order of the tile body of csrc/stencil_tile3d.cuh, which carried3d
-and resident3d run and nsum3d/step3d run above eps 6 (below, their register
-design in csrc/nsum3d.cu, which gives the same bits):
+add in the order of the tile body of csrc/stencil_tile3d.cuh, which
+resident3d runs and nsum3d/step3d and carried3d run above eps 6 (below, the
+register design of the same header, fast3_tile, which gives the same bits):
 
 * :func:`nsum3d` replaces ``build_neighbor_sum_3d`` (pallas_kernel.py:793):
   the masked-sphere neighbour sum of a halo-padded ``(nx+2e, ny+2e, nz+2e)``
@@ -16,7 +16,8 @@ design in csrc/nsum3d.cu, which gives the same bits):
   of the JAX package's generic step.  It reads the UNPADDED state (zeros
   outside the domain).
 * :func:`carried3d` replaces ``_build_carried_kernel_3d`` (:1507): one step
-  of the state kept in a halo-padded frame, the halo re-zeroed by the kernel.
+  of the state kept in a halo-padded frame; the kernel writes the interior,
+  and the frame it writes keeps a zero halo.
 * :func:`resident3d` replaces ``_build_resident_kernel_3d`` (:1419): the
   whole run in one cooperative launch, the state ping-ponging between two
   frames kept in L2.
@@ -50,6 +51,7 @@ from nonlocalheatequation_torch.ops.cuda_kernel import (
     _entry,
     _raise_on,
     _reject_bf16_variant,
+    _zero_halo,
     bf16_round,
     source_coefs,
     sphere_sum,
@@ -186,16 +188,26 @@ def carried3d(frame: torch.Tensor, eps: int, scale: float, wsum: float, dt: floa
               out: torch.Tensor | None = None) -> torch.Tensor:
     """One production step of the state kept in a halo-padded
     ``(nx+2e, ny+2e, nz+2e)`` frame: returns the next frame, its halo zero.
-    ``out`` is an optional buffer that must not overlap ``frame``."""
+    ``out`` is an optional buffer that must not overlap ``frame``; its halo
+    is zeroed here."""
     eps = int(eps)
     if frame.dim() != 3 or min(frame.shape) < 2 * eps:
         raise ValueError(f"carried3d: frame {tuple(frame.shape)} too small for eps={eps}")
+    if frame.device.type != "cpu":
+        out = (torch.zeros_like(frame) if out is None else _zero_halo(
+            _buffer("carried3d out", out, frame, frame.dtype, (frame,)), eps, 3))
+    return _carried3d(frame, out, eps, scale, wsum, dt)
+
+
+def _carried3d(frame, out, eps: int, scale: float, wsum: float, dt: float) -> torch.Tensor:
+    """:func:`carried3d` into ``out``, whose halo must already be zero: the
+    kernel writes the interior only (csrc/carried3d.cu).  The multi-step
+    maker's two frames, made with zero halos, keep them."""
     if frame.device.type == "cpu":
         res = carried3d_plain(frame, eps, scale, wsum, dt)
         return res if out is None else out.copy_(res)
     _check_state("carried3d frame", frame, frame.shape)
     _check_device(frame)
-    out = _buffer("carried3d out", out, frame, frame.dtype, (frame,))
     nx, ny, nz = (s - 2 * eps for s in frame.shape)
     if min(nx, ny, nz) <= 0:  # no interior: the next frame is all halo
         return out.zero_()
@@ -248,9 +260,9 @@ def resident3d(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
 def tile3d(eps: int, dtype=torch.float32, device="cuda") -> int:
     """The plane width (8, 4, 2 or 1) of the 3D tile body's output tiles for
     this eps and dtype on ``device``, as csrc/stencil_tile3d.cuh chooses it
-    from the card's shared memory (the tiles of carried3d, resident3d, the
-    halo kernels, and nsum3d/step3d above eps 6); 0 when the kernels refuse
-    eps."""
+    from the card's shared memory (the tiles of resident3d, the halo
+    kernels, and nsum3d/step3d and carried3d above eps 6); 0 when the
+    kernels refuse eps."""
     device = torch.device(device)
     if device.type != "cuda" or dtype not in _DTYPE_CODE:
         raise ValueError(f"tile3d: the tile is the card's, for float32/float64 on a CUDA "
@@ -284,7 +296,8 @@ def _production_args(op) -> tuple:
 def make_carried_multi_step_fn_3d(op, nsteps: int, dtype=None):
     """``multi(u, t0) -> u`` after ``nsteps`` production steps, the state
     carried in a halo-padded frame: one ``carried3d`` launch per step, into
-    two frames used in turn.  No bf16 tier: a bf16-tier operator is refused
+    two frames used in turn, whose halos stay the zeros they were made with.
+    No bf16 tier: a bf16-tier operator is refused
     here.  ``t0`` is accepted for signature parity; ``u`` is never written."""
     _reject_bf16_variant(op, "carried 3D kernel", _NO_BF16)
     eps, scale, wsum, dt = _production_args(op)
@@ -292,9 +305,9 @@ def make_carried_multi_step_fn_3d(op, nsteps: int, dtype=None):
     def multi(u, t0):
         del t0
         frame = _pad3(u.to(dtype or u.dtype), eps).contiguous()
-        spare = None
+        spare = torch.zeros_like(frame)
         for _ in range(nsteps):
-            nxt = carried3d(frame, eps, scale, wsum, dt, out=spare)
+            nxt = _carried3d(frame, spare, eps, scale, wsum, dt)
             spare, frame = frame, nxt
         return _interior(frame, eps).contiguous()
 

@@ -254,6 +254,40 @@ def test_step3d_bitwise_plain_and_carried3d_on_card(card, dtype, prec):
                 nxt = k3.carried3d(upad.contiguous(), eps, scale, wsum, dt)
                 inner = nxt[eps:eps + shape[0], eps:eps + shape[1], eps:eps + shape[2]]
                 assert torch.equal(inner, k3.step3d(u, eps, scale, wsum, dt)), form
+                assert torch.equal(nxt, k3.carried3d_plain(upad, eps, scale, wsum, dt)), form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_carried3d_runs_bitwise_step3d_launches_on_card(card, dtype):
+    # the register design (eps <= 6) and the tile body (eps 7) of
+    # csrc/carried3d.cu: N launches through the multi-step maker (two frames
+    # whose halos stay zero) bitwise N step3d launches, and one launch
+    # bitwise carried3d_plain, halo included; frame z 41 and 9 + 2eps (one
+    # cell a copy) and 40 + 2eps (16 bytes a copy in f32 at even eps)
+    for eps in range(8):
+        wsum = float(horizon_mask_3d(eps).sum())
+        scale, dt = 2.0 + eps, 0.8 / ((2.0 + eps) * wsum)
+        for shape in ((9, 17, 33), (5, 7, 9), (7, 10, 40)):
+            u = _state3(shape, card, dtype, eps + sum(shape))
+            frame = torch.nn.functional.pad(u, (eps,) * 6)
+            assert torch.equal(k3.carried3d(frame, eps, scale, wsum, dt),
+                               k3.carried3d_plain(frame, eps, scale, wsum, dt)), (eps, shape)
+            if eps == 0:  # no operator has a horizon of 0: the wrappers alone
+                nxt, spare, ref = frame, None, u
+                for _ in range(3):
+                    nxt, spare = k3.carried3d(nxt, eps, scale, wsum, dt, out=spare), nxt
+                    ref = k3.step3d(ref, eps, scale, wsum, dt)
+                assert torch.equal(nxt, torch.nn.functional.pad(ref, (0,) * 6)), shape
+                continue
+            top = _op3(max(shape), eps)
+            for steps in (1, 3):
+                ck.reset_launch_counts()
+                want = make_multi_step_fn_base(top, steps)(u, 0)
+                got = k3.make_carried_multi_step_fn_3d(top, steps)(u, 0)
+                assert torch.equal(got, want), (eps, shape, steps)
+                assert {k: v for k, v in ck.launch_counts().items() if v} == {
+                    "step3d": steps, "carried3d": steps}
 
 
 @pytest.mark.cuda
@@ -335,7 +369,7 @@ def test_batched_kernels_bitwise_solo_launches_on_card(card, dtype, tol, prec):
         got = {"step": cb.batched_step2d(U, eps, params, wsum, precision=prec),
                "test": cb.batched_step2d(U, eps, params, wsum, G=G, LG=LG, coefs=coefs,
                                          precision=prec),
-               "carried": cb.batched_carried2d(frames, eps, params, wsum, shadow=shadow)}
+               "carried": cb.batched_carried2d(frames, eps, params, wsum, precision=prec)}
         plain = {"step": cb.batched_step2d_plain(U, eps, params, wsum, precision=prec),
                  "test": cb.batched_step2d_plain(U, eps, params, wsum, G=G, LG=LG,
                                                  coefs=coefs, precision=prec),
@@ -346,9 +380,8 @@ def test_batched_kernels_bitwise_solo_launches_on_card(card, dtype, tol, prec):
             plain[k] = cb.batched_superstep2d_plain(U, eps, params, wsum, k, prec)
         assert {n: v for n, v in ck.launch_counts().items() if v} == {
             "batched_step2d": 2, "batched_carried2d": 1, "batched_superstep2d": len(ks)}
-        if prec == "bf16":
-            assert torch.equal(got["carried"][1], ck.shadow_of(got["carried"][0]))
-            got["carried"], plain["carried"] = got["carried"][0], plain["carried"][0]
+        if prec == "bf16":  # the plain version carries the pair
+            plain["carried"] = plain["carried"][0]
         for name in got:
             want = plain[name]
             assert float((got[name] - want).abs().max() / want.abs().max()) <= tol, name
@@ -361,7 +394,10 @@ def test_batched_kernels_bitwise_solo_launches_on_card(card, dtype, tol, prec):
                 t=7, precision=prec))
             solo = ck.carried2d(frames[b].contiguous(), eps, scales[b], wsum, dts[b],
                                 shadow=None if shadow is None else shadow[b].contiguous())
-            assert torch.equal(got["carried"][b], solo if shadow is None else solo[0])
+            if shadow is not None:  # carried2d's next shadow: its next master's rounding
+                assert torch.equal(solo[1], ck.shadow_of(solo[0]))
+                solo = solo[0]
+            assert torch.equal(got["carried"][b], solo)
             for k in ks:
                 assert torch.equal(got[k][b], ck.superstep2d(u, eps, scales[b], wsum, dts[b],
                                                              k, prec)), (b, k)
@@ -406,14 +442,83 @@ def test_batched_step2d_bitwise_plain_and_solo_on_card(card, dtype, prec):
                     u, eps, scales[b], wsum, dts[b], g=G[b].contiguous(),
                     lg=LG[b].contiguous(), t=5, precision=prec)), form
             frames = torch.nn.functional.pad(U, (eps,) * 4).contiguous()
-            shadow = ck.shadow_of(frames) if prec == "bf16" else None
-            carried = cb.batched_carried2d(frames, eps, params, wsum, shadow=shadow)
-            if shadow is not None:
-                carried = carried[0]
+            carried = cb.batched_carried2d(frames, eps, params, wsum, precision=prec)
             assert torch.equal(carried[:, eps:eps + nx, eps:eps + ny], step), form
             if cb.fits_batched_superstep(eps, 1, dtype, prec, card):
                 assert torch.equal(cb.batched_superstep2d(U, eps, params, wsum, 1, prec),
                                    step), form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,prec", [(torch.float64, "f32"), (torch.float32, "f32"),
+                                        (torch.float64, "bf16"), (torch.float32, "bf16")])
+def test_batched_carried2d_bitwise_plain_and_step_lanes_on_card(card, dtype, prec):
+    # the register design (eps <= 16) and the tile body (eps 17, 40) of
+    # csrc/batched_carried2d.cu: one launch bitwise batched_carried2d_plain
+    # (which carries the (master, shadow) pair in the bf16 tier, as
+    # carried2d does; batched_carried2d keeps the masters and rounds them as
+    # it stages them, the same only if carried2d's next shadow is the
+    # rounding of its next master, checked on every lane), and three launches
+    # through the multi-step maker (two stacks whose halos stay zero) lane
+    # by lane bitwise three batched_step2d launches; ragged planes, uniform
+    # and mixed physics
+    rng = np.random.default_rng(23)
+    for eps in (0, 3, 8, 16, 17, 40):
+        wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(eps)))
+        for batch, (nx, ny), mixed in ((1, (37, 50), False), (3, (130, 45), True),
+                                       (8, (70, 33), True), (2, (20, 90), False)):
+            scales = [2.0 + eps + (b if mixed else 0) for b in range(batch)]
+            dts = [0.8 / (sc * wsum) * (1 + (0.1 * b if mixed else 0))
+                   for b, sc in enumerate(scales)]
+            params = cb.case_params(scales, dts, dtype, card)
+            U = torch.tensor(rng.standard_normal((batch, nx, ny)), dtype=dtype, device=card)
+            frames = torch.nn.functional.pad(U, (eps,) * 4).contiguous()
+            shadow = ck.shadow_of(frames) if prec == "bf16" else None
+            form = (eps, batch, nx, ny, mixed)
+            got = cb.batched_carried2d(frames, eps, params, wsum, precision=prec)
+            want = cb.batched_carried2d_plain(frames, eps, params, wsum, shadow)
+            assert torch.equal(got, want if shadow is None else want[0]), form
+            if shadow is not None:
+                for b in range(batch):
+                    solo = ck.carried2d(frames[b].contiguous(), eps, scales[b], wsum, dts[b],
+                                        shadow=shadow[b].contiguous())
+                    assert torch.equal(solo[1], ck.shadow_of(solo[0])), (form, b)
+            if eps == 0:  # no operator has a horizon of 0
+                continue
+            ops = [_op(64, eps, prec)] * batch if not mixed else [
+                NonlocalOp2D(eps, 1.0 + 0.5 * b, _op(64, eps).dt / (1.0 + b), 1 / 64,
+                             method="cuda", precision=prec) for b in range(batch)]
+            ck.reset_launch_counts()
+            runs = cb.make_batched_carried_multi_step_fn(ops, 3)(U, 0)
+            steps = cb.make_batched_cuda_multi_step_fn(ops, 3)(U, 0)
+            assert {k: v for k, v in ck.launch_counts().items() if v} == {
+                "batched_carried2d": 3, "batched_step2d": 3}
+            for b in range(batch):
+                assert torch.equal(runs[b], steps[b]), (form, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_carried_wrappers_zero_the_halo_of_a_given_out_on_card(card, dtype):
+    # the carried kernels write the interior only; a caller's ``out`` full of
+    # NaN must come back with a zero halo, the same frame as without ``out``,
+    # in both designs of each kernel
+    for eps in (3, 7):
+        wsum = float(horizon_mask_3d(eps).sum())
+        frame = torch.nn.functional.pad(_state3((9, 17, 33), card, dtype, eps), (eps,) * 6)
+        out = torch.full_like(frame, float("nan"))
+        got = k3.carried3d(frame, eps, 2.0, wsum, 1e-3, out=out)
+        assert got is out and torch.equal(got, k3.carried3d(frame, eps, 2.0, wsum, 1e-3)), eps
+    for eps, prec in ((3, "f32"), (3, "bf16"), (17, "f32"), (17, "bf16")):
+        wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(eps)))
+        params = cb.case_params([2.0, 3.0], [1e-3, 2e-3], dtype, card)
+        U = torch.tensor(np.random.default_rng(eps).standard_normal((2, 37, 50)), dtype=dtype,
+                         device=card)
+        frames = torch.nn.functional.pad(U, (eps,) * 4).contiguous()
+        out = torch.full_like(frames, float("nan"))
+        got = cb.batched_carried2d(frames, eps, params, wsum, precision=prec, out=out)
+        assert got is out and torch.equal(
+            got, cb.batched_carried2d(frames, eps, params, wsum, precision=prec)), (eps, prec)
 
 
 @pytest.mark.cuda

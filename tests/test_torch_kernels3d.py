@@ -151,7 +151,13 @@ def test_plain_step3d_bf16_matches_the_jax_pallas_step():
     assert _rel(got.numpy(), ref) <= 1e-5
 
 
-@pytest.mark.parametrize("n,eps,steps", MULTI)
+# the carried kernel's branches on the card (csrc/carried3d.cu): a frame z
+# of 17, not a multiple of 4 (one-cell staging); eps 6, the register
+# design's last; eps 7, the tile body's first
+CARRIED = MULTI + [(9, 4, 2), (8, 6, 2), (8, 7, 1)]
+
+
+@pytest.mark.parametrize("n,eps,steps", CARRIED)
 @pytest.mark.parametrize("np_dtype,dtype,tol", DTYPES)
 def test_plain_carried3d_matches_jax(n, eps, steps, np_dtype, dtype, tol):
     jop, top = _ops(n, eps)
@@ -202,6 +208,9 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     halo = torch.ones_like(nxt, dtype=torch.bool)
     halo[2:-2, 2:-2, 2:-2] = False
     assert not nxt[halo].any()
+    # a caller's out comes back with a zero halo, here as on the card
+    out3 = torch.full_like(upad, float("nan"))
+    assert k3.carried3d(upad, 2, 1.5, 33.0, 0.01, out=out3) is out3 and torch.equal(out3, nxt)
     assert torch.equal(k3.resident3d(u, 2, 1.5, 33.0, 0.01, 1), got)
     assert set(ck.launch_counts().values()) == {0}
 
