@@ -35,7 +35,13 @@ line is printed; the phase walls are printed at the end):
    physics, B in {1, 2, 3, 8}, eps 0-9, 16, 17 and 40 over ragged grids:
    each held BITWISE to its plain version and each lane BITWISE to its solo
    launch (batched_carried2d's also to batched_step2d's, and its next bf16
-   shadow to the rounding of its next masters; phase_batched_checks).
+   shadow to the rounding of its next masters; phase_batched_checks).  The
+   solo step kernels, one batched launch at B=1 each: step2d (production
+   and test form) and carried2d (into a NaN-filled out) at eps 0, 1, 3, 8,
+   16, 17 and 40 over 1x1, ragged shapes, a 512^2 plane (in float32 below
+   the card's SM count: the tile body) and 1100 x 700 (the register walk),
+   float64, float32 and the bf16 tier, BITWISE to their plain versions
+   (phase_solo_checks).
 3. The main path's correctness: the batch tables (CASES_2D and CASES_1D of
    tests/cases.py, CASES_3D of tests/test_oracle_3d.py, copied here) through
    the port's CLIs on the card in float64, each must print "Tests Passed"
@@ -55,10 +61,10 @@ line is printed; the phase walls are printed at the end):
    Every multi-step candidate of the tuner is timed in ms/step at 4096^2
    (resident does not fit there) and at 512^2, eps=8, f32, where resident
    fits.  At both shapes step2d, carried2d, superstep2d at K = 2 and 3 and
-   batched_step2d at B=1 (the register design at one case) are timed in
-   turns, as a replayed CUDA graph of launches (the device alone: a loop of
-   launches from Python times the host at 512^2) and in a loop of
-   launches.  Then the launch counts and the
+   batched_step2d at B=1 (at 4096^2 also step2d and carried2d in the bf16
+   tier) are timed in turns, as a replayed CUDA graph of launches (the
+   device alone: a loop of launches from Python times the host at 512^2)
+   and in a loop of launches.  Then the launch counts and the
    tuner's records are reset and the 2D main path runs through Solver2D:
    the production solve at 4096^2 and at 512^2 (each tunes its shape, as a
    first production call does, and runs the winner) and a test-form solve
@@ -85,9 +91,8 @@ line is printed; the phase walls are printed at the end):
    plain versions and bounds, batched_carried2d in turns with
    batched_step2d at 8 x 1024^2 and at the mixed 8 x 512^2 bucket (in a
    loop of launches and in a CUDA graph);
-   batched_step2d at B=1 timed against step2d on the same 1024^2 and 4096^2
-   planes (its register design against the shared tile body, in turns); the
-   engine's run timed beside the
+   step2d alone timed on one of the 1024^2 planes; the engine's run timed
+   beside the
    same 8 cases as 8 sequential tuned solves; every lane of both buckets
    bitwise equal to its solo per-step loop.  Then, counted: CASES_2D through
    solve2d --ensemble in float64 (it must print "Tests Passed" and launch
@@ -141,6 +146,11 @@ line is printed; the phase walls are printed at the end):
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
+
+``python3 chip_smoke.py --ab DIR`` prints instead one line of A/B timings
+of the package under DIR (ab_main: the kernels of phase 4, the lattice
+sweep, the tuned and per-step solves); run it on a parent tree and on this
+one in turns, in one call, to compare them on one card.
 """
 
 from __future__ import annotations
@@ -306,6 +316,73 @@ def phase_checks(torch, ck, np) -> dict:
     return n
 
 
+SOLO_EPS = (0, 1, 3, 8, 16, 17, 40)
+
+
+def phase_solo_checks(torch, ck, np) -> dict:
+    """Phase 2, the solo step kernels, each one launch of a batched kernel at
+    B=1 (csrc/batched_step2d.cu, csrc/batched_carried2d.cu): step2d
+    (production and test form) and carried2d (into a NaN-filled ``out``,
+    whose halo the wrapper zeroes) in float64, float32 and the bf16 operand
+    tier at eps 0, 1, 3, 8, 16, 17 and 40, BITWISE against their plain
+    versions, over 1x1, shapes that are no tile multiples, a 512^2 plane (in
+    float32 fewer tiles than the card has SMs: the tile body) and 1100 x 700
+    (more tiles than SMs, not tile multiples: the register walk up to eps
+    16 in both types).  A horizon beyond the kernels' limit raises, naming
+    the solo kernel."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 9)
+    shapes = [(1, 1), (37, 50), (130, 45), (512, 512), (1100, 700)]
+    n = {"step2d": 0, "carried2d": 0}
+
+    def hold(name, form, got, plain):
+        if not torch.equal(got, plain):
+            _abs, err = rel_err(torch, got, plain)
+            fail(f"{name} {form}: not bitwise equal to its plain version (|kernel-plain| / "
+                 f"max|plain| {err:.3e})")
+        n[name] += 1
+
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for prec in ("f32", "bf16"):
+            for e in SOLO_EPS:
+                wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(e)))
+                scale, dt = 2.0 + e, 0.8 / ((2.0 + e) * wsum)
+                for nx, ny in shapes:
+                    form = f"{dname} {prec} eps={e} {nx}x{ny}"
+                    u = torch.tensor(rng.standard_normal((nx, ny)), dtype=dtype, device="cuda")
+                    g, lg = torch.randn_like(u), torch.randn_like(u)
+                    hold("step2d", form, ck.step2d(u, e, scale, wsum, dt, precision=prec),
+                         ck.step2d_plain(u, e, scale, wsum, dt, precision=prec))
+                    hold("step2d", f"{form} test form",
+                         ck.step2d(u, e, scale, wsum, dt, g=g, lg=lg, t=11, precision=prec),
+                         ck.step2d_plain(u, e, scale, wsum, dt, g=g, lg=lg, t=11,
+                                         precision=prec))
+                    frame = F.pad(u, (e,) * 4).contiguous()
+                    plain = ck.carried2d_plain(frame, e, scale, wsum, dt,
+                                               ck.shadow_of(frame) if prec == "bf16" else None)
+                    hold("carried2d", form,
+                         ck.carried2d(frame, e, scale, wsum, dt, prec,
+                                      out=torch.full_like(frame, float("nan"))),
+                         plain[0] if prec == "bf16" else plain)
+    z = torch.zeros(200, 200, device="cuda", dtype=torch.float64)
+    for name, call in (("step2d", lambda: ck.step2d(z, 70, 1.0, 1.0, 1e-3)),
+                       ("carried2d", lambda: ck.carried2d(F.pad(z, (70,) * 4), 70, 1.0, 1.0,
+                                                          1e-3))):
+        try:  # a CUDA tensor the kernel cannot take raises; it never falls back
+            call()
+            fail(f"{name} accepted eps=70 (beyond the kernels' limit) on the card")
+        except ValueError as err:
+            if not str(err).startswith(f"{name}: eps=70"):
+                fail(f"{name}'s refusal does not name it: {err}")
+    say(f"solo step kernels (batched_step2d/batched_carried2d at B=1), eps "
+        f"{list(SOLO_EPS)}, float64/float32, f32/bf16 tiers, shapes {shapes}: every case "
+        f"bitwise equal to its plain version; cases step2d {n['step2d']}, carried2d "
+        f"{n['carried2d']}; eps=70 refused by name: pass")
+    return n
+
+
 def rel_err(torch, got, ref) -> tuple:
     """(max|got - ref|, that over max|ref|), after a synchronize."""
     torch.cuda.synchronize()
@@ -361,17 +438,15 @@ def phase_multistep_checks(torch, ck, np) -> dict:
                     steps.append(ck.step2d(steps[-1], e, scale, wsum, dt, precision=prec))
                 # carried: three launches, the last against one plain step
                 frame = F.pad(u, (e,) * 4).contiguous()
-                pair = (frame, ck.shadow_of(frame) if prec == "bf16" else None)
                 for _ in range(3):
-                    prev = pair
-                    res = ck.carried2d(pair[0], e, scale, wsum, dt, shadow=pair[1])
-                    pair = res if prec == "bf16" else (res, None)
-                plain = ck.carried2d_plain(prev[0], e, scale, wsum, dt, prev[1])
+                    prev = frame  # into a NaN-filled out, whose halo the wrapper zeroes
+                    frame = ck.carried2d(prev, e, scale, wsum, dt, prec,
+                                         out=torch.full_like(prev, float("nan")))
+                plain = ck.carried2d_plain(prev, e, scale, wsum, dt,
+                                           ck.shadow_of(prev) if prec == "bf16" else None)
                 bits = F.pad(steps[3], (e,) * 4)
-                hold("carried2d", form, pair[0], plain[0] if prec == "bf16" else plain, tol,
+                hold("carried2d", form, frame, plain[0] if prec == "bf16" else plain, tol,
                      bits)
-                if prec == "bf16" and not torch.equal(pair[1], ck.shadow_of(pair[0])):
-                    fail(f"carried2d {form}: the shadow is not the master's rounding")
                 # superstep: one launch at each K it takes, and 7 steps at K=3 (3+3+1)
                 for k in (1, 2, 3, 4):
                     if ck.fits_superstep(nx, ny, e, k, dtype, prec):
@@ -692,14 +767,12 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
     for _ in range(3):
         bits.append(ck.step2d(bits[-1], EPS, scale, wsum, dt))
     frame = F.pad(u, (EPS,) * 4).contiguous()
-    fout = torch.empty_like(frame)
+    fout = torch.zeros_like(frame)  # the timed launches write its interior only
     hold("carried2d", "float32 f32 one launch", ck.carried2d(frame, EPS, scale, wsum, dt),
          ck.carried2d_plain(frame, EPS, scale, wsum, dt), tol32)
-    shadow = ck.shadow_of(frame)
     hold("carried2d", "float32 bf16 one launch",
-         ck.carried2d(frame, EPS, scale, wsum, dt, shadow=shadow)[0],
-         ck.carried2d_plain(frame, EPS, scale, wsum, dt, shadow)[0], tol32)
-    del shadow
+         ck.carried2d(frame, EPS, scale, wsum, dt, "bf16"),
+         ck.carried2d_plain(frame, EPS, scale, wsum, dt, ck.shadow_of(frame))[0], tol32)
     bitwise = {"carried2d 3 steps": torch.equal(
         ck.make_carried_multi_step_fn(op, 3)(u, 0), bits[3])}
     for k in (2, 3):
@@ -717,7 +790,7 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
         + "; ".join(f"{n} {c['form']} {c['rel_err']:.2e}" for n in ("carried2d", "superstep2d")
                     for c in held[n]))
 
-    carried_ms = cuda_ms(torch, lambda: ck.carried2d(frame, EPS, scale, wsum, dt, out=fout),
+    carried_ms = cuda_ms(torch, lambda: ck._carried2d(frame, fout, EPS, scale, wsum, dt, "f32"),
                          200)
     carried_plain_ms = cuda_ms(torch, lambda: ck.carried2d_plain(frame, EPS, scale, wsum, dt),
                                5, 1)
@@ -738,7 +811,7 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
             f"({sup_ms[k] / k:.4f} ms/step), plain {sup_plain_ms[k]:.3f} ms, bound "
             f"{sup_bound[k][0]:.4f} ms ({sup_bound[k][1]})")
     del frame, fout
-    ab_big = kernels_ab(torch, ck, cb, u, EPS, scale, wsum, dt, 50)
+    ab_big = kernels_ab(torch, ck, cb, u, EPS, scale, wsum, dt, 50, bf16=True)
     say(ab_line(f"{NX}^2", ab_big))
     big = time_variants(torch, op, u, VARIANT_STEPS)
     fits_big = ck.fits_resident(NX, NX, EPS, torch.float32)
@@ -855,14 +928,17 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
         {**row("nsum2d", "nsum2d.cu", 468),
          "ms": nsum_ms, "plain_ms": nsum_plain_ms, "bound_ms": nsum_bound[0],
          "bound_by": nsum_bound[1], "library_ms": conv_ms},
-        {**row("step2d", "nsum2d.cu", 515),
+        {**row("step2d", "batched_step2d.cu", 515),
          "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound[0],
          "bound_by": step_bound[1], "library_ms": None, "library_note": no_call,
-         "ms_graph": big_graph_ms["step2d"], "ms_512_graph": small_kernel_ms["step2d"]},
-        {**row("carried2d", "carried2d.cu", 856),
+         "ms_graph": big_graph_ms["step2d"], "ms_graph_bf16": big_graph_ms["step2d bf16"],
+         "ms_512_graph": small_kernel_ms["step2d"]},
+        {**row("carried2d", "batched_carried2d.cu", 856),
          "ms": carried_ms, "plain_ms": carried_plain_ms, "bound_ms": carried_bound[0],
          "bound_by": carried_bound[1], "library_ms": None, "library_note": no_call,
-         "shape": f"{NX}^2", "ms_512_graph": small_kernel_ms["carried2d"]},
+         "shape": f"{NX}^2", "ms_graph": big_graph_ms["carried2d"],
+         "ms_graph_bf16": big_graph_ms["carried2d bf16"],
+         "ms_512_graph": small_kernel_ms["carried2d"]},
         {**row("superstep2d", "superstep2d.cu", 1032),
          "ms": sup_ms[3], "plain_ms": sup_plain_ms[3], "bound_ms": sup_bound[3][0],
          "bound_by": sup_bound[3][1], "library_ms": None, "library_note": no_call,
@@ -1200,19 +1276,25 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
     disc_sum order) and each lane BITWISE against one solo launch of the
     same kernel (step2d, carried2d, superstep2d) on that case;
     batched_carried2d's lanes also BITWISE batched_step2d's, each into a
-    NaN-filled ``out``; in the bf16 tier, where the plain version and
-    carried2d carry (master, shadow) pairs and batched_carried2d the masters
-    alone, each next shadow of carried2d must be the rounding of its next
-    master.  In the bf16 tier the K-step
+    NaN-filled ``out``; in the bf16 tier, where the plain version carries
+    (master, shadow) pairs and the kernels the masters alone, each next
+    shadow of the plain version must be the rounding of its next master.
+    In float32 the lattices of fewer tiles than the card has SMs run the
+    tile body and 300 x 1000 at B >= 2 the register walk.  In the bf16 tier
+    the K-step
     tolerance grows by one bfloat16 rounding flip per step after the first
     (see phase_multistep_checks)."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED + 6)
     shapes = [(1, 1), (13, 45), (37, 50), (70, 90)]
+    # in float32 a lattice of fewer tiles than the card has SMs takes the tile
+    # body at every eps (reg_tiles_too_few); 300 x 1000 (96 tiles a case, not
+    # tile multiples) holds the register walk at B >= 2 in float32 too
     plan = ([(e, s) for e in (1, 2, 3, 5, 8) for s in shapes]
             + [(0, (13, 45)), (0, (70, 90)), (9, (37, 50)), (9, (70, 90)), (16, (20, 90)),
-               (16, (150, 45)), (17, (20, 90)), (17, (150, 45)), (40, (50, 45))])
+               (16, (150, 45)), (17, (20, 90)), (17, (150, 45)), (40, (50, 45)),
+               (3, (300, 1000)), (8, (300, 1000)), (16, (300, 1000))])
     bitwise_plain = ("batched_step2d", "batched_superstep2d", "batched_carried2d")
     worst, n = {}, dict.fromkeys(("batched_step2d", "batched_carried2d",
                                   "batched_superstep2d"), 0)
@@ -1270,18 +1352,16 @@ def phase_batched_checks(torch, ck, cb, np) -> dict:
                                                out=torch.full_like(frames, float("nan")))
                     plain = cb.batched_carried2d_plain(frames, e, params, wsum, shadow)
                     solo = [ck.carried2d(frames[b].contiguous(), e, scales[b], wsum, dts[b],
-                                         shadow=None if shadow is None
-                                         else shadow[b].contiguous())
-                            for b in range(batch)]
+                                         precision=prec) for b in range(batch)]
                     if prec == "bf16":
-                        # the plain version and carried2d carry (master, shadow)
-                        # pairs; B7 keeps the masters and rounds them as it
-                        # stages them, the same only if each next shadow is
-                        # the rounding of its next master
-                        if not all(torch.equal(s[1], ck.shadow_of(s[0])) for s in solo):
-                            fail(f"batched_carried2d {form}: a next shadow of carried2d is "
-                                 "not the rounding of its next master")
-                        plain, solo = plain[0], [s[0] for s in solo]
+                        # the plain version carries (master, shadow) pairs; the
+                        # kernels keep the masters and round them as they stage
+                        # them, the same only if each next shadow is the
+                        # rounding of its next master
+                        if not torch.equal(plain[1], ck.shadow_of(plain[0])):
+                            fail(f"batched_carried2d {form}: a next shadow of the plain "
+                                 "version is not the rounding of its next master")
+                        plain = plain[0]
                     hold("batched_carried2d", form, got, plain, tol, solo)
                     if not torch.equal(got[:, e:e + nx, e:e + ny], step):
                         fail(f"batched_carried2d {form}: a lane is not bitwise equal to "
@@ -1333,10 +1413,8 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
     bitwise to the solo kernel, the kernels timed beside their plain
     versions and bounds, the engine's run timed (device and wall) beside
     the same 8 cases as 8 sequential tuned Solver2D solves, and each
-    bucket's lanes held bitwise to the solo per-step loop; batched_step2d
-    (bitwise its plain version) is also timed at B=1 against step2d on the
-    same 1024^2 and 4096^2 planes (the register design against the shared
-    tile body, in one run).  Then the counted
+    bucket's lanes held bitwise to the solo per-step loop; step2d alone is
+    timed on the first case's plane.  Then the counted
     main path: CASES_2D through the 2D CLI with --ensemble (float64), both
     buckets through EnsembleEngine(method="cuda"), and both again under
     NLHEAT_TUNE_BATCH=1 (the batched tuner's probes and winner); after the
@@ -1432,34 +1510,13 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
               for k in (2, 3)}
     sup_plain_ms = cuda_ms(torch, lambda: cb.batched_superstep2d_plain(U, EPS, params, wsum, 3),
                            3, 1)
-    # the A/B of the two 2D bodies in this run: batched_step2d at B=1 (the
-    # register design) against step2d (the shared tile body) on the same
-    # plane, in turns step2d, batched, batched, step2d
-    ab = {}
-    for n_ab in (N, NX):
-        plane = U[:1] if n_ab == N else torch.as_tensor(
-            np.random.default_rng(SEED + 9).standard_normal((1, n_ab, n_ab)),
-            device="cuda").float()
-        one = cb.case_params([scale], [dt], torch.float32, "cuda")
-        if not torch.equal(cb.batched_step2d(plane, EPS, one, wsum)[0],
-                           ck.step2d(plane[0], EPS, scale, wsum, dt)):
-            fail(f"batched_step2d 1x{n_ab}^2: not bitwise equal to step2d")
-        o1 = torch.empty_like(plane)
-        solo_fn = lambda plane=plane, o1=o1: ck.step2d(plane[0], EPS, scale, wsum, dt,  # noqa: E731
-                                                     out=o1[0])
-        batch_fn = lambda plane=plane, o1=o1, one=one: cb.batched_step2d(  # noqa: E731
-            plane, EPS, one, wsum, out=o1)
-        times = [cuda_ms(torch, f, 200) for f in (solo_fn, batch_fn, batch_fn, solo_fn)]
-        graph = [graph_ms(torch, f) for f in (solo_fn, batch_fn, batch_fn, solo_fn)]
-        ab[f"1x{n_ab}^2"] = {"step2d_ms": (times[0] + times[3]) / 2,
-                             "batched_step2d_ms": (times[1] + times[2]) / 2, "turns": times,
-                             "step2d_ms_graph": (graph[0] + graph[3]) / 2,
-                             "batched_step2d_ms_graph": (graph[1] + graph[2]) / 2,
-                             "turns_graph": graph,
-                             "bound_ms": bound(2 * n_ab * n_ab * isz,
-                                               n_ab * n_ab * kernel_ops(EPS, 5))[0]}
-        del plane, o1
-    solo_step_ms = ab[f"1x{N}^2"]["step2d_ms"]
+    # step2d alone on the first case's plane: one batched_step2d launch at B=1
+    plane, o1 = U[0].contiguous(), torch.empty_like(U[0])
+    if not torch.equal(cb.batched_step2d(U[:1].contiguous(), EPS, params[:1].contiguous(),
+                                         wsum)[0], ck.step2d(plane, EPS, scale, wsum, dt)):
+        fail(f"batched_step2d 1x{N}^2: not bitwise equal to step2d")
+    solo_step_ms = cuda_ms(torch, lambda: ck.step2d(plane, EPS, scale, wsum, dt, out=o1), 200)
+    del plane, o1
     step_bound = bound(2 * npts * isz, npts * kernel_ops(EPS, 5))
     step_test_bound = bound(4 * npts * isz, npts * kernel_ops(EPS, 9))
     # the frames read once, the interiors written once
@@ -1472,16 +1529,6 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         f"plain {step_plain_ms:.3f} ms, bound {step_bound[0]:.4f} ms ({step_bound[1]}); "
         f"test form {step_test_ms:.4f} ms, bound {step_test_bound[0]:.4f} ms "
         f"({step_test_bound[1]})")
-    say("A/B of the register design (batched_step2d, B=1) against the shared tile body "
-        f"(step2d) on the same plane, eps={EPS} f32, ms per launch in a loop and in a CUDA "
-        "graph (turns step2d, batched, batched, step2d): " + "; ".join(
-            f"{k}: batched_step2d {v['batched_step2d_ms']:.4f}, step2d {v['step2d_ms']:.4f} "
-            f"(ratio {v['step2d_ms'] / v['batched_step2d_ms']:.3f}); graph "
-            f"{v['batched_step2d_ms_graph']:.4f} against {v['step2d_ms_graph']:.4f} (ratio "
-            f"{v['step2d_ms_graph'] / v['batched_step2d_ms_graph']:.3f}); bound "
-            f"{v['bound_ms']:.4f}; turns {json.dumps([round(t, 5) for t in v['turns']])}, "
-            f"graph {json.dumps([round(t, 5) for t in v['turns_graph']])}"
-            for k, v in ab.items()))
     say(f"batched_carried2d {B}x{N}^2 eps={EPS} f32: kernel {carried_ms:.4f} ms/launch, plain "
         f"{carried_plain_ms:.3f} ms, bound {carried_bound[0]:.4f} ms ({carried_bound[1]})")
     say("batched_carried2d in turns with batched_step2d (B6, B7, B7, B6), eps=8, ms per "
@@ -1671,7 +1718,7 @@ def phase_ensemble(torch, np, ck, cb, cases_2d) -> list:
         row("batched_step2d", 1694, "batched_step2d.cu", ms=step_ms, plain_ms=step_plain_ms,
             bound_ms=step_bound[0], bound_by=step_bound[1], ms_test_form=step_test_ms,
             bound_ms_test_form=step_test_bound[0], ms_step2d_one_case=solo_step_ms,
-            ms_graph=step_graph_ms, ab_b1_against_step2d=ab, ensemble_ms=eng_ms,
+            ms_graph=step_graph_ms, ensemble_ms=eng_ms,
             sequential_ms=seq_ms, programs_ms=programs_ms),
         row("batched_carried2d", 1839, "batched_carried2d.cu", ms=carried_ms,
             plain_ms=carried_plain_ms, bound_ms=carried_bound[0], bound_by=carried_bound[1],
@@ -2755,28 +2802,53 @@ def graph_ms(torch, fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
     return cuda_ms(torch, graph.replay, reps, 1) / launches
 
 
+def carried_launch(torch, ck, frame, eps: int, scale: float, wsum: float, dt: float,
+                   precision: str = "f32"):
+    """A call of one carried2d launch into an output frame made once, on
+    either carried2d API: this tree's private launcher (its interior
+    written into a frame whose halo stays zero; the bf16 tier rounds the
+    master as it stages it), or the earlier public wrapper (the whole frame
+    written; the bf16 tier a (master, bf16 shadow) pair), which --ab times
+    on a parent tree's package."""
+    out = torch.zeros_like(frame)
+    if hasattr(ck, "_carried2d"):
+        return lambda: ck._carried2d(frame, out, eps, scale, wsum, dt, precision)
+    if precision == "f32":
+        return lambda: ck.carried2d(frame, eps, scale, wsum, dt, out=out)
+    shadow = ck.shadow_of(frame)
+    out_shadow = torch.empty_like(shadow)
+    return lambda: ck.carried2d(frame, eps, scale, wsum, dt, shadow=shadow, out=out,
+                                out_shadow=out_shadow)
+
+
 def kernels_ab(torch, ck, cb, u, eps: int, scale: float, wsum: float, dt: float,
-               reps: int) -> dict:
-    """ms per launch of the per-step, carried and superstep kernels and of
-    batched_step2d at B=1 on u: as a replayed CUDA graph of launches (the
-    device alone; at a small grid the host's cost per launch is larger than
-    the kernel's) and in a loop of ``reps`` launches (CUDA events), each
-    twice, in turns (the order, then the order reversed).  Returns
-    {"graph": {name: [ms, ms]}, "loop": {...}}."""
+               reps: int, bf16: bool = False) -> dict:
+    """ms per launch of nsum2d (on u's zero-halo frame), the per-step,
+    carried and superstep kernels and of batched_step2d at B=1 on u (with
+    ``bf16``, step2d and carried2d in the bf16 tier too): as a replayed
+    CUDA graph of launches (the device alone;
+    at a small grid the host's cost per launch is larger than the kernel's)
+    and in a loop of ``reps`` launches (CUDA events), each twice, in turns
+    (the order, then the order reversed).  Returns {"graph": {name: [ms,
+    ms]}, "loop": {...}}."""
     import torch.nn.functional as F
 
     out = torch.empty_like(u)
     frame = F.pad(u, (eps,) * 4).contiguous()
-    fout = torch.empty_like(frame)
     one = u[None].contiguous()
     bout = torch.empty_like(one)
     params = cb.case_params([scale], [dt], u.dtype, u.device)
-    runs = {"step2d": lambda: ck.step2d(u, eps, scale, wsum, dt, out=out),
-            "carried2d": lambda: ck.carried2d(frame, eps, scale, wsum, dt, out=fout),
+    runs = {"nsum2d": lambda: ck.nsum2d(frame, eps),
+            "step2d": lambda: ck.step2d(u, eps, scale, wsum, dt, out=out),
+            "carried2d": carried_launch(torch, ck, frame, eps, scale, wsum, dt),
             "batched_step2d B=1": lambda: cb.batched_step2d(one, eps, params, wsum, out=bout)}
     for k in (2, 3):
         runs[f"superstep2d K={k}"] = lambda k=k: ck.superstep2d(u, eps, scale, wsum, dt, k,
                                                                 out=out)
+    if bf16:
+        runs["step2d bf16"] = lambda: ck.step2d(u, eps, scale, wsum, dt, precision="bf16",
+                                                out=out)
+        runs["carried2d bf16"] = carried_launch(torch, ck, frame, eps, scale, wsum, dt, "bf16")
     order = list(runs) + list(runs)[::-1]
     res = {"graph": {n: [] for n in runs}, "loop": {n: [] for n in runs}}
     for name in order:
@@ -2806,6 +2878,124 @@ def time_variants(torch, op, u, nsteps: int) -> dict:
         fn = maker(op, nsteps, u.dtype)
         out[name] = cuda_ms(torch, lambda fn=fn: fn(u, 0), 1, 1) / nsteps
     return out
+
+
+LATTICE_SIDES = (256, 384, 512, 768, 1024)  # the solo planes of the lattice sweep
+
+
+def op_2d(n: int):
+    """The 2D operator on an n^2 unit square (dh = 1/n) at 0.8x the Euler
+    bound, as bench.py and phase 4 make it."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+
+    dh = 1.0 / n
+    probe = NonlocalOp2D(EPS, 1.0, 1.0, dh)
+    return NonlocalOp2D(EPS, 1.0, 0.8 / (probe.c * dh * dh * probe.wsum), dh, method="cuda")
+
+
+def lattice_sweep(torch, ck, cb) -> dict:
+    """ms per launch in a CUDA graph of step2d and carried2d against
+    batched_step2d and batched_carried2d at B=1 on one plane of each side
+    of LATTICE_SIDES, eps=EPS, float32 and float64, in turns (solo,
+    batched, batched, solo).  On a package whose solo kernels run the tile
+    body and whose batched kernels the register walk at every lattice, this
+    is where reg_tiles_too_few's threshold comes from; on this tree's the
+    two run the same launches."""
+    import torch.nn.functional as F
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for n in LATTICE_SIDES:
+            u = torch.randn(n, n, device="cuda", dtype=dtype)
+            frame = F.pad(u, (EPS,) * 4).contiguous()
+            one, frames = u[None].contiguous(), frame[None].contiguous()
+            o, bo, bfo = torch.empty_like(u), torch.empty_like(one), torch.zeros_like(frames)
+            params = cb.case_params([1.0], [1e-3], dtype, "cuda")
+            runs = {"step2d": lambda: ck.step2d(u, EPS, 1.0, 197.0, 1e-3, out=o),
+                    "batched_step2d B=1": lambda: cb.batched_step2d(one, EPS, params, 197.0,
+                                                                    out=bo),
+                    "carried2d": carried_launch(torch, ck, frame, EPS, 1.0, 197.0, 1e-3),
+                    "batched_carried2d B=1": lambda: cb._batched_carried2d(
+                        frames, bfo, EPS, params, 197.0, "f32")}
+            order = list(runs) + list(runs)[::-1]
+            res = {name: [] for name in runs}
+            for name in order:
+                res[name].append(graph_ms(torch, runs[name]))
+            if not (torch.equal(bo[0], o) and torch.equal(bfo[0, EPS:-EPS, EPS:-EPS], o)):
+                fail(f"lattice sweep {dtype} {n}^2: the solo and B=1 launches differ")
+            out[f"{str(dtype).split('.')[1]} {n}^2"] = res
+    return out
+
+
+def solve_ab(torch, np, reps: int = 3) -> dict:
+    """The tuned 4096^2 eps=EPS f32 solve of STEPS steps
+    (make_multi_step_fn: the first call tunes the shape and runs the
+    winner, then ``reps`` runs timed by CUDA events) and the per-step loop
+    (make_multi_step_fn_base, ``reps`` runs) at 4096^2 and 512^2, in ms per
+    step: at 512^2 the loop runs at the host's pace, so a copy from the host
+    per step shows there."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import (
+        make_multi_step_fn,
+        make_multi_step_fn_base,
+    )
+    from nonlocalheatequation_torch.utils import autotune
+
+    out = {}
+    for n in (NX, SMALL):
+        op = op_2d(n)
+        u = torch.as_tensor(np.random.default_rng(SEED).standard_normal((n, n)),
+                            device="cuda").to(torch.float32)
+        if n == NX:
+            multi = make_multi_step_fn(op, STEPS, dtype=torch.float32)
+            multi(u, 0)
+            (entry,) = [v for k, v in autotune.records().items() if f"/{n}x{n}/" in k]
+            out[f"tuned {n}^2"] = {"winner": entry["winner"], "probes": entry["ms_per_step"],
+                                   "ms_per_step": [cuda_ms(torch, lambda: multi(u, 0), 1, 0)
+                                                   / STEPS for _ in range(reps)]}
+        loop = make_multi_step_fn_base(op, STEPS, dtype=torch.float32)
+        out[f"per-step loop {n}^2"] = [cuda_ms(torch, lambda: loop(u, 0), 1, 1) / STEPS
+                                       for _ in range(reps)]
+    return out
+
+
+def ab_main(package_root: str) -> int:
+    """``python3 chip_smoke.py --ab DIR``: the A/B timings of this script on
+    the package under DIR (a checkout of this tree, or of a parent tree
+    unpacked into a git-ignored directory): the card, the kernels of
+    phase 4 at 4096^2 (the bf16 tier too) and 512^2 (kernels_ab), the
+    lattice sweep and the tuned and per-step solves (solve_ab), as one
+    JSON line.  Run it for two trees in turns in one call (parent, this,
+    this, parent) to compare them on one card."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the A/B timings need a CUDA card")
+    root = str(Path(package_root).resolve())
+    sys.path.insert(0, root)
+    from nonlocalheatequation_torch.ops import _build
+    from nonlocalheatequation_torch.ops import cuda_batched as cb
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+    from nonlocalheatequation_torch.ops.nonlocal_op import case_scale
+
+    if not ck.__file__.startswith(root):
+        fail(f"--ab {package_root}: imported {ck.__file__}, not the package under it")
+    os.environ["NLHEAT_AUTOTUNE_CACHE"] = ""
+    t0 = time.perf_counter()
+    card = nvidia_smi("name,power.limit")
+    built = _build.build(_build.SOURCES)
+    res = {"package": root, "card": card, "build_s": built}
+    for n, reps, bf16 in ((NX, 50, True), (SMALL, 200, False)):
+        op = op_2d(n)
+        u = torch.as_tensor(np.random.default_rng(SEED).standard_normal((n, n)),
+                            device="cuda").to(torch.float32)
+        res[f"kernels {n}^2"] = kernels_ab(torch, ck, cb, u, EPS, case_scale(op), op.wsum,
+                                           op.dt, reps, bf16=bf16)
+    res["lattice"] = lattice_sweep(torch, ck, cb)
+    res["solves"] = solve_ab(torch, np)
+    res["wall_s"] = time.perf_counter() - t0
+    say(f"ab: {json.dumps(res)}")
+    return 0
 
 
 def main() -> int:
@@ -2859,6 +3049,8 @@ def main() -> int:
     uclis = start_unstructured_clis()
     checks = timed("checks 2d", phase_checks, torch, ck, np)
     checks.update(timed("multi-step checks 2d", phase_multistep_checks, torch, ck, np))
+    for name, count in timed("solo checks 2d", phase_solo_checks, torch, ck, np).items():
+        checks[name] += count
     checks.update(timed("checks 3d", phase_checks_3d, torch, k3, np))
     checks.update(timed("batched checks", phase_batched_checks, torch, ck, cb, np))
     checks.update(timed("unstructured checks", phase_unstructured_checks, torch, np))
@@ -2882,4 +3074,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_main(sys.argv[2]) if sys.argv[1:2] == ["--ab"] else main())

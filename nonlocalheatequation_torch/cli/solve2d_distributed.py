@@ -82,7 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "CPU), cuda, conv, shift, sat; fft is not ported yet")
     p.add_argument("--stepper", default="euler", choices=("euler", "rkc", "expo"),
                    help="time integrator: euler (rkc and expo are not ported yet)")
-    p.add_argument("--stages", type=int, default=0)
+    p.add_argument("--superstep-stages", dest="stages", type=int, default=0, metavar="S",
+                   help="--stepper rkc: the stage count; --stepper expo: the boundary "
+                        "correction's substeps (neither ported yet)")
     p.add_argument("--log", action="store_true", help="CSV logging (not ported yet)")
     p.add_argument("--checkpoint", default=None, help="checkpoint file (not ported yet)")
     p.add_argument("--ncheckpoint", type=int, default=0)
@@ -110,7 +112,8 @@ def _refusal(args) -> str | None:
         if hit:
             return f"{flag} is not ported yet to nonlocalheatequation_torch ({what})"
     if args.stages:
-        return "--stages takes a non-Euler --stepper"
+        return ("--superstep-stages configures the rkc stage count or the expo boundary "
+                "correction; --stepper euler takes no stage count")
     if args.resync:
         return ("--resync is not supported on the distributed/elastic paths; run the serial "
                 "solver, or --precision bf16 without --resync")

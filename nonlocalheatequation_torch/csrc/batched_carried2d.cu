@@ -1,16 +1,18 @@
 // One forward-Euler step of B independent 2D solves, each kept in a
 // halo-padded frame, in one launch, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
-//   batched_carried2d <- nonlocalheatequation_tpu/ops/pallas_kernel.py:
-//                        _build_batched_carried_kernel
+// Replaces two Pallas TPU kernels of nonlocalheatequation_tpu/ops/pallas_kernel.py:
+//   batched_carried2d <- _build_batched_carried_kernel
 //                        (make_batched_carried_multi_step_fn)
+//   carried2d         <- _build_carried_kernel (make_carried_multi_step_fn):
+//                        one launch at B = 1 (ops/cuda_kernel.carried2d,
+//                        counted as carried2d)
 //
 // The stack is (B, R, L) frames, (R, L) = (nx + 2eps, ny + 2eps), each
-// case's state in its frame's interior.  Lane b is bit-identical to one
-// carried2d launch on case b, hence to one step2d launch, and to lane b of
-// one batched_step2d launch: the sums and the epilogue are the 2D tile
-// bodies' (stencil_tile.cuh).
+// case's state in its frame's interior.  Lane b is bit-identical to a
+// B = 1 launch on case b, hence to one step2d launch, and to lane b of one
+// batched_step2d launch: the sums and the epilogue are the 2D tile bodies'
+// (stencil_tile.cuh).
 //
 // Design, for 0 <= eps <= REG_TILES_MAX_EPS (16): batched_step2d's register
 // walk (stencil_tile.cuh, reg_tiles) over each case's interior, the frame
@@ -18,8 +20,10 @@
 // tile, column tile), RUN*4 x 32 tiles, each window staged by cp.async from
 // the frame (its halo supplies the zeros of the boundary condition),
 // double-buffered, the column sums in registers (register_sums).  eps
-// 17-64: the shared tile body, one 32 x 32 tile of the interior a block
-// with the case index as blockIdx.z.  Either writes the interiors only: the
+// 17-64, and a float32 lattice of fewer tiles than the card has SMs
+// (reg_tiles_too_few, as batched_step2d): the shared tile body, one 32 x 32
+// tile of the interior a block with the case index as blockIdx.z.  Either
+// writes the interiors only: the
 // output stacks' halos must already be zero (the wrapper zeroes them;
 // the multi-step maker's two stacks keep the zero halos they were made
 // with).
@@ -37,7 +41,8 @@
 //
 // What bounds it on an H100 SXM (published peaks, computed, not measured):
 // one frame stack read and one interior stack written per step, about 20 us
-// at 8 x 1024^2, eps=8, f32 (the halo adds 3.2% to the bytes read), against
+// at 8 x 1024^2, eps=8, f32 (the halo adds 3.2% to the bytes read; one
+// 4096^2 frame: about 40 us, 0.8% more), against
 // about 5 us of operations.  Inside the SM the column sums' shared-memory
 // reads come next, as in batched_step2d: about 26 a point at eps=8, f32.
 //
@@ -142,12 +147,12 @@ int launch(const void* frame, void* out, const void* params, int batch, int nx, 
   if ((static_cast<long long>(nx) + TILE_X - 1) / TILE_X > 65535) return -1;  // gridDim.y
   if (batch == 0 || nx <= 0 || ny <= 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  if (eps <= REG_TILES_MAX_EPS)
+  if (eps <= REG_TILES_MAX_EPS && !reg_tiles_too_few<T>(batch, nx, ny))
     return with_eps<REG_TILES_MAX_EPS>(eps, [&](auto e) {
       return launch_fast<T, OpT, decltype(e)::value>(frame, out, params, batch, nx, ny, wsum,
                                                      st);
     });
-  auto body = [&](auto mw) {
+  return with_mw(eps, [&](auto mw) {
     auto kernel = batched_carried2d_kernel<T, OpT, decltype(mw)::value>;
     const int e = allow_smem(kernel, smem);
     if (e != 0) return e;
@@ -157,9 +162,7 @@ int launch(const void* frame, void* out, const void* params, int batch, int nx, 
         static_cast<const T*>(frame), static_cast<T*>(out), nx, ny, eps, make_plan(eps),
         static_cast<const T*>(params), static_cast<T>(wsum));
     return static_cast<int>(cudaGetLastError());
-  };
-  if (eps <= 32) return body(std::integral_constant<int, wrows_for(32)>{});
-  return body(std::integral_constant<int, wrows_for(MAX_EPS)>{});
+  });
 }
 
 template <typename T>

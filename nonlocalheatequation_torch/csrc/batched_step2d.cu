@@ -1,19 +1,21 @@
 // One fused forward-Euler step of B independent 2D solves in one launch, for
 // NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
-//   batched_step2d <- nonlocalheatequation_tpu/ops/pallas_kernel.py:
-//                     _build_batched_step_kernel
+// Replaces two Pallas TPU kernels of nonlocalheatequation_tpu/ops/pallas_kernel.py:
+//   batched_step2d <- _build_batched_step_kernel
 //                     (make_batched_pallas_multi_step_fn, the ensemble
 //                     engine's per-step composition)
+//   step2d         <- _build_step_kernel via make_pallas_step_fn (the
+//                     per-step solve): one launch at B = 1
+//                     (ops/cuda_kernel.step2d, counted as step2d)
 //
 // The case stack is (B, nx, ny), unpadded: out-of-domain window cells read
 // 0 (the volumetric boundary condition).  Lane b of a launch gives the bits
-// of one step2d launch on case b, and of the plain versions' disc_sum order
+// of a B = 1 launch on case b, and of the plain versions' disc_sum order
 // (ops/cuda_kernel.py), on every input.
 //
 // The order of the adds (the contract shared with stencil_tile.cuh, whose
-// body step2d, carried2d, superstep2d and the other batched kernels run):
+// sums nsum2d, superstep2d, resident2d and the other batched kernels run):
 //   1. every window row's column sums W_0 = row[0], W_h = (W_{h-1} +
 //      row[-h]) + row[+h], one pair of columns per height h;
 //   2. each output starts from 0 and adds W_{h_i} of the window row at x
@@ -41,13 +43,16 @@
 //
 // eps 17-64 run the shared tile body (stencil_tile.cuh: one 32 x 32 tile a
 // block, the case as blockIdx.z), which gives the same bits; eps 0-16 run
-// the design above.
+// the design above, except on a float32 lattice of fewer tiles than the
+// card has SMs (reg_tiles_too_few: one 512^2 plane), which the tile body
+// fills better.
 //
 // What bounds it on an H100 SXM (published peaks, computed, not measured):
 // bytes.  One state read and one written per step: at 8 x 1024^2, eps=8,
-// f32, 2 x 32 MiB, about 0.020 ms at 3.35 TB/s, against 41 adds per point
-// (about 0.005 ms at 67 TFLOP/s); the test form also reads G and L(G),
-// twice the bytes.  Inside the SM the shared-memory reads come next: about
+// f32, 2 x 32 MiB, about 0.020 ms at 3.35 TB/s (one 4096^2 plane: about
+// 0.040 ms), against 41 adds per point (about 0.005 ms at 67 TFLOP/s); the
+// test form also reads G and L(G), twice the bytes.  Inside the SM the
+// shared-memory reads come next: about
 // 2*eps*(RUN+2eps)/RUN + 2 a point (26 at eps=8, f32), which the design
 // keeps at one read per add of step 1 and none for step 2.
 //
@@ -154,7 +159,7 @@ int launch(const void* u, void* out, const void* g, const void* lg, const void* 
   if ((static_cast<long long>(nx) + TILE_X - 1) / TILE_X > 65535) return -1;  // gridDim.y
   if (batch == 0 || nx <= 0 || ny <= 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  if (eps <= REG_TILES_MAX_EPS)
+  if (eps <= REG_TILES_MAX_EPS && !reg_tiles_too_few<T>(batch, nx, ny))
     return with_eps<REG_TILES_MAX_EPS>(eps, [&](auto e) {
       return launch_fast<T, OpT, decltype(e)::value>(
           static_cast<const T*>(u), static_cast<T*>(out), static_cast<const T*>(g),

@@ -92,11 +92,12 @@ inline int smem_limit() {
   return limit;
 }
 
-// Raise a kernel's dynamic shared-memory limit when it needs more than the
-// default 48 KB; returns the CUDA status.
+// Raise a kernel's dynamic shared-memory limit to bytes when its dynamic
+// and static_bytes of static shared memory need more than the default
+// 48 KB; returns the CUDA status.
 template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+int allow_smem(Kernel kernel, size_t bytes, size_t static_bytes = 0) {
+  if (bytes + static_bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
@@ -376,6 +377,22 @@ __device__ __forceinline__ void register_sums(const T* col, int ld, T (&acc)[RUN
 // The largest eps of the walk: a thread's RUN + 2eps column sums and RUN
 // outputs stay in registers up to it.
 constexpr int REG_TILES_MAX_EPS = 16;
+
+// Whether a one-step lattice of batch planes of (nx, ny) outputs is too
+// small for the walk: in float32, fewer RUN*4 x 32 tiles than the card has
+// SMs (a 512^2 plane is 64 tiles), where the tile body's 32 x 32 blocks
+// (256 at 512^2) fill the card and the walk's few long tiles do not; timed
+// on an H100 by chip_smoke.py's lattice sweep (PERF.md section 6).  In
+// float64 (RUN 16) the walk was the faster at every size swept, down to
+// 256^2 (32 tiles), so it always walks.
+template <typename T>
+inline bool reg_tiles_too_few(long long batch, int nx, int ny) {
+  if (sizeof(T) != 4) return false;
+  static const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  const long long tiles = batch * ((nx + RegTile<T>::ROWS - 1) / RegTile<T>::ROWS) *
+                          ((ny + RegTile<T>::COLS - 1) / RegTile<T>::COLS);
+  return tiles < sms;
+}
 
 struct TileIndex {
   int b, x0, y0;  // the case and the tile's first output row and column

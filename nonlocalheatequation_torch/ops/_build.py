@@ -26,8 +26,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES_2D = ("nsum2d.cu", "carried2d.cu", "superstep2d.cu", "resident2d.cu",
-              "batched_step2d.cu", "batched_carried2d.cu", "batched_superstep2d.cu")
+SOURCES_2D = ("nsum2d.cu", "superstep2d.cu", "resident2d.cu", "batched_step2d.cu",
+              "batched_carried2d.cu", "batched_superstep2d.cu")
 SOURCES_3D = ("nsum3d.cu", "carried3d.cu", "resident3d.cu")
 #: the stencil kernels (every one includes stencil_tile.cuh)
 SOURCES = SOURCES_2D + SOURCES_3D

@@ -22,7 +22,9 @@ share (shape, eps, dtype, precision tier) in one launch:
   per launch by trapezoidal temporal blocking.
 
 Lane b of each is bit-identical to the solo kernel (``step2d``,
-``carried2d``, ``superstep2d``) on case b.  One difference from the JAX
+``carried2d``, ``superstep2d``) on case b; the solo ``step2d`` and
+``carried2d`` (ops/cuda_kernel.py) are one-case launches of the first
+two.  One difference from the JAX
 package, on purpose: its batched kernels bake one (scale, dt) pair and
 serve physics-uniform chunks only, running mixed chunks as per-case solo
 programs; here each case reads its own (scale, dt) from a ``(B, 2)`` table
@@ -54,28 +56,12 @@ from nonlocalheatequation_torch.ops.cuda_kernel import (
     _raise_on,
     _zero_halo,
     bf16_round,
+    case_params,
     disc_sum,
     shadow_of,
-    source_coefs,
+    source_coef_table,
     superstep_k,
 )
-
-
-def case_params(scales, dts, dtype, device) -> torch.Tensor:
-    """The ``(B, 2)`` table of each case's (scale, dt): the host floats
-    rounded once to ``dtype``, as a solo kernel rounds its by-value
-    arguments."""
-    pairs = [[float(s), float(d)] for s, d in zip(scales, dts, strict=True)]
-    return torch.tensor(pairs, dtype=torch.float64).to(device=device, dtype=dtype)
-
-
-def source_coef_table(ts, dts, dtype, device) -> torch.Tensor:
-    """The ``(len(ts), B, 2)`` table of each case's test-source coefficients
-    (coef_g, coef_lg) at each integer step of ``ts``: ``source_coefs`` in
-    float64 on the host, rounded once to ``dtype`` and copied once."""
-    rows = [[list(source_coefs(t, float(dt))) for dt in dts] for t in ts]
-    return torch.tensor(rows, dtype=torch.float64).reshape(len(rows), len(dts), 2).to(
-        device=device, dtype=dtype)
 
 
 # -- plain versions -----------------------------------------------------------

@@ -2,47 +2,56 @@
 counts.
 
 Counterpart of ``nonlocalheatequation_tpu/ops/pallas_kernel.py`` for the
-main path.  Five hand-written CUDA kernels (csrc/, all on the tile body of
-csrc/stencil_tile.cuh) replace five Pallas kernels:
+main path.  Five Pallas kernels are replaced by hand-written CUDA kernels
+(csrc/, on the sums of csrc/stencil_tile.cuh):
 
 * :func:`nsum2d` replaces ``build_neighbor_sum_2d`` (pallas_kernel.py:468):
   the masked-circle neighbour sum of a halo-padded ``(nx+2e, ny+2e)``
-  block, returning ``(nx, ny)``.
+  block, returning ``(nx, ny)`` (csrc/nsum2d.cu, the tile body).
 * :func:`step2d` replaces ``_build_step_kernel`` (pallas_kernel.py:515, via
   ``make_pallas_step_fn`` :1601): one fused forward-Euler step
   ``u + dt*(scale*(nsum - wsum*u) [+ b_t])`` on the UNPADDED state (the
   kernel reads out-of-domain cells as 0), with the manufactured source
-  ``b_t = coef_g*G + coef_lg*L(G)`` whose coefficients the wrapper computes
-  on the host from the integer step.
+  ``b_t = coef_g*G + coef_lg*L(G)`` whose coefficients come from the host
+  from the integer step.  It is one ``batched_step2d`` launch at B=1
+  (csrc/batched_step2d.cu: the register walk up to eps 16).
 * :func:`carried2d` replaces ``_build_carried_kernel`` (:856): one step of
-  the state kept in a halo-padded frame, the halo re-zeroed by the kernel;
-  in the bf16 tier the frame is the pair (master, bf16 shadow).
+  the state kept in a halo-padded frame.  It is one ``batched_carried2d``
+  launch at B=1 (csrc/batched_carried2d.cu), which writes the interior
+  only; in the bf16 tier it rounds the frame as it stages it, so no shadow
+  frame is kept.
 * :func:`superstep2d` replaces ``_build_superstep_kernel`` (:1032): K steps
   per launch by trapezoidal temporal blocking.
 * :func:`resident2d` replaces ``_build_resident_kernel`` (:1292): the whole
   run in one cooperative launch, the state ping-ponging between two frames.
 
-The multi-step kernels take the production (source-free) step and are
-bit-identical to the same number of ``step2d`` launches.  Their makers
-``make_carried_multi_step_fn``, ``make_superstep_multi_step_fn`` and
-``make_resident_multi_step_fn``, and the gates ``fits_superstep``,
-``fits_resident`` and ``superstep_k``, keep the JAX package's names.
+The solo step kernels read (scale, dt) and the test form's (coef_g,
+coef_lg) from one-row device tables, made once and cached
+(:func:`_params_row`, :func:`_coef_row`), so a loop of steps copies
+nothing from the host per step.  The multi-step kernels take the
+production (source-free) step and are bit-identical to the same number of
+``step2d`` launches.  Their makers ``make_carried_multi_step_fn``,
+``make_superstep_multi_step_fn`` and ``make_resident_multi_step_fn``, and
+the gates ``fits_superstep``, ``fits_resident`` and ``superstep_k``, keep
+the JAX package's names.
 
 Each wrapper checks its arguments, allocates its output with
 ``torch.empty`` (or writes into a caller's buffer), launches on the current
 stream, raises on a non-zero launch status and counts the launch in
-:data:`LAUNCHES`.  A CPU tensor goes to the plain version beside it (plain
-PyTorch: shifted slice-adds over the mask, as the reference package's
-``_neighbor_sum_shift``; for a multi-step kernel, the per-step plain loop in
-the kernel's frame bookkeeping); a CUDA tensor launches the kernel or
-raises.  The plain versions are what the CPU tests hold against the JAX
-package and what ``chip_smoke.py`` holds the kernels against on the card.
+:data:`LAUNCHES` under its own name.  A CPU tensor goes to the plain
+version beside it (plain PyTorch: shifted slice-adds over the mask, as the
+reference package's ``_neighbor_sum_shift``; for a multi-step kernel, the
+per-step plain loop in the kernel's frame bookkeeping); a CUDA tensor
+launches the kernel or raises.  The plain versions are what the CPU tests
+hold against the JAX package and what ``chip_smoke.py`` holds the kernels
+against on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -70,9 +79,6 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: C entry point -> (source in csrc/, argument types); each returns an int
 _ENTRIES = {
     "nlheat_nsum2d": ("nsum2d.cu", [_I, _I, _P, _P, _I, _I, _I, _P]),
-    "nlheat_step2d": ("nsum2d.cu", [_I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _D,
-                                    _P]),
-    "nlheat_carried2d": ("carried2d.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P]),
     "nlheat_superstep2d": ("superstep2d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _D, _D, _D,
                                               _P]),
     "nlheat_superstep2d_fits": ("superstep2d.cu", [_I, _I, _I, _I]),
@@ -131,6 +137,64 @@ def source_coefs(t: int, dt: float) -> tuple:
     computed on the host in float64."""
     ang = TWO_PI * (t * dt)
     return -TWO_PI * math.sin(ang), -math.cos(ang)
+
+
+def case_params(scales, dts, dtype, device) -> torch.Tensor:
+    """The ``(B, 2)`` table of each case's (scale, dt): the host floats
+    rounded once to ``dtype``, as a kernel rounds a by-value argument."""
+    pairs = [[float(s), float(d)] for s, d in zip(scales, dts, strict=True)]
+    return torch.tensor(pairs, dtype=torch.float64).to(device=device, dtype=dtype)
+
+
+def source_coef_table(ts, dts, dtype, device) -> torch.Tensor:
+    """The ``(len(ts), B, 2)`` table of each case's test-source coefficients
+    (coef_g, coef_lg) at each integer step of ``ts``: ``source_coefs`` in
+    float64 on the host, rounded once to ``dtype`` and copied once."""
+    rows = [[list(source_coefs(t, float(dt))) for dt in dts] for t in ts]
+    return torch.tensor(rows, dtype=torch.float64).reshape(len(rows), len(dts), 2).to(
+        device=device, dtype=dtype)
+
+
+#: the solo step kernels' device tables, least recently used first; a
+#: CUDA graph captured over step2d/carried2d reads its tables, so it stays
+#: valid while they are among the _TABLES_KEPT most recently used
+_TABLES: OrderedDict = OrderedDict()
+_TABLES_KEPT = 256
+#: steps of test-source coefficients one table holds (one copy per so many steps)
+COEF_ROWS = 256
+
+
+def _table(key, make) -> torch.Tensor:
+    """The cached table ``key``, made by ``make()`` (one host-to-device copy)
+    the first time it is asked for."""
+    table = _TABLES.get(key)
+    if table is None:
+        table = _TABLES[key] = make()
+        if len(_TABLES) > _TABLES_KEPT:
+            _TABLES.popitem(last=False)
+    else:
+        _TABLES.move_to_end(key)
+    return table
+
+
+def _params_row(scale: float, dt: float, like: torch.Tensor) -> torch.Tensor:
+    """The ``(1, 2)`` (scale, dt) table of one solo step on ``like``'s dtype
+    and device, made once."""
+    scale, dt = float(scale), float(dt)
+    return _table(("params", scale, dt, like.dtype, like.device),
+                  lambda: case_params([scale], [dt], like.dtype, like.device))
+
+
+def _coef_row(t: int, dt: float, like: torch.Tensor) -> torch.Tensor:
+    """The ``(1, 2)`` (coef_g, coef_lg) row of integer step ``t``: a view of
+    a table of COEF_ROWS steps from a multiple of COEF_ROWS, made once, so
+    a loop of test-form steps copies once per COEF_ROWS steps."""
+    t, dt = int(t), float(dt)
+    t0 = t - t % COEF_ROWS
+    table = _table(("coefs", t0, dt, like.dtype, like.device),
+                   lambda: source_coef_table(range(t0, t0 + COEF_ROWS), [dt], like.dtype,
+                                             like.device))
+    return table[t - t0]
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -239,16 +303,17 @@ def _check_device(x: torch.Tensor):
 
 
 def _raise_on(rc: int, what: str, eps: int, x: torch.Tensor,
-              remedy: str = "use method='conv' for this horizon"):
+              remedy: str = "use method='conv' for this horizon", entry: str | None = None):
     """Turn a C entry point's status into an exception: -1 is the kernel
     library's refusal (eps, the shared-memory tile or the grid beyond its
     limits, which its source in csrc/ alone decides), anything else non-zero
-    is cudaGetLastError()."""
+    is cudaGetLastError().  ``entry`` is the C entry point that ran, by
+    default ``nlheat_<what>``."""
     if rc == -1:
         raise ValueError(
             f"{what}: eps={eps} on a {tuple(x.shape)} {x.dtype} tensor is beyond what "
             f"the kernel takes (its eps, shared-memory or grid limit, "
-            f"csrc/{_ENTRIES['nlheat_' + what][0]}); {remedy}")
+            f"csrc/{_ENTRIES[entry or 'nlheat_' + what][0]}); {remedy}")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaGetLastError {rc}")
 
@@ -328,19 +393,20 @@ def step2d(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float, *,
     if g is not None:
         _check_state("step2d g", g, u.shape, like=u)
         _check_state("step2d lg", lg, u.shape, like=u)
-        coef_g, coef_lg = source_coefs(t, dt)
-    else:
-        coef_g = coef_lg = 0.0
     out = _buffer("step2d out", out, u, u.dtype, (u,))
     if u.numel() == 0:
         return out
+    # one csrc/batched_step2d.cu launch at B=1, (scale, dt) and the test
+    # form's (coef_g, coef_lg) read from cached (1, 2) device tables
+    coefs = None if g is None else _coef_row(t, dt, u)
+    params = _params_row(scale, dt, u)
     with torch.cuda.device(u.device):
-        rc = _entry("nlheat_step2d")(
+        rc = _entry("nlheat_batched_step2d")(
             _DTYPE_CODE[u.dtype], int(precision == "bf16"), u.data_ptr(), out.data_ptr(),
             None if g is None else g.data_ptr(), None if lg is None else lg.data_ptr(),
-            nx, ny, eps, float(scale), float(wsum), float(dt), coef_g, coef_lg,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "step2d", eps, u)
+            None if coefs is None else coefs.data_ptr(), params.data_ptr(), 1, nx, ny, eps,
+            float(wsum), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "step2d", eps, u, entry="nlheat_batched_step2d")
     LAUNCHES["step2d"] += 1
     return out
 
@@ -382,48 +448,48 @@ def resident2d_plain(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: f
 
 # -- multi-step kernels: wrappers -------------------------------------------------
 
-def carried2d(frame: torch.Tensor, eps: int, scale: float, wsum: float, dt: float, *,
-              shadow: torch.Tensor | None = None, out: torch.Tensor | None = None,
-              out_shadow: torch.Tensor | None = None):
+def carried2d(frame: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
+              precision: str = "f32", out: torch.Tensor | None = None) -> torch.Tensor:
     """One production step of the state kept in a halo-padded
-    ``(nx+2e, ny+2e)`` frame: returns the next frame, its halo zero.  With
-    ``shadow`` (the frame's bf16 rounding, ``torch.bfloat16``) it runs the
-    bf16 tier and returns the pair (next frame, next shadow).  ``out`` and
-    ``out_shadow`` are optional buffers that must not overlap the inputs."""
+    ``(nx+2e, ny+2e)`` frame: returns the next frame, its halo zero.
+    ``precision="bf16"`` runs the bf16 tier: the operand is the frame's
+    :func:`shadow_of`, rounded from the master as the window is staged.
+    ``out`` is an optional buffer that must not overlap ``frame``; its halo
+    is zeroed here."""
     eps = int(eps)
+    validate_precision(precision)
     if frame.dim() != 2 or frame.shape[0] < 2 * eps or frame.shape[1] < 2 * eps:
         raise ValueError(f"carried2d: frame {tuple(frame.shape)} too small for eps={eps}")
-    if shadow is not None and (shadow.dtype != torch.bfloat16
-                               or tuple(shadow.shape) != tuple(frame.shape)):
-        raise ValueError(f"carried2d: the shadow must be a {tuple(frame.shape)} bfloat16 "
-                         f"frame, got {tuple(shadow.shape)} {shadow.dtype}")
+    if frame.device.type != "cpu":
+        out = (torch.zeros_like(frame) if out is None else _zero_halo(
+            _buffer("carried2d out", out, frame, frame.dtype, (frame,)), eps, 2))
+    return _carried2d(frame, out, eps, scale, wsum, dt, precision)
+
+
+def _carried2d(frame, out, eps: int, scale: float, wsum: float, dt: float, precision: str):
+    """:func:`carried2d` into ``out``, whose halo must already be zero on the
+    card: one csrc/batched_carried2d.cu launch at B=1, which writes the
+    interior only.  The multi-step maker's two frames, made with zero halos,
+    keep them."""
     if frame.device.type == "cpu":
-        res = carried2d_plain(frame, eps, scale, wsum, dt, shadow)
-        if shadow is None:
-            return res if out is None else out.copy_(res)
-        return (res[0] if out is None else out.copy_(res[0]),
-                res[1] if out_shadow is None else out_shadow.copy_(res[1]))
+        res = carried2d_plain(frame, eps, scale, wsum, dt,
+                              shadow_of(frame) if precision == "bf16" else None)
+        res = res if precision != "bf16" else res[0]
+        return res if out is None else out.copy_(res)
     _check_state("carried2d frame", frame, frame.shape)
     _check_device(frame)
     nx, ny = frame.shape[0] - 2 * eps, frame.shape[1] - 2 * eps
-    ins = (frame, shadow)
-    out = _buffer("carried2d out", out, frame, frame.dtype, ins)
-    if shadow is not None:
-        if shadow.device != frame.device or not shadow.is_contiguous():
-            raise ValueError("carried2d: the shadow must be contiguous, on the frame's device")
-        out_shadow = _buffer("carried2d out_shadow", out_shadow, frame, torch.bfloat16, ins)
     if nx <= 0 or ny <= 0:  # no interior: the next frame is all halo
-        out.zero_()
-        return out if shadow is None else (out, out_shadow.zero_())
+        return out.zero_()
+    params = _params_row(scale, dt, frame)
     with torch.cuda.device(frame.device):
-        rc = _entry("nlheat_carried2d")(
-            _DTYPE_CODE[frame.dtype], frame.data_ptr(),
-            None if shadow is None else shadow.data_ptr(), out.data_ptr(),
-            None if shadow is None else out_shadow.data_ptr(), nx, ny, eps, float(scale),
-            float(wsum), float(dt), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "carried2d", eps, frame)
+        rc = _entry("nlheat_batched_carried2d")(
+            _DTYPE_CODE[frame.dtype], int(precision == "bf16"), frame.data_ptr(),
+            out.data_ptr(), params.data_ptr(), 1, nx, ny, eps, float(wsum),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "carried2d", eps, frame, entry="nlheat_batched_carried2d")
     LAUNCHES["carried2d"] += 1
-    return out if shadow is None else (out, out_shadow)
+    return out
 
 
 def superstep2d(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
@@ -549,26 +615,21 @@ def _reject_bf16_variant(op, what: str,
 def make_carried_multi_step_fn(op, nsteps: int, dtype=None):
     """``multi(u, t0) -> u`` after ``nsteps`` production steps, the state
     carried in a halo-padded frame: one ``carried2d`` launch per step, into
-    two frames (pairs in the bf16 tier) used in turn.  ``t0`` is accepted
-    for signature parity (the production step does not depend on time);
-    ``u`` is never written."""
+    two frames used in turn, whose halos stay the zeros they were made with
+    (the bf16 tier rounds the master as it stages it: one frame, no
+    shadow).  ``t0`` is accepted for signature parity (the production step
+    does not depend on time); ``u`` is never written."""
     eps, scale, wsum, dt = _production_args(op)
-    bf16 = op.precision == "bf16"
 
     def multi(u, t0):
         del t0
         u = u.to(dtype or u.dtype)
         nx, ny = u.shape
         frame = F.pad(u, (eps, eps, eps, eps)).contiguous()
-        shadow = shadow_of(frame) if bf16 else None
-        spare = spare_shadow = None
+        spare = torch.zeros_like(frame)
         for _ in range(nsteps):
-            if bf16:
-                nxt, nxt_shadow = carried2d(frame, eps, scale, wsum, dt, shadow=shadow,
-                                            out=spare, out_shadow=spare_shadow)
-            else:
-                nxt, nxt_shadow = carried2d(frame, eps, scale, wsum, dt, out=spare), None
-            spare, spare_shadow, frame, shadow = frame, shadow, nxt, nxt_shadow
+            nxt = _carried2d(frame, spare, eps, scale, wsum, dt, op.precision)
+            spare, frame = frame, nxt
         return frame[eps:eps + nx, eps:eps + ny].contiguous()
 
     return multi

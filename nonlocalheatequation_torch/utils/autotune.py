@@ -234,22 +234,29 @@ def _winner(key: str, cands: dict, measure, default: str | None = None,
             for name in cands:
                 if name not in recorded:
                     recorded[name] = measure(name) * 1e3
-            valid = {n: t for n, t in recorded.items() if isinstance(t, (int, float))}
-            best = min(valid, key=valid.get)
-            if default in valid and valid[best] > (1.0 - margin) * valid[default]:
-                best = default
-            entry = {"winner": best, "ms_per_step": recorded}
+            entry = {"winner": _fastest(recorded, recorded, default, margin),
+                     "ms_per_step": recorded}
             file_cache[key] = entry
             _store_file_cache(file_cache)
         _memory_cache[key] = entry
     winner = entry["winner"]
     if winner not in cands:
         # the recorded winner does not fit this nsteps (superstep3 won on a
-        # long run, this one has 2 steps): run the fastest one that does
-        rates = {n: t for n, t in entry["ms_per_step"].items()
-                 if n in cands and isinstance(t, (int, float))}
-        winner = min(rates, key=rates.get)
+        # long run, this one has 2 steps): run the fastest one that does,
+        # by the same rule
+        winner = _fastest(entry["ms_per_step"], cands, default, margin)
     return winner
+
+
+def _fastest(ms_per_step: dict, names, default: str | None, margin: float) -> str:
+    """The fastest of ``names`` by their recorded ms/step, or ``default``
+    (when recorded) unless that one is faster by ``margin`` of its time."""
+    valid = {n: t for n, t in ms_per_step.items()
+             if n in names and isinstance(t, (int, float))}
+    best = min(valid, key=valid.get)
+    if default in valid and valid[best] > (1.0 - margin) * valid[default]:
+        best = default
+    return best
 
 
 def pick_multi_step_fn(op, nsteps: int, shape, dtype, device):

@@ -164,14 +164,40 @@ def test_plain_lanes_are_the_solo_plain_versions(dtype, shape, eps, batch, prec)
         args = (U[b], eps, scales[b], wsum, dts[b])
         assert torch.equal(step[b], ck.step2d(*args, precision=prec))
         assert torch.equal(test[b], ck.step2d(*args, g=G[b], lg=LG[b], t=7, precision=prec))
-        solo = ck.carried2d(frames[b], eps, scales[b], wsum, dts[b],
-                            shadow=None if shadow is None else shadow[b])
-        if shadow is None:
-            assert torch.equal(carried[b], solo)
-        else:  # carried2d carries the pair; its next shadow is the next master's rounding
-            assert torch.equal(carried[b], solo[0])
-            assert torch.equal(solo[1], ck.shadow_of(solo[0]))
+        solo = ck.carried2d(frames[b], eps, scales[b], wsum, dts[b], precision=prec)
+        assert torch.equal(carried[b], solo)
+        if shadow is not None:  # the plain pair's next shadow is the next master's rounding
+            pair = ck.carried2d_plain(frames[b], eps, scales[b], wsum, dts[b], shadow[b])
+            assert torch.equal(pair[0], solo) and torch.equal(pair[1], ck.shadow_of(solo))
         assert torch.equal(sup[b], ck.superstep2d(*args, 3, prec))
+
+
+@pytest.mark.parametrize("form", ["production", "test", "bf16", "carried", "carried-bf16"])
+@pytest.mark.parametrize("eps", [0, 3, 16, 17])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_solo_plain_versions_are_lane_0_of_one_case(dtype, eps, form):
+    # step2d and carried2d launch csrc/batched_step2d.cu and
+    # csrc/batched_carried2d.cu at B=1 on the card (the register walk up to
+    # eps 16, the tile body at 17): their plain versions give lane 0's bits
+    U, G, LG, scales, dts, wsum, params = _bucket((21, 34), eps, 1, dtype, 40 + eps)
+    prec = "bf16" if form.endswith("bf16") else "f32"
+    if form.startswith("carried"):
+        frames = F.pad(U, (eps,) * 4)
+        shadow = ck.shadow_of(frames) if prec == "bf16" else None
+        want = cb.batched_carried2d_plain(frames, eps, params, wsum, shadow)
+        got = ck.carried2d_plain(frames[0], eps, scales[0], wsum, dts[0],
+                                 None if shadow is None else shadow[0])
+        if shadow is not None:
+            assert torch.equal(got[1], want[1][0])
+            got, want = got[0], want[0]
+    elif form == "test":
+        coefs = cb.source_coef_table([5], dts, dtype, "cpu")[0]
+        want = cb.batched_step2d_plain(U, eps, params, wsum, G=G, LG=LG, coefs=coefs)
+        got = ck.step2d_plain(U[0], eps, scales[0], wsum, dts[0], g=G[0], lg=LG[0], t=5)
+    else:
+        want = cb.batched_step2d_plain(U, eps, params, wsum, precision=prec)
+        got = ck.step2d_plain(U[0], eps, scales[0], wsum, dts[0], precision=prec)
+    assert got.dtype == dtype and torch.equal(got, want[0])
 
 
 @pytest.mark.parametrize("eps", [0, 1, 2, 5, 8])

@@ -124,6 +124,63 @@ def test_multistep_kernels_bitwise_step2d_on_card(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_solo_step_kernels_bitwise_plain_on_card(card, dtype, prec):
+    # step2d and carried2d are one batched_step2d / batched_carried2d launch
+    # at B=1: the register walk (up to eps 16; 1100 x 700 has more tiles
+    # than the card has SMs), the tile body (eps 17, 40, and in float32 a
+    # lattice below the SM count: 512^2 and the small shapes), ragged
+    # shapes, both forms, carried2d into a NaN-filled out; counted under
+    # their own names
+    rng = np.random.default_rng(31)
+    for eps in (0, 1, 3, 8, 16, 17, 40):
+        wsum = float(sum(2 * h + 1 for h in ck.column_half_heights(eps)))
+        scale, dt = 2.0 + eps, 0.8 / ((2.0 + eps) * wsum)
+        for nx, ny in ((1, 1), (37, 50), (130, 45), (512, 512), (1100, 700)):
+            form = (eps, nx, ny)
+            u = torch.tensor(rng.standard_normal((nx, ny)), dtype=dtype, device=card)
+            g, lg = torch.randn_like(u), torch.randn_like(u)
+            ck.reset_launch_counts()
+            got = ck.step2d(u, eps, scale, wsum, dt, precision=prec)
+            test = ck.step2d(u, eps, scale, wsum, dt, g=g, lg=lg, t=300, precision=prec)
+            frame = torch.nn.functional.pad(u, (eps,) * 4).contiguous()
+            carried = ck.carried2d(frame, eps, scale, wsum, dt, prec,
+                                   out=torch.full_like(frame, float("nan")))
+            assert {k: v for k, v in ck.launch_counts().items() if v} == {
+                "step2d": 2, "carried2d": 1}, form
+            assert torch.equal(got, ck.step2d_plain(u, eps, scale, wsum, dt,
+                                                    precision=prec)), form
+            assert torch.equal(test, ck.step2d_plain(u, eps, scale, wsum, dt, g=g, lg=lg, t=300,
+                                                     precision=prec)), form
+            want = ck.carried2d_plain(frame, eps, scale, wsum, dt,
+                                      ck.shadow_of(frame) if prec == "bf16" else None)
+            assert torch.equal(carried, want[0] if prec == "bf16" else want), form
+            assert torch.equal(carried[eps:eps + nx, eps:eps + ny], got), form
+    z = torch.zeros(200, 200, dtype=dtype, device=card)
+    with pytest.raises(ValueError, match="^step2d: eps=70 .*batched_step2d.cu"):
+        ck.step2d(z, 70, 1.0, 1.0, 1e-3)
+    with pytest.raises(ValueError, match="^carried2d: eps=70 .*batched_carried2d.cu"):
+        ck.carried2d(torch.nn.functional.pad(z, (70,) * 4), 70, 1.0, 1.0, 1e-3)
+
+
+@pytest.mark.cuda
+def test_per_step_loop_copies_no_table_a_step_on_card(card, monkeypatch):
+    # the per-step loop's step2d launches read cached device tables: one
+    # (scale, dt) row, and in the test form one coefficient table per
+    # COEF_ROWS steps, so no step copies from the host
+    monkeypatch.setattr(ck, "_TABLES", type(ck._TABLES)())
+    top = _op(64, 3)
+    u = _state(64, card, torch.float32, 5)
+    g, lg = top.source_parts(64, 64)
+    make_multi_step_fn_base(top, 300)(u, 0)
+    assert len(ck._TABLES) == 1
+    make_multi_step_fn_base(top, 300, g, lg)(u, 0)
+    assert len(ck._TABLES) == 1 + -(-300 // ck.COEF_ROWS)
+    assert ck.launch_counts()["step2d"] == 600
+
+
+@pytest.mark.cuda
 def test_resident_refuses_a_large_grid_on_card(card):
     assert not ck.fits_resident(4096, 4096, 8, torch.float32, card)
     with pytest.raises(ValueError, match="resident kernel"):
@@ -393,10 +450,7 @@ def test_batched_kernels_bitwise_solo_launches_on_card(card, dtype, tol, prec):
                 u, eps, scales[b], wsum, dts[b], g=G[b].contiguous(), lg=LG[b].contiguous(),
                 t=7, precision=prec))
             solo = ck.carried2d(frames[b].contiguous(), eps, scales[b], wsum, dts[b],
-                                shadow=None if shadow is None else shadow[b].contiguous())
-            if shadow is not None:  # carried2d's next shadow: its next master's rounding
-                assert torch.equal(solo[1], ck.shadow_of(solo[0]))
-                solo = solo[0]
+                                precision=prec)
             assert torch.equal(got["carried"][b], solo)
             for k in ks:
                 assert torch.equal(got[k][b], ck.superstep2d(u, eps, scales[b], wsum, dts[b],
@@ -455,10 +509,10 @@ def test_batched_step2d_bitwise_plain_and_solo_on_card(card, dtype, prec):
 def test_batched_carried2d_bitwise_plain_and_step_lanes_on_card(card, dtype, prec):
     # the register design (eps <= 16) and the tile body (eps 17, 40) of
     # csrc/batched_carried2d.cu: one launch bitwise batched_carried2d_plain
-    # (which carries the (master, shadow) pair in the bf16 tier, as
-    # carried2d does; batched_carried2d keeps the masters and rounds them as
-    # it stages them, the same only if carried2d's next shadow is the
-    # rounding of its next master, checked on every lane), and three launches
+    # (which carries the (master, shadow) pair in the bf16 tier;
+    # batched_carried2d keeps the masters and rounds them as it stages them,
+    # the same only if the plain next shadow is the rounding of its next
+    # master) and, lane by lane, one carried2d launch; three launches
     # through the multi-step maker (two stacks whose halos stay zero) lane
     # by lane bitwise three batched_step2d launches; ragged planes, uniform
     # and mixed physics
@@ -479,10 +533,11 @@ def test_batched_carried2d_bitwise_plain_and_step_lanes_on_card(card, dtype, pre
             want = cb.batched_carried2d_plain(frames, eps, params, wsum, shadow)
             assert torch.equal(got, want if shadow is None else want[0]), form
             if shadow is not None:
-                for b in range(batch):
-                    solo = ck.carried2d(frames[b].contiguous(), eps, scales[b], wsum, dts[b],
-                                        shadow=shadow[b].contiguous())
-                    assert torch.equal(solo[1], ck.shadow_of(solo[0])), (form, b)
+                assert torch.equal(want[1], ck.shadow_of(want[0])), form
+            for b in range(batch):
+                solo = ck.carried2d(frames[b].contiguous(), eps, scales[b], wsum, dts[b],
+                                    precision=prec)
+                assert torch.equal(solo, got[b]), (form, b)
             if eps == 0:  # no operator has a horizon of 0
                 continue
             ops = [_op(64, eps, prec)] * batch if not mixed else [
@@ -519,6 +574,10 @@ def test_carried_wrappers_zero_the_halo_of_a_given_out_on_card(card, dtype):
         got = cb.batched_carried2d(frames, eps, params, wsum, precision=prec, out=out)
         assert got is out and torch.equal(
             got, cb.batched_carried2d(frames, eps, params, wsum, precision=prec)), (eps, prec)
+        out = torch.full_like(frames[0], float("nan"))  # carried2d: one launch at B=1
+        got = ck.carried2d(frames[0], eps, 2.0, wsum, 1e-3, prec, out=out)
+        assert got is out and torch.equal(
+            got, ck.carried2d(frames[0], eps, 2.0, wsum, 1e-3, prec)), (eps, prec)
 
 
 @pytest.mark.cuda

@@ -361,11 +361,12 @@ def test_cli_single_solve_prints_the_jax_lines(monkeypatch, capsys):
     (["--resume"], "--resume is not ported yet"),
     (["--log"], "--log is not ported yet"),
     (["--profile", "d"], "--profile is not ported yet"),
-    (["--stepper", "rkc", "--stages", "4"], "--stepper rkc is not ported yet"),
+    (["--stepper", "rkc", "--superstep-stages", "4"], "--stepper rkc is not ported yet"),
     (["--method", "fft"], "--method fft is not ported yet"),
     (["--comm", "fused"], "needs method='cuda'"),
     (["--comm", "fused", "--method", "cuda", "--superstep", "2"], "superstep"),
     (["--resync", "2", "--precision", "bf16"], "--resync is not supported"),
+    (["--superstep-stages", "4"], "--stepper euler takes no stage count"),
 ])
 def test_cli_refusals(capsys, argv, message):
     import re

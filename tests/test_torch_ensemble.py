@@ -333,11 +333,15 @@ def test_batch_tuner_raises_on_a_failing_candidate(monkeypatch):
     assert autotune.records() == {}
 
 
-@pytest.mark.parametrize("lead,winner", [
-    (0.9, "batched-per-step"),       # 10% faster: inside the margin, per-step keeps it
-    (0.7, "batched-superstep3"),     # 30% faster: beyond it
-], ids=["inside-margin", "beyond-margin"])
-def test_batch_tuner_probes_in_rounds_and_keeps_per_step_by_a_margin(monkeypatch, lead, winner):
+@pytest.mark.parametrize("lead,carried,winner,short", [
+    (0.9, 2.0, "batched-per-step", None),    # 10% faster: inside the margin, per-step keeps it
+    (0.7, 2.0, "batched-superstep3", None),  # 30% faster: beyond it
+    # the recorded winner does not fit a 2-step run: the fitting candidates
+    # by the same rule, so carried's 10% lead leaves per-step in place
+    (0.7, 0.9, "batched-superstep3", "batched-per-step"),
+], ids=["inside-margin", "beyond-margin", "non-fitting-record"])
+def test_batch_tuner_probes_in_rounds_and_keeps_per_step_by_a_margin(monkeypatch, lead, carried,
+                                                                     winner, short):
     monkeypatch.setattr(autotune, "_memory_cache", {})
     monkeypatch.setenv("NLHEAT_AUTOTUNE_CACHE", "")
     names = ["batched-per-step", "batched-carried", "batched-superstep3", "vmap"]
@@ -345,8 +349,8 @@ def test_batch_tuner_probes_in_rounds_and_keeps_per_step_by_a_margin(monkeypatch
     maker_name = {id(m): n for n, m in cands}
     # seconds a step: the first round's per-step probe is a spike, and the
     # rounds keep each candidate's best
-    first = {"batched-per-step": 5.0, "batched-superstep3": lead}
-    later = {"batched-per-step": 1.0, "batched-superstep3": lead}
+    first = {"batched-per-step": 5.0, "batched-superstep3": lead, "batched-carried": carried}
+    later = {"batched-per-step": 1.0, "batched-superstep3": lead, "batched-carried": carried}
     order = []
 
     def measure(maker, *_a):
@@ -360,8 +364,14 @@ def test_batch_tuner_probes_in_rounds_and_keeps_per_step_by_a_margin(monkeypatch
     assert order == names * autotune.BATCH_PROBE_ROUNDS  # in turns, round after round
     assert (got, fn) == (winner, winner)
     (entry,) = autotune.records().values()
-    assert entry["ms_per_step"] == {"batched-per-step": 1e3, "batched-carried": 2e3,
+    assert entry["ms_per_step"] == {"batched-per-step": 1e3, "batched-carried": carried * 1e3,
                                     "batched-superstep3": lead * 1e3, "vmap": 2e3}
+    if short is not None:  # superstep3 does not fit 2 steps; the record is reused, not re-probed
+        monkeypatch.setattr(autotune, "batched_candidates",
+                            lambda *_a: [c for c in cands if c[0] != "batched-superstep3"])
+        fn, got = autotune.pick_batched_multi_step_fn(ops, 2, (NX, NY), torch.float64, CPU)
+        assert (got, fn) == (short, short)
+        assert len(order) == len(names) * autotune.BATCH_PROBE_ROUNDS
 
 
 def _batch(rows) -> str:

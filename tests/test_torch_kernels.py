@@ -88,6 +88,30 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     assert set(ck.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_solo_step_tables_are_made_once(monkeypatch, dtype):
+    # step2d and carried2d read (scale, dt) and the test form's (coef_g,
+    # coef_lg) from device tables (one batched launch at B=1): made once and
+    # cached, rounded once from the host's float64, the coefficients
+    # COEF_ROWS steps a table, so a loop of steps copies nothing a step
+    monkeypatch.setattr(ck, "_TABLES", type(ck._TABLES)())
+    like = torch.zeros(3, dtype=dtype)
+    params = ck._params_row(2.5, 1e-3, like)
+    assert ck._params_row(2.5, 1e-3, like) is params
+    assert torch.equal(params, torch.tensor([[2.5, 1e-3]], dtype=torch.float64).to(dtype))
+    rows = [ck._coef_row(t, 1e-3, like) for t in range(0, 2 * ck.COEF_ROWS, 7)]
+    assert len(ck._TABLES) == 3  # one params row, two coefficient tables
+    for t, row in zip(range(0, 2 * ck.COEF_ROWS, 7), rows, strict=True):
+        assert row.shape == (1, 2) and row.is_contiguous()
+        want = torch.tensor([ck.source_coefs(t, 1e-3)], dtype=torch.float64).to(dtype)
+        assert torch.equal(row, want), t
+    ck._coef_row(301, 1e-3, like)
+    assert len(ck._TABLES) == 3  # step 301 is a row of the second table
+    for i in range(ck._TABLES_KEPT + 5):  # least recently used tables go first
+        ck._params_row(1.0 + i, 1e-3, like)
+    assert len(ck._TABLES) == ck._TABLES_KEPT
+
+
 def test_wrappers_refuse_bad_arguments():
     u = torch.randn(6, 6, dtype=torch.float64)
     with pytest.raises(ValueError, match="both g and lg"):

@@ -164,8 +164,11 @@ def test_plain_carried_frame_bookkeeping():
     eps, scale, wsum, dt = ck._production_args(top)
     u = torch.from_numpy(_state(20, np.float32, 2))
     frame = torch.nn.functional.pad(u, (eps,) * 4)
-    nxt, shadow = ck.carried2d(frame, eps, scale, wsum, dt, shadow=ck.shadow_of(frame))
-    assert shadow.dtype == torch.bfloat16 and torch.equal(shadow, ck.shadow_of(nxt))
+    # the bf16 tier keeps no shadow: the next frame is the plain pair's master,
+    # whose shadow is that frame's rounding
+    nxt = ck.carried2d(frame, eps, scale, wsum, dt, precision="bf16")
+    master, shadow = ck.carried2d_plain(frame, eps, scale, wsum, dt, ck.shadow_of(frame))
+    assert torch.equal(nxt, master) and torch.equal(shadow, ck.shadow_of(nxt))
     halo = torch.ones_like(nxt, dtype=torch.bool)
     halo[eps:-eps, eps:-eps] = False
     assert not nxt[halo].any()
@@ -173,8 +176,9 @@ def test_plain_carried_frame_bookkeeping():
     assert torch.equal(nxt[eps:-eps, eps:-eps], step)
     out = torch.full_like(frame, 7.0)
     assert ck.carried2d(frame, eps, scale, wsum, dt, out=out) is out
-    with pytest.raises(ValueError, match="shadow must be"):
-        ck.carried2d(frame, eps, scale, wsum, dt, shadow=frame)
+    assert not out[halo].any()
+    with pytest.raises(ValueError, match="unknown precision tier"):
+        ck.carried2d(frame, eps, scale, wsum, dt, precision="fp8")
 
 
 def test_resident_refuses_a_bf16_operator():
