@@ -147,10 +147,12 @@ line is printed; the phase walls are printed at the end):
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
 
-``python3 chip_smoke.py --ab DIR`` prints instead one line of A/B timings
-of the package under DIR (ab_main: the kernels of phase 4, the lattice
-sweep, the tuned and per-step solves); run it on a parent tree and on this
-one in turns, in one call, to compare them on one card.
+``python3 chip_smoke.py --ab DIR [SECTION ...]`` prints instead one line of
+A/B timings of the package under DIR (ab_main: the kernels of phase 4, the
+lattice sweep, the tuned and per-step solves; the 3D kernels at 256^3; the
+3D halo kernels at the 128^3 block with their outputs' digests; the 256^3
+2x2x2 distributed steps); run it on a parent tree and on this one in turns,
+in one call, to compare them on one card.
 """
 
 from __future__ import annotations
@@ -2276,8 +2278,13 @@ def phase_halo_checks(torch, np) -> dict:
     rng = np.random.default_rng(SEED + 20)
     cases2 = [((70, 45), 5), ((300, 200), 8), ((100, 90), 40), ((2048, 64), 8),
               ((8, 40), 4), ((33, 33), 16), ((8, 8), 9), ((5, 7), 12)]
+    # split_nsum3d: its register design up to eps 6 (16-byte staging at (16,
+    # 16, 64) and (24, 24, 100) eps 4, the latter with a lattice interior;
+    # unaligned bz at eps 3 and 6), its tile body at eps 7
     cases3 = [((20, 12, 40), 3), ((33, 17, 40), 4), ((16, 16, 70), 6), ((12, 12, 12), 1),
-              ((4, 4, 4), 2), ((6, 9, 8), 3), ((4, 4, 4), 5), ((3, 5, 2), 6)]
+              ((4, 4, 4), 2), ((6, 9, 8), 3), ((4, 4, 4), 5), ((3, 5, 2), 6),
+              ((16, 16, 64), 4), ((24, 24, 100), 4), ((9, 7, 13), 3), ((18, 17, 70), 6),
+              ((16, 16, 72), 7)]
     worst, n = {}, {"split_nsum2d": 0, "split_nsum3d": 0}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[1]
@@ -2307,7 +2314,10 @@ def phase_halo_checks(torch, np) -> dict:
     # the card, its halo read from the blocks around it
     # fused_nsum2d: its register design up to eps 10 (16-byte staging of
     # interior windows at (300, 200) eps 8; a row across two block edges at
-    # (40, 12); multi-hop and degenerate blocks), the tile body from eps 11
+    # (40, 12); multi-hop and degenerate blocks), the tile body from eps 11;
+    # fused_nsum3d: its register design up to eps 6 (windows staged from the
+    # mesh 16 bytes a copy at eps 4 with bz a multiple of 4; unaligned bz;
+    # multi-hop in z at (6, 8, 4) eps 6), the tile body from eps 7
     meshes = [((2, 2), (70, 45), 5), ((2, 2), (300, 200), 8), ((4, 2), (8, 8), 9),
               ((3, 3), (2, 2), 5), ((2, 4), (33, 33), 16), ((1, 3), (5, 7), 12),
               ((2, 2), (8, 40), 4), ((2, 2), (100, 90), 40), ((2, 2), (40, 12), 8),
@@ -2315,7 +2325,9 @@ def phase_halo_checks(torch, np) -> dict:
               ((1, 3), (5, 7), 10), ((2, 2, 2), (20, 12, 40), 3),
               ((2, 2, 2), (33, 17, 40), 4), ((2, 2, 2), (4, 4, 4), 5), ((3, 2, 2), (6, 9, 8), 3),
               ((2, 2, 2), (12, 12, 12), 1), ((2, 2, 2), (16, 16, 70), 6),
-              ((2, 2, 2), (3, 5, 2), 6)]
+              ((2, 2, 2), (3, 5, 2), 6), ((2, 2, 2), (16, 16, 64), 4),
+              ((2, 2, 2), (24, 24, 100), 4), ((2, 2, 2), (9, 7, 13), 3),
+              ((1, 2, 3), (6, 8, 4), 6), ((2, 2, 2), (16, 16, 72), 7)]
     n.update(fused_nsum2d=0, fused_nsum3d=0)
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[1]
@@ -2958,24 +2970,148 @@ def solve_ab(torch, np, reps: int = 3) -> dict:
     return out
 
 
-def ab_main(package_root: str) -> int:
-    """``python3 chip_smoke.py --ab DIR``: the A/B timings of this script on
-    the package under DIR (a checkout of this tree, or of a parent tree
-    unpacked into a git-ignored directory): the card, the kernels of
-    phase 4 at 4096^2 (the bf16 tier too) and 512^2 (kernels_ab), the
-    lattice sweep and the tuned and per-step solves (solve_ab), as one
-    JSON line.  Run it for two trees in turns in one call (parent, this,
+def kernels3d_ab(torch, k3, case_scale, reps: int = 20) -> dict:
+    """ms per launch of nsum3d (on the zero-halo frame), step3d and carried3d
+    (the register design of stencil_tile3d.cuh) at N3^3, eps=EPS3 and at
+    N3S^3, eps=EPS3S, f32: in a CUDA graph of 20 launches and in a loop of
+    ``reps`` launches, each twice, in turns."""
+    import torch.nn.functional as F
+
+    out = {}
+    for n, e in ((N3, EPS3), (N3S, EPS3S)):
+        op = op_3d(n, e)
+        u = torch.randn((n,) * 3, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 25))
+        frame = F.pad(u, (e,) * 6).contiguous()
+        o, fo = torch.empty_like(u), torch.zeros_like(frame)
+        scale = case_scale(op)
+        runs = {"nsum3d": lambda: k3.nsum3d(frame, e),
+                "step3d": lambda: k3.step3d(u, e, scale, op.wsum, op.dt, out=o),
+                "carried3d": lambda: k3._carried3d(frame, fo, e, scale, op.wsum, op.dt)}
+        order = list(runs) + list(runs)[::-1]
+        res = {"graph": {k: [] for k in runs}, "loop": {k: [] for k in runs}}
+        for name in order:
+            res["graph"][name].append(graph_ms(torch, runs[name], 20))
+        for name in order:
+            res["loop"][name].append(cuda_ms(torch, runs[name], reps))
+        out[f"{n}^3 eps={e}"] = res
+    return out
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes: two trees'
+    outputs on the same inputs are bitwise equal where their digests are."""
+    import hashlib
+
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def halo3d_ab(torch, np, reps: int = 50) -> dict:
+    """The 3D halo kernels at the main path's block, (0, 0, 0) of a 2x2x2
+    mesh of virtual devices of the card holding a seeded D3N^3 state:
+    fused_nsum3d, split_nsum3d on the block's exchanged frame, and each split
+    phase alone, at eps=4 in float32 and the bf16 tier, eps=6 in float32 and
+    eps=4 in float64; ms per call in a CUDA graph of 20 calls and in a loop of
+    ``reps``, each twice in turns.  Each output's digest, to hold two trees'
+    outputs bitwise equal, and whether it is bitwise nsum3d on the frame."""
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+    from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
+    from nonlocalheatequation_torch.parallel.halo import halo_pad_nd
+    from nonlocalheatequation_torch.parallel.mesh import create_mesh, device_list, put_global
+
+    mesh = create_mesh(("x", "y", "z"), (2, 2, 2), device_list("cuda", 8))
+    u = np.random.default_rng(SEED + 24).standard_normal((D3N,) * 3)
+    pos, out = (0, 0, 0), {}
+    for dtype, e, prec in ((torch.float32, 4, "f32"), (torch.float32, 4, "bf16"),
+                           (torch.float32, 6, "f32"), (torch.float64, 4, "f32")):
+        blocks = put_global(u, mesh, dtype)
+        frame = halo_pad_nd(blocks, e)[pos]
+        ob = torch.empty(blocks[pos].shape, dtype=dtype, device="cuda")
+        runs = {"fused_nsum3d": lambda: th.fused_nsum3d(blocks, pos, e, prec),
+                "split_nsum3d": lambda: th.split_nsum3d(frame, e, prec),
+                "split_nsum3d interior": lambda: th.launch_phase("split_nsum3d", frame, ob, e,
+                                                                 prec, "interior"),
+                "split_nsum3d ring": lambda: th.launch_phase("split_nsum3d", frame, ob, e,
+                                                             prec, "ring")}
+        one_pass = k3.nsum3d(frame, e, prec)
+        res = {"digest": {"nsum3d": digest(one_pass)}, "bitwise_nsum3d": {}}
+        for name in ("fused_nsum3d", "split_nsum3d"):
+            got = runs[name]()
+            res["digest"][name] = digest(got)
+            res["bitwise_nsum3d"][name] = bool(torch.equal(got, one_pass))
+        order = list(runs) + list(runs)[::-1]
+        res["graph"] = {n: [] for n in runs}
+        res["loop"] = {n: [] for n in runs}
+        for name in order:
+            res["graph"][name].append(graph_ms(torch, runs[name], 20))
+        for name in order:
+            res["loop"][name].append(cuda_ms(torch, runs[name], reps))
+        out[f"{str(dtype).split('.')[1]} {prec} eps={e}"] = res
+        del blocks, frame, ob, one_pass
+    return out
+
+
+def dist3d_ab(torch, np, reps: int = 5) -> dict:
+    """The D3N^3, eps=D3EPS, f32 solve on a 2x2x2 mesh of virtual devices
+    of the card, each comm form (the in-kernel exchange, 'fused' under
+    NLHEAT_FUSED_TRANSPORT=interp, 'collective'): the digest of a
+    DSTEPS-step solve, then ms per step over ``reps`` DSTEPS-step runs (CUDA
+    events; the host's loop binds them, so they spread), and the step's
+    device time by kernel (torch.profiler), which the host does not move."""
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh_3d
+
+    op3 = op_3d(D3N, D3EPS)
+    u3 = np.random.default_rng(SEED + 23).standard_normal((D3N,) * 3)
+    devs8 = device_list("cuda", 8)
+    out = {}
+    for comm, transport in (("fused", ""), ("fused", "interp"), ("collective", "")):
+        label = f"{comm} {transport}".strip()
+        os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
+        s = Solver3DDistributed(D3N, D3N, D3N, DSTEPS, D3EPS, k=1.0, dt=op3.dt, dh=op3.dh,
+                                mesh=make_mesh_3d(2, 2, 2, devs8), method="cuda",
+                                dtype=torch.float32, comm=comm)
+        s.input_init(u3)
+        res = {"digest": digest(torch.as_tensor(s.do_work()))}
+        blocks = s._device_state()[0]
+        run = s._make_runner(DSTEPS)
+        res["ms_per_step"] = [cuda_ms(torch, lambda: run(blocks, 0, ()), 1, 1) / DSTEPS
+                              for _ in range(reps)]
+        res["profile"] = device_profile(torch, lambda: run(blocks, 0, ()), DSTEPS)
+        out[label] = res
+        del s, blocks, run
+    os.environ.pop("NLHEAT_FUSED_TRANSPORT")
+    return out
+
+
+AB_SECTIONS = ("2d", "3d", "halo3d", "dist3d")
+
+
+def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
+    """``python3 chip_smoke.py --ab DIR [SECTION ...]``: the A/B timings of
+    this script on the package under DIR (a checkout of this tree, or of a
+    parent tree unpacked into a git-ignored directory), as one JSON line:
+    the card, then each section asked for (all by default): "2d" the kernels
+    of phase 4 at 4096^2 (the bf16 tier too) and 512^2 (kernels_ab), the
+    lattice sweep and the tuned and per-step solves (solve_ab); "3d" nsum3d,
+    step3d and carried3d at 256^3 and 128^3 eps=6 (kernels3d_ab); "halo3d" the 3D halo
+    kernels at the 128^3 block (halo3d_ab); "dist3d" the 256^3 2x2x2 steps
+    (dist3d_ab).  Run it for two trees in turns in one call (parent, this,
     this, parent) to compare them on one card."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the A/B timings need a CUDA card")
+    unknown = set(sections) - set(AB_SECTIONS)
+    if unknown:
+        fail(f"--ab: unknown sections {sorted(unknown)}; known: {AB_SECTIONS}")
     root = str(Path(package_root).resolve())
     sys.path.insert(0, root)
     from nonlocalheatequation_torch.ops import _build
     from nonlocalheatequation_torch.ops import cuda_batched as cb
     from nonlocalheatequation_torch.ops import cuda_kernel as ck
+    from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
     from nonlocalheatequation_torch.ops.nonlocal_op import case_scale
 
     if not ck.__file__.startswith(root):
@@ -2983,16 +3119,26 @@ def ab_main(package_root: str) -> int:
     os.environ["NLHEAT_AUTOTUNE_CACHE"] = ""
     t0 = time.perf_counter()
     card = nvidia_smi("name,power.limit")
-    built = _build.build(_build.SOURCES)
+    sources = (_build.SOURCES_2D if "2d" in sections else ()) + (
+        _build.SOURCES_3D if set(sections) - {"2d"} else ()) + (
+        _build.SOURCES_HALO if {"halo3d", "dist3d"} & set(sections) else ())
+    built = _build.build(sources)
     res = {"package": root, "card": card, "build_s": built}
-    for n, reps, bf16 in ((NX, 50, True), (SMALL, 200, False)):
-        op = op_2d(n)
-        u = torch.as_tensor(np.random.default_rng(SEED).standard_normal((n, n)),
-                            device="cuda").to(torch.float32)
-        res[f"kernels {n}^2"] = kernels_ab(torch, ck, cb, u, EPS, case_scale(op), op.wsum,
-                                           op.dt, reps, bf16=bf16)
-    res["lattice"] = lattice_sweep(torch, ck, cb)
-    res["solves"] = solve_ab(torch, np)
+    if "2d" in sections:
+        for n, reps, bf16 in ((NX, 50, True), (SMALL, 200, False)):
+            op = op_2d(n)
+            u = torch.as_tensor(np.random.default_rng(SEED).standard_normal((n, n)),
+                                device="cuda").to(torch.float32)
+            res[f"kernels {n}^2"] = kernels_ab(torch, ck, cb, u, EPS, case_scale(op), op.wsum,
+                                               op.dt, reps, bf16=bf16)
+        res["lattice"] = lattice_sweep(torch, ck, cb)
+        res["solves"] = solve_ab(torch, np)
+    if "3d" in sections:
+        res["kernels 3d"] = kernels3d_ab(torch, k3, case_scale)
+    if "halo3d" in sections:
+        res["halo3d"] = halo3d_ab(torch, np)
+    if "dist3d" in sections:
+        res["dist3d"] = dist3d_ab(torch, np)
     res["wall_s"] = time.perf_counter() - t0
     say(f"ab: {json.dumps(res)}")
     return 0
@@ -3074,4 +3220,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ab_main(sys.argv[2]) if sys.argv[1:2] == ["--ab"] else main())
+    sys.exit(ab_main(sys.argv[2], sys.argv[3:] or AB_SECTIONS) if sys.argv[1:2] == ["--ab"]
+             else main())

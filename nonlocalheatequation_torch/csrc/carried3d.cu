@@ -19,7 +19,8 @@
 // window's z origin is then a multiple of 32 in frame coordinates, so the
 // window stages 16 bytes a copy wherever the frame's z extent nz + 2eps is a
 // multiple of 16/sizeof(T) and the window line 32 + 2eps too (264 at 256^3
-// eps=4 and 140 at 128^3 eps=6 in float32), else one cell a copy.  eps
+// eps=4 and 140 at 128^3 eps=6 in float32), else 8 bytes where both are
+// even in float32, else one cell a copy.  eps
 // 7-12: the shared tile body on the same lattice and source.  Either writes
 // the interior only: the output frame's halo must already be zero (the
 // wrapper zeroes it; the multi-step maker's two frames keep the zero
@@ -46,12 +47,12 @@ using namespace nlheat;
 
 template <typename T, int EPS, int TP>
 __global__ void __launch_bounds__(TZ * TP)
-carried3d_fast(const T* __restrict__ frame, T* __restrict__ out, const Geom3 g, bool vec,
+carried3d_fast(const T* __restrict__ frame, T* __restrict__ out, const Geom3 g, int chunk,
                T scale, T wsum, T dt) {
   int x0, y0, z0;  // interior coordinates
   tile_origin(g, blockIdx.x, TP, x0, y0, z0);
   T acc[TP];
-  const T* win = fast3_tile<T, T, EPS, TP>(frame, g, vec, x0, y0, z0, acc);
+  const T* win = fast3_tile<T, T, EPS, TP>(frame, g, chunk, x0, y0, z0, acc);
 
   const int x = x0 + threadIdx.y, z = z0 + threadIdx.x;
   if (x >= g.n[0] || z >= g.n[2]) return;
@@ -73,7 +74,7 @@ int launch_fast(const void* frame, void* out, const int n[3], double scale, doub
   const Geom3 g = interior_geom(f, f, EPS, 0, n, TP);
   return fast3_launch<T, EPS, TP>(carried3d_fast<T, EPS, TP>, g, stream,
                                   static_cast<const T*>(frame), static_cast<T*>(out), g,
-                                  fast3_vec<T, EPS>(g, frame), static_cast<T>(scale),
+                                  fast3_chunk<T, EPS>(g, frame), static_cast<T>(scale),
                                   static_cast<T>(wsum), static_cast<T>(dt));
 }
 

@@ -17,19 +17,42 @@
 // Design, as fused_nsum2d.cu: no halo frame and no band copy.  A tile reads
 // its window of the virtual frame from the blocks that hold it (frame cell
 // (x, y, z) in [-eps, b+eps) per axis is cell (x mod bx, ...) of the block
-// at offset (floor(x/bx), ...); 0 beyond the mesh).  A tile whose window
-// lies in this block loads it as step3d loads the unpadded state; the
-// others resolve each line's (x, y) block once and each lane's two z cells
-// once per tile, with load_window3's batching of loads.  One launch covers
-// the block's TP x TP x 32 tiles on nsum3d's lattice and runs nsum3d's tile
-// body (stencil_tile3d.cuh), so the sum is bitwise nsum3d on the
+// at offset (floor(x/bx), ...); 0 beyond the frame, the mesh or a null
+// table entry, the volumetric boundary condition).  One launch covers the
+// block's tiles on nsum3d's lattice, so the sum is bitwise nsum3d on the
 // halo-exchanged frame.
+//
+// For 0 <= eps <= FAST_MAX_EPS3 (6) a tile runs nsum3d's register design
+// (stencil_tile3d.cuh: fast3_sums; eps a template parameter, a 32 x TP block
+// a TP x TP x 32 tile, W_h in registers, one barrier a height), and the
+// window load is the exchange (stage_mesh3):
+//   * a tile whose window lies in this block (392 of the 1024 tiles of a
+//     128^3 f32 block at eps=4) stages it as step3d stages the unpadded
+//     state (fast3_stage from the centre block, shift 0);
+//   * any other stages cell (a, b, c) of its window from the block that holds
+//     it: the window's first line and cell are resolved once an axis (a
+//     floor division: block offset and coordinate), every other cell's
+//     block stepped from them across the block edges it passes (a compare
+//     inside the block, one step beyond it), so no cell divides;
+//   * 16 bytes a copy where eps and bz are multiples of a chunk's values
+//     (4 in float32, 2 in float64) and every block is 16-byte aligned: then
+//     the window's z origin z0 - eps and every block edge in z are
+//     multiples of a chunk, so no chunk straddles two blocks or the frame's
+//     edge; else 8 bytes where they are multiples of 2 in float32 (eps 2
+//     and 6), else (odd eps or bz) one value a copy.  The copies of cells
+//     beyond the mesh, a null entry or the frame read nothing and fill
+//     zeros.
+// The bf16 tier rounds the staged window in place once.  Above eps 6 one
+// 8 x 8 x 32 (or narrower) tile a block of 32 x 8 threads runs the shared
+// tile body: the window loaded as load_window3 loads it (a tile inside the
+// block) or each line's (x, y) block and each lane's two z cells resolved
+// once a tile (load_window3_mesh), then window_sums3.
 //
 // What bounds it on an H100 SXM (NVIDIA's published peaks at the card's
 // 700 W limit; computed bounds, not measurements): it reads the block and
 // its halo once and writes the block once, about 2 x 8 MiB for a 128^3 f32
-// block at eps=4, about 5 us; the tile body's 81 adds per point at eps=4
-// put its operations near 2.5 us.
+// block at eps=4, about 5 us; the sums' 81 adds per point at eps=4 put its
+// operations near 2.5 us.
 //
 // Plain C interface (loaded with ctypes by ops/_build.py and wrapped in
 // ops/cuda_halo.py).  The entry point launches on the given stream,
@@ -38,6 +61,8 @@
 // beyond what the kernel supports.
 
 #include "stencil_tile3d.cuh"
+
+#include <cstdint>
 
 namespace {
 
@@ -71,6 +96,117 @@ __device__ inline bool resolve(int g, int b, int h, int eps, int& o, int& l) {
   locate(g, b, o, l);
   return o >= -h && o <= h;
 }
+
+// Coordinate first + k of an axis of block length b, from first's block
+// offset o and coordinate l in it: steps across the block edges (one step
+// for a window that reaches one block beyond, none inside the block), so no
+// cell divides.
+__device__ inline void step_to(int k, int b, int& o, int& l) {
+  l += k;
+  while (l >= b) {
+    l -= b;
+    ++o;
+  }
+}
+
+// -- the register design (stencil_tile3d.cuh), eps 0-6 ----------------------------
+
+// The mesh stage: issue the cp.async copies of the window of the tile at
+// (x0, y0, z0), cell (a, b, c) frame cell (x0 - EPS + a, y0 - EPS + b, z0 -
+// EPS + c) of this block, read from the block that holds it; 0 beyond the
+// frame, the mesh or a null table entry.  The window's first line and cell
+// are resolved once (a floor division an axis), every other cell's block
+// and coordinates stepped from them.  chunk: the values a copy moves (from
+// the host: chunks of it never straddle a block edge or the frame's).
+template <typename T, int EPS, int TP>
+__device__ __forceinline__ void stage_mesh3(T* win, const Neighbours3& nb, int bx, int by,
+                                            int bz, const T* own, int chunk, int x0, int y0,
+                                            int z0) {
+  using F = Fast3<EPS, TP>;
+  const int r0 = x0 - EPS, s0 = y0 - EPS, q0 = z0 - EPS;
+  const int ny = 2 * nb.h[1] + 1, nz = 2 * nb.h[2] + 1;
+  int ox0, lx0, oy0, ly0, oz0, lz0;
+  locate(r0, bx, ox0, lx0);
+  locate(s0, by, oy0, ly0);
+  locate(q0, bz, oz0, lz0);
+  with_chunk<T>(chunk, [&](auto cc) {
+    constexpr int C = decltype(cc)::value, PER_LINE = F::WZ / C;
+    for (int idx = threadIdx.y * TZ + threadIdx.x; idx < F::LINES * PER_LINE;
+         idx += TZ * TP) {
+      const int l = idx / PER_LINE, c = (idx - l * PER_LINE) * C;
+      const int a = l / F::WP, b = l - a * F::WP;
+      int ox = ox0, lx = lx0, oy = oy0, ly = ly0, oz = oz0, lz = lz0;
+      step_to(a, bx, ox, lx);
+      step_to(b, by, oy, ly);
+      step_to(c, bz, oz, lz);
+      const int x = r0 + a, y = s0 + b, z = q0 + c;
+      const T* blk = nullptr;
+      if (x >= -EPS && x < bx + EPS && y >= -EPS && y < by + EPS && z >= -EPS &&
+          z < bz + EPS && ox >= -nb.h[0] && ox <= nb.h[0] && oy >= -nb.h[1] &&
+          oy <= nb.h[1] && oz >= -nb.h[2] && oz <= nb.h[2])
+        blk = static_cast<const T*>(
+            nb.p[((ox + nb.h[0]) * ny + oy + nb.h[1]) * nz + oz + nb.h[2]]);
+      const T* from =
+          blk == nullptr ? own : blk + (static_cast<size_t>(lx) * by + ly) * bz + lz;
+      cp_async_chunk<T, C>(win + l * F::WZ + c, from, blk != nullptr);
+    }
+  });
+}
+
+template <typename T, typename OpT, int EPS, int TP>
+__global__ void __launch_bounds__(TZ * TP)
+fused_nsum3d_fast(T* __restrict__ out, const Geom3 g, int chunk_own, int chunk_mesh,
+                  const Neighbours3 nb) {
+  int x0, y0, z0;
+  tile_origin(g, blockIdx.x, TP, x0, y0, z0);
+  const int centre = ((nb.h[0] * (2 * nb.h[1] + 1)) + nb.h[1]) * (2 * nb.h[2] + 1) + nb.h[2];
+  const T* own = static_cast<const T*>(nb.p[centre]);
+  // output (x, y, z) reads block cells x-eps .. x+eps on each axis
+  const bool inside = x0 >= EPS && x0 + TP + EPS <= g.src[0] && y0 >= EPS &&
+                      y0 + TP + EPS <= g.src[1] && z0 >= EPS && z0 + TZ + EPS <= g.src[2];
+  T acc[TP];
+  fast3_sums<T, OpT, EPS, TP>(
+      [&](T* win) {
+        if (inside)
+          fast3_stage<T, EPS, TP>(win, own, g, whole_source(g), chunk_own, x0, y0, z0);
+        else
+          stage_mesh3<T, EPS, TP>(win, nb, g.src[0], g.src[1], g.src[2], own, chunk_mesh, x0,
+                                  y0, z0);
+      },
+      acc);
+
+  const int x = x0 + threadIdx.y, z = z0 + threadIdx.x;
+  if (x >= g.out[0] || z >= g.out[2]) return;
+#pragma unroll
+  for (int r = 0; r < TP; ++r) {
+    const int y = y0 + r;
+    if (y < g.out[1]) out[(static_cast<size_t>(x) * g.out[1] + y) * g.out[2] + z] = acc[r];
+  }
+}
+
+template <typename T, typename OpT, int EPS>
+int launch_fast(void* out, const int b[3], const Neighbours3& nb, cudaStream_t stream) {
+  constexpr int TP = fast3_tp<T, EPS>();
+  // nsum3d's tile lattice over the block; the source is the unpadded block
+  // (shift 0), as step3d reads the state
+  const Geom3 geom = interior_geom(b, b, 0, 0, b, TP);
+  const int count = (2 * nb.h[0] + 1) * (2 * nb.h[1] + 1) * (2 * nb.h[2] + 1);
+  const void* own = nb.p[count / 2];
+  // the mesh's chunk: the window's z origin z0 - EPS and every block edge in
+  // z on its boundaries, every block aligned to it
+  int chunk_mesh = vec_width<T>();
+  for (; chunk_mesh > 1; chunk_mesh /= 2) {
+    bool ok = EPS % chunk_mesh == 0 && b[2] % chunk_mesh == 0;
+    for (int i = 0; i < count; ++i)
+      ok = ok && reinterpret_cast<uintptr_t>(nb.p[i]) % (chunk_mesh * sizeof(T)) == 0;
+    if (ok) break;
+  }
+  return fast3_launch<T, EPS, TP>(fused_nsum3d_fast<T, OpT, EPS, TP>, geom, stream,
+                                  static_cast<T*>(out), geom, fast3_chunk<T, EPS>(geom, own),
+                                  chunk_mesh, nb);
+}
+
+// -- the shared tile body (stencil_tile3d.cuh), eps above FAST_MAX_EPS3 -----------
 
 // The window of the tile at (x0, y0, z0), each cell read from the block that
 // holds it; 0 beyond the frame or the mesh; rounded to the operand type.
@@ -158,6 +294,11 @@ int launch(void* out, const int b[3], int eps, const Neighbours3& nb, void* stre
   const int tp = tile3_width(eps, sizeof(T));
   if (tp == 0) return -1;
   if (b[0] <= 0 || b[1] <= 0 || b[2] <= 0) return 0;
+  if (eps <= FAST_MAX_EPS3)
+    return with_eps<FAST_MAX_EPS3>(eps, [&](auto e) {
+      return launch_fast<T, OpT, decltype(e)::value>(out, b, nb,
+                                                     static_cast<cudaStream_t>(stream));
+    });
   return with_tp(tp, [&](auto tpc) {
     constexpr int TP = decltype(tpc)::value;
     // nsum3d's tile lattice over the block; the source is the unpadded block

@@ -37,7 +37,8 @@
 // 32 x TP threads owns a TP x TP x 32 output tile, stages its window by
 // cp.async (16 bytes a copy where the source's rows and the window's z
 // origin are aligned: nz a multiple of 4 at eps 0 and 4 in float32, as the
-// 256^3 eps=4 step), and keeps W_h of its window lines in registers, one
+// 256^3 eps=4 step; 8 bytes where they fall on 8-byte boundaries, as nz even
+// at eps 2 and 6 in float32), and keeps W_h of its window lines in registers, one
 // barrier a height: about 70 shared-memory accesses per point at eps=4, f32,
 // against the tile body's 127.  In the bf16 tier the block rounds its staged
 // window in place once.
@@ -67,13 +68,13 @@ enum Mode { NSUM = 0, STEP = 1, STEP_TEST = 2 };
 
 template <typename T, typename OpT, int EPS, int TP>
 __global__ void __launch_bounds__(TZ * TP)
-nlheat3d_fast(const T* __restrict__ src, T* __restrict__ out, const Geom3 g, bool vec, int mode,
+nlheat3d_fast(const T* __restrict__ src, T* __restrict__ out, const Geom3 g, int chunk, int mode,
               const T* __restrict__ gsrc, const T* __restrict__ lgsrc, T scale, T wsum, T dt,
               T coef_g, T coef_lg) {
   int x0, y0, z0;
   tile_origin(g, blockIdx.x, TP, x0, y0, z0);
   T acc[TP];
-  const T* win = fast3_tile<T, OpT, EPS, TP>(src, g, vec, x0, y0, z0, acc);
+  const T* win = fast3_tile<T, OpT, EPS, TP>(src, g, chunk, x0, y0, z0, acc);
 
   // step 3
   const int x = x0 + threadIdx.y, z = z0 + threadIdx.x;
@@ -104,7 +105,7 @@ int launch_fast(const void* src, const int sdim[3], int shift, void* out, const 
   const Geom3 geom = interior_geom(n, sdim, shift, 0, n, TP);
   return fast3_launch<T, EPS, TP>(
       nlheat3d_fast<T, OpT, EPS, TP>, geom, stream, static_cast<const T*>(src),
-      static_cast<T*>(out), geom, fast3_vec<T, EPS>(geom, src), mode, static_cast<const T*>(g),
+      static_cast<T*>(out), geom, fast3_chunk<T, EPS>(geom, src), mode, static_cast<const T*>(g),
       static_cast<const T*>(lg), static_cast<T>(scale), static_cast<T>(wsum),
       static_cast<T>(dt), static_cast<T>(coef_g), static_cast<T>(coef_lg));
 }

@@ -4,12 +4,13 @@
 //
 // Counterpart of _block_neighbor_sum_3d (nonlocalheatequation_tpu/ops/
 // pallas_kernel.py:672), which the TPU's per-step, carried and resident 3D
-// kernels share.  resident3d.cu, split_nsum3d.cu and fused_nsum3d.cu run it
-// at every eps, and nsum3d.cu (nsum3d, step3d) and carried3d.cu above eps 6;
-// below, those two run the register design at the end of this header
-// (fast3_tile), which adds the same terms in the same order, so every 3D
-// kernel gives the bits of step3d and of the plain versions' sphere_sum
-// (ops/cuda_kernel.py).
+// kernels share.  resident3d.cu runs it at every eps, and nsum3d.cu (nsum3d,
+// step3d), carried3d.cu, split_nsum3d.cu and fused_nsum3d.cu above eps 6;
+// below, those four run the register design at the end of this header
+// (fast3_sums, its window staged from one source by fast3_stage or, in
+// fused_nsum3d.cu, from the blocks of a mesh), which adds the same terms in
+// the same order, so every 3D kernel gives the bits of step3d and of the
+// plain versions' sphere_sum (ops/cuda_kernel.py).
 //
 // The state is [x][y][z], z contiguous.  One block owns an output tile of
 // TP x TP points in the (x, y) plane by TZ = 32 along z (one lane each) and
@@ -99,6 +100,17 @@ struct Geom3 {
   int tiles[3];
 };
 
+// The cells a window load may read: [lo, hi[d]) on axis d of the source,
+// the rest zero-filled.  A load of the whole source reads [0, src).
+struct Span3 {
+  int lo;
+  int hi[3];
+};
+
+__host__ __device__ inline Span3 whole_source(const Geom3& g) {
+  return {0, {g.src[0], g.src[1], g.src[2]}};
+}
+
 // Elements of shared memory a tile of plane width TP needs: the window and
 // the sum buffer W, (TP+2eps)^2 lines of 32+2eps and of 32.
 inline size_t tile3_elems(int eps, int tp) {
@@ -152,21 +164,23 @@ __device__ inline void tile_origin(const Geom3& g, int t, int tp, int& x0, int& 
 
 // Copy the window of the tile at output origin (x0, y0, z0) into shared
 // memory: cell (a, b, c) is src[x0 - eps + shift + a][...][...], 0 outside
-// the source, rounded to the operand type.  Each thread row takes window
-// lines (a, b), LOAD_LINES at a time, and each lane two z cells of a line
-// (32 + 2eps <= 64): the loads of a batch are all issued before the
-// first store, so a thread has 2*LOAD_LINES loads in flight.
+// the span (the whole source unless given), rounded to the operand type.
+// Each thread row takes window lines (a, b), LOAD_LINES at a time, and each
+// lane two z cells of a line (32 + 2eps <= 64): the loads of a batch are all
+// issued before the first store, so a thread has 2*LOAD_LINES loads in
+// flight.
 constexpr int LOAD_LINES = 4;
 static_assert(TZ + 2 * MAX_EPS3 <= 2 * TZ, "a window line is at most two cells per lane");
 
 template <typename T, typename OpT, bool L2ONLY = false, typename S>
 __device__ void load_window3(T* win, int wp, int wz, const S* src, const Geom3& g, int eps,
-                             int x0, int y0, int z0) {
+                             int x0, int y0, int z0, const Span3& span) {
   const int r0 = x0 - eps + g.shift, s0 = y0 - eps + g.shift;
   const int lines = wp * wp;
   const int ca = threadIdx.x, cb = threadIdx.x + TZ;  // this lane's z cells
   const int qa = z0 - eps + g.shift + ca, qb = qa + TZ;
-  const bool za = qa >= 0 && qa < g.src[2], zb = cb < wz && qb >= 0 && qb < g.src[2];
+  const bool za = qa >= span.lo && qa < span.hi[2],
+             zb = cb < wz && qb >= span.lo && qb < span.hi[2];
   for (int l0 = threadIdx.y; l0 < lines; l0 += LOAD_LINES * TY3) {
     T va[LOAD_LINES], vb[LOAD_LINES];
 #pragma unroll
@@ -174,7 +188,8 @@ __device__ void load_window3(T* win, int wp, int wz, const S* src, const Geom3& 
       const int line = l0 + k * TY3;
       const int a = line / wp, b = line - a * wp;
       const int r = r0 + a, s = s0 + b;
-      const bool ok = line < lines && r >= 0 && r < g.src[0] && s >= 0 && s < g.src[1];
+      const bool ok = line < lines && r >= span.lo && r < span.hi[0] && s >= span.lo &&
+                      s < span.hi[1];
       const S* row = src + (static_cast<size_t>(ok ? r : 0) * g.src[1] + (ok ? s : 0)) * g.src[2];
       va[k] = ok && za ? to_state<T>(load<L2ONLY>(row + qa)) : T(0);
       vb[k] = ok && zb ? to_state<T>(load<L2ONLY>(row + qb)) : T(0);
@@ -188,6 +203,12 @@ __device__ void load_window3(T* win, int wp, int wz, const S* src, const Geom3& 
       }
     }
   }
+}
+
+template <typename T, typename OpT, bool L2ONLY = false, typename S>
+__device__ void load_window3(T* win, int wp, int wz, const S* src, const Geom3& g, int eps,
+                             int x0, int y0, int z0) {
+  load_window3<T, OpT, L2ONLY>(win, wp, wz, src, g, eps, x0, y0, z0, whole_source(g));
 }
 
 // Output points per thread: the tile's TP*TP plane points dealt over the
@@ -264,13 +285,16 @@ inline Geom3 interior_geom(const int out[3], const int src[3], int shift, int lo
   return g;
 }
 
-// -- the register design (nsum3d.cu: nsum3d, step3d; carried3d.cu), eps 0-6 ------------
+// -- the register design (nsum3d.cu: nsum3d, step3d; carried3d.cu; split_nsum3d.cu;
+// fused_nsum3d.cu), eps 0-6 ----------------------------------------------------------
 //
 // A block of 32 x TP threads owns a TP x TP x 32 output tile (TP = 8 in
 // float32; in float64 8 up to eps=4, then 4) and stages its (TP+2eps)^2 x
 // (32+2eps) window by cp.async, the cells outside the source zero-filled by
 // the copy itself: 16 bytes a copy where the source's rows and the window's
-// z origin fall on 16-byte boundaries (fast3_vec), else one cell a copy.
+// z origin fall on 16-byte boundaries, else 8 bytes where they fall on
+// 8-byte ones (fast3_chunk: eps=6 in float32 from an unpadded state), else
+// one cell a copy.
 // Thread (z lane, row x) owns the window rows x + TP*m, every line of them,
 // and the TP outputs (x, 0 .. TP-1) of its lane.  It advances W_h of its
 // lines in registers (two window reads a height, only for the lines a column
@@ -394,60 +418,103 @@ __device__ __forceinline__ void sums3_from(const T* win, T* wbuf,
 template <typename T>
 __host__ __device__ constexpr int vec_width() { return 16 / static_cast<int>(sizeof(T)); }
 
-// Whether a launch of geometry g stages 16 bytes a copy: the window's lines
-// and z origins (z0 - EPS + shift, z0 a multiple of 32) and the source's rows
-// on 16-byte boundaries, so that no chunk straddles the source's z edges.
-template <typename T, int EPS>
-inline bool fast3_vec(const Geom3& g, const void* src) {
-  constexpr int V = vec_width<T>();
-  return (TZ + 2 * EPS) % V == 0 && (g.shift - EPS) % V == 0 && g.src[2] % V == 0 &&
-         reinterpret_cast<uintptr_t>(src) % 16 == 0;
+// Eight bytes (two float32 values) from global to shared memory, both
+// 8-byte aligned; valid == false fills zeros and reads nothing.
+__device__ inline void cp_async_8(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 8 : 0) : "memory");
 }
 
-// The tile at output origin (x0, y0, z0): stage its window (cell (a, b, c)
-// is src[x0 - EPS + shift + a][...][...], 0 outside the source), round it to
-// the operand type, and sum it: acc[r] is the neighbour sum of output (x0 +
-// threadIdx.y, y0 + r, z0 + threadIdx.x).  Returns the window in shared
-// memory, which stays as staged (fast3_centre reads it).  Every thread of the
-// 32 x TP block calls it (it holds barriers).
-template <typename T, typename OpT, int EPS, int TP>
-__device__ __forceinline__ const T* fast3_tile(const T* __restrict__ src, const Geom3& g,
-                                               bool vec, int x0, int y0, int z0,
-                                               T (&acc)[TP]) {
-  using F = Fast3<EPS, TP>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* win = reinterpret_cast<T*>(smem_raw);
-  T* wbuf = win + F::LINES * F::WZ;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+// C values (16 bytes, 8 bytes or one value) from global to shared memory.
+template <typename T, int C>
+__device__ __forceinline__ void cp_async_chunk(T* dst, const T* src, bool valid) {
+  if constexpr (C * sizeof(T) == 16)
+    cp_async_16(dst, src, valid);
+  else if constexpr (C > 1)
+    cp_async_8(dst, src, valid);
+  else
+    cp_async_value(dst, src, valid);
+}
 
-  // consecutive threads stage consecutive cells, in 16-byte chunks where
-  // every chunk lies wholly inside or outside the source and is aligned
-  // (vec, from the host), else one at a time
+// The values a stage of geometry g copies at once: the widest of 16 and 8
+// bytes whose chunks are aligned and lie wholly inside or outside the span
+// (the window's lines and z origins, z0 - EPS + shift with z0 a multiple of
+// 32, the source's rows and the span's z edges all on chunk boundaries),
+// else one value.
+template <typename T, int EPS>
+inline int fast3_chunk(const Geom3& g, const void* src, const Span3& span) {
+  for (int c = vec_width<T>(); c > 1; c /= 2)
+    if ((TZ + 2 * EPS) % c == 0 && (g.shift - EPS) % c == 0 && g.src[2] % c == 0 &&
+        span.lo % c == 0 && span.hi[2] % c == 0 &&
+        reinterpret_cast<uintptr_t>(src) % (c * sizeof(T)) == 0)
+      return c;
+  return 1;
+}
+
+template <typename T, int EPS>
+inline int fast3_chunk(const Geom3& g, const void* src) {
+  return fast3_chunk<T, EPS>(g, src, whole_source(g));
+}
+
+// Call stage(std::integral_constant<int, C>{}) for C = chunk: vec_width<T>(),
+// 2 (float32 only) or 1.
+template <typename T, typename F>
+__device__ __forceinline__ void with_chunk(int chunk, F stage) {
+  constexpr int V = vec_width<T>();
+  if (chunk == V)
+    stage(std::integral_constant<int, V>{});
+  else if (V > 2 && chunk == 2)
+    stage(std::integral_constant<int, (V > 2 ? 2 : 1)>{});
+  else
+    stage(std::integral_constant<int, 1>{});
+}
+
+// The frame stage: issue the cp.async copies of the window of the tile at
+// output origin (x0, y0, z0) into win: cell (a, b, c) is src[x0 - EPS +
+// shift + a][...][...], 0 outside the span, consecutive threads on
+// consecutive cells, `chunk` values a copy (fast3_chunk, from the host).
+template <typename T, int EPS, int TP>
+__device__ __forceinline__ void fast3_stage(T* win, const T* __restrict__ src, const Geom3& g,
+                                            const Span3& span, int chunk, int x0, int y0,
+                                            int z0) {
+  using F = Fast3<EPS, TP>;
+  const int tx = threadIdx.x, ty = threadIdx.y;
   const int r0 = x0 - EPS + g.shift, s0 = y0 - EPS + g.shift, q0 = z0 - EPS + g.shift;
-  auto stage = [&](auto chunk) {  // chunk: values a copy moves, 1 or vec_width<T>()
-    constexpr int C = decltype(chunk)::value, PER_LINE = F::WZ / C;
+  with_chunk<T>(chunk, [&](auto cc) {
+    constexpr int C = decltype(cc)::value, PER_LINE = F::WZ / C;
     for (int idx = ty * TZ + tx; idx < F::LINES * PER_LINE; idx += TZ * TP) {
       const int l = idx / PER_LINE, c = (idx - l * PER_LINE) * C;
       const int a = l / F::WP, b = l - a * F::WP;
       const int r = r0 + a, s = s0 + b, q = q0 + c;
-      const bool ok =
-          r >= 0 && r < g.src[0] && s >= 0 && s < g.src[1] && q >= 0 && q < g.src[2];
+      const bool ok = r >= span.lo && r < span.hi[0] && s >= span.lo && s < span.hi[1] &&
+                      q >= span.lo && q < span.hi[2];
       const T* from = ok ? src + (static_cast<size_t>(r) * g.src[1] + s) * g.src[2] + q : src;
-      if constexpr (C == 1)
-        cp_async_value(win + l * F::WZ + c, from, ok);
-      else
-        cp_async_16(win + l * F::WZ + c, from, ok);
+      cp_async_chunk<T, C>(win + l * F::WZ + c, from, ok);
     }
-  };
-  if (vec)
-    stage(std::integral_constant<int, vec_width<T>()>{});
-  else
-    stage(std::integral_constant<int, 1>{});
+  });
+}
+
+// The register design's tile with its window staged by stage(win), a
+// callable that issues the cp.async copies of the window (cell (a, b, c) at
+// win[(a * WP + b) * WZ + c]): wait for them, round the window to the
+// operand type in place, and sum it: acc[r] is the neighbour sum of the
+// tile's output (threadIdx.y, r, threadIdx.x).  Returns the window in shared
+// memory, which stays as staged (fast3_centre reads it).  Every thread of
+// the 32 x TP block calls it (it holds barriers).  The sums are one body for
+// every stage: the frame's (fast3_tile) and the mesh's (fused_nsum3d.cu).
+template <typename T, typename OpT, int EPS, int TP, typename Stage>
+__device__ __forceinline__ const T* fast3_sums(Stage stage, T (&acc)[TP]) {
+  using F = Fast3<EPS, TP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* win = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = win + F::LINES * F::WZ;
+  stage(win);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   if constexpr (!std::is_same<T, OpT>::value) {
-    for (int idx = ty * TZ + tx; idx < F::LINES * F::WZ; idx += TZ * TP)
+    for (int idx = threadIdx.y * TZ + threadIdx.x; idx < F::LINES * F::WZ; idx += TZ * TP)
       win[idx] = Operand<T, OpT>::round(win[idx]);
     __syncthreads();
   }
@@ -459,6 +526,21 @@ __device__ __forceinline__ const T* fast3_tile(const T* __restrict__ src, const 
   return win;
 }
 
+// The tile at output origin (x0, y0, z0) staged from one source (cell (a,
+// b, c) is src[x0 - EPS + shift + a][...][...], 0 outside the source) and
+// summed: acc[r] is the neighbour sum of output (x0 + threadIdx.y, y0 + r,
+// z0 + threadIdx.x).
+template <typename T, typename OpT, int EPS, int TP>
+__device__ __forceinline__ const T* fast3_tile(const T* __restrict__ src, const Geom3& g,
+                                               int chunk, int x0, int y0, int z0,
+                                               T (&acc)[TP]) {
+  return fast3_sums<T, OpT, EPS, TP>(
+      [&](T* win) {
+        fast3_stage<T, EPS, TP>(win, src, g, whole_source(g), chunk, x0, y0, z0);
+      },
+      acc);
+}
+
 // The staged (operand) value of output (x0 + threadIdx.y, y0 + r, z0 +
 // threadIdx.x) in the window fast3_tile returned.
 template <int EPS, int TP, typename T>
@@ -467,20 +549,25 @@ __device__ __forceinline__ T fast3_centre(const T* win, int r) {
   return win[((threadIdx.y + EPS) * F::WP + r + EPS) * F::WZ + threadIdx.x + EPS];
 }
 
-// Launch kernel, a register-design kernel of plane width TP, over the tiles
-// of g, one 32 x TP block a tile; -1 when its shared memory or grid is
-// beyond the card, else the CUDA status.
+// Launch kernel, a register-design kernel of plane width TP, on `tiles`
+// blocks of 32 x TP threads, one tile each; -1 when its shared memory or
+// grid is beyond the card, else the CUDA status.
 template <typename T, int EPS, int TP, typename Kernel, typename... Args>
-int fast3_launch(Kernel kernel, const Geom3& g, cudaStream_t stream, Args... args) {
+int fast3_launch_n(Kernel kernel, long long tiles, cudaStream_t stream, Args... args) {
   static_assert(TP > 0, "every eps of the register design fits a block");
   const size_t smem = fast3_elems(EPS, TP) * sizeof(T);
   if (smem > static_cast<size_t>(smem_limit())) return -1;
-  const long long tiles = tile_count(g);
   if (tiles > INT_MAX) return -1;
   const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
   kernel<<<static_cast<unsigned>(tiles), dim3(TZ, TP), smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same over every tile of g.
+template <typename T, int EPS, int TP, typename Kernel, typename... Args>
+int fast3_launch(Kernel kernel, const Geom3& g, cudaStream_t stream, Args... args) {
+  return fast3_launch_n<T, EPS, TP>(kernel, tile_count(g), stream, args...);
 }
 
 }  // namespace nlheat

@@ -760,8 +760,14 @@ def test_split_kernels_match_plain_and_the_one_pass_sum_on_card(card, dtype, tol
             b = th.split_nsum2d_plain(frame, eps, prec)
             assert float((a - b).abs().max() / b.abs().max()) <= tol
             assert torch.equal(a, ck.nsum2d(frame, eps, prec))
+    # 3D: csrc/split_nsum3d.cu's register design up to eps 6 (16-byte staging
+    # at (16, 16, 64) and (24, 24, 100) eps 4 in float32, the latter with a
+    # lattice interior; unaligned bz at eps 3 and 6), its tile body at eps 7;
+    # degenerate and multi-hop-sized blocks
     for (bx, by, bz), eps, launches in [((20, 12, 40), 3, 2), ((4, 4, 4), 2, 1),
-                                        ((4, 4, 4), 5, 1)]:
+                                        ((4, 4, 4), 5, 1), ((16, 16, 64), 4, 2),
+                                        ((24, 24, 100), 4, 2), ((9, 7, 13), 3, 2),
+                                        ((18, 17, 70), 6, 2), ((16, 16, 72), 7, 2)]:
         for prec in ("f32", "bf16"):
             frame = torch.randn(bx + 2 * eps, by + 2 * eps, bz + 2 * eps, dtype=dtype,
                                 device=card)
@@ -782,10 +788,17 @@ def test_in_kernel_exchange_matches_plain_and_the_one_pass_sum_on_card(card, dty
     from nonlocalheatequation_torch.parallel import halo as thalo
     from nonlocalheatequation_torch.parallel import mesh as tmesh
 
-    # every block of meshes of virtual devices: normal, degenerate, multi-hop
+    # every block of meshes of virtual devices: normal, degenerate, multi-hop;
+    # in 3D csrc/fused_nsum3d.cu's register design up to eps 6 (windows staged
+    # from the mesh 16 bytes a copy at (16, 16, 64) and (24, 24, 100) eps 4 in
+    # float32, the latter with tiles inside the block; unaligned bz at eps 3
+    # and 6; multi-hop in z at (6, 8, 4) eps 6) and its tile body at eps 7
     for mesh_shape, block, eps in [((2, 2), (70, 45), 5), ((2, 2), (8, 40), 4),
                                    ((4, 2), (8, 8), 9), ((2, 2, 2), (20, 12, 40), 3),
-                                   ((2, 2, 2), (4, 4, 4), 2), ((2, 2, 2), (4, 4, 4), 5)]:
+                                   ((2, 2, 2), (4, 4, 4), 2), ((2, 2, 2), (4, 4, 4), 5),
+                                   ((2, 2, 2), (16, 16, 64), 4), ((2, 2, 2), (24, 24, 100), 4),
+                                   ((2, 2, 2), (9, 7, 13), 3), ((2, 2, 2), (18, 17, 70), 6),
+                                   ((1, 2, 3), (6, 8, 4), 6), ((2, 2, 2), (16, 16, 72), 7)]:
         d = len(mesh_shape)
         mesh = tmesh.create_mesh(("x", "y", "z")[:d], mesh_shape,
                                  tmesh.device_list(card, int(np.prod(mesh_shape))))

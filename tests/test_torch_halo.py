@@ -155,7 +155,10 @@ def test_plain_split_nsum2d_matches_pallas(bx, by, eps, precision, dtype):
     assert torch.equal(got, ck.nsum2d_plain(torch.from_numpy(frame), eps, precision))
 
 
-CASES_3D = [(4, 4, 4, 1), (4, 4, 4, 2), (4, 4, 4, 5), (9, 7, 8, 2), (6, 6, 10, 1)]
+# the last three: eps 3, 4 and 6, where csrc/split_nsum3d.cu runs its register
+# design, two with a bz that is not a multiple of 4 (its one-cell staging)
+CASES_3D = [(4, 4, 4, 1), (4, 4, 4, 2), (4, 4, 4, 5), (9, 7, 8, 2), (6, 6, 10, 1),
+            (6, 5, 9, 3), (8, 8, 12, 4), (5, 5, 7, 6)]
 
 
 @pytest.mark.parametrize("bx,by,bz,eps", CASES_3D)
@@ -253,12 +256,14 @@ def test_ensemble_comm_joins_the_program_key():
 
 # -- the in-kernel exchange (fused_nsum2d/3d) ---------------------------------------------
 
-# the last two: a block narrower than a window row of csrc/fused_nsum2d.cu's
-# register design (a row crosses two block edges in y), and a block at the
-# design's largest eps, 10
+# then: a block narrower than a window row of csrc/fused_nsum2d.cu's
+# register design (a row crosses two block edges in y), a block at the
+# design's largest eps, 10, and a 3D block at eps 4 with bz a multiple of 4
+# (csrc/fused_nsum3d.cu stages its windows from the mesh 16 bytes a copy)
 FUSED_MESHES = [((2, 2), (8, 8), 2), ((2, 2), (8, 8), 4), ((4, 2), (8, 8), 9),
                 ((2, 4), (6, 16), 3), ((4, 2), (2, 2), 5), ((2, 2, 2), (4, 4, 4), 1),
-                ((2, 2, 2), (4, 4, 4), 5), ((2, 2), (40, 12), 8), ((2, 2), (24, 24), 10)]
+                ((2, 2, 2), (4, 4, 4), 5), ((2, 2), (40, 12), 8), ((2, 2), (24, 24), 10),
+                ((2, 2, 2), (8, 8, 12), 4)]
 
 
 @pytest.mark.parametrize("mesh_shape,block,eps", FUSED_MESHES)
