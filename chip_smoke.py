@@ -20,7 +20,8 @@ line is printed; the phase walls are printed at the end):
    tier) over the same shapes and eps up to 60 where each takes it, each
    held to its plain version (in the bf16 tier plus one bfloat16 rounding
    flip per step after the first, see phase_multistep_checks) and BITWISE
-   to the same number of step2d launches (superstep2d, the register design
+   to the same number of step2d launches, resident2d also over 7 and 64
+   steps (superstep2d, the register design
    up to eps 8, also BITWISE to its plain version).  3D: nsum3d and step3d
    (production and test form; the register design up to eps 6, the tile
    body at 7 and 8) over eps 0-8 and ragged shapes (1x1x1, non tile
@@ -28,7 +29,7 @@ line is printed; the phase walls are printed at the end):
    their plain versions (sphere_sum's order); carried3d (the same two
    designs) BITWISE to its plain version and to step3d launches over 1, 2
    and 3 steps, resident3d (no bf16 tier either) held to its plain version
-   and BITWISE to step3d launches over 1, 2 and 5 steps.  resident2d at 4096^2 and
+   and BITWISE to step3d launches over 1, 2, 5, 7 and 64 steps.  resident2d at 4096^2 and
    resident3d at 256^3, eps=4, beyond their gates, must raise ValueError.
    The batched kernels (batched_step2d production and test form,
    batched_carried2d, batched_superstep2d at K = 1-4), uniform and mixed
@@ -60,7 +61,8 @@ line is printed; the phase walls are printed at the end):
    it), and the test-form source's set-up is timed on the card and in NumPy.
    Every multi-step candidate of the tuner is timed in ms/step at 4096^2
    (resident does not fit there) and at 512^2, eps=8, f32, where resident
-   fits.  At both shapes step2d, carried2d, superstep2d at K = 2 and 3 and
+   fits (resident2d held bitwise to step2d launches there over 1, 2, 7, 20
+   and 64 steps).  At both shapes step2d, carried2d, superstep2d at K = 2 and 3 and
    batched_step2d at B=1 (at 4096^2 also step2d and carried2d in the bf16
    tier) are timed in turns, as a replayed CUDA graph of launches (the
    device alone: a loop of launches from Python times the host at 512^2)
@@ -77,7 +79,8 @@ line is printed; the phase walls are printed at the end):
    disabled; step3d and carried3d, both the register design, in turns, also
    at 128^3, eps=6),
    the tuner's candidates at 256^3 and at 128^3, eps=6 (where resident3d
-   fits; it is held bitwise to step3d launches there and timed), then the
+   fits; it is held bitwise to step3d launches there over 1, 2, 7, 20 and 64
+   steps and timed), then the
    counts and records reset and the 3D main path through Solver3D: the
    production solves at both shapes (each tuned) and a test-form solve at
    256^3; the 3D counts must equal the probes', the winners' and the test
@@ -151,7 +154,9 @@ or when the port package is not beside this script.
 A/B timings of the package under DIR (ab_main: the kernels of phase 4, the
 lattice sweep, the tuned and per-step solves; the 3D kernels at 256^3; the
 3D halo kernels at the 128^3 block with their outputs' digests; the 256^3
-2x2x2 distributed steps); run it on a parent tree and on this one in turns,
+2x2x2 distributed steps; the resident kernels against carried2d/carried3d
+in CUDA graphs, resident2d's RUN sweep and its step without the barrier on
+scratch builds, the tuned 512^2 and 128^3 eps=6 solves); run it on a parent tree and on this one in turns,
 in one call, to compare them on one card.
 """
 
@@ -172,6 +177,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 NX, EPS, STEPS, TEST_STEPS = 4096, 8, 500, 20
+RESIDENT_HOLDS = (1, 2, 7, TEST_STEPS, 64)  # the resident runs held bitwise to step launches
 SMALL = 512        # the small production grid, where resident fits
 VARIANT_STEPS = 100  # steps per timed multi-step run at 4096^2 (500 at 512^2)
 GRAPH_LAUNCHES = 100  # launches per CUDA graph when timing a kernel alone at 512^2
@@ -461,12 +467,18 @@ def phase_multistep_checks(torch, ck, np) -> dict:
                          ck.make_superstep_multi_step_fn(op, 7, ksteps=3)(u, 0),
                          ck.superstep2d_plain(u, e, scale, wsum, dt, 7, prec),
                          tol + 6 * flip, steps[7])
-                # resident: the whole run in one launch (no bf16 tier)
+                # resident: the whole run in one launch (no bf16 tier); over
+                # 7 and 64 steps bitwise step2d launches only
                 if prec == "f32" and ck.fits_resident(nx, ny, e, dtype):
                     for k in (1, 2, 5):
                         hold("resident2d", f"{form} {k} steps",
                              ck.resident2d(u, e, scale, wsum, dt, k),
                              ck.resident2d_plain(u, e, scale, wsum, dt, k), tol, steps[k])
+                    while len(steps) <= 64:
+                        steps.append(ck.step2d(steps[-1], e, scale, wsum, dt))
+                    for k in (7, 64):
+                        hold("resident2d", f"{form} {k} steps",
+                             ck.resident2d(u, e, scale, wsum, dt, k), steps[k], tol, steps[k])
     try:  # a grid beyond the gate raises, naming the kernel; nothing falls back
         ck.resident2d(torch.zeros(NX, NX, device="cuda"), EPS, 1.0, 197.0, 1e-3, 2)
         fail(f"resident2d accepted a {NX}^2 grid, beyond its gate, on the card")
@@ -554,6 +566,11 @@ def phase_checks_3d(torch, k3, np) -> dict:
                 for k in (1, 2, 5):
                     hold("resident3d", f"{form} {k} steps", k3.resident3d(u, e, scale, wsum, dt, k),
                          plain[k][e:e + nx, e:e + ny, e:e + nz], tol, steps[k])
+                while len(steps) <= 64:  # over 7 and 64 steps bitwise step3d launches only
+                    steps.append(k3.step3d(steps[-1], e, scale, wsum, dt))
+                for k in (7, 64):
+                    hold("resident3d", f"{form} {k} steps", k3.resident3d(u, e, scale, wsum, dt, k),
+                         steps[k], tol, steps[k])
     if not n["resident3d"]:
         fail("resident3d took none of the phase-2 grids")
     try:  # a grid beyond the gate raises, naming the kernel; nothing falls back
@@ -831,14 +848,17 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
     us = torch.as_tensor(us0, device="cuda").to(torch.float32)
     if not ck.fits_resident(SMALL, SMALL, EPS, torch.float32):
         fail(f"resident2d does not fit {SMALL}^2 eps={EPS} f32 on this card")
-    ref = us
-    for _ in range(TEST_STEPS):
-        ref = ck.step2d(ref, EPS, scale_s, wsum, dt_s)
-    got = ck.resident2d(us, EPS, scale_s, wsum, dt_s, TEST_STEPS)
-    hold("resident2d", f"float32 f32 {SMALL}^2 {TEST_STEPS} steps", got,
-         ck.resident2d_plain(us, EPS, scale_s, wsum, dt_s, TEST_STEPS), tol32)
-    if not torch.equal(got, ref):
-        fail(f"resident2d at {SMALL}^2: not bitwise equal to {TEST_STEPS} step2d launches")
+    ref, done = us, 0
+    for k in RESIDENT_HOLDS:
+        for _ in range(k - done):
+            ref = ck.step2d(ref, EPS, scale_s, wsum, dt_s)
+        done = k
+        got = ck.resident2d(us, EPS, scale_s, wsum, dt_s, k)
+        if k == TEST_STEPS:
+            hold("resident2d", f"float32 f32 {SMALL}^2 {TEST_STEPS} steps", got,
+                 ck.resident2d_plain(us, EPS, scale_s, wsum, dt_s, TEST_STEPS), tol32)
+        if not torch.equal(got, ref):
+            fail(f"resident2d at {SMALL}^2: not bitwise equal to {k} step2d launches")
     small = time_variants(torch, op_s, us, STEPS)
     res_ms = cuda_ms(torch, lambda: ck.resident2d(us, EPS, scale_s, wsum, dt_s, STEPS), 3, 1)
     res_plain_ms = cuda_ms(torch, lambda: ck.resident2d_plain(us, EPS, scale_s, wsum, dt_s,
@@ -847,7 +867,8 @@ def phase_headline(torch, np, ck, cb, l2_threshold) -> list:
     say(f"resident2d {SMALL}^2 eps={EPS} f32, {STEPS} steps in one launch: kernel "
         f"{res_ms:.4f} ms/launch ({res_ms / STEPS:.5f} ms/step), plain {res_plain_ms:.1f} ms, "
         f"bound {res_bound[0]:.4f} ms ({res_bound[1]}); |kernel-plain| / max|plain| "
-        f"{held['resident2d'][0]['rel_err']:.2e}, bitwise equal to {TEST_STEPS} step2d launches")
+        f"{held['resident2d'][0]['rel_err']:.2e}, bitwise equal to step2d launches over "
+        f"{RESIDENT_HOLDS} steps")
     say(f"multi-step candidates {SMALL}^2 eps={EPS} f32, {STEPS}-step runs (CUDA events), "
         f"ms/step: {json.dumps(small)}")
     ab_small = kernels_ab(torch, ck, cb, us, EPS, scale_s, wsum, dt_s, 200)
@@ -1103,14 +1124,18 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
     us = torch.as_tensor(us0, device="cuda").to(torch.float32)
     if not k3.fits_resident_3d(N3S, N3S, N3S, EPS3S, torch.float32):
         fail(f"resident3d does not fit {N3S}^3 eps={EPS3S} f32 on this card")
-    ref = us
-    for _ in range(TEST_STEPS):
-        ref = k3.step3d(ref, EPS3S, scale_s, wsum_s, dt_s)
-    got = k3.resident3d(us, EPS3S, scale_s, wsum_s, dt_s, TEST_STEPS)
-    hold("resident3d", f"float32 f32 {N3S}^3 eps={EPS3S} {TEST_STEPS} steps", got,
-         k3.resident3d_plain(us, EPS3S, scale_s, wsum_s, dt_s, TEST_STEPS), tol32)
-    if not torch.equal(got, ref):
-        fail(f"resident3d at {N3S}^3: not bitwise equal to {TEST_STEPS} step3d launches")
+    ref, done = us, 0
+    for k in RESIDENT_HOLDS:
+        for _ in range(k - done):
+            ref = k3.step3d(ref, EPS3S, scale_s, wsum_s, dt_s)
+        done = k
+        got = k3.resident3d(us, EPS3S, scale_s, wsum_s, dt_s, k)
+        if k == TEST_STEPS:
+            hold("resident3d", f"float32 f32 {N3S}^3 eps={EPS3S} {TEST_STEPS} steps", got,
+                 k3.resident3d_plain(us, EPS3S, scale_s, wsum_s, dt_s, TEST_STEPS), tol32)
+        if not torch.equal(got, ref):
+            fail(f"resident3d at {N3S}^3: not bitwise equal to {k} step3d launches")
+    del got, ref
     small = time_variants(torch, op_s, us, STEPS3)
     # one launch of TEST_STEPS steps, beside the plain version's same steps
     res_ms = cuda_ms(torch, lambda: k3.resident3d(us, EPS3S, scale_s, wsum_s, dt_s, TEST_STEPS),
@@ -1147,7 +1172,8 @@ def phase_headline_3d(torch, np, ck, k3, l2_threshold) -> list:
         f"{res_plain_ms:.1f} "
         f"ms, bound {res_bound[0]:.4f} ms ({res_bound[1]}); "
         f"step3d there {step_s_ms:.4f} ms/launch, bound {step_s_bound[0]:.4f} ms "
-        f"({step_s_bound[1]}); resident3d {TEST_STEPS} steps bitwise equal to step3d launches")
+        f"({step_s_bound[1]}); resident3d bitwise equal to step3d launches over "
+        f"{RESIDENT_HOLDS} steps")
     say(f"step3d and carried3d {N3S}^3 eps={EPS3S} f32 in turns, ms/launch: "
         f"{json.dumps(turns_s)}")
     say(f"3D multi-step candidates {N3S}^3 eps={EPS3S} f32, {STEPS3}-step runs (CUDA events), "
@@ -3084,7 +3110,175 @@ def dist3d_ab(torch, np, reps: int = 5) -> dict:
     return out
 
 
-AB_SECTIONS = ("2d", "3d", "halo3d", "dist3d")
+RESIDENT_SIDES = (128, 256, 400, 512, 1024)  # the 2D planes of the resident section
+RESIDENT_SHORT = 100  # the shorter run of the resident section's slope over nsteps
+RESIDENT2D_RUNS = (32, 16, 8)  # the RUNs of resident2d's sweep (float64 has no 32)
+_PICK_RUN = "int pick_run(int nx, int ny, int sms) {"  # in csrc/resident2d.cu
+_STEP_BARRIER = "if (s + 1 < nsteps) grid.sync();"    # its register design's, the first
+
+
+def resident_launch(torch, ck, u, eps: int, scale: float, wsum: float, dt: float,
+                    nsteps: int, entry=None):
+    """A call of one resident2d (2D u) or resident3d (3D u) launch of nsteps
+    on frames made once, through a C entry point with no wrapper around it
+    (the wrapper's frame copies are not in its time): this tree's, or
+    ``entry``, a variant's nlheat_resident2d (resident2d_variants)."""
+    fa = ck.resident_frame(u, eps)
+    fb = torch.zeros_like(fa)
+    code = ck._DTYPE_CODE[u.dtype]
+    if entry is None:
+        entry = ck._entry("nlheat_resident2d" if u.dim() == 2 else "nlheat_resident3d")
+    args = (*u.shape, fa.shape[-1], eps, nsteps)
+
+    def launch():
+        rc = entry(code, fa.data_ptr(), fb.data_ptr(), *args, float(scale), float(wsum),
+                   float(dt), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"resident launch {tuple(u.shape)} eps={eps}: status {rc}")
+
+    launch.state = lambda: (fb if nsteps % 2 else fa)[tuple(slice(eps, eps + n)
+                                                            for n in u.shape)]
+    return launch
+
+
+def bare_ms(torch, ck, u, args, steps: int, reps: int) -> dict:
+    """ms of resident_launch: 1, RESIDENT_SHORT and ``steps`` steps a launch
+    by CUDA events, in turns, and one step a launch in a CUDA graph of 20."""
+    runs = {k: resident_launch(torch, ck, u, *args, k) for k in (1, RESIDENT_SHORT, steps)}
+    out = turns_of(torch, runs, list(runs) + list(runs)[::-1], reps, 1)
+    out["1 in a graph"] = [graph_ms(torch, runs[1], 20) for _ in range(2)]
+    return out
+
+
+def resident2d_variants(build) -> dict:
+    """Scratch builds of csrc/resident2d.cu for resident_ab, for timing and
+    never part of the package: "RUN=r", pick_run made to return r, for each
+    r of RESIDENT2D_RUNS, and "no barrier", the register design's grid.sync()
+    between steps deleted (its steps race: its output is not read).  The
+    sources and libraries go to the package's _build/variants/, one nvcc
+    each, all started together.  {name: nlheat_resident2d of the variant};
+    {} where csrc/resident2d.cu has no pick_run (a parent tree)."""
+    import ctypes
+    import subprocess
+
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+
+    text = (build.CSRC / "resident2d.cu").read_text()
+    if _PICK_RUN not in text:
+        return {}
+    if _STEP_BARRIER not in text:
+        fail("resident2d.cu: no grid.sync() between steps to take out")
+    texts = {f"RUN={r}": text.replace(_PICK_RUN, f"{_PICK_RUN}\n  return {r};")
+             for r in RESIDENT2D_RUNS}
+    texts["no barrier"] = text.replace(_STEP_BARRIER, "", 1)
+    where = build.BUILD_DIR / "variants"
+    where.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, body in texts.items():
+        src = where / f"resident2d_{name.replace('=', '').replace(' ', '_')}.cu"
+        src.write_text(body)
+        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+               str(src.with_suffix(".so")), str(src)]
+        jobs[name] = (src.with_suffix(".so"), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = {}
+    for name, (lib, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"resident2d.cu variant {name} did not build:\n{log[-3000:]}")
+        fn = ctypes.CDLL(str(lib)).nlheat_resident2d
+        fn.argtypes, fn.restype = ck._ENTRIES["nlheat_resident2d"][1], ctypes.c_int
+        entries[name] = fn
+    return entries
+
+
+def resident_ab(torch, np, reps: int = 5) -> dict:
+    """The resident kernels on the package under test, in turns, against the
+    same steps of carried2d/carried3d in a CUDA graph: resident2d at each side
+    of RESIDENT_SIDES, eps=EPS, float32 and float64, STEPS and RESIDENT_SHORT
+    steps a launch (the slope over nsteps is the step's time in the launch);
+    resident3d at N3S^3 at eps=EPS3S and EPS3 in float32 and EPS3 in float64,
+    TEST_STEPS and RESIDENT_SHORT steps; ms per launch by CUDA events, and
+    each STEPS (TEST_STEPS) run's digest, to hold two trees bitwise equal.
+    On this tree's package also each kernel's bare launch (resident_launch)
+    of 1 step in a CUDA graph and of RESIDENT_SHORT and STEPS (TEST_STEPS)
+    steps, and resident2d's variants (resident2d_variants), in turns: each
+    RUN at STEPS steps, its output held bitwise to the package's, and the
+    one without the barrier at 1, RESIDENT_SHORT and STEPS steps.  Then the
+    tuned SMALL^2 and N3S^3, eps=EPS3S solves (make_multi_step_fn: the first
+    call tunes the shape and runs the winner, then ``reps`` runs): winner,
+    probes, ms per step."""
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.ops import _build
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+    from nonlocalheatequation_torch.ops import cuda_kernel3d as k3
+    from nonlocalheatequation_torch.ops.nonlocal_op import case_scale, make_multi_step_fn
+    from nonlocalheatequation_torch.utils import autotune
+
+    out = {}
+    rng = np.random.default_rng(SEED + 26)
+    bare = hasattr(ck, "resident_frame")
+    variants = resident2d_variants(_build) if bare else {}
+    for dtype, n in [(d, n) for d in (torch.float32, torch.float64) for n in RESIDENT_SIDES]:
+        op = op_2d(n)
+        args = (EPS, case_scale(op), op.wsum, op.dt)
+        u = torch.as_tensor(rng.standard_normal((n, n)), device="cuda").to(dtype)
+        frame = F.pad(u, (EPS,) * 4).contiguous()
+        runs = {f"resident2d {k}": lambda k=k: ck.resident2d(u, *args, k)
+                for k in (STEPS, RESIDENT_SHORT)}
+        order = list(runs) + list(runs)[::-1]
+        res = {"ms": turns_of(torch, runs, order, reps, 1),
+               "digest": digest(ck.resident2d(u, *args, STEPS))}
+        carried = carried_launch(torch, ck, frame, *args)
+        res["carried2d graph ms"] = [graph_ms(torch, carried) for _ in range(2)]
+        if bare:
+            res["bare ms"] = bare_ms(torch, ck, u, args, STEPS, reps)
+        if variants:
+            vruns = {}
+            for name, entry in variants.items():
+                if name == f"RUN={RESIDENT2D_RUNS[0]}" and dtype == torch.float64:
+                    continue
+                for k in ((1, RESIDENT_SHORT, STEPS) if name == "no barrier" else (STEPS,)):
+                    vruns[f"{name} {k}"] = resident_launch(torch, ck, u, *args, k, entry)
+                if name != "no barrier":
+                    once = resident_launch(torch, ck, u, *args, STEPS, entry)
+                    once()
+                    if digest(once.state()) != res["digest"]:
+                        fail(f"resident2d {name} at {n}^2 {dtype}: not bitwise the package's")
+            res["variants ms"] = turns_of(torch, vruns, list(vruns) + list(vruns)[::-1],
+                                          reps, 1)
+        out[f"{str(dtype).split('.')[1]} {n}^2 eps={EPS}"] = res
+    for dtype, e in ((torch.float32, EPS3S), (torch.float32, EPS3), (torch.float64, EPS3)):
+        op = op_3d(N3S, e)
+        args = (e, case_scale(op), op.wsum, op.dt)
+        u = torch.as_tensor(rng.standard_normal((N3S,) * 3), device="cuda").to(dtype)
+        frame = F.pad(u, (e,) * 6).contiguous()
+        fout = torch.zeros_like(frame)
+        runs = {f"resident3d {k}": lambda k=k: k3.resident3d(u, *args, k)
+                for k in (TEST_STEPS, RESIDENT_SHORT)}
+        order = list(runs) + list(runs)[::-1]
+        res = {"ms": turns_of(torch, runs, order, reps, 1),
+               "digest": digest(k3.resident3d(u, *args, TEST_STEPS)),
+               "carried3d graph ms": [graph_ms(torch, lambda: k3._carried3d(frame, fout, *args),
+                                               20) for _ in range(2)]}
+        if bare:
+            res["bare ms"] = bare_ms(torch, ck, u, args, TEST_STEPS, reps)
+        out[f"{str(dtype).split('.')[1]} {N3S}^3 eps={e}"] = res
+    for label, op, shape, nsteps in ((f"tuned {SMALL}^2", op_2d(SMALL), (SMALL, SMALL), STEPS),
+                                     (f"tuned {N3S}^3 eps={EPS3S}", op_3d(N3S, EPS3S),
+                                      (N3S,) * 3, STEPS3)):
+        u = torch.as_tensor(rng.standard_normal(shape), device="cuda").to(torch.float32)
+        multi = make_multi_step_fn(op, nsteps, dtype=torch.float32)
+        multi(u, 0)
+        entry = autotune.records()[autotune.tuning_key(op, shape, torch.float32, "cuda")]
+        out[label] = {"winner": entry["winner"], "probes": entry["ms_per_step"],
+                      "ms_per_step": [cuda_ms(torch, lambda: multi(u, 0), 1, 0) / nsteps
+                                      for _ in range(reps)]}
+    return out
+
+
+AB_SECTIONS = ("2d", "3d", "halo3d", "dist3d", "resident")
 
 
 def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
@@ -3096,8 +3290,10 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
     lattice sweep and the tuned and per-step solves (solve_ab); "3d" nsum3d,
     step3d and carried3d at 256^3 and 128^3 eps=6 (kernels3d_ab); "halo3d" the 3D halo
     kernels at the 128^3 block (halo3d_ab); "dist3d" the 256^3 2x2x2 steps
-    (dist3d_ab).  Run it for two trees in turns in one call (parent, this,
-    this, parent) to compare them on one card."""
+    (dist3d_ab); "resident" the resident kernels against carried2d/carried3d
+    and the tuned 512^2 and 128^3 eps=6 solves (resident_ab).  Run it for
+    two trees in turns in one call (parent, this, this, parent) to compare
+    them on one card."""
     import numpy as np
     import torch
 
@@ -3119,7 +3315,7 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
     os.environ["NLHEAT_AUTOTUNE_CACHE"] = ""
     t0 = time.perf_counter()
     card = nvidia_smi("name,power.limit")
-    sources = (_build.SOURCES_2D if "2d" in sections else ()) + (
+    sources = (_build.SOURCES_2D if {"2d", "resident"} & set(sections) else ()) + (
         _build.SOURCES_3D if set(sections) - {"2d"} else ()) + (
         _build.SOURCES_HALO if {"halo3d", "dist3d"} & set(sections) else ())
     built = _build.build(sources)
@@ -3139,6 +3335,8 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
         res["halo3d"] = halo3d_ab(torch, np)
     if "dist3d" in sections:
         res["dist3d"] = dist3d_ab(torch, np)
+    if "resident" in sections:
+        res["resident"] = resident_ab(torch, np)
     res["wall_s"] = time.perf_counter() - t0
     say(f"ab: {json.dumps(res)}")
     return 0

@@ -7,10 +7,11 @@
 // resident kernels share.  Every 2D kernel of the port includes it (and
 // the 3D header the epilogue), so a multi-step kernel is bit-identical to
 // the same number of step2d launches by construction.  Below the tile body
-// it holds the register design (register_sums), the one-step walk over a
-// case stack that batched_step2d.cu and batched_carried2d.cu share
-// (reg_tiles) and the superstep levels that superstep2d.cu and
-// batched_superstep2d.cu share, which add the same terms in the same order:
+// it holds the register design (register_sums, which resident2d.cu also
+// runs on its own lattice), the one-step walk over a case stack that
+// batched_step2d.cu and batched_carried2d.cu share (reg_tiles) and the
+// superstep levels that superstep2d.cu and batched_superstep2d.cu share,
+// which add the same terms in the same order:
 //
 // * the sum.  One 32 x 32 output tile reads a (32+2eps) x (32+2eps) window.
 //   For every window row r, W_h(r)[y] = sum_{|j|<=h} win[r][y+j] grows
@@ -35,6 +36,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstddef>
 #include <type_traits>
@@ -102,6 +104,28 @@ int allow_smem(Kernel kernel, size_t bytes, size_t static_bytes = 0) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+// The grid of a resident kernel (resident2d.cu, resident3d.cu), a cooperative
+// launch of kernel with `threads` threads and smem bytes of dynamic shared
+// memory a block over ntiles tiles: as many blocks as the card holds at once,
+// at most one a tile.  0 (the launch is refused) when the card has no
+// cooperative launch, when two frames of frame_bytes each exceed the L2, or
+// when not one block fits an SM.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t smem, double frame_bytes,
+                    long long ntiles) {
+  if (!device_attr(cudaDevAttrCooperativeLaunch)) return 0;
+  if (2.0 * frame_bytes > static_cast<double>(device_attr(cudaDevAttrL2CacheSize))) return 0;
+  if (smem > static_cast<size_t>(smem_limit()) || allow_smem(kernel, smem) != 0) return 0;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+      cudaSuccess)
+    return 0;
+  const long long resident =
+      static_cast<long long>(per_sm) * device_attr(cudaDevAttrMultiProcessorCount);
+  const long long blocks = ntiles < resident ? ntiles : resident;
+  return blocks > INT_MAX ? 0 : static_cast<int>(blocks);
+}
+
 // The sum buffer: W_h of every window row of one tile, (TILE_X + 2eps) x TILE_Y.
 inline size_t wbuf_elems(int eps) {
   return static_cast<size_t>(TILE_X + 2 * eps) * TILE_Y;
@@ -136,7 +160,7 @@ template <typename T>
 __device__ inline T to_state(__nv_bfloat16 v) { return static_cast<T>(__bfloat162float(v)); }
 
 // Loads that stay coherent with writes other blocks made earlier in the same
-// launch (the resident kernel's frames, between grid syncs): through L2,
+// launch (the resident kernels' frames, between steps): through L2,
 // never the read-only path.
 template <bool L2ONLY, typename S>
 __device__ inline S load(const S* p) {
@@ -259,7 +283,7 @@ int with_eps(int eps, F f) {
 }
 
 // -- the register design (batched_step2d.cu, batched_carried2d.cu,
-// superstep2d.cu, batched_superstep2d.cu, fused_nsum2d.cu) ----------------------
+// superstep2d.cu, batched_superstep2d.cu, fused_nsum2d.cu, resident2d.cu) -------
 //
 // eps is a template parameter, so every offset below is a constant and every
 // register index is fixed at compile time.  Windows are staged by cp.async:

@@ -4,10 +4,10 @@
 //
 // Counterpart of _block_neighbor_sum_3d (nonlocalheatequation_tpu/ops/
 // pallas_kernel.py:672), which the TPU's per-step, carried and resident 3D
-// kernels share.  resident3d.cu runs it at every eps, and nsum3d.cu (nsum3d,
-// step3d), carried3d.cu, split_nsum3d.cu and fused_nsum3d.cu above eps 6;
-// below, those four run the register design at the end of this header
-// (fast3_sums, its window staged from one source by fast3_stage or, in
+// kernels share.  nsum3d.cu (nsum3d, step3d), carried3d.cu, resident3d.cu,
+// split_nsum3d.cu and fused_nsum3d.cu run it above eps 6; below, all five
+// run the register design at the end of this header (fast3_sums, its window
+// staged from one source by fast3_stage or fast3_stage_chunks or, in
 // fused_nsum3d.cu, from the blocks of a mesh), which adds the same terms in
 // the same order, so every 3D kernel gives the bits of step3d and of the
 // plain versions' sphere_sum (ops/cuda_kernel.py).
@@ -285,8 +285,8 @@ inline Geom3 interior_geom(const int out[3], const int src[3], int shift, int lo
   return g;
 }
 
-// -- the register design (nsum3d.cu: nsum3d, step3d; carried3d.cu; split_nsum3d.cu;
-// fused_nsum3d.cu), eps 0-6 ----------------------------------------------------------
+// -- the register design (nsum3d.cu: nsum3d, step3d; carried3d.cu; resident3d.cu;
+// split_nsum3d.cu; fused_nsum3d.cu), eps 0-6 ------------------------------------------
 //
 // A block of 32 x TP threads owns a TP x TP x 32 output tile (TP = 8 in
 // float32; in float64 8 up to eps=4, then 4) and stages its (TP+2eps)^2 x
@@ -294,7 +294,10 @@ inline Geom3 interior_geom(const int out[3], const int src[3], int shift, int lo
 // the copy itself: 16 bytes a copy where the source's rows and the window's
 // z origin fall on 16-byte boundaries, else 8 bytes where they fall on
 // 8-byte ones (fast3_chunk: eps=6 in float32 from an unpadded state), else
-// one cell a copy.
+// one cell a copy.  A window line may be staged with a longer pitch LP (a
+// template parameter, TZ + 2eps by default): resident3d.cu pads its lines to
+// 16 bytes so that every copy is 16 bytes, and the cells past TZ + 2eps are
+// staged but never summed.
 // Thread (z lane, row x) owns the window rows x + TP*m, every line of them,
 // and the TP outputs (x, 0 .. TP-1) of its lane.  It advances W_h of its
 // lines in registers (two window reads a height, only for the lines a column
@@ -331,27 +334,33 @@ __host__ __device__ constexpr bool height_has_cols(int eps, int h) {
 }
 
 // Elements of shared memory a tile of plane width tp needs: the window,
-// (tp+2eps)^2 lines of 32+2eps, and two W buffers of (tp+2eps)^2 lines of 32.
+// (tp+2eps)^2 lines of lp cells (32+2eps unless padded), and two W buffers of
+// (tp+2eps)^2 lines of 32.
+__host__ __device__ constexpr size_t fast3_elems(int eps, int tp, int lp) {
+  return static_cast<size_t>(tp + 2 * eps) * (tp + 2 * eps) * (lp + 2 * TZ);
+}
+
 __host__ __device__ constexpr size_t fast3_elems(int eps, int tp) {
-  return static_cast<size_t>(tp + 2 * eps) * (tp + 2 * eps) * (TZ + 2 * eps + 2 * TZ);
+  return fast3_elems(eps, tp, TZ + 2 * eps);
 }
 
 // The plane width: the widest of 8, 4, 2, 1 whose tile fits a block's shared
 // memory, or 0.
-template <typename T, int EPS>
+template <typename T, int EPS, int LP = TZ + 2 * EPS>
 __host__ __device__ constexpr int fast3_tp() {
   for (int tp = 8; tp >= 1; tp /= 2)
-    if (fast3_elems(EPS, tp) * sizeof(T) <= FAST3_FULL) return tp;
+    if (fast3_elems(EPS, tp, LP) * sizeof(T) <= FAST3_FULL) return tp;
   return 0;
 }
 
-template <int EPS, int TP>
+template <int EPS, int TP, int LP = TZ + 2 * EPS>
 struct Fast3 {
   static constexpr int WP = TP + 2 * EPS;               // window lines a side
-  static constexpr int WZ = TZ + 2 * EPS;               // cells a window line
+  static constexpr int WZ = LP;                         // the pitch of a window line
   static constexpr int LINES = WP * WP;
   static constexpr int NR = (WP + TP - 1) / TP;         // window rows a thread owns
   static_assert(NR * WP <= 64, "the W registers of a thread");
+  static_assert(LP >= TZ + 2 * EPS, "a window line holds its 32 + 2eps cells");
 };
 
 // Heights H .. EPS of the sums (steps 1 and 2 of the order above).  Thread
@@ -363,11 +372,11 @@ struct Fast3 {
 // ascending: row i's W values are read into registers once and serve every
 // j and every output of the row.  The line b of a row is a constant, so
 // every offset is.
-template <typename T, int EPS, int TP, int H>
+template <typename T, int EPS, int TP, int H, int LP = TZ + 2 * EPS>
 __device__ __forceinline__ void sums3_from(const T* win, T* wbuf,
                                            T (&W)[Fast3<EPS, TP>::NR * Fast3<EPS, TP>::WP],
                                            T (&acc)[TP]) {
-  using F = Fast3<EPS, TP>;
+  using F = Fast3<EPS, TP, LP>;
   constexpr int R = isqrt(EPS * EPS - H * H);  // columns of height >= H reach R from the centre
   constexpr bool READ = height_has_cols(EPS, H);
   constexpr bool PREV = H > 0 && height_has_cols(EPS, H - 1);
@@ -411,12 +420,18 @@ __device__ __forceinline__ void sums3_from(const T* win, T* wbuf,
       }
     }
   }
-  if constexpr (H < EPS) sums3_from<T, EPS, TP, H + 1>(win, wbuf, W, acc);
+  if constexpr (H < EPS) sums3_from<T, EPS, TP, H + 1, LP>(win, wbuf, W, acc);
 }
 
 // values a 16-byte copy moves
 template <typename T>
 __host__ __device__ constexpr int vec_width() { return 16 / static_cast<int>(sizeof(T)); }
+
+// The window line of eps padded to a whole number of 16-byte copies.
+template <typename T, int EPS>
+__host__ __device__ constexpr int line16() {
+  return (TZ + 2 * EPS + vec_width<T>() - 1) / vec_width<T>() * vec_width<T>();
+}
 
 // Eight bytes (two float32 values) from global to shared memory, both
 // 8-byte aligned; valid == false fills zeros and reads nothing.
@@ -470,28 +485,36 @@ __device__ __forceinline__ void with_chunk(int chunk, F stage) {
     stage(std::integral_constant<int, 1>{});
 }
 
-// The frame stage: issue the cp.async copies of the window of the tile at
-// output origin (x0, y0, z0) into win: cell (a, b, c) is src[x0 - EPS +
-// shift + a][...][...], 0 outside the span, consecutive threads on
-// consecutive cells, `chunk` values a copy (fast3_chunk, from the host).
+// The frame stage at C values a copy: start the cp.async copies of the
+// window of the tile at output origin (x0, y0, z0) into win, LP cells a line:
+// cell (a, b, c) is src[x0 - EPS + shift + a][...][...], 0 outside the span,
+// consecutive threads on consecutive cells.  The chunks must be aligned and
+// lie wholly inside or outside the span (fast3_chunk's conditions for the
+// line pitch LP).
+template <typename T, int EPS, int TP, int C, int LP = TZ + 2 * EPS>
+__device__ __forceinline__ void fast3_stage_chunks(T* win, const T* src, const Geom3& g,
+                                                   const Span3& span, int x0, int y0, int z0) {
+  using F = Fast3<EPS, TP, LP>;
+  constexpr int PER_LINE = F::WZ / C;  // whole where C is the stage's chunk
+  const int r0 = x0 - EPS + g.shift, s0 = y0 - EPS + g.shift, q0 = z0 - EPS + g.shift;
+  for (int idx = threadIdx.y * TZ + threadIdx.x; idx < F::LINES * PER_LINE; idx += TZ * TP) {
+    const int l = idx / PER_LINE, c = (idx - l * PER_LINE) * C;
+    const int a = l / F::WP, b = l - a * F::WP;
+    const int r = r0 + a, s = s0 + b, q = q0 + c;
+    const bool ok = r >= span.lo && r < span.hi[0] && s >= span.lo && s < span.hi[1] &&
+                    q >= span.lo && q < span.hi[2];
+    const T* from = ok ? src + (static_cast<size_t>(r) * g.src[1] + s) * g.src[2] + q : src;
+    cp_async_chunk<T, C>(win + l * F::WZ + c, from, ok);
+  }
+}
+
+// The same at `chunk` values a copy (fast3_chunk, from the host).
 template <typename T, int EPS, int TP>
 __device__ __forceinline__ void fast3_stage(T* win, const T* __restrict__ src, const Geom3& g,
                                             const Span3& span, int chunk, int x0, int y0,
                                             int z0) {
-  using F = Fast3<EPS, TP>;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int r0 = x0 - EPS + g.shift, s0 = y0 - EPS + g.shift, q0 = z0 - EPS + g.shift;
   with_chunk<T>(chunk, [&](auto cc) {
-    constexpr int C = decltype(cc)::value, PER_LINE = F::WZ / C;
-    for (int idx = ty * TZ + tx; idx < F::LINES * PER_LINE; idx += TZ * TP) {
-      const int l = idx / PER_LINE, c = (idx - l * PER_LINE) * C;
-      const int a = l / F::WP, b = l - a * F::WP;
-      const int r = r0 + a, s = s0 + b, q = q0 + c;
-      const bool ok = r >= span.lo && r < span.hi[0] && s >= span.lo && s < span.hi[1] &&
-                      q >= span.lo && q < span.hi[2];
-      const T* from = ok ? src + (static_cast<size_t>(r) * g.src[1] + s) * g.src[2] + q : src;
-      cp_async_chunk<T, C>(win + l * F::WZ + c, from, ok);
-    }
+    fast3_stage_chunks<T, EPS, TP, decltype(cc)::value>(win, src, g, span, x0, y0, z0);
   });
 }
 
@@ -503,9 +526,9 @@ __device__ __forceinline__ void fast3_stage(T* win, const T* __restrict__ src, c
 // memory, which stays as staged (fast3_centre reads it).  Every thread of
 // the 32 x TP block calls it (it holds barriers).  The sums are one body for
 // every stage: the frame's (fast3_tile) and the mesh's (fused_nsum3d.cu).
-template <typename T, typename OpT, int EPS, int TP, typename Stage>
+template <typename T, typename OpT, int EPS, int TP, int LP = TZ + 2 * EPS, typename Stage>
 __device__ __forceinline__ const T* fast3_sums(Stage stage, T (&acc)[TP]) {
-  using F = Fast3<EPS, TP>;
+  using F = Fast3<EPS, TP, LP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* win = reinterpret_cast<T*>(smem_raw);
   T* wbuf = win + F::LINES * F::WZ;
@@ -522,7 +545,7 @@ __device__ __forceinline__ const T* fast3_sums(Stage stage, T (&acc)[TP]) {
   T W[F::NR * F::WP];
 #pragma unroll
   for (int r = 0; r < TP; ++r) acc[r] = T(0);
-  sums3_from<T, EPS, TP, 0>(win, wbuf, W, acc);
+  sums3_from<T, EPS, TP, 0, LP>(win, wbuf, W, acc);
   return win;
 }
 
@@ -543,9 +566,9 @@ __device__ __forceinline__ const T* fast3_tile(const T* __restrict__ src, const 
 
 // The staged (operand) value of output (x0 + threadIdx.y, y0 + r, z0 +
 // threadIdx.x) in the window fast3_tile returned.
-template <int EPS, int TP, typename T>
+template <int EPS, int TP, int LP = TZ + 2 * EPS, typename T>
 __device__ __forceinline__ T fast3_centre(const T* win, int r) {
-  using F = Fast3<EPS, TP>;
+  using F = Fast3<EPS, TP, LP>;
   return win[((threadIdx.y + EPS) * F::WP + r + EPS) * F::WZ + threadIdx.x + EPS];
 }
 

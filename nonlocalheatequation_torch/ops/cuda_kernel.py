@@ -23,7 +23,10 @@ main path.  Five Pallas kernels are replaced by hand-written CUDA kernels
 * :func:`superstep2d` replaces ``_build_superstep_kernel`` (:1032): K steps
   per launch by trapezoidal temporal blocking.
 * :func:`resident2d` replaces ``_build_resident_kernel`` (:1292): the whole
-  run in one cooperative launch, the state ping-ponging between two frames.
+  run in one cooperative launch, the state ping-ponging between two frames
+  (:func:`resident_frame`, kept in the L2) and summed up to eps 16 by the
+  register walk's sums on a lattice of 4*RUN x 32 tiles, RUN chosen per
+  grid by csrc/resident2d.cu.
 
 The solo step kernels read (scale, dt) and the test form's (coef_g,
 coef_lg) from one-row device tables, made once and cached
@@ -82,14 +85,15 @@ _ENTRIES = {
     "nlheat_superstep2d": ("superstep2d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _D, _D, _D,
                                               _P]),
     "nlheat_superstep2d_fits": ("superstep2d.cu", [_I, _I, _I, _I]),
-    "nlheat_resident2d": ("resident2d.cu", [_I, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P]),
+    "nlheat_resident2d": ("resident2d.cu", [_I, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _P]),
     "nlheat_resident2d_fits": ("resident2d.cu", [_I, _I, _I, _I]),
     "nlheat_nsum3d": ("nsum3d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _P]),
     "nlheat_step3d": ("nsum3d.cu", [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D,
                                     _D, _P]),
     "nlheat_tile3d": ("nsum3d.cu", [_I, _I]),
     "nlheat_carried3d": ("carried3d.cu", [_I, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P]),
-    "nlheat_resident3d": ("resident3d.cu", [_I, _P, _P, _I, _I, _I, _I, _I, _D, _D, _D, _P]),
+    "nlheat_resident3d": ("resident3d.cu", [_I, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D,
+                                            _P]),
     "nlheat_resident3d_fits": ("resident3d.cu", [_I, _I, _I, _I, _I]),
     "nlheat_batched_step2d": ("batched_step2d.cu", [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                                     _I, _I, _D, _P]),
@@ -434,6 +438,25 @@ def superstep2d_plain(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: 
     return u
 
 
+def resident_pitch(n: int, eps: int, dtype) -> int:
+    """The last axis of a resident kernel's frame for a state whose last axis
+    is ``n``: ``n + 2*eps`` cells padded to a multiple of 16 bytes, so that
+    csrc/resident2d.cu and csrc/resident3d.cu stage every window by 16-byte
+    copies."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-(int(n) + 2 * int(eps)) // per) * per
+
+
+def resident_frame(u: torch.Tensor, eps: int) -> torch.Tensor:
+    """A resident kernel's frame of the 2D or 3D state ``u``: zero
+    everywhere but its interior, which holds ``u``, ``eps`` cells from the
+    start of every axis; ``eps`` cells of halo after it on every axis but
+    the last, which is :func:`resident_pitch` long."""
+    e = int(eps)
+    extra = resident_pitch(u.shape[-1], e, u.dtype) - u.shape[-1] - 2 * e
+    return F.pad(u, (e, e + extra) + (e, e) * (u.dim() - 1)).contiguous()
+
+
 def resident2d_plain(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
                      nsteps: int) -> torch.Tensor:
     """``nsteps`` production steps, the state kept in a zero-halo frame."""
@@ -547,12 +570,12 @@ def resident2d(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
             f"resident kernel: {nx}x{ny} eps={eps} {u.dtype} does not fit this card (its "
             "blocks co-resident, its two frames within the L2: csrc/resident2d.cu); use "
             "the per-step path")
-    fa = F.pad(u, (eps, eps, eps, eps)).contiguous()
+    fa = resident_frame(u, eps)
     fb = torch.zeros_like(fa)
     with torch.cuda.device(u.device):
         rc = _entry("nlheat_resident2d")(
-            _DTYPE_CODE[u.dtype], fa.data_ptr(), fb.data_ptr(), nx, ny, eps, nsteps,
-            float(scale), float(wsum), float(dt), torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[u.dtype], fa.data_ptr(), fb.data_ptr(), nx, ny, fa.shape[1], eps,
+            nsteps, float(scale), float(wsum), float(dt), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "resident2d", eps, u)
     LAUNCHES["resident2d"] += 1
     return (fb if nsteps % 2 else fa)[eps:eps + nx, eps:eps + ny].contiguous()

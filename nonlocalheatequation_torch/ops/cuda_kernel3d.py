@@ -4,8 +4,8 @@ resident kernel's gate.
 Counterpart of the 3D part of ``nonlocalheatequation_tpu/ops/pallas_kernel.py``.
 Three hand-written CUDA kernels (csrc/) replace three Pallas kernels; all
 add in the order of the tile body of csrc/stencil_tile3d.cuh, which
-resident3d runs and nsum3d/step3d and carried3d run above eps 6 (below, the
-register design of the same header, fast3_tile, which gives the same bits):
+nsum3d/step3d, carried3d and resident3d run above eps 6 (below, the
+register design of the same header, fast3_sums, which gives the same bits):
 
 * :func:`nsum3d` replaces ``build_neighbor_sum_3d`` (pallas_kernel.py:793):
   the masked-sphere neighbour sum of a halo-padded ``(nx+2e, ny+2e, nz+2e)``
@@ -20,7 +20,8 @@ register design of the same header, fast3_tile, which gives the same bits):
   and the frame it writes keeps a zero halo.
 * :func:`resident3d` replaces ``_build_resident_kernel_3d`` (:1419): the
   whole run in one cooperative launch, the state ping-ponging between two
-  frames kept in L2.
+  frames kept in L2 (``cuda_kernel.resident_frame``: the z axis padded to 16
+  bytes, so that every window is staged by 16-byte copies through L2).
 
 The multi-step kernels take the production (source-free) step, have no bf16
 tier (as on the TPU) and are bit-identical to the same number of ``step3d``
@@ -53,6 +54,7 @@ from nonlocalheatequation_torch.ops.cuda_kernel import (
     _reject_bf16_variant,
     _zero_halo,
     bf16_round,
+    resident_frame,
     source_coefs,
     sphere_sum,
 )
@@ -244,15 +246,16 @@ def resident3d(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
             f"resident 3D kernel: {nx}x{ny}x{nz} eps={eps} {u.dtype} does not fit this card "
             "(its blocks co-resident, its two frames within the L2: csrc/resident3d.cu); "
             "use the per-step path")
-    fa = _pad3(u, eps).contiguous()
+    fa = resident_frame(u, eps)
     fb = torch.zeros_like(fa)
     with torch.cuda.device(u.device):
         rc = _entry("nlheat_resident3d")(
-            _DTYPE_CODE[u.dtype], fa.data_ptr(), fb.data_ptr(), nx, ny, nz, eps, nsteps,
-            float(scale), float(wsum), float(dt), torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[u.dtype], fa.data_ptr(), fb.data_ptr(), nx, ny, nz, fa.shape[2], eps,
+            nsteps, float(scale), float(wsum), float(dt),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "resident3d", eps, u, _REMEDY)
     LAUNCHES["resident3d"] += 1
-    return _interior(fb if nsteps % 2 else fa, eps).contiguous()
+    return (fb if nsteps % 2 else fa)[eps:eps + nx, eps:eps + ny, eps:eps + nz].contiguous()
 
 
 # -- gates and makers (the JAX package's names) -----------------------------------
@@ -260,9 +263,8 @@ def resident3d(u: torch.Tensor, eps: int, scale: float, wsum: float, dt: float,
 def tile3d(eps: int, dtype=torch.float32, device="cuda") -> int:
     """The plane width (8, 4, 2 or 1) of the 3D tile body's output tiles for
     this eps and dtype on ``device``, as csrc/stencil_tile3d.cuh chooses it
-    from the card's shared memory (the tiles of resident3d, the halo
-    kernels, and nsum3d/step3d and carried3d above eps 6); 0 when the
-    kernels refuse eps."""
+    from the card's shared memory (the tiles of every 3D kernel above eps
+    6); 0 when the kernels refuse eps."""
     device = torch.device(device)
     if device.type != "cuda" or dtype not in _DTYPE_CODE:
         raise ValueError(f"tile3d: the tile is the card's, for float32/float64 on a CUDA "

@@ -188,6 +188,37 @@ def test_resident_refuses_a_large_grid_on_card(card):
     assert ck.launch_counts()["resident2d"] == 0
 
 
+def _held_to_steps(run, step, u, steps=(1, 2, 7, 64)):
+    """run(u, n) against n launches of step, bitwise, for each n of steps (a
+    long odd run shows a stale read of either frame)."""
+    ref, done = u, 0
+    for n in steps:
+        for _ in range(n - done):
+            ref = step(ref)
+        done = n
+        assert torch.equal(run(u, n), ref), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_resident2d_bitwise_step2d_launches_on_card(card, dtype):
+    # the register design at eps 5 and 7 (a window line padded to 16 bytes
+    # in float32) and 8, a row padded to 16 bytes (ny = 250), the tile body
+    # (eps 17), and two grids on the two sides of csrc/resident2d.cu's RUN
+    # rule on a 132-SM card: float32 RUN 32 at 768 x 704 (6 x 22 tiles), 16 at
+    # 768 x 672; float64 RUN 16 at 384 x 704 (6 x 22 tiles), 8 at 256 x 256
+    sides = {torch.float32: [(768, 704), (768, 672)],
+             torch.float64: [(384, 704), (256, 256)]}[dtype]
+    for (nx, ny), eps in [((70, 90), 5), ((45, 250), 7), ((64, 64), 8), ((40, 45), 17),
+                          (sides[0], 8), (sides[1], 8)]:
+        top = _op(max(nx, ny), eps)
+        _e, scale, wsum, dt = ck._production_args(top)
+        u = torch.from_numpy(np.random.default_rng(nx + ny + eps).standard_normal((nx, ny))).to(
+            device=card, dtype=dtype)
+        _held_to_steps(lambda v, n: ck.resident2d(v, eps, scale, wsum, dt, n),
+                       lambda v: ck.step2d(v, eps, scale, wsum, dt), u)
+
+
 @pytest.mark.cuda
 def test_tuner_is_the_default_on_the_card(card, monkeypatch):
     probed = []
@@ -355,6 +386,20 @@ def test_resident3d_refuses_a_large_grid_on_card(card):
         k3.make_resident_multi_step_fn_3d(_op3(256, 4), 2)(
             torch.zeros(256, 256, 256, device=card), 0)
     assert ck.launch_counts()["resident3d"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_resident3d_bitwise_step3d_launches_on_card(card, dtype):
+    # the register design at eps 5 (a window line padded to 16 bytes in
+    # float32) with a frame z of 50 (padded to 16 bytes in float32) and of
+    # 52, at eps 6 and 1, and the tile body at eps 7
+    for shape, eps in [((9, 10, 40), 5), ((11, 9, 42), 5), ((17, 9, 33), 6), ((8, 5, 3), 1),
+                       ((10, 9, 42), 7)]:
+        _e, scale, wsum, dt = k3._production_args(_op3(max(shape), eps))
+        u = _state3(shape, card, dtype, sum(shape) + eps)
+        _held_to_steps(lambda v, n: k3.resident3d(v, eps, scale, wsum, dt, n),
+                       lambda v: k3.step3d(v, eps, scale, wsum, dt), u)
 
 
 @pytest.mark.cuda

@@ -169,7 +169,12 @@ def test_plain_carried3d_matches_jax(n, eps, steps, np_dtype, dtype, tol):
     assert _rel(got.numpy(), ref) <= tol
 
 
-@pytest.mark.parametrize("n,eps,steps", MULTI)
+# and eps 5, whose window lines the resident kernel pads to 16 bytes in
+# float32, with a frame z of 20 and of 21 (padded to 24 in float32)
+RESIDENT3D = MULTI + [(10, 5, 7), (11, 5, 2)]
+
+
+@pytest.mark.parametrize("n,eps,steps", RESIDENT3D)
 @pytest.mark.parametrize("np_dtype,dtype,tol", DTYPES)
 def test_plain_resident3d_matches_jax(n, eps, steps, np_dtype, dtype, tol):
     jop, top = _ops(n, eps)

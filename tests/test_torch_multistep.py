@@ -34,6 +34,9 @@ CARRIED = [(64, 5, 4), (40, 3, 3), (48, 12, 2)]                      # test_pall
 SUPERSTEP = [(64, 5, 5, 2), (40, 3, 6, 3), (48, 12, 2, 2), (56, 7, 4, 4),
              (33, 4, 4, 2), (40, 1, 5, 2), (64, 16, 4, 2)]           # test_pallas.py:211-213
 RESIDENT = [(64, 5, 5), (40, 3, 4), (48, 12, 1)]                     # test_pallas.py:312
+# and the eps whose window lines the resident kernel pads to 16 bytes in
+# float32 (5, 7), over 1, 2, 7 steps
+RESIDENT += [(30, 5, 7), (26, 7, 2), (21, 5, 1)]
 SUPERSTEP_BF16 = [(64, 5, 5, 2), (40, 3, 6, 3), (33, 4, 4, 2), (48, 12, 2, 2)]
 
 
@@ -202,6 +205,25 @@ def test_resident_refuses_a_grid_past_the_cards_gate(monkeypatch):
     # the library's refusal (-1) names the kernel and its source
     with pytest.raises(ValueError, match=r"resident2d: eps=8 .* csrc/resident2d.cu"):
         ck._raise_on(-1, "resident2d", 8, torch.zeros(4, 4))
+
+
+@pytest.mark.parametrize("dtype,per", [(torch.float32, 4), (torch.float64, 2)])
+def test_resident_frame_pads_the_last_axis_to_16_bytes(dtype, per):
+    # the frames csrc/resident2d.cu and resident3d.cu take: eps cells of halo,
+    # the last axis padded with zeros to whole 16-byte copies
+    for shape, eps in [((3, 250), 8), ((5, 7), 5), ((2, 3), 0), ((4, 6, 9), 5),
+                       ((2, 3, 40), 5), ((3, 2, 42), 5)]:
+        u = torch.from_numpy(np.random.default_rng(eps).standard_normal(shape)).to(dtype)
+        frame = ck.resident_frame(u, eps)
+        last = shape[-1] + 2 * eps
+        assert frame.shape[-1] == ck.resident_pitch(shape[-1], eps, dtype)
+        assert frame.shape[-1] % per == 0 and last <= frame.shape[-1] < last + per
+        assert frame.shape[:-1] == tuple(n + 2 * eps for n in shape[:-1])
+        assert frame.is_contiguous() and frame.dtype == dtype
+        inner = tuple(slice(eps, eps + n) for n in shape)
+        assert torch.equal(frame[inner], u)
+        frame[inner] = 0
+        assert not frame.any(), (shape, eps)
 
 
 @pytest.mark.parametrize("nsteps", [0, 1, 2, 3, 5, 12])
