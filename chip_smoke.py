@@ -144,8 +144,10 @@ line is printed; the phase walls are printed at the end):
    --comm fused and the default), which must print "Tests Passed"; the
    counts must be exactly the solves' and the rows'.  Each solve is held
    within 1e-5 of the tuned single-device Solver2D/Solver3D, and the steps
-   are timed on the card, three runs each.
-9. The kernels' JSON line, then {"ok": true, "device": {...}}.
+   are timed on the card, three runs each, the 'fused' and 'collective'
+   steps also under torch.profiler (device time by kernel).
+9. The kernels' JSON line (nsum2d's launches those of phases 4 and 8), then
+   {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -153,8 +155,9 @@ or when the port package is not beside this script.
 ``python3 chip_smoke.py --ab DIR [SECTION ...]`` prints instead one line of
 A/B timings of the package under DIR (ab_main: the kernels of phase 4, the
 lattice sweep, the tuned and per-step solves; the 3D kernels at 256^3; the
-3D halo kernels at the 128^3 block with their outputs' digests; the 256^3
-2x2x2 distributed steps; the resident kernels against carried2d/carried3d
+2D halo kernels at the 2048^2 block and split_nsum2d at smaller blocks, and
+the 3D ones at the 128^3 block, with their outputs' digests; the 4096^2 2x2
+and 256^3 2x2x2 distributed steps; the resident kernels against carried2d/carried3d
 in CUDA graphs, resident2d's RUN sweep and its step without the barrier on
 scratch builds, the tuned 512^2 and 128^3 eps=6 solves); run it on a parent tree and on this one in turns,
 in one call, to compare them on one card.
@@ -2647,8 +2650,9 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
             run = dist._make_runner(DSTEPS)
             step_ms[f"{d} {label}"] = [cuda_ms(torch, lambda: run(blocks, 0, ()), 1, 1) / DSTEPS
                                        for _ in range(3)]
-            if label == "fused":
-                profiles[d] = device_profile(torch, lambda: run(blocks, 0, ()), DSTEPS)
+            if label in ("fused", "collective"):
+                profiles[f"{d} {label}"] = device_profile(torch, lambda: run(blocks, 0, ()),
+                                                          DSTEPS)
         os.environ.pop("NLHEAT_FUSED_TRANSPORT")
         u_dev = torch.as_tensor(s.u0, device="cuda").to(f32)
         multi = make_multi_step_fn(s.op, DSTEPS, dtype=f32)
@@ -2656,8 +2660,8 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
                                       for _ in range(3)]
     say(f"distributed steps on the card, ms/step (CUDA events over {DSTEPS}-step runs, three "
         f"runs each, the exchange's copies included): {json.dumps(step_ms)}")
-    say("the comm='fused' steps under torch.profiler, per step (device time by kernel, the "
-        f"device's busy and idle share of the window): {json.dumps(profiles)}")
+    say("the comm='fused' and 'collective' steps under torch.profiler, per step (device time "
+        f"by kernel, the device's busy and idle share of the window): {json.dumps(profiles)}")
     del res, solvers, solo
 
     def row(name, source, line):
@@ -2675,7 +2679,7 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
     return [row("split_nsum2d", "split_nsum2d.cu", 437),
             row("split_nsum3d", "split_nsum3d.cu", 474),
             row("fused_nsum2d", "fused_nsum2d.cu", 611),
-            row("fused_nsum3d", "fused_nsum3d.cu", 653)]
+            row("fused_nsum3d", "fused_nsum3d.cu", 653)], by
 
 
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
@@ -3032,6 +3036,127 @@ def digest(t) -> str:
     return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
 
 
+HALO2D_FORMS = ((8, "float32", "f32"), (8, "float32", "bf16"), (16, "float32", "f32"),
+                (17, "float32", "f32"), (8, "float64", "f32"))  # (eps, dtype, tier)
+HALO2D_SMALL = (256, 512, 1024)  # the smaller square blocks of halo2d_ab, eps=DEPS
+
+
+def ab_turns(torch, runs: dict, reps: int, launches: int = 20) -> dict:
+    """ms per call of each of ``runs`` in a CUDA graph of ``launches`` calls
+    and (reps > 0) in a loop of ``reps`` calls, each twice, in turns (the
+    order, then the order reversed)."""
+    order = list(runs) + list(runs)[::-1]
+    res = {"graph": {n: [] for n in runs}}
+    for name in order:
+        res["graph"][name].append(graph_ms(torch, runs[name], launches))
+    if reps:
+        res["loop"] = {n: [] for n in runs}
+        for name in order:
+            res["loop"][name].append(cuda_ms(torch, runs[name], reps))
+    return res
+
+
+def halo2d_ab(torch, np, reps: int = 50) -> dict:
+    """The 2D halo kernels at the main path's block, (0, 0) of a 2x2 mesh of
+    virtual devices of the card holding a seeded DN^2 state: split_nsum2d
+    on the block's exchanged frame and each of its phases alone, nsum2d on
+    the same frame and fused_nsum2d on the block, for each of HALO2D_FORMS
+    (eps=8 in float32 and the bf16 tier, eps=16 and 17 in float32, eps=8 in
+    float64); ms per call in a CUDA graph of 20 calls and in a loop of
+    ``reps``, each twice in turns.  Each output's digest, to hold two trees'
+    outputs bitwise equal, and whether it is bitwise nsum2d on the frame.
+    Then split_nsum2d (per call and each phase) and nsum2d on the frames of
+    square blocks of HALO2D_SMALL sides, eps=DEPS, float32 and float64, in
+    a CUDA graph only, with the digests: where a phase has few tiles."""
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.ops import cuda_halo as th
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+    from nonlocalheatequation_torch.parallel.halo import halo_pad_nd
+    from nonlocalheatequation_torch.parallel.mesh import create_mesh, device_list, put_global
+
+    mesh = create_mesh(("x", "y"), (2, 2), device_list("cuda", 4))
+    rng = np.random.default_rng(SEED + 27)
+    u = rng.standard_normal((DN, DN))
+    pos, out = (0, 0), {}
+
+    def split_runs(frame, ob, e, prec):
+        return {"split_nsum2d": lambda: th.split_nsum2d(frame, e, prec),
+                "split_nsum2d interior": lambda: th.launch_phase("split_nsum2d", frame, ob, e,
+                                                                 prec, "interior"),
+                "split_nsum2d ring": lambda: th.launch_phase("split_nsum2d", frame, ob, e,
+                                                             prec, "ring"),
+                "nsum2d": lambda: ck.nsum2d(frame, e, prec)}
+
+    for e, dname, prec in HALO2D_FORMS:
+        dtype = getattr(torch, dname)
+        blocks = put_global(u, mesh, dtype)
+        frame = halo_pad_nd(blocks, e)[pos]
+        ob = torch.empty(blocks[pos].shape, dtype=dtype, device="cuda")
+        runs = {"fused_nsum2d": lambda: th.fused_nsum2d(blocks, pos, e, prec),
+                **split_runs(frame, ob, e, prec)}
+        one_pass = ck.nsum2d(frame, e, prec)
+        res = {"digest": {"nsum2d": digest(one_pass)}, "bitwise_nsum2d": {}}
+        for name in ("fused_nsum2d", "split_nsum2d"):
+            got = runs[name]()
+            res["digest"][name] = digest(got)
+            res["bitwise_nsum2d"][name] = bool(torch.equal(got, one_pass))
+        res.update(ab_turns(torch, runs, reps))
+        out[f"{dname} {prec} eps={e}"] = res
+        del blocks, frame, ob, one_pass
+    for dtype in (torch.float32, torch.float64):
+        for n in HALO2D_SMALL:
+            frame = F.pad(torch.as_tensor(rng.standard_normal((n, n)), device="cuda").to(dtype),
+                          (DEPS,) * 4).contiguous()
+            ob = torch.empty((n, n), dtype=dtype, device="cuda")
+            runs = split_runs(frame, ob, DEPS, "f32")
+            got = runs["split_nsum2d"]()
+            res = {"digest": {"split_nsum2d": digest(got),
+                              "nsum2d": digest(runs["nsum2d"]())},
+                   "bitwise_nsum2d": bool(torch.equal(got, runs["nsum2d"]()))}
+            res.update(ab_turns(torch, runs, 0))
+            out[f"{str(dtype).split('.')[1]} {n}^2 block eps={DEPS}"] = res
+            del frame, ob
+    return out
+
+
+def dist2d_ab(torch, np, reps: int = 5) -> dict:
+    """The DN^2, eps=DEPS, f32 solve on a 2x2 mesh of virtual devices of the
+    card (2048^2 blocks), each comm form (the in-kernel exchange, 'fused'
+    under NLHEAT_FUSED_TRANSPORT=interp, 'collective'), as phase 8 makes it:
+    the digest of a DSTEPS-step solve, then ms per step over ``reps``
+    DSTEPS-step runs (CUDA events; the host's loop binds them, so they
+    spread), and the step's device time by kernel (torch.profiler), which
+    the host does not move."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh
+
+    dh = 1.0 / DN
+    probe = NonlocalOp2D(DEPS, 1.0, 1.0, dh)
+    dt = 0.8 / (probe.c * dh * dh * probe.wsum)  # 0.8x the Euler bound, as phase 8
+    u2 = np.random.default_rng(SEED + 22).standard_normal((DN, DN))
+    devs4 = device_list("cuda", 4)
+    out = {}
+    for comm, transport in (("fused", ""), ("fused", "interp"), ("collective", "")):
+        label = f"{comm} {transport}".strip()
+        os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
+        s = Solver2DDistributed(DN // 2, DN // 2, 2, 2, DSTEPS, DEPS, k=1.0, dt=dt, dh=dh,
+                                mesh=make_mesh(2, 2, devs4), method="cuda",
+                                dtype=torch.float32, comm=comm)
+        s.input_init(u2)
+        res = {"digest": digest(torch.as_tensor(s.do_work()))}
+        blocks = s._device_state()[0]
+        run = s._make_runner(DSTEPS)
+        res["ms_per_step"] = [cuda_ms(torch, lambda: run(blocks, 0, ()), 1, 1) / DSTEPS
+                              for _ in range(reps)]
+        res["profile"] = device_profile(torch, lambda: run(blocks, 0, ()), DSTEPS)
+        out[label] = res
+        del s, blocks, run
+    os.environ.pop("NLHEAT_FUSED_TRANSPORT")
+    return out
+
+
 def halo3d_ab(torch, np, reps: int = 50) -> dict:
     """The 3D halo kernels at the main path's block, (0, 0, 0) of a 2x2x2
     mesh of virtual devices of the card holding a seeded D3N^3 state:
@@ -3278,7 +3403,7 @@ def resident_ab(torch, np, reps: int = 5) -> dict:
     return out
 
 
-AB_SECTIONS = ("2d", "3d", "halo3d", "dist3d", "resident")
+AB_SECTIONS = ("2d", "3d", "halo2d", "dist2d", "halo3d", "dist3d", "resident")
 
 
 def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
@@ -3288,9 +3413,11 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
     the card, then each section asked for (all by default): "2d" the kernels
     of phase 4 at 4096^2 (the bf16 tier too) and 512^2 (kernels_ab), the
     lattice sweep and the tuned and per-step solves (solve_ab); "3d" nsum3d,
-    step3d and carried3d at 256^3 and 128^3 eps=6 (kernels3d_ab); "halo3d" the 3D halo
-    kernels at the 128^3 block (halo3d_ab); "dist3d" the 256^3 2x2x2 steps
-    (dist3d_ab); "resident" the resident kernels against carried2d/carried3d
+    step3d and carried3d at 256^3 and 128^3 eps=6 (kernels3d_ab); "halo2d"
+    the 2D halo kernels at the 2048^2 block and split_nsum2d at smaller
+    blocks (halo2d_ab); "dist2d" the 4096^2 2x2 steps (dist2d_ab); "halo3d"
+    the 3D halo kernels at the 128^3 block (halo3d_ab); "dist3d" the 256^3
+    2x2x2 steps (dist3d_ab); "resident" the resident kernels against carried2d/carried3d
     and the tuned 512^2 and 128^3 eps=6 solves (resident_ab).  Run it for
     two trees in turns in one call (parent, this, this, parent) to compare
     them on one card."""
@@ -3315,9 +3442,10 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
     os.environ["NLHEAT_AUTOTUNE_CACHE"] = ""
     t0 = time.perf_counter()
     card = nvidia_smi("name,power.limit")
-    sources = (_build.SOURCES_2D if {"2d", "resident"} & set(sections) else ()) + (
-        _build.SOURCES_3D if set(sections) - {"2d"} else ()) + (
-        _build.SOURCES_HALO if {"halo3d", "dist3d"} & set(sections) else ())
+    sources = (_build.SOURCES_2D if {"2d", "halo2d", "dist2d", "resident"} & set(sections)
+               else ()) + (
+        _build.SOURCES_3D if {"3d", "halo3d", "dist3d", "resident"} & set(sections) else ()) + (
+        _build.SOURCES_HALO if {"halo2d", "dist2d", "halo3d", "dist3d"} & set(sections) else ())
     built = _build.build(sources)
     res = {"package": root, "card": card, "build_s": built}
     if "2d" in sections:
@@ -3331,6 +3459,10 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
         res["solves"] = solve_ab(torch, np)
     if "3d" in sections:
         res["kernels 3d"] = kernels3d_ab(torch, k3, case_scale)
+    if "halo2d" in sections:
+        res["halo2d"] = halo2d_ab(torch, np)
+    if "dist2d" in sections:
+        res["dist2d"] = dist2d_ab(torch, np)
     if "halo3d" in sections:
         res["halo3d"] = halo3d_ab(torch, np)
     if "dist3d" in sections:
@@ -3405,7 +3537,13 @@ def main() -> int:
     kernels += timed("headline 3d", phase_headline_3d, torch, np, ck, k3, l2_threshold)
     kernels += timed("ensemble", phase_ensemble, torch, np, ck, cb, cases_2d)
     kernels += timed("unstructured", phase_unstructured, torch, np, ck, l2_threshold)
-    kernels += timed("distributed", phase_distributed, torch, np, ck, l2_threshold)
+    halo_rows, halo_by = timed("distributed", phase_distributed, torch, np, ck, l2_threshold)
+    for k in kernels:  # nsum2d/nsum3d run phase 8's collective steps (and CLI rows) too
+        more = by_label(halo_by, k["name"])
+        if more:
+            k["launches"] += sum(more.values())
+            k.setdefault("launches_by_shape", {}).update(more)
+    kernels += halo_rows
     say(f"phase walls, s: {json.dumps(walls)}")
     for k in kernels:
         k["checks"] = checks[k["name"]]

@@ -131,10 +131,6 @@ __device__ void load_window_mesh(T* win, int ld, int rows, int cols, const Neigh
 
 constexpr int FAST_MAX_EPS = 10;
 
-// values a 16-byte copy moves
-template <typename T>
-__host__ __device__ constexpr int vec_width() { return 16 / static_cast<int>(sizeof(T)); }
-
 // Coordinate first + k of an axis of block length b, from first's block
 // offset o and coordinate l in it: steps across the block edges (one step
 // for a window that reaches one block beyond, none inside the block), so no

@@ -5,7 +5,10 @@
 //   nsum2d  <- nonlocalheatequation_tpu/ops/pallas_kernel.py:build_neighbor_sum_2d
 //              (the method="pallas" branch of NonlocalOp2D.neighbor_sum_padded)
 // The fused Euler step (step2d, pallas_kernel.py:_build_step_kernel) is one
-// batched_step2d.cu launch at B=1 (ops/cuda_kernel.py).
+// batched_step2d.cu launch at B=1 (ops/cuda_kernel.py).  It runs every step
+// of the collective distributed 2D solve (one launch a block a step,
+// parallel/distributed2d.py through NonlocalOp2D.apply_padded), the test
+// form's L(G) once a solve, and the vmap ensemble buckets.
 //
 // What bounds it on an H100 SXM (NVIDIA's published peaks at the card's
 // 700 W limit: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside the tensor cores;
@@ -15,16 +18,23 @@
 // peak; the row window sums below cut that to 41 adds per point (about
 // 10 us), so it is bound by bytes.
 //
-// Design.  One block owns a 32 x 32 output tile and stages its
-// (32+2eps) x (32+2eps) window of the halo-padded block in shared memory,
-// reading it from device memory about once (the halo overlap of
-// neighbouring tiles is served by L2).  The window load and the sum (per-row
-// window sums: about 2eps+1 + (2eps+1)(32+2eps)/32 shared-memory reads per
-// point instead of 197) are the shared tile body of stencil_tile.cuh, whose
-// order every 2D kernel of the port keeps.  It is called once a solve (the
-// test form's L(G)), so it keeps the tile body; the register walk of
-// batched_step2d.cu is the candidate if it ever runs on a hot path.  Types:
-// state float or double, operand the state type or __nv_bfloat16.
+// Design, for 0 <= eps <= REG_TILES_MAX_EPS (16): the register walk of
+// batched_carried2d.cu (stencil_tile.cuh, reg_walk) over the (nx, ny)
+// output, the padded block as the source at offset eps: a persistent grid
+// over RUN*4 x 32 tiles (RUN = 32 in float32, 16 in float64), each window
+// staged by cp.async from the padded block, double-buffered, the column
+// sums in registers (register_sums), the sum itself the epilogue.  The
+// stage copies 16 bytes a copy where the block's base and row pitch (ny +
+// 2eps) and the window's row width (32 + 2eps) are 16-byte aligned
+// (stage_frame: every 4096^2 and 2048^2 frame at eps=8), else a value a
+// copy.  eps 17-64, and a float32 lattice of fewer tiles than the card has
+// SMs (reg_tiles_too_few: a 512^2 plane), keep the tile body: one block a
+// 32 x 32 output tile stages its (32+2eps)^2 window in shared memory
+// (load_window), and the per-row window sums (window_sums, about 2eps+1 +
+// (2eps+1)(32+2eps)/32 shared-memory reads per point instead of 197) add
+// in the same order, so both designs give the same bits.  Types: state
+// float or double, operand the state type or __nv_bfloat16 (the walk
+// rounds the staged window in place).
 //
 // Plain C interface (loaded with ctypes by ops/_build.py and wrapped in
 // ops/cuda_kernel.py).  The entry point launches on the given stream,
@@ -38,6 +48,9 @@
 namespace {
 
 using namespace nlheat;
+
+// -- the shared tile body (stencil_tile.cuh): eps above REG_TILES_MAX_EPS and
+// small float32 lattices ----------------------------------------------------------
 
 // Copy the entries of plan that window_sums reads (2eps+1 offsets, eps+2
 // group starts) into splan, the block's static shared copy; the caller
@@ -82,6 +95,47 @@ nsum2d_kernel(const T* __restrict__ upad, T* __restrict__ out, int nx, int ny, i
   }
 }
 
+// -- the register walk (stencil_tile.cuh, reg_walk), eps 0-16 ---------------------
+
+template <typename T, typename OpT, int EPS>
+__global__ void __launch_bounds__(REG_THREADS)
+nsum2d_fast(const T* __restrict__ upad, T* __restrict__ out, int nx, int ny, int nty,
+            long long ntiles, bool vec) {
+  constexpr int RUN = RegTile<T>::RUN, ROWS = RegTile<T>::ROWS, COLS = RegTile<T>::COLS;
+  const int L = ny + 2 * EPS;
+  const Span2 frame{0, nx + 2 * EPS, 0, L};
+  const int r0 = threadIdx.y * RUN;
+  reg_walk<T, OpT, EPS>(
+      ntiles,
+      [&](T* buf, long long t) {
+        // the window of output (x0, y0) starts at padded cell (x0, y0)
+        stage_frame<T, EPS>(buf, upad, L, frame, static_cast<int>(t / nty) * ROWS,
+                            static_cast<int>(t % nty) * COLS, vec);
+      },
+      [&](long long t, const T* /*col*/, const T (&acc)[RUN]) {
+        const int x0 = static_cast<int>(t / nty) * ROWS + r0;
+        const int y = static_cast<int>(t % nty) * COLS + threadIdx.x;
+        if (y >= ny) return;
+#pragma unroll
+        for (int r = 0; r < RUN; ++r)
+          if (x0 + r < nx) out[static_cast<size_t>(x0 + r) * ny + y] = acc[r];
+      });
+}
+
+template <typename T, typename OpT, int EPS>
+int launch_fast(const void* upad, void* out, int nx, int ny, cudaStream_t stream) {
+  static int per_sm = -1;  // blocks an SM holds, asked once per instantiation
+  const int nty = (ny + RegTile<T>::COLS - 1) / RegTile<T>::COLS;
+  const long long ntiles =
+      static_cast<long long>((nx + RegTile<T>::ROWS - 1) / RegTile<T>::ROWS) * nty;
+  const int L = ny + 2 * EPS;
+  const bool vec = stage_frame_vec<T, EPS>(upad, L, Span2{0, nx + 2 * EPS, 0, L}, true);
+  return reg_tiles_launch<T, EPS>(nsum2d_fast<T, OpT, EPS>, ntiles, per_sm, stream,
+                                  static_cast<const T*>(upad), static_cast<T*>(out), nx, ny,
+                                  nty, ntiles, vec);
+}
+
+// The register walk where eps and the lattice allow it, else the tile body.
 template <typename T, typename OpT>
 int launch(const void* upad, void* out, int nx, int ny, int eps, void* stream) {
   if (eps < 0 || eps > MAX_EPS) return -1;
@@ -89,6 +143,11 @@ int launch(const void* upad, void* out, int nx, int ny, int eps, void* stream) {
   if (smem + sizeof(Plan) > static_cast<size_t>(smem_limit())) return -1;
   if ((static_cast<long long>(nx) + TILE_X - 1) / TILE_X > 65535) return -1;  // gridDim.y
   if (nx <= 0 || ny <= 0) return 0;
+  if (eps <= REG_TILES_MAX_EPS && !reg_tiles_too_few<T>(1, nx, ny))
+    return with_eps<REG_TILES_MAX_EPS>(eps, [&](auto e) {
+      return launch_fast<T, OpT, decltype(e)::value>(upad, out, nx, ny,
+                                                      static_cast<cudaStream_t>(stream));
+    });
   return with_mw(eps, [&](auto mw) {
     auto kernel = nsum2d_kernel<T, OpT, decltype(mw)::value>;
     const int e = allow_smem(kernel, smem, sizeof(Plan));

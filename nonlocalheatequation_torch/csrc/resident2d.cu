@@ -72,9 +72,6 @@ namespace {
 
 using namespace nlheat;
 
-template <typename T>
-__host__ __device__ constexpr int vec16() { return 16 / static_cast<int>(sizeof(T)); }
-
 // The largest RUN of the state type (RegTile<T>::RUN: the register walk's).
 template <typename T>
 __host__ __device__ constexpr int max_run() { return RegTile<T>::RUN; }
@@ -87,7 +84,8 @@ struct Res2 {
   static constexpr int COLS = 32;            // output columns a tile
   static constexpr int WR = ROWS + 2 * EPS;  // window rows
   // the window's line, COLS + 2eps cells padded to whole 16-byte copies
-  static constexpr int WC = (COLS + 2 * EPS + vec16<T>() - 1) / vec16<T>() * vec16<T>();
+  static constexpr int WC =
+      (COLS + 2 * EPS + vec_width<T>() - 1) / vec_width<T>() * vec_width<T>();
   static constexpr int BUF = WR * WC;
 };
 
@@ -97,7 +95,7 @@ struct Res2 {
 template <typename T, int EPS, int RUN>
 __device__ __forceinline__ void stage16(T* buf, const T* frame, int R, int lp, int x0, int y0) {
   using P = Res2<T, EPS, RUN>;
-  constexpr int V = vec16<T>(), PER_ROW = P::WC / V;
+  constexpr int V = vec_width<T>(), PER_ROW = P::WC / V;
   for (int idx = threadIdx.y * 32 + threadIdx.x; idx < P::WR * PER_ROW; idx += REG_THREADS) {
     const int a = idx / PER_ROW, c = (idx - a * PER_ROW) * V;
     const int x = x0 + a, y = y0 + c;
@@ -270,7 +268,7 @@ int fits_typed(int nx, int ny, int eps) {
 template <typename T>
 int launch(void* fa, void* fb, int nx, int ny, int lp, int eps, int nsteps, double scale,
            double wsum, double dt, void* stream) {
-  if (nsteps < 0 || lp < ny + 2 * eps || lp % vec16<T>() != 0) return -1;
+  if (nsteps < 0 || lp < ny + 2 * eps || lp % vec_width<T>() != 0) return -1;
   if (reinterpret_cast<uintptr_t>(fa) % 16 != 0 || reinterpret_cast<uintptr_t>(fb) % 16 != 0)
     return -1;
   if (fits_typed<T>(nx, ny, eps) == 0) return -1;

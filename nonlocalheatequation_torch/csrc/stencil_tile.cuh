@@ -8,10 +8,11 @@
 // the 3D header the epilogue), so a multi-step kernel is bit-identical to
 // the same number of step2d launches by construction.  Below the tile body
 // it holds the register design (register_sums, which resident2d.cu also
-// runs on its own lattice), the one-step walk over a case stack that
-// batched_step2d.cu and batched_carried2d.cu share (reg_tiles) and the
-// superstep levels that superstep2d.cu and batched_superstep2d.cu share,
-// which add the same terms in the same order:
+// runs on its own lattice), the one-step walk (reg_walk) that
+// batched_step2d.cu and batched_carried2d.cu run over a case stack
+// (reg_tiles) and nsum2d.cu and split_nsum2d.cu over a padded frame
+// (stage_frame), and the superstep levels that superstep2d.cu and
+// batched_superstep2d.cu share, which add the same terms in the same order:
 //
 // * the sum.  One 32 x 32 output tile reads a (32+2eps) x (32+2eps) window.
 //   For every window row r, W_h(r)[y] = sum_{|j|<=h} win[r][y+j] grows
@@ -39,6 +40,7 @@
 #include <climits>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace nlheat {
@@ -282,8 +284,9 @@ int with_eps(int eps, F f) {
   return -1;
 }
 
-// -- the register design (batched_step2d.cu, batched_carried2d.cu,
-// superstep2d.cu, batched_superstep2d.cu, fused_nsum2d.cu, resident2d.cu) -------
+// -- the register design (batched_step2d.cu, batched_carried2d.cu, nsum2d.cu,
+// split_nsum2d.cu, superstep2d.cu, batched_superstep2d.cu, fused_nsum2d.cu,
+// resident2d.cu) ------------------------------------------------------------------
 //
 // eps is a template parameter, so every offset below is a constant and every
 // register index is fixed at compile time.  Windows are staged by cp.async:
@@ -345,6 +348,10 @@ __device__ inline void cp_async_value(T* dst, const T* src, bool valid) {
                  "r"(bytes) : "memory");
 }
 
+// values a 16-byte copy moves
+template <typename T>
+__host__ __device__ constexpr int vec_width() { return 16 / static_cast<int>(sizeof(T)); }
+
 // Sixteen bytes from global to shared memory, both 16-byte aligned; valid ==
 // false fills zeros and reads nothing.
 __device__ inline void cp_async_16(void* dst, const void* src, bool valid) {
@@ -388,15 +395,17 @@ __device__ __forceinline__ void register_sums(const T* col, int ld, T (&acc)[RUN
   }
 }
 
-// -- one step of a case stack in the register design (batched_step2d.cu,
-// batched_carried2d.cu) --------------------------------------------------------
+// -- one step in the register design: the walk (batched_step2d.cu,
+// batched_carried2d.cu, nsum2d.cu, split_nsum2d.cu) --------------------------------
 //
-// A persistent grid walks the (case, row tile, column tile) lattice of each
-// case's plane, RegTile<T> tiles of ROWS x COLS outputs; a block stages the
-// window of tile t+1 by cp.async into one of two buffers while it sums tile
-// t from the other, so the load overlaps the sums.  The source is a (B,
+// A persistent grid walks a list of RegTile<T> tiles of ROWS x COLS outputs;
+// a block stages the window of tile t+1 by cp.async into one of two buffers
+// while it sums tile t from the other, so the load overlaps the sums.  The
+// batched kernels walk the (case, row tile, column tile) lattice of a (B,
 // rows, cols) stack whose case plane holds the case's cell (x, y) at (x +
-// off, y + off): off = 0 for an unpadded stack, eps for a stack of frames.
+// off, y + off): off = 0 for an unpadded stack, eps for a stack of frames
+// (reg_tiles).  nsum2d.cu walks the tiles of one padded frame, split_nsum2d.cu
+// the tiles of a phase's rectangles of one, each staged by stage_frame.
 
 // The largest eps of the walk: a thread's RUN + 2eps column sums and RUN
 // outputs stay in registers up to it.
@@ -447,34 +456,30 @@ __device__ void stage_window(T* buf, const T* src, int rows, int cols, int off, 
   }
 }
 
-// The persistent walk over ntiles tiles (ntx row tiles by nty column tiles a
-// case): every thread of the 32 x REG_TY block calls it.  For each tile the
-// block rounds the staged window to the operand type in place (the bf16
-// tier), sums it with register_sums, and calls epilogue(ti, col, acc): col
-// is this thread's column of the window at the centre of its first output
-// row's window row (the centre of output r is col[(r + EPS) * WC], WC =
-// COLS + 2EPS), acc its RUN sums.  The shared memory holds two windows.
-template <typename T, typename OpT, int EPS, typename Epilogue>
-__device__ __forceinline__ void reg_tiles(const T* __restrict__ src, int rows, int cols, int off,
-                                          int ntx, int nty, long long ntiles,
-                                          Epilogue epilogue) {
-  constexpr int RUN = RegTile<T>::RUN, ROWS = RegTile<T>::ROWS, COLS = RegTile<T>::COLS;
-  constexpr int WC = COLS + 2 * EPS;
+// The persistent walk over tiles 0 .. ntiles-1: every thread of the 32 x
+// REG_TY block calls it.  stage(buf, t) issues the cp.async copies of tile
+// t's (ROWS + 2EPS) x (COLS + 2EPS) window into buf (row stride WC = COLS +
+// 2EPS) and commits nothing.  For each tile the block rounds the staged
+// window to the operand type in place (the bf16 tier), sums it with
+// register_sums, and calls epilogue(t, col, acc): col is this thread's
+// column of the window at the centre of its first output row's window row
+// (the centre of output r is col[(r + EPS) * WC]), acc its RUN sums.  The
+// shared memory holds two windows.
+template <typename T, typename OpT, int EPS, typename Stage, typename Epilogue>
+__device__ __forceinline__ void reg_walk(long long ntiles, Stage stage, Epilogue epilogue) {
+  constexpr int RUN = RegTile<T>::RUN, WC = RegTile<T>::COLS + 2 * EPS;
   constexpr size_t BUF = reg_window_elems<T, EPS>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* bufs = reinterpret_cast<T*>(smem_raw);
   const int tx = threadIdx.x, r0 = threadIdx.y * RUN;
 
   long long t = blockIdx.x;
-  if (t < ntiles)
-    stage_window<T, EPS>(bufs, src, rows, cols, off, tile_of(t, ntx, nty, ROWS, COLS));
+  if (t < ntiles) stage(bufs, t);
   cp_async_commit();
   int cur = 0;
   for (; t < ntiles; t += gridDim.x) {
     const long long tn = t + gridDim.x;
-    if (tn < ntiles)
-      stage_window<T, EPS>(bufs + (cur ^ 1) * BUF, src, rows, cols, off,
-                           tile_of(tn, ntx, nty, ROWS, COLS));
+    if (tn < ntiles) stage(bufs + (cur ^ 1) * BUF, tn);
     cp_async_commit();
     cp_async_wait<1>();  // this tile's copies have landed (the next tile's may not)
     __syncthreads();
@@ -487,11 +492,74 @@ __device__ __forceinline__ void reg_tiles(const T* __restrict__ src, int rows, i
     const T* col = win + r0 * WC + tx + EPS;
     T acc[RUN];
     register_sums<T, T, EPS, RUN>(col, WC, acc);
-    epilogue(tile_of(t, ntx, nty, ROWS, COLS), col, acc);
+    epilogue(t, col, acc);
     __syncthreads();  // every read of this buffer is done before it is staged again
     cur ^= 1;
   }
   cp_async_wait<0>();
+}
+
+// reg_walk over the (case, row tile, column tile) lattice of a case stack,
+// ntx row tiles by nty column tiles a case, each window staged by
+// stage_window; epilogue(ti, col, acc) gets the tile's TileIndex.
+template <typename T, typename OpT, int EPS, typename Epilogue>
+__device__ __forceinline__ void reg_tiles(const T* __restrict__ src, int rows, int cols, int off,
+                                          int ntx, int nty, long long ntiles,
+                                          Epilogue epilogue) {
+  constexpr int RUN = RegTile<T>::RUN, ROWS = RegTile<T>::ROWS, COLS = RegTile<T>::COLS;
+  reg_walk<T, OpT, EPS>(
+      ntiles,
+      [&](T* buf, long long t) {
+        stage_window<T, EPS>(buf, src, rows, cols, off, tile_of(t, ntx, nty, ROWS, COLS));
+      },
+      [&](long long t, const T* col, const T (&acc)[RUN]) {
+        epilogue(tile_of(t, ntx, nty, ROWS, COLS), col, acc);
+      });
+}
+
+// The cells of a (rows, cols) frame that a stage may read, [r0, r1) x [c0,
+// c1); the others are zero-filled.
+struct Span2 {
+  int r0, r1, c0, c1;
+};
+
+// Whether stage_frame may copy 16 bytes a copy: the frame's base and row
+// pitch (cols) and the window's row width (COLS + 2EPS) are 16-byte
+// aligned, and so are the span's column edges, unless no window of the
+// launch crosses them (edges_crossed false).  A window's origin column is a
+// multiple of COLS, so it is aligned with the rows.
+template <typename T, int EPS>
+inline bool stage_frame_vec(const void* frame, int cols, const Span2& span, bool edges_crossed) {
+  constexpr int V = vec_width<T>();
+  return reinterpret_cast<uintptr_t>(frame) % 16 == 0 && cols % V == 0 &&
+         (RegTile<T>::COLS + 2 * EPS) % V == 0 &&
+         (!edges_crossed || (span.c0 % V == 0 && span.c1 % V == 0));
+}
+
+// Stage the window whose cell (a, c) is frame cell (x + a, y + c) of the
+// row-major frame of row pitch cols, 0 outside span: 16 bytes a copy with
+// vec (stage_frame_vec), else a value a copy.
+template <typename T, int EPS>
+__device__ __forceinline__ void stage_frame(T* buf, const T* frame, int cols, const Span2& span,
+                                            int x, int y, bool vec) {
+  constexpr int WR = RegTile<T>::ROWS + 2 * EPS, WC = RegTile<T>::COLS + 2 * EPS;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  if (vec) {
+    constexpr int V = vec_width<T>(), PER_ROW = WC / V;
+    for (int idx = tid; idx < WR * PER_ROW; idx += REG_THREADS) {
+      const int a = idx / PER_ROW, c = (idx - a * PER_ROW) * V;
+      const int r = x + a, q = y + c;
+      const bool in = r >= span.r0 && r < span.r1 && q >= span.c0 && q + V <= span.c1;
+      cp_async_16(buf + a * WC + c, in ? frame + static_cast<size_t>(r) * cols + q : frame, in);
+    }
+    return;
+  }
+  for (int idx = tid; idx < WR * WC; idx += REG_THREADS) {
+    const int a = idx / WC, c = idx - a * WC;
+    const int r = x + a, q = y + c;
+    const bool in = r >= span.r0 && r < span.r1 && q >= span.c0 && q < span.c1;
+    cp_async_value(buf + idx, in ? frame + static_cast<size_t>(r) * cols + q : frame, in);
+  }
 }
 
 // Launch kernel, a reg_tiles kernel of this T and EPS, over ntiles tiles: as

@@ -423,10 +423,6 @@ __device__ __forceinline__ void sums3_from(const T* win, T* wbuf,
   if constexpr (H < EPS) sums3_from<T, EPS, TP, H + 1, LP>(win, wbuf, W, acc);
 }
 
-// values a 16-byte copy moves
-template <typename T>
-__host__ __device__ constexpr int vec_width() { return 16 / static_cast<int>(sizeof(T)); }
-
 // The window line of eps padded to a whole number of 16-byte copies.
 template <typename T, int EPS>
 __host__ __device__ constexpr int line16() {

@@ -95,10 +95,25 @@ def test_kernels_match_plain_on_card(card, dtype, tol):
             a = ck.step2d(u, eps, 3.0, 50.0, 1e-3, precision=prec, g=u, lg=u, t=2)
             b = ck.step2d_plain(u, eps, 3.0, 50.0, 1e-3, precision=prec, g=u, lg=u, t=2)
             assert float((a - b).abs().max() / b.abs().max()) <= tol
-    assert {k: ck.launch_counts()[k] for k in ("nsum2d", "step2d")} == {"nsum2d": 8, "step2d": 8}
+    # csrc/nsum2d.cu's register walk up to eps 16 (16-byte staging at (1100,
+    # 700) and (1100, 736), whose padded rows and windows are 16-byte
+    # aligned; a value a copy at (1100, 701) and from an unaligned base), the
+    # tile body at eps 17 and, in float32, on a 512^2 plane (fewer tiles than
+    # SMs): bitwise the plain version, which sums in the tile body's order
+    walk = [(1100, 700, 8), (1100, 736, 16), (1100, 701, 8), (70, 45, 17), (512, 512, 8)]
+    for nx, ny, eps in walk:
+        upad = torch.randn(nx + 2 * eps, ny + 2 * eps, dtype=dtype, device=card)
+        for prec in ("f32", "bf16"):
+            a, b = ck.nsum2d(upad, eps, prec), ck.nsum2d_plain(upad, eps, prec)
+            assert float((a - b).abs().max() / b.abs().max()) <= tol
+            assert torch.equal(a, b), (nx, ny, eps, prec)
+    unaligned = torch.randn(1116 * 716 + 1, dtype=dtype, device=card)[1:].view(1116, 716)
+    assert torch.equal(ck.nsum2d(unaligned, 8), ck.nsum2d_plain(unaligned, 8))
+    n = 8 + 2 * len(walk) + 1
+    assert {k: ck.launch_counts()[k] for k in ("nsum2d", "step2d")} == {"nsum2d": n, "step2d": 8}
     with pytest.raises(ValueError, match="beyond what the kernel takes"):
         ck.nsum2d(torch.zeros(200, 200, dtype=dtype, device=card), 70)
-    assert {k: ck.launch_counts()[k] for k in ("nsum2d", "step2d")} == {"nsum2d": 8, "step2d": 8}
+    assert {k: ck.launch_counts()[k] for k in ("nsum2d", "step2d")} == {"nsum2d": n, "step2d": 8}
 
 
 @pytest.mark.cuda
@@ -795,16 +810,42 @@ def test_mesh_bucket_lanes_bitwise_solo_on_card(card, tmp_path, monkeypatch):
 def test_split_kernels_match_plain_and_the_one_pass_sum_on_card(card, dtype, tol):
     from nonlocalheatequation_torch.ops import cuda_halo as th
 
-    # a normal block, a degenerate one (a side <= 2*eps) and a multi-hop-sized one
-    for (bx, by), eps, launches in [((70, 45), 5, 2), ((8, 40), 4, 1), ((8, 8), 9, 1)]:
+    # a normal block, a degenerate one (a side <= 2*eps) and a multi-hop-sized
+    # one; csrc/split_nsum2d.cu's register walk with 16-byte staging at eps 8
+    # and 16 ((1100, 700), (1100, 736), (1024, 1024): phases on the walk's
+    # lattice), a value a copy where the padded row is not 16-byte aligned
+    # ((1100, 701)) or the base is not; a block whose rows hold no lattice
+    # tile inside [eps, bx-eps) ((100, 4300): the interior falls back to
+    # it); the tile body on blocks whose lattice has fewer tiles than SMs
+    # ((300, 200), (512, 512)) and at eps 17
+    for (bx, by), eps, launches in [((70, 45), 5, 2), ((8, 40), 4, 1), ((8, 8), 9, 1),
+                                    ((1100, 700), 8, 2), ((1100, 736), 16, 2),
+                                    ((1100, 701), 8, 2), ((100, 4300), 8, 2),
+                                    ((1024, 1024), 8, 2), ((300, 200), 8, 2), ((512, 512), 8, 2),
+                                    ((70, 45), 17, 2), ((300, 200), 17, 2)]:
         for prec in ("f32", "bf16"):
-            frame = torch.randn(bx + 2 * eps, by + 2 * eps, dtype=dtype, device=card)
-            ck.reset_launch_counts()
-            a = th.split_nsum2d(frame, eps, prec)
-            assert ck.launch_counts()["split_nsum2d"] == launches
-            b = th.split_nsum2d_plain(frame, eps, prec)
-            assert float((a - b).abs().max() / b.abs().max()) <= tol
-            assert torch.equal(a, ck.nsum2d(frame, eps, prec))
+            for base in (0, 1):
+                shape = (bx + 2 * eps, by + 2 * eps)
+                frame = torch.randn(shape[0] * shape[1] + base, dtype=dtype,
+                                    device=card)[base:].view(shape)
+                ck.reset_launch_counts()
+                a = th.split_nsum2d(frame, eps, prec)
+                assert ck.launch_counts()["split_nsum2d"] == launches
+                b = th.split_nsum2d_plain(frame, eps, prec)
+                assert float((a - b).abs().max() / b.abs().max()) <= tol
+                assert torch.equal(a, ck.nsum2d(frame, eps, prec)), (bx, by, eps, prec, base)
+    # the walk's interior reads no halo cell: a frame whose halo is NaN gives
+    # the interior's outputs of the real frame
+    frame = torch.randn(1116, 716, dtype=dtype, device=card)
+    nan_halo = torch.full_like(frame, float("nan"))
+    nan_halo[8:-8, 8:-8] = frame[8:-8, 8:-8]
+    out = torch.full((1100, 700), float("nan"), dtype=dtype, device=card)
+    th.launch_phase("split_nsum2d", nan_halo, out, 8, "f32", "interior")
+    inner = ~torch.isnan(out)
+    # the lattice tiles: rows [128, 1024) in float32 (128-row tiles), [64,
+    # 1088) in float64 (64-row tiles), columns [32, 672)
+    assert int(inner.sum()) == (896 if dtype == torch.float32 else 1024) * 640
+    assert torch.equal(out[inner], ck.nsum2d(frame, 8)[inner])
     # 3D: csrc/split_nsum3d.cu's register design up to eps 6 (16-byte staging
     # at (16, 16, 64) and (24, 24, 100) eps 4 in float32, the latter with a
     # lattice interior; unaligned bz at eps 3 and 6), its tile body at eps 7;

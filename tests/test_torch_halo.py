@@ -137,7 +137,12 @@ def test_exchanged_frames_equal_jax(mesh_shape, block, eps):
 
 # -- the split kernels' plain versions -------------------------------------------------
 
-CASES_2D = [(24, 16, 3), (8, 8, 1), (8, 8, 2), (6, 16, 3), (8, 8, 9), (37, 29, 5), (12, 20, 4)]
+# the last four: the shapes csrc/split_nsum2d.cu's partition on its walk's
+# lattice brings in: eps 16 (the walk's top) and 17 (the tile body's
+# partition), a block whose rows hold no lattice tile of 64 or 128 rows
+# inside [eps, bx-eps) (the interior falls back to it), an unaligned by
+CASES_2D = [(24, 16, 3), (8, 8, 1), (8, 8, 2), (6, 16, 3), (8, 8, 9), (37, 29, 5), (12, 20, 4),
+            (40, 36, 16), (38, 35, 17), (100, 40, 8), (36, 21, 4)]
 
 
 @pytest.mark.parametrize("bx,by,eps", CASES_2D)

@@ -31,7 +31,10 @@ from nonlocalheatequation_tpu.ops.pallas_kernel import (
 # oversubscribing the host's cores
 torch.set_num_threads(1)
 
-SHAPES = [(48, 48, 8), (37, 29, 5), (10, 12, 7), (1, 1, 3), (24, 40, 1)]
+SHAPES = [(48, 48, 8), (37, 29, 5), (10, 12, 7), (1, 1, 3), (24, 40, 1),
+          # csrc/nsum2d.cu's register walk at its top eps (16), the tile body
+          # above it (17), a padded row of 7 + 34 = 41 cells (no 16-byte copies)
+          (20, 36, 16), (12, 7, 17)]
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 
