@@ -146,7 +146,26 @@ line is printed; the phase walls are printed at the end):
    within 1e-5 of the tuned single-device Solver2D/Solver3D, and the steps
    are timed on the card, three runs each, the 'fused' and 'collective'
    steps also under torch.profiler (device time by kernel).
-9. The kernels' JSON line (nsum2d's launches those of phases 4 and 8), then
+10. (Run after phase 8, before phase 9's lines.) Async, logs, checkpoints
+   (phase_async_logs): Solver2D at 4096^2, eps=8, f32, 500 steps with the
+   async binary's throttle nd=5 must hold 5 steps in flight, be bitwise the
+   unthrottled tuned solve and launch exactly 500 step2d and nothing else;
+   both do_work walls are timed in turns and the throttle's cost printed.
+   CASES_2D_ASYNC through solve2d_async --test_batch in float64 (started
+   with phase 3's CLIs) must print "Tests Passed".  Checkpoints every 100
+   steps of 500 against a run stopped at 300 and resumed from its file,
+   bitwise equal, for Solver2D at 4096^2, Solver2DDistributed at 4096^2
+   on a 2x2 mesh of virtual devices (comm='fused') and Solver3D at 256^3,
+   eps=4, with each save's and load's wall (from the checkpoint.save and
+   checkpoint.load spans) and the state's fetch.  solve2d --test --log
+   --nlog 5 at 128^2, 20 steps: the CSV rows, scores and VTU snapshots
+   counted, each snapshot read back and held to a solve that ends at its
+   step.  solve2d --resume --profile at 4096^2, 20 steps: one Chrome trace
+   that names the tuned winner's kernel.  Counted, every part; its
+   launches join the kernels' rows.  Files go to temporary directories
+   that the phase deletes.
+9. The kernels' JSON line (nsum2d's launches those of phases 4, 8 and 10,
+   the other kernels' those of their phases and 10), then
    {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
@@ -2682,6 +2701,247 @@ def phase_distributed(torch, np, ck, l2_threshold) -> list:
             row("fused_nsum3d", "fused_nsum3d.cu", 653)], by
 
 
+# -- phase 10: async, logs, checkpoints ---------------------------------------------------
+
+ASYNC_ND = 5                  # the throttle's depth (the async CLI's default --nd)
+CKPT_EVERY, CKPT_STOP = 100, 300  # checkpoint cadence, and the step a run is stopped at
+LOG_N, LOG_STEPS, LOG_EVERY = 128, 20, 5  # the logged CLI solve: 128^2, 20 steps, --nlog 5
+PROFILE_STEPS = 20            # the profiled CLI solve's steps at 4096^2
+#: the tuner's 2D candidates -> the prefix of their kernels' symbols
+WINNER_SYMBOL = {"per-step": "batched_step2d", "carried": "batched_carried2d",
+                 "superstep2": "superstep2d", "superstep3": "superstep2d",
+                 "resident": "resident2d"}
+
+
+def start_async_cli() -> tuple:
+    """CASES_2D_ASYNC through solve2d_async --test_batch on the card in
+    float64, started with phase 3's CLIs and collected in phase 10;
+    (rows, process)."""
+    rows = cases_module().CASES_2D_ASYNC
+    proc = start_cli("nonlocalheatequation_torch.cli.solve2d_async", rows)
+    CHILDREN.append(proc)
+    return rows, proc
+
+
+def spans_of(tracer, name: str) -> list:
+    """The milliseconds of each ``name`` span the tracer recorded."""
+    return [e["dur"] / 1e3 for e in tracer.events if e["name"] == name]
+
+
+def run_cli(main, argv) -> str:
+    """A port CLI's main(argv) in this process, counted by the caller; its
+    stdout, or a failure on a non-zero exit code."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        fail(f"{' '.join(argv)}: rc {rc}\n{out.getvalue()}\n{err.getvalue()[-4000:]}")
+    return out.getvalue()
+
+
+def phase_async_logs(torch, np, ck, l2_threshold, async_cli) -> dict:
+    """Phase 10: the async binary's throttle, checkpoints, CSV/VTU logs and
+    --profile on the card; returns the launches by part."""
+    from nonlocalheatequation_torch.cli import solve2d
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.models.solver3d import Solver3D
+    from nonlocalheatequation_torch.obs import trace as obs_trace
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh
+    from nonlocalheatequation_torch.utils import autotune
+    from nonlocalheatequation_torch.utils.checkpoint import fetch_state
+    from nonlocalheatequation_torch.utils.vtu import read_vtu_point_data
+
+    f32, by = torch.float32, {}
+    dh = 1.0 / NX
+    probe = NonlocalOp2D(EPS, 1.0, 1.0, dh)
+    dt = 0.8 / (probe.c * dh * dh * probe.wsum)  # 0.8x the Euler bound, as phase 4
+    u0 = np.random.default_rng(SEED + 30).standard_normal((NX, NX))
+
+    def solo(nt, **kw):
+        s = Solver2D(NX, NX, nt, EPS, k=1.0, dt=dt, dh=dh, method="cuda", dtype=f32,
+                     device="cuda", **kw)
+        s.input_init(u0)
+        return s
+
+    # (a) the throttle at full width against the unthrottled tuned solve
+    tuned = solo(STEPS)
+    ref = launches_of(ck, by, f"phase 10 {NX}^2 tuned", tuned.do_work)
+    key = autotune.tuning_key(tuned.op, (NX, NX), f32, "cuda")
+    winner = autotune.records()[key]["winner"]
+    throttled = solo(STEPS, nd=ASYNC_ND)
+    res = launches_of(ck, by, f"phase 10 {NX}^2 nd={ASYNC_ND}", throttled.do_work)
+    if throttled.max_inflight_ != ASYNC_ND:
+        fail(f"the throttle held {throttled.max_inflight_} steps in flight, not {ASYNC_ND}")
+    if not np.array_equal(res, ref):
+        fail(f"the nd={ASYNC_ND} solve at {NX}^2 is not bitwise the tuned solve "
+             f"(winner {winner})")
+    if by[f"phase 10 {NX}^2 nd={ASYNC_ND}"] != {"step2d": STEPS}:
+        fail(f"the nd={ASYNC_ND} solve launched {by[f'phase 10 {NX}^2 nd={ASYNC_ND}']}, not "
+             f"{STEPS} step2d and nothing else")
+    walls = {"throttled": [], "tuned": []}
+    for name in ("throttled", "tuned", "tuned", "throttled") * 2:
+        s = solo(STEPS, nd=ASYNC_ND if name == "throttled" else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.do_work()
+        walls[name].append((time.perf_counter() - t0) * 1e3 / STEPS)
+    cost = min(walls["throttled"]) - min(walls["tuned"])
+    say(f"throttle {NX}^2 eps={EPS} f32 nd={ASYNC_ND}, {STEPS} steps: max in flight "
+        f"{throttled.max_inflight_}, bitwise the tuned solve (winner {winner}), launches "
+        f"{json.dumps(by[f'phase 10 {NX}^2 nd={ASYNC_ND}'])}; do_work wall ms/step in turns "
+        f"(the state's copies included): {json.dumps(walls)}; the throttle's cost "
+        f"{cost:.5f} ms/step ({cost / min(walls['tuned']) * 100:.1f}% of the tuned solve)")
+
+    # (b) the async CLI, started with phase 3's CLIs
+    rows, proc = async_cli
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0 or "Tests Passed" not in out:
+        fail(f"solve2d_async --test_batch --platform gpu --x64 1: rc {proc.returncode}\n"
+             f"{out}\n{err[-4000:]}")
+    say(f"cli solve2d_async --test_batch --platform gpu --x64 1: Tests Passed ({len(rows)} "
+        f"rows, CASES_2D_ASYNC, nd {ASYNC_ND})")
+
+    # (c) checkpoints at full width: stopped at CKPT_STOP and resumed, bitwise the
+    # uninterrupted run; each save's and load's wall
+    mesh = make_mesh(2, 2, device_list("cuda", 4))
+    op3 = op_3d(N3, EPS3)
+    u3 = np.random.default_rng(SEED + 31).standard_normal((N3,) * 3)
+
+    def dist(nt, **kw):
+        s = Solver2DDistributed(NX // 2, NX // 2, 2, 2, nt, EPS, k=1.0, dt=dt, dh=dh, mesh=mesh,
+                                method="cuda", dtype=f32, comm="fused", **kw)
+        s.input_init(u0)
+        return s
+
+    def solo3(nt, **kw):
+        s = Solver3D(N3, N3, N3, nt, EPS3, k=1.0, dt=op3.dt, dh=op3.dh, method="cuda",
+                     dtype=f32, device="cuda", **kw)
+        s.input_init(u3)
+        return s
+
+    ckpt = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, make in ((f"{NX}^2", solo), (f"{NX}^2 2x2 fused", dist),
+                           (f"{N3}^3 eps={EPS3}", solo3)):
+            path = os.path.join(tmp, name.replace(" ", "_").replace("^", "") + ".npz")
+            tracer = obs_trace.Tracer()
+            prev = obs_trace.set_tracer(tracer)
+            try:
+                full = make(STEPS, checkpoint_path=path + ".full", ncheckpoint=CKPT_EVERY)
+                launches_of(ck, by, f"phase 10 {name} checkpointed", full.do_work)
+                first = make(STEPS, checkpoint_path=path, ncheckpoint=CKPT_EVERY)
+                first.nt = CKPT_STOP  # stopped after CKPT_STOP steps, its last save there
+                launches_of(ck, by, f"phase 10 {name} stopped", first.do_work)
+                second = make(STEPS)
+                second.resume(path)
+                launches_of(ck, by, f"phase 10 {name} resumed", second.do_work)
+            finally:
+                obs_trace.set_tracer(prev)
+            if second.t0 != CKPT_STOP or not np.array_equal(second.u, full.u):
+                fail(f"checkpoints {name}: the run resumed at step {second.t0} is not bitwise "
+                     "the uninterrupted run")
+            # the fetch before a save, alone: the state's blocks, or its tensor
+            on_card = (full._device_state()[0] if isinstance(full, Solver2DDistributed)
+                       else torch.as_tensor(full.u, device="cuda"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = fetch_state(on_card)
+            fetch_ms = (time.perf_counter() - t0) * 1e3
+            ckpt[name] = {"saves": STEPS // CKPT_EVERY + CKPT_STOP // CKPT_EVERY,
+                          "state_MiB": host.nbytes / 2**20, "fetch_ms": fetch_ms,
+                          "save_ms": spans_of(tracer, "checkpoint.save"),
+                          "load_ms": spans_of(tracer, "checkpoint.load"),
+                          "launches": {part: by[f"phase 10 {name} {part}"]
+                                       for part in ("checkpointed", "stopped", "resumed")}}
+            if len(ckpt[name]["save_ms"]) != ckpt[name]["saves"]:
+                fail(f"checkpoints {name}: {len(ckpt[name]['save_ms'])} saves, not "
+                     f"{ckpt[name]['saves']}")
+            del full, first, second, on_card, host
+    for name, c in ckpt.items():
+        say(f"checkpoints {name} f32, {STEPS} steps every {CKPT_EVERY} against a run stopped at "
+            f"{CKPT_STOP} and resumed: bitwise equal; {c['state_MiB']:.0f} MiB a state, fetch "
+            f"{c['fetch_ms']:.1f} ms, each save (npz, CRC and fsync) ms "
+            f"{[round(x, 1) for x in c['save_ms']]}, load ms "
+            f"{[round(x, 1) for x in c['load_ms']]}; launches {json.dumps(c['launches'])}")
+    if by[f"phase 10 {NX}^2 2x2 fused stopped"] != {"fused_nsum2d": 4 * CKPT_STOP}:
+        fail(f"the 2x2 run stopped at {CKPT_STOP} launched "
+             f"{by[f'phase 10 {NX}^2 2x2 fused stopped']}, not {4 * CKPT_STOP} fused_nsum2d")
+
+    # (d) logs: solve2d --log at LOG_N^2, the snapshots held to solves that end there
+    argv = ["--test", "--log", "--nlog", str(LOG_EVERY), "--nx", str(LOG_N), "--ny", str(LOG_N),
+            "--nt", str(LOG_STEPS), "--cmp", "false", "--platform", "gpu"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            launches_of(ck, by, f"phase 10 {LOG_N}^2 --log", lambda: run_cli(solve2d.main, argv))
+        finally:
+            os.chdir(cwd)
+        logged = list(range(0, LOG_STEPS, LOG_EVERY))
+        with open(os.path.join(tmp, "out_csv", "simulate_2d.csv")) as f:
+            nrows = sum(1 for _ in f)
+        with open(os.path.join(tmp, "out_csv", "score_2d.csv")) as f:
+            nscore = sum(1 for _ in f)
+        snaps = sorted(os.listdir(os.path.join(tmp, "out_vtk")))
+        if (nrows, nscore, len(snaps)) != (len(logged) * LOG_N**2, len(logged), len(logged)):
+            fail(f"solve2d --log: {nrows} rows, {nscore} scores, snapshots {snaps}; expected "
+                 f"{len(logged)} logs of {LOG_N}^2")
+        worst, bitwise = 0.0, True
+        for i, t in enumerate(logged):
+            data = read_vtu_point_data(os.path.join(tmp, "out_vtk", f"simulate_{i}.vtu"))
+            got = data["Temperature"].reshape(LOG_N, LOG_N).T
+            s = Solver2D(LOG_N, LOG_N, t + 1, 5, dtype=f32, device="cuda")
+            s.test_init()
+            want = launches_of(ck, by, f"phase 10 {LOG_N}^2 log reference {t + 1} steps",
+                               s.do_work)
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            worst, bitwise = max(worst, err), bitwise and np.array_equal(got, want)
+            if not err <= TOL["float32"] or data["TIME"][0] != t * s.op.dt:
+                fail(f"solve2d --log: snapshot {i} (t={t}) differs from a {t + 1}-step solve "
+                     f"by {err:.3e}, or its TIME {data['TIME'][0]} is not {t * s.op.dt}")
+    if by[f"phase 10 {LOG_N}^2 --log"] != {"step2d": LOG_STEPS, "nsum2d": 1}:
+        fail(f"solve2d --log launched {by[f'phase 10 {LOG_N}^2 --log']}")
+    say(f"logs: solve2d --test --log --nlog {LOG_EVERY} at {LOG_N}^2, {LOG_STEPS} steps: {nrows} "
+        f"csv rows, {nscore} scores, {len(snaps)} snapshots read back; each within "
+        f"{worst:.2e} of a solve ending at its step (bitwise: {bitwise})")
+
+    # (e) --profile at 4096^2: resumed from a checkpoint (the production form,
+    # no state on stdin), the trace must name the tuned winner's kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        path, pdir = os.path.join(tmp, "state.npz"), os.path.join(tmp, "profile")
+        s = solo(CKPT_STOP, checkpoint_path=path, ncheckpoint=CKPT_STOP)
+        launches_of(ck, by, f"phase 10 {NX}^2 profile's checkpoint", s.do_work)
+        del s
+        argv = ["--nx", str(NX), "--ny", str(NX), "--nt", str(CKPT_STOP + PROFILE_STEPS),
+                "--eps", str(EPS), "--k", "1.0", "--dt", repr(dt), "--dh", repr(dh),
+                "--method", "cuda", "--checkpoint", path, "--resume", "--profile", pdir,
+                "--cmp", "false", "--platform", "gpu", "--x64", "0"]
+        t0 = time.perf_counter()
+        launches_of(ck, by, f"phase 10 {NX}^2 --profile", lambda: run_cli(solve2d.main, argv))
+        wall = time.perf_counter() - t0
+        traces = [os.path.join(r, f) for r, _, fs in os.walk(pdir) for f in fs]
+        if len(traces) != 1:
+            fail(f"--profile wrote {traces}, not one trace")
+        with open(traces[0]) as f:
+            text = f.read()
+        size = len(text)
+    symbol = WINNER_SYMBOL[winner]
+    n_symbol = text.count(symbol)
+    kernel, k = variant_launches(winner, PROFILE_STEPS)
+    if n_symbol == 0 or by[f"phase 10 {NX}^2 --profile"] != {kernel: k}:
+        fail(f"--profile: the trace names {symbol} (the winner {winner}'s kernel) {n_symbol} "
+             f"times; launches {by[f'phase 10 {NX}^2 --profile']}, expected {{{kernel}: {k}}}")
+    say(f"profile: solve2d --resume --profile at {NX}^2, {PROFILE_STEPS} steps (winner {winner}, "
+        f"{k} {kernel} launches): one Chrome trace of {size} bytes naming {symbol} {n_symbol} "
+        f"times; CLI wall {wall:.2f} s")
+    return by
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -3522,6 +3782,7 @@ def main() -> int:
 
     atexit.register(stop_children)
     clis = start_clis(cases_2d, cases_1d)
+    async_cli = start_async_cli()
     uclis = start_unstructured_clis()
     checks = timed("checks 2d", phase_checks, torch, ck, np)
     checks.update(timed("multi-step checks 2d", phase_multistep_checks, torch, ck, np))
@@ -3544,6 +3805,13 @@ def main() -> int:
             k["launches"] += sum(more.values())
             k.setdefault("launches_by_shape", {}).update(more)
     kernels += halo_rows
+    async_by = timed("async, logs, checkpoints", phase_async_logs, torch, np, ck, l2_threshold,
+                     async_cli)
+    for k in kernels:  # phase 10's solves launch the kernels of phases 4, 5 and 8 again
+        more = by_label(async_by, k["name"])
+        if more:
+            k["launches"] += sum(more.values())
+            k.setdefault("launches_by_shape", {}).update(more)
     say(f"phase walls, s: {json.dumps(walls)}")
     for k in kernels:
         k["checks"] = checks[k["name"]]

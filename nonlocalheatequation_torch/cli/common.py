@@ -5,8 +5,8 @@ The batch protocol is the reference's batch_tester
 (src/1d_nonlocal_serial.cpp:239-266): stdin holds ``num_tests`` then one
 parameter row per test; the CLI prints "Tests Passed" or "Tests Failed".
 The sequential batch loop and ``--ensemble`` (the batched ensemble engine,
-serve/ensemble.py) are ported; serving, observability and the distributed
-launch wait for later slices.
+serve/ensemble.py) are ported, each under ``--profile``; serving,
+observability and the distributed launch wait for later slices.
 """
 
 from __future__ import annotations
@@ -72,6 +72,30 @@ def add_precision_flags(p: argparse.ArgumentParser):
 
 def precision_kwargs(args) -> dict:
     return {"precision": args.precision, "resync_every": args.resync}
+
+
+def add_checkpoint_flags(p: argparse.ArgumentParser):
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file to write every --ncheckpoint steps")
+    p.add_argument("--ncheckpoint", type=int, default=0,
+                   help="steps between checkpoints (0 = never)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the --checkpoint file before running")
+
+
+def checkpoint_refusal(args) -> str | None:
+    """Why the checkpoint flags cannot run as given, or None."""
+    if args.resume and not args.checkpoint:
+        return "--resume requires --checkpoint"
+    if args.test_batch and (args.resume or args.checkpoint):
+        # the batch cases would all share the one --checkpoint path
+        return "--checkpoint/--resume cannot be combined with --test_batch"
+    return None
+
+
+def add_profile_flag(p: argparse.ArgumentParser):
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the solve into DIR")
 
 
 def add_ensemble_flag(p: argparse.ArgumentParser):
@@ -221,22 +245,29 @@ def parse_batch_cases(read_case, tokens, row_tokens=None):
     return cases
 
 
-def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6, run_ensemble=None):
+def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6, run_ensemble=None,
+              profile=None):
     """The reference's batch_tester protocol.  ``read_case`` parses one row
     of ``row_tokens`` tokens; ``run_case(case) -> (error_l2, n)``.  Every
     row is validated before any solve runs.  With ``run_ensemble`` (a
     callable ``cases -> [(error_l2, n)]``, :func:`ensemble_runner`) the
     cases go to the ensemble engine as one submission, under the same pass
-    criterion, instead of the sequential loop.  Returns the exit code."""
+    criterion, instead of the sequential loop.  With ``profile`` (a
+    directory) the whole batch, sequential or ensemble, runs under one
+    ``torch.profiler`` capture (utils/profiling.py).  Returns the exit
+    code."""
+    from nonlocalheatequation_torch.utils import profiling
+
     cases = list(iter_batch_cases(read_case, row_tokens))
-    if run_ensemble is not None:
-        failed = any(error_l2 / n > threshold for error_l2, n in run_ensemble(cases))
-    else:
-        failed = False
-        for case in cases:
-            error_l2, n = run_case(case)
-            if error_l2 / n > threshold:
-                failed = True
-                break
+    with profiling.trace(profile):
+        if run_ensemble is not None:
+            failed = any(error_l2 / n > threshold for error_l2, n in run_ensemble(cases))
+        else:
+            failed = False
+            for case in cases:
+                error_l2, n = run_case(case)
+                if error_l2 / n > threshold:
+                    failed = True
+                    break
     print("Tests Failed" if failed else "Tests Passed")
     return 1 if failed else 0

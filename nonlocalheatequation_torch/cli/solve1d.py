@@ -3,6 +3,10 @@
 
     echo "1
     50 45 5 1 0.001 0.02" | python -m nonlocalheatequation_torch.cli.solve1d --test_batch
+
+A single solve takes ``--log`` (CSV/VTU logs every ``--nlog`` steps,
+utils/csvlog.py) and ``--profile DIR`` (a torch.profiler trace), as the JAX
+CLI does.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from nonlocalheatequation_torch.cli.common import (
     add_ensemble_flag,
     add_platform_flags,
     add_precision_flags,
+    add_profile_flag,
     announce_stable_dt,
     bool_flag,
     ensemble_refusal,
@@ -38,10 +43,16 @@ def build_parser() -> argparse.ArgumentParser:
     bool_flag(p, "cmp", True, "print expected vs actual outputs")
     p.add_argument("--nx", type=int, default=50)
     p.add_argument("--nt", type=int, default=45)
+    p.add_argument("--nlog", type=int, default=5)
     p.add_argument("--eps", type=int, default=5)
     p.add_argument("--k", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=0.001)
     p.add_argument("--dx", type=float, default=0.02)
+    p.add_argument("--no-header", action="store_true", dest="no_header")
+    p.add_argument("--backend", default="torch", choices=("oracle", "torch"))
+    p.add_argument("--log", action="store_true",
+                   help="write csv/vtu logs every nlog steps")
+    add_profile_flag(p)
     add_platform_flags(p)
     add_precision_flags(p)
     add_ensemble_flag(p)
@@ -60,7 +71,8 @@ def main(argv=None) -> int:
     from nonlocalheatequation_torch.models.solver1d import Solver1D
 
     try:
-        kw = {**platform_kwargs(args), **precision_kwargs(args)}
+        kw = {"backend": args.backend, "nlog": args.nlog, **platform_kwargs(args),
+              **precision_kwargs(args)}
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -86,16 +98,25 @@ def main(argv=None) -> int:
         if args.ensemble:
             run_ensemble = ensemble_runner(make_solver, precision=args.precision,
                                            device=kw["device"], dtype=kw["dtype"])
-        return run_batch(read_case, run_case, row_tokens=6, run_ensemble=run_ensemble)
+        return run_batch(read_case, run_case, row_tokens=6, run_ensemble=run_ensemble,
+                         profile=args.profile)
 
     s = Solver1D(args.nx, args.nt, args.eps, k=args.k, dt=args.dt,
                  dx=args.dx, **kw)
+    if args.log:
+        from nonlocalheatequation_torch.utils.csvlog import SimulationCsvLogger
+
+        s.logger = SimulationCsvLogger(s.op, test=args.test, tag="1d", nlog=args.nlog)
     if args.test:
         s.test_init()
     else:
         s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[: args.nx])
+
+    from nonlocalheatequation_torch.utils.profiling import trace
+
     t0 = time.perf_counter()
-    u = s.do_work()
+    with trace(args.profile):
+        u = s.do_work()
     elapsed = time.perf_counter() - t0
     if args.test:
         s.print_error(args.cmp)
@@ -105,7 +126,8 @@ def main(argv=None) -> int:
 
     from nonlocalheatequation_torch.utils.timing import print_time_results_1d
 
-    print_time_results_1d(os.cpu_count() or 1, elapsed, args.nx, args.nt)
+    print_time_results_1d(os.cpu_count() or 1, elapsed, args.nx, args.nt,
+                          header=not args.no_header)
     return 0
 
 

@@ -5,7 +5,11 @@
     50 50 45 5 1 0.0005 0.02" | python -m nonlocalheatequation_torch.cli.solve2d --test_batch
 
 runs on the CUDA card (``--platform cpu`` for the CPU) and prints
-"Tests Passed" when every row meets error_l2/#points <= 1e-6.
+"Tests Passed" when every row meets error_l2/#points <= 1e-6.  A single
+solve takes ``--log`` (CSV/VTU logs every ``--nlog`` steps under out_csv/
+and out_vtk/, utils/csvlog.py), ``--checkpoint``/``--ncheckpoint``/
+``--resume`` (utils/checkpoint.py) and ``--profile DIR`` (a torch.profiler
+trace, utils/profiling.py), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -18,11 +22,14 @@ import time
 import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
+    add_checkpoint_flags,
     add_ensemble_flag,
     add_platform_flags,
     add_precision_flags,
+    add_profile_flag,
     announce_stable_dt,
     bool_flag,
+    checkpoint_refusal,
     ensemble_refusal,
     ensemble_runner,
     platform_kwargs,
@@ -42,14 +49,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nx", type=int, default=50)
     p.add_argument("--ny", type=int, default=50)
     p.add_argument("--nt", type=int, default=45)
+    p.add_argument("--nlog", type=int, default=5)
     p.add_argument("--eps", type=int, default=5)
     p.add_argument("--k", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=0.0005)
     p.add_argument("--dh", type=float, default=0.02)
+    p.add_argument("--no-header", action="store_true", dest="no_header")
+    p.add_argument("--backend", default="torch", choices=("oracle", "torch"))
     p.add_argument("--method", default="auto",
                    choices=("auto", "cuda", "conv", "shift", "sat"),
                    help="neighbour-sum evaluation: auto (cuda on the card, conv on "
                         "the CPU), cuda (the hand-written kernels), conv, shift, sat")
+    p.add_argument("--log", action="store_true",
+                   help="write csv/vtu logs every nlog steps")
+    add_checkpoint_flags(p)
+    add_profile_flag(p)
     add_platform_flags(p)
     add_precision_flags(p)
     add_ensemble_flag(p)
@@ -58,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    err = ensemble_refusal(args)
+    err = checkpoint_refusal(args) or ensemble_refusal(args)
     if err:
         print(err, file=sys.stderr)
         return 1
@@ -68,8 +82,8 @@ def main(argv=None) -> int:
     from nonlocalheatequation_torch.models.solver2d import Solver2D
 
     try:
-        kw = {"method": args.method, **platform_kwargs(args),
-              **precision_kwargs(args)}
+        kw = {"method": args.method, "backend": args.backend, "nlog": args.nlog,
+              **platform_kwargs(args), **precision_kwargs(args)}
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -96,16 +110,27 @@ def main(argv=None) -> int:
             run_ensemble = ensemble_runner(make_solver, method=args.method,
                                            precision=args.precision, device=kw["device"],
                                            dtype=kw["dtype"])
-        return run_batch(read_case, run_case, row_tokens=7, run_ensemble=run_ensemble)
+        return run_batch(read_case, run_case, row_tokens=7, run_ensemble=run_ensemble,
+                         profile=args.profile)
 
-    s = Solver2D(args.nx, args.ny, args.nt, args.eps, k=args.k,
-                 dt=args.dt, dh=args.dh, **kw)
+    s = Solver2D(args.nx, args.ny, args.nt, args.eps, k=args.k, dt=args.dt, dh=args.dh,
+                 checkpoint_path=args.checkpoint, ncheckpoint=args.ncheckpoint, **kw)
+    if args.log:
+        from nonlocalheatequation_torch.utils.csvlog import SimulationCsvLogger
+
+        s.logger = SimulationCsvLogger(s.op, test=args.test, tag="2d", nlog=args.nlog)
     if args.test:
         s.test_init()
-    else:
+    elif not args.resume:
         s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[: args.nx * args.ny])
+    if args.resume:
+        s.resume(args.checkpoint)
+
+    from nonlocalheatequation_torch.utils.profiling import trace
+
     t0 = time.perf_counter()
-    s.do_work()
+    with trace(args.profile):
+        s.do_work()
     elapsed = time.perf_counter() - t0
     if args.test:
         s.print_error(args.cmp)
@@ -114,7 +139,8 @@ def main(argv=None) -> int:
 
     from nonlocalheatequation_torch.utils.timing import print_time_results_2d
 
-    print_time_results_2d(os.cpu_count() or 1, elapsed, args.nx, args.ny, args.nt)
+    print_time_results_2d(os.cpu_count() or 1, elapsed, args.nx, args.ny, args.nt,
+                          header=not args.no_header)
     return 0
 
 

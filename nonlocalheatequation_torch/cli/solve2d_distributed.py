@@ -16,10 +16,14 @@ device named again in turn, parallel/mesh.py).  ``--comm fused`` runs the
 halo kernels (ops/cuda_halo.py: on cards, the halo read inside the kernel)
 and needs ``--method cuda``.
 
+A single solve takes ``--log`` (CSV/VTU logs of the global state every
+``--nlog`` steps, written by the one process that owns every block),
+``--checkpoint``/``--ncheckpoint``/``--resume`` (the global state, which
+``solve2d`` resumes too) and ``--profile DIR``, as the JAX CLI does.
+
 Not ported yet, and refused by name (rc 1): partition maps (``--file``),
-rebalancing (``--nbalance``, ``--test_load_balance``), checkpoints
-(``--checkpoint``, ``--ncheckpoint``, ``--resume``), ``--log``,
-``--profile``, a non-Euler ``--stepper`` and ``--method fft``.
+rebalancing (``--nbalance``, ``--test_load_balance``), a non-Euler
+``--stepper`` and ``--method fft``.
 """
 
 from __future__ import annotations
@@ -32,10 +36,13 @@ import time
 import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
+    add_checkpoint_flags,
     add_platform_flags,
     add_precision_flags,
+    add_profile_flag,
     announce_stable_dt,
     bool_flag,
+    checkpoint_refusal,
     platform_kwargs,
     run_batch,
     version_banner,
@@ -85,11 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--superstep-stages", dest="stages", type=int, default=0, metavar="S",
                    help="--stepper rkc: the stage count; --stepper expo: the boundary "
                         "correction's substeps (neither ported yet)")
-    p.add_argument("--log", action="store_true", help="CSV logging (not ported yet)")
-    p.add_argument("--checkpoint", default=None, help="checkpoint file (not ported yet)")
-    p.add_argument("--ncheckpoint", type=int, default=0)
-    p.add_argument("--resume", action="store_true")
-    p.add_argument("--profile", default=None, metavar="DIR", help="not ported yet")
+    p.add_argument("--log", action="store_true",
+                   help="write csv/vtu logs every nlog steps")
+    add_checkpoint_flags(p)
+    add_profile_flag(p)
     add_platform_flags(p)
     add_precision_flags(p)
     return p
@@ -101,10 +107,6 @@ def _refusal(args) -> str | None:
         (args.file != "None", "--file", "partition maps (the elastic executor)"),
         (args.nbalance > 0, "--nbalance", "rebalancing (the elastic executor)"),
         (args.test_load_balance, "--test_load_balance", "the elastic executor's balance report"),
-        (args.checkpoint is not None or args.ncheckpoint, "--checkpoint", "checkpointing"),
-        (args.resume, "--resume", "checkpointing"),
-        (args.log, "--log", "CSV logging"),
-        (args.profile is not None, "--profile", "profiling"),
         (args.stepper != "euler", f"--stepper {args.stepper}", "the stepper tier"),
         (args.method == "fft", "--method fft", "the sharded spectral tier"),
     ]
@@ -122,7 +124,7 @@ def _refusal(args) -> str | None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    err = _refusal(args)
+    err = checkpoint_refusal(args) or _refusal(args)
     if err:
         print(err, file=sys.stderr)
         return 1
@@ -150,7 +152,8 @@ def main(argv=None) -> int:
         return Solver2DDistributed(nx, ny, npx, npy, nt, eps, nlog=args.nlog, k=k, dt=dt,
                                    dh=dh, mesh=mesh, method=args.method, dtype=kw["dtype"],
                                    superstep=args.superstep, precision=args.precision,
-                                   comm=args.comm)
+                                   comm=args.comm, checkpoint_path=args.checkpoint,
+                                   ncheckpoint=args.ncheckpoint)
 
     try:
         if args.test_batch:
@@ -173,13 +176,23 @@ def main(argv=None) -> int:
     except ValueError as e:  # a configuration the solver refuses
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if args.log:
+        from nonlocalheatequation_torch.utils.csvlog import SimulationCsvLogger
+
+        s.logger = SimulationCsvLogger(s.op, test=args.test, tag="2d", nlog=args.nlog)
     if args.test:
         s.test_init()
-    else:
+    elif not args.resume:
         n = s.NX * s.NY
         s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[:n])
+    if args.resume:
+        s.resume(args.checkpoint)
+
+    from nonlocalheatequation_torch.utils.profiling import trace
+
     t0 = time.perf_counter()
-    s.do_work()
+    with trace(args.profile):
+        s.do_work()
     elapsed = time.perf_counter() - t0
     if args.test:
         s.print_error(args.cmp)

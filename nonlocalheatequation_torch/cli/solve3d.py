@@ -11,9 +11,11 @@ error_l2/#points <= 1e-6; ``--ensemble`` runs the rows through the batched
 ensemble engine.  ``--distributed`` shards the grid over every device of
 the platform (parallel/distributed3d.py; ``--comm fused`` runs the halo
 kernels of ops/cuda_halo.py and needs ``--method cuda``, ``--superstep K`` the
-communication-avoiding schedule).  The JAX CLI's checkpoint, serving,
-network and profiling flags and ``--method fft`` are refused by name: they
-are not ported yet.
+communication-avoiding schedule).  A single solve takes
+``--checkpoint``/``--ncheckpoint``/``--resume`` (utils/checkpoint.py; a
+checkpoint of either solver resumes in the other) and ``--profile DIR``.
+The JAX CLI's serving and network flags and ``--method fft`` are refused by
+name: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,11 +28,14 @@ import time
 import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
+    add_checkpoint_flags,
     add_ensemble_flag,
     add_platform_flags,
     add_precision_flags,
+    add_profile_flag,
     announce_stable_dt,
     bool_flag,
+    checkpoint_refusal,
     ensemble_refusal,
     ensemble_runner,
     platform_kwargs,
@@ -41,10 +46,6 @@ from nonlocalheatequation_torch.cli.common import (
 
 #: the JAX CLI's flags that the port does not have yet -> what they select
 NOT_PORTED = {
-    "--checkpoint": "checkpointing",
-    "--ncheckpoint": "checkpointing",
-    "--resume": "checkpointing",
-    "--profile": "profiling",
     "--serve": "the serving engine",
     "--listen": "the network front door",
 }
@@ -79,6 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--superstep", type=int, default=1, metavar="K",
                    help="with --distributed: exchange a K*eps-wide halo once per K steps "
                         "(communication-avoiding)")
+    add_checkpoint_flags(p)
+    add_profile_flag(p)
     add_platform_flags(p)
     add_precision_flags(p)
     add_ensemble_flag(p)
@@ -120,7 +123,7 @@ def _distributed_refusal(args) -> str | None:
 def main(argv=None) -> int:
     p = build_parser()
     args, rest = p.parse_known_args(argv)
-    err = _refusal(args, rest) or ensemble_refusal(args)
+    err = _refusal(args, rest) or checkpoint_refusal(args) or ensemble_refusal(args)
     if err:
         print(err, file=sys.stderr)
         return 1
@@ -139,13 +142,15 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
+    ckpt = {"checkpoint_path": args.checkpoint, "ncheckpoint": args.ncheckpoint}
+
     def solver(nx, ny, nz, nt, eps, k, dt, dh):
         if args.distributed:
             return Solver3DDistributed(nx, ny, nz, nt, eps, nlog=args.nlog, k=k, dt=dt, dh=dh,
                                        method=args.method, dtype=kw["dtype"],
                                        superstep=args.superstep, precision=args.precision,
-                                       comm=args.comm, device=kw["device"])
-        return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **kw)
+                                       comm=args.comm, device=kw["device"], **ckpt)
+        return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **ckpt, **kw)
 
     if args.test_batch:
         # row: nx ny nz nt eps k dt dh
@@ -168,7 +173,8 @@ def main(argv=None) -> int:
             run_ensemble = ensemble_runner(make_solver, method=args.method,
                                            precision=args.precision, device=kw["device"],
                                            dtype=kw["dtype"])
-        return run_batch(read_case, run_case, row_tokens=8, run_ensemble=run_ensemble)
+        return run_batch(read_case, run_case, row_tokens=8, run_ensemble=run_ensemble,
+                         profile=args.profile)
 
     try:
         s = solver(args.nx, args.ny, args.nz, args.nt, args.eps, args.k, args.dt, args.dh)
@@ -177,11 +183,17 @@ def main(argv=None) -> int:
         return 1
     if args.test:
         s.test_init()
-    else:
+    elif not args.resume:
         n = args.nx * args.ny * args.nz
         s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[:n])
+    if args.resume:
+        s.resume(args.checkpoint)
+
+    from nonlocalheatequation_torch.utils.profiling import trace
+
     t0 = time.perf_counter()
-    s.do_work()
+    with trace(args.profile):
+        s.do_work()
     elapsed = time.perf_counter() - t0
     if args.test:
         s.print_error(args.cmp)

@@ -10,9 +10,21 @@ Counterpart of ``nonlocalheatequation_tpu/models/solver2d.py``:
   mode the manufactured source's L(G) is evaluated on the device in float64
   by the operator's own method (the ``nsum2d`` kernel on the card).
 
-Arrays are [x, y] of shape (nx, ny).  The dispatch-ahead throttle ``nd``
-and checkpointing are not ported yet; the constructor refuses them.
-:class:`GridSolver` holds the set-up and loop that ``Solver3D``
+The device path has three forms, as the JAX package's ``_run_jit``:
+
+* no logger, no checkpoints and ``nd=None``: one multi-step program over
+  the whole run (``make_multi_step_fn``, tuned on the card);
+* a logger or checkpoints: one multi-step program per segment between the
+  barriers (every ``nlog`` steps, every ``ncheckpoint`` steps;
+  utils/checkpoint.CheckpointMixin._run_chunked);
+* ``nd`` set: the async binary's sliding semaphore
+  (src/2d_nonlocal_async.cpp:410,442-451), one ``make_step_fn`` step at a
+  time with at most ``nd`` steps in flight on the card: a CUDA event is
+  recorded after each step and the oldest is waited on once more than
+  ``nd`` are outstanding.
+
+Arrays are [x, y] of shape (nx, ny).  :class:`GridSolver` holds the set-up,
+loops and checkpoint/resume (utils/checkpoint.py) that ``Solver3D``
 (models/solver3d.py) shares.
 """
 
@@ -28,16 +40,10 @@ from nonlocalheatequation_torch.models.steppers import (
     validate_solver_stepper,
 )
 from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, source_at
+from nonlocalheatequation_torch.utils.checkpoint import CheckpointMixin, fetch_state
 from nonlocalheatequation_torch.utils.devices import resolve_device, resolve_dtype
 
 BACKENDS = ("oracle", "torch")
-
-
-def refuse_unported(nd=None, checkpoint_path=None, ncheckpoint=0) -> None:
-    if nd is not None:
-        raise ValueError("nd (the dispatch-ahead throttle) is not ported yet")
-    if checkpoint_path or ncheckpoint:
-        raise ValueError("checkpointing is not ported yet (checkpoint_path/ncheckpoint)")
 
 
 def ensemble_case_of(solver, shape, dh):
@@ -53,11 +59,12 @@ def ensemble_case_of(solver, shape, dh):
                         dh=dh, test=solver.test, u0=solver.u0)
 
 
-class GridSolver(ManufacturedMetrics2D):
-    """The set-up and time loop the 2D and 3D solvers share: the NumPy
+class GridSolver(CheckpointMixin, ManufacturedMetrics2D):
+    """The set-up and time loops the 2D and 3D solvers share: the NumPy
     oracle and the device path over ``self.op`` on ``self._grid_shape``."""
 
-    def _setup(self, op, backend: str, stepper: str, stages: int, logger, dtype, device):
+    def _setup(self, op, backend: str, stepper: str, stages: int, logger, dtype, device,
+               checkpoint_path, ncheckpoint: int, nd: int | None = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
         self.device = resolve_device(device)
@@ -66,6 +73,10 @@ class GridSolver(ManufacturedMetrics2D):
         self.stepper, self.stages = validate_solver_stepper(op, backend, stepper, stages)
         self.backend = backend
         self.logger = logger
+        self.nd = None if nd is None else int(nd)
+        self.max_inflight_ = 0  # the throttle's peak of steps in flight
+        self.checkpoint_path = checkpoint_path
+        self.ncheckpoint = int(ncheckpoint)
         self.t0 = 0
         self.test = False
         self.u0 = np.zeros(self._grid_shape, dtype=np.float64)
@@ -111,26 +122,55 @@ class GridSolver(ManufacturedMetrics2D):
             u = u + self.op.dt * du
             if t % self.nlog == 0 and self.logger is not None:
                 self.logger(t, u)
+            self._maybe_checkpoint(t, u)
         return u
 
     def _run_torch(self):
         g, lg = (self.op.source_parts_on(*self._grid_shape, self.device)
                  if self.test else (None, None))
-        # a copy: the logged loop below steps into this buffer, and u0 (or the
+        # a copy: the throttled loop steps into this buffer, and u0 (or the
         # caller's input_init array) must not change
         u = torch.tensor(self.u0, device=self.device, dtype=self.dtype)
         kw = dict(stepper=self.stepper, stages=self.stages)
-        if self.logger is None:
+        checkpointing = bool(self.checkpoint_path and self.ncheckpoint)
+        if self.logger is None and self.nd is None and not checkpointing:
             multi = make_multi_step_fn(self.op, self.nt - self.t0, g, lg, self.dtype, **kw)
             return multi(u, self.t0).cpu().numpy()
-        step = make_step_fn(self.op, g, lg, self.dtype, **kw)
+        if self.nd is None:
+            # one multi-step program per segment; barriers = log and checkpoint steps
+            return self._run_chunked(u, lambda count: make_multi_step_fn(
+                self.op, count, g, lg, self.dtype, **kw)).cpu().numpy()
+        return self._run_throttled(u, make_step_fn(self.op, g, lg, self.dtype, **kw))
+
+    def _run_throttled(self, u, step):
+        """The per-step loop under the ``nd`` sliding semaphore.  Steps go
+        into two buffers in turn (stream order makes the reuse safe); the
+        throttle tracks events, never the buffers, which later steps
+        overwrite.  On the CPU, where every step has finished when it
+        returns, a marker takes the event's place, so ``max_inflight_``
+        means the same."""
+        on_card = u.device.type == "cuda"
+        stream = torch.cuda.current_stream(u.device) if on_card else None
         spare = torch.empty_like(u)
+        inflight = []
+        self.max_inflight_ = 0
         for t in range(self.t0, self.nt):
             nxt = step(u, t, out=spare)
             spare, u = u, nxt
-            if t % self.nlog == 0:
-                # a copy: the two step buffers are overwritten in turn
-                self.logger(t, u.to("cpu", copy=True).numpy())
+            if t % self.nlog == 0 and self.logger is not None:
+                self.logger(t, fetch_state(u))
+            self._maybe_checkpoint(t, u)
+            if on_card:
+                done = torch.cuda.Event()
+                done.record(stream)
+                inflight.append(done)
+            else:
+                inflight.append(t)
+            if len(inflight) > self.nd:
+                oldest = inflight.pop(0)
+                if on_card:
+                    oldest.synchronize()
+            self.max_inflight_ = max(self.max_inflight_, len(inflight))
         return u.cpu().numpy()
 
 
@@ -158,12 +198,12 @@ class Solver2D(GridSolver):
         resync_every: int = 0,
         device=None,
     ):
-        refuse_unported(nd, checkpoint_path, ncheckpoint)
         self.nx, self.ny = int(nx), int(ny)
         self.nt, self.eps, self.nlog = int(nt), int(eps), int(nlog)
         op = NonlocalOp2D(eps, k, dt, dh, method=method, precision=precision,
                           resync_every=resync_every)
-        self._setup(op, backend, stepper, stages, logger, dtype, device)
+        self._setup(op, backend, stepper, stages, logger, dtype, device, checkpoint_path,
+                    ncheckpoint, nd)
 
     @property
     def _grid_shape(self):

@@ -9,20 +9,22 @@ axis and is held to the same manufactured-solution contract):
 * ``backend="torch"`` (default) — the time loop on ``device`` (the CUDA card
   unless ``device="cpu"``).  On the card with ``method="cuda"``/``"auto"``
   the production solve goes through the tuner (per-step ``step3d``,
-  ``carried3d``, or ``resident3d`` where the grid fits); the test form and a
-  logged run launch the fused ``step3d`` once per step, and the test form's
-  L(G) is evaluated on the device in float64 by the operator's own method
-  (the ``nsum3d`` kernel on the card).  On the CPU ``auto`` is ``sat``.
+  ``carried3d``, or ``resident3d`` where the grid fits); the test form
+  launches the fused ``step3d`` once per step, and the test form's L(G) is
+  evaluated on the device in float64 by the operator's own method (the
+  ``nsum3d`` kernel on the card).  On the CPU ``auto`` is ``sat``.  A logger
+  or checkpoints run one multi-step program per segment between the
+  barriers, as in 2D.
 
-Arrays are [x, y, z] of shape (nx, ny, nz).  ``ensemble_case()`` (from
-:class:`GridSolver`) hands the solve to the ensemble engine
-(serve/ensemble.py).  Checkpointing and the dispatch-ahead throttle ``nd``
-are not ported yet; they are refused by name.
+Arrays are [x, y, z] of shape (nx, ny, nz).  ``ensemble_case()`` and
+checkpoint/resume come from :class:`GridSolver`.  The dispatch-ahead
+throttle ``nd`` is the 2D async binary's: the JAX Solver3D has no such
+parameter, and this one refuses it.
 """
 
 from __future__ import annotations
 
-from nonlocalheatequation_torch.models.solver2d import GridSolver, refuse_unported
+from nonlocalheatequation_torch.models.solver2d import GridSolver
 from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp3D
 
 
@@ -51,12 +53,15 @@ class Solver3D(GridSolver):
         resync_every: int = 0,
         device=None,
     ):
-        refuse_unported(nd, checkpoint_path, ncheckpoint)
+        if nd is not None:
+            raise ValueError("Solver3D takes no nd: the dispatch-ahead throttle is the 2D "
+                             "async binary's (Solver2D), and the JAX Solver3D has none")
         self.nx, self.ny, self.nz = int(nx), int(ny), int(nz)
         self.nt, self.eps, self.nlog = int(nt), int(eps), int(nlog)
         op = NonlocalOp3D(eps, k, dt, dh, method=method, precision=precision,
                           resync_every=resync_every)
-        self._setup(op, backend, stepper, stages, logger, dtype, device)
+        self._setup(op, backend, stepper, stages, logger, dtype, device, checkpoint_path,
+                    ncheckpoint)
 
     @property
     def _grid_shape(self):

@@ -19,9 +19,10 @@ sum), ``edges`` (``index_add_``, the JAX package's ``segment_sum``) and
 gates test for a TPU backend; here they test the operator's device, and a
 CUDA device is treated as the TPU is.
 
-Not ported yet, and refused by name: ``ShardedUnstructuredOp`` with its
-ring halo, the solver's ``superstep > 1`` and checkpointing (the
-distributed slice).  The JAX package's ``NLHEAT_WINDOWED``,
+:class:`UnstructuredSolver` checkpoints and resumes (utils/checkpoint.py),
+in the original node order whatever the layout.  Not ported yet, and
+refused by name: ``ShardedUnstructuredOp`` with its ring halo and the
+solver's ``superstep > 1`` (the distributed slice).  The JAX package's ``NLHEAT_WINDOWED``,
 ``NLHEAT_OFFSETS`` and ``NLHEAT_WINDOWED_BUDGET_MB`` knobs are not read:
 nothing in the port sets them, and the budget is a constant.
 """
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.ops.nonlocal_op import source_at
+from nonlocalheatequation_torch.utils.checkpoint import CheckpointMixin
 from nonlocalheatequation_torch.utils.devices import resolve_device, resolve_dtype
 
 #: candidate pairs per vectorized distance pass of the NumPy edge builder
@@ -361,7 +363,7 @@ class UnstructuredNonlocalOp:
         return np.cos(2.0 * np.pi * (t * self.dt)) * self.spatial_profile()
 
 
-class UnstructuredSolver:
+class UnstructuredSolver(CheckpointMixin):
     """Forward-Euler solver on a point cloud, the grid solvers' contract:
     ``test_init`` + ``do_work`` + ``error_l2/#points <= 1e-6``.
 
@@ -369,7 +371,8 @@ class UnstructuredSolver:
     operator's device in ``dtype`` (float64 on the CPU, float32 on the card
     by default) with the layout ``layout`` (``auto``: the operator's policy,
     resolved once).  The windowed layout keeps the state in Morton order for
-    the whole solve: one permute in, one out."""
+    the whole solve: one permute in, one out, and one out for each
+    checkpoint, which holds the original node order."""
 
     BACKENDS = ("oracle", "torch")
 
@@ -378,9 +381,6 @@ class UnstructuredSolver:
                  ncheckpoint: int = 0, superstep: int = 1, dtype=None):
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {self.BACKENDS}")
-        if checkpoint_path or ncheckpoint:
-            raise ValueError("checkpointing is not ported yet to nonlocalheatequation_torch "
-                             "(checkpoint_path/ncheckpoint)")
         if int(superstep) > 1:
             raise ValueError("superstep > 1 is not ported yet to nonlocalheatequation_torch "
                              "(it needs the sharded offsets operator, ShardedUnstructuredOp, "
@@ -390,12 +390,26 @@ class UnstructuredSolver:
         self.backend = backend
         self.layout = layout
         self.dtype = resolve_dtype(dtype, op.device)
+        self.checkpoint_path = checkpoint_path
+        self.ncheckpoint = int(ncheckpoint)
         self.t0 = 0
         self.test = False
         self.u0 = np.zeros(op.n)
         self.u = None
         self.error_l2 = 0.0
         self.error_linf = 0.0
+
+    def _ckpt_params(self) -> dict:
+        """The point cloud's canonical parameters: eps is a per-point field
+        here, so its mean and L2 stand for it."""
+        op = self.op
+        return dict(shape=[int(op.n)], eps=float(np.mean(op.eps)),
+                    eps_l2=float(np.sum(op.eps ** 2)), k=float(op.k), dt=float(op.dt),
+                    test=bool(self.test))
+
+    @property
+    def _grid_shape(self):
+        return (self.op.n,)
 
     def test_init(self):
         self.test = True
@@ -415,6 +429,7 @@ class UnstructuredSolver:
                 if self.test:
                     du = du + source_at(g, lg, t, op.dt)
                 u = u + op.dt * du
+                self._maybe_checkpoint(t, u)
         else:
             u = self._run_torch(g, lg)
         self.u = u
@@ -439,6 +454,8 @@ class UnstructuredSolver:
             if self.test:
                 du = du + source_at(gd, lgd, t, op.dt)
             u = u + op.dt * du
+            if self._ckpt_due(t):
+                self._maybe_checkpoint(t, u if ex is None else u[ex.rank])
         if ex is not None:
             u = u[ex.rank]
         return u.cpu().numpy()

@@ -25,9 +25,13 @@ re-injects).  A run of ``count`` steps is q supersteps of K and one
 shallower remainder superstep.
 
 One process steps every block in turn (the JAX package's single-controller
-``shard_map``).  Not ported yet, and refused by name: non-Euler steppers,
-``method="fft"`` (the sharded spectral tier), checkpointing, the chunked
-logging run (``logger``), and ``nbalance`` (the elastic executor).
+``shard_map``).  A logger or checkpoints run one runner per segment between
+the barriers (utils/checkpoint.CheckpointMixin._run_chunked), the logger
+and the checkpoint given the GLOBAL state (``fetch_global``); the
+checkpoint's parameters are the single-device solvers', so a distributed
+checkpoint resumes in ``Solver2D``/``Solver3D`` and the reverse.  Not ported
+yet, and refused by name: non-Euler steppers, ``method="fft"`` (the sharded
+spectral tier) and ``nbalance`` (the elastic executor).
 :class:`DistributedGridSolver` holds what the 2D and 3D solvers share.
 """
 
@@ -37,7 +41,6 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.models.metrics import ManufacturedMetrics2D
-from nonlocalheatequation_torch.models.solver2d import refuse_unported
 from nonlocalheatequation_torch.models.steppers import validate_stepper
 from nonlocalheatequation_torch.obs import trace as obs_trace
 from nonlocalheatequation_torch.obs.metrics import REGISTRY
@@ -57,6 +60,7 @@ from nonlocalheatequation_torch.parallel.mesh import (
     make_mesh,
     put_global,
 )
+from nonlocalheatequation_torch.utils.checkpoint import CheckpointMixin
 from nonlocalheatequation_torch.utils.devices import resolve_dtype
 
 
@@ -81,20 +85,15 @@ def choose_mesh_for_grid(NX: int, NY: int, devices=None) -> Mesh:
     return make_mesh(mx, my, devices)
 
 
-def refuse_unported_distributed(method: str, stepper: str, stages: int, logger,
-                                checkpoint_path, ncheckpoint) -> None:
+def refuse_unported_distributed(method: str, stepper: str, stages: int) -> None:
     """The distributed solvers' refusals of what is not ported yet."""
     validate_stepper(stepper, stages)
     if method == "fft":
         raise ValueError("method='fft' (the sharded spectral tier) is not ported yet to "
                          "nonlocalheatequation_torch")
-    refuse_unported(None, checkpoint_path, ncheckpoint)
-    if logger is not None:
-        raise ValueError("logger (the logged, chunked run) is not ported yet to "
-                         "nonlocalheatequation_torch")
 
 
-class DistributedGridSolver(ManufacturedMetrics2D):
+class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
     """The set-up, step programs and time loop the 2D and 3D distributed
     solvers share; a subclass sets ``AXES``, ``_grid_shape`` and the
     operator."""
@@ -103,7 +102,11 @@ class DistributedGridSolver(ManufacturedMetrics2D):
     #: print_error prefixes coordinates (2d_nonlocal_distributed.cpp:538-541)
     _cmp_coordinate_prefix = True
 
-    def _setup(self, op, mesh, device, dtype, superstep: int, comm: str, choose_mesh):
+    def _setup(self, op, mesh, device, dtype, superstep: int, comm: str, choose_mesh,
+               logger, checkpoint_path, ncheckpoint: int):
+        self.logger = logger
+        self.checkpoint_path = checkpoint_path
+        self.ncheckpoint = int(ncheckpoint)
         self.ksteps = max(1, int(superstep))
         self.op = op
         self.mesh = mesh if mesh is not None else choose_mesh(*self._grid_shape,
@@ -283,8 +286,19 @@ class DistributedGridSolver(ManufacturedMetrics2D):
         blocks, srcs = self._device_state()
         if srcs and self.ksteps > 1:
             srcs = self._prep_sources(*srcs)
+        checkpointing = bool(self.checkpoint_path and self.ncheckpoint)
+
+        def make_runner(count):
+            # the segment runner the mixin calls, one per distinct count
+            run = self._make_runner(count)
+            return lambda b, start: run(b, start, srcs)
+
         with obs_trace.span("halo.exchange", cat="halo", **self._halo_obs(self.nt - self.t0)):
-            blocks = self._make_runner(self.nt - self.t0)(blocks, self.t0, srcs)
+            if self.logger is None and not checkpointing:
+                blocks = self._make_runner(self.nt - self.t0)(blocks, self.t0, srcs)
+            else:
+                # one runner per segment; barriers = log and checkpoint steps
+                blocks = self._run_chunked(blocks, make_runner)
             self.u = fetch_global(blocks)
         if self.test:
             self.compute_l2(self.nt)
@@ -324,10 +338,10 @@ class Solver2DDistributed(DistributedGridSolver):
             raise ValueError(
                 "resync_every is not supported on the distributed path; run the serial "
                 "solver, or precision='bf16' without resync")
-        refuse_unported_distributed(method, stepper, stages, logger, checkpoint_path,
-                                    ncheckpoint)
+        refuse_unported_distributed(method, stepper, stages)
         op = NonlocalOp2D(eps, k, dt, dh, method=method, precision=precision)
-        self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid)
+        self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid, logger,
+                    checkpoint_path, ncheckpoint)
 
     @property
     def _grid_shape(self):

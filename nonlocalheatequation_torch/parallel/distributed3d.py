@@ -9,7 +9,8 @@ Mesh('x', 'y', 'z'), an eps-band exchange on every mesh axis each step
 ``"fused"`` (``fused_nsum3d``, the halo read inside the kernel, or after
 the band copies ``split_nsum3d``; bitwise the same), and the
 communication-avoiding superstep on the collective path.  The numerics are
-the single-device 3D solve's.
+the single-device 3D solve's; a logger and checkpoints run as in 2D, and a
+checkpoint resumes in ``Solver3D`` and the reverse.
 """
 
 from __future__ import annotations
@@ -66,10 +67,10 @@ class Solver3DDistributed(DistributedGridSolver):
                  stepper: str = "euler", stages: int = 0, device=None):
         self.NX, self.NY, self.NZ = int(NX), int(NY), int(NZ)
         self.nt, self.eps, self.nlog = int(nt), int(eps), int(nlog)
-        refuse_unported_distributed(method, stepper, stages, logger, checkpoint_path,
-                                    ncheckpoint)
+        refuse_unported_distributed(method, stepper, stages)
         op = NonlocalOp3D(eps, k, dt, dh, method=method, precision=precision)
-        self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid_3d)
+        self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid_3d, logger,
+                    checkpoint_path, ncheckpoint)
 
     @property
     def _grid_shape(self):

@@ -15,12 +15,12 @@ order for a sharded solve) waits for the distributed slice.
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import os
-import socket
 
 import numpy as np
+
+from nonlocalheatequation_torch.utils.checkpoint import atomic_file
 
 #: Env knob: the mesh directory.  ""/"0" = registry off, "1" = the
 #: per-user default, anything else = an explicit directory.
@@ -30,26 +30,6 @@ DEFAULT_DIR = os.path.join(os.path.expanduser("~"), ".cache", "nlheat", "meshes"
 
 #: Upload bound on the node count (``NLHEAT_MESH_MAX_NODES`` overrides).
 MAX_NODES = 4_000_000
-
-
-@contextlib.contextmanager
-def atomic_file(path: str, mode: str = "wb"):
-    """Crash-safe file write: yield a same-directory tmp file, fsync it,
-    then ``os.replace`` it onto ``path``; a kill mid-write leaves the
-    previous file untouched and a failed write leaves no tmp behind."""
-    tmp = f"{path}.tmp.{socket.gethostname()}.{os.getpid()}"
-    try:
-        with open(tmp, mode) as f:
-            yield f
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
 
 
 def mesh_dir_from_env() -> str | None:

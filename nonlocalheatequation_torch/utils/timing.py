@@ -1,14 +1,34 @@
 """Wall-clock timing reports in the reference's CSV layouts
-(include/print_time_results.hpp:65-97).  ``elapsed_s`` is in seconds."""
+(include/print_time_results.hpp:19-97): distributed, async, 2D and 1D, and
+the JAX package's 3D extension.  ``elapsed_s`` is in seconds; ``header``
+prints the column line first (the CLIs' ``--no-header`` drops it)."""
 
 from __future__ import annotations
 
 
+def print_time_results_async(num_os_threads: int, elapsed_s: float, nx: int, ny: int,
+                             np_parts: int, nt: int, header: bool = True):
+    """print_time_results.hpp:44-63."""
+    if header:
+        print("OS_Threads,Execution_Time_sec,"
+              "       nx,    ny,     Partitions,Time_Steps")
+    print(
+        f"{num_os_threads},".ljust(22)
+        + f"{elapsed_s:.14g}, "
+        + f"{nx},".ljust(22)
+        + f"{ny},".ljust(22)
+        + f"{np_parts},".ljust(22)
+        + f"{nt} ".ljust(22).rstrip(),
+        flush=True,
+    )
+
+
 def print_time_results_2d(num_os_threads: int, elapsed_s: float, nx: int, ny: int,
-                          nt: int):
+                          nt: int, header: bool = True):
     """print_time_results.hpp:65-82."""
-    print("OS_Threads,       Execution_Time_sec,"
-          "       x dimension,        y dimension,        Time_Steps")
+    if header:
+        print("OS_Threads,       Execution_Time_sec,"
+              "       x dimension,        y dimension,        Time_Steps")
     print(
         f"{num_os_threads},".ljust(22)
         + f"{elapsed_s:10.12g},        "
@@ -19,10 +39,12 @@ def print_time_results_2d(num_os_threads: int, elapsed_s: float, nx: int, ny: in
     )
 
 
-def print_time_results_1d(num_os_threads: int, elapsed_s: float, nx: int, nt: int):
+def print_time_results_1d(num_os_threads: int, elapsed_s: float, nx: int, nt: int,
+                          header: bool = True):
     """print_time_results.hpp:84-97."""
-    print("OS_Threads,       Execution_Time_sec,"
-          "       x dimension,        y dimension,        Time_Steps")
+    if header:
+        print("OS_Threads,       Execution_Time_sec,"
+              "       x dimension,        y dimension,        Time_Steps")
     print(
         f"{num_os_threads},".ljust(22)
         + f"{elapsed_s:10.12g},        "

@@ -199,8 +199,9 @@ def test_solver3d_logger_input_init_and_refusals():
         Solver3D(4, 4, 4, 1, 1, device=CPU, stepper="rkc", stages=4)
     with pytest.raises(ValueError, match="not ported yet"):
         Solver3D(4, 4, 4, 1, 1, device=CPU, stepper="expo")
-    with pytest.raises(ValueError, match="checkpointing"):
-        Solver3D(4, 4, 4, 1, 1, device=CPU, checkpoint_path="x.npz", ncheckpoint=2)
+    # the dispatch-ahead throttle is Solver2D's; the JAX Solver3D has no nd
+    with pytest.raises(ValueError, match="Solver3D takes no nd"):
+        Solver3D(4, 4, 4, 1, 1, device=CPU, nd=4)
     case = Solver3D(4, 4, 4, 1, 1, device=CPU).ensemble_case()
     assert case.shape == (4, 4, 4) and case.bucket_key() == ((4, 4, 4), 1, 1, False, None)
     s = Solver3D(4, 4, 4, 3, 1, device=CPU)
@@ -234,14 +235,37 @@ def test_cli_single_solve_timing_row_and_failure(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--ncheckpoint", "3"], "--ncheckpoint"), (["--listen-host=h"], "--listen-host"),
-    (["--serve-deadline-ms=5"], "--serve-deadline-ms"), (["--checkpoint", "x.npz"], "--checkpoint"),
-    (["--resume"], "--resume"), (["--serve", "2"], "--serve"),
+    (["--ncheckpoint", "3"], None), (["--listen-host=h"], "--listen-host"),
+    (["--serve-deadline-ms=5"], "--serve-deadline-ms"), (["--checkpoint", "x.npz"], None),
+    (["--resume"], None), (["--serve", "2"], "--serve"),
     (["--serve-retries=1"], "--serve-retries"), (["--listen", "0"], "--listen"),
-    (["--profile", "d"], "--profile"), (["--method", "fft"], "--method fft")])
-def test_cli_refuses_what_is_not_ported_by_name(capsys, argv, name):
-    assert solve3d.main(argv + ["--platform", "cpu"]) == 1
-    assert capsys.readouterr().err.startswith(f"{name} is not ported yet")
+    (["--profile", "d"], None), (["--method", "fft"], "--method fft")])
+def test_cli_refuses_what_is_not_ported_by_name(capsys, tmp_path, monkeypatch, argv, name):
+    if name is not None:
+        assert solve3d.main(argv + ["--platform", "cpu"]) == 1
+        assert capsys.readouterr().err.startswith(f"{name} is not ported yet")
+        return
+    # ported since: the flag runs a single solve (rc 0) and writes its file
+    monkeypatch.chdir(tmp_path)
+    base = ["--test", "--platform", "cpu", "--nx", "6", "--ny", "5", "--nz", "4", "--nt", "4",
+            "--eps", "1"]
+    if argv == ["--resume"]:
+        assert solve3d.main(base + ["--checkpoint", "x.npz", "--ncheckpoint", "2"]) == 0
+        argv = ["--checkpoint", "x.npz", "--resume", "--nt", "6"]
+    elif argv[0] == "--ncheckpoint":
+        argv = argv + ["--checkpoint", "x.npz", "--nt", "6"]
+    elif argv[0] == "--checkpoint":
+        argv = argv + ["--ncheckpoint", "2"]
+    assert solve3d.main(base + argv) == 0
+    assert "l2: " in capsys.readouterr().out
+    if "--profile" in argv:
+        assert len(list((tmp_path / "d").iterdir())) == 1
+    else:
+        from nonlocalheatequation_torch.utils.checkpoint import load_state
+
+        _, t, params = load_state(str(tmp_path / "x.npz"))
+        assert params["shape"] == [6, 5, 4] and t == (6 if argv[:2] == ["--ncheckpoint", "3"]
+                                                      else 4)
 
 
 def test_cli_module_entry_point():

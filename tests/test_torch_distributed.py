@@ -223,11 +223,19 @@ def test_default_mesh_is_the_card_or_the_requested_cpu():
 
 # -- refusals by name -------------------------------------------------------------------
 
+class _Logged(list):
+    """A logger recording the steps it was called at."""
+
+    def __call__(self, t, u):
+        self.append(t)
+
+
+#: (kwargs, refusal) — a refusal of None: ported since, the solve runs
 REFUSALS_2D = [
     (dict(stepper="rkc", stages=4), "stepper='rkc' is not ported yet"),
     (dict(method="fft"), "method='fft' .* is not ported yet"),
-    (dict(checkpoint_path="x.npz", ncheckpoint=2), "checkpointing is not ported yet"),
-    (dict(logger=lambda t, u: None), "logger .* is not ported yet"),
+    (dict(checkpoint_path="x.npz", ncheckpoint=2), None),
+    (dict(logger=_Logged()), None),
     (dict(nbalance=10), "ElasticSolver2D, which supports nbalance, is not ported yet"),
     (dict(resync_every=2, precision="bf16"), "resync_every is not supported on the distributed"),
     (dict(comm="rdma"), "collective' or 'fused"),
@@ -236,17 +244,37 @@ REFUSALS_2D = [
 ]
 
 
+def _refused_or_runs(make, kw, match, tmp_path, monkeypatch):
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            make(**kw)
+        return
+    # ported since: the solve runs and writes its checkpoint, or logs step 0
+    monkeypatch.chdir(tmp_path)
+    if "logger" in kw:
+        kw["logger"].clear()
+    s = make(**kw)
+    s.test_init()
+    s.do_work()
+    if "logger" in kw:
+        assert kw["logger"] == [0]
+    else:
+        assert (tmp_path / kw["checkpoint_path"]).is_file()
+
+
 @pytest.mark.parametrize("kw,match", REFUSALS_2D)
-def test_solver_refusals_2d(kw, match):
-    with pytest.raises(ValueError, match=match):
-        td2.Solver2DDistributed(8, 8, 2, 2, nt=2, eps=2, mesh=_mesh(2, 2), **kw)
+def test_solver_refusals_2d(kw, match, tmp_path, monkeypatch):
+    _refused_or_runs(lambda **kw: td2.Solver2DDistributed(8, 8, 2, 2, nt=2, eps=2,
+                                                          mesh=_mesh(2, 2), **kw),
+                     kw, match, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("kw,match", [r for r in REFUSALS_2D
                                       if "nbalance" not in r[0] and "resync_every" not in r[0]])
-def test_solver_refusals_3d(kw, match):
-    with pytest.raises(ValueError, match=match):
-        td3.Solver3DDistributed(8, 8, 8, nt=2, eps=1, mesh=_mesh3(2, 2, 2), **kw)
+def test_solver_refusals_3d(kw, match, tmp_path, monkeypatch):
+    _refused_or_runs(lambda **kw: td3.Solver3DDistributed(8, 8, 8, nt=2, eps=1,
+                                                          mesh=_mesh3(2, 2, 2), **kw),
+                     kw, match, tmp_path, monkeypatch)
 
 
 # -- observability ------------------------------------------------------------------------
@@ -357,10 +385,10 @@ def test_cli_single_solve_prints_the_jax_lines(monkeypatch, capsys):
     (["--file", "map.txt"], "--file is not ported yet"),
     (["--nbalance", "5"], "--nbalance is not ported yet .*elastic"),
     (["--test_load_balance"], "--test_load_balance is not ported yet"),
-    (["--checkpoint", "c.npz", "--ncheckpoint", "2"], "--checkpoint is not ported yet"),
-    (["--resume"], "--resume is not ported yet"),
-    (["--log"], "--log is not ported yet"),
-    (["--profile", "d"], "--profile is not ported yet"),
+    (["--checkpoint", "c.npz", "--ncheckpoint", "2"], None),
+    (["--resume"], None),
+    (["--log"], None),
+    (["--profile", "d"], None),
     (["--stepper", "rkc", "--superstep-stages", "4"], "--stepper rkc is not ported yet"),
     (["--method", "fft"], "--method fft is not ported yet"),
     (["--comm", "fused"], "needs method='cuda'"),
@@ -368,11 +396,29 @@ def test_cli_single_solve_prints_the_jax_lines(monkeypatch, capsys):
     (["--resync", "2", "--precision", "bf16"], "--resync is not supported"),
     (["--superstep-stages", "4"], "--stepper euler takes no stage count"),
 ])
-def test_cli_refusals(capsys, argv, message):
+def test_cli_refusals(capsys, tmp_path, monkeypatch, argv, message):
     import re
 
-    assert tcli.main(argv + ["--platform", "cpu", "--devices", "4", "--nt", "2"]) == 1
-    assert re.search(message, capsys.readouterr().err)
+    base = ["--platform", "cpu", "--devices", "4", "--nt", "2"]
+    if message is not None:
+        assert tcli.main(argv + base) == 1
+        assert re.search(message, capsys.readouterr().err)
+        return
+    # ported since: the flag runs a single solve (rc 0) and writes its files
+    monkeypatch.chdir(tmp_path)
+    if argv == ["--resume"]:
+        assert tcli.main(["--checkpoint", "c.npz", "--ncheckpoint", "2"] + base) == 0
+        argv = ["--checkpoint", "c.npz", "--resume", "--nt", "4"]
+    assert tcli.main(base + argv) == 0
+    assert "l2: " in capsys.readouterr().out
+    written = sorted(str(p.relative_to(tmp_path)) for p in tmp_path.rglob("*") if p.is_file())
+    if "--log" in argv:
+        assert written == ["out_csv/score_2d.csv", "out_csv/simulate_2d.csv",
+                           "out_vtk/simulate_0.vtu"]
+    elif "--profile" in argv:
+        assert len(written) == 1 and written[0].startswith("d/")
+    else:
+        assert written == ["c.npz"]
 
 
 def test_cli_default_platform_is_the_card(capsys):

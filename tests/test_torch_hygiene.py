@@ -3,8 +3,9 @@
 * A subprocess with ``jax`` and ``nonlocalheatequation_tpu`` blocked in
   ``sys.modules`` imports every module of the port and chip_smoke.py and
   runs a small 2D and 3D CPU solve, a 2-case ensemble, a small windowed
-  unstructured solve, a 2-case mesh-bucket ensemble and the distributed
-  2D (fused) and 3D solves on meshes of virtual CPU devices.
+  unstructured solve, a 2-case mesh-bucket ensemble, the distributed
+  2D (fused) and 3D solves on meshes of virtual CPU devices, a throttled
+  Solver2D (``nd``), a checkpoint round trip and solve2d_async's batch.
 * No source file of the port names either package in an import; the
   distributed slice's modules are among them.
 * The entry points default to the card: without one they raise (or the
@@ -75,6 +76,24 @@ s = Solver3DDistributed(8, 8, 8, 3, 2, method="cuda", comm="fused",
 s.test_init()
 s.do_work()
 assert s.error_l2 / 512 <= 1e-6, s.error_l2
+s = Solver2D(20, 20, 12, 3, k=0.2, dt=0.001, device="cpu", method="cuda", nd=3)
+s.test_init()
+s.do_work()
+assert s.max_inflight_ == 3 and s.error_l2 / 400 <= 1e-6, (s.max_inflight_, s.error_l2)
+from nonlocalheatequation_torch.utils.checkpoint import load_state
+path = os.path.join(tempfile.mkdtemp(), "state.npz")
+s = Solver2D(20, 20, 8, 3, device="cpu", checkpoint_path=path, ncheckpoint=4)
+s.test_init()
+s.do_work()
+r = Solver2D(20, 20, 12, 3, device="cpu")
+r.test_init()
+r.resume(path)
+assert r.t0 == 8 and load_state(path)[0].shape == (20, 20)
+r.do_work()
+import io
+from nonlocalheatequation_torch.cli import solve2d_async
+sys.stdin = io.StringIO("1\\n1 1 20 40 5 0.2 0.001 0.02\\n")
+assert solve2d_async.main(["--test_batch", "--platform", "cpu"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "nonlocalheatequation_tpu"))
                for m, v in sys.modules.items() if v is not None)
 print("imported", len(names))
@@ -121,7 +140,7 @@ def test_the_distributed_slice_imports_neither_package():
 def test_distributed_entry_points_default_to_the_card():
     import torch
 
-    from nonlocalheatequation_torch.cli import solve2d_distributed
+    from nonlocalheatequation_torch.cli import solve2d_async, solve2d_distributed
     from nonlocalheatequation_torch.parallel import distributed2d, distributed3d, mesh
 
     if torch.cuda.is_available():
@@ -139,6 +158,7 @@ def test_distributed_entry_points_default_to_the_card():
         else:
             raise AssertionError("an entry point ran on the CPU without being asked to")
     assert solve2d_distributed.main(["--nt", "1"]) == 2
+    assert solve2d_async.main(["--nt", "1"]) == 2
 
 
 def test_chip_smoke_refuses_without_a_card():

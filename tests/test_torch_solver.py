@@ -114,10 +114,6 @@ def test_solver_refusals():
         Solver2D(10, 10, 1, 2, device=CPU, stepper="rkc", stages=4)
     with pytest.raises(ValueError, match="not ported yet"):
         Solver1D(10, 1, 2, device=CPU, stepper="expo")
-    with pytest.raises(ValueError, match="nd"):
-        Solver2D(10, 10, 1, 2, device=CPU, nd=4)
-    with pytest.raises(ValueError, match="checkpointing"):
-        Solver2D(10, 10, 1, 2, device=CPU, checkpoint_path="x.npz", ncheckpoint=2)
     with pytest.raises(ValueError, match="torch.float64 or torch.float32"):
         Solver2D(10, 10, 1, 2, device=CPU, dtype=torch.float16)
 

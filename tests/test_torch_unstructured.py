@@ -302,12 +302,16 @@ def test_solver_input_init_free_decay_and_float32():
     assert ts.u.dtype == np.float32 and not ts.test
 
 
-def test_solver_refuses_what_is_not_ported_by_name():
+def test_solver_refuses_what_is_not_ported_by_name(tmp_path):
     _, top = _pair(*CLOUDS[0][1:])
     with pytest.raises(ValueError, match="superstep > 1 is not ported yet"):
         tun.UnstructuredSolver(top, nt=4, superstep=2)
-    with pytest.raises(ValueError, match="checkpointing is not ported yet"):
-        tun.UnstructuredSolver(top, nt=4, checkpoint_path="x.npz", ncheckpoint=2)
+    # checkpointing is ported since (tests/test_torch_checkpoint.py): it runs
+    s = tun.UnstructuredSolver(top, nt=4, checkpoint_path=str(tmp_path / "x.npz"),
+                               ncheckpoint=2)
+    s.test_init()
+    s.do_work()
+    assert (tmp_path / "x.npz").is_file()
     with pytest.raises(ValueError, match="unknown backend"):
         tun.UnstructuredSolver(top, nt=4, backend="jit")
     if not torch.cuda.is_available():
