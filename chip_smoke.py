@@ -164,8 +164,33 @@ line is printed; the phase walls are printed at the end):
    that names the tuned winner's kernel.  Counted, every part; its
    launches join the kernels' rows.  Files go to temporary directories
    that the phase deletes.
-9. The kernels' JSON line (nsum2d's launches those of phases 4, 8 and 10,
-   the other kernels' those of their phases and 10), then
+11. (Run after phase 10, before phase 9's lines.) Decomposition, partition
+   maps, the load balancer and the elastic executor (phase_elastic): (a) the
+   reference's documented 4-node run: a binary 4.1 mesh of 400x400 at
+   dh=1/400 decomposed by the port's CLI into 20x20 tiles of 20^2 over 4
+   owners (edge cut no worse than the quadrant map's), then
+   solve2d_distributed --file --eps 8 --dt 1e-5 --nt 20 --test true in
+   float64 on 4 virtual devices of the card: the manufactured contract, and
+   the state within 1e-12 of the single-device Solver2D; (b) the headline
+   4096^2, eps=8, f32, test form through the executor as 8x8 tiles of 512^2
+   on 4 virtual devices, from 61 tiles on device 1 and one on each other,
+   --nbalance 20, 200 steps: the gang stretches' and the measured windows'
+   ms/step, each rebalance's busy rates and moves, the final balance check,
+   bitwise equal to the default map without nbalance, to the run whose every
+   step is measured (the rectangle walk) and to the single-device Solver2D,
+   the manufactured contract; (c) the reference's acceptance check,
+   solve2d_distributed --file data/load_balance_25s_2n.txt on 2 virtual
+   devices and _4n.txt on 4, --test_load_balance --nbalance 10 --nt 45
+   --eps 5, float64, ten runs each: the balancer moves tiles off the start
+   and empties no device; the verdict on measured busy rates ("Load
+   balanced correctly", max |busy - mean| <= 1500 of 10000) is recorded
+   per run, not gated (on the card's wall clock it fails in about a
+   quarter of the 4n runs and about 1 in 100 of the 2n runs: PERF.md
+   §6).  Which partitioner ran
+   (native or NumPy) is printed.  Counted: one nsum2d a tile a step, and
+   one a test-form run for L(G).
+9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10 and
+   11, the other kernels' those of their phases, 10 and 11), then
    {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
@@ -2942,6 +2967,308 @@ def phase_async_logs(torch, np, ck, l2_threshold, async_cli) -> dict:
     return by
 
 
+# -- phase 11: decomposition, partition maps, the balancer, the elastic executor ----------
+
+REF_N, REF_TILE, REF_EPS, REF_DT, REF_STEPS = 400, 20, 8, 1e-5, 20  # the reference's 4-node run
+EL_TILES, EL_STEPS, EL_NBALANCE, EL_DEVICES = 8, 200, 20, 4  # 4096^2 as 8x8 tiles of 512^2
+#: the reference's acceptance fixtures, each on its number of virtual devices
+ACCEPT_FIXTURES = (("data/load_balance_25s_2n.txt", 2), ("data/load_balance_25s_4n.txt", 4))
+ACCEPT_ARGS = ["--test_load_balance", "--nbalance", "10", "--nt", "45", "--eps", "5"]
+ACCEPT_REPEATS = 10  # runs of each fixture: the verdict is recorded per run
+
+
+def l2_line(text: str, what: str) -> float:
+    """error_l2 from a distributed CLI's ``l2: X linfinity: Y`` line."""
+    line = next((x for x in text.splitlines() if x.startswith("l2: ")), None)
+    if line is None:
+        fail(f"{what}: no l2 line\n{text[-2000:]}")
+    return float(line.split()[1])
+
+
+def instrument_elastic(torch, np, s, gang_cls) -> dict:
+    """Wrap an ElasticSolver2D's gang stretches, measured steps and
+    rebalances to record their walls (between card synchronizations), the
+    busy rates each rebalance read and the tiles it moved."""
+    stats = {"gang": [], "window": [], "rebalances": []}
+    s._gang = gang_cls(s)
+    stretch, measured, rebalance = s._gang.run_stretch, s._step_all_measured, s._rebalance
+
+    def timed(kind, fn, *args, steps=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        stats[kind].append(((time.perf_counter() - t0) * 1e3, steps))
+        return out
+
+    def logged_rebalance():
+        busy = np.asarray(s.telemetry.busy_rates(s.assignment), dtype=np.float64)
+        moved = rebalance()
+        stats["rebalances"].append({
+            "busy": [round(float(b), 1) for b in busy], "moved": int(moved),
+            "tiles": np.bincount(s.assignment.ravel(), minlength=len(s.devices)).tolist()})
+        return moved
+
+    s._gang.run_stretch = lambda t0, n: timed("gang", stretch, t0, n, steps=n)
+    s._step_all_measured = lambda t: timed("window", measured, t)
+    s._rebalance = logged_rebalance
+    return stats
+
+
+def ms_per_step(parts) -> float:
+    steps = sum(n for _, n in parts)
+    return sum(ms for ms, _ in parts) / steps if steps else float("nan")
+
+
+def phase_elastic(torch, np, ck, l2_threshold) -> dict:
+    """Phase 11: (a) the reference's documented 4-node run: a binary 4.1
+    mesh of 400x400 at dh=1/400, split by the port's decomposition CLI into
+    20x20 tiles of 20^2 over 4 owners (its edge cut no worse than the
+    quadrant map's), then solve2d_distributed --file on 4 virtual devices of
+    the card, eps=8, dt=1e-5, 20 steps, float64: the manufactured contract,
+    and the state (from its checkpoint at the last step) within 1e-12 of
+    the single-device Solver2D.  (b) Full width: 4096^2, eps=8, float32,
+    test form, as 8x8 tiles of 512^2 on 4 virtual devices, from 61 tiles on
+    device 1 and one on each of the others, --nbalance 20, 200 steps: the
+    gang stretches' and measured windows' ms/step, the rates and moves of
+    each rebalance, the final balance check, the device time of a 10-step
+    gang stretch by kernel (torch.profiler); bitwise equal to the default
+    map without nbalance, to the imbalanced map with every step measured
+    (the rectangle walk, no gang stretch) and to the single-device Solver2D;
+    the manufactured contract.  (c) The reference's acceptance check:
+    solve2d_distributed --file data/load_balance_25s_2n.txt on 2 virtual
+    devices and _4n.txt on 4, --test_load_balance --nbalance 10 --nt 45
+    --eps 5, float64, ten runs each: the balancer must move tiles
+    off the fixture's start and empty no device; the report's verdict (max
+    |busy - mean| <= 1500 of 10000, measured) is recorded.  Every run
+    counted: each tile's frame is one nsum2d launch a step, and each
+    test-form run's L(G) one more.  Returns the launches by part."""
+    from nonlocalheatequation_torch.cli import decompose as decompose_cli
+    from nonlocalheatequation_torch.cli import solve2d_distributed
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+    from nonlocalheatequation_torch.parallel.elastic import ElasticSolver2D
+    from nonlocalheatequation_torch.parallel.gang import GangExecutor
+    from nonlocalheatequation_torch.parallel.load_balance import balance_check
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+    from nonlocalheatequation_torch.utils import decompose
+    from nonlocalheatequation_torch.utils.checkpoint import load_state
+    from nonlocalheatequation_torch.utils.gmsh import write_structured_msh
+    from nonlocalheatequation_torch.utils.partition_map import read_partition_map
+
+    by = {}
+    say(f"elastic: partitioner {decompose.PARTITIONER} ("
+        + ("native/build/libpartition.so" if decompose.PARTITIONER == "native"
+           else "rcb_numpy + refine_cut_numpy: native/build/libpartition.so is not built")
+        + ")")
+
+    def expect(label, want):
+        got = by[label]
+        if got != want:
+            fail(f"{label}: launched {json.dumps(got)}, expected {json.dumps(want)}")
+
+    # (a) the reference's documented 4-node run, float64
+    n_t = REF_N // REF_TILE
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh, map_path, ck_path = (os.path.join(tmp, f) for f in ("mesh.msh", "map.txt", "c.npz"))
+        t0 = time.perf_counter()
+        write_structured_msh(mesh, REF_N, REF_N, 1.0 / REF_N, binary=True)
+        run_cli(decompose_cli.main, [mesh, map_path, "4", "--sx", str(REF_TILE),
+                                     "--sy", str(REF_TILE)])
+        decompose_s = time.perf_counter() - t0
+        pmap = read_partition_map(map_path)
+        quad = (np.arange(n_t)[:, None] // (n_t // 2)) * 2 + np.arange(n_t)[None, :] // (n_t // 2)
+        cut, quad_cut = decompose.edge_cut(pmap.assignment), decompose.edge_cut(quad)
+        owners = np.bincount(pmap.assignment.ravel(), minlength=4)
+        if ((pmap.nx, pmap.ny, pmap.npx, pmap.npy) != (REF_TILE, REF_TILE, n_t, n_t)
+                or cut > quad_cut or owners.max() - owners.min() > 1):
+            fail(f"decompose {REF_N}^2 into {REF_TILE}^2 tiles over 4: map {pmap.nx}x{pmap.ny} "
+                 f"tiles on {pmap.npx}x{pmap.npy}, owners {owners.tolist()}, edge cut {cut} "
+                 f"(quadrants {quad_cut})")
+        label = f"phase 11 {REF_N}^2 map, {n_t * n_t} tiles of {REF_TILE}^2 eps={REF_EPS} f64"
+        argv = ["--file", map_path, "--eps", str(REF_EPS), "--dt", repr(REF_DT), "--nt",
+                str(REF_STEPS), "--test", "true", "--cmp", "false", "--method", "cuda",
+                "--platform", "gpu", "--x64", "1", "--devices", "4", "--checkpoint", ck_path,
+                "--ncheckpoint", str(REF_STEPS), "--no-header"]
+        t0 = time.perf_counter()
+        text = launches_of(ck, by, label, lambda: run_cli(solve2d_distributed.main, argv))
+        cli_s = time.perf_counter() - t0
+        expect(label, {"nsum2d": n_t * n_t * REF_STEPS + 1})
+        err = l2_line(text, "solve2d_distributed --file") / REF_N**2
+        if not err <= l2_threshold:
+            fail(f"solve2d_distributed --file ({REF_N}^2 map): error_l2/#points {err:.3e} > "
+                 f"{l2_threshold:g}")
+        u, t_saved, _ = load_state(ck_path)
+    ref = Solver2D(REF_N, REF_N, REF_STEPS, REF_EPS, k=1.0, dt=REF_DT, dh=pmap.dh, method="cuda",
+                   dtype=torch.float64, device="cuda")
+    ref.test_init()
+    launches_of(ck, by, f"phase 11 {REF_N}^2 single-device reference", ref.do_work)
+    diff = float(np.abs(u - ref.u).max())
+    if t_saved != REF_STEPS or not diff <= TOL["float64"]:
+        fail(f"solve2d_distributed --file at t={t_saved}: max|elastic - Solver2D| {diff:.3e} > "
+             f"{TOL['float64']:g}")
+    say(f"elastic (a): {REF_N}^2 binary 4.1 mesh decomposed by cli.decompose into {n_t}x{n_t} "
+        f"tiles of {REF_TILE}^2 over 4 owners {owners.tolist()} in {decompose_s:.2f} s, edge cut "
+        f"{cut} (quadrants {quad_cut}); solve2d_distributed --file on 4 virtual devices, "
+        f"eps={REF_EPS}, dt={REF_DT:g}, {REF_STEPS} steps, f64: error_l2/#points {err:.3e} <= "
+        f"{l2_threshold:g}, max|u - Solver2D| {diff:.3e} <= {TOL['float64']:g}, "
+        f"{by[label]['nsum2d']} nsum2d launches, CLI wall {cli_s:.2f} s")
+
+    # (b) full width: the headline grid through the executor, float32
+    tile = NX // EL_TILES
+    dh = 1.0 / NX
+    probe = NonlocalOp2D(EPS, 1.0, 1.0, dh)
+    dt = 0.8 / (probe.c * dh * dh * probe.wsum)  # 0.8x the Euler bound, as phase 4
+    devs = device_list("cuda", EL_DEVICES)
+    start = np.ones((EL_TILES, EL_TILES), dtype=np.int64)
+    start[0, 0], start[0, -1], start[-1, 0] = 0, 2, 3  # 61 tiles on device 1
+    shape = f"{EL_TILES}x{EL_TILES} tiles of {tile}^2 eps={EPS} f32"
+    want = {"nsum2d": EL_TILES * EL_TILES * EL_STEPS + 1}
+
+    def elastic(assignment, nbalance, measure=False):
+        s = ElasticSolver2D(tile, tile, EL_TILES, EL_TILES, EL_STEPS, EPS, nbalance=nbalance,
+                            k=1.0, dt=dt, dh=dh, assignment=assignment, devices=devs,
+                            method="cuda", dtype=torch.float32)
+        # without nbalance, measure=True (--test_load_balance) measures every
+        # step: each runs the rectangle walk, device group after group
+        s.measure = s.measure or measure
+        s.test_init()
+        return s
+
+    runs, walls, stats = {}, {}, None
+    for name, args in (("imbalanced, nbalance", (start, EL_NBALANCE)),
+                       ("default map", (None, None)),
+                       ("imbalanced, every step measured", (start, None, True))):
+        s = elastic(*args)
+        if stats is None:
+            stats, main = instrument_elastic(torch, np, s, GangExecutor), s
+        label = f"phase 11 {NX}^2 {shape} {name}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = launches_of(ck, by, label, s.do_work)
+        walls[name] = (time.perf_counter() - t0) * 1e3 / EL_STEPS
+        expect(label, want)
+    names = list(runs)
+    for other in names[1:]:
+        if not np.array_equal(runs[names[0]], runs[other]):
+            fail(f"elastic {NX}^2: the run '{other}' is not bitwise the run '{names[0]}'")
+    err = main.error_l2 / NX**2
+    if not err <= l2_threshold:
+        fail(f"elastic {NX}^2 test form: error_l2/#points {err:.3e} > {l2_threshold:g}")
+    ok, max_dev = balance_check(main.busy_rates())
+    if not stats["rebalances"] or sum(r["moved"] for r in stats["rebalances"]) == 0:
+        fail(f"elastic {NX}^2: the balancer moved no tile: {stats['rebalances']}")
+    solo = Solver2D(NX, NX, EL_STEPS, EPS, k=1.0, dt=dt, dh=dh, method="cuda",
+                    dtype=torch.float32, device="cuda")
+    solo.test_init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launches_of(ck, by, f"phase 11 {NX}^2 single-device reference", solo.do_work)
+    solo_ms = (time.perf_counter() - t0) * 1e3 / EL_STEPS
+    solo_err = solo.error_l2 / NX**2
+    if not solo_err <= l2_threshold:
+        fail(f"Solver2D {NX}^2 test form: error_l2/#points {solo_err:.3e} > {l2_threshold:g}")
+    if not np.array_equal(runs[names[0]], solo.u):
+        rel = float(np.abs(runs[names[0]] - solo.u).max() / np.abs(solo.u).max())
+        fail(f"elastic {NX}^2: not bitwise the single-device Solver2D (max|elastic - Solver2D| "
+             f"/ max|Solver2D| {rel:.3e}): the tiles' nsum2d and euler_update no longer add "
+             "as the solo step kernel does")
+    # where a gang step's time goes: a 10-step stretch at the final
+    # placement under torch.profiler (not counted: it repeats the path)
+    gang = GangExecutor(main)
+    gang.rebuild(main._tiles, main._gtiles)
+    prof = device_profile(torch, lambda: gang.run_stretch(0, 10), 10)
+    del gang
+    say(f"elastic (b): {NX}^2 as {shape}, test form, {EL_STEPS} steps on {EL_DEVICES} virtual "
+        f"devices from {np.bincount(start.ravel()).tolist()} tiles, --nbalance {EL_NBALANCE}: "
+        f"gang stretches {ms_per_step(stats['gang']):.3f} ms/step over "
+        f"{sum(n for _, n in stats['gang'])} steps, measured windows "
+        f"{ms_per_step(stats['window']):.3f} ms/step over {len(stats['window'])} steps; "
+        f"do_work wall ms/step {json.dumps({k: round(v, 3) for k, v in walls.items()})}, "
+        f"single-device Solver2D {solo_ms:.3f}; rebalances (busy read, tiles moved, tiles "
+        f"after) {json.dumps(stats['rebalances'])}; final balance_check {ok} (max |busy - "
+        f"mean| {max_dev:.1f} of 10000, rates {np.round(main.busy_rates(), 1).tolist()}); "
+        f"bitwise equal across the {len(runs)} runs and to the single-device Solver2D; "
+        f"error_l2/#points {err:.3e} (Solver2D {solo_err:.3e}) <= {l2_threshold:g}; "
+        f"{want['nsum2d']} nsum2d launches a run; a 10-step gang stretch at the "
+        f"final placement under torch.profiler: {json.dumps(prof)}")
+
+    # (c) the reference's acceptance check on measured busy rates, float64
+    acceptance_runs(np, ck, by, ACCEPT_REPEATS)
+    return by
+
+
+def acceptance_runs(np, ck, by: dict, repeats: int, verbose: bool = True) -> dict:
+    """The reference's acceptance check on measured busy rates, float64:
+    ``repeats`` runs of solve2d_distributed --file on each fixture of
+    ACCEPT_FIXTURES (on as many virtual devices of the card as it names),
+    ACCEPT_ARGS.  Recorded, not a gate: the windows are 4 host-bound steps
+    of a few hundred microseconds, and the verdict fails in about a quarter
+    of the 4n runs (25 tiles on 4 devices leave 1071 of the 1500 at the best
+    split, 7/6/6/6) and in about 1 of 100 of the 2n runs (PERF.md §6).
+    Gated: the launches, the report, and that the balancer moved
+    tiles off the fixture's start without emptying a device.  Returns each
+    fixture's max |busy - mean| per run."""
+    from nonlocalheatequation_torch.cli import solve2d_distributed
+    from nonlocalheatequation_torch.utils.partition_map import read_partition_map
+
+    devs = {}
+    for path, ndev in ACCEPT_FIXTURES:
+        name = os.path.basename(path)
+        start = read_partition_map(str(ROOT / path)).assignment
+        start_counts = np.bincount(start.ravel(), minlength=ndev)
+        passed, devs[name] = [], []
+        for rep in range(repeats):
+            label = f"phase 11 {name} on {ndev} devices, 25 tiles of 20^2 eps=5 f64, run {rep + 1}"
+            argv = ["--file", str(ROOT / path), *ACCEPT_ARGS, "--devices", str(ndev),
+                    "--method", "cuda", "--platform", "gpu", "--x64", "1", "--cmp", "false",
+                    "--no-header"]
+            t0 = time.perf_counter()
+            text = launches_of(ck, by, label, lambda: run_cli(solve2d_distributed.main, argv))
+            wall = time.perf_counter() - t0
+            if by[label] != {"nsum2d": 25 * 45 + 1}:
+                fail(f"{label}: launched {json.dumps(by[label])}, expected 1126 nsum2d")
+            lines = text.splitlines()
+            i = lines.index("Visualizing Load Balance across nodes")
+            grid = np.array([[int(v) for v in row.split()] for row in lines[i + 1:i + 1 + len(start)]])
+            counts = np.bincount(grid.ravel(), minlength=ndev)
+            rates = [float(x.split()[-1]) for x in lines if x.startswith("Test: counter value:")]
+            verdict = next(x for x in lines if x.startswith("Load ") and x.endswith("correctly"))
+            if len(rates) != ndev or np.array_equal(counts, start_counts) or not counts.all():
+                fail(f"{path}: the balancer left tiles {counts.tolist()} from {start_counts.tolist()}"
+                     f" (rates {rates})")
+            dev = max(abs(r - sum(rates) / ndev) for r in rates)
+            passed.append(verdict == "Load balanced correctly")
+            devs[name].append(round(dev, 1))
+            if verbose:
+                say(f"elastic (c): {name} on {ndev} virtual devices, {' '.join(ACCEPT_ARGS)}, run "
+                    f"{rep + 1}: rates {[round(r, 1) for r in rates]}, max |busy - mean| {dev:.1f} "
+                    f"of 10000, tiles {start_counts.tolist()} -> {counts.tolist()}; \"{verdict}\"; "
+                    f"CLI wall {wall:.2f} s")
+        say(f"elastic (c): {name}: the reference's check (max |busy - mean| <= 1500) passed "
+            f"{sum(passed)} of {len(passed)} runs on the card's wall clock; max |busy - mean| "
+            f"median {float(np.median(devs[name])):.1f}, max {max(devs[name]):.1f}")
+    return devs
+
+
+def accept_main(repeats: int) -> int:
+    """``chip_smoke.py --accept N``: only phase 11's acceptance check, N runs
+    of each fixture (builds nsum2d.cu), to read the verdict's failure rate."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from nonlocalheatequation_torch.ops import _build
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+
+    say(nvidia_smi("name,power.limit"))
+    say(f"build: {json.dumps(_build.build(('nsum2d.cu',)))}")
+    say(f"accept: {json.dumps(acceptance_runs(np, ck, {}, repeats, verbose=False))}")
+    return 0
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -3807,11 +4134,13 @@ def main() -> int:
     kernels += halo_rows
     async_by = timed("async, logs, checkpoints", phase_async_logs, torch, np, ck, l2_threshold,
                      async_cli)
-    for k in kernels:  # phase 10's solves launch the kernels of phases 4, 5 and 8 again
-        more = by_label(async_by, k["name"])
-        if more:
-            k["launches"] += sum(more.values())
-            k.setdefault("launches_by_shape", {}).update(more)
+    elastic_by = timed("elastic", phase_elastic, torch, np, ck, l2_threshold)
+    for k in kernels:  # phases 10 and 11 launch the kernels of phases 4, 5 and 8 again
+        for part in (async_by, elastic_by):
+            more = by_label(part, k["name"])
+            if more:
+                k["launches"] += sum(more.values())
+                k.setdefault("launches_by_shape", {}).update(more)
     say(f"phase walls, s: {json.dumps(walls)}")
     for k in kernels:
         k["checks"] = checks[k["name"]]
@@ -3824,5 +4153,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ab_main(sys.argv[2], sys.argv[3:] or AB_SECTIONS) if sys.argv[1:2] == ["--ab"]
-             else main())
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(ab_main(sys.argv[2], sys.argv[3:] or AB_SECTIONS))
+    if sys.argv[1:2] == ["--accept"]:
+        sys.exit(accept_main(int(sys.argv[2])))
+    sys.exit(main())

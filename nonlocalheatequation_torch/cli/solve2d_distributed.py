@@ -1,6 +1,7 @@
 """Distributed 2D solver CLI — the reference's fourth binary,
 2d_nonlocal_distributed (src/2d_nonlocal_distributed.cpp:1415-1458), on the
-port's uniform SPMD path (parallel/distributed2d.py).
+port's uniform SPMD path (parallel/distributed2d.py) or its elastic executor
+(parallel/elastic.py).
 
     echo "1
     25 25 2 2 45 5 1 0.0005 0.02" | \\
@@ -16,14 +17,21 @@ device named again in turn, parallel/mesh.py).  ``--comm fused`` runs the
 halo kernels (ops/cuda_halo.py: on cards, the halo read inside the kernel)
 and needs ``--method cuda``.
 
+A partition map (``--file``, the decomposition tool's output,
+cli/decompose.py), ``--nbalance N`` or ``--test_load_balance`` select the
+elastic executor, as in the JAX CLI: the map sets nx, ny, npx, npy and dh and
+places each tile on its owner's device (owners beyond the device count are
+folded onto the devices, with a warning); ``--nbalance`` rebalances every N
+steps on measured busy rates; ``--test_load_balance`` measures every step
+and prints the reference's balance report after the run.
+
 A single solve takes ``--log`` (CSV/VTU logs of the global state every
 ``--nlog`` steps, written by the one process that owns every block),
 ``--checkpoint``/``--ncheckpoint``/``--resume`` (the global state, which
 ``solve2d`` resumes too) and ``--profile DIR``, as the JAX CLI does.
 
-Not ported yet, and refused by name (rc 1): partition maps (``--file``),
-rebalancing (``--nbalance``, ``--test_load_balance``), a non-Euler
-``--stepper`` and ``--method fft``.
+Not ported yet, and refused by name (rc 1): a non-Euler ``--stepper`` and
+``--method fft``.
 """
 
 from __future__ import annotations
@@ -54,11 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     bool_flag(p, "test", True, "compare against the manufactured solution")
     p.add_argument("--test_batch", action="store_true", help="run batch tests from stdin")
     p.add_argument("--test_load_balance", action="store_true",
-                   help="report the balance acceptance check (not ported yet)")
+                   help="report the balance acceptance check after the run")
     p.add_argument("--results", action="store_true", help="print the final state")
     bool_flag(p, "cmp", False, "print expected vs actual outputs")
     p.add_argument("--file", default="None",
-                   help="partition-map file (not ported yet)")
+                   help="partition-map file (decomposition-tool output)")
     p.add_argument("--nx", type=int, default=25, help="tile x size")
     p.add_argument("--ny", type=int, default=25, help="tile y size")
     p.add_argument("--nt", type=int, default=45)
@@ -66,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--npy", type=int, default=2)
     p.add_argument("--nlog", type=int, default=5)
     p.add_argument("--nbalance", type=int, default=0,
-                   help="steps between rebalance passes (0 = never; not ported yet)")
+                   help="steps between rebalance passes (0 = never)")
     p.add_argument("--eps", type=int, default=5)
     p.add_argument("--k", type=float, default=1.0)
     p.add_argument("--dt", type=float, default=0.0005)
@@ -101,12 +109,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _uses_elastic(args) -> bool:
+    """A partition map, a rebalance cadence or the balance report select
+    the elastic executor (parallel/elastic.py)."""
+    return args.file != "None" or args.nbalance > 0 or args.test_load_balance
+
+
 def _refusal(args) -> str | None:
-    """The message refusing a flag the port does not have yet, or None."""
+    """The message refusing the flags as given, or None (the elastic
+    executor's refusals are the JAX CLI's, word for word)."""
+    elastic = _uses_elastic(args)
+    if elastic and args.comm != "collective":
+        return ("--comm fused is the SPMD path's fused-exchange engine; "
+                "the elastic executor (partition maps / --nbalance / "
+                "--test_load_balance) does not support it")
+    if args.resync:
+        return ("--resync is not supported on the distributed/elastic paths; run the serial "
+                "solver, or --precision bf16 without --resync")
+    if elastic and args.method == "fft":
+        return ("--method fft runs the SPMD pencil-transpose path; the "
+                "elastic executor (partition maps / --nbalance / "
+                "--test_load_balance) is stencil-only — drop one of "
+                "them")
+    if elastic and args.stepper != "euler":
+        return ("--stepper rkc runs on the SPMD distributed path; the "
+                "elastic executor (partition maps / --nbalance / "
+                "--test_load_balance) steps with Euler — drop one of "
+                "them")
     refused = [
-        (args.file != "None", "--file", "partition maps (the elastic executor)"),
-        (args.nbalance > 0, "--nbalance", "rebalancing (the elastic executor)"),
-        (args.test_load_balance, "--test_load_balance", "the elastic executor's balance report"),
         (args.stepper != "euler", f"--stepper {args.stepper}", "the stepper tier"),
         (args.method == "fft", "--method fft", "the sharded spectral tier"),
     ]
@@ -116,9 +146,6 @@ def _refusal(args) -> str | None:
     if args.stages:
         return ("--superstep-stages configures the rkc stage count or the expo boundary "
                 "correction; --stepper euler takes no stage count")
-    if args.resync:
-        return ("--resync is not supported on the distributed/elastic paths; run the serial "
-                "solver, or --precision bf16 without --resync")
     return None
 
 
@@ -129,9 +156,18 @@ def main(argv=None) -> int:
         print(err, file=sys.stderr)
         return 1
     version_banner("2d_nonlocal_distributed")
+    nx, ny, npx, npy, dh = args.nx, args.ny, args.npx, args.npy, args.dh
+    assignment = None
+    if args.file != "None":
+        from nonlocalheatequation_torch.utils.partition_map import read_partition_map
+
+        pmap = read_partition_map(args.file)
+        nx, ny, npx, npy, dh = pmap.nx, pmap.ny, pmap.npx, pmap.npy, pmap.dh
+        assignment = pmap.assignment
+    use_elastic = _uses_elastic(args)
     if not args.test_batch:
-        announce_stable_dt(2, args.k, args.eps, args.dh, args.dt)
-    if args.nx <= args.eps:
+        announce_stable_dt(2, args.k, args.eps, dh, args.dt)
+    if nx <= args.eps:
         print("[WARNING] Mesh size on a single node (nx * ny) is too small for given "
               "epsilon (eps)")
     from nonlocalheatequation_torch.parallel.distributed2d import (
@@ -147,7 +183,32 @@ def main(argv=None) -> int:
         return 2
     devices = device_list(kw["device"], args.devices)
 
+    def make_elastic(nx, ny, npx, npy, nt, eps, k, dt, dh):
+        from nonlocalheatequation_torch.parallel.elastic import ElasticSolver2D
+
+        place = assignment
+        ndev = len(devices)
+        if place is not None and int(np.max(place)) >= ndev:
+            # fewer devices than the map's owners: fold owners onto the
+            # devices, as the reference's distributed ctest degrades to one
+            # locality (SURVEY.md section 4)
+            print(f"[WARNING] partition map uses {int(np.max(place)) + 1} "
+                  f"owners but only {ndev} devices are available; "
+                  "folding owners onto devices", file=sys.stderr)
+            place = place % ndev
+        s = ElasticSolver2D(nx, ny, npx, npy, nt, eps, nlog=args.nlog,
+                            nbalance=args.nbalance or None, k=k, dt=dt, dh=dh,
+                            assignment=place, devices=devices, method=args.method,
+                            dtype=kw["dtype"], checkpoint_path=args.checkpoint,
+                            ncheckpoint=args.ncheckpoint, superstep=args.superstep,
+                            precision=args.precision)
+        if args.test_load_balance:
+            s.measure = True  # report measured rates even without nbalance
+        return s
+
     def make_solver(nx, ny, npx, npy, nt, eps, k, dt, dh):
+        if use_elastic:
+            return make_elastic(nx, ny, npx, npy, nt, eps, k, dt, dh)
         mesh = choose_mesh_for_grid(nx * npx, ny * npy, devices)
         return Solver2DDistributed(nx, ny, npx, npy, nt, eps, nlog=args.nlog, k=k, dt=dt,
                                    dh=dh, mesh=mesh, method=args.method, dtype=kw["dtype"],
@@ -171,8 +232,7 @@ def main(argv=None) -> int:
 
             return run_batch(read_case, run_case, row_tokens=9)
 
-        s = make_solver(args.nx, args.ny, args.npx, args.npy, args.nt, args.eps, args.k,
-                        args.dt, args.dh)
+        s = make_solver(nx, ny, npx, npy, args.nt, args.eps, args.k, args.dt, dh)
     except ValueError as e:  # a configuration the solver refuses
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -194,6 +254,10 @@ def main(argv=None) -> int:
     with trace(args.profile):
         s.do_work()
     elapsed = time.perf_counter() - t0
+    if args.test_load_balance:
+        from nonlocalheatequation_torch.parallel.load_balance import print_balance_report
+
+        print_balance_report(s.busy_rates(), s.assignment)
     if args.test:
         s.print_error(args.cmp)
     if args.results:
@@ -201,9 +265,9 @@ def main(argv=None) -> int:
 
     from nonlocalheatequation_torch.utils.timing import print_time_results_distributed
 
-    print_time_results_distributed(s.mesh.size, os.cpu_count() or 1, elapsed, args.nx,
-                                   args.ny, args.npx, args.npy, args.nt,
-                                   header=not args.no_header)
+    n_localities = len(s.devices) if use_elastic else s.mesh.size
+    print_time_results_distributed(n_localities, os.cpu_count() or 1, elapsed, nx, ny, npx,
+                                   npy, args.nt, header=not args.no_header)
     return 0
 
 

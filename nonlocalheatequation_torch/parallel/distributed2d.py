@@ -30,8 +30,9 @@ the barriers (utils/checkpoint.CheckpointMixin._run_chunked), the logger
 and the checkpoint given the GLOBAL state (``fetch_global``); the
 checkpoint's parameters are the single-device solvers', so a distributed
 checkpoint resumes in ``Solver2D``/``Solver3D`` and the reverse.  Not ported
-yet, and refused by name: non-Euler steppers, ``method="fft"`` (the sharded
-spectral tier) and ``nbalance`` (the elastic executor).
+yet, and refused by name: non-Euler steppers and ``method="fft"`` (the
+sharded spectral tier).  ``nbalance`` is refused as the JAX solver refuses
+it: rebalancing is the elastic executor's (parallel/elastic.py).
 :class:`DistributedGridSolver` holds what the 2D and 3D solvers share.
 """
 
@@ -330,10 +331,13 @@ class Solver2DDistributed(DistributedGridSolver):
         self.NX, self.NY = self.nx * self.npx, self.ny * self.npy
         self.nt, self.eps, self.nlog = int(nt), int(eps), int(nlog)
         if nbalance:
+            # one equal block per device: no tile-count imbalance to correct;
+            # rebalancing lives on the elastic executor (parallel/elastic.py)
             raise ValueError(
-                "Solver2DDistributed shards uniformly (one equal block per device) and "
-                "cannot rebalance; the JAX package's parallel.elastic.ElasticSolver2D, "
-                "which supports nbalance, is not ported yet to nonlocalheatequation_torch")
+                "Solver2DDistributed shards uniformly (one equal block per "
+                "device) and cannot rebalance; use "
+                "parallel.elastic.ElasticSolver2D for nbalance support"
+            )
         if resync_every:
             raise ValueError(
                 "resync_every is not supported on the distributed path; run the serial "

@@ -94,8 +94,8 @@ def make_mesh(npx: int | None = None, npy: int | None = None, devices=None) -> M
     """A 2D mesh with axes ('x', 'y'): of exactly (npx, npy), or with no
     shape over every device of ``devices`` (default :func:`device_list`, the
     CUDA cards), most-square factorization.  (The JAX package's
-    ``assignment``, a partition map's placement, waits for the elastic
-    executor.)"""
+    ``assignment=`` device permutation is not ported: a partition map places
+    tiles through the elastic executor, parallel/elastic.py.)"""
     devices = list(devices if devices is not None else device_list())
     if npx is None or npy is None:
         npx, npy = factor_devices(len(devices))

@@ -1045,3 +1045,35 @@ def test_in_kernel_exchange_across_cards_on_card(card):
     for s in (f, c):
         s.test_init()
     assert np.array_equal(f.do_work(), c.do_work())
+
+
+@pytest.mark.cuda
+def test_elastic_solve_bitwise_across_placements_on_card(card):
+    # the elastic executor on 2 virtual devices of the card: every tile's
+    # frame through nsum2d, bitwise whatever the placement, the schedule
+    # (gang stretches, or every step measured through the rectangle walk)
+    # and a mid-run migration
+    from nonlocalheatequation_torch.parallel.elastic import ElasticSolver2D
+    from nonlocalheatequation_torch.parallel.load_balance import WorkTelemetry
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+
+    devs = device_list(card, 2)
+    imbalanced = np.ones((4, 4), dtype=np.int64)
+    imbalanced[0, 0] = 0
+    kw = dict(nt=12, eps=4, k=1.0, dt=1e-5, dh=1.0 / 64, method="cuda",
+              dtype=torch.float64, devices=devs)
+    runs = []
+    for extra, measure in ((dict(), False), (dict(assignment=imbalanced), False),
+                           (dict(assignment=imbalanced), True),
+                           (dict(assignment=imbalanced, nbalance=5,
+                                 telemetry=WorkTelemetry(2)), False)):
+        ck.reset_launch_counts()
+        s = ElasticSolver2D(16, 16, 4, 4, **kw, **extra)
+        s.measure = measure
+        s.test_init()
+        runs.append(s.do_work())
+        # one nsum2d a tile a step, and one for the source's L(G)
+        assert ck.launch_counts()["nsum2d"] == 12 * 16 + 1
+        assert s.error_l2 / 64**2 <= 1e-6
+    assert all(np.array_equal(runs[0], r) for r in runs[1:])
+    assert not np.array_equal(s.assignment, imbalanced)  # the migration happened

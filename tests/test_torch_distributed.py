@@ -35,7 +35,9 @@ from nonlocalheatequation_torch.ops.constants import BF16_L2_BUDGET
 from nonlocalheatequation_torch.parallel import distributed2d as td2
 from nonlocalheatequation_torch.parallel import distributed3d as td3
 from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh, make_mesh_3d
+from nonlocalheatequation_torch.utils.partition_map import PartitionMap, write_partition_map
 from nonlocalheatequation_torch.utils.timing import print_time_results_distributed
+from nonlocalheatequation_tpu.cli import solve2d_distributed as jcli
 from nonlocalheatequation_tpu.obs import trace as jobs_trace
 from nonlocalheatequation_tpu.obs.metrics import REGISTRY as JREG
 from nonlocalheatequation_tpu.ops import pallas_halo as jh
@@ -236,7 +238,7 @@ REFUSALS_2D = [
     (dict(method="fft"), "method='fft' .* is not ported yet"),
     (dict(checkpoint_path="x.npz", ncheckpoint=2), None),
     (dict(logger=_Logged()), None),
-    (dict(nbalance=10), "ElasticSolver2D, which supports nbalance, is not ported yet"),
+    (dict(nbalance=10), "cannot rebalance; use parallel.elastic.ElasticSolver2D for nbalance"),
     (dict(resync_every=2, precision="bf16"), "resync_every is not supported on the distributed"),
     (dict(comm="rdma"), "collective' or 'fused"),
     (dict(comm="fused"), "needs method='cuda'"),
@@ -382,9 +384,9 @@ def test_cli_single_solve_prints_the_jax_lines(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--file", "map.txt"], "--file is not ported yet"),
-    (["--nbalance", "5"], "--nbalance is not ported yet .*elastic"),
-    (["--test_load_balance"], "--test_load_balance is not ported yet"),
+    (["--file", "map.txt"], None),
+    (["--nbalance", "5"], None),
+    (["--test_load_balance"], None),
     (["--checkpoint", "c.npz", "--ncheckpoint", "2"], None),
     (["--resume"], None),
     (["--log"], None),
@@ -406,6 +408,15 @@ def test_cli_refusals(capsys, tmp_path, monkeypatch, argv, message):
         return
     # ported since: the flag runs a single solve (rc 0) and writes its files
     monkeypatch.chdir(tmp_path)
+    if argv[0] in ("--file", "--nbalance", "--test_load_balance"):
+        # the elastic executor: the same lines as the JAX CLI's
+        write_partition_map("map.txt", PartitionMap(6, 6, 2, 2, 0.05, np.array([[0, 1], [1, 1]])))
+        assert tcli.main(base + argv + ["--test_load_balance"]) == 0
+        ours = _elastic_lines(capsys.readouterr().out)
+        assert jcli.main(argv + ["--test_load_balance", "--devices", "4", "--nt", "2"]) == 0
+        assert ours == _elastic_lines(capsys.readouterr().out)
+        assert ours[-1].split(",")[0] == "4" and len(ours) > 3
+        return
     if argv == ["--resume"]:
         assert tcli.main(["--checkpoint", "c.npz", "--ncheckpoint", "2"] + base) == 0
         argv = ["--checkpoint", "c.npz", "--resume", "--nt", "4"]
@@ -419,6 +430,22 @@ def test_cli_refusals(capsys, tmp_path, monkeypatch, argv, message):
         assert len(written) == 1 and written[0].startswith("d/")
     else:
         assert written == ["c.npz"]
+
+
+def _elastic_lines(out: str) -> list:
+    """A single solve's lines from the balance report (or the l2 line) on:
+    the measured rates, the verdict on them and the wall time masked, the
+    rest as printed."""
+    import re
+
+    lines = out.splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith(("Testing load balance", "l2: ")))
+    masked = [re.sub(r"(counter value:|Expected busy rate) .*", r"\1 *",
+                     re.sub(r"^Load (not )?balanced correctly$", "Load * balanced", line))
+              for line in lines[start:]]
+    row = masked[-1].split(",")
+    return masked[:-1] + [",".join(row[:2] + row[3:])]
 
 
 def test_cli_default_platform_is_the_card(capsys):

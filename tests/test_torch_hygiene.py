@@ -4,7 +4,8 @@
   ``sys.modules`` imports every module of the port and chip_smoke.py and
   runs a small 2D and 3D CPU solve, a 2-case ensemble, a small windowed
   unstructured solve, a 2-case mesh-bucket ensemble, the distributed
-  2D (fused) and 3D solves on meshes of virtual CPU devices, a throttled
+  2D (fused) and 3D solves on meshes of virtual CPU devices, an elastic
+  solve that rebalances over 2 virtual CPU devices, a throttled
   Solver2D (``nd``), a checkpoint round trip and solve2d_async's batch.
 * No source file of the port names either package in an import; the
   distributed slice's modules are among them.
@@ -76,6 +77,12 @@ s = Solver3DDistributed(8, 8, 8, 3, 2, method="cuda", comm="fused",
 s.test_init()
 s.do_work()
 assert s.error_l2 / 512 <= 1e-6, s.error_l2
+from nonlocalheatequation_torch.parallel.elastic import ElasticSolver2D
+s = ElasticSolver2D(5, 5, 4, 4, 6, 2, nbalance=3, dh=0.05, method="cuda",
+                    devices=device_list("cpu", 2))
+s.test_init()
+s.do_work()
+assert s.error_l2 / 400 <= 1e-6, s.error_l2
 s = Solver2D(20, 20, 12, 3, k=0.2, dt=0.001, device="cpu", method="cuda", nd=3)
 s.test_init()
 s.do_work()
@@ -124,7 +131,11 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 DISTRIBUTED_SLICE = ("parallel/mesh.py", "parallel/halo.py", "parallel/distributed2d.py",
                      "parallel/distributed3d.py", "ops/cuda_halo.py",
-                     "cli/solve2d_distributed.py")
+                     "cli/solve2d_distributed.py", "utils/partition_map.py",
+                     "utils/decompose.py", "cli/decompose.py", "parallel/load_balance.py",
+                     "parallel/elastic.py", "parallel/gang.py")
+#: the port's copy of a NumPy-only JAX module, importing no torch either
+NUMPY_ONLY = ("utils/partition_map.py",)
 
 
 def test_the_distributed_slice_imports_neither_package():
@@ -133,7 +144,10 @@ def test_the_distributed_slice_imports_neither_package():
         roots = {(a.name if isinstance(node, ast.Import) else node.module or "").split(".")[0]
                  for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
                  for a in (node.names if isinstance(node, ast.Import) else [node])}
-        assert "nonlocalheatequation_torch" in roots or "torch" in roots, rel
+        if rel in NUMPY_ONLY:
+            assert roots == {"__future__", "dataclasses", "numpy"}, (rel, roots)
+        else:
+            assert "nonlocalheatequation_torch" in roots or "torch" in roots, rel
         assert not roots & {"jax", "jaxlib", "nonlocalheatequation_tpu"}, (rel, roots)
 
 
@@ -141,7 +155,7 @@ def test_distributed_entry_points_default_to_the_card():
     import torch
 
     from nonlocalheatequation_torch.cli import solve2d_async, solve2d_distributed
-    from nonlocalheatequation_torch.parallel import distributed2d, distributed3d, mesh
+    from nonlocalheatequation_torch.parallel import distributed2d, distributed3d, elastic, mesh
 
     if torch.cuda.is_available():
         assert mesh.device_list()[0].type == "cuda"
@@ -150,7 +164,8 @@ def test_distributed_entry_points_default_to_the_card():
                  lambda: mesh.make_mesh_3d(),
                  lambda: distributed2d.Solver2DDistributed(4, 4, 2, 2, 1, 1),
                  lambda: distributed3d.Solver3DDistributed(4, 4, 4, 1, 1),
-                 lambda: distributed2d.choose_mesh_for_grid(8, 8)):
+                 lambda: distributed2d.choose_mesh_for_grid(8, 8),
+                 lambda: elastic.ElasticSolver2D(4, 4, 2, 2, 1, 1)):
         try:
             call()
         except RuntimeError as e:
