@@ -189,8 +189,31 @@ line is printed; the phase walls are printed at the end):
    §6).  Which partitioner ran
    (native or NumPy) is printed.  Counted: one nsum2d a tile a step, and
    one a test-form run for L(G).
-9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10 and
-   11, the other kernels' those of their phases, 10 and 11), then
+12. (Run after phase 11, before phase 9's lines.) The stepper tier and the
+   spectral method (phase_steppers): (a) the 4096^2, eps=8, f32 test form to
+   the horizon of 500 Euler steps at 0.8x the Euler bound with rkc[8] in
+   superstep_floor steps (9) through Solver2D(method="cuda"): the contract,
+   exactly 8*steps + 1 nsum2d launches and no step2d, bitwise the same solve
+   through nsum2d_plain on the card; the 500-step Euler solve to the same
+   horizon, both errors and walls, and the steppings alone in turns; (b) the
+   same at 256^3, eps=4, through nsum3d; an rkc step's device time at 4096^2
+   and 512^2 (torch.profiler); (c) neighbor_sum_fft against nsum2d at 4096^2
+   eps=8 and nsum3d at 128^3 eps=4 (f64 within 1e-12, f32 within 1e-5 of the
+   largest magnitude), then fft and nsum2d timed in turns at 4096^2 for eps
+   8, 16 and 40, and pick_op_method's pick at each; (d) expo at 4096^2, f32,
+   45 steps at 0.25x the Euler bound, S=0 and S=1: the contract, finite, no
+   larger than max|u0|*1.01, and one step to (a)'s horizon, printed; (e) in
+   float64 on the card, solve2d --method fft over CASES_2D, solve2d --stepper
+   rkc --superstep-stages 8 over tests/test_cli.py's row, solve1d --method fft
+   --stepper rkc over CASES_1D's rows of at most 500 steps, solve3d --method
+   fft --stepper rkc --superstep-stages 4 over CASES_3D's first row, each
+   "Tests Passed", and solve2d --test --stepper rkc --superstep-stages 2 --dt
+   0.1 exiting 2; (f) an 8 x 512^2 mixed-physics bucket through
+   EnsembleEngine(stepper="rkc", stages=4), stacked[rkc], 8*20*4 nsum2d
+   launches, each lane bitwise its solo Solver2D stepper solve.  Counted:
+   every part but the comparisons and timings.
+9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10, 11
+   and 12, the other kernels' those of their phases, 10, 11 and 12), then
    {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
@@ -3269,6 +3292,273 @@ def accept_main(repeats: int) -> int:
     return 0
 
 
+# -- phase 12: the stepper tier and the spectral method -------------------------------------
+
+RKC_STAGES = 8               # the CLIs' default rkc stage count
+FFT_EPS = (8, 16, 40)        # the fft-against-nsum2d sweep at 4096^2, f32
+EXPO_STEPS, EXPO_FRAC = 45, 0.25  # the JAX expo gate: 45 steps at 0.25x the Euler bound
+STACK_STAGES, STACK_STEPS, STACK_DT = 4, 20, 6.0  # rkc[4], 20 steps, 6x each case's Euler dt
+CLI_ROW_RKC = (50, 50, 5, 5, 1.0, 0.0045, 0.02)  # tests/test_cli.py's rkc row: 9x the dt
+
+
+def run_batch_cli(main, argv, rows) -> str:
+    """:func:`run_cli` of a batch CLI with ``rows`` on its stdin."""
+    import io
+
+    old = sys.stdin
+    sys.stdin = io.StringIO(batch_text(rows))
+    try:
+        return run_cli(main, argv)
+    finally:
+        sys.stdin = old
+
+
+def rkc_to_horizon(torch, np, ck, k3, by: dict, dim: int, l2_threshold) -> dict:
+    """Phase 12 (a)/(b): the test-form solve of the headline (4096^2 eps=8, or
+    256^3 eps=4), f32, to the horizon of STEPS Euler steps at 0.8x the Euler
+    bound, with rkc[RKC_STAGES] in superstep_floor steps through
+    nsum2d/nsum3d: the contract, exactly RKC_STAGES*steps + 1 launches, bitwise
+    the same solve through the plain version on the card; then the Euler
+    solve to the same horizon (counted), both walls, and both steppings timed
+    alone with CUDA events in turns."""
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.models.solver3d import Solver3D
+    from nonlocalheatequation_torch.models.steppers import make_multi_step_fn, superstep_floor
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, NonlocalOp3D
+
+    n, eps = (NX, EPS) if dim == 2 else (N3, EPS3)
+    cls, op_cls = (Solver2D, NonlocalOp2D) if dim == 2 else (Solver3D, NonlocalOp3D)
+    kernel, mod = ("nsum2d", ck) if dim == 2 else ("nsum3d", k3)
+    shape, dh, f32 = (n,) * dim, 1.0 / n, torch.float32
+    probe = op_cls(eps, 1.0, 1.0, dh)
+    dt_e = 0.8 * stable_dt_op(probe)
+    horizon = STEPS * dt_e
+    steps = superstep_floor(probe, horizon, "rkc", RKC_STAGES)
+
+    def solver(nt, dt, **kw):
+        s = cls(*shape, nt, eps, k=1.0, dt=dt, dh=dh, method="cuda", dtype=f32,
+                device="cuda", **kw)
+        s.test_init()
+        return s
+
+    name = f"{n}^{dim} eps={eps}"
+    label = f"phase 12 {name} rkc[{RKC_STAGES}] {steps} steps"
+    rkc = solver(steps, horizon / steps, stepper="rkc", stages=RKC_STAGES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = launches_of(ck, by, label, rkc.do_work)
+    rkc_wall = time.perf_counter() - t0
+    want = {kernel: RKC_STAGES * steps + 1}
+    if by[label] != want:
+        fail(f"rkc {name}: launched {by[label]}, not {want} (a stage a launch, and L(G))")
+    err = rkc.error_l2 / n**dim
+    if not err <= l2_threshold:
+        fail(f"rkc {name}: error_l2/#points {err:.3e} > {l2_threshold:g}")
+    real = getattr(mod, kernel)
+    setattr(mod, kernel, getattr(mod, f"{kernel}_plain"))
+    try:
+        plain = solver(steps, horizon / steps, stepper="rkc", stages=RKC_STAGES).do_work()
+    finally:
+        setattr(mod, kernel, real)
+    if not np.array_equal(u, plain):
+        rel = float(np.abs(u - plain).max() / np.abs(plain).max())
+        fail(f"rkc {name}: not bitwise the same solve through {kernel}_plain (max rel "
+             f"{rel:.3e}): the difference is in the stepper's code")
+    eu = solver(STEPS, dt_e)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launches_of(ck, by, f"phase 12 {name} Euler {STEPS} steps", eu.do_work)
+    eu_wall = time.perf_counter() - t0
+    eu_err = eu.error_l2 / n**dim
+    # the steppings alone: the sources on the device, a state, CUDA events in turns
+    op_r = op_cls(eps, 1.0, horizon / steps, dh, method="cuda")
+    op_e = op_cls(eps, 1.0, dt_e, dh, method="cuda")
+    g, lg = op_r.source_parts_on(*shape, "cuda")
+    u0 = torch.as_tensor(rkc.u0, device="cuda").to(f32)
+    runs = {"rkc": make_multi_step_fn(op_r, steps, g, lg, f32, stepper="rkc",
+                                      stages=RKC_STAGES),
+            "euler": make_multi_step_fn(op_e, STEPS, g, lg, f32)}
+    ms = turns_of(torch, {k: (lambda f=f: f(u0, 0)) for k, f in runs.items()},
+                  ("rkc", "euler", "euler", "rkc"), reps=2, warm=1)
+    say(f"rkc {name} f32 test form to the horizon {horizon:.6e} of {STEPS} Euler steps at 0.8x "
+        f"the bound: rkc[{RKC_STAGES}] {steps} steps ({RKC_STAGES * steps} applies) "
+        f"error_l2/#points {err:.6e}, launches {json.dumps(by[label])}, bitwise the same solve "
+        f"through {kernel}_plain, do_work wall {rkc_wall:.3f} s; Euler {STEPS} steps "
+        f"error_l2/#points {eu_err:.6e}, launches "
+        f"{json.dumps(by[f'phase 12 {name} Euler {STEPS} steps'])}, do_work wall "
+        f"{eu_wall:.3f} s; the steppings alone, ms in turns (CUDA events): {json.dumps(ms)}")
+    return {"steps": steps, "horizon": horizon, "ms": ms, "err": err, "euler_err": eu_err}
+
+
+def phase_steppers(torch, np, ck, k3, l2_threshold) -> dict:
+    """Phase 12: the stepper tier (rkc, expo) and the spectral method (fft)
+    on the card; returns the launches by part."""
+    import torch.nn.functional as F
+
+    from nonlocalheatequation_torch.cli import solve1d, solve2d, solve3d
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.models.steppers import make_multi_step_fn
+    from nonlocalheatequation_torch.ops import spectral
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, NonlocalOp3D
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleEngine
+    from nonlocalheatequation_torch.utils import autotune
+
+    by, walls, f32, f64 = {}, {}, torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    # (a), (b): rkc to the headlines' horizons through nsum2d and nsum3d
+    head = rkc_to_horizon(torch, np, ck, k3, by, 2, l2_threshold)
+    rkc_to_horizon(torch, np, ck, k3, by, 3, l2_threshold)
+    # where an rkc step's time goes, production form: 4096^2 and 512^2
+    for n in (NX, SMALL):
+        dh = 1.0 / n
+        op = NonlocalOp2D(EPS, 1.0, 0.8 * stable_dt_op(NonlocalOp2D(EPS, 1.0, 1.0, dh), "rkc",
+                                                       RKC_STAGES), dh, method="cuda")
+        u = torch.from_numpy(np.random.default_rng(SEED + 41).standard_normal((n, n))).to(
+            "cuda", f32)
+        multi = make_multi_step_fn(op, 4, dtype=f32, stepper="rkc", stages=RKC_STAGES)
+        say(f"rkc[{RKC_STAGES}] {n}^2 eps={EPS} f32 production, 4 steps under torch.profiler, "
+            f"per step: {json.dumps(device_profile(torch, lambda: multi(u, 0), 4))}")
+    walls["a, b"] = time.perf_counter() - t_phase
+
+    # (c) fft against the stencil kernels, then the crossover over eps
+    gen = np.random.default_rng(SEED + 42)
+    errs = {}
+    for dtype, tol in ((f64, TOL["float64"]), (f32, TOL["float32"])):
+        for shape, eps, kernel in (((NX, NX), EPS, ck.nsum2d), ((N3S,) * 3, EPS3, k3.nsum3d)):
+            u = torch.from_numpy(gen.standard_normal(shape)).to("cuda", dtype)
+            cls = NonlocalOp2D if len(shape) == 2 else NonlocalOp3D
+            op = cls(eps, 1.0, 1e-5, 1.0 / shape[0], method="fft")
+            got = spectral.neighbor_sum_fft(op, u)
+            want = kernel(F.pad(u, (eps,) * (2 * len(shape))), eps)
+            rel = float((got - want).abs().max() / want.abs().max())
+            errs[f"{shape[0]}^{len(shape)} eps={eps} {str(dtype)[6:]}"] = rel
+            if got.device.type != "cuda" or not rel <= tol:
+                fail(f"fft at {shape} eps={eps} {dtype}: max rel {rel:.3e} > {tol:g} against "
+                     f"the kernel (or off the card: {got.device})")
+    sweep, picks = {}, {}
+    u = torch.from_numpy(gen.standard_normal((NX, NX))).to("cuda", f32)
+    for eps in FFT_EPS:
+        dh = 1.0 / NX
+        op = NonlocalOp2D(eps, 1.0, 0.8 * stable_dt_op(NonlocalOp2D(eps, 1.0, 1.0, dh)), dh,
+                          method="cuda")
+        fop = op.with_method("fft")
+        upad = F.pad(u, (eps,) * 4)
+        sweep[eps] = turns_of(torch, {"fft": lambda: spectral.neighbor_sum_fft(fop, u),
+                                      "nsum2d": lambda: ck.nsum2d(upad, eps)},
+                              ("fft", "nsum2d", "nsum2d", "fft"), reps=10)
+        picked = launches_of(ck, by, f"phase 12 pick_op_method {NX}^2 eps={eps}",
+                             lambda: autotune.pick_op_method(op, (NX, NX), f32, "cuda"))
+        rec = next(v for k, v in autotune.records().items()
+                   if "method-ab" in k and f"/eps{eps}/" in k and f"/{NX}x{NX}/" in k)
+        picks[eps] = {"picked": picked.method, "ms_per_step": rec["ms_per_step"]}
+    wins = [e for e in FFT_EPS if min(sweep[e]["fft"]) < min(sweep[e]["nsum2d"])]
+    say(f"fft against the kernels, max |fft - kernel| / max |kernel|: {json.dumps(errs)}; "
+        f"{NX}^2 f32 neighbour sum, ms a call in turns (CUDA events) by eps: "
+        f"{json.dumps(sweep)}; fft wins from eps "
+        f"{wins[0] if wins else f'none up to {FFT_EPS[-1]}'}; pick_op_method (per-step "
+        f"probes, ms/step) by eps: {json.dumps(picks)}")
+    walls["c"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    # (d) expo: the JAX gate at full width, then one step to (a)'s horizon
+    dh = 1.0 / NX
+    dt_e = stable_dt_op(NonlocalOp2D(EPS, 1.0, 1.0, dh))
+    expo = {}
+    for stages in (0, 1):
+        s = Solver2D(NX, NX, EXPO_STEPS, EPS, k=1.0, dt=EXPO_FRAC * dt_e, dh=dh, method="fft",
+                     stepper="expo", stages=stages, dtype=f32, device="cuda")
+        s.test_init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        label = f"phase 12 {NX}^2 expo S={stages} {EXPO_STEPS} steps"
+        u = launches_of(ck, by, label, s.do_work)
+        wall = time.perf_counter() - t0
+        err = s.error_l2 / NX**2
+        peak, bound0 = float(np.abs(u).max()), float(np.abs(s.u0).max()) * 1.01
+        if not (err <= l2_threshold and np.isfinite(u).all() and peak <= bound0):
+            fail(f"expo S={stages} {NX}^2: error_l2/#points {err:.3e}, max|u| {peak:.6f} "
+                 f"(bound {bound0:.6f}), finite {bool(np.isfinite(u).all())}")
+        one = Solver2D(NX, NX, 1, EPS, k=1.0, dt=head["horizon"], dh=dh, method="fft",
+                       stepper="expo", stages=stages, dtype=f32, device="cuda")
+        one.test_init()
+        one.do_work()
+        expo[f"S={stages}"] = {"error_l2_per_n": err, "do_work_s": round(wall, 3),
+                               "launches": by[label],
+                               "one_step_to_horizon_error_l2_per_n": one.error_l2 / NX**2}
+    say(f"expo {NX}^2 eps={EPS} f32 test form, {EXPO_STEPS} steps at {EXPO_FRAC}x the Euler "
+        f"bound: {json.dumps(expo)} (the contract is {l2_threshold:g}; one step to the "
+        f"horizon {head['horizon']:.6e} is printed, not gated)")
+    walls["d"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    # (e) the CLIs on the card, float64
+    cases_2d, cases_1d, _ = load_cases()
+    gpu = ["--test_batch", "--platform", "gpu", "--x64", "1"]
+    rows_1d = [r for r in cases_1d if r[1] <= 500]  # 1D rkc over fft: the shorter rows
+    clis = (("solve2d --method fft", solve2d.main, ["--method", "fft"], cases_2d),
+            ("solve2d --stepper rkc --superstep-stages 8", solve2d.main,
+             ["--stepper", "rkc", "--superstep-stages", "8"], [CLI_ROW_RKC]),
+            ("solve1d --method fft --stepper rkc", solve1d.main,
+             ["--method", "fft", "--stepper", "rkc"], rows_1d),
+            ("solve3d --method fft --stepper rkc --superstep-stages 4", solve3d.main,
+             ["--method", "fft", "--stepper", "rkc", "--superstep-stages", "4"], CASES_3D[:1]))
+    for name, main, argv, rows in clis:
+        out = launches_of(ck, by, f"phase 12 {name}",
+                          lambda m=main, a=argv, r=rows: run_batch_cli(m, gpu + a, r))
+        if out.splitlines()[-1] != "Tests Passed":
+            fail(f"{name} --test_batch on the card: {out[-2000:]}")
+    import contextlib
+    import io
+
+    err_out = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err_out):
+        rc = solve2d.main(["--test", "--platform", "gpu", "--stepper", "rkc",
+                           "--superstep-stages", "2", "--dt", "0.1"])
+    if rc != 2 or "exceeds the rkc[s=2] stability bound" not in err_out.getvalue():
+        fail(f"solve2d --stepper rkc --superstep-stages 2 --dt 0.1: rc {rc}, not 2\n"
+             f"{err_out.getvalue()}")
+    say(f"CLIs on the card (f64): {', '.join(c[0] for c in clis)} each print Tests Passed "
+        f"({len(cases_2d)}, 1, {len(rows_1d)} and 1 rows), launches "
+        f"{json.dumps({c[0]: by[f'phase 12 {c[0]}'] for c in clis})}; solve2d --stepper rkc "
+        "--superstep-stages 2 --dt 0.1 exits 2")
+    walls["e"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    # (f) a stacked rkc bucket: 8 x 512^2 mixed physics, each lane bitwise its solo solve
+    cases = ensemble_cases(
+        np, ENS_MIXED_N,
+        [(k, STACK_DT * euler_dt(h, k, f), h) for k, f, h in (
+            (1.0, 0.8, 1 / 512), (0.5, 0.6, 1 / 512), (2.0, 0.7, 1 / 512), (1.0, 0.4, 1 / 640),
+            (0.2, 0.8, 1 / 512), (1.0, 0.8, 1 / 400), (0.7, 0.5, 1 / 512), (1.5, 0.3, 1 / 560))],
+        SEED + 43, STACK_STEPS)
+    engine = EnsembleEngine(method="cuda", stepper="rkc", stages=STACK_STAGES, device="cuda",
+                            dtype=f32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    label = f"phase 12 8x{ENS_MIXED_N}^2 stacked rkc[{STACK_STAGES}]"
+    states = launches_of(ck, by, label, lambda: engine.run(cases))
+    eng_wall = time.perf_counter() - t0
+    want = {"nsum2d": len(cases) * STACK_STEPS * STACK_STAGES}
+    strategy = engine.report.strategies[cases[0].bucket_key()]
+    if by[label] != want or strategy != "stacked[rkc]":
+        fail(f"the stacked rkc bucket ran {strategy!r} with {by[label]}, not stacked[rkc] "
+             f"with {want}")
+    for case, got in zip(cases, states, strict=True):
+        s = Solver2D(ENS_MIXED_N, ENS_MIXED_N, case.nt, case.eps, k=case.k, dt=case.dt,
+                     dh=case.dh, method="cuda", stepper="rkc", stages=STACK_STAGES, dtype=f32,
+                     device="cuda")
+        s.input_init(case.u0)
+        if not np.array_equal(got, s.do_work()):
+            fail(f"stacked rkc bucket: the lane of (k={case.k}, dt={case.dt:g}) is not bitwise "
+                 "its solo stepper solve")
+    say(f"stacked rkc[{STACK_STAGES}] bucket 8x{ENS_MIXED_N}^2 eps={EPS} f32 mixed physics "
+        f"({STACK_STEPS} steps at {STACK_DT}x each case's Euler dt): {strategy}, launches "
+        f"{json.dumps(by[label])}, run() wall {eng_wall:.3f} s, every lane bitwise its solo "
+        "Solver2D stepper solve")
+    walls["f"] = time.perf_counter() - t_phase - sum(walls.values())
+    say(f"phase 12 part walls, s: {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    return by
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -4081,6 +4371,7 @@ def main() -> int:
     # the default production path: tuned on the card, records kept in this
     # process only (nothing written outside the checkout)
     os.environ.pop("NLHEAT_TUNE_PRECISION", None)
+    os.environ.pop("NLHEAT_TUNE_METHOD", None)
     os.environ["NLHEAT_AUTOTUNE_CACHE"] = ""
     t_start = time.perf_counter()
 
@@ -4135,8 +4426,9 @@ def main() -> int:
     async_by = timed("async, logs, checkpoints", phase_async_logs, torch, np, ck, l2_threshold,
                      async_cli)
     elastic_by = timed("elastic", phase_elastic, torch, np, ck, l2_threshold)
-    for k in kernels:  # phases 10 and 11 launch the kernels of phases 4, 5 and 8 again
-        for part in (async_by, elastic_by):
+    stepper_by = timed("steppers, spectral", phase_steppers, torch, np, ck, k3, l2_threshold)
+    for k in kernels:  # phases 10-12 launch the kernels of phases 4, 5 and 8 again
+        for part in (async_by, elastic_by, stepper_by):
             more = by_label(part, k["name"])
             if more:
                 k["launches"] += sum(more.values())

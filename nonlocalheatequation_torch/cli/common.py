@@ -5,7 +5,8 @@ The batch protocol is the reference's batch_tester
 (src/1d_nonlocal_serial.cpp:239-266): stdin holds ``num_tests`` then one
 parameter row per test; the CLI prints "Tests Passed" or "Tests Failed".
 The sequential batch loop and ``--ensemble`` (the batched ensemble engine,
-serve/ensemble.py) are ported, each under ``--profile``; serving,
+serve/ensemble.py) are ported, each under ``--profile``, and so are the
+stepper flags (``--stepper``, ``--superstep-stages``); serving,
 observability and the distributed launch wait for later slices.
 """
 
@@ -147,23 +148,83 @@ def ensemble_runner(make_solver, **engine_kwargs):
     return run_ensemble
 
 
-def announce_stable_dt(dim: int, k: float, eps: int, h: float, dt: float) -> None:
-    """Print the forward-Euler stability bound in force and warn (never
-    refuse) when dt exceeds it: several of the reference's own ctest rows sit
-    marginally past it and reference parity means accepting them."""
+def add_stepper_flags(p: argparse.ArgumentParser):
+    """The time integrator's flags (models/steppers.py): forward Euler (the
+    reference's scheme, the default), rkc super-stepping (every method; dt
+    up to ~s^2/2 past the Euler bound) or the spectral exponential
+    integrator (``--method fft`` only; unconditionally stable)."""
+    p.add_argument(
+        "--stepper", default="euler", choices=("euler", "rkc", "expo"),
+        help="time integrator: euler (default, the reference's scheme), rkc (s-stage "
+             "Runge-Kutta-Chebyshev super-stepping, every --method including cuda; dt may "
+             "exceed the Euler bound by ~s^2/2), or expo (spectral exponential integrator, "
+             "requires --method fft; unconditionally stable)")
+    p.add_argument(
+        "--superstep-stages", dest="stages", type=int, default=0, metavar="S",
+        help="--stepper rkc: the stage count s >= 2 (0 picks the default 8); the "
+             "stability interval grows ~2*s^2 at s operator applications a step.  "
+             "--stepper expo: S >= 1 arms the boundary correction (S substeps; 0 = the "
+             "plain step)")
+
+
+def stepper_kwargs(args) -> dict:
+    """The solver kwargs of add_stepper_flags' namespace (rkc's default stage
+    count resolved here, so every surface agrees)."""
+    from nonlocalheatequation_torch.models.steppers import DEFAULT_STAGES
+
+    stages = args.stages
+    if args.stepper == "rkc" and stages == 0:
+        stages = DEFAULT_STAGES
+    return {"stepper": args.stepper, "stages": stages}
+
+
+def validate_stepper_args(args) -> str | None:
+    """Why the stepper flags cannot run as given (the caller prints it and
+    exits 1), or None; the dt bound is :func:`announce_stable_dt`'s."""
+    if args.stepper != "euler" and getattr(args, "backend", "torch") == "oracle":
+        return ("--backend oracle is Euler-only (the ground truth for the reference's own "
+                f"scheme); run --stepper {args.stepper} on the torch backend")
+    if args.stepper == "expo" and getattr(args, "method", "fft") != "fft":
+        return ("--stepper expo integrates in the spectral domain; it requires --method fft "
+                "(rkc super-steps every other method)")
+    if args.stages and args.stepper == "euler":
+        return ("--superstep-stages configures the rkc stage count or the expo boundary "
+                "correction; --stepper euler takes no stage count")
+    if args.stages < 0:
+        return f"--superstep-stages must be >= 0 (got {args.stages})"
+    if args.stepper == "rkc" and args.stages != 0 and args.stages < 2:
+        return f"--stepper rkc needs --superstep-stages >= 2 (or 0 = default; got {args.stages})"
+    return None
+
+
+def announce_stable_dt(dim: int, k: float, eps: int, h: float, dt: float,
+                       stepper: str = "euler", stages: int = 0) -> int | None:
+    """Print the stability bound in force for (stepper, stages) and police
+    ``dt`` against it: an rkc or expo run past its model is refused (returns
+    2: it would amplify, not diffuse); an Euler run past its bound only
+    warns, since several of the reference's own ctest rows sit marginally
+    past it and reference parity means accepting them.  Returns the exit
+    code, or None to proceed."""
     from nonlocalheatequation_torch.ops import constants as C
     from nonlocalheatequation_torch.ops import stencil as S
 
     mask = {1: S.horizon_mask_1d, 2: S.horizon_mask_2d, 3: S.horizon_mask_3d}[dim](eps)
     wsum = float(np.asarray(mask, np.float64).sum())
     c = {1: C.c_1d, 2: C.c_2d, 3: C.c_3d}[dim](k, eps, h)
-    bound = C.stable_dt(c, h, dim, wsum)
-    print(f"stability: dt bound in force {bound:g} (stepper euler); dt {dt:g}",
-          file=sys.stderr)
-    if dt > bound * (1.0 + 1e-12):
-        print(f"WARNING: dt {dt:g} exceeds the forward-Euler stability bound "
-              f"{bound:g}; accepted for reference parity but the solve may amplify",
-              file=sys.stderr)
+    bound = C.stable_dt(c, h, dim, wsum, stepper=stepper, stages=stages)
+    label = stepper if stepper != "rkc" else f"rkc[s={stages}]"
+    print(f"stability: dt bound in force {bound:g} (stepper {label}; Euler bound "
+          f"{C.stable_dt(c, h, dim, wsum):g}); dt {dt:g}", file=sys.stderr)
+    if dt <= bound * (1.0 + 1e-12):
+        return None
+    if stepper == "euler":
+        print(f"WARNING: dt {dt:g} exceeds the forward-Euler stability bound {bound:g}; "
+              "accepted for reference parity (several reference ctest rows sit marginally "
+              "past it) but the solve may amplify — consider --stepper rkc", file=sys.stderr)
+        return None
+    print(f"dt {dt:g} exceeds the {label} stability bound {bound:g}; raise "
+          "--superstep-stages or shrink --dt", file=sys.stderr)
+    return 2
 
 
 def iter_batch_cases(read_case, row_tokens, stream=None):

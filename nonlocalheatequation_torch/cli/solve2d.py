@@ -9,7 +9,9 @@ runs on the CUDA card (``--platform cpu`` for the CPU) and prints
 solve takes ``--log`` (CSV/VTU logs every ``--nlog`` steps under out_csv/
 and out_vtk/, utils/csvlog.py), ``--checkpoint``/``--ncheckpoint``/
 ``--resume`` (utils/checkpoint.py) and ``--profile DIR`` (a torch.profiler
-trace, utils/profiling.py), as the JAX CLI does.
+trace, utils/profiling.py), as the JAX CLI does.  ``--stepper
+euler|rkc|expo`` (with ``--superstep-stages``) picks the time integrator and
+``--method fft`` the spectral apply, in every mode.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from nonlocalheatequation_torch.cli.common import (
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_stepper_flags,
     announce_stable_dt,
     bool_flag,
     checkpoint_refusal,
@@ -35,6 +38,8 @@ from nonlocalheatequation_torch.cli.common import (
     platform_kwargs,
     precision_kwargs,
     run_batch,
+    stepper_kwargs,
+    validate_stepper_args,
     version_banner,
 )
 
@@ -57,9 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-header", action="store_true", dest="no_header")
     p.add_argument("--backend", default="torch", choices=("oracle", "torch"))
     p.add_argument("--method", default="auto",
-                   choices=("auto", "cuda", "conv", "shift", "sat"),
+                   choices=("auto", "cuda", "conv", "shift", "sat", "fft"),
                    help="neighbour-sum evaluation: auto (cuda on the card, conv on "
-                        "the CPU), cuda (the hand-written kernels), conv, shift, sat")
+                        "the CPU), cuda (the hand-written kernels), conv, shift, sat, fft "
+                        "(the padded-box spectral apply)")
+    add_stepper_flags(p)
     p.add_argument("--log", action="store_true",
                    help="write csv/vtu logs every nlog steps")
     add_checkpoint_flags(p)
@@ -72,18 +79,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    err = checkpoint_refusal(args) or ensemble_refusal(args)
+    err = checkpoint_refusal(args) or ensemble_refusal(args) or validate_stepper_args(args)
     if err:
         print(err, file=sys.stderr)
         return 1
     version_banner("2d_nonlocal")
+    sk = stepper_kwargs(args)
     if not args.test_batch:
-        announce_stable_dt(2, args.k, args.eps, args.dh, args.dt)
+        rc = announce_stable_dt(2, args.k, args.eps, args.dh, args.dt, **sk)
+        if rc is not None:
+            return rc
     from nonlocalheatequation_torch.models.solver2d import Solver2D
 
     try:
         kw = {"method": args.method, "backend": args.backend, "nlog": args.nlog,
-              **platform_kwargs(args), **precision_kwargs(args)}
+              **platform_kwargs(args), **precision_kwargs(args), **sk}
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -109,7 +119,7 @@ def main(argv=None) -> int:
         if args.ensemble:
             run_ensemble = ensemble_runner(make_solver, method=args.method,
                                            precision=args.precision, device=kw["device"],
-                                           dtype=kw["dtype"])
+                                           dtype=kw["dtype"], **sk)
         return run_batch(read_case, run_case, row_tokens=7, run_ensemble=run_ensemble,
                          profile=args.profile)
 

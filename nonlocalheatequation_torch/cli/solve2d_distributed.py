@@ -94,12 +94,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", default="auto",
                    choices=("auto", "conv", "shift", "sat", "cuda", "fft"),
                    help="neighbour-sum evaluation: auto (cuda on the card, conv on the "
-                        "CPU), cuda, conv, shift, sat; fft is not ported yet")
+                        "CPU), cuda, conv, shift, sat; fft (the sharded spectral tier) is not "
+                        "ported yet")
     p.add_argument("--stepper", default="euler", choices=("euler", "rkc", "expo"),
-                   help="time integrator: euler (rkc and expo are not ported yet)")
+                   help="time integrator: euler (rkc and expo on the distributed path are "
+                        "not ported yet)")
     p.add_argument("--superstep-stages", dest="stages", type=int, default=0, metavar="S",
                    help="--stepper rkc: the stage count; --stepper expo: the boundary "
-                        "correction's substeps (neither ported yet)")
+                        "correction's substeps (neither ported yet on the distributed path)")
     p.add_argument("--log", action="store_true",
                    help="write csv/vtu logs every nlog steps")
     add_checkpoint_flags(p)
@@ -137,7 +139,7 @@ def _refusal(args) -> str | None:
                 "--test_load_balance) steps with Euler — drop one of "
                 "them")
     refused = [
-        (args.stepper != "euler", f"--stepper {args.stepper}", "the stepper tier"),
+        (args.stepper != "euler", f"--stepper {args.stepper}", "the distributed stepper tier"),
         (args.method == "fft", "--method fft", "the sharded spectral tier"),
     ]
     for hit, flag, what in refused:

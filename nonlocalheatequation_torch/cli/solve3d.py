@@ -14,8 +14,11 @@ kernels of ops/cuda_halo.py and needs ``--method cuda``, ``--superstep K`` the
 communication-avoiding schedule).  A single solve takes
 ``--checkpoint``/``--ncheckpoint``/``--resume`` (utils/checkpoint.py; a
 checkpoint of either solver resumes in the other) and ``--profile DIR``.
-The JAX CLI's serving and network flags and ``--method fft`` are refused by
-name: they are not ported yet.
+``--stepper euler|rkc|expo`` (with ``--superstep-stages``) picks the time
+integrator and ``--method fft`` the spectral apply of the single-device
+solve.  Refused by name, not ported yet: the JAX CLI's serving and network
+flags, and ``--distributed`` with ``--method fft`` or a stepper other than
+euler (the distributed stepper tier and the sharded spectral tier).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from nonlocalheatequation_torch.cli.common import (
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_stepper_flags,
     announce_stable_dt,
     bool_flag,
     checkpoint_refusal,
@@ -41,6 +45,8 @@ from nonlocalheatequation_torch.cli.common import (
     platform_kwargs,
     precision_kwargs,
     run_batch,
+    stepper_kwargs,
+    validate_stepper_args,
     version_banner,
 )
 
@@ -70,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="torch", choices=("oracle", "torch"))
     p.add_argument("--method", default="auto", choices=("auto", "shift", "sat", "cuda", "fft"),
                    help="neighbour-sum evaluation: auto (cuda on the card, sat on the CPU), "
-                        "cuda (the hand-written kernels), shift, sat; fft is not ported yet")
+                        "cuda (the hand-written kernels), shift, sat, fft (the padded-box "
+                        "spectral apply; single-device solves)")
+    add_stepper_flags(p)
     p.add_argument("--distributed", action="store_true",
                    help="shard over the device mesh (blocks + halo exchange)")
     p.add_argument("--comm", default="collective", choices=("collective", "fused"),
@@ -96,8 +104,21 @@ def _refusal(args, rest) -> str | None:
             (v for k, v in NOT_PORTED.items() if name.startswith(k + "-")), None)
         if what is not None:
             return f"{name} is not ported yet to nonlocalheatequation_torch ({what})"
-    if args.method == "fft":
-        return "--method fft is not ported yet to nonlocalheatequation_torch (the spectral tier)"
+    if args.method == "fft" and args.distributed and args.comm == "fused":
+        return ("--method fft runs on the collective all-to-all pencil transposes; --comm "
+                "fused is a stencil-halo transport — drop one of them")
+    if args.method == "fft" and args.distributed and args.superstep > 1:
+        return ("--method fft has no superstep form (the transform is global every step); "
+                "--stepper rkc/expo carry the big-dt claim on the spectral tier")
+    err = validate_stepper_args(args)
+    if err:
+        return err
+    if args.distributed and args.method == "fft":
+        return ("--method fft with --distributed is not ported yet to "
+                "nonlocalheatequation_torch (the sharded spectral tier)")
+    if args.distributed and args.stepper != "euler":
+        return (f"--stepper {args.stepper} with --distributed is not ported yet to "
+                "nonlocalheatequation_torch (the distributed stepper tier)")
     return _distributed_refusal(args)
 
 
@@ -130,8 +151,11 @@ def main(argv=None) -> int:
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     version_banner("3d_nonlocal")
+    sk = stepper_kwargs(args)
     if not args.test_batch:
-        announce_stable_dt(3, args.k, args.eps, args.dh, args.dt)
+        rc = announce_stable_dt(3, args.k, args.eps, args.dh, args.dt, **sk)
+        if rc is not None:
+            return rc
     from nonlocalheatequation_torch.models.solver3d import Solver3D
     from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
 
@@ -150,7 +174,7 @@ def main(argv=None) -> int:
                                        method=args.method, dtype=kw["dtype"],
                                        superstep=args.superstep, precision=args.precision,
                                        comm=args.comm, device=kw["device"], **ckpt)
-        return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **ckpt, **kw)
+        return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **ckpt, **kw, **sk)
 
     if args.test_batch:
         # row: nx ny nz nt eps k dt dh
@@ -172,7 +196,7 @@ def main(argv=None) -> int:
         if args.ensemble:
             run_ensemble = ensemble_runner(make_solver, method=args.method,
                                            precision=args.precision, device=kw["device"],
-                                           dtype=kw["dtype"])
+                                           dtype=kw["dtype"], **sk)
         return run_batch(read_case, run_case, row_tokens=8, run_ensemble=run_ensemble,
                          profile=args.profile)
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``nonlocalheatequation_tpu/models/solver1d.py``
 (reference: src/1d_nonlocal_serial.cpp:32-236).  1D has no kernel: the
-``torch`` backend runs the ``shift`` operator's slice-adds on ``device``.
+``torch`` backend runs the ``shift`` operator's slice-adds (or ``fft``, the
+spectral apply) on ``device``, with the stepper ``stepper`` (euler, rkc or
+expo; models/steppers.py).
 """
 
 from __future__ import annotations

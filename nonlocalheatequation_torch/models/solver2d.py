@@ -23,6 +23,11 @@ The device path has three forms, as the JAX package's ``_run_jit``:
   recorded after each step and the oldest is waited on once more than
   ``nd`` are outstanding.
 
+``stepper``/``stages`` pick the time integrator (models/steppers.py: euler,
+rkc, expo) in each form; an rkc or expo solve steps its own loop (each rkc
+stage one ``op.apply``: on ``cuda`` one ``nsum2d`` launch), and the
+throttle steps its step function.
+
 Arrays are [x, y] of shape (nx, ny).  :class:`GridSolver` holds the set-up,
 loops and checkpoint/resume (utils/checkpoint.py) that ``Solver3D``
 (models/solver3d.py) shares.

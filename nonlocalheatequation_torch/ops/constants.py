@@ -1,8 +1,8 @@
-"""Scaling constants, the Euler stability bound and the precision tiers.
+"""Scaling constants, the steppers' stability bounds and the precision tiers.
 
-The port's own copy of the parts of ``nonlocalheatequation_tpu/ops/constants.py``
-that the forward-Euler path needs.  These reproduce the reference *code's*
-constants, not the paper's:
+The port's own copy of ``nonlocalheatequation_tpu/ops/constants.py``.  The
+scaling constants reproduce the reference *code's* constants, not the
+paper's:
 
 * 1D: the reference stores ``(k * 3) / pow(eps * dx, 3)`` into a ``long``
   (src/1d_nonlocal_serial.cpp:57,74), so the constant is TRUNCATED to an
@@ -40,25 +40,74 @@ def validate_precision(precision: str) -> str:
     return precision
 
 
-def stable_dt(c: float, h: float, dim: int, wsum: float) -> float:
-    """Largest stable forward-Euler dt.
+# Autotuner gate for the precision dimension (utils/autotune.py,
+# ``NLHEAT_TUNE_PRECISION=1``): a bf16 candidate may win a probe only if its
+# multi-step output stays within this l2/#points of the f32 per-step program
+# on the same probe state.  Same value as the reference package.
+BF16_TUNE_GATE = 1e-5
 
-    The operator's spectrum lies in [-2*c*h^d*Wsum, 0]; forward Euler
-    (P(z) = 1 + z) is stable for z in [-2, 0], so dt <= 1/(c*h^d*Wsum).  A
-    degenerate operator (c truncated to 0 by the 1D long cast) has an empty
-    spectrum: every dt is stable (inf).
-    """
+
+# -- the time integrators' stability model ----------------------------------
+#
+# The operator's spectrum lies in [-2*c*h^d*Wsum, 0].  A one-step method with
+# stability polynomial P is stable iff |P(dt*lambda)| <= 1 over it:
+#
+# * forward Euler, P(z) = 1 + z, stable on [-2, 0]: dt <= 1/(c*h^d*Wsum);
+# * RKC (s-stage Runge-Kutta-Chebyshev, first order, damped),
+#   P(z) = T_s(w0 + w1*z)/T_s(w0), stable on [-beta(s), 0] with
+#   beta(s) = (1 + w0)/w1 ~ 2*s^2: dt <= beta(s)/(2*c*h^d*Wsum);
+# * expo (spectral, method='fft' only): e^{dt*lambda} <= 1 for every dt.
+
+#: Chebyshev damping for the RKC stepper: w0 = 1 + eta/s^2 keeps |P| strictly
+#: below 1 inside the interval, at about 2.6% of its length.
+RKC_DAMPING = 0.05
+
+
+def _cheb_pair(s: int, w0: float) -> tuple:
+    """(T_s(w0), T_s'(w0)) by the three-term recurrences."""
+    t_prev, t = 1.0, w0  # T_0, T_1
+    d_prev, d = 0.0, 1.0  # T_0', T_1'
+    for _ in range(2, s + 1):
+        t_prev, t = t, 2.0 * w0 * t - t_prev
+        d_prev, d = d, 2.0 * t_prev + 2.0 * w0 * d - d_prev
+    return (t, d) if s >= 1 else (1.0, 0.0)
+
+
+def rkc_beta(stages: int) -> float:
+    """Length beta(s) of the damped s-stage RKC polynomial's real stability
+    interval [-(1 + w0)/w1, 0]: beta(2) ~ 7.7, beta(10) ~ 193."""
+    s = int(stages)
+    if s < 2:
+        raise ValueError(f"RKC needs stages >= 2, got {stages}")
+    w0 = 1.0 + RKC_DAMPING / (s * s)
+    ts, dts = _cheb_pair(s, w0)
+    w1 = ts / dts
+    return (1.0 + w0) / w1
+
+
+def stable_dt(c: float, h: float, dim: int, wsum: float, stepper: str = "euler",
+              stages: int = 0) -> float:
+    """Largest stable dt of the (stepper, stages) pair on an operator with
+    scaling constant ``c``, spacing ``h``, dimension ``dim`` and weight sum
+    ``wsum`` (the model above).  A degenerate operator (c truncated to 0 by
+    the 1D long cast) has an empty spectrum: every dt is stable (inf)."""
     lam_max = 2.0 * c * (h ** dim) * wsum
+    if stepper == "expo":
+        return math.inf
     if lam_max <= 0.0:
         return math.inf
-    return 2.0 / lam_max
+    if stepper == "euler":
+        return 2.0 / lam_max
+    if stepper == "rkc":
+        return rkc_beta(stages) / lam_max
+    raise ValueError(f"unknown stepper {stepper!r} (euler|rkc|expo)")
 
 
-def stable_dt_op(op) -> float:
+def stable_dt_op(op, stepper: str = "euler", stages: int = 0) -> float:
     """:func:`stable_dt` with (c, h, dim, wsum) read off an operator."""
     dim = op.weights.ndim
     h = op.dx if dim == 1 else op.dh
-    return stable_dt(op.c, h, dim, op.wsum)
+    return stable_dt(op.c, h, dim, op.wsum, stepper=stepper, stages=stages)
 
 
 def c_1d(k: float, eps: int, dx: float) -> float:

@@ -21,12 +21,17 @@ order):
 * ``cuda``  — the hand-written kernels (ops/cuda_kernel.py): ``nsum2d`` for
   the neighbour sum, and the fused ``step2d`` for a whole Euler step.  On a
   CPU tensor the wrappers run their plain versions.
-* ``auto``  — ``cuda`` on a CUDA tensor, ``conv`` on the CPU.
+* ``fft``   — the padded-box rFFT (ops/spectral.py): O(N log N), eps
+  independent, within 1e-12 of the stencil methods, whole-domain entry
+  points only (the padded ones refuse it).
+* ``auto``  — ``cuda`` on a CUDA tensor, ``conv`` on the CPU; never ``fft``.
 
 A weighted influence function J demotes ``sat``/``cuda``/``auto`` to
-``conv`` (the kernels sum a 0/1 mask).  The 3D operator (:class:`NonlocalOp3D`)
-has ``shift``, ``sat``, ``cuda`` (``nsum3d``/``step3d``) and ``auto`` (``sat``
-on the CPU); its weighted J demotes to ``shift``.
+``conv`` (the kernels sum a 0/1 mask); ``fft`` bakes the weights into its
+symbol and stays.  The 3D operator (:class:`NonlocalOp3D`) has ``shift``,
+``sat``, ``cuda`` (``nsum3d``/``step3d``), ``fft`` and ``auto`` (``sat`` on
+the CPU); its weighted J demotes to ``shift``.  The 1D operator has
+``shift`` and ``fft``.
 
 Precision tiers (ops/constants.py): ``"bf16"`` evaluates every neighbour sum
 and the matching ``Wsum*u`` center term on the bfloat16 rounding of the
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nonlocalheatequation_torch.ops import cuda_kernel, cuda_kernel3d
+from nonlocalheatequation_torch.ops import cuda_kernel, cuda_kernel3d, spectral
 from nonlocalheatequation_torch.ops.constants import c_1d, c_2d, c_3d, validate_precision
 from nonlocalheatequation_torch.ops.cuda_kernel import bf16_round
 from nonlocalheatequation_torch.ops.stencil import (
@@ -61,8 +66,23 @@ from nonlocalheatequation_torch.ops.stencil import (
 from nonlocalheatequation_torch.utils import autotune
 
 TWO_PI = 2.0 * np.pi
-METHODS_2D = ("shift", "conv", "sat", "cuda", "auto")
-METHODS_3D = ("shift", "sat", "cuda", "auto")
+METHODS_1D = ("shift", "fft")
+METHODS_2D = ("shift", "conv", "sat", "cuda", "fft", "auto")
+METHODS_3D = ("shift", "sat", "cuda", "fft", "auto")
+
+
+def _check_method(method: str, methods: tuple) -> None:
+    if method not in methods:
+        raise ValueError(f"unknown method {method!r}; one of {methods}")
+
+
+def _refuse_fft_padded(op, stencils: str) -> None:
+    """The padded entry points never serve fft: a block's halo carries
+    neighbour data, not the zero collar the embedding needs."""
+    if op.method == "fft":
+        raise ValueError(
+            "method='fft' serves whole-domain (volumetric-collar) solves only; "
+            f"halo-padded block evaluation (distributed/fused-comm paths) needs {stencils}")
 
 
 @contextlib.contextmanager
@@ -98,13 +118,12 @@ class _PrecisionPolicy:
 
 class NonlocalOp1D(_PrecisionPolicy):
     """1D horizon operator (reference: src/1d_nonlocal_serial.cpp:198-206).
-    Method ``shift`` only: 1D has no kernel."""
+    Methods ``shift`` (the reference's slice-add loop) and ``fft``; 1D has no
+    kernel."""
 
     def __init__(self, eps: int, k: float, dt: float, dx: float, influence=None,
                  method: str = "shift", precision: str = "f32", resync_every: int = 0):
-        if method != "shift":
-            raise ValueError(f"NonlocalOp1D: method {method!r} is not ported yet "
-                             "(the port's 1D operator is 'shift')")
+        _check_method(method, METHODS_1D)
         self.eps = int(eps)
         self.k = float(k)
         self.dt = float(dt)
@@ -122,6 +141,12 @@ class NonlocalOp1D(_PrecisionPolicy):
                             method=self.method, precision=precision,
                             resync_every=resync_every)
 
+    def with_method(self, method: str) -> "NonlocalOp1D":
+        """Twin operator differing only in method (the tuner's fft probe)."""
+        return NonlocalOp1D(self.eps, self.k, self.dt, self.dx, influence=self._influence,
+                            method=method, precision=self.precision,
+                            resync_every=self.resync_every)
+
     def neighbor_sum_np(self, u: np.ndarray) -> np.ndarray:
         nx = u.shape[0]
         up = np.zeros(nx + 2 * self.eps, dtype=u.dtype)
@@ -134,6 +159,8 @@ class NonlocalOp1D(_PrecisionPolicy):
         return acc
 
     def neighbor_sum(self, u: torch.Tensor) -> torch.Tensor:
+        if self.method == "fft":
+            return spectral.neighbor_sum_fft(self, self._operand(u))
         up = self._operand(F.pad(u, (self.eps, self.eps)))
         nx = u.shape[0]
         acc = torch.zeros_like(u)
@@ -170,9 +197,7 @@ class NonlocalOp2D(_PrecisionPolicy):
 
     def __init__(self, eps: int, k: float, dt: float, dh: float, influence=None,
                  method: str = "auto", precision: str = "f32", resync_every: int = 0):
-        if method not in METHODS_2D:
-            raise ValueError(f"unknown method {method!r}; one of {METHODS_2D} "
-                             "(fft is not ported yet)")
+        _check_method(method, METHODS_2D)
         self.eps = int(eps)
         self.k = float(k)
         self.dt = float(dt)
@@ -193,6 +218,12 @@ class NonlocalOp2D(_PrecisionPolicy):
         return NonlocalOp2D(self.eps, self.k, self.dt, self.dh, influence=self._influence,
                             method=self.method, precision=precision,
                             resync_every=resync_every)
+
+    def with_method(self, method: str) -> "NonlocalOp2D":
+        """Twin operator differing only in method (the tuner's fft probe)."""
+        return NonlocalOp2D(self.eps, self.k, self.dt, self.dh, influence=self._influence,
+                            method=method, precision=self.precision,
+                            resync_every=self.resync_every)
 
     def resolve_method(self, device: torch.device) -> str:
         """Concrete method for tensors on ``device``: ``auto`` is ``cuda`` on
@@ -222,11 +253,14 @@ class NonlocalOp2D(_PrecisionPolicy):
         return acc
 
     def neighbor_sum(self, u: torch.Tensor) -> torch.Tensor:
+        if self.method == "fft":
+            return spectral.neighbor_sum_fft(self, self._operand(u))
         e = self.eps
         return self.neighbor_sum_padded(F.pad(u, (e, e, e, e)))
 
     def neighbor_sum_padded(self, upad: torch.Tensor) -> torch.Tensor:
         """Valid-mode neighbour sum of a halo-padded (nx+2e, ny+2e) block."""
+        _refuse_fft_padded(self, "cuda/sat/conv/shift")
         method = self.resolve_method(upad.device)
         if method == "cuda":
             return cuda_kernel.nsum2d(upad, self.eps, self.precision)
@@ -322,16 +356,15 @@ class NonlocalOp3D(_PrecisionPolicy):
     a z prefix sum so each column is one window difference (use it in f64);
     ``cuda`` runs the hand-written kernels (ops/cuda_kernel3d.py: ``nsum3d``
     for the sum, the fused ``step3d`` for a whole Euler step; their plain
-    versions on a CPU tensor); ``auto`` is ``cuda`` on a CUDA tensor and
-    ``sat`` on the CPU, as the JAX package picks ``sat`` off the TPU.  A
+    versions on a CPU tensor); ``fft`` the padded-box rFFT (ops/spectral.py,
+    whole-domain entry points only); ``auto`` is ``cuda`` on a CUDA tensor
+    and ``sat`` on the CPU, as the JAX package picks ``sat`` off the TPU.  A
     weighted J demotes ``sat``/``cuda``/``auto`` to ``shift``.
     """
 
     def __init__(self, eps: int, k: float, dt: float, dh: float, influence=None,
                  method: str = "auto", precision: str = "f32", resync_every: int = 0):
-        if method not in METHODS_3D:
-            raise ValueError(f"unknown method {method!r}; one of {METHODS_3D} "
-                             "(fft is not ported yet)")
+        _check_method(method, METHODS_3D)
         self.eps = int(eps)
         self.k = float(k)
         self.dt = float(dt)
@@ -353,6 +386,12 @@ class NonlocalOp3D(_PrecisionPolicy):
         return NonlocalOp3D(self.eps, self.k, self.dt, self.dh, influence=self._influence,
                             method=self.method, precision=precision,
                             resync_every=resync_every)
+
+    def with_method(self, method: str) -> "NonlocalOp3D":
+        """Twin operator differing only in method (the tuner's fft probe)."""
+        return NonlocalOp3D(self.eps, self.k, self.dt, self.dh, influence=self._influence,
+                            method=method, precision=self.precision,
+                            resync_every=self.resync_every)
 
     def resolve_method(self, device: torch.device) -> str:
         """Concrete method for tensors on ``device``: ``auto`` is ``cuda`` on
@@ -385,10 +424,13 @@ class NonlocalOp3D(_PrecisionPolicy):
         return acc
 
     def neighbor_sum(self, u: torch.Tensor) -> torch.Tensor:
+        if self.method == "fft":
+            return spectral.neighbor_sum_fft(self, self._operand(u))
         return self.neighbor_sum_padded(F.pad(u, (self.eps,) * 6))
 
     def neighbor_sum_padded(self, upad: torch.Tensor) -> torch.Tensor:
         """Valid-mode neighbour sum of a halo-padded (nx+2e, ny+2e, nz+2e) block."""
+        _refuse_fft_padded(self, "cuda/sat/shift")
         method = self.resolve_method(upad.device)
         if method == "cuda":
             return cuda_kernel3d.nsum3d(upad, self.eps, self.precision)
@@ -504,8 +546,8 @@ def make_step_fn(op, g=None, lg=None, dtype=None):
     added.  A 2D or 3D operator whose method resolves to ``cuda`` for
     ``u``'s device runs the fused ``step2d``/``step3d`` kernel, which writes
     into ``out`` when given (a buffer that must not overlap ``u``); the other
-    methods compute ``u + dt*(L(u) + b_t)`` with tensor ops and return a new
-    tensor.  Use the returned tensor either way.
+    methods, ``fft`` among them, compute ``u + dt*(L(u) + b_t)`` with tensor
+    ops and return a new tensor.  Use the returned tensor either way.
     """
     sources = _Sources(g, lg) if g is not None else None
     fused = {NonlocalOp2D: cuda_kernel.step2d, NonlocalOp3D: cuda_kernel3d.step3d}.get(type(op))

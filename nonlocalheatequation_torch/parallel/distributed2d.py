@@ -30,8 +30,8 @@ the barriers (utils/checkpoint.CheckpointMixin._run_chunked), the logger
 and the checkpoint given the GLOBAL state (``fetch_global``); the
 checkpoint's parameters are the single-device solvers', so a distributed
 checkpoint resumes in ``Solver2D``/``Solver3D`` and the reverse.  Not ported
-yet, and refused by name: non-Euler steppers and ``method="fft"`` (the
-sharded spectral tier).  ``nbalance`` is refused as the JAX solver refuses
+yet, and refused by name: non-Euler steppers (the distributed stepper tier)
+and ``method="fft"`` (the sharded spectral tier).  ``nbalance`` is refused as the JAX solver refuses
 it: rebalancing is the elastic executor's (parallel/elastic.py).
 :class:`DistributedGridSolver` holds what the 2D and 3D solvers share.
 """
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.models.metrics import ManufacturedMetrics2D
-from nonlocalheatequation_torch.models.steppers import validate_stepper
+from nonlocalheatequation_torch.models.steppers import STEPPERS
 from nonlocalheatequation_torch.obs import trace as obs_trace
 from nonlocalheatequation_torch.obs.metrics import REGISTRY
 from nonlocalheatequation_torch.ops.cuda_halo import (
@@ -86,9 +86,15 @@ def choose_mesh_for_grid(NX: int, NY: int, devices=None) -> Mesh:
     return make_mesh(mx, my, devices)
 
 
-def refuse_unported_distributed(method: str, stepper: str, stages: int) -> None:
-    """The distributed solvers' refusals of what is not ported yet."""
-    validate_stepper(stepper, stages)
+def refuse_unported_distributed(method: str, stepper: str) -> None:
+    """The distributed solvers' refusals of what is not ported yet: rkc and
+    expo on blocks (the distributed stepper tier) and fft (the sharded
+    spectral tier)."""
+    if stepper not in STEPPERS:
+        raise ValueError(f"unknown stepper {stepper!r}; one of {STEPPERS}")
+    if stepper != "euler":
+        raise ValueError(f"stepper={stepper!r} (the distributed stepper tier) is not ported "
+                         "yet to nonlocalheatequation_torch")
     if method == "fft":
         raise ValueError("method='fft' (the sharded spectral tier) is not ported yet to "
                          "nonlocalheatequation_torch")
@@ -342,7 +348,7 @@ class Solver2DDistributed(DistributedGridSolver):
             raise ValueError(
                 "resync_every is not supported on the distributed path; run the serial "
                 "solver, or precision='bf16' without resync")
-        refuse_unported_distributed(method, stepper, stages)
+        refuse_unported_distributed(method, stepper)
         op = NonlocalOp2D(eps, k, dt, dh, method=method, precision=precision)
         self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid, logger,
                     checkpoint_path, ncheckpoint)

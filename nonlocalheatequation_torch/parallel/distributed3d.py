@@ -67,7 +67,7 @@ class Solver3DDistributed(DistributedGridSolver):
                  stepper: str = "euler", stages: int = 0, device=None):
         self.NX, self.NY, self.NZ = int(NX), int(NY), int(NZ)
         self.nt, self.eps, self.nlog = int(nt), int(eps), int(nlog)
-        refuse_unported_distributed(method, stepper, stages)
+        refuse_unported_distributed(method, stepper)
         op = NonlocalOp3D(eps, k, dt, dh, method=method, precision=precision)
         self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid_3d, logger,
                     checkpoint_path, ncheckpoint)

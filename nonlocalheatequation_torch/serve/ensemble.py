@@ -34,8 +34,13 @@ cloud's content hash, serve/meshes.py) runs each case's solo loop of the
 the JAX package runs its Pallas gather tier.  ``comm`` joins the program
 key: ``comm='fused'`` needs ``method='cuda'`` (ops/cuda_halo.require_fused),
 and since every case the engine runs is a single-device solve it changes
-the key, not the programs, as in the JAX package.  Not ported yet, and
-refused by name: non-Euler steppers and the AOT program store.
+the key, not the programs, as in the JAX package.  A non-Euler engine
+(``stepper='rkc'|'expo'``) runs every grid bucket as the stacked stepper
+composition, ``stacked[{stepper}]`` (models/steppers
+.make_batched_multi_step_fn: each case's solo stepper loop in turn, so
+lane b is bitwise the solo solve), and refuses the Euler-only variants
+(carried, superstep, vmap); mesh buckets stay Euler-only.  Not ported yet,
+and refused by name: the AOT program store.
 """
 
 from __future__ import annotations
@@ -155,7 +160,7 @@ class EnsembleEngine:
                  comm: str = "collective", stepper: str = "euler", stages: int = 0,
                  program_store=None, program_cache_cap: int | None = None,
                  store_backend: str | None = None, device=None):
-        from nonlocalheatequation_torch.models.steppers import validate_stepper
+        from nonlocalheatequation_torch.models.steppers import STEPPERS
 
         if variant not in self.VARIANTS:
             raise ValueError(f"unknown ensemble variant {variant!r}; one of {self.VARIANTS}")
@@ -167,7 +172,22 @@ class EnsembleEngine:
             # the halo kernels are cuda-only (require_fused); refused up
             # front so an unservable key never reaches a program build
             raise ValueError("comm='fused' needs method='cuda' (ops/cuda_halo.require_fused)")
-        validate_stepper(stepper, stages)
+        if stepper not in STEPPERS:
+            raise ValueError(f"unknown stepper {stepper!r}; one of {STEPPERS}")
+        if stepper == "rkc" and stages < 2:
+            raise ValueError("stepper='rkc' needs stages >= 2")
+        if stepper == "expo" and method != "fft":
+            # the exponential integrator is the spectral symbol: refused up
+            # front, as models/steppers.validate_stepper refuses it
+            raise ValueError("stepper='expo' requires method='fft' "
+                             "(models/steppers.validate_stepper)")
+        if stepper != "euler" and variant in ("carried", "superstep", "vmap"):
+            # the carried/superstep kernels and the vmap composition are
+            # forward-Euler programs; a stepper bucket runs the stacked
+            # stepper composition
+            raise ValueError(
+                f"ensemble variant {variant!r} is Euler-only; stepper={stepper!r} buckets "
+                "run variant 'auto'/'per-step'/'stacked' (the stacked stepper composition)")
         if program_store is not None or store_backend is not None:
             raise ValueError("the AOT program store (program_store, store_backend) is not "
                              "ported yet to nonlocalheatequation_torch")
@@ -206,6 +226,21 @@ class EnsembleEngine:
         method, precision), as the JAX package keys its engine pools."""
         return (self.stepper, self.stages, self.method, self.precision)
 
+    def engine_for(self, stepper: str, stages: int, method: str,
+                   precision: str) -> "EnsembleEngine":
+        """A sibling on the picked (stepper, stages, method, precision) axes:
+        the variant reset to 'auto' (an Euler-only variant must not refuse a
+        picked rkc bucket), ``comm`` dropped to 'collective' unless the
+        method is 'cuda' (the fused halo family is cuda-only), the
+        superstep depth kept for Euler only.  ``self`` when the pick is this
+        engine's own configuration."""
+        if (stepper, int(stages), method, precision) == self.engine_key():
+            return self
+        return self.sibling(stepper=stepper, stages=int(stages), method=method,
+                            precision=precision, variant="auto",
+                            comm=self.comm if method == "cuda" else "collective",
+                            ksteps=self.ksteps if stepper == "euler" else 0)
+
     # -- case -> operator ---------------------------------------------------
     def _make_op(self, case: EnsembleCase):
         from nonlocalheatequation_torch.ops.nonlocal_op import (
@@ -222,8 +257,10 @@ class EnsembleEngine:
             return get_mesh_op(case.mesh, case.k, case.dt, device=self.device)
         dim = len(case.shape)
         if dim == 1:
-            # the port's 1D operator has one method; the 2D/3D settings map to it
-            return NonlocalOp1D(case.eps, case.k, case.dt, case.dh, precision=self.precision)
+            # the 1D operator's methods are shift|fft; the 2D/3D settings map to shift
+            return NonlocalOp1D(case.eps, case.k, case.dt, case.dh,
+                                method="fft" if self.method == "fft" else "shift",
+                                precision=self.precision)
         cls = NonlocalOp2D if dim == 2 else NonlocalOp3D
         return cls(case.eps, case.k, case.dt, case.dh, method=self.method,
                    precision=self.precision)
@@ -271,9 +308,9 @@ class EnsembleEngine:
     # -- one chunk = one program, one dispatch ------------------------------
     def build_program(self, key, chunk):
         """The chunk's multi-step callable, cached per (bucket, size,
-        variant, physics, dtype, comm) in a bounded LRU."""
+        variant, physics, dtype, stepper, stages, comm) in a bounded LRU."""
         prog_key = (key, len(chunk), self.variant, tuple(c.physics() for c in chunk),
-                    str(self.dtype), self.comm)
+                    str(self.dtype), self.stepper, self.stages, self.comm)
         multi = self._programs.get(prog_key)
         if multi is None:
             with obs_trace.span("ensemble.build", cat="ensemble", bucket=str(key),
@@ -336,6 +373,14 @@ class EnsembleEngine:
                      else op.source_parts(*shape) for op in ops]
             gs = [g for g, _ in parts]
             lgs = [lg for _, lg in parts]
+        if self.stepper != "euler":
+            # each case's solo rkc/expo loop, stacked (the constructor refused
+            # the Euler-only variants)
+            from nonlocalheatequation_torch.models.steppers import make_batched_multi_step_fn
+
+            self.report.strategies[key] = f"stacked[{self.stepper}]"
+            return make_batched_multi_step_fn(ops, nt, dtype=self.dtype, test=test, gs=gs,
+                                              lgs=lgs, stepper=self.stepper, stages=self.stages)
         resolved = op0.resolve_method(self.device) if dim > 1 else op0.method
         cuda2d = dim == 2 and resolved == "cuda" and op0.uniform
         variant = self.variant

@@ -36,8 +36,13 @@ serve/ensemble.py) over the batched kernels of ops/cuda_batched.py and the
 vmap composition, once per shape and batch size, under the same rule: a
 probe that fails raises.
 
-Not ported yet, and refused by name: the precision dimension
-(``NLHEAT_TUNE_PRECISION=1``).
+Two opt-in dimensions change results within a stated bound, not bitwise,
+as in the JAX tuner.  ``NLHEAT_TUNE_PRECISION=1`` adds the bf16 tier's
+candidates (``+bf16`` names) to an f32-tier solve; a bf16 winner must pass
+:func:`_bf16_gate` (constants.BF16_TUNE_GATE), recorded beside the rates.
+``NLHEAT_TUNE_METHOD=1`` (models/steppers.make_multi_step_fn, production
+solves) times the op's own method against its fft twin,
+:func:`pick_op_method`, under ``method-ab`` keys.
 """
 
 from __future__ import annotations
@@ -208,12 +213,14 @@ def tuning_key(op, shape, dtype, device) -> str:
 
 
 def _winner(key: str, cands: dict, measure, default: str | None = None,
-            margin: float = 0.0) -> str:
+            margin: float = 0.0, gate=None) -> str:
     """The fastest of ``cands`` by the record under ``key``: this process's,
     else the file cache's, probing (``measure(name)``, seconds per step)
     only the candidates no record holds and storing the merged record.
     ``default`` keeps the win unless another candidate is faster by
-    ``margin`` of its time."""
+    ``margin`` of its time.  ``gate()`` (the bf16 tier's accuracy gate) is
+    run once per record when ``+bf16`` candidates compete and kept in it; a
+    ``+bf16`` candidate wins only where it passed."""
 
     def covers(e) -> bool:
         # an entry is reusable only if it measured every candidate that fits
@@ -234,8 +241,13 @@ def _winner(key: str, cands: dict, measure, default: str | None = None,
             for name in cands:
                 if name not in recorded:
                     recorded[name] = measure(name) * 1e3
-            entry = {"winner": _fastest(recorded, recorded, default, margin),
-                     "ms_per_step": recorded}
+            entry = {"ms_per_step": recorded}
+            bf16_gate = _entry_gate(partial) or _entry_gate(file_cache.get(key))
+            if bf16_gate is None and gate is not None:
+                bf16_gate = gate()
+            if bf16_gate is not None:
+                entry["bf16_gate"] = bf16_gate
+            entry["winner"] = _fastest(recorded, _eligible(recorded, entry), default, margin)
             file_cache[key] = entry
             _store_file_cache(file_cache)
         _memory_cache[key] = entry
@@ -244,8 +256,32 @@ def _winner(key: str, cands: dict, measure, default: str | None = None,
         # the recorded winner does not fit this nsteps (superstep3 won on a
         # long run, this one has 2 steps): run the fastest one that does,
         # by the same rule
-        winner = _fastest(entry["ms_per_step"], cands, default, margin)
+        winner = _fastest(entry["ms_per_step"], _eligible(cands, entry), default, margin)
     return winner
+
+
+def _entry_gate(entry) -> dict | None:
+    return (entry or {}).get("bf16_gate")
+
+
+def _eligible(names, entry: dict) -> list:
+    """``names`` less the ``+bf16`` candidates unless the record's gate passed."""
+    ok = (_entry_gate(entry) or {}).get("ok")
+    return [n for n in names if ok or not n.endswith("+bf16")]
+
+
+def _bf16_gate(op, op_bf16, shape, dtype, device) -> dict:
+    """The precision dimension's accuracy gate: l2/#points between the f32
+    and the bf16 tier's per-step programs over a PROBE_STEPS run from the
+    probe state, against constants.BF16_TUNE_GATE."""
+    from nonlocalheatequation_torch.ops.constants import BF16_TUNE_GATE
+    from nonlocalheatequation_torch.ops.nonlocal_op import make_multi_step_fn_base
+
+    u = _probe_state(shape, dtype, device)
+    a = make_multi_step_fn_base(op, PROBE_STEPS, dtype=dtype)(u, 0)
+    b = make_multi_step_fn_base(op_bf16, PROBE_STEPS, dtype=dtype)(u, 0)
+    l2 = float(torch.sum((a.double() - b.double()) ** 2)) / float(a.numel())
+    return {"l2_per_n": l2, "budget": BF16_TUNE_GATE, "ok": bool(l2 <= BF16_TUNE_GATE)}
 
 
 def _fastest(ms_per_step: dict, names, default: str | None, margin: float) -> str:
@@ -261,17 +297,47 @@ def _fastest(ms_per_step: dict, names, default: str | None, margin: float) -> st
 
 def pick_multi_step_fn(op, nsteps: int, shape, dtype, device):
     """Measure the fitting variants (cached) and build the winner at the
-    real step count.  Returns (fn, winner_name)."""
-    if os.environ.get("NLHEAT_TUNE_PRECISION") == "1":
-        raise ValueError("NLHEAT_TUNE_PRECISION=1 (precision as a tuned dimension) is not "
-                         "ported yet; unset it to tune the operator's own tier")
+    real step count.  Returns (fn, winner_name).  Under
+    ``NLHEAT_TUNE_PRECISION=1`` an f32-tier op's bf16 twins compete too
+    (``+bf16``), behind :func:`_bf16_gate`."""
     device = torch.device(device)
     shape = tuple(shape)
     cands = dict(candidates(op, shape, nsteps, dtype, device))
+    gate = None
+    if os.environ.get("NLHEAT_TUNE_PRECISION") == "1" and op.precision == "f32":
+        op_bf16 = op.with_precision("bf16")
+        for name, maker in candidates(op_bf16, shape, nsteps, dtype, device):
+            cands[f"{name}+bf16"] = lambda _o, n, d, m=maker: m(op_bf16, n, d)
+        gate = lambda: _bf16_gate(op, op_bf16, shape, dtype, device)  # noqa: E731
     probe = functools.cache(lambda: _probe_state(shape, dtype, device))
     winner = _winner(tuning_key(op, shape, dtype, device), cands,
-                     lambda name: _measure(cands[name], op, probe()))
+                     lambda name: _measure(cands[name], op, probe()), gate=gate)
     return cands[winner](op, nsteps, dtype), winner
+
+
+def pick_op_method(op, shape, dtype, device):
+    """The stencil/fft crossover (``NLHEAT_TUNE_METHOD=1``): time the op's
+    own method against its fft twin (ops/spectral.py) on the same
+    PROBE_STEPS per-step program, once per (card, method pair, shape, eps,
+    dtype, tier), and return the operator to run, the op or its twin.  The
+    stencil methods cost O(N * eps^d) an apply, fft O(N log N) whatever
+    eps.  The twin computes the same function within 1e-12, not bitwise.
+    Records share the file of :func:`pick_multi_step_fn` under
+    ``method-ab`` keys."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import make_multi_step_fn_base
+
+    device = torch.device(device)
+    shape = tuple(shape)
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    key = "/".join([f"k{kernels_digest(len(shape))}", card, "method-ab",
+                    f"{op.method}-vs-fft", "x".join(map(str, shape)), f"eps{op.eps}",
+                    str(dtype).replace("torch.", "")]
+                   + ([f"prec-{op.precision}"] if op.precision != "f32" else []))
+    cands = {op.method: op, "fft": op.with_method("fft")}
+    probe = functools.cache(lambda: _probe_state(shape, dtype, device))
+    winner = _winner(key, cands, lambda name: _measure(
+        lambda o, n, d: make_multi_step_fn_base(o, n, dtype=d), cands[name], probe()))
+    return cands[winner]
 
 
 def batched_candidates(ops, shape, nsteps: int, dtype, device, ksteps: int = 0):

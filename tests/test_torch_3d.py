@@ -138,8 +138,10 @@ def test_operator_twins_weights_and_sources():
     u = np.random.default_rng(1).standard_normal((7, 6, 5))
     jw = JaxOp3D(2, 1.0, 1e-4, 0.05, influence=J, method="shift")
     assert _rel(w.apply(torch.from_numpy(u)).numpy(), jw.apply_np(u)) <= 1e-12
-    with pytest.raises(ValueError, match="fft is not ported yet"):
-        NonlocalOp3D(2, 1.0, 1e-4, 0.05, method="fft")
+    # fft bakes the weights into its symbol: a weighted J keeps it
+    wf = NonlocalOp3D(2, 1.0, 1e-4, 0.05, influence=J, method="fft")
+    assert wf.method == "fft"
+    assert _rel(wf.apply(torch.from_numpy(u)).numpy(), jw.apply_np(u)) <= 1e-12
 
 
 def test_bf16_operator_matches_jax():
@@ -195,9 +197,8 @@ def test_solver3d_logger_input_init_and_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             Solver3D(4, 4, 4, 1, 1)
-    with pytest.raises(ValueError, match="not ported yet"):
-        Solver3D(4, 4, 4, 1, 1, device=CPU, stepper="rkc", stages=4)
-    with pytest.raises(ValueError, match="not ported yet"):
+    assert Solver3D(4, 4, 4, 1, 1, device=CPU, stepper="rkc", stages=4).stages == 4
+    with pytest.raises(ValueError, match="requires method='fft'"):
         Solver3D(4, 4, 4, 1, 1, device=CPU, stepper="expo")
     # the dispatch-ahead throttle is Solver2D's; the JAX Solver3D has no nd
     with pytest.raises(ValueError, match="Solver3D takes no nd"):
@@ -239,7 +240,7 @@ def test_cli_single_solve_timing_row_and_failure(monkeypatch, capsys):
     (["--serve-deadline-ms=5"], "--serve-deadline-ms"), (["--checkpoint", "x.npz"], None),
     (["--resume"], None), (["--serve", "2"], "--serve"),
     (["--serve-retries=1"], "--serve-retries"), (["--listen", "0"], "--listen"),
-    (["--profile", "d"], None), (["--method", "fft"], "--method fft")])
+    (["--profile", "d"], None), (["--method", "fft"], None)])
 def test_cli_refuses_what_is_not_ported_by_name(capsys, tmp_path, monkeypatch, argv, name):
     if name is not None:
         assert solve3d.main(argv + ["--platform", "cpu"]) == 1
@@ -260,6 +261,8 @@ def test_cli_refuses_what_is_not_ported_by_name(capsys, tmp_path, monkeypatch, a
     assert "l2: " in capsys.readouterr().out
     if "--profile" in argv:
         assert len(list((tmp_path / "d").iterdir())) == 1
+    elif argv == ["--method", "fft"]:
+        assert not list(tmp_path.iterdir())  # a solve, no file
     else:
         from nonlocalheatequation_torch.utils.checkpoint import load_state
 

@@ -27,13 +27,18 @@ the in-kernel exchange and the split kernels) are held to their plain
 versions and bitwise to the one-pass nsum2d/nsum3d on the exchanged frame
 (fused_nsum2d in its register design and its tile body), and the
 distributed solves' fused path (both transports) bitwise to their
-collective path on meshes of virtual devices of the one card.
+collective path on meshes of virtual devices of the one card.  An rkc
+solve (models/steppers.py) launches one nsum2d/nsum3d a stage and is
+bitwise the same solve through their plain versions; fft
+(ops/spectral.py) meets the kernels' neighbour sums; expo meets the
+manufactured contract and launches no kernel.
 
 The CPU tests hold the plain versions against the JAX package
 (tests/test_torch_kernels.py, test_torch_multistep.py, test_torch_autotune.py,
 test_torch_kernels3d.py, test_torch_3d.py, test_torch_batched_kernels.py,
 test_torch_ensemble.py, test_torch_unstructured.py, test_torch_windowed.py,
-test_torch_gather.py, test_torch_halo.py, test_torch_distributed.py).
+test_torch_gather.py, test_torch_halo.py, test_torch_distributed.py,
+test_torch_steppers.py, test_torch_spectral.py).
 """
 
 import numpy as np
@@ -63,6 +68,7 @@ def card(monkeypatch):
         pytest.skip("needs an NVIDIA CUDA device: the kernels have no CPU mode")
     # the default production path, with tuning records kept in the process
     monkeypatch.delenv("NLHEAT_TUNE_PRECISION", raising=False)
+    monkeypatch.delenv("NLHEAT_TUNE_METHOD", raising=False)
     monkeypatch.setenv("NLHEAT_AUTOTUNE_CACHE", "")
     monkeypatch.setattr(autotune, "_memory_cache", {})
     ck.reset_launch_counts()
@@ -1077,3 +1083,71 @@ def test_elastic_solve_bitwise_across_placements_on_card(card):
         assert s.error_l2 / 64**2 <= 1e-6
     assert all(np.array_equal(runs[0], r) for r in runs[1:])
     assert not np.array_equal(s.assignment, imbalanced)  # the migration happened
+
+
+# -- the stepper tier and the spectral method ---------------------------------------------
+
+def _rkc_solver(dim, dtype, steps):
+    """A test-form rkc[4] solve on the card through nsum2d/nsum3d, at twice
+    the Euler bound (inside rkc[4]'s, about 15 times it; its first-order
+    error stays inside the contract on these coarse grids)."""
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+
+    shape, eps = ((96, 80), 8) if dim == 2 else ((24, 20, 16), 4)
+    dh = 1.0 / shape[0]
+    cls, op_cls = (Solver2D, NonlocalOp2D) if dim == 2 else (Solver3D, NonlocalOp3D)
+    dt = 2.0 * stable_dt_op(op_cls(eps, 1.0, 1.0, dh))
+    s = cls(*shape, steps, eps, k=1.0, dt=dt, dh=dh, method="cuda", stepper="rkc", stages=4,
+            dtype=dtype)
+    s.test_init()
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rkc_solve_launches_the_kernel_bitwise_its_plain_version_on_card(card, monkeypatch,
+                                                                          dim, dtype):
+    # each stage is one nsum2d/nsum3d launch, and L(G) one more; the same solve
+    # through the plain versions on the card is bitwise the same
+    kernel, mod = ("nsum2d", ck) if dim == 2 else ("nsum3d", k3)
+    s = _rkc_solver(dim, dtype, 3)
+    got = s.do_work()
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    assert counts == {kernel: 4 * 3 + 1}
+    assert s.error_l2 / got.size <= 1e-6
+    monkeypatch.setattr(mod, kernel, getattr(mod, f"{kernel}_plain"))
+    plain = _rkc_solver(dim, dtype, 3)
+    assert np.array_equal(plain.do_work(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_fft_neighbour_sum_matches_the_kernels_on_card(card, dtype, tol):
+    from nonlocalheatequation_torch.ops import spectral
+
+    gen = np.random.default_rng(17)
+    for shape, eps, kernel in (((256, 200), 8, ck.nsum2d), ((48, 40, 36), 4, k3.nsum3d)):
+        u = torch.from_numpy(gen.standard_normal(shape)).to(card, dtype)
+        cls = NonlocalOp2D if len(shape) == 2 else NonlocalOp3D
+        op = cls(eps, 1.0, 1e-5, 1.0 / shape[0], method="fft")
+        got = spectral.neighbor_sum_fft(op, u)
+        assert got.device.type == "cuda" and got.dtype == dtype
+        want = kernel(torch.nn.functional.pad(u, (eps,) * (2 * len(shape))), eps)
+        assert float((got - want).abs().max() / want.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [0, 1])
+def test_expo_gate_on_card(card, stages):
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+
+    n = 128
+    dt = 0.25 * stable_dt_op(NonlocalOp2D(5, 1.0, 1.0, 1.0 / n))
+    s = Solver2D(n, n, 45, 5, k=1.0, dt=dt, dh=1.0 / n, method="fft", stepper="expo",
+                 stages=stages, dtype=torch.float32)
+    s.test_init()
+    u = s.do_work()
+    assert s.error_l2 / n**2 <= 1e-6
+    assert np.isfinite(u).all() and np.abs(u).max() <= np.abs(s.u0).max() * 1.01
+    assert not any(ck.launch_counts().values())  # the spectral path launches no kernel

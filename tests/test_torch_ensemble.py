@@ -224,9 +224,10 @@ def test_refusals(monkeypatch):
     with pytest.raises(RuntimeError, match="no mesh registry configured"):
         EnsembleEngine(device=CPU).run([mesh])
     assert convert.ensemble_case_from_jax(mesh).mesh == "abc"
-    # what the port does not have yet is refused by name
-    with pytest.raises(ValueError, match="stepper='rkc' is not ported yet"):
-        EnsembleEngine(device=CPU, stepper="rkc", stages=4)
+    # a stepper engine builds; a stage count rkc cannot run is refused
+    assert EnsembleEngine(device=CPU, stepper="rkc", stages=4).engine_key()[:2] == ("rkc", 4)
+    with pytest.raises(ValueError, match="stepper='rkc' needs stages >= 2"):
+        EnsembleEngine(device=CPU, stepper="rkc", stages=1)
     # comm='fused' needs method='cuda', as the JAX engine needs method='pallas'
     with pytest.raises(ValueError, match="comm='fused' needs method='cuda'"):
         EnsembleEngine(device=CPU, comm="fused")

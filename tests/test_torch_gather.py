@@ -304,9 +304,7 @@ def test_mesh_bucket_bf16_tier_and_refusals(tmp_path, monkeypatch):
                      ({"variant": "vmap"}, "ensemble variant 'vmap' has no gather form")):
         with pytest.raises(ValueError, match=what):
             tens.EnsembleEngine(device=CPU, **kw).run(cases)
-    # the constructor refuses the unported steppers by name; an engine whose
-    # stepper is not Euler is refused by the mesh branch too
-    eng = tens.EnsembleEngine(device=CPU)
-    eng.stepper = "rkc"
+    # an rkc engine builds, and its mesh buckets are refused, as in the JAX engine
+    eng = tens.EnsembleEngine(device=CPU, stepper="rkc", stages=4)
     with pytest.raises(ValueError, match="mesh buckets are Euler-only"):
         eng.run(cases)

@@ -2,7 +2,8 @@
 
 * A subprocess with ``jax`` and ``nonlocalheatequation_tpu`` blocked in
   ``sys.modules`` imports every module of the port and chip_smoke.py and
-  runs a small 2D and 3D CPU solve, a 2-case ensemble, a small windowed
+  runs a small 2D and 3D CPU solve, an rkc and an expo (fft) 2D solve
+  (models/steppers.py, ops/spectral.py), a 2-case ensemble, a small windowed
   unstructured solve, a 2-case mesh-bucket ensemble, the distributed
   2D (fused) and 3D solves on meshes of virtual CPU devices, an elastic
   solve that rebalances over 2 virtual CPU devices, a throttled
@@ -44,6 +45,12 @@ s = Solver3D(10, 9, 8, 6, 2, device="cpu", method="cuda")
 s.test_init()
 s.do_work()
 assert s.error_l2 / (10 * 9 * 8) <= 1e-6, s.error_l2
+for kw in (dict(dt=1e-4, method="cuda", stepper="rkc", stages=4),
+           dict(dt=2e-5, method="fft", stepper="expo")):
+    s = Solver2D(24, 24, 10, 4, device="cpu", **kw)
+    s.test_init()
+    s.do_work()
+    assert s.error_l2 / 24**2 <= 1e-6, (kw, s.error_l2)
 from nonlocalheatequation_torch.serve.ensemble import run_test_cases, EnsembleCase
 errs = run_test_cases([EnsembleCase(shape=(20, 18), nt=4, eps=3, k=k, dt=1e-4, dh=0.05)
                        for k in (1.0, 0.5)], method="cuda", device="cpu")

@@ -67,8 +67,10 @@ def test_method_resolution_and_weighted_j_demotion():
     tw = NonlocalOp2D(4, 1.0, 1e-4, 0.02, influence=J)
     u = np.random.default_rng(1).standard_normal((20, 17))
     assert _rel(tw.apply(torch.from_numpy(u)), jw.apply_np(u)) <= 1e-12
-    with pytest.raises(ValueError, match="not ported yet"):
-        NonlocalOp2D(4, 1.0, 1e-4, 0.02, method="fft")
+    # fft resolves to itself on either device and meets the JAX operator
+    fft = NonlocalOp2D(4, 1.0, 1e-4, 0.02, method="fft")
+    assert fft.resolve_method(CPU) == fft.resolve_method(torch.device("cuda")) == "fft"
+    assert _rel(fft.apply(torch.from_numpy(u)), JaxOp2D(4, 1.0, 1e-4, 0.02).apply_np(u)) <= 1e-12
 
 
 @pytest.mark.parametrize("method", ["shift", "conv", "sat", "cuda"])
@@ -91,8 +93,8 @@ def test_1d_operator_matches_jax():
         assert top.c == jop.c and top.wsum == jop.wsum
         assert _rel(top.apply(torch.from_numpy(u)), jop.apply_np(u)) <= 1e-12
         assert np.array_equal(top.source_parts(57)[1], jop.source_parts(57)[1])
-    with pytest.raises(ValueError, match="not ported yet"):
-        NonlocalOp1D(5, 1.0, 1e-3, 0.02, method="fft")
+        fft = NonlocalOp1D(eps, k, 1e-3, dx, method="fft")
+        assert _rel(fft.apply(torch.from_numpy(u)), jop.apply_np(u)) <= 1e-12
 
 
 @pytest.mark.parametrize("method", ["conv", "cuda"])

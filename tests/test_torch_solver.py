@@ -110,10 +110,12 @@ def test_solver_refusals():
             Solver2D(10, 10, 1, 2)
         with pytest.raises(RuntimeError, match="is_available"):
             Solver1D(10, 1, 2)
-    with pytest.raises(ValueError, match="not ported yet"):
-        Solver2D(10, 10, 1, 2, device=CPU, stepper="rkc", stages=4)
-    with pytest.raises(ValueError, match="not ported yet"):
+    # the stepper tier runs; what it refuses, it refuses in the JAX words
+    s = Solver2D(10, 10, 1, 2, device=CPU, stepper="rkc", stages=4)
+    assert (s.stepper, s.stages) == ("rkc", 4)
+    with pytest.raises(ValueError, match="stepper='expo' integrates in the spectral domain"):
         Solver1D(10, 1, 2, device=CPU, stepper="expo")
+    assert Solver1D(10, 1, 2, device=CPU, method="fft", stepper="expo").stepper == "expo"
     with pytest.raises(ValueError, match="torch.float64 or torch.float32"):
         Solver2D(10, 10, 1, 2, device=CPU, dtype=torch.float16)
 
