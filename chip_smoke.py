@@ -212,9 +212,36 @@ line is printed; the phase walls are printed at the end):
    EnsembleEngine(stepper="rkc", stages=4), stacked[rkc], 8*20*4 nsum2d
    launches, each lane bitwise its solo Solver2D stepper solve.  Counted:
    every part but the comparisons and timings.
-9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10, 11
-   and 12, the other kernels' those of their phases, 10, 11 and 12), then
-   {"ok": true, "device": {...}}.
+13. (Run after phase 12, before phase 9's lines.) The distributed stepper
+   tier, the sharded spectral tier and the sharded unstructured operator
+   (phase_dist_steppers): (a) the 4096^2, eps=8, f32 test form on a 2x2 mesh
+   of virtual devices of the card to the horizon of 500 Euler steps with
+   rkc[8] in 9 steps: per stage 'collective' (nsum2d), 'fused' (fused_nsum2d)
+   and 'fused' under NLHEAT_FUSED_TRANSPORT=interp (split_nsum2d), each
+   bitwise the single-device rkc solve, and stage batches of 2 and 4 within
+   1e-5 of it (bitwise or not, printed); exactly 4 blocks x 8 stages x 9
+   steps launches (split: a launch a phase), plus L(G); the contract; the
+   do_work walls to the horizon in turns beside the distributed Euler solves
+   (500 steps, collective and fused); (b) the same at 256^3, eps=4, on
+   2x2x2 (nsum3d, fused_nsum3d, split_nsum3d); (c) the sharded fft solves
+   (euler, rkc[8], expo S=0 and S=1, test form, 3 steps) against the
+   single-device fft solves: f64 at 512^2 on 2x2 and 64^3 on 2x2x2 within
+   1e-12, f32 at 4096^2 and 256^3 within 1e-5 of the largest magnitude, no
+   kernel launched, the f32 ms/step in turns; (d) ShardedUnstructuredOp on 4
+   virtual devices, f32 test form, 10 steps: the shuffled 512^2 cloud in
+   gang_order (export, gather: bitwise each other and the one-device sharded
+   solve, within 1e-5 of the single-device ell solve), the same cloud in its
+   lattice order (offsets, superstep K=2 and 4: bitwise the single-device
+   offsets solve), the graded mesh in gang_order (auto); comm ratios and
+   ms/step; (e) in float64, solve2d_distributed --stepper rkc over
+   CASES_2D_DISTRIBUTED and solve3d --distributed --method fft --stepper
+   expo --superstep-stages 1 over CASES_3D ("Tests Passed"),
+   solve_unstructured --devices 4 --superstep 2 --gang-order false on
+   data/50x50.msh (the contract), and solve2d_distributed past the rkc bound
+   exiting 2.  Counted: every part but the comparisons and timings.
+9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10, 11,
+   12 and 13, the other kernels' those of their phases, 10, 11, 12 and 13),
+   then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -3559,6 +3586,386 @@ def phase_steppers(torch, np, ck, k3, l2_threshold) -> dict:
     return by
 
 
+# -- phase 13: the distributed stepper tier, the sharded spectral tier, the sharded
+# -- unstructured operator ---------------------------------------------------------------
+
+FFT_SMALL_2D, FFT_SMALL_3D = 512, 64  # the f64 sharded-fft holds (2x2, 2x2x2)
+FFT_STEPS = 2                        # steps of each sharded fft solve
+FFT_RUNS = (("euler", 0), ("rkc", RKC_STAGES), ("expo", 0), ("expo", 1))
+USH_STEPS = 8                        # steps of each sharded unstructured solve
+USH_DEVICES = 4                      # the 1D mesh of the sharded unstructured solves
+
+
+def rkc_forms(torch, np, ck, by: dict, dim: int, l2_threshold) -> dict:
+    """Phase 13 (a)/(b): the test-form headline (4096^2 eps=8 on 2x2 virtual
+    devices of the card, or 256^3 eps=4 on 2x2x2), f32, to the horizon of
+    STEPS Euler steps at 0.8x the Euler bound with rkc[RKC_STAGES] in
+    superstep_floor steps: per stage 'collective' (nsum2d/nsum3d), 'fused'
+    (the in-kernel exchange, fused_nsum2d/3d), 'fused' under
+    NLHEAT_FUSED_TRANSPORT=interp (the split kernels), then stage batches of
+    2 and 4 (collective), and the distributed Euler solves (STEPS steps,
+    collective and fused).  Each do_work is counted (exactly blocks x stages
+    x steps launches, plus L(G)) and holds the contract; the per-stage forms
+    are the single-device rkc solve bitwise, the stage batches within the
+    f32 tolerance of it (bitwise or not, printed).  Then the steppings alone
+    (each form's runner from its device state, and the single-device rkc
+    stepping), CUDA events, in turns."""
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.models.solver3d import Solver3D
+    from nonlocalheatequation_torch.models.steppers import make_multi_step_fn, superstep_floor
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, NonlocalOp3D
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh, make_mesh_3d
+
+    n, eps = (DN, DEPS) if dim == 2 else (D3N, D3EPS)
+    shape, dh, f32 = (n,) * dim, 1.0 / n, torch.float32
+    nblk = 2 ** dim
+    probe = (NonlocalOp2D if dim == 2 else NonlocalOp3D)(eps, 1.0, 1.0, dh)
+    dt_e = 0.8 * stable_dt_op(probe)
+    horizon = STEPS * dt_e
+    steps = superstep_floor(probe, horizon, "rkc", RKC_STAGES)
+    dt_r = horizon / steps
+    devs = device_list("cuda", nblk)
+
+    def dist(nt, dt, comm="collective", **kw):
+        if dim == 2:
+            s = Solver2DDistributed(n // 2, n // 2, 2, 2, nt, eps, k=1.0, dt=dt, dh=dh,
+                                    mesh=make_mesh(2, 2, devs), method="cuda", dtype=f32,
+                                    comm=comm, **kw)
+        else:
+            s = Solver3DDistributed(n, n, n, nt, eps, k=1.0, dt=dt, dh=dh,
+                                    mesh=make_mesh_3d(2, 2, 2, devs), method="cuda",
+                                    dtype=f32, comm=comm, **kw)
+        s.test_init()
+        return s
+
+    name = f"{n}^{dim} eps={eps} on {'x'.join(['2'] * dim)}"
+    solo_cls = Solver2D if dim == 2 else Solver3D
+    solo = solo_cls(*shape, steps, eps, k=1.0, dt=dt_r, dh=dh, method="cuda", dtype=f32,
+                    device="cuda", stepper="rkc", stages=RKC_STAGES)
+    solo.test_init()
+    ref = launches_of(ck, by, f"phase 13 {name} single-device rkc[{RKC_STAGES}]",
+                      solo.do_work)
+    rkc = dict(stepper="rkc", stages=RKC_STAGES)
+    forms = {"collective": (lambda: dist(steps, dt_r, **rkc), ""),
+             "fused": (lambda: dist(steps, dt_r, comm="fused", **rkc), ""),
+             "fused interp": (lambda: dist(steps, dt_r, comm="fused", **rkc), "interp"),
+             "stage batches K=2": (lambda: dist(steps, dt_r, superstep=2, **rkc), ""),
+             "stage batches K=4": (lambda: dist(steps, dt_r, superstep=4, **rkc), ""),
+             f"Euler {STEPS} steps collective": (lambda: dist(STEPS, dt_e), ""),
+             f"Euler {STEPS} steps fused": (lambda: dist(STEPS, dt_e, comm="fused"), "")}
+    applies = nblk * RKC_STAGES * steps
+    kernel = f"nsum{dim}d"
+    want = {"collective": {kernel: applies + 1},
+            "fused": {f"fused_nsum{dim}d": applies, kernel: 1},
+            "fused interp": {f"split_nsum{dim}d": split_launches(
+                shape, (2,) * dim, eps, RKC_STAGES * steps), kernel: 1},
+            "stage batches K=2": {kernel: applies + 1},
+            "stage batches K=4": {kernel: applies + 1},
+            f"Euler {STEPS} steps collective": {kernel: nblk * STEPS + 1},
+            f"Euler {STEPS} steps fused": {f"fused_nsum{dim}d": nblk * STEPS, kernel: 1}}
+    errs, walls, held, runs = {}, {}, {}, {}
+    for form, (make, transport) in forms.items():
+        os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
+        s = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        label = f"phase 13 {name} {form}"
+        u = launches_of(ck, by, label, s.do_work)
+        walls[form] = round(time.perf_counter() - t0, 4)
+        if by[label] != want[form]:
+            fail(f"{name} {form}: launched {by[label]}, not {want[form]}")
+        # the stepping alone: the runner from the solver's device state
+        blocks, srcs = s._device_state()
+        if srcs and s.ksteps > 1:
+            srcs = s._prep_sources(*srcs)
+        run = s._make_runner(s.nt)
+        runs[form] = (lambda run=run, b=blocks, sr=srcs: run(b, 0, sr), transport)
+        os.environ.pop("NLHEAT_FUSED_TRANSPORT")
+        err = s.error_l2 / n**dim
+        errs[form] = err
+        if not (err <= l2_threshold and np.isfinite(u).all()):
+            fail(f"{name} {form}: error_l2/#points {err:.3e} > {l2_threshold:g} (or not finite)")
+        if form.startswith("Euler"):
+            continue
+        rel = float(np.abs(u - ref).max() / np.abs(ref).max())
+        bitwise = bool(np.array_equal(u, ref))
+        held[form] = {"bitwise": bitwise, "max_rel": rel}
+        if form.startswith("stage") and not rel <= TOL["float32"]:
+            fail(f"{name} {form}: {rel:.3e} from the single-device rkc solve > 1e-5")
+        if not form.startswith("stage") and not bitwise:
+            fail(f"{name} {form}: per-stage distributed rkc is not the single-device rkc "
+                 f"solve bitwise (max rel {rel:.3e})")
+    g, lg = solo.op.source_parts_on(*shape, "cuda")
+    u0 = torch.as_tensor(solo.u0, device="cuda").to(f32)
+    multi = make_multi_step_fn(solo.op, steps, g, lg, f32, stepper="rkc", stages=RKC_STAGES)
+    runs[f"single-device rkc[{RKC_STAGES}]"] = (lambda: multi(u0, 0), "")
+    ms = {k: [] for k in runs}
+    for form in list(runs) + list(runs)[::-1]:  # in turns: a, b, ..., b, a
+        fn, transport = runs[form]
+        os.environ["NLHEAT_FUSED_TRANSPORT"] = transport
+        ms[form].append(cuda_ms(torch, fn, 1, 1))
+        os.environ.pop("NLHEAT_FUSED_TRANSPORT")
+    say(f"phase 13 distributed rkc[{RKC_STAGES}] {name} f32 test form to the horizon "
+        f"{horizon:.6e} of {STEPS} Euler steps at 0.8x the bound, {steps} steps: against the "
+        f"single-device rkc solve {json.dumps(held)}; error_l2/#points {json.dumps(errs)}; "
+        f"launches {json.dumps({f: by[f'phase 13 {name} {f}'] for f in forms})}; do_work "
+        f"walls (set-up included), s: {json.dumps(walls)}; the steppings to the horizon "
+        f"alone, ms, in turns (CUDA events): {json.dumps(ms)}")
+    del runs
+    return {"steps": steps, "ms": ms, "held": held}
+
+
+def sharded_fft(torch, np, ck, by: dict) -> dict:
+    """Phase 13 (c): the sharded spectral tier against the single-device fft
+    solve: euler, rkc[RKC_STAGES] and expo at S=0 and S=1, test form,
+    FFT_STEPS steps, on 2x2 (2D) and 2x2x2 (3D) virtual devices of the card:
+    float64 at 512^2 and 64^3 within 1e-12 of the largest magnitude; float32
+    at 4096^2 and 256^3 within 1e-5 of the single-device float32 solve, or,
+    where the two float32 solves' rounding differs by more (rkc's stage
+    recurrence amplifies it), within twice the single-device float32 solve's
+    distance from the single-device float64 one; counted (no kernel
+    launches: the transforms are cuFFT's); the f32 euler and rkc ms/step,
+    sharded against single-device, CUDA events, in turns."""
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.models.solver3d import Solver3D
+    from nonlocalheatequation_torch.models.steppers import make_multi_step_fn
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, NonlocalOp3D
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh, make_mesh_3d
+
+    out = {}
+    for dim, n, eps, dtype in ((2, FFT_SMALL_2D, DEPS, torch.float64),
+                               (3, FFT_SMALL_3D, D3EPS, torch.float64),
+                               (2, DN, DEPS, torch.float32), (3, D3N, D3EPS, torch.float32)):
+        dh = 1.0 / n
+        op_cls = NonlocalOp2D if dim == 2 else NonlocalOp3D
+        devs = device_list("cuda", 2 ** dim)
+        f32 = dtype == torch.float32
+        tol = TOL["float32"] if f32 else TOL["float64"]
+        for stepper, stages in FFT_RUNS:
+            dt = (0.8 * stable_dt_op(op_cls(eps, 1.0, 1.0, dh), stepper, stages)
+                  if stepper != "expo" else 4 * stable_dt_op(op_cls(eps, 1.0, 1.0, dh)))
+            kw = dict(k=1.0, dt=dt, dh=dh, method="fft", stepper=stepper, stages=stages)
+
+            def single(dt_):
+                s_ = (Solver2D(n, n, FFT_STEPS, eps, device="cuda", dtype=dt_, **kw)
+                      if dim == 2 else
+                      Solver3D(n, n, n, FFT_STEPS, eps, device="cuda", dtype=dt_, **kw))
+                s_.test_init()
+                return s_
+
+            if dim == 2:
+                d = Solver2DDistributed(n // 2, n // 2, 2, 2, FFT_STEPS, eps, dtype=dtype,
+                                        mesh=make_mesh(2, 2, devs), **kw)
+            else:
+                d = Solver3DDistributed(n, n, n, FFT_STEPS, eps, dtype=dtype,
+                                        mesh=make_mesh_3d(2, 2, 2, devs), **kw)
+            d.test_init()
+            s = single(dtype)
+            key = f"{n}^{dim} {str(dtype)[6:]} {stepper}" + (f" S={stages}" if stepper ==
+                                                              "expo" else "")
+            label = f"phase 13 sharded fft {key}"
+            ud = launches_of(ck, by, label, d.do_work)
+            us = s.do_work()
+            scale = np.abs(us).max()
+            rel = float(np.abs(ud - us).max() / scale)
+            row = {"max_rel": rel, "error_l2_per_n": d.error_l2 / n**dim}
+            ok = rel <= tol
+            if f32 and not ok:
+                u64 = single(torch.float64).do_work()
+                row["sharded_f32_vs_f64"] = float(np.abs(ud - u64).max() / scale)
+                row["single_f32_vs_f64"] = float(np.abs(us - u64).max() / scale)
+                ok = ok or row["sharded_f32_vs_f64"] <= 2 * row["single_f32_vs_f64"]
+            if by[label] or not (ok and np.isfinite(ud).all()):
+                fail(f"sharded fft {key}: {json.dumps(row)} against the single-device fft "
+                     f"solve (tolerance {tol:g}; launched {by[label]})")
+            if f32 and stepper != "expo":
+                blocks, srcs = d._device_state()
+                srcs = d._spectral_args() + srcs
+                run = d._make_runner(FFT_STEPS)
+                u_dev = torch.as_tensor(s.u0, device="cuda").to(dtype)
+                g, lg = s.op.source_parts_on(*s._grid_shape, "cuda")
+                multi = make_multi_step_fn(s.op, FFT_STEPS, g, lg, dtype, stepper=stepper,
+                                           stages=stages)
+                ms = turns_of(torch, {"sharded": lambda: run(blocks, 0, srcs),
+                                      "single": lambda: multi(u_dev, 0)},
+                              ("sharded", "single", "single", "sharded"), reps=1, warm=1)
+                row["ms_per_step"] = {k: [v / FFT_STEPS for v in vs] for k, vs in ms.items()}
+                del blocks, srcs, g, lg, u_dev
+            out[key] = row
+            del d, s
+    say(f"phase 13 sharded fft against the single-device fft solve (test form, {FFT_STEPS} "
+        f"steps; euler and rkc at 0.8x their bound, expo at 4x the Euler bound): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def sharded_unstructured(torch, np, ck, by: dict) -> dict:
+    """Phase 13 (d): ShardedUnstructuredOp on USH_DEVICES virtual devices of
+    the card, f32, test form, USH_STEPS steps at 0.8x the Euler bound: the
+    shuffled 512^2 cloud of phase 7 in gang_order with the export and the
+    gather halo (bitwise each other and the same op on one device, the
+    order-fixed padded-row sum; within 1e-5 of the single-device ell solve);
+    the same cloud in its lattice order in the offsets form and its
+    superstep at K=2 and 4 (bitwise the single-device offsets solve); the
+    graded mesh of phase 7 in gang_order, auto.  Counted (no kernel: the
+    sharded forms are torch ops); the comm ratio and ms/step (the do_work
+    wall of a first, counted call and of a second, warm one, beside the
+    single-device solve's warm one) printed."""
+    from nonlocalheatequation_torch.ops.unstructured import (
+        ShardedUnstructuredOp,
+        UnstructuredNonlocalOp,
+        UnstructuredSolver,
+    )
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+    from nonlocalheatequation_torch.serve.meshes import gang_order
+
+    f32 = torch.float32
+    devs, one = device_list("cuda", USH_DEVICES), device_list("cuda", 1)
+    shuffled, h = jittered_cloud(np, UN_M, 2, SEED + 9, shuffle=True)
+    lattice, _ = jittered_cloud(np, UN_M, 2, SEED + 9)  # the same points, unshuffled
+    mpts, meps, mvol = graded_cloud(np, MESH_NM)
+    t0 = time.perf_counter()
+    perm_s, perm_m = gang_order(shuffled, USH_DEVICES), gang_order(mpts, USH_DEVICES)
+    order_wall = time.perf_counter() - t0
+    clouds = {"shuffled 512^2 cloud, gang order": (shuffled[perm_s], 3 * h, h * h),
+              "512^2 cloud, lattice order": (lattice, 3 * h, h * h),
+              "graded mesh nm=256, gang order": (mpts[perm_m], meps[perm_m], mvol[perm_m])}
+    ops = {}
+    for key, (pts, eps, vol) in clouds.items():
+        op = UnstructuredNonlocalOp(pts, eps, k=1.0, dt=1.0, vol=vol, device="cuda")
+        op.dt = 0.8 / float(np.max(op.c * op.wsum))
+        ops[key] = op
+    gang, lat, graded = ops.values()
+    runs = {  # name: (op, sharded kwargs, superstep, single-device layout, bitwise to it)
+        "export": (gang, dict(halo="export"), 1, "ell", False),
+        "gather": (gang, dict(halo="gather"), 1, "ell", False),
+        "offsets": (lat, dict(layout="offsets"), 1, "offsets", True),
+        "superstep K=2": (lat, dict(layout="offsets"), 2, "offsets", True),
+        "superstep K=4": (lat, dict(layout="offsets"), 4, "offsets", True),
+        "graded auto": (graded, {}, 1, "ell", False),
+    }
+    singles, out, results = {}, {}, {}
+    for name, (op, kw, K, layout, exact) in runs.items():
+        sh = ShardedUnstructuredOp(op, devices=devs, **kw)
+        s = UnstructuredSolver(sh, nt=USH_STEPS, superstep=K, dtype=f32)
+        s.test_init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        label = f"phase 13 sharded unstructured {name}"
+        u = launches_of(ck, by, label, s.do_work)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s.do_work()  # warm: the blocks' tables are on the card
+        warm = time.perf_counter() - t0
+        results[name] = u
+        skey = (id(op), layout)
+        if skey not in singles:
+            ref = UnstructuredSolver(op, nt=USH_STEPS, layout=layout, dtype=f32)
+            ref.test_init()
+            ref.do_work()
+            t0 = time.perf_counter()
+            singles[skey] = (ref.do_work(), (time.perf_counter() - t0) * 1e3 / USH_STEPS)
+        ref, ref_ms = singles[skey]
+        rel = float(np.abs(u - ref).max() / np.abs(ref).max())
+        bitwise = bool(np.array_equal(u, ref))
+        if by[label] or not np.isfinite(u).all() or (exact and not bitwise) or \
+                not rel <= TOL["float32"]:
+            fail(f"sharded unstructured {name}: {rel:.3e} from the single-device {layout} "
+                 f"solve (bitwise required: {exact}, got {bitwise}; launched {by[label]})")
+        out[name] = {"n": op.n, "layout": sh.layout, "halo": sh.halo_mode,
+                     "comm_ratio": sh.halo_comm_ratio,
+                     "ms_per_step": {"warm": warm * 1e3 / USH_STEPS,
+                                     "cold (set-up included)": cold * 1e3 / USH_STEPS,
+                                     f"single-device {layout} warm": ref_ms},
+                     f"vs single-device {layout}": {"bitwise": bitwise, "max_rel": rel},
+                     "error_l2_per_n": s.error_l2 / op.n}
+    # the padded-row sums' order does not depend on the shard count: export and
+    # gather bitwise each other and the same operator on one device
+    one_sh = UnstructuredSolver(ShardedUnstructuredOp(gang, devices=one), nt=USH_STEPS,
+                                dtype=f32)
+    one_sh.test_init()
+    u1 = one_sh.do_work()
+    for name in ("export", "gather"):
+        if not np.array_equal(results[name], u1):
+            fail(f"sharded unstructured {name}: not bitwise the one-device sharded solve")
+    say(f"phase 13 sharded unstructured, {USH_DEVICES} virtual devices, f32 test form, "
+        f"{USH_STEPS} steps (gang_order {order_wall:.3f} s for two clouds): export and gather "
+        f"bitwise each other and the one-device sharded solve; {json.dumps(out)}")
+    return out
+
+
+def phase_dist_steppers(torch, np, ck, k3, l2_threshold) -> dict:
+    """Phase 13: the distributed stepper tier (rkc over the halo transports),
+    the sharded spectral tier and the sharded unstructured operator with its
+    superstep, on virtual devices of the card; returns the launches by part."""
+    import contextlib
+    import io
+
+    from nonlocalheatequation_torch.cli import solve2d_distributed, solve3d, solve_unstructured
+    from nonlocalheatequation_torch.parallel.distributed2d import choose_mesh_shape
+
+    by, walls = {}, {}
+    t_phase = time.perf_counter()
+    rkc_forms(torch, np, ck, by, 2, l2_threshold)
+    walls["a"] = time.perf_counter() - t_phase
+    rkc_forms(torch, np, ck, by, 3, l2_threshold)
+    walls["b"] = time.perf_counter() - t_phase - sum(walls.values())
+    sharded_fft(torch, np, ck, by)
+    walls["c"] = time.perf_counter() - t_phase - sum(walls.values())
+    sharded_unstructured(torch, np, ck, by)
+    walls["d"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    # (e) the CLIs on the card, float64
+    gpu = ["--test_batch", "--platform", "gpu", "--x64", "1"]
+    cases = cases_module().CASES_2D_DISTRIBUTED
+    label = "phase 13 solve2d_distributed --stepper rkc CASES_2D_DISTRIBUTED"
+    out = launches_of(ck, by, label, lambda: run_batch_cli(
+        solve2d_distributed.main, gpu + ["--devices", "8", "--stepper", "rkc"], cases))
+    want = {"nsum2d": sum(nt * RKC_STAGES * int(np.prod(choose_mesh_shape(nx * px, ny * py, 8)))
+                          + 1 for nx, ny, px, py, nt, *_ in cases)}
+    if out.splitlines()[-1] != "Tests Passed" or by[label] != want:
+        fail(f"solve2d_distributed --stepper rkc over CASES_2D_DISTRIBUTED: launches "
+             f"{by[label]} (want {want})\n{out[-2000:]}")
+    label3 = "phase 13 solve3d --distributed --method fft --stepper expo CASES_3D"
+    out = launches_of(ck, by, label3, lambda: run_batch_cli(
+        solve3d.main, gpu + ["--distributed", "--method", "fft", "--stepper", "expo",
+                             "--superstep-stages", "1"], CASES_3D))
+    if out.splitlines()[-1] != "Tests Passed" or by[label3]:
+        fail(f"solve3d --distributed --method fft --stepper expo: launches {by[label3]}\n"
+             f"{out[-2000:]}")
+    argv = ["--mesh", "data/50x50.msh", "--test", "--platform", "gpu", "--x64", "1",
+            "--devices", "4", "--superstep", "2", "--gang-order", "false", "--nt", "30"]
+    labelu = "phase 13 solve_unstructured --devices 4 --superstep 2"
+    text = launches_of(ck, by, labelu, lambda: run_cli_unstructured(argv))
+    uerr = cli_error(text, "solve_unstructured --devices 4 --superstep 2", l2_threshold)
+    shard_line = next((x for x in text.splitlines() if x.startswith("sharded over")), "")
+    if "offsets-ppermute" not in shard_line or by[labelu]:
+        fail(f"solve_unstructured --devices 4 --superstep 2: {shard_line!r}, launches "
+             f"{by[labelu]}")
+    err_out = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err_out):
+        rc = solve2d_distributed.main(["--test", "true", "--platform", "gpu", "--nx", "12",
+                                       "--ny", "12", "--nt", "3", "--eps", "2", "--dt", "0.05",
+                                       "--stepper", "rkc", "--superstep-stages", "4"])
+    if rc != 2 or "rkc[s=4] stability bound" not in err_out.getvalue():
+        fail(f"solve2d_distributed past the rkc bound: rc {rc}, not 2\n{err_out.getvalue()}")
+    say(f"phase 13 CLIs on the card (f64): solve2d_distributed --devices 8 --stepper rkc over "
+        f"CASES_2D_DISTRIBUTED Tests Passed, launches {json.dumps(by[label])}; solve3d "
+        "--distributed --method fft --stepper expo --superstep-stages 1 over CASES_3D Tests "
+        f"Passed (no kernel); solve_unstructured --mesh data/50x50.msh --devices 4 --superstep "
+        f"2 --gang-order false: {shard_line}, error_l2/N {uerr:.3e}; solve2d_distributed "
+        "--stepper rkc --superstep-stages 4 --dt 0.05 exits 2")
+    walls["e"] = time.perf_counter() - t_phase - sum(walls.values())
+    say(f"phase 13 part walls, s: {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    return by
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -4427,8 +4834,10 @@ def main() -> int:
                      async_cli)
     elastic_by = timed("elastic", phase_elastic, torch, np, ck, l2_threshold)
     stepper_by = timed("steppers, spectral", phase_steppers, torch, np, ck, k3, l2_threshold)
-    for k in kernels:  # phases 10-12 launch the kernels of phases 4, 5 and 8 again
-        for part in (async_by, elastic_by, stepper_by):
+    dist_by = timed("distributed steppers, sharded", phase_dist_steppers, torch, np, ck, k3,
+                    l2_threshold)
+    for k in kernels:  # phases 10-13 launch the kernels of phases 4, 5 and 8 again
+        for part in (async_by, elastic_by, stepper_by, dist_by):
             more = by_label(part, k["name"])
             if more:
                 k["launches"] += sum(more.values())

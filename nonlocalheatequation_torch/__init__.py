@@ -8,8 +8,9 @@ module has a counterpart there:
              unstructured point-cloud operator and its layouts, and the
              hand-written CUDA kernels (csrc/) with their plain versions
   models/    the 1D/2D/3D solvers (oracle = NumPy f64, torch = the device path)
-  parallel/  device meshes (virtual devices included), the halo exchange and
-             the distributed 2D/3D solvers over a mesh of blocks
+  parallel/  device meshes (virtual devices included), the halo exchange,
+             the distributed 2D/3D solvers over a mesh of blocks with their
+             stepper (rkc) and sharded spectral (pencil fft) tiers
   serve/     the ensemble engine (many solves bucketed into batched programs)
              and the mesh registry its unstructured buckets resolve
   obs/       the counters and spans the ensemble engine and the distributed

@@ -30,8 +30,13 @@ A single solve takes ``--log`` (CSV/VTU logs of the global state every
 ``--checkpoint``/``--ncheckpoint``/``--resume`` (the global state, which
 ``solve2d`` resumes too) and ``--profile DIR``, as the JAX CLI does.
 
-Not ported yet, and refused by name (rc 1): a non-Euler ``--stepper`` and
-``--method fft``.
+``--stepper rkc`` (``--superstep-stages S``, 8 by default) runs the stage loop
+above the exchange on the SPMD path (parallel/stepper_halo.py; with
+``--superstep K`` stage batches of K); ``--method fft`` the sharded spectral
+tier (the pencil transposes), which also takes ``--stepper expo``.  A single
+solve past the rkc bound exits 2 with the bound in force.  Refused in the JAX
+words (rc 1): rkc, expo and fft under the elastic executor, fft with
+``--comm fused`` or ``--superstep``, expo without ``--method fft``.
 """
 
 from __future__ import annotations
@@ -48,11 +53,14 @@ from nonlocalheatequation_torch.cli.common import (
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_stepper_flags,
     announce_stable_dt,
     bool_flag,
     checkpoint_refusal,
     platform_kwargs,
     run_batch,
+    stepper_kwargs,
+    validate_stepper_args,
     version_banner,
 )
 
@@ -94,14 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", default="auto",
                    choices=("auto", "conv", "shift", "sat", "cuda", "fft"),
                    help="neighbour-sum evaluation: auto (cuda on the card, conv on the "
-                        "CPU), cuda, conv, shift, sat; fft (the sharded spectral tier) is not "
-                        "ported yet")
-    p.add_argument("--stepper", default="euler", choices=("euler", "rkc", "expo"),
-                   help="time integrator: euler (rkc and expo on the distributed path are "
-                        "not ported yet)")
-    p.add_argument("--superstep-stages", dest="stages", type=int, default=0, metavar="S",
-                   help="--stepper rkc: the stage count; --stepper expo: the boundary "
-                        "correction's substeps (neither ported yet on the distributed path)")
+                        "CPU), cuda, conv, shift, sat, or fft (the sharded spectral tier: "
+                        "the pencil-decomposed global transform)")
+    add_stepper_flags(p)
     p.add_argument("--log", action="store_true",
                    help="write csv/vtu logs every nlog steps")
     add_checkpoint_flags(p)
@@ -133,22 +136,20 @@ def _refusal(args) -> str | None:
                 "elastic executor (partition maps / --nbalance / "
                 "--test_load_balance) is stencil-only — drop one of "
                 "them")
+    if args.method == "fft" and args.comm == "fused":
+        return ("--method fft runs on the collective all-to-all pencil "
+                "transposes; --comm fused is a stencil-halo transport — "
+                "drop one of them")
+    if args.method == "fft" and args.superstep > 1:
+        return ("--method fft has no superstep form (the transform is "
+                "global every step); --stepper rkc/expo carry the big-dt "
+                "claim on the spectral tier")
     if elastic and args.stepper != "euler":
         return ("--stepper rkc runs on the SPMD distributed path; the "
                 "elastic executor (partition maps / --nbalance / "
                 "--test_load_balance) steps with Euler — drop one of "
                 "them")
-    refused = [
-        (args.stepper != "euler", f"--stepper {args.stepper}", "the distributed stepper tier"),
-        (args.method == "fft", "--method fft", "the sharded spectral tier"),
-    ]
-    for hit, flag, what in refused:
-        if hit:
-            return f"{flag} is not ported yet to nonlocalheatequation_torch ({what})"
-    if args.stages:
-        return ("--superstep-stages configures the rkc stage count or the expo boundary "
-                "correction; --stepper euler takes no stage count")
-    return None
+    return validate_stepper_args(args)
 
 
 def main(argv=None) -> int:
@@ -167,8 +168,12 @@ def main(argv=None) -> int:
         nx, ny, npx, npy, dh = pmap.nx, pmap.ny, pmap.npx, pmap.npy, pmap.dh
         assignment = pmap.assignment
     use_elastic = _uses_elastic(args)
+    sk = stepper_kwargs(args)
     if not args.test_batch:
-        announce_stable_dt(2, args.k, args.eps, dh, args.dt)
+        # the bound in force (rkc's beta(s), not Euler's), policed at rc 2
+        rc = announce_stable_dt(2, args.k, args.eps, dh, args.dt, **sk)
+        if rc is not None:
+            return rc
     if nx <= args.eps:
         print("[WARNING] Mesh size on a single node (nx * ny) is too small for given "
               "epsilon (eps)")
@@ -216,7 +221,7 @@ def main(argv=None) -> int:
                                    dh=dh, mesh=mesh, method=args.method, dtype=kw["dtype"],
                                    superstep=args.superstep, precision=args.precision,
                                    comm=args.comm, checkpoint_path=args.checkpoint,
-                                   ncheckpoint=args.ncheckpoint)
+                                   ncheckpoint=args.ncheckpoint, **sk)
 
     try:
         if args.test_batch:

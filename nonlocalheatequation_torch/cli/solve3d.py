@@ -15,10 +15,11 @@ communication-avoiding schedule).  A single solve takes
 ``--checkpoint``/``--ncheckpoint``/``--resume`` (utils/checkpoint.py; a
 checkpoint of either solver resumes in the other) and ``--profile DIR``.
 ``--stepper euler|rkc|expo`` (with ``--superstep-stages``) picks the time
-integrator and ``--method fft`` the spectral apply of the single-device
-solve.  Refused by name, not ported yet: the JAX CLI's serving and network
-flags, and ``--distributed`` with ``--method fft`` or a stepper other than
-euler (the distributed stepper tier and the sharded spectral tier).
+integrator and ``--method fft`` the spectral apply, on the single-device
+solve and with ``--distributed`` (rkc's stage loop above the exchange; fft
+the sharded spectral tier, which refuses ``--comm fused`` and ``--superstep``
+in the JAX words).  Refused by name, not ported yet: the JAX CLI's serving
+and network flags.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--method", default="auto", choices=("auto", "shift", "sat", "cuda", "fft"),
                    help="neighbour-sum evaluation: auto (cuda on the card, sat on the CPU), "
                         "cuda (the hand-written kernels), shift, sat, fft (the padded-box "
-                        "spectral apply; single-device solves)")
+                        "spectral apply; with --distributed the sharded pencil transform)")
     add_stepper_flags(p)
     p.add_argument("--distributed", action="store_true",
                    help="shard over the device mesh (blocks + halo exchange)")
@@ -110,16 +111,7 @@ def _refusal(args, rest) -> str | None:
     if args.method == "fft" and args.distributed and args.superstep > 1:
         return ("--method fft has no superstep form (the transform is global every step); "
                 "--stepper rkc/expo carry the big-dt claim on the spectral tier")
-    err = validate_stepper_args(args)
-    if err:
-        return err
-    if args.distributed and args.method == "fft":
-        return ("--method fft with --distributed is not ported yet to "
-                "nonlocalheatequation_torch (the sharded spectral tier)")
-    if args.distributed and args.stepper != "euler":
-        return (f"--stepper {args.stepper} with --distributed is not ported yet to "
-                "nonlocalheatequation_torch (the distributed stepper tier)")
-    return _distributed_refusal(args)
+    return validate_stepper_args(args) or _distributed_refusal(args)
 
 
 def _distributed_refusal(args) -> str | None:
@@ -173,7 +165,7 @@ def main(argv=None) -> int:
             return Solver3DDistributed(nx, ny, nz, nt, eps, nlog=args.nlog, k=k, dt=dt, dh=dh,
                                        method=args.method, dtype=kw["dtype"],
                                        superstep=args.superstep, precision=args.precision,
-                                       comm=args.comm, device=kw["device"], **ckpt)
+                                       comm=args.comm, device=kw["device"], **ckpt, **sk)
         return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **ckpt, **kw, **sk)
 
     if args.test_batch:

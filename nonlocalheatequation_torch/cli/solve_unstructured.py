@@ -12,8 +12,12 @@ the horizon in multiples of the estimated node spacing; ``--eps`` gives an
 absolute radius instead.  The test contract is the solvers'
 ``error_l2/#points <= 1e-6``.  ``--layout`` picks the operator layout
 (ops/unstructured.py; ``auto`` prefers offsets, then the windowed kernel,
-on the card).  The JAX CLI's multi-device solve (``--devices N`` for N > 1,
-``--halo``, ``--superstep K`` for K > 1), its observability flags and
+on the card).  ``--devices N`` shards the solve over N devices of the
+platform (more than there are: virtual devices, parallel/mesh.py) with
+``ShardedUnstructuredOp``: the nodes reordered first by ``gang_order``
+(``--gang-order false`` keeps the file's order), ``--halo auto|export|gather``
+the edge form's halo, ``--superstep K`` the offsets form's K-step schedule
+(refused where it cannot engage).  The JAX CLI's observability flags and
 ``--program-store`` are refused by name: they are not ported yet.
 """
 
@@ -35,7 +39,6 @@ from nonlocalheatequation_torch.cli.common import (
 
 #: the JAX CLI's flags that the port does not have yet -> what they select
 NOT_PORTED = {
-    "--halo": "the sharded operator's halo exchange",
     "--trace": "observability",
     "--metrics-out": "observability",
     "--metrics-port": "observability",
@@ -59,9 +62,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dt", type=float, default=0.0,
                    help="timestep; 0 = 80%% of the forward-Euler bound")
     p.add_argument("--devices", type=int, default=1,
-                   help="devices to shard over; only 1 is ported")
+                   help="shard over N devices of the platform (more than there are: "
+                        "virtual devices)")
+    p.add_argument("--halo", default="auto", choices=("auto", "export", "gather"))
     p.add_argument("--superstep", type=int, default=1, metavar="K",
-                   help="the sharded offsets layout's K-step schedule; only 1 is ported")
+                   help="sharded offsets layout only: exchange a K*pad-wide ring halo once "
+                        "per K steps (communication-avoiding; refused where it cannot "
+                        "engage)")
     p.add_argument("--layout", default="auto",
                    choices=("auto", "offsets", "windowed", "ell", "edges"),
                    help="operator layout (auto prefers the offsets/windowed paths on the "
@@ -69,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vtu", default=None, metavar="FILE",
                    help="write the final field as a .vtu point cloud")
     bool_flag(p, "gang-order", True,
-              "reorder nodes for a --devices N shard (no effect on one device)")
+              "reorder nodes by the coarse-grid RCB parts (serve/meshes.py gang_order) "
+              "before a --devices N shard, so each device's index-contiguous block is "
+              "spatially compact")
     p.add_argument("--no-header", action="store_true", dest="no_header")
     add_platform_flags(p)
     return p
@@ -81,14 +90,8 @@ def _refusal(args, rest) -> str | None:
         name = tok.split("=")[0]
         if name in NOT_PORTED:
             return f"{name} is not ported yet to nonlocalheatequation_torch ({NOT_PORTED[name]})"
-    if args.devices > 1:
-        return ("--devices > 1 is not ported yet to nonlocalheatequation_torch (the sharded "
-                "unstructured operator and its gang order)")
     if args.devices < 1:
         return f"--devices must be >= 1, got {args.devices}"
-    if args.superstep > 1:
-        return ("--superstep > 1 is not ported yet to nonlocalheatequation_torch (the sharded "
-                "offsets layout's K-step schedule)")
     return None
 
 
@@ -134,6 +137,7 @@ def main(argv=None) -> int:
         return 2
 
     from nonlocalheatequation_torch.ops.unstructured import (
+        ShardedUnstructuredOp,
         UnstructuredNonlocalOp,
         UnstructuredSolver,
     )
@@ -143,26 +147,61 @@ def main(argv=None) -> int:
     dh = mean_spacing(pts)
     eps = args.eps if args.eps > 0 else args.eps_h * dh
     vol = dh ** pts.shape[1]
+    # gang placement: the sharded operator splits by index into contiguous
+    # blocks, so reorder the nodes by the coarse grid's RCB parts first; the
+    # outputs below go back to the file's order
+    inv = None
+    if args.devices > 1 and args.gang_order:
+        from nonlocalheatequation_torch.serve.meshes import gang_order
+
+        perm = gang_order(pts, args.devices)
+        inv = np.argsort(perm)
+        pts = pts[perm]
     op = UnstructuredNonlocalOp(pts, eps, k=args.k, dt=args.dt or 1.0, vol=vol,
                                 device=kw["device"])
     if not args.dt:
         # forward-Euler stability: dt * max(c_i * wsum_i) <= 1, take 80%
         bound = float(np.max(op.c * op.wsum))
         op.dt = 0.8 / bound if bound > 0 else 1e-5
+    the_op = op
+    if args.devices > 1:
+        from nonlocalheatequation_torch.parallel.mesh import device_list
+
+        devs = device_list(kw["device"], args.devices)
+        try:
+            the_op = ShardedUnstructuredOp(op, devices=devs, halo=args.halo)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 1
+        print(f"sharded over {len(devs)} devices, halo={the_op.halo_mode} "
+              f"(comm ratio {the_op.halo_comm_ratio:.3f})")
+        if args.layout != "auto":
+            print("--layout is single-device only; the sharded operator "
+                  "keeps its edge layout")
+            args.layout = "auto"
     print(f"nodes {n} (dim {pts.shape[1]}), edges {len(op.tgt)}, "
           f"eps {eps:.5g} ({eps / dh:.2f} dh), dt {op.dt:.3e}")
 
-    s = UnstructuredSolver(op, nt=args.nt, layout=args.layout, dtype=kw["dtype"])
+    try:
+        s = UnstructuredSolver(the_op, nt=args.nt, layout=args.layout, dtype=kw["dtype"],
+                               superstep=args.superstep)
+    except ValueError as e:
+        # a --superstep that cannot engage (one device, the edges layout,
+        # K*pad > block): the JAX CLI's one-line refusal
+        print(e, file=sys.stderr)
+        return 1
     if args.test:
         s.test_init()
     else:
-        s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[:n])
+        vals = np.array(sys.stdin.read().split(), dtype=np.float64)[:n]
+        # stdin is in the file's order; the operator's nodes may be gang-ordered
+        s.input_init(vals if inv is None else vals[np.argsort(inv)])
 
     t0 = time.perf_counter()
     s.do_work()
     elapsed = time.perf_counter() - t0
 
-    u_out = np.asarray(s.u)
+    u_out = np.asarray(s.u) if inv is None else np.asarray(s.u)[inv]
     if args.test:
         err = s.error_l2 / n
         if args.cmp:
@@ -174,7 +213,8 @@ def main(argv=None) -> int:
     if args.vtu:
         from nonlocalheatequation_torch.utils.vtu import write_point_cloud_vtu
 
-        write_point_cloud_vtu(args.vtu, pts, {"Temperature": u_out})
+        write_point_cloud_vtu(args.vtu, pts if inv is None else pts[inv],
+                              {"Temperature": u_out})
         print(f"wrote {args.vtu}")
 
     if not args.no_header:

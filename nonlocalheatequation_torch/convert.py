@@ -13,7 +13,9 @@ manufactured source on when ``params["test"]`` is set.
 ensemble engine (its ``EnsembleCase``) into the port's, so both engines run
 the same buckets, mesh buckets included.  :func:`unstructured_op_from_jax`
 and :func:`unstructured_solver_from_jax_state` carry an unstructured
-operator and a solve's state.  :func:`solver2d_distributed_from_jax_state`
+operator and a solve's state, sharded or not (a JAX
+``ShardedUnstructuredOp``'s operator, and onto the port's sharded operator
+over ``devices``).  :func:`solver2d_distributed_from_jax_state`
 and :func:`solver3d_distributed_from_jax_state` carry a JAX distributed
 solve (the same ``_ckpt_params()`` dict, the global state) onto a port mesh
 of the same shape.
@@ -29,7 +31,11 @@ import numpy as np
 from nonlocalheatequation_torch.models.solver1d import Solver1D
 from nonlocalheatequation_torch.models.solver2d import Solver2D
 from nonlocalheatequation_torch.models.solver3d import Solver3D
-from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp, UnstructuredSolver
+from nonlocalheatequation_torch.ops.unstructured import (
+    ShardedUnstructuredOp,
+    UnstructuredNonlocalOp,
+    UnstructuredSolver,
+)
 from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
 from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
 from nonlocalheatequation_torch.parallel.mesh import create_mesh, device_list
@@ -150,7 +156,10 @@ def unstructured_op_from_jax(op, *, device) -> UnstructuredNonlocalOp:
     with its fields), built from its points, horizon field, volumes, k and
     dt as NumPy arrays; refuses unless the edge table, ``c`` and ``wsum``
     come out equal to the JAX operator's (an influence function or a given
-    ``c`` is not carried: the JAX operator keeps neither)."""
+    ``c`` is not carried: the JAX operator keeps neither).  A JAX
+    ``ShardedUnstructuredOp`` carries its single-device operator
+    (``inner``)."""
+    op = getattr(op, "inner", op)
     new = UnstructuredNonlocalOp(np.asarray(op.points), np.asarray(op.eps), k=float(op.k),
                                  dt=float(op.dt), vol=np.asarray(op.vol), device=device)
     for name in ("tgt", "src", "c", "wsum"):
@@ -162,18 +171,25 @@ def unstructured_op_from_jax(op, *, device) -> UnstructuredNonlocalOp:
 
 def unstructured_solver_from_jax_state(op, u: np.ndarray, t: int, *, device, dtype=None,
                                        test: bool = False, nt: int | None = None,
+                                       devices=None, halo: str = "auto",
                                        **solver_kwargs) -> UnstructuredSolver:
     """A port ``UnstructuredSolver`` carrying a JAX unstructured solve's
     state ``u`` (n,) at step ``t`` over :func:`unstructured_op_from_jax` of
-    its operator ``op``: ``do_work()`` runs the steps ``t .. nt-1`` (``nt``
-    defaults to ``t``), with the manufactured source when ``test``."""
+    its operator ``op`` (sharded or not): ``do_work()`` runs the steps ``t ..
+    nt-1`` (``nt`` defaults to ``t``), with the manufactured source when
+    ``test``.  With ``devices`` (a device list, virtual devices allowed) the
+    solver runs a ``ShardedUnstructuredOp`` over them with ``halo``.  The
+    state is in the operator's node order, gang-ordered or not
+    (serve/meshes.gang_order), and carries as it is."""
     u = np.asarray(u, dtype=np.float64)
     if u.shape != (int(op.n),):
         raise ValueError(f"state shape {u.shape} != ({int(op.n)},)")
     if int(t) < 0:
         raise ValueError(f"timestep must be >= 0, got {t}")
-    s = UnstructuredSolver(unstructured_op_from_jax(op, device=device),
-                           t if nt is None else nt, dtype=dtype, **solver_kwargs)
+    new = unstructured_op_from_jax(op, device=device)
+    if devices is not None:
+        new = ShardedUnstructuredOp(new, devices=devices, halo=halo)
+    s = UnstructuredSolver(new, t if nt is None else nt, dtype=dtype, **solver_kwargs)
     s.u0 = u.copy()
     s.test = bool(test)
     s.t0 = int(t)

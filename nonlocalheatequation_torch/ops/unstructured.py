@@ -20,9 +20,14 @@ gates test for a TPU backend; here they test the operator's device, and a
 CUDA device is treated as the TPU is.
 
 :class:`UnstructuredSolver` checkpoints and resumes (utils/checkpoint.py),
-in the original node order whatever the layout.  Not ported yet, and
-refused by name: ``ShardedUnstructuredOp`` with its ring halo and the
-solver's ``superstep > 1`` (the distributed slice).  The JAX package's ``NLHEAT_WINDOWED``,
+in the original node order whatever the layout.
+
+:class:`ShardedUnstructuredOp` evaluates L over a 1D mesh of S devices
+(virtual devices allowed, parallel/mesh.py): equal contiguous node blocks,
+edges partitioned by their target's block, with the JAX package's halo forms
+(``export``, ``gather``, ``auto``) or the ring-exchanged diagonal (offsets)
+form, and the offsets form's K-step superstep (``UnstructuredSolver(...,
+superstep=K)``).  The JAX package's ``NLHEAT_WINDOWED``,
 ``NLHEAT_OFFSETS`` and ``NLHEAT_WINDOWED_BUDGET_MB`` knobs are not read:
 nothing in the port sets them, and the budget is a constant.
 """
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.ops.nonlocal_op import source_at
+from nonlocalheatequation_torch.parallel.mesh import Mesh, create_mesh, device_list
 from nonlocalheatequation_torch.utils.checkpoint import CheckpointMixin
 from nonlocalheatequation_torch.utils.devices import resolve_device, resolve_dtype
 
@@ -363,6 +369,376 @@ class UnstructuredNonlocalOp:
         return np.cos(2.0 * np.pi * (t * self.dt)) * self.spatial_profile()
 
 
+def _ring_exchange(blocks: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """[left band | own block | right band] of every block of a 1D ring of
+    blocks (JAX ``_ring_exchange``, ``:382``): the ``lo`` last entries of
+    the block before, the ``hi`` first of the block after, copied onto each
+    block's device.  The ring wraps, so the bands that reach past the ends
+    of the domain are garbage: the per-step offsets form multiplies them by
+    zero weights, the superstep masks them."""
+    S = len(blocks)
+    out = np.empty(S, dtype=object)
+    for s in range(S):
+        mine = blocks[s]
+        B = mine.shape[0]
+        parts = []
+        if lo:  # the band from the LEFT neighbour
+            parts.append(blocks[(s - 1) % S][B - lo:].to(mine.device))
+        parts.append(mine)
+        if hi:  # the band from the RIGHT neighbour
+            parts.append(blocks[(s + 1) % S][:hi].to(mine.device))
+        out[s] = torch.cat(parts) if len(parts) > 1 else mine
+    return out
+
+
+class ShardedUnstructuredOp:
+    """Multi-device evaluation of an :class:`UnstructuredNonlocalOp` — JAX
+    ``ShardedUnstructuredOp`` (``ops/unstructured.py:401-812``).
+
+    The nodes are split into S equal contiguous index blocks of B over a 1D
+    mesh (axis ``p``; the last block zero-padded); the edge list is
+    partitioned by its target's block, so every sum is local to a block.
+    One process holds every block (parallel/mesh.py); a value moved between
+    virtual devices of one device is a copy on that device.  The halo has
+    the JAX package's forms (``halo=`` "auto"/"export"/"gather"):
+
+    * **export**: each block exports only its nodes that another block's
+      edges read (index sets built once); the state a block reads is [its
+      own B | every block's exports], S*Emax values instead of S*B.
+    * **gather**: every block reads the whole state.
+
+    "auto" picks export when the exports are under half the full gather
+    (``halo_comm_ratio``).  Both read the same addends in the same order,
+    so they are bitwise equal.  Each block sums its rows as padded rows
+    (each target's edges in the global edge order, zero-weight padding to
+    the block's widest row) one column at a time, left to right: the
+    order ``segment_sum`` and ``index_add_`` add in on the CPU, and an order
+    fixed on the card, where ``index_add_`` adds with atomics in no fixed
+    order.  So a block's sums are the single-device ``edges`` layout's on
+    the CPU bitwise, and on every device the same whatever S.
+
+    ``layout="offsets"`` (picked by ``layout="auto"`` with ``halo="auto"``
+    when the cloud's src-tgt offsets cover every edge and the bands fit one
+    hop) keeps each block's (|O|, B) slice of the dense diagonals and
+    exchanges only pad_lo/pad_hi-wide bands with its ring neighbours
+    (:func:`_ring_exchange`), summing the diagonals in the single-device
+    offsets layout's order: bitwise that layout.  Only this form runs the
+    K-step superstep (:meth:`make_superstep`).
+
+    The operator duck-types the single-device surface the solver reads
+    (``n``, ``dt``, ``apply_np``, ``spatial_profile``, ``source_parts``,
+    ``manufactured_solution``); :meth:`apply` takes and returns the global
+    (n,) vector, :meth:`apply_blocks` the state's blocks
+    (:meth:`to_blocks`/:meth:`from_blocks`)."""
+
+    def __init__(self, op: UnstructuredNonlocalOp, mesh: Mesh | None = None, devices=None,
+                 halo: str = "auto", layout: str = "auto"):
+        self.inner = op
+        self.n, self.dt = op.n, op.dt
+        if mesh is None:
+            devices = list(devices if devices is not None else device_list(op.device))
+            mesh = create_mesh(("p",), (len(devices),), devices)
+        if mesh.axis_names != ("p",):
+            raise ValueError(f"the mesh's axes {mesh.axis_names} are not ('p',)")
+        self.mesh = mesh
+        self.devices = list(mesh.devices.flat)
+        self.device = self.devices[0]
+        S = int(mesh.size)
+        self.S = S
+        B = -(-op.n // S)  # the block size (the last block zero-padded)
+        self.B = B
+        self.pad = S * B - op.n
+        # (name, shard, dtype) -> a tensor on the shard's device; and
+        # ("superstep", K, dtype, test) -> make_superstep's block function
+        self._tensors: dict = {}
+
+        if layout not in ("auto", "offsets", "edges"):
+            raise ValueError(f"layout must be auto/offsets/edges, got {layout!r}")
+        if layout == "offsets" and halo != "auto":
+            raise ValueError(
+                "layout='offsets' replaces the edge halo machinery; it "
+                f"cannot honor halo={halo!r} — drop one of the two")
+        if layout == "offsets" and not len(op.tgt):
+            raise ValueError("layout='offsets' needs a non-empty edge list")
+        if layout == "auto" and halo != "auto":
+            # an explicit halo asks for the edge layout's halo machinery
+            layout = "edges"
+        if layout in ("auto", "offsets") and len(op.tgt):
+            from nonlocalheatequation_torch.ops.windowed import offset_stats
+
+            cov, _, _ = offset_stats(op.tgt, op.src, op.n)
+            plan = op.offset_plan() if cov >= 1.0 else None
+            fits = (plan is not None and plan.coverage >= 1.0
+                    and plan.pad_lo <= B and plan.pad_hi <= B)
+            if layout == "offsets" and not fits:
+                raise ValueError(
+                    "layout='offsets' needs full offset coverage and "
+                    f"one-hop halos (coverage {cov:.4f}, pads "
+                    f"{getattr(plan, 'pad_lo', '?')}/"
+                    f"{getattr(plan, 'pad_hi', '?')} vs block {B})")
+            if fits:
+                self._init_offsets(plan)
+                return
+        self.layout = "edges"
+
+        # edges by target block; within a block (and a target) the global
+        # (target, source) order
+        shard_of = op.tgt // B
+        # export sets: the nodes of block r that another block's edges read
+        exports = []
+        for r in range(S):
+            remote = (op.src // B == r) & (shard_of != r)
+            exports.append(np.unique(op.src[remote]))
+        Emax = max(1, max(len(e) for e in exports))
+        self.halo_comm_ratio = S * Emax / float(S * B)
+        if halo not in ("auto", "export", "gather"):
+            raise ValueError(f"halo must be auto/export/gather, got {halo!r}")
+        if halo == "auto":
+            halo = "export" if (S > 1 and 2 * S * Emax <= S * B) else "gather"
+        self.halo_mode = halo
+        self.Emax = Emax
+        if halo == "export":
+            self._exp_idx = np.zeros((S, Emax), np.int64)
+            slot = np.zeros(S * B, np.int64)  # global node -> slot in its owner's exports
+            for r, e in enumerate(exports):
+                self._exp_idx[r, :len(e)] = e - r * B
+                slot[e] = np.arange(len(e))
+        # padded rows per block: (B, width) columns into the state the block
+        # reads, and weights (zero in the padding)
+        self._cols, self._ws = [], []
+        for s in range(S):
+            m = shard_of == s
+            tl = op.tgt[m].astype(np.int64) - s * B
+            srcs = op.src[m].astype(np.int64)
+            if halo == "export":
+                owner = srcs // B
+                srcs = np.where(owner == s, srcs - s * B, B + owner * Emax + slot[srcs])
+            deg = np.bincount(tl, minlength=B)
+            width = max(1, int(deg.max()) if len(tl) else 1)
+            starts = np.zeros(B + 1, np.int64)
+            np.cumsum(deg, out=starts[1:])
+            pos = np.arange(len(tl)) - starts[tl]
+            col = np.zeros((B, width), np.int64)
+            w = np.zeros((B, width), np.float64)
+            col[tl, pos] = srcs
+            w[tl, pos] = op.edge_w[m]
+            self._cols.append(col)
+            self._ws.append(w)
+        self._c = self._blk(op.c)
+        self._wsum = self._blk(op.wsum)
+
+    def _blk(self, x) -> np.ndarray:
+        """An (n,) host field as (S, B) with zero padding."""
+        xp = np.zeros(self.S * self.B, np.float64)
+        xp[:self.n] = x
+        return xp.reshape(self.S, self.B)
+
+    def _init_offsets(self, plan) -> None:
+        """The sharded diagonal form (JAX ``:592-638``): block s keeps the
+        (|O|, B) slice of every diagonal's weights; a step exchanges the
+        pad_lo/pad_hi bands with its ring neighbours and sums static slices.
+        The bands wrapped in at the domain's ends meet zero weights: no edge
+        crosses the domain's boundary."""
+        op, S, B = self.inner, self.S, self.B
+        self.layout = "offsets"
+        self.halo_mode = "offsets-ppermute"
+        self._plan = plan
+        self.halo_comm_ratio = (plan.pad_lo + plan.pad_hi) / float(S * B)
+        w3 = np.zeros((len(plan.offs), S * B), np.float64)
+        w3[:, :op.n] = plan.W
+        self._w3 = w3.reshape(len(plan.offs), S, B).transpose(1, 0, 2)  # (S, |O|, B)
+        self._c = self._blk(op.c)
+        self._wsum = self._blk(op.wsum)
+
+    def _on(self, name: str, s: int, array, dtype) -> torch.Tensor:
+        """Block ``s``'s host array ``array`` on its device in ``dtype``,
+        converted once."""
+        key = (name, s, dtype)
+        t = self._tensors.get(key)
+        if t is None:
+            t = self._tensors[key] = torch.as_tensor(np.ascontiguousarray(array)).to(
+                device=self.devices[s], dtype=dtype)
+        return t
+
+    # -- the state's blocks ---------------------------------------------------
+    def to_blocks(self, u, dtype=None) -> np.ndarray:
+        """The global (n,) state (NumPy or a tensor) as an object array of S
+        (B,) blocks on the mesh, zero-padded, in ``dtype`` (default ``u``'s)."""
+        x = torch.as_tensor(u)
+        xp = x.to(x.dtype if dtype is None else dtype)
+        if self.pad:
+            xp = torch.cat([xp, xp.new_zeros(self.pad)])
+        out = np.empty(self.S, dtype=object)
+        for s in range(self.S):
+            out[s] = xp[s * self.B:(s + 1) * self.B].to(self.devices[s]).contiguous()
+        return out
+
+    def from_blocks(self, blocks: np.ndarray, device=None) -> torch.Tensor:
+        """The global (n,) state on ``device`` (default the first block's)."""
+        device = blocks[0].device if device is None else device
+        return torch.cat([b.to(device) for b in blocks])[:self.n]
+
+    def apply_blocks(self, blocks: np.ndarray) -> np.ndarray:
+        """L(u) of the state's blocks, block by block."""
+        dtype = blocks[0].dtype
+        out = np.empty(self.S, dtype=object)
+        if self.layout == "offsets":
+            plan = self._plan
+            up = _ring_exchange(blocks, plan.pad_lo, plan.pad_hi)
+            for s in range(self.S):
+                mine, w3 = blocks[s], self._on("w3", s, self._w3[s], dtype)
+                acc = torch.zeros_like(mine)
+                for j, o in enumerate(plan.offs):
+                    start = plan.pad_lo + o
+                    acc = acc + w3[j] * up[s][start:start + self.B]
+                out[s] = self._on("c", s, self._c[s], dtype) * (
+                    acc - self._on("wsum", s, self._wsum[s], dtype) * mine)
+            return out
+        if self.halo_mode == "export":
+            sent = [blocks[r][self._on("exp", r, self._exp_idx[r], torch.int64)]
+                    for r in range(self.S)]
+        for s in range(self.S):
+            mine = blocks[s]
+            if self.halo_mode == "export":
+                frame = torch.cat([mine] + [e.to(mine.device) for e in sent])
+            else:
+                frame = torch.cat([b.to(mine.device) for b in blocks])
+            vals = (self._on("w", s, self._ws[s], dtype)
+                    * frame[self._on("col", s, self._cols[s], torch.int64)])
+            acc = torch.zeros_like(mine)
+            for j in range(vals.shape[1]):  # the padded rows, a column at a time
+                acc = acc + vals[:, j]
+            out[s] = self._on("c", s, self._c[s], dtype) * (
+                acc - self._on("wsum", s, self._wsum[s], dtype) * mine)
+        return out
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        """L(u) of the global (n,) tensor ``u``, returned on ``u``'s device."""
+        return self.from_blocks(self.apply_blocks(self.to_blocks(u)), u.device)
+
+    # -- the single-device operator's surface --------------------------------
+    def apply_np(self, u):
+        return self.inner.apply_np(u)
+
+    def spatial_profile(self):
+        return self.inner.spatial_profile()
+
+    def source_parts(self):
+        return self.inner.source_parts()
+
+    def manufactured_solution(self, t: int):
+        return self.inner.manufactured_solution(t)
+
+    # -- the K-step superstep (offsets form) ---------------------------------
+    def superstep_fits(self, ksteps: int) -> bool:
+        """Can the K-step block run?  The offsets layout only (residual edges
+        would need arbitrary cross-block reads), the K-wide bands one hop
+        (K*pad <= block)."""
+        if self.layout != "offsets" or ksteps < 2:
+            return False
+        plan = self._plan
+        return ksteps * plan.pad_lo <= self.B and ksteps * plan.pad_hi <= self.B
+
+    def superstep_check(self, ksteps: int) -> None:
+        """The one refusal of an unfit K (the constructor and the builder
+        share it)."""
+        if self.superstep_fits(ksteps):
+            return
+        if ksteps < 2:
+            raise ValueError(
+                f"superstep needs K >= 2 (got {ksteps}); K=1 IS the "
+                "per-step path")
+        plan = self._plan if self.layout == "offsets" else None
+        raise ValueError(
+            f"superstep {ksteps} does not fit the sharded offsets form "
+            f"(layout={self.layout!r}, pads "
+            f"{getattr(plan, 'pad_lo', '?')}/"
+            f"{getattr(plan, 'pad_hi', '?')}, block {self.B}): needs "
+            "the offsets layout and K*pad <= block")
+
+    def make_superstep(self, ksteps: int, dtype, test: bool):
+        """The communication-avoiding K-step block of the offsets form (JAX
+        ``:701``): ONE (K*pad_lo, K*pad_hi)-wide ring exchange a K steps, then
+        K local levels on shrinking regions (the grid solvers' superstep
+        schedule in the 1D diagonal domain).  Each block's extended slices of
+        the static fields (diagonal weights, c, wsum, sources) are cut once
+        here; only the state rides the ring.  Positions outside the domain
+        (the ring's wrapped bands, the padding tail) are zeroed on entry and
+        after every intermediate level.  Each level runs the per-step
+        form's elementwise program, so K levels are bitwise K per-step steps.
+
+        Returns ``block_fn(blocks, t) -> blocks`` advancing the state's
+        blocks K steps from step ``t`` (the JAX method also returns its
+        device arguments, which the jit takes; here ``block_fn`` holds them),
+        built once per (K, dtype, test)."""
+        K = int(ksteps)
+        self.superstep_check(K)
+        key = ("superstep", K, dtype, bool(test))
+        if key not in self._tensors:
+            self._tensors[key] = self._superstep(K, dtype, test)
+        return self._tensors[key]
+
+    def _superstep(self, K: int, dtype, test: bool):
+        """:meth:`make_superstep`'s builder."""
+        plan = self._plan
+        pad_lo, pad_hi, offs = plan.pad_lo, plan.pad_hi, plan.offs
+        S, B, n = self.S, self.B, self.n
+        PL, PH = K * pad_lo, K * pad_hi
+        ext = PL + B + PH
+
+        def ext_blocks(vec):
+            """An (n,) global host field -> (S, ext) extended slices, zero
+            beyond the domain."""
+            vp = np.zeros(PL + S * B + PH, np.float64)
+            vp[PL:PL + n] = np.asarray(vec)
+            return np.stack([vp[s * B:s * B + ext] for s in range(S)])
+
+        Wg = np.zeros((len(offs), PL + S * B + PH), np.float64)
+        Wg[:, PL:PL + n] = plan.W
+        fields = {"w3x": np.stack([Wg[:, s * B:s * B + ext] for s in range(S)]),
+                  "cx": ext_blocks(self.inner.c), "wsx": ext_blocks(self.inner.wsum)}
+        if test:
+            g, lg = self.inner.source_parts()
+            fields.update(gx=ext_blocks(g), lgx=ext_blocks(lg))
+        dev = [{k: torch.as_tensor(v[s]).to(device=self.devices[s], dtype=dtype)
+                for k, v in fields.items()} for s in range(S)]
+        dt = self.dt
+
+        def in_domain(start: int, length: int, device):
+            idx = start + torch.arange(length, device=device)
+            return (idx >= 0) & (idx < n)
+
+        def block_fn(blocks, t):
+            ring = _ring_exchange(blocks, PL, PH)
+            out = np.empty(S, dtype=object)
+            for s in range(S):
+                f = dev[s]
+                gpos0 = s * B - PL  # the global index of the extended slice's first entry
+                cur = ring[s]
+                cur = torch.where(in_domain(gpos0, ext, cur.device), cur, torch.zeros_like(cur))
+                for j in range(1, K + 1):
+                    m_lo, m_hi = (K - j) * pad_lo, (K - j) * pad_hi
+                    L = m_lo + B + m_hi
+                    o0 = PL - m_lo  # this level's offset into the extended slices
+                    acc = torch.zeros(L, dtype=cur.dtype, device=cur.device)
+                    for jo, o in enumerate(offs):
+                        acc = acc + f["w3x"][jo, o0:o0 + L] * cur[pad_lo + o:pad_lo + o + L]
+                    center = cur[pad_lo:pad_lo + L]
+                    du = f["cx"][o0:o0 + L] * (acc - f["wsx"][o0:o0 + L] * center)
+                    if test:
+                        du = du + source_at(f["gx"][o0:o0 + L], f["lgx"][o0:o0 + L],
+                                            t + (j - 1), dt)
+                    nxt = center + dt * du
+                    if j < K:
+                        nxt = torch.where(in_domain(gpos0 + o0, L, nxt.device), nxt,
+                                          torch.zeros_like(nxt))
+                    cur = nxt
+                out[s] = cur
+            return out
+
+        return block_fn
+
+
 class UnstructuredSolver(CheckpointMixin):
     """Forward-Euler solver on a point cloud, the grid solvers' contract:
     ``test_init`` + ``do_work`` + ``error_l2/#points <= 1e-6``.
@@ -372,19 +748,22 @@ class UnstructuredSolver(CheckpointMixin):
     by default) with the layout ``layout`` (``auto``: the operator's policy,
     resolved once).  The windowed layout keeps the state in Morton order for
     the whole solve: one permute in, one out, and one out for each
-    checkpoint, which holds the original node order."""
+    checkpoint, which holds the original node order.
+
+    On a :class:`ShardedUnstructuredOp` the state lives in the operator's
+    blocks between checkpoint barriers (``layout`` does not apply: the
+    operator owns its layout), and ``superstep=K > 1`` runs the offsets
+    form's K-step blocks (:meth:`ShardedUnstructuredOp.make_superstep`), the
+    remainder of each segment per step; K is refused wherever the schedule
+    cannot engage (JAX ``:814-980``)."""
 
     BACKENDS = ("oracle", "torch")
 
-    def __init__(self, op: UnstructuredNonlocalOp, nt: int, backend: str = "torch",
-                 layout: str = "auto", checkpoint_path: str | None = None,
-                 ncheckpoint: int = 0, superstep: int = 1, dtype=None):
+    def __init__(self, op, nt: int, backend: str = "torch", layout: str = "auto",
+                 checkpoint_path: str | None = None, ncheckpoint: int = 0,
+                 superstep: int = 1, dtype=None):
         if backend not in self.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {self.BACKENDS}")
-        if int(superstep) > 1:
-            raise ValueError("superstep > 1 is not ported yet to nonlocalheatequation_torch "
-                             "(it needs the sharded offsets operator, ShardedUnstructuredOp, "
-                             "of the distributed slice)")
         self.op = op
         self.nt = int(nt)
         self.backend = backend
@@ -398,14 +777,23 @@ class UnstructuredSolver(CheckpointMixin):
         self.u = None
         self.error_l2 = 0.0
         self.error_linf = 0.0
+        # superstep K > 1: one (K*pad)-wide ring exchange a K steps on the
+        # sharded offsets operator, refused anywhere it cannot engage
+        self.ksteps = max(1, int(superstep))
+        if self.ksteps > 1:
+            if backend != "torch" or getattr(op, "superstep_check", None) is None:
+                raise ValueError(
+                    "superstep > 1 needs the torch backend on a "
+                    "ShardedUnstructuredOp (offsets layout)")
+            op.superstep_check(self.ksteps)  # the shared fit refusal
 
     def _ckpt_params(self) -> dict:
         """The point cloud's canonical parameters: eps is a per-point field
         here, so its mean and L2 stand for it."""
-        op = self.op
-        return dict(shape=[int(op.n)], eps=float(np.mean(op.eps)),
-                    eps_l2=float(np.sum(op.eps ** 2)), k=float(op.k), dt=float(op.dt),
-                    test=bool(self.test))
+        inner = getattr(self.op, "inner", self.op)
+        return dict(shape=[int(inner.n)], eps=float(np.mean(inner.eps)),
+                    eps_l2=float(np.sum(inner.eps ** 2)), k=float(inner.k),
+                    dt=float(self.op.dt), test=bool(self.test))
 
     @property
     def _grid_shape(self):
@@ -430,6 +818,8 @@ class UnstructuredSolver(CheckpointMixin):
                     du = du + source_at(g, lg, t, op.dt)
                 u = u + op.dt * du
                 self._maybe_checkpoint(t, u)
+        elif isinstance(op, ShardedUnstructuredOp):
+            u = self._run_sharded(g, lg)
         else:
             u = self._run_torch(g, lg)
         self.u = u
@@ -459,3 +849,43 @@ class UnstructuredSolver(CheckpointMixin):
         if ex is not None:
             u = u[ex.rank]
         return u.cpu().numpy()
+
+    def _run_sharded(self, g, lg):
+        """The sharded operator's loop: one runner call per segment between
+        checkpoint barriers, the state in the operator's blocks within it."""
+        op, dtype, K = self.op, self.dtype, self.ksteps
+        srcs = (op.to_blocks(g, dtype), op.to_blocks(lg, dtype)) if self.test else None
+        block_fn = None
+        if K > 1:
+            if not any(c >= K for _, c in self._ckpt_chunks()):
+                # every segment shorter than K: no K-block could ever form
+                raise RuntimeError(
+                    f"superstep {K} cannot engage: every "
+                    "segment between checkpoint barriers is shorter "
+                    "than K (ncheckpoint/nt vs superstep); widen the "
+                    "cadence or drop superstep")
+            block_fn = op.make_superstep(K, dtype, self.test)
+
+        def step(blocks, t):
+            du = op.apply_blocks(blocks)
+            out = np.empty(op.S, dtype=object)
+            for s in range(op.S):
+                d = du[s]
+                if srcs is not None:
+                    d = d + source_at(srcs[0][s], srcs[1][s], t, op.dt)
+                out[s] = blocks[s] + op.dt * d
+            return out
+
+        def make_runner(count):
+            def run(u, t0):
+                blocks = op.to_blocks(u, dtype)
+                nblocks = count // K if block_fn is not None else 0
+                for i in range(nblocks):
+                    blocks = block_fn(blocks, t0 + K * i)
+                for t in range(t0 + nblocks * K, t0 + count):
+                    blocks = step(blocks, t)
+                return op.from_blocks(blocks)
+            return run
+
+        u = torch.as_tensor(self.u0).to(op.device, dtype)
+        return self._run_chunked(u, make_runner).cpu().numpy()

@@ -28,12 +28,22 @@ One process steps every block in turn (the JAX package's single-controller
 ``shard_map``).  A logger or checkpoints run one runner per segment between
 the barriers (utils/checkpoint.CheckpointMixin._run_chunked), the logger
 and the checkpoint given the GLOBAL state (``fetch_global``); the
-checkpoint's parameters are the single-device solvers', so a distributed
-checkpoint resumes in ``Solver2D``/``Solver3D`` and the reverse.  Not ported
-yet, and refused by name: non-Euler steppers (the distributed stepper tier)
-and ``method="fft"`` (the sharded spectral tier).  ``nbalance`` is refused as the JAX solver refuses
-it: rebalancing is the elastic executor's (parallel/elastic.py).
-:class:`DistributedGridSolver` holds what the 2D and 3D solvers share.
+checkpoint's parameters are the single-device solvers' (the JAX
+``_ckpt_params``: no stepper, no stage count), so a distributed checkpoint
+resumes in ``Solver2D``/``Solver3D`` and the reverse, whatever the stepper.
+``nbalance`` is refused as the JAX solver refuses it: rebalancing is the
+elastic executor's (parallel/elastic.py).
+
+The stepper axis: ``stepper="rkc"`` runs the Verwer stage loop above the
+exchange (parallel/stepper_halo.py): each stage one apply of every block
+through the transport above (per-stage, bitwise the single-device rkc
+solve), or with ``superstep=K > 1`` stage batches of K, one exchange round a
+batch.  ``method="fft"`` is the sharded spectral tier (parallel/
+spectral_halo.py over ops/spectral_sharded.py): Euler, rkc and ``expo`` on
+the pencil-decomposed global transform, its frequency tables placed on the
+mesh once per solver; it refuses ``comm='fused'`` and ``superstep > 1``.
+``expo`` needs ``method="fft"``.  :class:`DistributedGridSolver` holds what
+the 2D and 3D solvers share.
 """
 
 from __future__ import annotations
@@ -42,7 +52,6 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.models.metrics import ManufacturedMetrics2D
-from nonlocalheatequation_torch.models.steppers import STEPPERS
 from nonlocalheatequation_torch.obs import trace as obs_trace
 from nonlocalheatequation_torch.obs.metrics import REGISTRY
 from nonlocalheatequation_torch.ops.cuda_halo import (
@@ -52,6 +61,7 @@ from nonlocalheatequation_torch.ops.cuda_halo import (
     require_fused,
 )
 from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, source_at
+from nonlocalheatequation_torch.ops.spectral_sharded import get_plan, require_sharded_fft
 from nonlocalheatequation_torch.parallel.halo import halo_pad_nd
 from nonlocalheatequation_torch.parallel.mesh import (
     Mesh,
@@ -60,6 +70,16 @@ from nonlocalheatequation_torch.parallel.mesh import (
     fetch_global,
     make_mesh,
     put_global,
+)
+from nonlocalheatequation_torch.parallel.spectral_halo import (
+    build_spectral_local_step,
+    spectral_halo_obs,
+    spectral_tables,
+)
+from nonlocalheatequation_torch.parallel.stepper_halo import (
+    make_rkc_perstage_step,
+    make_rkc_stagebatch_step,
+    validate_dist_stepper,
 )
 from nonlocalheatequation_torch.utils.checkpoint import CheckpointMixin
 from nonlocalheatequation_torch.utils.devices import resolve_dtype
@@ -86,20 +106,6 @@ def choose_mesh_for_grid(NX: int, NY: int, devices=None) -> Mesh:
     return make_mesh(mx, my, devices)
 
 
-def refuse_unported_distributed(method: str, stepper: str) -> None:
-    """The distributed solvers' refusals of what is not ported yet: rkc and
-    expo on blocks (the distributed stepper tier) and fft (the sharded
-    spectral tier)."""
-    if stepper not in STEPPERS:
-        raise ValueError(f"unknown stepper {stepper!r}; one of {STEPPERS}")
-    if stepper != "euler":
-        raise ValueError(f"stepper={stepper!r} (the distributed stepper tier) is not ported "
-                         "yet to nonlocalheatequation_torch")
-    if method == "fft":
-        raise ValueError("method='fft' (the sharded spectral tier) is not ported yet to "
-                         "nonlocalheatequation_torch")
-
-
 class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
     """The set-up, step programs and time loop the 2D and 3D distributed
     solvers share; a subclass sets ``AXES``, ``_grid_shape`` and the
@@ -110,12 +116,16 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
     _cmp_coordinate_prefix = True
 
     def _setup(self, op, mesh, device, dtype, superstep: int, comm: str, choose_mesh,
-               logger, checkpoint_path, ncheckpoint: int):
+               logger, checkpoint_path, ncheckpoint: int, stepper: str = "euler",
+               stages: int = 0):
         self.logger = logger
         self.checkpoint_path = checkpoint_path
         self.ncheckpoint = int(ncheckpoint)
         self.ksteps = max(1, int(superstep))
         self.op = op
+        # the stepper tier: rkc's stage loop above the exchange
+        # (parallel/stepper_halo.py); expo only on the sharded spectral tier
+        self.stepper, self.stages = validate_dist_stepper(op, stepper, stages)
         self.mesh = mesh if mesh is not None else choose_mesh(*self._grid_shape,
                                                               device_list(device))
         if self.mesh.axis_names != self.AXES:
@@ -124,10 +134,27 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
         if comm not in ("collective", "fused"):
             raise ValueError(f"comm must be 'collective' or 'fused', got {comm!r}")
         self.comm = comm
+        if op.method == "fft":
+            # the sharded spectral tier's refusals, up front (the JAX words)
+            if comm == "fused":
+                raise ValueError(
+                    "method='fft' runs on the collective all-to-all "
+                    "pencil transposes (ops/spectral_sharded.py); "
+                    "comm='fused' is a stencil-halo transport — run "
+                    "comm='collective'")
+            if self.ksteps > 1:
+                raise ValueError(
+                    "method='fft' has no superstep form (the transform "
+                    "is global every step, there is no halo to "
+                    "amortize); run superstep=1 — rkc stages or "
+                    "stepper='expo' carry the big-dt claim on the "
+                    "spectral tier")
+            require_sharded_fft(self._grid_shape, self.eps, self._mesh_shape())
         if comm == "fused":
             # refused at construction, never downgraded to the collective path
             require_fused(self.op, self._block_shape(), self.dtype, ksteps=self.ksteps)
         self._step_cache: dict = {}
+        self._spectral_tabs = None  # the frequency tables on the mesh, placed once
         self.t0 = 0
         self.test = False
         self.u0 = np.zeros(self._grid_shape, dtype=np.float64)
@@ -157,12 +184,21 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
         block.  ``ksteps`` > 1 is the communication-avoiding superstep of K
         levels; with ``superstep`` > 1 the shallower remainder runs the same
         program at its depth, its sources sliced from the same
-        (superstep-1)*eps-padded blocks (:meth:`_prep_sources`)."""
+        (superstep-1)*eps-padded blocks (:meth:`_prep_sources`).  An rkc step
+        advances one dt (``superstep`` batches its stages); ``method='fft'``
+        steps through the sharded spectral tier, its tables leading ``srcs``."""
         op, eps = self.op, self.eps
         K = max(1, int(ksteps))
         test = self.test
 
+        if op.method == "fft":
+            local = build_spectral_local_step(op, self._spectral_plan(), self.stepper,
+                                              self.stages, test)
+            return lambda blocks, t, srcs: local(blocks, *srcs, t)
+
+        apply = None
         if self.ksteps == 1:
+            # one transport serves per-step Euler and per-stage rkc
             if self.comm == "fused":
                 apply = make_fused_apply(op, self._mesh_shape(), self.AXES)
             else:
@@ -173,6 +209,16 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
                         du[pos] = op.apply_padded(frames[pos])
                     return du
 
+        if self.stepper == "rkc":
+            if self.ksteps == 1:
+                local = make_rkc_perstage_step(op, self.stages, apply, test)
+            else:
+                local = make_rkc_stagebatch_step(op, self.stages, self.ksteps, halo_pad_nd,
+                                                 self._grid_shape, test,
+                                                 (self.ksteps - 1) * eps)
+            return lambda blocks, t, srcs: local(blocks, *srcs, t)
+
+        if self.ksteps == 1:
             def step(blocks, t, srcs):
                 du = apply(blocks)
                 out = np.empty(blocks.shape, dtype=object)
@@ -194,6 +240,21 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
             return out
 
         return step
+
+    # -- the sharded spectral tier ------------------------------------------------
+    def _spectral_plan(self):
+        """The cached pencil-FFT schedule of this (grid, mesh) pair."""
+        return get_plan(self._grid_shape, self.eps, self._mesh_shape(), self.AXES)
+
+    def _spectral_args(self) -> tuple:
+        """The frequency tables on the mesh (each position's slice in the
+        state's real dtype), placed once per solver."""
+        if self._spectral_tabs is None:
+            plan = self._spectral_plan()
+            self._spectral_tabs = tuple(
+                plan.put_freq(t, self.mesh.devices, self.dtype)
+                for t in spectral_tables(self.op, plan, self.stepper, self.stages))
+        return self._spectral_tabs
 
     def _superstep_block(self, Pk, pos, K: int, t: int, gp=None, lgp=None):
         """K Euler levels of one block from its K*eps-wide frame ``Pk``;
@@ -248,15 +309,25 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
         halo.exchange span's attributes.  Host arithmetic from the exchange
         plan; the stats follow the transport that runs: the in-kernel
         exchange reads the plan's bands, the split kernels' transport
-        copies the collective exchange's (fused_transport())."""
-        mesh_shape = self._mesh_shape()
+        copies the collective exchange's (fused_transport()); the spectral
+        tier's traffic is its plan's all-to-all schedule
+        (spectral_halo_obs)."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
+        if self.op.method == "fft":
+            return spectral_halo_obs(self._spectral_plan(), self.stepper, self.stages, steps,
+                                     itemsize, self.comm)
+        mesh_shape = self._mesh_shape()
         transport = (fused_transport(self.mesh.devices.flat) if self.comm == "fused"
                      else "collective")
         stats = halo_stats(mesh_shape, self._block_shape(), self.eps,
                            "fused" if transport == "peer" else "collective", itemsize)
         ndev = int(np.prod(mesh_shape))
-        rounds = -(-steps // self.ksteps)  # one per (super)step
+        if self.stepper == "rkc":
+            # one round per stage batch (ceil(s/K) a step; per stage at K == 1),
+            # on the eps-band basis of the Euler superstep's counts
+            rounds = steps * -(-self.stages // self.ksteps)
+        else:
+            rounds = -(-steps // self.ksteps)  # one per (super)step
         REGISTRY.counter("/halo/exchanges").inc(rounds * stats["messages"] * ndev)
         REGISTRY.counter("/halo/bytes").inc(rounds * stats["bytes"] * ndev)
         return dict(comm=self.comm, transport=transport, devices=ndev, rounds=rounds,
@@ -266,8 +337,8 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
     def _make_runner(self, count: int):
         """``run(blocks, start, srcs)``: ``count`` steps from ``start`` as q
         supersteps of K and one shallower remainder (K == 1: ``count``
-        steps)."""
-        K = max(1, min(self.ksteps, count))
+        steps).  An rkc step advances one dt, whatever ``superstep``."""
+        K = 1 if self.stepper == "rkc" else max(1, min(self.ksteps, count))
         q, r = divmod(count, K)
 
         def get_step(k):
@@ -293,6 +364,8 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
         blocks, srcs = self._device_state()
         if srcs and self.ksteps > 1:
             srcs = self._prep_sources(*srcs)
+        if self.op.method == "fft":
+            srcs = self._spectral_args() + srcs  # the tables lead the step's arguments
         checkpointing = bool(self.checkpoint_path and self.ncheckpoint)
 
         def make_runner(count):
@@ -348,10 +421,9 @@ class Solver2DDistributed(DistributedGridSolver):
             raise ValueError(
                 "resync_every is not supported on the distributed path; run the serial "
                 "solver, or precision='bf16' without resync")
-        refuse_unported_distributed(method, stepper)
         op = NonlocalOp2D(eps, k, dt, dh, method=method, precision=precision)
         self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid, logger,
-                    checkpoint_path, ncheckpoint)
+                    checkpoint_path, ncheckpoint, stepper, stages)
 
     @property
     def _grid_shape(self):

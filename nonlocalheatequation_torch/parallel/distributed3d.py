@@ -10,16 +10,15 @@ Mesh('x', 'y', 'z'), an eps-band exchange on every mesh axis each step
 the band copies ``split_nsum3d``; bitwise the same), and the
 communication-avoiding superstep on the collective path.  The numerics are
 the single-device 3D solve's; a logger and checkpoints run as in 2D, and a
-checkpoint resumes in ``Solver3D`` and the reverse.
+checkpoint resumes in ``Solver3D`` and the reverse.  The stepper axis (rkc
+per stage or in stage batches, expo) and the sharded spectral tier
+(``method="fft"``, the 3D pencil transposes) run as in 2D.
 """
 
 from __future__ import annotations
 
 from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp3D
-from nonlocalheatequation_torch.parallel.distributed2d import (
-    DistributedGridSolver,
-    refuse_unported_distributed,
-)
+from nonlocalheatequation_torch.parallel.distributed2d import DistributedGridSolver
 from nonlocalheatequation_torch.parallel.mesh import Mesh, device_list, make_mesh_3d
 
 
@@ -67,10 +66,9 @@ class Solver3DDistributed(DistributedGridSolver):
                  stepper: str = "euler", stages: int = 0, device=None):
         self.NX, self.NY, self.NZ = int(NX), int(NY), int(NZ)
         self.nt, self.eps, self.nlog = int(nt), int(eps), int(nlog)
-        refuse_unported_distributed(method, stepper)
         op = NonlocalOp3D(eps, k, dt, dh, method=method, precision=precision)
         self._setup(op, mesh, device, dtype, superstep, comm, choose_mesh_for_grid_3d, logger,
-                    checkpoint_path, ncheckpoint)
+                    checkpoint_path, ncheckpoint, stepper, stages)
 
     @property
     def _grid_shape(self):

@@ -150,6 +150,16 @@ def put_global(array, mesh: Mesh, dtype: torch.dtype) -> np.ndarray:
     return blocks
 
 
+def map_blocks(fn, *arrays) -> np.ndarray:
+    """``fn`` applied position by position to object arrays of blocks of one
+    shape (the per-shard body of a ``shard_map``): an object array of the
+    results."""
+    out = np.empty(arrays[0].shape, dtype=object)
+    for pos in np.ndindex(*arrays[0].shape):
+        out[pos] = fn(*(a[pos] for a in arrays))
+    return out
+
+
 def fetch_global(blocks: np.ndarray) -> np.ndarray:
     """Gather the blocks into one host NumPy array of their dtype."""
     def nest(prefix):

@@ -9,8 +9,8 @@ the hash are the JAX package's, so a mesh stored by either package resolves
 in the other.
 
 The mesh directory is private state (0700); uploads are validated
-(:func:`validate_mesh`: bounds, finiteness, dtype).  ``gang_order`` (node
-order for a sharded solve) waits for the distributed slice.
+(:func:`validate_mesh`: bounds, finiteness, dtype).  :func:`gang_order` is
+the node order for a sharded solve (ops/unstructured.ShardedUnstructuredOp).
 """
 
 from __future__ import annotations
@@ -204,3 +204,30 @@ def get_mesh_op(mhash: str, k: float, dt: float, mesh_dir=None, device=None):
             _OP_CACHE.pop(next(iter(_OP_CACHE)))
         _OP_CACHE[key] = op
     return op
+
+
+# -- gang placement: partition_coarse_grid feeds the sharded operator -------------------
+
+def gang_order(points: np.ndarray, ndevices: int, coarse: int = 16) -> np.ndarray:
+    """A node permutation that makes index-contiguous equal blocks spatially
+    compact (JAX ``serve/meshes.py:221-248``): bin the nodes onto a ``coarse
+    x coarse`` tile grid over their bounding box, partition the tiles with
+    the refined RCB cuts of :func:`utils.decompose.partition_coarse_grid`
+    (the reference's decomposition, src/domain_decomposition.cpp:157-195),
+    and order the nodes by (owner part, tile, index).  Fed the permuted
+    cloud, ``ShardedUnstructuredOp`` places each part's nodes on one device,
+    so the ring halo carries only true cut edges."""
+    from nonlocalheatequation_torch.utils.decompose import partition_coarse_grid
+
+    points = np.asarray(points, np.float64)
+    n, d = points.shape
+    if ndevices < 2 or n == 0:
+        return np.arange(n)
+    xy = points[:, :2] if d >= 2 else np.stack([points[:, 0], np.zeros(n)], axis=1)
+    lo, hi = xy.min(axis=0), xy.max(axis=0)
+    span = np.where(hi > lo, hi - lo, 1.0)
+    ij = np.minimum((coarse * (xy - lo) / span).astype(np.int64), coarse - 1)
+    owner = partition_coarse_grid(coarse, coarse, ndevices)
+    part = owner[ij[:, 0], ij[:, 1]]
+    tile = ij[:, 0] * coarse + ij[:, 1]
+    return np.lexsort((np.arange(n), tile, part))

@@ -31,14 +31,21 @@ collective path on meshes of virtual devices of the one card.  An rkc
 solve (models/steppers.py) launches one nsum2d/nsum3d a stage and is
 bitwise the same solve through their plain versions; fft
 (ops/spectral.py) meets the kernels' neighbour sums; expo meets the
-manufactured contract and launches no kernel.
+manufactured contract and launches no kernel.  Distributed rkc
+(parallel/stepper_halo.py) per stage, over every transport, is the
+single-device rkc solve bitwise with exact launch counts; the sharded fft
+solves (parallel/spectral_halo.py) meet the single-device fft solves in
+float64; the sharded unstructured operator's halo forms are bitwise each
+other and its one-device form, and its offsets form and superstep the
+single-device offsets solve.
 
 The CPU tests hold the plain versions against the JAX package
 (tests/test_torch_kernels.py, test_torch_multistep.py, test_torch_autotune.py,
 test_torch_kernels3d.py, test_torch_3d.py, test_torch_batched_kernels.py,
 test_torch_ensemble.py, test_torch_unstructured.py, test_torch_windowed.py,
 test_torch_gather.py, test_torch_halo.py, test_torch_distributed.py,
-test_torch_steppers.py, test_torch_spectral.py).
+test_torch_steppers.py, test_torch_spectral.py, test_torch_distributed_rkc.py,
+test_torch_spectral_sharded.py, test_torch_unstructured_sharded.py).
 """
 
 import numpy as np
@@ -1151,3 +1158,103 @@ def test_expo_gate_on_card(card, stages):
     assert s.error_l2 / n**2 <= 1e-6
     assert np.isfinite(u).all() and np.abs(u).max() <= np.abs(s.u0).max() * 1.01
     assert not any(ck.launch_counts().values())  # the spectral path launches no kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_distributed_rkc_bitwise_the_single_device_rkc_on_card(card, monkeypatch, dtype):
+    # per stage, every transport is the single-device rkc solve bitwise: one
+    # nsum2d (fused_nsum2d; split_nsum2d a phase) a block a stage, and L(G)
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh
+
+    n, eps, steps = 256, 5, 3
+    dt = 0.8 * stable_dt_op(NonlocalOp2D(eps, 1.0, 1.0, 1.0 / n), "rkc", 4)
+    kw = dict(k=1.0, dt=dt, dh=1.0 / n, method="cuda", dtype=dtype, stepper="rkc", stages=4)
+    solo = Solver2D(n, n, steps, eps, device=card, **kw)
+    solo.test_init()
+    ref = solo.do_work()
+    mesh = make_mesh(2, 2, device_list(card, 4))
+    for comm, transport, kernel, per in (("collective", "", "nsum2d", 1),
+                                         ("fused", "", "fused_nsum2d", 1),
+                                         ("fused", "interp", "split_nsum2d", 2)):
+        monkeypatch.setenv("NLHEAT_FUSED_TRANSPORT", transport)
+        ck.reset_launch_counts()
+        s = Solver2DDistributed(n // 2, n // 2, 2, 2, steps, eps, mesh=mesh, comm=comm, **kw)
+        s.test_init()
+        got = s.do_work()
+        counts = {k: v for k, v in ck.launch_counts().items() if v}
+        want = {kernel: per * 4 * 4 * steps}
+        want["nsum2d"] = want.get("nsum2d", 0) + 1  # L(G) on the first device
+        assert counts == want, (comm, transport)
+        assert np.array_equal(got, ref), (comm, transport)
+    monkeypatch.delenv("NLHEAT_FUSED_TRANSPORT")
+    batch = Solver2DDistributed(n // 2, n // 2, 2, 2, steps, eps, mesh=mesh, superstep=2, **kw)
+    batch.test_init()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert np.abs(batch.do_work() - ref).max() <= tol * np.abs(ref).max()
+    assert solo.error_l2 / n**2 <= 1e-6
+
+
+@pytest.mark.cuda
+def test_sharded_fft_matches_the_single_device_fft_on_card(card):
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import device_list, make_mesh, make_mesh_3d
+
+    devs = device_list(card, 8)
+    for stepper, stages in (("euler", 0), ("rkc", 4), ("expo", 0), ("expo", 1)):
+        kw = dict(k=1.0, dt=2e-4, dh=1.0 / 48, method="fft", dtype=torch.float64,
+                  stepper=stepper, stages=stages)
+        pairs = ((Solver2DDistributed(24, 20, 2, 2, 4, 5, mesh=make_mesh(2, 2, devs), **kw),
+                  Solver2D(48, 40, 4, 5, device=card, **kw)),
+                 (Solver3DDistributed(16, 16, 24, 4, 3, mesh=make_mesh_3d(2, 2, 2, devs), **kw),
+                  Solver3D(16, 16, 24, 4, 3, device=card, **kw)))
+        for d, s in pairs:
+            d.test_init()
+            s.test_init()
+            got, want = d.do_work(), s.do_work()
+            assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max(), stepper
+    assert not any(ck.launch_counts().values())  # cuFFT's transforms, no kernel of ours
+
+
+@pytest.mark.cuda
+def test_sharded_unstructured_forms_bitwise_on_card(card):
+    # the padded-row sums add in an order fixed by the edge list, whatever the
+    # shard count; the offsets form and its superstep run the single-device
+    # offsets layout's elementwise program
+    from nonlocalheatequation_torch.ops.unstructured import (
+        ShardedUnstructuredOp,
+        UnstructuredNonlocalOp,
+        UnstructuredSolver,
+    )
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+
+    m = 48
+    h = 1.0 / m
+    rng = np.random.default_rng(5)
+    g = np.stack(np.meshgrid(np.arange(m) * h, np.arange(m) * h, indexing="ij"), -1)
+    pts = g.reshape(-1, 2) + rng.uniform(-0.2 * h, 0.2 * h, (m * m, 2))
+    shuffled = pts[rng.permutation(m * m)]
+
+    def solve(op, nt=6, **kw):
+        s = UnstructuredSolver(op, nt=nt, dtype=torch.float32, **kw)
+        s.test_init()
+        return s.do_work()
+
+    for cloud in (pts, shuffled):
+        op = UnstructuredNonlocalOp(cloud, 3 * h, 1.0, 1e-6, vol=h * h, device=card)
+        one = solve(ShardedUnstructuredOp(op, devices=device_list(card, 1), layout="edges"))
+        for halo in ("export", "gather"):
+            sh = ShardedUnstructuredOp(op, devices=device_list(card, 4), halo=halo)
+            assert np.array_equal(solve(sh), one), halo
+        ell = solve(op, layout="ell")
+        assert np.abs(one - ell).max() <= 1e-5 * np.abs(ell).max()
+    op = UnstructuredNonlocalOp(pts, 3 * h, 1.0, 1e-6, vol=h * h, device=card)
+    sh = ShardedUnstructuredOp(op, devices=device_list(card, 4))
+    assert sh.layout == "offsets" and sh.superstep_fits(2)
+    ref = solve(op, layout="offsets")
+    for K in (1, 2):
+        assert np.array_equal(solve(sh, superstep=K), ref), K
+    assert not any(ck.launch_counts().values())  # torch ops only

@@ -234,9 +234,8 @@ class _Logged(list):
 
 #: (kwargs, refusal) — a refusal of None: ported since, the solve runs
 REFUSALS_2D = [
-    (dict(stepper="rkc", stages=4), "stepper='rkc' \\(the distributed stepper tier\\) is not "
-                                    "ported yet"),
-    (dict(method="fft"), "method='fft' .* is not ported yet"),
+    (dict(stepper="expo"), "on the distributed path it requires method='fft'"),
+    (dict(method="fft", comm="fused"), "pencil transposes .* comm='fused' is a stencil-halo"),
     (dict(checkpoint_path="x.npz", ncheckpoint=2), None),
     (dict(logger=_Logged()), None),
     (dict(nbalance=10), "cannot rebalance; use parallel.elastic.ElasticSolver2D for nbalance"),
@@ -392,9 +391,8 @@ def test_cli_single_solve_prints_the_jax_lines(monkeypatch, capsys):
     (["--resume"], None),
     (["--log"], None),
     (["--profile", "d"], None),
-    (["--stepper", "rkc", "--superstep-stages", "4"],
-     "--stepper rkc is not ported yet .*the distributed stepper tier"),
-    (["--method", "fft"], "--method fft is not ported yet"),
+    (["--stepper", "expo"], "requires --method fft"),
+    (["--method", "fft", "--comm", "fused"], "pencil transposes; --comm fused is a stencil"),
     (["--comm", "fused"], "needs method='cuda'"),
     (["--comm", "fused", "--method", "cuda", "--superstep", "2"], "superstep"),
     (["--resync", "2", "--precision", "bf16"], "--resync is not supported"),

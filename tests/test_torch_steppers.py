@@ -575,8 +575,10 @@ def test_cli_stepper_refusals(cli, argv, message, capsys):
 
 def test_solve3d_distributed_keeps_its_refusals(capsys):
     for argv, message in (
-            (["--method", "fft"], "--method fft with --distributed is not ported yet"),
-            (["--stepper", "rkc"], "--stepper rkc with --distributed is not ported yet"),
+            (["--method", "fft", "--comm", "fused"],
+             "--method fft runs on the collective all-to-all pencil transposes"),
+            (["--stepper", "expo"], "--stepper expo integrates in the spectral domain; it "
+                                    "requires --method fft"),
             (["--method", "fft", "--superstep", "2"], "--method fft has no superstep form")):
         assert solve3d.main(["--test", "--platform", "cpu", "--distributed"] + argv) == 1
         assert capsys.readouterr().err.startswith(message)

@@ -304,7 +304,9 @@ def test_solver_input_init_free_decay_and_float32():
 
 def test_solver_refuses_what_is_not_ported_by_name(tmp_path):
     _, top = _pair(*CLOUDS[0][1:])
-    with pytest.raises(ValueError, match="superstep > 1 is not ported yet"):
+    # the superstep needs the sharded offsets operator (ported since, with its
+    # refusal in the JAX words; tests/test_torch_unstructured_sharded.py)
+    with pytest.raises(ValueError, match="on a ShardedUnstructuredOp \\(offsets layout\\)"):
         tun.UnstructuredSolver(top, nt=4, superstep=2)
     # checkpointing is ported since (tests/test_torch_checkpoint.py): it runs
     s = tun.UnstructuredSolver(top, nt=4, checkpoint_path=str(tmp_path / "x.npz"),
@@ -411,15 +413,16 @@ def test_cli_results_input_and_refusals(monkeypatch):
     assert np.allclose(vals, js.u, rtol=1e-5, atol=1e-6)  # printed with %g
     assert "OS_Threads" not in out
     for argv, what in (
-        (["--devices", "2"], "--devices > 1 is not ported yet"),
-        (["--halo", "export"], "--halo is not ported yet"),
-        (["--superstep", "2"], "--superstep > 1 is not ported yet"),
+        (["--devices", "2", "--superstep", "2"], "does not fit the sharded offsets form"),
+        (["--halo", "export", "--superstep", "2"], "on a ShardedUnstructuredOp"),
+        (["--superstep", "2"], "on a ShardedUnstructuredOp (offsets layout)"),
         (["--trace", "d"], "--trace is not ported yet"),
         (["--metrics-out", "m.json"], "--metrics-out is not ported yet"),
         (["--metrics-port", "0"], "--metrics-port is not ported yet"),
         (["--flight-dir", "d"], "--flight-dir is not ported yet"),
         (["--program-store", "d"], "--program-store is not ported yet"),
-        (["--gang-order", "1", "--devices", "4"], "--devices > 1 is not ported yet"),
+        (["--gang-order", "1", "--devices", "4", "--superstep", "2"],
+         "does not fit the sharded offsets form"),
     ):
         err = io.StringIO()
         monkeypatch.setattr(sys, "stderr", err)
