@@ -3966,6 +3966,264 @@ def phase_dist_steppers(torch, np, ck, k3, l2_threshold) -> dict:
     return by
 
 
+MH_STEPS, MH_RKC_STEPS = 50, 10  # phase 14: Euler steps, rkc[8] steps (each at 5x the dt)
+MH_TIMEOUT = 420                 # seconds a phase-14 rank may run before it is killed
+MH_FORMS = [(dim, comm, stepper) for dim in (2, 3) for comm in ("collective", "fused")
+            for stepper in ("euler", "rkc")]
+
+
+def mh_label(dim: int, comm: str, stepper: str) -> str:
+    shape = f"{DN}^2 eps={DEPS} 2x2" if dim == 2 else f"{D3N}^3 eps={D3EPS} 2x2x2"
+    steps = f"euler {MH_STEPS}" if stepper == "euler" else f"rkc[{RKC_STAGES}] {MH_RKC_STEPS}"
+    return f"{shape} {comm} {steps}"
+
+
+def mh_solver(dim: int, comm: str, stepper: str, devs):
+    """Phase 14's solves, f32 test form, method="cuda": 4096^2 eps=8 on a 2x2
+    mesh or 256^3 eps=4 on 2x2x2 over ``devs``, MH_STEPS Euler steps at 0.8x
+    the Euler bound or MH_RKC_STEPS rkc[8] steps at 5x that dt."""
+    import torch
+
+    from nonlocalheatequation_torch.ops.constants import stable_dt_op
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, NonlocalOp3D
+    from nonlocalheatequation_torch.parallel.distributed2d import Solver2DDistributed
+    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.mesh import make_mesh, make_mesh_3d
+
+    n, eps = (DN, DEPS) if dim == 2 else (D3N, D3EPS)
+    dh = 1.0 / n
+    dt = 0.8 * stable_dt_op((NonlocalOp2D if dim == 2 else NonlocalOp3D)(eps, 1.0, 1.0, dh))
+    kw = dict(k=1.0, dh=dh, method="cuda", dtype=torch.float32, comm=comm)
+    if stepper == "euler":
+        nt = MH_STEPS
+    else:
+        nt, dt = MH_RKC_STEPS, 5 * dt
+        kw.update(stepper="rkc", stages=RKC_STAGES)
+    if dim == 2:
+        s = Solver2DDistributed(n // 2, n // 2, 2, 2, nt, eps, dt=dt,
+                                mesh=make_mesh(2, 2, devs), **kw)
+    else:
+        s = Solver3DDistributed(n, n, n, nt, eps, dt=dt, mesh=make_mesh_3d(2, 2, 2, devs), **kw)
+    s.test_init()
+    return s
+
+
+def mh_want(dim: int, comm: str, stepper: str, nblocks: int, transport: str) -> dict:
+    """The launches of one phase-14 do_work over ``nblocks`` blocks of this
+    process: one sum a block an apply (split: a launch a phase, two here),
+    and L(G) once."""
+    applies = nblocks * (MH_STEPS if stepper == "euler" else RKC_STAGES * MH_RKC_STEPS)
+    kernel = f"nsum{dim}d"
+    if comm == "collective":
+        return {kernel: applies + 1}
+    if transport == "peer":
+        return {f"fused_nsum{dim}d": applies, kernel: 1}
+    return {f"split_nsum{dim}d": 2 * applies, kernel: 1}
+
+
+def mh_run(torch, np, ck, s, barrier=None) -> dict:
+    """One phase-14 solve: its do_work counted, the state's digest and the
+    contract, then the stepping alone (the runner from the device state;
+    ``barrier`` first, so that the ranks start together), wall ms a step."""
+    import hashlib
+
+    before = ck.launch_counts()
+    u = s.do_work()
+    launches = {k: v - before[k] for k, v in ck.launch_counts().items() if v != before[k]}
+    blocks, srcs = s._device_state()
+    run = s._make_runner(s.nt)
+    torch.cuda.synchronize()
+    if barrier is not None:
+        barrier()
+    t0 = time.perf_counter()
+    run(blocks, 0, srcs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / s.nt
+    return {"u": u, "digest": hashlib.sha256(u.tobytes()).hexdigest()[:16],
+            "err": float(s.error_l2 / u.size), "finite": bool(np.isfinite(u).all()),
+            "launches": launches, "ms_per_step": round(ms, 4)}
+
+
+def mh_rank_main(init: str, world: int, rank: int) -> int:
+    """One rank of phase 14 (b): ``chip_smoke.py --mh-rank INIT WORLD RANK``.
+    Joins the gloo group (bands staged through host memory; the ranks share
+    the one card), owns 2 of the 2x2 mesh's blocks (4 of the 2x2x2 mesh's),
+    runs MH_FORMS and prints one JSON line of digests, launches and walls."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+    from nonlocalheatequation_torch.parallel import multihost
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+
+    multihost.init_from_env(init, world, rank, backend="gloo", platform="gpu",
+                            timeout=MH_TIMEOUT)
+    import torch.distributed as dist
+
+    devs = {2: device_list("cuda", 4 // world), 3: device_list("cuda", 8 // world)}
+    out = {}
+    for dim, comm, stepper in MH_FORMS:
+        label = mh_label(dim, comm, stepper)
+        r = mh_run(torch, np, ck, mh_solver(dim, comm, stepper, devs[dim]), dist.barrier)
+        multihost.assert_same_on_all_hosts(r.pop("u"), label)
+        out[label] = r
+    print("MH14 " + json.dumps({"rank": rank, "results": out}), flush=True)
+    multihost.shutdown()
+    return 0
+
+
+def phase_multihost(torch, np, ck, l2_threshold) -> dict:
+    """Phase 14: blocks owned by ranks (parallel/multihost.py) on the one card.
+    (a) MH_FORMS in this process with no group, then around a 1-rank nccl
+    group (bitwise, the same launches); (b) two ranks, spawned here, in a
+    gloo group, each owning half of the blocks: every form bitwise the
+    no-group solve, B2/B9 (collective) and B14/B15 (fused: a mesh across
+    ranks takes 'interp') launched exactly in each rank; (c)
+    solve2d_distributed --devices 2 on two ranks over CASES_2D_DISTRIBUTED:
+    "Tests Passed" from rank 0, nothing from rank 1.  Returns the launches
+    by part."""
+    import socket
+
+    from nonlocalheatequation_torch.ops.cuda_halo import fused_transport
+    from nonlocalheatequation_torch.parallel import multihost
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+
+    def free_port() -> int:
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            return sk.getsockname()[1]
+
+    by, walls = {}, {}
+    t_phase = time.perf_counter()
+    # (a) no group, then one nccl rank
+    devs = {2: device_list("cuda", 4), 3: device_list("cuda", 8)}
+    transport = fused_transport(devs[2])
+    ref, grouped = {}, {}
+    for dim, comm, stepper in MH_FORMS:
+        label = mh_label(dim, comm, stepper)
+        r = mh_run(torch, np, ck, mh_solver(dim, comm, stepper, devs[dim]))
+        del r["u"]
+        ref[label] = r
+        by[f"phase 14 (a) no group {label}"] = r["launches"]
+        want = mh_want(dim, comm, stepper, 2 ** dim, transport)
+        if r["launches"] != want or not r["finite"] or not r["err"] <= l2_threshold:
+            fail(f"phase 14 {label}: launches {r['launches']} (want {want}), error_l2/#points "
+                 f"{r['err']:.3e}")
+    multihost.init_from_env(f"tcp://localhost:{free_port()}", 1, 0, backend="nccl",
+                            platform="gpu", timeout=MH_TIMEOUT)
+    try:
+        import torch.distributed as dist
+
+        if (multihost.backend(), multihost.process_count()) != ("nccl", 1):
+            fail(f"phase 14: the group is {multihost.backend()} x{multihost.process_count()}")
+        dist.barrier()
+        gdevs = {2: device_list("cuda", 4), 3: device_list("cuda", 8)}
+        for dim, comm, stepper in MH_FORMS:
+            label = mh_label(dim, comm, stepper)
+            r = mh_run(torch, np, ck, mh_solver(dim, comm, stepper, gdevs[dim]), dist.barrier)
+            del r["u"]
+            grouped[label] = r
+            by[f"phase 14 (a) 1-rank nccl {label}"] = r["launches"]
+            if (r["digest"], r["launches"]) != (ref[label]["digest"], ref[label]["launches"]):
+                fail(f"phase 14 (a) {label} in a 1-rank nccl group: digest {r['digest']}, "
+                     f"launches {r['launches']}; with no group {ref[label]['digest']}, "
+                     f"{ref[label]['launches']}")
+    finally:
+        multihost.shutdown()
+    walls["a"] = time.perf_counter() - t_phase
+    say("phase 14 (a) no group: "
+        + json.dumps({k: {key: v[key] for key in ("digest", "err", "ms_per_step", "launches")}
+                      for k, v in ref.items()})
+        + "; in a 1-rank nccl group, bitwise with the same launches, ms a step "
+        + json.dumps({k: v["ms_per_step"] for k, v in grouped.items()}))
+    torch.cuda.empty_cache()  # the ranks below share the card
+
+    # (b) two ranks in a gloo group on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/pg"
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mh-rank",
+                                   init, "2", str(r)], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in range(2)]
+        CHILDREN.extend(procs)
+        results = []
+        deadline = time.monotonic() + MH_TIMEOUT
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                stop_children()
+                fail(f"phase 14 (b): rank {r} still running after {MH_TIMEOUT} s; killed")
+            if proc.returncode != 0:
+                stop_children()
+                fail(f"phase 14 (b): rank {r} exited {proc.returncode}\n{out[-2000:]}\n"
+                     f"{err[-4000:]}")
+            line = next((x for x in out.splitlines() if x.startswith("MH14 ")), None)
+            if line is None:
+                fail(f"phase 14 (b): rank {r} printed no result\n{out[-2000:]}")
+            results.append(json.loads(line[5:])["results"])
+    rank_ms = {}
+    for r, res in enumerate(results):
+        for dim, comm, stepper in MH_FORMS:
+            label = mh_label(dim, comm, stepper)
+            got = res[label]
+            by[f"phase 14 (b) rank {r} {label}"] = got["launches"]
+            want = mh_want(dim, comm, stepper, 2 ** dim // 2, "interp")
+            if got["digest"] != ref[label]["digest"] or got["launches"] != want:
+                fail(f"phase 14 (b) rank {r} {label}: digest {got['digest']} (one process "
+                     f"{ref[label]['digest']}), launches {got['launches']} (want {want})")
+            rank_ms.setdefault(label, []).append(got["ms_per_step"])
+    walls["b"] = time.perf_counter() - t_phase - sum(walls.values())
+    say(f"phase 14 (b) two gloo ranks on the one card, 2+2 (2D) and 4+4 (3D) virtual devices: "
+        f"every form bitwise the one-process solve; ms a step, the stepping alone, [rank 0, "
+        f"rank 1] beside one process: "
+        + json.dumps({k: {"ranks": v, "one process": ref[k]["ms_per_step"]}
+                      for k, v in rank_ms.items()})
+        + "; launches of each rank: "
+        + json.dumps({mh_label(*f): results[0][mh_label(*f)]["launches"] for f in MH_FORMS}))
+
+    # (c) the distributed CLI under two ranks
+    cases = cases_module().CASES_2D_DISTRIBUTED
+    port = free_port()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}", JAX_NUM_PROCESSES="2",
+                   JAX_PROCESS_ID=str(r), NLHEAT_DIST_BACKEND="gloo",
+                   NLHEAT_DIST_TIMEOUT=str(MH_TIMEOUT),
+                   PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "nonlocalheatequation_torch.cli.solve2d_distributed",
+             *CLI_ARGS, "--devices", "2"], cwd=ROOT, env=env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for proc in procs:  # every rank's stdin closed at once: no rank waits on another's read
+        proc.stdin.write(batch_text(cases))
+        proc.stdin.close()
+        proc.stdin = None
+    CHILDREN.extend(procs)
+    outs = []
+    deadline = time.monotonic() + MH_TIMEOUT
+    for r, proc in enumerate(procs):
+        try:
+            out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            stop_children()
+            fail(f"phase 14 (c): CLI rank {r} still running after {MH_TIMEOUT} s; killed")
+        if proc.returncode != 0:
+            stop_children()
+            fail(f"phase 14 (c): CLI rank {r} exited {proc.returncode}\n{out[-2000:]}\n"
+                 f"{err[-4000:]}")
+        outs.append(out)
+    noise = [x for x in outs[1].splitlines() if x.strip() and not x.startswith("[Gloo]")]
+    if outs[0].splitlines()[-1:] != ["Tests Passed"] or noise:
+        fail(f"phase 14 (c): rank 0 ended {outs[0].splitlines()[-1:]}, rank 1 printed "
+             f"{noise[:5]}")
+    walls["c"] = time.perf_counter() - t_phase - sum(walls.values())
+    say(f"phase 14 (c) solve2d_distributed --test_batch --devices 2 on two gloo ranks over "
+        f"CASES_2D_DISTRIBUTED ({len(cases)} rows, f64): rank 0 Tests Passed, rank 1 silent")
+    say(f"phase 14 part walls, s: {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    return by
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -4836,8 +5094,9 @@ def main() -> int:
     stepper_by = timed("steppers, spectral", phase_steppers, torch, np, ck, k3, l2_threshold)
     dist_by = timed("distributed steppers, sharded", phase_dist_steppers, torch, np, ck, k3,
                     l2_threshold)
-    for k in kernels:  # phases 10-13 launch the kernels of phases 4, 5 and 8 again
-        for part in (async_by, elastic_by, stepper_by, dist_by):
+    mh_by = timed("blocks owned by ranks", phase_multihost, torch, np, ck, l2_threshold)
+    for k in kernels:  # phases 10-14 launch the kernels of phases 4, 5 and 8 again
+        for part in (async_by, elastic_by, stepper_by, dist_by, mh_by):
             more = by_label(part, k["name"])
             if more:
                 k["launches"] += sum(more.values())
@@ -4856,6 +5115,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(ab_main(sys.argv[2], sys.argv[3:] or AB_SECTIONS))
+    if sys.argv[1:2] == ["--mh-rank"]:
+        sys.exit(mh_rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     if sys.argv[1:2] == ["--accept"]:
         sys.exit(accept_main(int(sys.argv[2])))
     sys.exit(main())

@@ -6,19 +6,77 @@ The batch protocol is the reference's batch_tester
 parameter row per test; the CLI prints "Tests Passed" or "Tests Failed".
 The sequential batch loop and ``--ensemble`` (the batched ensemble engine,
 serve/ensemble.py) are ported, each under ``--profile``, and so are the
-stepper flags (``--stepper``, ``--superstep-stages``); serving,
-observability and the distributed launch wait for later slices.
+stepper flags (``--stepper``, ``--superstep-stages``) and the multi-process
+launch (:func:`cli_startup`: ``srun -n N``, every rank running the same
+binary, rank 0 owning the console and the files); serving and
+observability wait for later slices.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
 import torch
 
 from nonlocalheatequation_torch.utils.devices import resolve_device
+
+
+def init_multihost(platform: str | None = None) -> bool:
+    """Wire the CLI into a multi-process run when the launch environment
+    says so (parallel/multihost.init_from_env: COORDINATOR_ADDRESS,
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID, SLURM_NTASKS); a single-process
+    launch is a no-op returning False.  Non-zero ranks silence stdout at the
+    file descriptor, not only ``sys.stdout``: native transports (gloo)
+    write straight to fd 1, and console output belongs to rank 0, as the
+    reference's ``hpx_main`` runs on locality 0 only."""
+    from nonlocalheatequation_torch.parallel import multihost
+
+    if not multihost.init_from_env(platform=platform):
+        return False
+    if multihost.process_index() != 0:
+        sys.stdout.flush()
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, 1)
+        os.close(devnull)
+    return True
+
+
+def cli_startup(args, prog: str, validate_multi=None) -> tuple[bool, dict]:
+    """The CLI prologue in the JAX package's order: the platform (the
+    device ``--platform`` names; raises RuntimeError when it asks for a card
+    there is not, which the CLIs turn into exit 2), the multi-process
+    wiring, ``validate_multi(multi)`` if given (a launch-mode check that
+    must fail before any solve), the version banner (rank 0's alone by
+    then), and the solver's device kwargs.  Returns ``(multi, kwargs)``."""
+    kw = platform_kwargs(args)
+    multi = init_multihost(kw["device"].type)
+    if validate_multi is not None:
+        validate_multi(multi)
+    version_banner(prog)
+    return multi, kw
+
+
+def guard_multihost_stdin(multi: bool) -> None:
+    """Each rank reads its own stdin (srun broadcasts it to every task, the
+    reference's input model), but a terminal would block one rank while
+    its peers enter the first collective: refuse instead of hanging."""
+    if multi and sys.stdin.isatty():
+        raise SystemExit(
+            "multi-process input runs need stdin piped to every rank "
+            "(srun broadcasts by default); use --test/--resume or "
+            "redirect the input file")
+
+
+def check_same_input_state(multi: bool, u0) -> None:
+    """Divergent per-rank input would silently break the one-program
+    contract; fail on every rank instead."""
+    if multi:
+        from nonlocalheatequation_torch.parallel import multihost
+
+        multihost.assert_same_on_all_hosts(u0, "input state")
 
 
 def version_banner(prog: str):
@@ -307,7 +365,7 @@ def parse_batch_cases(read_case, tokens, row_tokens=None):
 
 
 def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6, run_ensemble=None,
-              profile=None):
+              profile=None, multi: bool = False):
     """The reference's batch_tester protocol.  ``read_case`` parses one row
     of ``row_tokens`` tokens; ``run_case(case) -> (error_l2, n)``.  Every
     row is validated before any solve runs.  With ``run_ensemble`` (a
@@ -315,11 +373,22 @@ def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6, run_ensemble
     cases go to the ensemble engine as one submission, under the same pass
     criterion, instead of the sequential loop.  With ``profile`` (a
     directory) the whole batch, sequential or ensemble, runs under one
-    ``torch.profiler`` capture (utils/profiling.py).  Returns the exit
-    code."""
+    ``torch.profiler`` capture (utils/profiling.py).  Under a multi-process
+    launch (``multi``) every rank reads the whole stream first and the
+    ranks' token streams must be identical (the ``"batch input"`` digest),
+    or every rank fails.  Returns the exit code."""
     from nonlocalheatequation_torch.utils import profiling
 
-    cases = list(iter_batch_cases(read_case, row_tokens))
+    if multi:
+        from nonlocalheatequation_torch.parallel import multihost
+
+        guard_multihost_stdin(multi)
+        tokens = sys.stdin.read().split()
+        multihost.assert_same_on_all_hosts(
+            np.frombuffer(" ".join(tokens).encode(), dtype=np.uint8), "batch input")
+        cases = parse_batch_cases(read_case, tokens, row_tokens)
+    else:
+        cases = list(iter_batch_cases(read_case, row_tokens))
     with profiling.trace(profile):
         if run_ensemble is not None:
             failed = any(error_l2 / n > threshold for error_l2, n in run_ensemble(cases))

@@ -25,8 +25,15 @@ folded onto the devices, with a warning); ``--nbalance`` rebalances every N
 steps on measured busy rates; ``--test_load_balance`` measures every step
 and prints the reference's balance report after the run.
 
+Launched as ``srun -n N`` ranks (or with ``COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` set in each rank's environment,
+parallel/multihost.py), every rank runs this same CLI over the blocks it
+owns; ``--devices N`` counts each rank's own devices, rank 0 alone prints
+and writes, a batch's stdin must be the same on every rank, and the elastic
+executor's flags are refused in the JAX words.
+
 A single solve takes ``--log`` (CSV/VTU logs of the global state every
-``--nlog`` steps, written by the one process that owns every block),
+``--nlog`` steps, written by rank 0),
 ``--checkpoint``/``--ncheckpoint``/``--resume`` (the global state, which
 ``solve2d`` resumes too) and ``--profile DIR``, as the JAX CLI does.
 
@@ -56,12 +63,13 @@ from nonlocalheatequation_torch.cli.common import (
     add_stepper_flags,
     announce_stable_dt,
     bool_flag,
+    check_same_input_state,
     checkpoint_refusal,
-    platform_kwargs,
+    cli_startup,
+    guard_multihost_stdin,
     run_batch,
     stepper_kwargs,
     validate_stepper_args,
-    version_banner,
 )
 
 
@@ -158,7 +166,23 @@ def main(argv=None) -> int:
     if err:
         print(err, file=sys.stderr)
         return 1
-    version_banner("2d_nonlocal_distributed")
+
+    def _no_elastic_multi(multi):
+        if multi and _uses_elastic(args):
+            # the elastic executor places every tile from one host-side view;
+            # N ranks would run N independent balancers (the JAX words)
+            raise SystemExit(
+                "partition maps / --nbalance / --test_load_balance use "
+                "the elastic executor, which is single-controller; run "
+                "it on one process or drop those flags for the SPMD path")
+
+    # the srun analog: every rank runs this same CLI, rank 0 owns the console
+    try:
+        multi, kw = cli_startup(args, "2d_nonlocal_distributed",
+                                validate_multi=_no_elastic_multi)
+    except RuntimeError as e:  # no card for --platform gpu
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     nx, ny, npx, npy, dh = args.nx, args.ny, args.npx, args.npy, args.dh
     assignment = None
     if args.file != "None":
@@ -183,11 +207,8 @@ def main(argv=None) -> int:
     )
     from nonlocalheatequation_torch.parallel.mesh import device_list
 
-    try:
-        kw = platform_kwargs(args)
-    except RuntimeError as e:  # no card for --platform gpu
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    # --devices N: this rank's own devices; under a multi-process launch the
+    # list holds every rank's, in rank order (parallel/mesh.py)
     devices = device_list(kw["device"], args.devices)
 
     def make_elastic(nx, ny, npx, npy, nt, eps, k, dt, dh):
@@ -237,7 +258,7 @@ def main(argv=None) -> int:
                 s.do_work()
                 return s.error_l2, s.NX * s.NY
 
-            return run_batch(read_case, run_case, row_tokens=9)
+            return run_batch(read_case, run_case, row_tokens=9, multi=multi)
 
         s = make_solver(nx, ny, npx, npy, args.nt, args.eps, args.k, args.dt, dh)
     except ValueError as e:  # a configuration the solver refuses
@@ -250,8 +271,10 @@ def main(argv=None) -> int:
     if args.test:
         s.test_init()
     elif not args.resume:
+        guard_multihost_stdin(multi)
         n = s.NX * s.NY
         s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[:n])
+        check_same_input_state(multi, s.u0)
     if args.resume:
         s.resume(args.checkpoint)
 

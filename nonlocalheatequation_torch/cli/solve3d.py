@@ -8,8 +8,10 @@ reference; the 2D serial CLI's surface with an added --nz), on the port.
 runs on the CUDA card (``--platform cpu`` for the CPU): rows
 ``nx ny nz nt eps k dt dh`` on stdin, "Tests Passed" when every row meets
 error_l2/#points <= 1e-6; ``--ensemble`` runs the rows through the batched
-ensemble engine.  ``--distributed`` shards the grid over every device of
-the platform (parallel/distributed3d.py; ``--comm fused`` runs the halo
+ensemble engine.  ``--distributed`` shards the grid over ``--devices N`` devices
+of the platform (0: every device; parallel/distributed3d.py; under a
+multi-process launch each rank's N, rank 0 owning the console, as
+cli/solve2d_distributed.py; ``--comm fused`` runs the halo
 kernels of ops/cuda_halo.py and needs ``--method cuda``, ``--superstep K`` the
 communication-avoiding schedule).  A single solve takes
 ``--checkpoint``/``--ncheckpoint``/``--resume`` (utils/checkpoint.py; a
@@ -40,15 +42,16 @@ from nonlocalheatequation_torch.cli.common import (
     add_stepper_flags,
     announce_stable_dt,
     bool_flag,
+    check_same_input_state,
     checkpoint_refusal,
+    cli_startup,
     ensemble_refusal,
     ensemble_runner,
-    platform_kwargs,
+    guard_multihost_stdin,
     precision_kwargs,
     run_batch,
     stepper_kwargs,
     validate_stepper_args,
-    version_banner,
 )
 
 #: the JAX CLI's flags that the port does not have yet -> what they select
@@ -89,6 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--superstep", type=int, default=1, metavar="K",
                    help="with --distributed: exchange a K*eps-wide halo once per K steps "
                         "(communication-avoiding)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="with --distributed: this rank's device count; 0 = every device of "
+                        "the platform, more than there are = virtual devices")
     add_checkpoint_flags(p)
     add_profile_flag(p)
     add_platform_flags(p)
@@ -118,6 +124,8 @@ def _distributed_refusal(args) -> str | None:
     """The JAX CLI's checks of the distributed flags, or None."""
     if args.comm != "collective" and not args.distributed:
         return "--comm fused requires --distributed"
+    if args.devices and not args.distributed:
+        return "--devices requires --distributed"
     if args.superstep > 1 and not args.distributed:
         return ("--superstep requires --distributed (the serial solvers have no halo "
                 "exchange to avoid)")
@@ -142,21 +150,35 @@ def main(argv=None) -> int:
         return 1
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
-    version_banner("3d_nonlocal")
+
+    def _need_distributed(multi):
+        if multi and not args.distributed:
+            raise SystemExit(
+                "a multi-process launch needs --distributed (the serial "
+                "backends would run N independent solves)")
+
+    # the srun analog: every rank runs this same CLI, rank 0 owns the console
+    try:
+        multi, pkw = cli_startup(args, "3d_nonlocal", validate_multi=_need_distributed)
+    except RuntimeError as e:  # no card for --platform gpu
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     sk = stepper_kwargs(args)
     if not args.test_batch:
         rc = announce_stable_dt(3, args.k, args.eps, args.dh, args.dt, **sk)
         if rc is not None:
             return rc
     from nonlocalheatequation_torch.models.solver3d import Solver3D
-    from nonlocalheatequation_torch.parallel.distributed3d import Solver3DDistributed
+    from nonlocalheatequation_torch.parallel.distributed3d import (
+        Solver3DDistributed,
+        choose_mesh_for_grid_3d,
+    )
+    from nonlocalheatequation_torch.parallel.mesh import device_list
 
-    try:
-        kw = {"backend": args.backend, "method": args.method, "nlog": args.nlog,
-              **platform_kwargs(args), **precision_kwargs(args)}
-    except RuntimeError as e:  # no card for --platform gpu
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    kw = {"backend": args.backend, "method": args.method, "nlog": args.nlog, **pkw,
+          **precision_kwargs(args)}
+    # this rank's devices, and the other ranks' under a multi-process launch
+    devices = device_list(kw["device"], args.devices) if args.distributed else None
 
     ckpt = {"checkpoint_path": args.checkpoint, "ncheckpoint": args.ncheckpoint}
 
@@ -165,7 +187,9 @@ def main(argv=None) -> int:
             return Solver3DDistributed(nx, ny, nz, nt, eps, nlog=args.nlog, k=k, dt=dt, dh=dh,
                                        method=args.method, dtype=kw["dtype"],
                                        superstep=args.superstep, precision=args.precision,
-                                       comm=args.comm, device=kw["device"], **ckpt, **sk)
+                                       comm=args.comm,
+                                       mesh=choose_mesh_for_grid_3d(nx, ny, nz, devices),
+                                       **ckpt, **sk)
         return Solver3D(nx, ny, nz, nt, eps, k=k, dt=dt, dh=dh, **ckpt, **kw, **sk)
 
     if args.test_batch:
@@ -190,7 +214,7 @@ def main(argv=None) -> int:
                                            precision=args.precision, device=kw["device"],
                                            dtype=kw["dtype"], **sk)
         return run_batch(read_case, run_case, row_tokens=8, run_ensemble=run_ensemble,
-                         profile=args.profile)
+                         profile=args.profile, multi=multi)
 
     try:
         s = solver(args.nx, args.ny, args.nz, args.nt, args.eps, args.k, args.dt, args.dh)
@@ -200,8 +224,10 @@ def main(argv=None) -> int:
     if args.test:
         s.test_init()
     elif not args.resume:
+        guard_multihost_stdin(multi)
         n = args.nx * args.ny * args.nz
         s.input_init(np.array(sys.stdin.read().split(), dtype=np.float64)[:n])
+        check_same_input_state(multi, s.u0)
     if args.resume:
         s.resume(args.checkpoint)
 

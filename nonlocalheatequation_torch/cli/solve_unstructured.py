@@ -17,7 +17,10 @@ platform (more than there are: virtual devices, parallel/mesh.py) with
 ``ShardedUnstructuredOp``: the nodes reordered first by ``gang_order``
 (``--gang-order false`` keeps the file's order), ``--halo auto|export|gather``
 the edge form's halo, ``--superstep K`` the offsets form's K-step schedule
-(refused where it cannot engage).  The JAX CLI's observability flags and
+(refused where it cannot engage).  Under a multi-process launch
+(cli/solve2d_distributed.py) ``--devices N`` counts each rank's own
+devices, the operator is sharded over every rank's, rank 0 prints and
+writes.  The JAX CLI's observability flags and
 ``--program-store`` are refused by name: they are not ported yet.
 """
 
@@ -33,8 +36,9 @@ import numpy as np
 from nonlocalheatequation_torch.cli.common import (
     add_platform_flags,
     bool_flag,
-    platform_kwargs,
-    version_banner,
+    check_same_input_state,
+    cli_startup,
+    guard_multihost_stdin,
 )
 
 #: the JAX CLI's flags that the port does not have yet -> what they select
@@ -129,12 +133,18 @@ def main(argv=None) -> int:
         return 1
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
-    version_banner("nlheat_unstructured")
+    # the srun analog: every rank runs this same CLI, rank 0 owns the console
     try:
-        kw = platform_kwargs(args)
+        multi, kw = cli_startup(args, "nlheat_unstructured")
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
+    devs = None
+    if multi or args.devices > 1:
+        from nonlocalheatequation_torch.parallel.mesh import device_list
+
+        # --devices N: this rank's own; the list holds every rank's
+        devs = device_list(kw["device"], args.devices)
 
     from nonlocalheatequation_torch.ops.unstructured import (
         ShardedUnstructuredOp,
@@ -151,10 +161,10 @@ def main(argv=None) -> int:
     # blocks, so reorder the nodes by the coarse grid's RCB parts first; the
     # outputs below go back to the file's order
     inv = None
-    if args.devices > 1 and args.gang_order:
+    if devs is not None and len(devs) > 1 and args.gang_order:
         from nonlocalheatequation_torch.serve.meshes import gang_order
 
-        perm = gang_order(pts, args.devices)
+        perm = gang_order(pts, len(devs))
         inv = np.argsort(perm)
         pts = pts[perm]
     op = UnstructuredNonlocalOp(pts, eps, k=args.k, dt=args.dt or 1.0, vol=vol,
@@ -164,10 +174,7 @@ def main(argv=None) -> int:
         bound = float(np.max(op.c * op.wsum))
         op.dt = 0.8 / bound if bound > 0 else 1e-5
     the_op = op
-    if args.devices > 1:
-        from nonlocalheatequation_torch.parallel.mesh import device_list
-
-        devs = device_list(kw["device"], args.devices)
+    if devs is not None and len(devs) > 1:
         try:
             the_op = ShardedUnstructuredOp(op, devices=devs, halo=args.halo)
         except ValueError as e:
@@ -193,9 +200,11 @@ def main(argv=None) -> int:
     if args.test:
         s.test_init()
     else:
+        guard_multihost_stdin(multi)
         vals = np.array(sys.stdin.read().split(), dtype=np.float64)[:n]
         # stdin is in the file's order; the operator's nodes may be gang-ordered
         s.input_init(vals if inv is None else vals[np.argsort(inv)])
+        check_same_input_state(multi, s.u0)
 
     t0 = time.perf_counter()
     s.do_work()
@@ -211,6 +220,7 @@ def main(argv=None) -> int:
         for v in u_out:
             print(f"{v:g}")
     if args.vtu:
+        # the file is rank 0's alone (utils/vtu.py)
         from nonlocalheatequation_torch.utils.vtu import write_point_cloud_vtu
 
         write_point_cloud_vtu(args.vtu, pts if inv is None else pts[inv],

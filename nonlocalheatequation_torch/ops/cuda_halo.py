@@ -73,7 +73,9 @@ from nonlocalheatequation_torch.ops.cuda_kernel import (
     nsum2d_plain,
 )
 from nonlocalheatequation_torch.ops.cuda_kernel3d import nsum3d_plain
-from nonlocalheatequation_torch.parallel.halo import halo_pad_nd, hop_widths
+from nonlocalheatequation_torch.parallel.halo import _inside, halo_pad_nd, hop_widths
+from nonlocalheatequation_torch.parallel.mesh import map_blocks
+from nonlocalheatequation_torch.parallel.multihost import is_remote
 
 #: the phase argument of the C entry points (csrc/split_nsum2d.cu, split_nsum3d.cu)
 PHASES = {"all": 0, "interior": 1, "ring": 2}
@@ -220,13 +222,17 @@ def fused_transport(devices=()) -> str:
     is a CUDA card and the cards can read each other's memory (one card
     always can); else ``'interp'``, the band copies and then the split
     kernels (on the CPU their plain versions: the JAX package's answer off
-    a TPU).  ``NLHEAT_FUSED_TRANSPORT=interp`` picks ``'interp'`` on any
-    mesh."""
+    a TPU).  A mesh whose blocks span ranks (parallel/multihost.py) takes
+    ``'interp'``: the in-kernel exchange reads other blocks by device
+    pointer, which no other process's block offers.
+    ``NLHEAT_FUSED_TRANSPORT=interp`` picks ``'interp'`` on any mesh."""
     forced = os.environ.get("NLHEAT_FUSED_TRANSPORT", "")
     if forced not in ("", "interp"):
         raise ValueError(f"NLHEAT_FUSED_TRANSPORT={forced!r}: the only value is 'interp'")
     cards = set()
     for d in devices:
+        if is_remote(d):
+            return "interp"
         d = torch.device(d)
         if d.type != "cuda":
             return "interp"
@@ -299,10 +305,6 @@ def neighbour_hops(mesh_shape: tuple[int, ...], block_shape: tuple[int, ...],
     plan = plan_exchange(mesh_shape, block_shape, eps)
     return tuple(max((abs(m.offset[ax]) for m in plan), default=0)
                  for ax in range(len(mesh_shape)))
-
-
-def _inside(pos, shape) -> bool:
-    return all(0 <= p < n for p, n in zip(pos, shape, strict=True))
 
 
 def fused_nsum_plain(blocks: np.ndarray, pos: tuple, eps: int,
@@ -510,30 +512,26 @@ def make_fused_apply(op, mesh_shape: tuple[int, ...], axis_names: tuple[str, ...
     name = f"fused_nsum{dims}d"
 
     def nsums(blocks: np.ndarray) -> np.ndarray:
-        out = np.empty(blocks.shape, dtype=object)
-        devices = [b.device for b in blocks.flat]
-        if (transport or fused_transport(devices)) == "interp":
-            frames = halo_pad_nd(blocks, eps)
-            for pos in np.ndindex(*blocks.shape):
-                out[pos] = split(frames[pos], eps, precision)
-            return out
+        devices = [b if is_remote(b) else b.device for b in blocks.flat]
+        mode = transport or fused_transport(devices)
+        if mode == "interp":
+            return map_blocks(lambda f: split(f, eps, precision), halo_pad_nd(blocks, eps))
+        if any(is_remote(d) for d in devices):
+            raise ValueError("transport 'peer' reads every block by device pointer; a mesh "
+                             "whose blocks span ranks takes 'interp'")
         hops, grid, cards = _pointer_grid(name, blocks, eps, dims)
+        out = np.empty(blocks.shape, dtype=object)
         _streams_meet(cards)  # every block written before any neighbour reads it
         for pos in np.ndindex(*blocks.shape):
             out[pos] = _launch_fused(name, blocks, pos, eps, precision, hops, grid)
         _streams_meet(cards)  # every read done before any block is freed or rewritten
         return out
 
+    # c * dh * dh (3D: c * dh ** 3), as apply_padded folds it
+    scale = op.c * op.dh * op.dh if dims == 2 else op.c * op.dh ** 3
+
     def apply_fused(blocks: np.ndarray) -> np.ndarray:
-        nsum = nsums(blocks)
-        du = np.empty(blocks.shape, dtype=object)
-        for pos in np.ndindex(*blocks.shape):
-            u_blk = blocks[pos]
-            if dims == 2:
-                # c * dh * dh, as apply_padded folds it
-                du[pos] = op.c * op.dh * op.dh * (nsum[pos] - op.wsum * op._operand(u_blk))
-            else:
-                du[pos] = op.c * op.dh ** 3 * (nsum[pos] - op.wsum * op._operand(u_blk))
-        return du
+        return map_blocks(lambda u_blk, n: scale * (n - op.wsum * op._operand(u_blk)),
+                          blocks, nsums(blocks))
 
     return apply_fused

@@ -10,11 +10,13 @@ per-axis pencil decomposition whose transposes run over the mesh's axes.
 No halo is ever wrapped.
 
 The JAX package transposes with ``lax.all_to_all(..., tiled=True)`` inside a
-``shard_map``; here one process holds every block (parallel/mesh.py), and
-:func:`all_to_all` is the same exchange over the object array of blocks:
-the block at position k of a mesh axis takes chunk k of every block along
-that axis (fixed mesh order) and concatenates them.  A chunk moved between
-virtual devices of one device is a copy on that device.  The transforms are
+``shard_map``; here each rank holds the blocks it owns (parallel/mesh.py),
+and :func:`all_to_all` is the same exchange over the object array of
+blocks: the block at position k of a mesh axis takes chunk k of every block
+along that axis (fixed mesh order) and concatenates them.  A chunk moved
+between virtual devices of one device is a copy on that device; the chunks
+between ranks travel in one ``torch.distributed`` ``all_to_all_single`` a
+transpose (parallel/multihost.all_to_all), in the same order.  The transforms are
 ``torch.fft.rfft``/``fft``/``ifft``/``irfft`` with the JAX package's ``n=``
 padding, on each block's device (cuFFT on the card).
 
@@ -54,7 +56,14 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.ops.spectral import fft_box, neighbor_symbol
-from nonlocalheatequation_torch.parallel.mesh import map_blocks
+from nonlocalheatequation_torch.parallel.mesh import first_local, map_blocks
+from nonlocalheatequation_torch.parallel.multihost import (
+    Remote,
+    RemoteDevice,
+    gather_blocks,
+    process_count,
+)
+from nonlocalheatequation_torch.parallel.multihost import all_to_all as multihost_all_to_all
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -107,20 +116,50 @@ def all_to_all(blocks: np.ndarray, axis: int, split_axis: int, concat_axis: int)
     mesh axis ``axis`` of an object array of blocks: the block at position k
     along ``axis`` receives chunk k (of m equal chunks along ``split_axis``)
     of every block on its line, concatenated along ``concat_axis`` in mesh
-    order.  One mesh position along ``axis``: the blocks unchanged."""
+    order.  One mesh position along ``axis``: the blocks unchanged.  Chunks
+    from other ranks' blocks arrive by one ``all_to_all_single`` of the
+    group, every rank listing them in the schedule's order (receivers in
+    mesh order, senders along the line)."""
     m = blocks.shape[axis]
     if m == 1:
         return blocks
+    first = first_local(blocks)
+
+    def chunk(x, k):
+        n = x.shape[split_axis] // m
+        return x.narrow(split_axis, k * n, n)
+
+    sends, recvs, slots = {}, {}, {}
+    for pos in np.ndindex(*blocks.shape):
+        for j in range(m):
+            src = list(pos)
+            src[axis] = j
+            sb, dst = blocks[tuple(src)], blocks[pos]
+            if isinstance(dst, Remote) and not isinstance(sb, Remote):
+                sends.setdefault(dst.rank, []).append(chunk(sb, pos[axis]))
+            elif isinstance(sb, Remote) and not isinstance(dst, Remote):
+                shape = list(first.shape)
+                shape[split_axis] //= m
+                recvs.setdefault(sb.rank, []).append((tuple(shape), first.dtype))
+                slots.setdefault(sb.rank, []).append((pos, j))
+    got = {}
+    if process_count() > 1:  # a collective every rank of the group joins
+        moved = multihost_all_to_all(sends, recvs, first.device if first is not None else None)
+        for peer, keys in slots.items():
+            got.update(zip(keys, moved[peer], strict=True))
     out = np.empty(blocks.shape, dtype=object)
     for pos in np.ndindex(*blocks.shape):
-        dst = blocks[pos].device
+        dst = blocks[pos]
+        if isinstance(dst, Remote):
+            out[pos] = dst
+            continue
         parts = []
         for j in range(m):
             src = list(pos)
             src[axis] = j
-            x = blocks[tuple(src)]
-            n = x.shape[split_axis] // m
-            parts.append(x.narrow(split_axis, pos[axis] * n, n).to(dst))
+            sb = blocks[tuple(src)]
+            part = got[(pos, j)] if isinstance(sb, Remote) else chunk(sb, pos[axis])
+            parts.append(part.to(dst.device))
         out[pos] = torch.cat(parts, dim=concat_axis)
     return out
 
@@ -235,18 +274,22 @@ class ShardedSpectralPlan:
 
     def put_freq(self, arr, devices: np.ndarray, dtype: torch.dtype) -> np.ndarray:
         """A global frequency array (host) placed on the mesh whose devices
-        ``devices`` are (an object array of the mesh's shape): each
-        position's :meth:`freq_block`, a contiguous ``dtype`` tensor on its
-        device."""
+        ``devices`` are (an object array of the mesh's shape): each of this
+        rank's positions gets its :meth:`freq_block`, a contiguous ``dtype``
+        tensor on its device (another rank's: a ``Remote`` placeholder)."""
         x = torch.as_tensor(np.asarray(arr))
         out = np.empty(devices.shape, dtype=object)
         for pos in np.ndindex(*devices.shape):
-            out[pos] = self.freq_block(x, pos).to(device=devices[pos], dtype=dtype).contiguous()
+            d = devices[pos]
+            out[pos] = (Remote(d.rank) if isinstance(d, RemoteDevice) else
+                        self.freq_block(x, pos).to(device=d, dtype=dtype).contiguous())
         return out
 
     def fetch_freq(self, blocks: np.ndarray) -> np.ndarray:
         """The global frequency array (host NumPy) of an object array of
-        pencils in the ``freq_spec`` layout: the inverse of :meth:`put_freq`."""
+        pencils in the ``freq_spec`` layout: the inverse of :meth:`put_freq`,
+        on every rank."""
+        blocks = gather_blocks(blocks)  # every rank's pencils, in mesh order
         first = blocks.flat[0]
         out = torch.empty(self.freq_global_shape, dtype=first.dtype)
         for pos in np.ndindex(*blocks.shape):

@@ -40,7 +40,19 @@ import numpy as np
 import torch
 
 from nonlocalheatequation_torch.ops.nonlocal_op import source_at
-from nonlocalheatequation_torch.parallel.mesh import Mesh, create_mesh, device_list
+from nonlocalheatequation_torch.parallel.mesh import (
+    Mesh,
+    create_mesh,
+    device_list,
+    first_local,
+    map_blocks,
+)
+from nonlocalheatequation_torch.parallel.multihost import (
+    Remote,
+    RemoteDevice,
+    exchange,
+    gather_blocks,
+)
 from nonlocalheatequation_torch.utils.checkpoint import CheckpointMixin
 from nonlocalheatequation_torch.utils.devices import resolve_device, resolve_dtype
 
@@ -370,23 +382,41 @@ class UnstructuredNonlocalOp:
 
 
 def _ring_exchange(blocks: np.ndarray, lo: int, hi: int) -> np.ndarray:
-    """[left band | own block | right band] of every block of a 1D ring of
-    blocks (JAX ``_ring_exchange``, ``:382``): the ``lo`` last entries of
-    the block before, the ``hi`` first of the block after, copied onto each
-    block's device.  The ring wraps, so the bands that reach past the ends
-    of the domain are garbage: the per-step offsets form multiplies them by
-    zero weights, the superstep masks them."""
+    """[left band | own block | right band] of every block this rank owns
+    of a 1D ring of blocks (JAX ``_ring_exchange``, ``:382``): the ``lo``
+    last entries of the block before, the ``hi`` first of the block after,
+    copied onto each block's device, or sent between ranks in one
+    ``batch_isend_irecv`` (parallel/multihost.exchange).  The ring wraps, so
+    the bands that reach past the ends of the domain are garbage: the
+    per-step offsets form multiplies them by zero weights, the superstep
+    masks them."""
     S = len(blocks)
-    out = np.empty(S, dtype=object)
+    bands, sends, recvs, keys = {}, [], [], []
+    for s in range(S):
+        for side, width in ((-1, lo), (1, hi)):
+            if not width:
+                continue
+            dst, src = blocks[s], blocks[(s + side) % S]
+            if isinstance(dst, Remote) and isinstance(src, Remote):
+                continue
+            tag = 2 * s + (side > 0)
+            if isinstance(src, Remote):
+                recvs.append((src.rank, (width,), dst.dtype, dst.device, tag))
+                keys.append((s, side))
+                continue
+            # the band from the LEFT neighbour is its tail, from the RIGHT its head
+            band = src[src.shape[0] - width:] if side < 0 else src[:width]
+            if isinstance(dst, Remote):
+                sends.append((dst.rank, band, tag))
+            else:
+                bands[(s, side)] = band.to(dst.device)
+    bands.update(zip(keys, exchange(sends, recvs), strict=True))
+    out = blocks.copy()  # other ranks' positions keep their placeholders
     for s in range(S):
         mine = blocks[s]
-        B = mine.shape[0]
-        parts = []
-        if lo:  # the band from the LEFT neighbour
-            parts.append(blocks[(s - 1) % S][B - lo:].to(mine.device))
-        parts.append(mine)
-        if hi:  # the band from the RIGHT neighbour
-            parts.append(blocks[(s + 1) % S][:hi].to(mine.device))
+        if isinstance(mine, Remote):
+            continue
+        parts = ([bands[(s, -1)]] if lo else []) + [mine] + ([bands[(s, 1)]] if hi else [])
         out[s] = torch.cat(parts) if len(parts) > 1 else mine
     return out
 
@@ -398,8 +428,10 @@ class ShardedUnstructuredOp:
     The nodes are split into S equal contiguous index blocks of B over a 1D
     mesh (axis ``p``; the last block zero-padded); the edge list is
     partitioned by its target's block, so every sum is local to a block.
-    One process holds every block (parallel/mesh.py); a value moved between
-    virtual devices of one device is a copy on that device.  The halo has
+    Each rank holds the blocks it owns (parallel/mesh.py); a value moved
+    between virtual devices of one device is a copy on that device, between
+    ranks a ``torch.distributed`` message (the ring's bands) or all-gather
+    (the exports, the gathered state).  The halo has
     the JAX package's forms (``halo=`` "auto"/"export"/"gather"):
 
     * **export**: each block exports only its nodes that another block's
@@ -442,7 +474,9 @@ class ShardedUnstructuredOp:
             raise ValueError(f"the mesh's axes {mesh.axis_names} are not ('p',)")
         self.mesh = mesh
         self.devices = list(mesh.devices.flat)
-        self.device = self.devices[0]
+        if not mesh.local_devices:
+            raise ValueError(f"this rank owns no position of the mesh {mesh.shape}")
+        self.device = mesh.local_devices[0]
         S = int(mesh.size)
         self.S = S
         B = -(-op.n // S)  # the block size (the last block zero-padded)
@@ -570,22 +604,26 @@ class ShardedUnstructuredOp:
             xp = torch.cat([xp, xp.new_zeros(self.pad)])
         out = np.empty(self.S, dtype=object)
         for s in range(self.S):
-            out[s] = xp[s * self.B:(s + 1) * self.B].to(self.devices[s]).contiguous()
+            d = self.devices[s]
+            out[s] = (Remote(d.rank) if isinstance(d, RemoteDevice)
+                      else xp[s * self.B:(s + 1) * self.B].to(d).contiguous())
         return out
 
     def from_blocks(self, blocks: np.ndarray, device=None) -> torch.Tensor:
-        """The global (n,) state on ``device`` (default the first block's)."""
-        device = blocks[0].device if device is None else device
-        return torch.cat([b.to(device) for b in blocks])[:self.n]
+        """The global (n,) state on ``device`` (default this rank's first
+        block's), on every rank."""
+        device = first_local(blocks).device if device is None else device
+        return torch.cat([b.to(device) for b in gather_blocks(blocks)])[:self.n]
 
     def apply_blocks(self, blocks: np.ndarray) -> np.ndarray:
-        """L(u) of the state's blocks, block by block."""
-        dtype = blocks[0].dtype
-        out = np.empty(self.S, dtype=object)
+        """L(u) of the state's blocks, block by block (this rank's)."""
+        dtype = first_local(blocks).dtype
+        out = blocks.copy()  # other ranks' positions keep their placeholders
+        mine_s = [s for s in range(self.S) if not isinstance(blocks[s], Remote)]
         if self.layout == "offsets":
             plan = self._plan
             up = _ring_exchange(blocks, plan.pad_lo, plan.pad_hi)
-            for s in range(self.S):
+            for s in mine_s:
                 mine, w3 = blocks[s], self._on("w3", s, self._w3[s], dtype)
                 acc = torch.zeros_like(mine)
                 for j, o in enumerate(plan.offs):
@@ -595,14 +633,18 @@ class ShardedUnstructuredOp:
                     acc - self._on("wsum", s, self._wsum[s], dtype) * mine)
             return out
         if self.halo_mode == "export":
-            sent = [blocks[r][self._on("exp", r, self._exp_idx[r], torch.int64)]
-                    for r in range(self.S)]
-        for s in range(self.S):
+            exports = blocks.copy()
+            for r in mine_s:
+                exports[r] = blocks[r][self._on("exp", r, self._exp_idx[r], torch.int64)]
+            sent = gather_blocks(exports)  # every block's exports, on every rank
+        else:
+            state = gather_blocks(blocks)  # the whole state, on every rank
+        for s in mine_s:
             mine = blocks[s]
             if self.halo_mode == "export":
                 frame = torch.cat([mine] + [e.to(mine.device) for e in sent])
             else:
-                frame = torch.cat([b.to(mine.device) for b in blocks])
+                frame = torch.cat([b.to(mine.device) for b in state])
             vals = (self._on("w", s, self._ws[s], dtype)
                     * frame[self._on("col", s, self._cols[s], torch.int64)])
             acc = torch.zeros_like(mine)
@@ -700,7 +742,8 @@ class ShardedUnstructuredOp:
         if test:
             g, lg = self.inner.source_parts()
             fields.update(gx=ext_blocks(g), lgx=ext_blocks(lg))
-        dev = [{k: torch.as_tensor(v[s]).to(device=self.devices[s], dtype=dtype)
+        dev = [None if isinstance(self.devices[s], RemoteDevice) else
+               {k: torch.as_tensor(v[s]).to(device=self.devices[s], dtype=dtype)
                 for k, v in fields.items()} for s in range(S)]
         dt = self.dt
 
@@ -710,9 +753,11 @@ class ShardedUnstructuredOp:
 
         def block_fn(blocks, t):
             ring = _ring_exchange(blocks, PL, PH)
-            out = np.empty(S, dtype=object)
+            out = ring.copy()  # other ranks' positions keep their placeholders
             for s in range(S):
                 f = dev[s]
+                if f is None:
+                    continue
                 gpos0 = s * B - PL  # the global index of the extended slice's first entry
                 cur = ring[s]
                 cur = torch.where(in_domain(gpos0, ext, cur.device), cur, torch.zeros_like(cur))
@@ -868,13 +913,9 @@ class UnstructuredSolver(CheckpointMixin):
 
         def step(blocks, t):
             du = op.apply_blocks(blocks)
-            out = np.empty(op.S, dtype=object)
-            for s in range(op.S):
-                d = du[s]
-                if srcs is not None:
-                    d = d + source_at(srcs[0][s], srcs[1][s], t, op.dt)
-                out[s] = blocks[s] + op.dt * d
-            return out
+            if srcs is not None:
+                du = map_blocks(lambda d, g, lg: d + source_at(g, lg, t, op.dt), du, *srcs)
+            return map_blocks(lambda u, d: u + op.dt * d, blocks, du)
 
         def make_runner(count):
             def run(u, t0):

@@ -24,13 +24,16 @@ intermediate level (the volumetric boundary condition the per-step exchange
 re-injects).  A run of ``count`` steps is q supersteps of K and one
 shallower remainder superstep.
 
-One process steps every block in turn (the JAX package's single-controller
-``shard_map``).  A logger or checkpoints run one runner per segment between
-the barriers (utils/checkpoint.CheckpointMixin._run_chunked), the logger
-and the checkpoint given the GLOBAL state (``fetch_global``); the
-checkpoint's parameters are the single-device solvers' (the JAX
-``_ckpt_params``: no stepper, no stage count), so a distributed checkpoint
-resumes in ``Solver2D``/``Solver3D`` and the reverse, whatever the stepper.
+Each rank steps the blocks it owns in turn (parallel/mesh.py; in one
+process every block, the JAX package's single-controller ``shard_map``),
+bands crossing ranks by ``torch.distributed`` (parallel/halo.py).  A
+logger or checkpoints run one runner per segment between the barriers
+(utils/checkpoint.CheckpointMixin._run_chunked), the logger and the
+checkpoint given the GLOBAL state (``fetch_global``, gathered to every
+rank; rank 0 writes); the checkpoint's parameters are the single-device
+solvers' (the JAX ``_ckpt_params``: no stepper, no stage count), so a
+distributed checkpoint resumes in ``Solver2D``/``Solver3D`` and the
+reverse, whatever the stepper.
 ``nbalance`` is refused as the JAX solver refuses it: rebalancing is the
 elastic executor's (parallel/elastic.py).
 
@@ -68,7 +71,9 @@ from nonlocalheatequation_torch.parallel.mesh import (
     block_shape,
     device_list,
     fetch_global,
+    local_positions,
     make_mesh,
+    map_blocks,
     put_global,
 )
 from nonlocalheatequation_torch.parallel.spectral_halo import (
@@ -203,11 +208,7 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
                 apply = make_fused_apply(op, self._mesh_shape(), self.AXES)
             else:
                 def apply(blocks):
-                    frames = halo_pad_nd(blocks, eps)
-                    du = np.empty(blocks.shape, dtype=object)
-                    for pos in np.ndindex(*blocks.shape):
-                        du[pos] = op.apply_padded(frames[pos])
-                    return du
+                    return map_blocks(op.apply_padded, halo_pad_nd(blocks, eps))
 
         if self.stepper == "rkc":
             if self.ksteps == 1:
@@ -221,20 +222,16 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
         if self.ksteps == 1:
             def step(blocks, t, srcs):
                 du = apply(blocks)
-                out = np.empty(blocks.shape, dtype=object)
-                for pos in np.ndindex(*blocks.shape):
-                    d = du[pos]
-                    if test:
-                        d = d + source_at(srcs[0][pos], srcs[1][pos], t, op.dt)
-                    out[pos] = blocks[pos] + op.dt * d
-                return out
+                if test:
+                    du = map_blocks(lambda d, g, lg: d + source_at(g, lg, t, op.dt), du, *srcs)
+                return map_blocks(lambda u, d: u + op.dt * d, blocks, du)
 
             return step
 
         def step(blocks, t, srcs):
             frames = halo_pad_nd(blocks, K * eps)
-            out = np.empty(blocks.shape, dtype=object)
-            for pos in np.ndindex(*blocks.shape):
+            out = frames.copy()  # other ranks' positions keep their placeholders
+            for pos in local_positions(frames):
                 gp, lgp = (srcs[0][pos], srcs[1][pos]) if test else (None, None)
                 out[pos] = self._superstep_block(frames[pos], pos, K, t, gp, lgp)
             return out
@@ -288,13 +285,16 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
         return Pk
 
     def _device_state(self):
-        """The state's blocks and, in test mode, the (G, L(G)) blocks (L(G)
-        by the operator's own method on the first mesh device, in float64,
-        then cast to the state dtype)."""
+        """This rank's blocks of the state and, in test mode, of (G, L(G))
+        (L(G) by the operator's own method on the rank's first mesh device,
+        in float64, then cast to the state dtype; a rank that owns no block
+        holds only placeholders)."""
         u = put_global(self.u0, self.mesh, self.dtype)
         if not self.test:
             return u, ()
-        g, lg = self.op.source_parts_on(*self._grid_shape, self.mesh.devices.flat[0])
+        if not self.mesh.local_devices:  # this rank owns no block: nothing to source
+            return u, (u, u)
+        g, lg = self.op.source_parts_on(*self._grid_shape, self.mesh.local_devices[0])
         return u, (put_global(g, self.mesh, self.dtype), put_global(lg, self.mesh, self.dtype))
 
     def _prep_sources(self, g, lg):
@@ -317,7 +317,7 @@ class DistributedGridSolver(CheckpointMixin, ManufacturedMetrics2D):
             return spectral_halo_obs(self._spectral_plan(), self.stepper, self.stages, steps,
                                      itemsize, self.comm)
         mesh_shape = self._mesh_shape()
-        transport = (fused_transport(self.mesh.devices.flat) if self.comm == "fused"
+        transport = (fused_transport(list(self.mesh.devices.flat)) if self.comm == "fused"
                      else "collective")
         stats = halo_stats(mesh_shape, self._block_shape(), self.eps,
                            "fused" if transport == "peer" else "collective", itemsize)

@@ -1,22 +1,30 @@
 """Device meshes and the block scatter and gather — counterpart of
 ``nonlocalheatequation_tpu/parallel/mesh.py`` (with the single-granule part
 of ``parallel/mesh_axes.py``) and of ``put_global``/``fetch_global``
-(``parallel/multihost.py``), for one process.
+(``parallel/multihost.py``).
 
 The JAX package places tile (i, j) of the global grid on mesh position
 (i, j) of a ``jax.sharding.Mesh`` and runs one SPMD program over it.  Here
-one process owns every block, as JAX's single-controller ``shard_map``
-does: a :class:`Mesh` is an array of ``torch.device`` of the mesh's shape,
-the global grid is an object array of block tensors of the same shape, each
-on its position's device, and the distributed solvers
-(parallel/distributed2d.py, distributed3d.py) step every block in turn.
+a :class:`Mesh` is an array of devices of the mesh's shape, the global
+grid is an object array of block tensors of the same shape, each on its
+position's device, and the distributed solvers (parallel/distributed2d.py,
+distributed3d.py) step their blocks in turn.
+
+Blocks are owned by ranks.  Under a multi-process launch
+(parallel/multihost.py) the device list is every rank's local devices in
+rank order, the order of ``jax.devices()``: with 2 ranks of 2 devices each,
+mesh row x=0 of a (2,2) mesh is rank 0's, and an uneven 3+1 split crosses
+ranks mid-row.  A position whose device is another rank's
+(``multihost.RemoteDevice``) holds a ``multihost.Remote`` placeholder in
+every object array of blocks, so each rank builds, steps and moves only
+its own blocks; :attr:`Mesh.ranks` names each position's owner.  In one
+process every position is local, as JAX's single-controller ``shard_map``.
 
 A device list may name one device several times: those are virtual
 devices, the counterpart of the JAX suite's
 ``--xla_force_host_platform_device_count=8``.  They let the CPU tests, and
 one card, hold a 2x2 or 2x2x2 mesh; a halo band moved between two virtual
-devices of one device is a copy on that device.  Multi-process meshes
-(``parallel/multihost.py``, ``jax.distributed``) are not ported.
+devices of one device is a copy on that device.
 """
 
 from __future__ import annotations
@@ -24,14 +32,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nonlocalheatequation_torch.parallel.multihost import (
+    Remote,
+    RemoteDevice,
+    fetch_global,
+    global_devices,
+    local_card,
+    process_count,
+    process_index,
+    put_global,
+)
 from nonlocalheatequation_torch.utils.devices import resolve_device
+
+__all__ = ["Mesh", "Remote", "block_shape", "create_mesh", "device_list", "factor_devices",
+           "factor_devices_3d", "fetch_global", "first_local", "local_positions", "make_mesh",
+           "make_mesh_3d", "map_blocks", "put_global"]
 
 
 class Mesh:
-    """A device mesh: ``devices`` is an object array of ``torch.device`` of
-    the mesh's shape, ``axis_names`` names its axes (``("x", "y")`` or
+    """A device mesh: ``devices`` is an object array of the mesh's shape
+    (``torch.device``, or ``multihost.RemoteDevice`` where another rank
+    owns the position), ``axis_names`` names its axes (``("x", "y")`` or
     ``("x", "y", "z")``).  ``shape`` maps each axis name to its size, as a
-    ``jax.sharding.Mesh`` does."""
+    ``jax.sharding.Mesh`` does; ``ranks`` is the owning rank of each
+    position.  A rank may own no position: it steps nothing and receives
+    the gathered results."""
 
     def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...]):
         devices = np.asarray(devices, dtype=object)
@@ -41,21 +66,39 @@ class Mesh:
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape, strict=True))
+        me = process_index()
+        self.ranks = np.array([d.rank if isinstance(d, RemoteDevice) else me
+                               for d in devices.flat], np.int64).reshape(devices.shape)
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def local_devices(self) -> list:
+        """This rank's devices, in mesh order."""
+        return [d for d in self.devices.flat if not isinstance(d, RemoteDevice)]
 
 
 def device_list(device=None, count: int = 0) -> list:
     """The devices a mesh is built from.  ``device`` ``None``/``"gpu"``/
     ``"cuda"``: every CUDA card (raises when there is none); ``"cpu"``: the
     CPU.  ``count > 0`` takes that many, naming the devices again in turn
-    when there are fewer (virtual devices)."""
+    when there are fewer (virtual devices).
+
+    Under a multi-process launch these are this rank's ``count`` local
+    devices (its one card, parallel/multihost.py), followed and preceded by
+    the other ranks' in rank order (``multihost.global_devices``, an
+    all-gather of the counts every rank joins)."""
     dev = resolve_device(device)
+    multi = process_count() > 1
     if dev.type == "cuda":
-        devices = ([dev] if dev.index is not None
-                   else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+        if dev.index is not None:
+            devices = [dev]
+        elif multi and local_card() is not None:
+            devices = [torch.device("cuda", local_card())]
+        else:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         devices = [dev]
     count = int(count)
@@ -63,7 +106,7 @@ def device_list(device=None, count: int = 0) -> list:
         raise ValueError(f"device count must be >= 0, got {count}")
     if count:
         devices = [devices[i % len(devices)] for i in range(count)]
-    return devices
+    return global_devices(devices) if multi else devices
 
 
 def create_mesh(axis_names: tuple[str, ...], shape: tuple[int, ...], devices) -> Mesh:
@@ -137,34 +180,23 @@ def block_shape(mesh: Mesh, grid_shape: tuple[int, ...]) -> tuple[int, ...]:
     return tuple(int(n) // int(m) for n, m in zip(grid_shape, mesh.devices.shape, strict=True))
 
 
-def put_global(array, mesh: Mesh, dtype: torch.dtype) -> np.ndarray:
-    """Scatter a global array (NumPy or a tensor) over ``mesh``: an object
-    array of the mesh's shape whose entry at each position is that
-    position's block, a contiguous ``dtype`` tensor on its device."""
-    x = torch.as_tensor(array)
-    blk = block_shape(mesh, tuple(x.shape))
-    blocks = np.empty(mesh.devices.shape, dtype=object)
-    for pos in np.ndindex(*mesh.devices.shape):
-        sl = tuple(slice(p * b, (p + 1) * b) for p, b in zip(pos, blk, strict=True))
-        blocks[pos] = x[sl].to(device=mesh.devices[pos], dtype=dtype).contiguous()
-    return blocks
+def local_positions(blocks: np.ndarray):
+    """The mesh positions of an object array of blocks that this rank
+    owns (every position in one process), in mesh order."""
+    return [pos for pos in np.ndindex(*blocks.shape) if not isinstance(blocks[pos], Remote)]
+
+
+def first_local(blocks: np.ndarray):
+    """This rank's first block (None when it owns none)."""
+    return next((b for b in blocks.flat if not isinstance(b, Remote)), None)
 
 
 def map_blocks(fn, *arrays) -> np.ndarray:
     """``fn`` applied position by position to object arrays of blocks of one
     shape (the per-shard body of a ``shard_map``): an object array of the
-    results."""
+    results; a position another rank owns keeps its placeholder."""
     out = np.empty(arrays[0].shape, dtype=object)
     for pos in np.ndindex(*arrays[0].shape):
-        out[pos] = fn(*(a[pos] for a in arrays))
+        first = arrays[0][pos]
+        out[pos] = first if isinstance(first, Remote) else fn(*(a[pos] for a in arrays))
     return out
-
-
-def fetch_global(blocks: np.ndarray) -> np.ndarray:
-    """Gather the blocks into one host NumPy array of their dtype."""
-    def nest(prefix):
-        if len(prefix) == blocks.ndim:
-            return blocks[prefix].cpu().numpy()
-        return [nest(prefix + (i,)) for i in range(blocks.shape[len(prefix)])]
-
-    return np.block(nest(()))

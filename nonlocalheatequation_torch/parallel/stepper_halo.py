@@ -32,18 +32,17 @@ stage-batch form reads them from the ``(ksteps-1)*eps``-ring blocks that the
 Euler superstep's ``_prep_sources`` builds.  Both builders are
 dimension-generic: the 2D and 3D solvers pass their halo transport and
 global extents.  Steps take and return object arrays of blocks
-(parallel/mesh.py); a block's origin is its mesh position times the block
-shape.
+(parallel/mesh.py) and run on the blocks this rank owns; a block's origin
+is its mesh position times the block shape.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from nonlocalheatequation_torch.models.steppers import STEPPERS, _rkc_coeffs, validate_stepper
 from nonlocalheatequation_torch.ops.nonlocal_op import source_at
-from nonlocalheatequation_torch.parallel.mesh import map_blocks
+from nonlocalheatequation_torch.parallel.mesh import first_local, local_positions, map_blocks
 
 
 def validate_dist_stepper(op, stepper: str, stages: int) -> tuple:
@@ -115,7 +114,9 @@ def make_rkc_stagebatch_step(op, stages: int, ksteps: int, pad, grid_N, test: bo
             gp, lgp, t = rest
         else:
             (t,) = rest
-        bshape = tuple(blocks.flat[0].shape)
+        if first_local(blocks) is None:
+            return blocks  # this rank owns no block: no band to send or receive
+        bshape = tuple(first_local(blocks).shape)
         nd = len(bshape)
 
         def crop(arr, m_from: int, m_to: int):
@@ -152,8 +153,8 @@ def make_rkc_stagebatch_step(op, stages: int, ksteps: int, pad, grid_N, test: bo
                 Pq, q_m = y_prev2, 0
             for _ in range(B):
                 m = p_m - eps  # the margin this stage leaves
-                nxt = np.empty(blocks.shape, dtype=object)
-                for pos in np.ndindex(*blocks.shape):
+                nxt = Pp.copy()  # other ranks' positions keep their placeholders
+                for pos in local_positions(Pp):
                     du = op.apply_padded(Pp[pos])  # margin p_m -> m
                     if test:
                         # every stage reads the source at the STEP's t

@@ -40,22 +40,23 @@ CORRUPT_HINT = (
 
 def fetch_state(u) -> np.ndarray:
     """A host NumPy copy of a solver state in its own dtype: a tensor, an
-    object array of mesh blocks (parallel/mesh.fetch_global), or a NumPy
+    object array of mesh blocks (parallel/multihost.fetch_global, the
+    global state on every rank), or a NumPy
     array (the oracle's, returned as it is)."""
     if isinstance(u, np.ndarray):
         if u.dtype == object:
-            from nonlocalheatequation_torch.parallel.mesh import fetch_global
+            from nonlocalheatequation_torch.parallel.multihost import fetch_global
 
-            return fetch_global(u)
+            return fetch_global(u)  # gathered to every rank
         return u
     # a copy: the step buffers are written again after this returns
     return u.to("cpu", copy=True).numpy()
 
 
 def _process_index() -> int:
-    import torch.distributed as dist
+    from nonlocalheatequation_torch.parallel.multihost import process_index
 
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    return process_index()
 
 
 def _payload_crc(u: np.ndarray, t: int, params_json: bytes) -> int:

@@ -11,7 +11,9 @@ The reference logs every ``nlog`` steps (2d_nonlocal_distributed.cpp:570-639):
 differences from the reference, the JAX package's too: the output
 directories are created, and the TIME field records simulation time, not
 the wall clock.  For the same states the files are byte for byte the JAX
-logger's.
+logger's.  Under a multi-process launch every rank keeps its logger (the
+logging steps are barriers, where the global state is gathered to every
+rank) and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import os
 
 import numpy as np
 
-from nonlocalheatequation_torch.utils.vtu import VtuWriter
+from nonlocalheatequation_torch.utils.vtu import VtuWriter, writes_files
 
 
 class SimulationCsvLogger:
@@ -39,14 +41,18 @@ class SimulationCsvLogger:
         self.nlog = max(1, int(nlog))
         self.write_vtk = write_vtk
         self.compress = compress
-        os.makedirs(out_csv, exist_ok=True)
-        if write_vtk:
-            os.makedirs(out_vtk, exist_ok=True)
+        self.writer = writes_files()  # rank 0 alone logs under a multi-process launch
+        if self.writer:
+            os.makedirs(out_csv, exist_ok=True)
+            if write_vtk:
+                os.makedirs(out_vtk, exist_ok=True)
         self.simulate_path = os.path.join(out_csv, f"simulate_{tag}.csv")
         self.score_path = os.path.join(out_csv, f"score_{tag}.csv")
         self.out_vtk = out_vtk
 
     def __call__(self, t: int, u: np.ndarray):
+        if not self.writer:
+            return
         u = np.asarray(u)
         if u.ndim == 1:
             self._log_1d(t, u)

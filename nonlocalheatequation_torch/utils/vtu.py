@@ -1,5 +1,5 @@
 """Dependency-free VTK XML UnstructuredGrid (.vtu) writer — the port's own
-copy of ``nonlocalheatequation_tpu/utils/vtu.py`` (NumPy only): the
+copy of ``nonlocalheatequation_tpu/utils/vtu.py`` (NumPy only at import): the
 snapshot writer :class:`VtuWriter` that the CSV/VTU logger uses
 (utils/csvlog.py), the point-cloud writer of the unstructured CLI's
 ``--vtu``, and a reader for round trips.  For the same input and
@@ -20,6 +20,15 @@ import struct
 import zlib
 
 import numpy as np
+
+def writes_files() -> bool:
+    """Whether this process writes the logs: always in one process, rank 0
+    alone under a multi-process launch (parallel/multihost.py), as in the
+    JAX package's CLIs."""
+    from nonlocalheatequation_torch.parallel.multihost import process_index
+
+    return process_index() == 0
+
 
 _VTK_TYPES = {
     np.dtype(np.float64): "Float64",
@@ -94,6 +103,10 @@ class VtuWriter:
         self.append_field_data("TIME", float(timestep))
 
     def close(self):
+        """Write the file (rank 0 only under a multi-process launch: N racing
+        writers to one path corrupt it)."""
+        if not writes_files():
+            return
         n = 0 if self.nodes is None else len(self.nodes)
         z = self.compress
         compressor = ' compressor="vtkZLibDataCompressor"' if z else ""

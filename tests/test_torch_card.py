@@ -37,7 +37,9 @@ single-device rkc solve bitwise with exact launch counts; the sharded fft
 solves (parallel/spectral_halo.py) meet the single-device fft solves in
 float64; the sharded unstructured operator's halo forms are bitwise each
 other and its one-device form, and its offsets form and superstep the
-single-device offsets solve.
+single-device offsets solve.  With a card a rank, the multi-process legs
+(tests/torch_multihost_child.py) run in an nccl group, each bitwise the
+rank's one-card solve.
 
 The CPU tests hold the plain versions against the JAX package
 (tests/test_torch_kernels.py, test_torch_multistep.py, test_torch_autotune.py,
@@ -1258,3 +1260,41 @@ def test_sharded_unstructured_forms_bitwise_on_card(card):
     for K in (1, 2):
         assert np.array_equal(solve(sh, superstep=K), ref), K
     assert not any(ck.launch_counts().values())  # torch ops only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[2, 2], [2, 2, 2, 2], [3, 1]], ids=["2x2", "4x2", "3+1"])
+def test_multihost_legs_over_cards(card, tmp_path, counts):
+    """tests/torch_multihost_child.py's legs in an nccl group, one rank a card
+    (``TMH_PLATFORM=gpu``, float64 through the kernels): every leg on every
+    rank bitwise the rank's one-card solve of the same mesh.  Needs a card a
+    rank: nccl takes one rank a card."""
+    import os
+    import subprocess
+    import sys
+
+    from nonlocalheatequation_torch.ops import _build
+
+    if torch.cuda.device_count() < len(counts):
+        pytest.skip(f"needs {len(counts)} cards, one a rank")
+    _build.build(("nsum2d.cu", "nsum3d.cu") + _build.SOURCES_HALO)  # once, before the ranks
+    child = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_multihost_child.py")
+    procs = [subprocess.Popen(
+        [sys.executable, child, f"file://{tmp_path / 'pg'}", str(len(counts)), str(r)],
+        env=dict(os.environ, TMH_PLATFORM="gpu", TMH_LOCAL=str(c), TMH_NDEV=str(sum(counts)),
+                 TMH_OUT=str(tmp_path), LOCAL_RANK=str(r), NLHEAT_DIST_TIMEOUT="60"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r, c in enumerate(counts)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+            assert p.returncode == 0, outs[-1][-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    legs = 21 if sum(counts) == 4 else 20  # 8 devices: the K=2 superstep does not fit
+    for r, out in enumerate(outs):
+        assert sum(line.startswith(f"TMH-OK p{r} ") for line in out.splitlines()) == legs, out

@@ -9,7 +9,9 @@
   solve that rebalances over 2 virtual CPU devices, a throttled
   Solver2D (``nd``), a checkpoint round trip and solve2d_async's batch.
 * No source file of the port names either package in an import; the
-  distributed slice's modules are among them.
+  distributed slice's modules (parallel/multihost.py among them) and the
+  multi-process test child are among them.
+* ``init_from_env`` with no launch signal never wires a process group.
 * The entry points default to the card: without one they raise (or the
   CLIs exit 2), the distributed solvers, meshes and CLIs included.
 * chip_smoke.py on a host without a CUDA card exits non-zero and prints no
@@ -122,7 +124,8 @@ def test_port_imports_and_solves_with_jax_blocked():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tests" / "torch_multihost_child.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -140,7 +143,7 @@ DISTRIBUTED_SLICE = ("parallel/mesh.py", "parallel/halo.py", "parallel/distribut
                      "parallel/distributed3d.py", "ops/cuda_halo.py",
                      "cli/solve2d_distributed.py", "utils/partition_map.py",
                      "utils/decompose.py", "cli/decompose.py", "parallel/load_balance.py",
-                     "parallel/elastic.py", "parallel/gang.py")
+                     "parallel/elastic.py", "parallel/gang.py", "parallel/multihost.py")
 #: the port's copy of a NumPy-only JAX module, importing no torch either
 NUMPY_ONLY = ("utils/partition_map.py",)
 
@@ -190,3 +193,20 @@ def test_chip_smoke_refuses_without_a_card():
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
     assert "is_available() is false" in r.stderr
+
+
+def test_init_from_env_without_a_signal_never_wires_a_group(monkeypatch):
+    """No launch variable and no argument: init_from_env returns False and
+    never reaches torch.distributed.init_process_group."""
+    import torch.distributed as dist
+
+    from nonlocalheatequation_torch.parallel import multihost
+
+    for var in ("COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID", "SLURM_NTASKS",
+                "SLURM_PROCID", "TPU_WORKER_HOSTNAMES"):
+        monkeypatch.delenv(var, raising=False)
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **k: calls.append((a, k)))
+    for platform in (None, "cpu", "gpu"):
+        assert multihost.init_from_env(platform=platform) is False
+    assert calls == [] and not multihost.initialized()
