@@ -239,9 +239,30 @@ line is printed; the phase walls are printed at the end):
    solve_unstructured --devices 4 --superstep 2 --gang-order false on
    data/50x50.msh (the contract), and solve2d_distributed past the rkc bound
    exiting 2.  Counted: every part but the comparisons and timings.
+15. (Run after phase 14, before phase 9's lines.) The serving pipeline
+   (phase_serve, serve/server.py): (a) 16 production cases of 1024^2, eps=8,
+   f32, two physics, 200 steps, submitted one at a time to
+   ServePipeline(depth=2, window_ms=5): every lane bitwise the offline
+   EnsembleEngine.run(), 2 x 200 batched_step2d launches as offline,
+   occupancy 2, fence_scalar once a retire and never between the
+   dispatches (spies), zero retries and fallback chunks, the breaker
+   closed; a fence probe (a spin kernel queued behind the first chunk still
+   runs when the second dispatch returns); serve_fence_ab's depth-1 and
+   depth-2 walls; the stream under NLHEAT_TUNE_BATCH=1 (B7/B8 from the
+   serving path) bitwise its offline run; (b) 12 cases of 256^2 in f64 under
+   raise@1,stall@3,nan@c6x* with a 200 ms fetch deadline (error, hang and
+   corrupt classified, case 6 alone quarantined, the rest bitwise offline),
+   then raise@0x2 against a threshold-2 breaker: open, the CPU fallback
+   within 1e-12 of the card, the half-open probe closes it; (c) in float64,
+   solve2d, solve1d and solve3d --test_batch --serve 2 over their tables
+   ("Tests Passed"), solve2d with --metrics-out (the resilience block zero,
+   --ensemble's dispatches) and --trace (serve.dispatch spans beside the
+   torch.profiler trace); (d) two test-form cases on the shuffled 512^2
+   cloud through the pipeline, bitwise the offline gather_L run.  Counted:
+   every part.
 9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10, 11,
-   12 and 13, the other kernels' those of their phases, 10, 11, 12 and 13),
-   then {"ok": true, "device": {...}}.
+   12, 13 and 15, the other kernels' those of their phases and of phases
+   10-15), then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -4224,6 +4245,335 @@ def phase_multihost(torch, np, ck, l2_threshold) -> dict:
     return by
 
 
+# -- phase 15: the serving pipeline -------------------------------------------------
+
+SERVE_CASES, SERVE_N, SERVE_STEPS = 16, ENS_N, 200  # (a) ensemble8x1024, two chunks of 8
+SERVE_PHYSICS = ((1.0, 0.8), (0.5, 0.6))  # (k, fraction of the Euler bound), case i: i % 2
+CHAOS_CASES, CHAOS_N, CHAOS_STEPS = 12, 256, 20  # (b) the f64 supervision stream
+CHAOS_PLAN = "raise@1,stall@3,nan@c6x*"  # (b) one fault of each kind, case 6 poison
+BREAKER_PLAN = "raise@0x2"  # (b) two failed attempts open a threshold-2 breaker
+SPIN_MS = 500  # the spin queued behind the first chunk of the fence probe
+MESH_SERVE_STEPS = 20  # (d) steps of each mesh case
+
+
+def spin_cycles(torch, ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the card busy about ``ms``."""
+    cycles = 10 ** 7
+    for _ in range(3):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        torch.cuda._sleep(cycles)
+        t1.record()
+        t1.synchronize()
+        took = t0.elapsed_time(t1)
+    return int(cycles * ms / max(took, 1e-3))
+
+
+def phase_serve(torch, np, ck, cases_2d, cases_1d, l2_threshold) -> dict:
+    """Phase 15, the serving pipeline (serve/server.py, serve/resilience.py,
+    cli/common.serve_batch), every part counted.  (a) The production stream
+    at full width: SERVE_CASES cases of 1024^2, eps=8, f32, two physics a
+    bucket, SERVE_STEPS steps, submitted one at a time to
+    ServePipeline(depth=2, window_ms=5): every lane bitwise the offline
+    EnsembleEngine.run(), batched_step2d launches equal to the offline
+    run's, occupancy 2, fence_scalar once a retire and never between the
+    dispatches, zero retries, fallback chunks and a closed breaker; a fence
+    probe (a spin kernel queued behind the first chunk must still be running
+    when the second dispatch returns); serve_fence_ab's depth-1 and depth-2
+    walls; the stream's device time and idle share under torch.profiler; the
+    same stream under NLHEAT_TUNE_BATCH=1 (the batched tuner's probes from
+    the serving path, B7/B8) bitwise its offline run.  (b)
+    Supervision: a 256^2 f64 stream under CHAOS_PLAN with a 200 ms fetch
+    deadline (error, hang, corrupt classified; case 6 quarantined; the rest
+    bitwise offline), then BREAKER_PLAN with breaker_threshold=2: the
+    breaker opens, the CPU fallback serves within 1e-12 of the card, the
+    half-open probe re-closes it.  (c) The CLIs in f64: solve2d, solve1d and
+    solve3d --test_batch --serve 2 over their tables, each run's resilience
+    block zero, solve2d's launches batched_step2d and solve3d's nsum3d; solve2d with
+    --metrics-out and --trace (the resilience block zero, the dispatches
+    --ensemble's, serve.dispatch spans beside the torch.profiler trace).
+    (d) Two cases on the shuffled 512^2 cloud through the pipeline, bitwise
+    the engine's offline gather_L run.  Returns the launches by part."""
+    from nonlocalheatequation_torch.cli import solve1d, solve2d, solve3d
+    from nonlocalheatequation_torch.serve import server as srv
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase, EnsembleEngine
+    from nonlocalheatequation_torch.serve.meshes import MeshStore, get_mesh_op
+    from nonlocalheatequation_torch.serve.server import ServePipeline, serve_fence_ab
+    from nonlocalheatequation_torch.utils import autotune
+    from nonlocalheatequation_torch.utils.faults import FaultPlan
+
+    card = nvidia_smi("name,power.limit")
+    f32, f64 = torch.float32, torch.float64
+    by, walls = {}, {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+
+    def engine(dtype=f32, **kw):
+        return EnsembleEngine(method="cuda", device="cuda", dtype=dtype, **kw)
+
+    def same(got, want, what):
+        if len(got) != len(want) or not all(
+                g is not None and np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"phase 15 {what}: a served lane is not bitwise the offline run's")
+
+    def quiet(res, what):
+        if (res["retries"], res["faults"], res["bisections"], res["fallback_chunks"],
+                res["quarantined"], res["breaker"]["state"]) != (0, {}, 0, 0, [], "closed"):
+            fail(f"phase 15 {what}: the happy path reported {json.dumps(res)}")
+
+    # (a) the production stream at full width
+    dh = 1.0 / SERVE_N
+    phys = [(k, euler_dt(dh, k, frac)) for k, frac in SERVE_PHYSICS]
+    cases = [EnsembleCase(shape=(SERVE_N, SERVE_N), nt=SERVE_STEPS, eps=EPS,
+                          k=phys[i % 2][0], dt=phys[i % 2][1], dh=dh, test=False,
+                          u0=rng.standard_normal((SERVE_N, SERVE_N)))
+             for i in range(SERVE_CASES)]
+    chunks = SERVE_CASES // ENS_B
+    want_b6 = {"batched_step2d": chunks * SERVE_STEPS}
+    offline = launches_of(ck, by, "15a offline run", lambda: engine().run(cases))
+    if by["15a offline run"] != want_b6:
+        fail(f"phase 15 (a): the offline run launched {by['15a offline run']}, not {want_b6}")
+    eng = engine()
+    events = []
+    real_fence, real_dispatch = srv.fence_scalar, eng.dispatch_chunk
+    srv.fence_scalar = lambda x: (events.append("fence"), real_fence(x))[1]
+    eng.dispatch_chunk = lambda m, U: (events.append("dispatch"), real_dispatch(m, U))[1]
+
+    def stream(pipe_kw, eng=eng):
+        with ServePipeline(engine=eng, **pipe_kw) as pipe:
+            handles = [pipe.submit(c) for c in cases]
+            pipe.drain()
+        return pipe, [h.result for h in handles]
+
+    try:
+        t0 = time.perf_counter()
+        pipe, served = launches_of(ck, by, "15a served stream",
+                                   lambda: stream({"depth": 2, "window_ms": 5.0}))
+        stream_wall = time.perf_counter() - t0
+    finally:
+        srv.fence_scalar = real_fence
+        del eng.dispatch_chunk
+    m = pipe.metrics()
+    same(served, offline, "(a)")
+    if by["15a served stream"] != want_b6:
+        fail(f"phase 15 (a): the stream launched {by['15a served stream']}, not {want_b6}")
+    if events != ["dispatch"] * chunks + ["fence"] * chunks:
+        fail(f"phase 15 (a): dispatches and fences ran as {events}: a fence sat between "
+             "the dispatches, or not one fence a retire")
+    if m["occupancy"]["max"] != 2 or m["forced_closes"] != {"size": chunks}:
+        fail(f"phase 15 (a): occupancy {m['occupancy']}, closes {m['forced_closes']}")
+    quiet(m["resilience"], "(a)")
+    say(f"{card}: phase 15 (a) {SERVE_CASES} x {SERVE_N}^2 eps={EPS} f32, {SERVE_STEPS} "
+        f"steps, 2 physics, ServePipeline(depth=2, window_ms=5): every lane bitwise the "
+        f"offline run, batched_step2d {by['15a served stream']['batched_step2d']} launches "
+        f"(offline the same), events {events}, occupancy {json.dumps(m['occupancy'])}, "
+        f"stream wall {stream_wall:.3f} s (first pass, pinned blocks allocated), chunk log "
+        f"{json.dumps([{k: c[k] for k in ('cases', 'build_ms', 'device_ms', 'fetch_ms')} for c in m['chunk_log']])}")
+
+    # the fence probe: a spin queued behind the first chunk's kernels is still
+    # running when the second dispatch returns, unless something fenced
+    cycles = spin_cycles(torch, SPIN_MS)
+    probe = {}
+
+    def spun(m_, U):
+        out = real_dispatch(m_, U)
+        if "spin" not in probe:
+            torch.cuda._sleep(cycles)
+            probe["spin"] = torch.cuda.Event()
+            probe["spin"].record()
+            probe["t0"] = time.perf_counter()
+        else:
+            probe.setdefault("spin_done_after_2nd", probe["spin"].query())
+            probe.setdefault("stream_idle_after_2nd", torch.cuda.current_stream().query())
+            probe.setdefault("host_ms_to_2nd", (time.perf_counter() - probe["t0"]) * 1e3)
+        return out
+
+    eng.dispatch_chunk = spun
+    try:
+        _, probed = launches_of(ck, by, "15a fence probe",
+                                lambda: stream({"depth": 2, "window_ms": 5.0}))
+    finally:
+        del eng.dispatch_chunk
+    same(probed, offline, "(a) fence probe")
+    if probe.get("spin_done_after_2nd") is not False or probe["stream_idle_after_2nd"]:
+        fail(f"phase 15 (a): the second dispatch returned after the first chunk's spin "
+             f"({SPIN_MS} ms) had ended: a fence between dispatches ({probe})")
+    build_s, fenced_s, piped_s, rep = launches_of(
+        ck, by, "15a serve_fence_ab", lambda: serve_fence_ab(eng, cases, 2, iters=2))
+    say(f"{card}: phase 15 (a) fence probe: a {SPIN_MS} ms spin queued behind chunk 0 was "
+        f"still running when the second dispatch returned {probe['host_ms_to_2nd']:.1f} ms "
+        f"later, the stream busy; serve_fence_ab (window_ms=0: a case a chunk, B=1), "
+        f"walls in turns, best of 2: depth 1 {fenced_s:.4f} s, depth 2 {piped_s:.4f} s "
+        f"(ratio {fenced_s / piped_s:.3f}; first pass {build_s:.3f} s), max in flight "
+        f"{rep.max_inflight}")
+    # the served stream's device time under torch.profiler: a chunk's kernels
+    # against the stream's wall, so the idle share says whether the host or
+    # the card sets the pace (the profiler's own host cost included)
+    sprof = launches_of(ck, by, "15a profiled stream", lambda: device_profile(
+        torch, lambda: stream({"depth": 2, "window_ms": 5.0}), chunks * SERVE_STEPS))
+    if "device_busy_ms_per_step" in sprof:
+        chunk_dev = (f"{sprof['device_busy_ms_per_step'] * SERVE_STEPS:.3f} ms of device "
+                     f"time a chunk, idle share {sprof['idle_share']:.3f} of the stream's "
+                     f"{sprof['window_ms_per_step'] * chunks * SERVE_STEPS:.1f} ms")
+    else:
+        chunk_dev = sprof["device_time"]
+    say(f"{card}: phase 15 (a) the served stream (depth 2) under torch.profiler, after a "
+        f"warm-up: {chunk_dev}; per launch {json.dumps(sprof)}")
+    os.environ["NLHEAT_TUNE_BATCH"] = "1"
+    autotune.reset()
+    try:
+        tuned_eng = engine()
+        tpipe, tserved = launches_of(ck, by, "15a tuned stream",
+                                     lambda: stream({"depth": 2, "window_ms": 5.0},
+                                                    tuned_eng))
+        toffline = launches_of(ck, by, "15a tuned offline", lambda: engine().run(cases))
+    finally:
+        del os.environ["NLHEAT_TUNE_BATCH"]
+    same(tserved, toffline, "(a) tuned")
+    tuned_ran = by["15a tuned stream"]
+    if not (tuned_ran.get("batched_carried2d") or tuned_ran.get("batched_superstep2d")):
+        fail(f"phase 15 (a): the tuned stream launched {tuned_ran}: no B7/B8 probe or winner")
+    quiet(tpipe.metrics()["resilience"], "(a) tuned")
+    say(f"{card}: phase 15 (a) NLHEAT_TUNE_BATCH=1: strategies "
+        f"{sorted(set(tpipe.report.strategies.values()))}, stream launches {tuned_ran} "
+        f"(probes and winner), bitwise its offline run ({by['15a tuned offline']})")
+    walls["a"] = time.perf_counter() - t_phase
+
+    # (b) supervision on the card, f64
+    cdh = 1.0 / CHAOS_N
+    cdt = euler_dt(cdh, 1.0, 0.8)
+    chaos = [EnsembleCase(shape=(CHAOS_N, CHAOS_N), nt=CHAOS_STEPS, eps=EPS, k=1.0,
+                          dt=cdt * (1.0 - 0.02 * (i % 3)), dh=cdh, test=False,
+                          u0=rng.standard_normal((CHAOS_N, CHAOS_N)))
+             for i in range(CHAOS_CASES)]
+    coffline = launches_of(ck, by, "15b offline", lambda: engine(f64, batch_sizes=(4,)).run(
+        chaos))
+    def submit_all(pipe, batch):
+        handles = [pipe.submit(c) for c in batch]
+        pipe.drain()
+        return handles
+
+    with ServePipeline(engine=engine(f64, batch_sizes=(4,)), depth=2, window_ms=10_000.0,
+                       retries=1, backoff_ms=0.0, fallback=False, fetch_deadline_ms=200.0,
+                       faults=FaultPlan.parse(CHAOS_PLAN)) as cpipe:
+        handles = launches_of(ck, by, "15b chaos stream", lambda: submit_all(cpipe, chaos))
+    res = cpipe.metrics()["resilience"]
+    if set(res["faults"]) != {"error", "hang", "corrupt"} or res["faults"]["error"] != 1 \
+            or res["faults"]["hang"] != 1 or [q["case"] for q in res["quarantined"]] != [6]:
+        fail(f"phase 15 (b) {CHAOS_PLAN}: {json.dumps(res)}")
+    same([h.result for i, h in enumerate(handles) if i != 6],
+         [w for i, w in enumerate(coffline) if i != 6], "(b) chaos")
+    if not isinstance(handles[6].error, srv.ServeError):
+        fail(f"phase 15 (b): case 6 ended {handles[6].error!r}, not a ServeError")
+    clock = [0.0]
+    with ServePipeline(engine=engine(f64, batch_sizes=(4,)), depth=1, window_ms=10_000.0,
+                       clock=lambda: clock[0], retries=2, backoff_ms=0.0,
+                       breaker_threshold=2, breaker_cooldown_ms=1000.0,
+                       faults=FaultPlan.parse(BREAKER_PLAN)) as bpipe:
+        bh = launches_of(ck, by, "15b breaker open", lambda: submit_all(bpipe, chaos[:8]))
+        opened = bpipe.metrics()["resilience"]
+        clock[0] += 1.1  # past the cooldown: the next chunk is the half-open probe
+        bh += launches_of(ck, by, "15b breaker probe", lambda: submit_all(bpipe, chaos[8:]))
+    bres = bpipe.metrics()["resilience"]
+    moves = [(t["from"], t["to"]) for t in bres["breaker"]["transitions"]]
+    if opened["breaker"]["state"] != "open" or opened["fallback_chunks"] != 2 \
+            or moves != [("closed", "open"), ("open", "half-open"), ("half-open", "closed")]:
+        fail(f"phase 15 (b) {BREAKER_PLAN}: open {json.dumps(opened)}, then {json.dumps(bres)}")
+    fb_err = max(float(np.abs(h.result - w).max()) / float(np.abs(w).max())
+                 for h, w in zip(bh[:8], coffline[:8]))
+    if not fb_err <= TOL["float64"]:
+        fail(f"phase 15 (b): the CPU fallback's lanes differ from the card's by {fb_err:.3e}")
+    same([h.result for h in bh[8:]], coffline[8:], "(b) half-open probe")
+    if by["15b breaker open"] or by["15b breaker probe"] != {"batched_step2d": CHAOS_STEPS}:
+        fail(f"phase 15 (b): the fallback chunks launched {by['15b breaker open']}, the "
+             f"probe {by['15b breaker probe']}")
+    say(f"{card}: phase 15 (b) {CHAOS_CASES} x {CHAOS_N}^2 f64 chunks of 4, {CHAOS_PLAN}, "
+        f"fetch deadline 200 ms: faults {res['faults']}, retries {res['retries']}, "
+        f"bisections {res['bisections']}, quarantined {[q['case'] for q in res['quarantined']]}, "
+        f"the other 11 lanes bitwise the offline run; {BREAKER_PLAN} with threshold 2: "
+        f"breaker {moves}, {opened['fallback_chunks']} chunks served by the CPU fallback "
+        f"(no launch) within {fb_err:.3e} of the card's lanes (relative), the probe chunk "
+        f"bitwise ({CHAOS_STEPS} batched_step2d launches)")
+    walls["b"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    # (c) the CLIs on the card, f64: each --serve run's resilience block is
+    # read back, so a stream the CPU fallback served cannot pass
+    serve_args = [*CLI_ARGS, "--serve", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, main, rows in (("solve2d", solve2d.main, cases_2d),
+                                  ("solve1d", solve1d.main, cases_1d),
+                                  ("solve3d", solve3d.main, CASES_3D)):
+            mfile = os.path.join(tmp, f"{label}.json")
+            out = launches_of(ck, by, f"15c {label} --serve 2",
+                              lambda main=main, rows=rows, mfile=mfile: run_batch_cli(
+                                  main, [*serve_args, "--metrics-out", mfile], rows))
+            if out.splitlines()[-1] != "Tests Passed":
+                fail(f"phase 15 (c) {label} --serve 2: {out.splitlines()[-1:]}")
+            quiet(json.loads(Path(mfile).read_text())["resilience"], f"(c) {label} --serve 2")
+    if not by["15c solve2d --serve 2"].get("batched_step2d") \
+            or by["15c solve2d --serve 2"].get("step2d"):
+        fail(f"phase 15 (c): solve2d --serve 2 launched {by['15c solve2d --serve 2']}")
+    if not by["15c solve3d --serve 2"].get("nsum3d"):
+        fail(f"phase 15 (c): solve3d --serve 2 launched {by['15c solve3d --serve 2']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        sm, em, tdir = (os.path.join(tmp, x) for x in ("serve.json", "ensemble.json", "trace"))
+        launches_of(ck, by, "15c solve2d --serve 2 --metrics-out --trace",
+                    lambda: run_batch_cli(solve2d.main, [*serve_args, "--metrics-out", sm,
+                                                         "--trace", tdir], cases_2d))
+        launches_of(ck, by, "15c solve2d --ensemble --metrics-out",
+                    lambda: run_batch_cli(solve2d.main, [*CLI_ARGS, "--ensemble",
+                                                         "--metrics-out", em], cases_2d))
+        sjs, ejs = json.loads(Path(sm).read_text()), json.loads(Path(em).read_text())
+        spans = [e["name"] for e in json.loads(Path(tdir, "host_trace.json").read_text())[
+            "traceEvents"]]
+        prof = [f for f in os.listdir(tdir) if f.endswith(".pt.trace.json")]
+        prof_text = Path(tdir, prof[0]).read_text() if len(prof) == 1 else ""
+    quiet(sjs["resilience"], "(c) --metrics-out")
+    if sjs["dispatches"] != ejs["dispatches"] or sjs["cases"] != len(cases_2d):
+        fail(f"phase 15 (c): --serve {sjs['dispatches']} dispatches, --ensemble "
+             f"{ejs['dispatches']}")
+    if spans.count("serve.dispatch") != sjs["dispatches"] or "batched_step2d" not in prof_text:
+        fail(f"phase 15 (c) --trace: {spans.count('serve.dispatch')} serve.dispatch spans for "
+             f"{sjs['dispatches']} dispatches, profiler traces {prof}")
+    say(f"{card}: phase 15 (c) f64 --serve 2: solve2d over CASES_2D, solve1d over CASES_1D, "
+        f"solve3d over CASES_3D Tests Passed, each resilience block zero ({json.dumps({k[4:]: v for k, v in by.items() if k.startswith('15c') and '--serve 2' in k and 'metrics' not in k})}); "
+        f"--metrics-out: {sjs['dispatches']} dispatches (--ensemble {ejs['dispatches']}), "
+        f"resilience zero; --trace: {spans.count('serve.dispatch')} serve.dispatch spans of "
+        f"{len(spans)} beside the torch.profiler trace (batched_step2d in it)")
+    walls["c"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    # (d) a mesh bucket through the pipeline
+    pts, h = jittered_cloud(np, UN_M, 2, SEED + 9, shuffle=True)
+    with tempfile.TemporaryDirectory() as mdir:
+        os.environ["NLHEAT_MESH_DIR"] = mdir
+        try:
+            mhash = MeshStore(mdir).put(pts, 3 * h, h * h)
+            mop = get_mesh_op(mhash, 1.0, 1.0, device="cuda")
+            mdt = 0.8 / float(np.max(mop.c * mop.wsum))
+            mcases = [EnsembleCase(shape=(mop.n,), nt=MESH_SERVE_STEPS, eps=0, k=k,
+                                   dt=mdt * f, dh=0.0, test=True, mesh=mhash)
+                      for k, f in ((1.0, 1.0), (0.5, 0.8))]
+            moff = launches_of(ck, by, "15d offline", lambda: EnsembleEngine(
+                device="cuda", dtype=f32).run(mcases))
+            with ServePipeline(engine=EnsembleEngine(device="cuda", dtype=f32), depth=2,
+                               window_ms=10_000.0) as mpipe:
+                mserved = launches_of(ck, by, "15d served", lambda: mpipe.serve_cases(mcases))
+        finally:
+            del os.environ["NLHEAT_MESH_DIR"]
+    same(mserved, moff, "(d) mesh bucket")
+    want12 = {"gather_L": len(mcases) * MESH_SERVE_STEPS}
+    if by["15d served"] != want12 or by["15d offline"] != want12:
+        fail(f"phase 15 (d): gather_L launches served {by['15d served']}, offline "
+             f"{by['15d offline']}, not {want12}")
+    quiet(mpipe.metrics()["resilience"], "(d)")
+    say(f"{card}: phase 15 (d) 2 test-form cases on the shuffled {UN_M}^2 cloud ({mop.n} "
+        f"nodes), {MESH_SERVE_STEPS} steps, one chunk: bitwise the offline gather_L run, "
+        f"{want12['gather_L']} gather_L launches each way")
+    walls["d"] = time.perf_counter() - t_phase - sum(walls.values())
+    say(f"phase 15 part walls, s: {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    return by
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -5095,8 +5445,9 @@ def main() -> int:
     dist_by = timed("distributed steppers, sharded", phase_dist_steppers, torch, np, ck, k3,
                     l2_threshold)
     mh_by = timed("blocks owned by ranks", phase_multihost, torch, np, ck, l2_threshold)
-    for k in kernels:  # phases 10-14 launch the kernels of phases 4, 5 and 8 again
-        for part in (async_by, elastic_by, stepper_by, dist_by, mh_by):
+    serve_by = timed("serving", phase_serve, torch, np, ck, cases_2d, cases_1d, l2_threshold)
+    for k in kernels:  # phases 10-15 launch the kernels of phases 4-8 again
+        for part in (async_by, elastic_by, stepper_by, dist_by, mh_by, serve_by):
             more = by_label(part, k["name"])
             if more:
                 k["launches"] += sum(more.values())

@@ -1,21 +1,27 @@
-"""Shared CLI plumbing — the batch-test subset of
+"""Shared CLI plumbing — the counterpart of
 ``nonlocalheatequation_tpu/cli/common.py``.
 
 The batch protocol is the reference's batch_tester
 (src/1d_nonlocal_serial.cpp:239-266): stdin holds ``num_tests`` then one
 parameter row per test; the CLI prints "Tests Passed" or "Tests Failed".
-The sequential batch loop and ``--ensemble`` (the batched ensemble engine,
-serve/ensemble.py) are ported, each under ``--profile``, and so are the
-stepper flags (``--stepper``, ``--superstep-stages``) and the multi-process
-launch (:func:`cli_startup`: ``srun -n N``, every rank running the same
-binary, rank 0 owning the console and the files); serving and
-observability wait for later slices.
+Ported: the sequential batch loop, ``--ensemble`` (the batched ensemble
+engine, serve/ensemble.py) and ``--serve D`` (the streaming serving
+pipeline, serve/server.py, with its supervision flags), each under
+``--profile``; the stepper flags (``--stepper``, ``--superstep-stages``);
+the observability flags ``--trace``, ``--metrics-out`` and
+``--metrics-port`` (:func:`obs_session`); and the multi-process launch
+(:func:`cli_startup`: ``srun -n N``, every rank running the same binary,
+rank 0 owning the console and the files).  Not ported yet: the network
+front door (``--listen``), the AOT program store and the flight recorder
+(``--flight-dir``, refused by name).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import socket
 import sys
 
 import numpy as np
@@ -185,7 +191,9 @@ def ensemble_runner(make_solver, **engine_kwargs):
     """``cases -> [(error_l2, n)]`` for :func:`run_batch`: one test-form
     solver per case, all run by one ensemble engine, each final state fed
     back through ``s.u`` and ``s.compute_l2`` (the solo path's error code).
-    Prints ``ensemble: <report summary>`` on stderr."""
+    Prints ``ensemble: <report summary>`` on stderr; the engine's registry
+    backs ``--metrics-port`` and its metrics line is the ``--metrics-out``
+    payload."""
     def run_ensemble(cases):
         from nonlocalheatequation_torch.serve.ensemble import EnsembleEngine
 
@@ -195,8 +203,10 @@ def ensemble_runner(make_solver, **engine_kwargs):
             s.test_init()
             solvers.append(s)
         engine = EnsembleEngine(**engine_kwargs)
+        set_live_registry(engine.report.registry)
         states = engine.run([s.ensemble_case() for s in solvers])
         print(f"ensemble: {engine.report.summary()}", file=sys.stderr)
+        set_metrics_payload(engine.report.metrics_json())
         out = []
         for s, u in zip(solvers, states, strict=True):
             s.u = u
@@ -204,6 +214,334 @@ def ensemble_runner(make_solver, **engine_kwargs):
         return out
 
     return run_ensemble
+
+
+def add_serve_flags(p: argparse.ArgumentParser):
+    """--serve D: batch-test cases streamed through the async serving
+    pipeline (serve/server.py) with D chunks in flight; the JAX CLIs'
+    six flags, defaults and help."""
+    p.add_argument(
+        "--serve", type=int, default=0, metavar="D",
+        help="with --test_batch: stream cases from stdin into the continuous-batching "
+             "serving pipeline (serve/server.py) with D chunks of dispatches in flight "
+             "(D >= 1; 0 = off).  Cases are scheduled the moment their row arrives; results "
+             "are bit-identical to --ensemble, only the schedule overlaps.  D=1 is the "
+             "fenced A/B schedule.")
+    p.add_argument(
+        "--serve-window-ms", dest="serve_window_ms", type=float, default=50.0, metavar="T",
+        help="--serve microbatch window: a chunk closes at the engine's batch size or after "
+             "T ms, whichever first (default 50)")
+    p.add_argument(
+        "--serve-retries", dest="serve_retries", type=int, default=2, metavar="R",
+        help="--serve supervision: re-dispatch a failed chunk up to R times with exponential "
+             "backoff before bisecting it to isolate the poison case (default 2; the "
+             "isolated case fails its test instead of killing the batch)")
+    p.add_argument(
+        "--serve-fallback", dest="serve_fallback", type=_bool_flag, default=True,
+        metavar="0|1",
+        help="--serve supervision: after K consecutive device-path failures open a circuit "
+             "breaker and route chunks through the plain PyTorch program on the CPU until a "
+             "half-open probe re-closes it (default 1; 0 keeps retry+quarantine only)")
+    p.add_argument(
+        "--serve-deadline-ms", dest="serve_deadline_ms", type=float, default=0.0,
+        metavar="MS",
+        help="--serve supervision: per-chunk fence/fetch deadline — a fetch that misses it "
+             "is classified a hang and retried (0 = no watchdog, the default; the watchdog "
+             "thread is abandoned on a miss, never killed)")
+    p.add_argument(
+        "--serve-nan-policy", dest="serve_nan_policy", default="quarantine",
+        choices=("quarantine", "serve"),
+        help="--serve supervision: what a non-finite fetched result means — 'quarantine' "
+             "(default) classifies it a corrupt fault (retried, then bisected to the poison "
+             "case); 'serve' restores the a-diverged-solve-is-a-legitimate-result contract, "
+             "leaving the oracle criterion to judge it")
+
+
+def validate_serve_args(args, extra_refusals=()) -> str | None:
+    """The batch CLIs' shared --serve checks in the JAX words; returns an
+    error string (the caller prints it and exits 1) or None.
+    ``extra_refusals`` is a list of (condition, message) pairs for
+    CLI-specific conflicts."""
+    if not args.serve:
+        return None
+    if args.serve < 1:
+        return f"--serve needs D >= 1 chunks in flight (got {args.serve})"
+    if args.serve_window_ms < 0:
+        return f"--serve-window-ms must be >= 0 (got {args.serve_window_ms:g})"
+    if args.serve_retries < 0:
+        return f"--serve-retries must be >= 0 (got {args.serve_retries})"
+    if args.serve_deadline_ms < 0:
+        return f"--serve-deadline-ms must be >= 0 (got {args.serve_deadline_ms:g})"
+    if not args.test_batch:
+        return "--serve streams batch-test cases; it requires --test_batch"
+    if args.ensemble:
+        return ("--serve already schedules through the ensemble engine "
+                "(overlapped); drop --ensemble")
+    if args.resync:
+        return ("--resync is not supported with --serve (the batched "
+                "paths have no per-step precision switch)")
+    for cond, msg in extra_refusals:
+        if cond:
+            return msg
+    return None
+
+
+def serve_batch(case_iter, make_solver, engine_kwargs, args):
+    """The --serve driver shared by the batch CLIs: stream parsed rows
+    into a :class:`~nonlocalheatequation_torch.serve.server.ServePipeline`,
+    drain, then feed each returned state back through its Solver's
+    metrics — the same state-feedback contract as --ensemble (the oracle
+    criterion ``error_l2/#points <= threshold`` is computed by the solo
+    path's code).  Supervision knobs ride along (``--serve-retries/
+    --serve-fallback/--serve-deadline-ms/--serve-nan-policy``); a
+    QUARANTINED case is reported loudly on stderr and scored as a failed
+    test (error inf) instead of killing the batch.  Prints the pipeline
+    summary and the one-line JSON metrics dump (failure telemetry
+    included) on stderr; the pipeline's registry backs --metrics-port
+    while the run is live and the final ``metrics_json()`` line becomes
+    the --metrics-out payload.  With the engine on the card, a case the
+    CPU fallback served is not the card's result: it is reported on stderr
+    and scored as failed too.  Returns ``[(error_l2, n)]`` in submission
+    order."""
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+
+    with ServePipeline(depth=args.serve, window_ms=args.serve_window_ms,
+                       retries=args.serve_retries, fallback=args.serve_fallback,
+                       fetch_deadline_ms=args.serve_deadline_ms or None,
+                       nan_policy=args.serve_nan_policy, **engine_kwargs) as pipe:
+        set_live_registry(pipe.registry)
+        pairs = []
+        for row in case_iter:
+            s = make_solver(row)
+            s.test_init()
+            pairs.append((s, pipe.submit(s.ensemble_case())))
+        pipe.drain()
+        print(f"serve: {pipe.report.summary()}", file=sys.stderr)
+        line = pipe.metrics_json()
+        print(line, file=sys.stderr)
+        set_metrics_payload(line)
+        out = []
+        for s, h in pairs:
+            if h.error is not None:
+                print(f"serve: case {h.seq} QUARANTINED: {h.error}", file=sys.stderr)
+                out.append((float("inf"), 1))
+                continue
+            if pipe.on_card and h.route == "fallback":
+                print(f"serve: case {h.seq} served by the CPU fallback while the engine is "
+                      "on the card: not the card's result", file=sys.stderr)
+                out.append((float("inf"), 1))
+                continue
+            s.u = h.result
+            out.append((s.compute_l2(s.nt), int(np.prod(h.case.shape))))
+        return out
+
+
+def add_obs_flags(p: argparse.ArgumentParser):
+    """The obs/ surface shared by the solve CLIs: one trace directory, one
+    metrics file, one scrape port (the JAX CLIs' flags and help, the
+    device capture a torch.profiler one).  All three are opt-in; with none
+    given the observability subsystem stays on its zero-cost disabled path.
+    ``--flight-dir`` is parsed so that it is refused by name
+    (:func:`validate_obs_args`)."""
+    p.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="capture the host-side span timeline (obs/trace.py) AND a torch.profiler "
+             "device capture into DIR — DIR/host_trace.json plus the profiler's Chrome "
+             "trace load side by side in ui.perfetto.dev (ambient NLHEAT_TRACE=DIR does the "
+             "same)")
+    p.add_argument(
+        "--metrics-out", dest="metrics_out", default=None, metavar="FILE",
+        help="atomically write the run's metrics JSON to FILE on exit (the same one-line "
+             "dump --serve/--ensemble print to stderr; the obs registry snapshot "
+             "otherwise); an unwritable path refuses loudly before the solve starts")
+    p.add_argument(
+        "--metrics-port", dest="metrics_port", type=int, default=None, metavar="PORT",
+        help="serve Prometheus text at 127.0.0.1:PORT/metrics and the one-line JSON "
+             "snapshot at /metrics.json while the run is live (PORT 0 picks a free port, "
+             "printed to stderr); bound to the serving pipeline's registry during --serve")
+    p.add_argument(
+        "--flight-dir", dest="flight_dir", default=None, metavar="DIR",
+        help="not ported yet: the crash flight recorder (obs/flightrec.py of the JAX "
+             "package); refused")
+
+
+def validate_obs_args(args) -> str | None:
+    """The obs flags' checks in the JAX words (the caller prints the
+    message and exits 1).  The --metrics-out probe runs BEFORE the solve: a
+    typo'd path must refuse up front, not discard an hour of work at the
+    final write."""
+    if getattr(args, "flight_dir", None):
+        return ("--flight-dir is not ported yet to nonlocalheatequation_torch (the crash "
+                "flight recorder)")
+    port = getattr(args, "metrics_port", None)
+    if port is not None and not 0 <= port <= 65535:
+        return f"--metrics-port must be in [0, 65535] (got {port})"
+    path = getattr(args, "metrics_out", None)
+    if path:
+        if os.path.isdir(path):
+            # a sibling probe would pass but the final os.replace onto a
+            # directory cannot — refuse now, not after the solve
+            return f"--metrics-out {path!r} is a directory, not a file"
+        # same-directory probe, the tmp naming of utils/checkpoint.atomic_file
+        # (the final write reuses it), hostname included so ranks on hosts
+        # sharing a filesystem never unlink each other's probe
+        probe = f"{path}.tmp.probe.{socket.gethostname()}.{os.getpid()}"
+        try:
+            with open(probe, "w"):
+                pass
+            os.unlink(probe)
+        except OSError as e:
+            return f"--metrics-out {path!r} is not writable: {e}"
+    if (getattr(args, "trace", None) or os.environ.get("NLHEAT_TRACE")) \
+            and getattr(args, "profile", None):
+        # two profiler captures cannot nest: --trace DIR already holds the
+        # device capture (the words are the JAX CLI's)
+        return ("--trace already captures the jax.profiler device "
+                "timeline into its directory; drop --profile (or use "
+                "--profile alone for a device-only capture)")
+    return None
+
+
+#: Holders obs_session reads at exit: the --metrics-out payload a batch
+#: driver recorded (serve_batch / ensemble_runner), and the live registry
+#: the --metrics-port endpoint follows while a pipeline runs.
+_metrics_payload: list = [None]
+_live_registry: list = [None]
+
+
+def set_metrics_payload(line: str) -> None:
+    """Record the metrics JSON --metrics-out should persist (the same line
+    the batch drivers print to stderr)."""
+    _metrics_payload[0] = line
+
+
+def set_live_registry(registry) -> None:
+    """Point the --metrics-port scrape endpoint at a live registry (the
+    serving pipeline's / the ensemble report's own backing store, so a
+    scrape mid-run and the final dump agree by construction)."""
+    _live_registry[0] = registry
+
+
+def _scrape_registry():
+    if _live_registry[0] is not None:
+        return _live_registry[0]
+    from nonlocalheatequation_torch.obs.metrics import REGISTRY
+
+    return REGISTRY
+
+
+def publish_solve_metrics(tag: str, elapsed_s: float, points: int, steps: int,
+                          error_l2=None) -> None:
+    """Mirror one solo solve's outcome into the process registry
+    (``/solve{tag}/...`` gauges) so --metrics-out and --metrics-port expose
+    something meaningful on non-batch runs too.  Never raises."""
+    try:
+        from nonlocalheatequation_torch.obs.metrics import REGISTRY
+
+        REGISTRY.gauge(f"/solve{{{tag}}}/elapsed-s").set(round(elapsed_s, 6))
+        REGISTRY.gauge(f"/solve{{{tag}}}/points").set(int(points))
+        REGISTRY.gauge(f"/solve{{{tag}}}/steps").set(int(steps))
+        if error_l2 is not None:
+            REGISTRY.gauge(f"/solve{{{tag}}}/error-l2").set(float(error_l2))
+    except Exception:  # noqa: BLE001 — observability never raises
+        pass
+
+
+def _publish_batch_metrics(cases_n: int, failed: bool) -> None:
+    """Mirror the batch verdict into the process registry so --metrics-out
+    has a payload on the sequential path too (the serve/ensemble drivers
+    record their full report instead).  Never raises."""
+    try:
+        from nonlocalheatequation_torch.obs.metrics import REGISTRY
+
+        REGISTRY.gauge("/batch/cases").set(int(cases_n))
+        REGISTRY.gauge("/batch/failed").set(int(failed))
+    except Exception:  # noqa: BLE001 — observability never raises
+        pass
+
+
+@contextlib.contextmanager
+def obs_session(args):
+    """The observability lifecycle shared by the solve CLIs: install the
+    span tracer and the torch.profiler capture under one ``--trace DIR``,
+    start the ``--metrics-port`` scrape endpoint, and persist
+    ``--metrics-out`` atomically on the way out.
+
+    ``--trace DIR`` captures BOTH timelines into the same directory — the
+    host-side spans as ``DIR/host_trace.json`` (``host_trace.rank{r}.json``
+    on a rank r > 0 of a multi-process run) and the device-side
+    torch.profiler trace (utils/profiling.py, around the body) — so one
+    Perfetto session shows dispatch scheduling above the kernels.  A failed
+    trace write or a dead scrape endpoint never fails the solve; only the
+    --metrics-out write the user explicitly asked for exits non-zero when
+    it cannot land."""
+    from nonlocalheatequation_torch.obs import trace as obs_trace
+    from nonlocalheatequation_torch.utils import profiling
+
+    trace_dir = getattr(args, "trace", None) or os.environ.get("NLHEAT_TRACE") or None
+    _metrics_payload[0] = None
+    _live_registry[0] = None
+    tracer = prev = server = None
+    if trace_dir:
+        try:
+            os.makedirs(trace_dir, exist_ok=True)
+        except OSError as e:
+            print(f"[obs] --trace {trace_dir!r} cannot be created ({e}); "
+                  "tracing disabled", file=sys.stderr)
+            trace_dir = None
+        else:
+            tracer = obs_trace.Tracer()
+            prev = obs_trace.set_tracer(tracer)
+    port = getattr(args, "metrics_port", None)
+    if port is not None:
+        try:
+            from nonlocalheatequation_torch.obs.export import serve_metrics
+
+            server = serve_metrics(port, _scrape_registry)
+            print(f"metrics: http://127.0.0.1:{server.port}/metrics "
+                  "(Prometheus) and /metrics.json", file=sys.stderr)
+        except OSError as e:
+            print(f"[obs] --metrics-port {port} cannot bind ({e}); "
+                  "scrape endpoint disabled", file=sys.stderr)
+    body_raised = False
+    try:
+        with profiling.trace(trace_dir):
+            yield
+    except BaseException:
+        body_raised = True
+        raise
+    finally:
+        if tracer is not None:
+            obs_trace.set_tracer(prev)
+            from nonlocalheatequation_torch.parallel import multihost
+
+            # a rank > 0 of a multi-process run gets its own file:
+            # concurrent ranks must not clobber rank 0's
+            rank = multihost.process_index()
+            name = f"host_trace.rank{rank}.json" if rank else "host_trace.json"
+            out = os.path.join(trace_dir, name)
+            if tracer.write(out):
+                print(f"trace: {len(tracer)} spans ({tracer.spans_total} lifetime) -> {out}",
+                      file=sys.stderr)
+        if server is not None:
+            server.close()
+        path = getattr(args, "metrics_out", None)
+        if path:
+            payload = _metrics_payload[0]
+            if payload is None:
+                payload = _scrape_registry().snapshot_json()
+            from nonlocalheatequation_torch.utils.checkpoint import atomic_write_text
+
+            try:
+                atomic_write_text(path, payload + "\n")
+                print(f"metrics written to {path}", file=sys.stderr)
+            except OSError as e:
+                # validated up front, so this is a mid-run filesystem
+                # change — still refuse loudly; but never MASK an
+                # exception already propagating out of the solve body
+                print(f"--metrics-out {path!r} failed: {e}", file=sys.stderr)
+                if not body_raised:
+                    raise SystemExit(1) from None
 
 
 def add_stepper_flags(p: argparse.ArgumentParser):
@@ -365,20 +703,38 @@ def parse_batch_cases(read_case, tokens, row_tokens=None):
 
 
 def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6, run_ensemble=None,
-              profile=None, multi: bool = False):
+              profile=None, multi: bool = False, run_serve=None):
     """The reference's batch_tester protocol.  ``read_case`` parses one row
     of ``row_tokens`` tokens; ``run_case(case) -> (error_l2, n)``.  Every
     row is validated before any solve runs.  With ``run_ensemble`` (a
     callable ``cases -> [(error_l2, n)]``, :func:`ensemble_runner`) the
     cases go to the ensemble engine as one submission, under the same pass
-    criterion, instead of the sequential loop.  With ``profile`` (a
-    directory) the whole batch, sequential or ensemble, runs under one
-    ``torch.profiler`` capture (utils/profiling.py).  Under a multi-process
-    launch (``multi``) every rank reads the whole stream first and the
-    ranks' token streams must be identical (the ``"batch input"`` digest),
-    or every rank fails.  Returns the exit code."""
+    criterion, instead of the sequential loop.  With ``run_serve`` (a
+    callable ``case_iter -> [(error_l2, n)]``, :func:`serve_batch`) the
+    cases STREAM: rows are parsed as stdin lines arrive
+    (:func:`iter_batch_cases`) and handed to the serving pipeline
+    incrementally — the only mode that does not validate the whole stream
+    before work starts, because starting work before EOF is its point (a
+    malformed later row still refuses loudly).  With ``profile`` (a
+    directory) the whole batch, sequential, ensemble or served, runs under
+    one ``torch.profiler`` capture (utils/profiling.py).  Under a
+    multi-process launch (``multi``) every rank reads the whole stream
+    first and the ranks' token streams must be identical (the ``"batch
+    input"`` digest), or every rank fails; so streaming refuses several
+    ranks.  Returns the exit code."""
     from nonlocalheatequation_torch.utils import profiling
 
+    if run_serve is not None:
+        if multi:
+            raise SystemExit(
+                "--serve streams stdin incrementally and cannot verify "
+                "rank-identical input; run serving single-process")
+        with profiling.trace(profile):
+            results = run_serve(iter_batch_cases(read_case, row_tokens))
+        failed = any(error_l2 / n > threshold for error_l2, n in results)
+        _publish_batch_metrics(len(results), failed)
+        print("Tests Failed" if failed else "Tests Passed")
+        return 1 if failed else 0
     if multi:
         from nonlocalheatequation_torch.parallel import multihost
 
@@ -399,5 +755,6 @@ def run_batch(read_case, run_case, row_tokens: int, threshold=1e-6, run_ensemble
                 if error_l2 / n > threshold:
                     failed = True
                     break
+    _publish_batch_metrics(len(cases), failed)
     print("Tests Failed" if failed else "Tests Passed")
     return 1 if failed else 0

@@ -8,7 +8,10 @@ A single solve takes ``--log`` (CSV/VTU logs every ``--nlog`` steps,
 utils/csvlog.py) and ``--profile DIR`` (a torch.profiler trace), as the JAX
 CLI does.  ``--method shift|fft`` picks the neighbour sum and ``--stepper
 euler|rkc|expo`` (with ``--superstep-stages``) the time integrator, in every
-mode.
+mode.  ``--test_batch --serve D`` streams the rows through the serving
+pipeline (serve/server.py) with D chunks in flight; ``--trace DIR``,
+``--metrics-out FILE`` and ``--metrics-port PORT`` are the observability
+flags (cli/common.obs_session).
 """
 
 from __future__ import annotations
@@ -22,18 +25,25 @@ import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
     add_ensemble_flag,
+    add_obs_flags,
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_serve_flags,
     add_stepper_flags,
     announce_stable_dt,
     bool_flag,
     ensemble_refusal,
     ensemble_runner,
+    obs_session,
     platform_kwargs,
     precision_kwargs,
+    publish_solve_metrics,
     run_batch,
+    serve_batch,
     stepper_kwargs,
+    validate_obs_args,
+    validate_serve_args,
     validate_stepper_args,
     version_banner,
 )
@@ -66,12 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
     add_platform_flags(p)
     add_precision_flags(p)
     add_ensemble_flag(p)
+    add_serve_flags(p)
+    add_obs_flags(p)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    err = ensemble_refusal(args) or validate_stepper_args(args)
+    err = (ensemble_refusal(args) or validate_stepper_args(args) or validate_serve_args(args)
+           or validate_obs_args(args))
     if err:
         print(err, file=sys.stderr)
         return 1
@@ -81,15 +94,22 @@ def main(argv=None) -> int:
         rc = announce_stable_dt(1, args.k, args.eps, args.dx, args.dt, **sk)
         if rc is not None:
             return rc
-    from nonlocalheatequation_torch.models.solver1d import Solver1D
-
     try:
         kw = {"backend": args.backend, "method": args.method, "nlog": args.nlog,
               **platform_kwargs(args), **precision_kwargs(args), **sk}
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
+    with obs_session(args):
+        return _run(args, kw, sk)
 
+
+def _run(args, kw, sk) -> int:
+    from nonlocalheatequation_torch.models.solver1d import Solver1D
+
+    engine_kw = {"method": "fft" if args.method == "fft" else "auto",
+                 "precision": args.precision, "device": kw["device"], "dtype": kw["dtype"],
+                 **sk}
     if args.test_batch:
         # row: nx nt eps k dt dx  (tests/1d.txt)
         def read_case(toks, pos):
@@ -107,13 +127,14 @@ def main(argv=None) -> int:
             s.do_work()
             return s.error_l2, s.nx
 
-        run_ensemble = None
-        if args.ensemble:
-            run_ensemble = ensemble_runner(
-                make_solver, method="fft" if args.method == "fft" else "auto",
-                precision=args.precision, device=kw["device"], dtype=kw["dtype"], **sk)
+        run_ensemble = ensemble_runner(make_solver, **engine_kw) if args.ensemble else None
+        run_serve = None
+        if args.serve:
+            def run_serve(case_iter):
+                return serve_batch(case_iter, make_solver, engine_kw, args)
+
         return run_batch(read_case, run_case, row_tokens=6, run_ensemble=run_ensemble,
-                         profile=args.profile)
+                         run_serve=run_serve, profile=args.profile)
 
     s = Solver1D(args.nx, args.nt, args.eps, k=args.k, dt=args.dt,
                  dx=args.dx, **kw)
@@ -132,6 +153,8 @@ def main(argv=None) -> int:
     with trace(args.profile):
         u = s.do_work()
     elapsed = time.perf_counter() - t0
+    publish_solve_metrics("1d", elapsed, args.nx, args.nt,
+                          error_l2=s.error_l2 if args.test else None)
     if args.test:
         s.print_error(args.cmp)
     if args.results:

@@ -11,7 +11,10 @@ and out_vtk/, utils/csvlog.py), ``--checkpoint``/``--ncheckpoint``/
 ``--resume`` (utils/checkpoint.py) and ``--profile DIR`` (a torch.profiler
 trace, utils/profiling.py), as the JAX CLI does.  ``--stepper
 euler|rkc|expo`` (with ``--superstep-stages``) picks the time integrator and
-``--method fft`` the spectral apply, in every mode.
+``--method fft`` the spectral apply, in every mode.  ``--test_batch --serve D``
+streams the rows through the serving pipeline (serve/server.py) with D chunks
+in flight; ``--trace DIR``, ``--metrics-out FILE`` and ``--metrics-port PORT``
+are the observability flags (cli/common.obs_session).
 """
 
 from __future__ import annotations
@@ -26,19 +29,26 @@ import numpy as np
 from nonlocalheatequation_torch.cli.common import (
     add_checkpoint_flags,
     add_ensemble_flag,
+    add_obs_flags,
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_serve_flags,
     add_stepper_flags,
     announce_stable_dt,
     bool_flag,
     checkpoint_refusal,
     ensemble_refusal,
     ensemble_runner,
+    obs_session,
     platform_kwargs,
     precision_kwargs,
+    publish_solve_metrics,
     run_batch,
+    serve_batch,
     stepper_kwargs,
+    validate_obs_args,
+    validate_serve_args,
     validate_stepper_args,
     version_banner,
 )
@@ -74,12 +84,18 @@ def build_parser() -> argparse.ArgumentParser:
     add_platform_flags(p)
     add_precision_flags(p)
     add_ensemble_flag(p)
+    add_serve_flags(p)
+    add_obs_flags(p)
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    err = checkpoint_refusal(args) or ensemble_refusal(args) or validate_stepper_args(args)
+    err = (checkpoint_refusal(args) or ensemble_refusal(args) or validate_stepper_args(args)
+           or validate_serve_args(args, [
+               (args.serve and (args.checkpoint or args.resume),
+                "--checkpoint/--resume cannot be combined with --serve")])
+           or validate_obs_args(args))
     if err:
         print(err, file=sys.stderr)
         return 1
@@ -89,15 +105,21 @@ def main(argv=None) -> int:
         rc = announce_stable_dt(2, args.k, args.eps, args.dh, args.dt, **sk)
         if rc is not None:
             return rc
-    from nonlocalheatequation_torch.models.solver2d import Solver2D
-
     try:
         kw = {"method": args.method, "backend": args.backend, "nlog": args.nlog,
               **platform_kwargs(args), **precision_kwargs(args), **sk}
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
+    with obs_session(args):
+        return _run(args, kw, sk)
 
+
+def _run(args, kw, sk) -> int:
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+
+    engine_kw = {"method": args.method, "precision": args.precision, "device": kw["device"],
+                 "dtype": kw["dtype"], **sk}
     if args.test_batch:
         # row: nx ny nt eps k dt dh  (tests/2d.txt)
         def read_case(toks, pos):
@@ -115,13 +137,14 @@ def main(argv=None) -> int:
             s.do_work()
             return s.error_l2, s.nx * s.ny
 
-        run_ensemble = None
-        if args.ensemble:
-            run_ensemble = ensemble_runner(make_solver, method=args.method,
-                                           precision=args.precision, device=kw["device"],
-                                           dtype=kw["dtype"], **sk)
+        run_ensemble = ensemble_runner(make_solver, **engine_kw) if args.ensemble else None
+        run_serve = None
+        if args.serve:
+            def run_serve(case_iter):
+                return serve_batch(case_iter, make_solver, engine_kw, args)
+
         return run_batch(read_case, run_case, row_tokens=7, run_ensemble=run_ensemble,
-                         profile=args.profile)
+                         run_serve=run_serve, profile=args.profile)
 
     s = Solver2D(args.nx, args.ny, args.nt, args.eps, k=args.k, dt=args.dt, dh=args.dh,
                  checkpoint_path=args.checkpoint, ncheckpoint=args.ncheckpoint, **kw)
@@ -142,6 +165,8 @@ def main(argv=None) -> int:
     with trace(args.profile):
         s.do_work()
     elapsed = time.perf_counter() - t0
+    publish_solve_metrics("2d", elapsed, args.nx * args.ny, args.nt,
+                          error_l2=s.error_l2 if args.test else None)
     if args.test:
         s.print_error(args.cmp)
     if args.results:

@@ -20,8 +20,12 @@ checkpoint of either solver resumes in the other) and ``--profile DIR``.
 integrator and ``--method fft`` the spectral apply, on the single-device
 solve and with ``--distributed`` (rkc's stage loop above the exchange; fft
 the sharded spectral tier, which refuses ``--comm fused`` and ``--superstep``
-in the JAX words).  Refused by name, not ported yet: the JAX CLI's serving
-and network flags.
+in the JAX words).  ``--test_batch --serve D`` streams the rows through the
+serving pipeline (serve/server.py) with D chunks in flight (refused with
+``--distributed``, as the JAX CLI refuses it); ``--trace DIR``,
+``--metrics-out FILE`` and ``--metrics-port PORT`` are the observability
+flags (cli/common.obs_session).  Refused by name, not ported yet: the JAX
+CLI's network front door (``--listen``).
 """
 
 from __future__ import annotations
@@ -36,9 +40,11 @@ import numpy as np
 from nonlocalheatequation_torch.cli.common import (
     add_checkpoint_flags,
     add_ensemble_flag,
+    add_obs_flags,
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_serve_flags,
     add_stepper_flags,
     announce_stable_dt,
     bool_flag,
@@ -48,15 +54,19 @@ from nonlocalheatequation_torch.cli.common import (
     ensemble_refusal,
     ensemble_runner,
     guard_multihost_stdin,
+    obs_session,
     precision_kwargs,
+    publish_solve_metrics,
     run_batch,
+    serve_batch,
     stepper_kwargs,
+    validate_obs_args,
+    validate_serve_args,
     validate_stepper_args,
 )
 
 #: the JAX CLI's flags that the port does not have yet -> what they select
 NOT_PORTED = {
-    "--serve": "the serving engine",
     "--listen": "the network front door",
 }
 
@@ -100,6 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_platform_flags(p)
     add_precision_flags(p)
     add_ensemble_flag(p)
+    add_serve_flags(p)
+    add_obs_flags(p)
     return p
 
 
@@ -144,7 +156,12 @@ def _distributed_refusal(args) -> str | None:
 def main(argv=None) -> int:
     p = build_parser()
     args, rest = p.parse_known_args(argv)
-    err = _refusal(args, rest) or checkpoint_refusal(args) or ensemble_refusal(args)
+    err = (_refusal(args, rest) or checkpoint_refusal(args) or ensemble_refusal(args)
+           or validate_serve_args(args, [
+               (args.serve and args.distributed,
+                "--serve runs the serial batched engine; it cannot be combined "
+                "with --distributed")])
+           or validate_obs_args(args))
     if err:
         print(err, file=sys.stderr)
         return 1
@@ -168,6 +185,11 @@ def main(argv=None) -> int:
         rc = announce_stable_dt(3, args.k, args.eps, args.dh, args.dt, **sk)
         if rc is not None:
             return rc
+    with obs_session(args):
+        return _run(args, multi, pkw, sk)
+
+
+def _run(args, multi: bool, pkw: dict, sk: dict) -> int:
     from nonlocalheatequation_torch.models.solver3d import Solver3D
     from nonlocalheatequation_torch.parallel.distributed3d import (
         Solver3DDistributed,
@@ -208,13 +230,16 @@ def main(argv=None) -> int:
             s.do_work()
             return s.error_l2, int(np.prod(s._grid_shape))
 
-        run_ensemble = None
-        if args.ensemble:
-            run_ensemble = ensemble_runner(make_solver, method=args.method,
-                                           precision=args.precision, device=kw["device"],
-                                           dtype=kw["dtype"], **sk)
+        engine_kw = {"method": args.method, "precision": args.precision,
+                     "device": kw["device"], "dtype": kw["dtype"], **sk}
+        run_ensemble = ensemble_runner(make_solver, **engine_kw) if args.ensemble else None
+        run_serve = None
+        if args.serve:
+            def run_serve(case_iter):
+                return serve_batch(case_iter, make_solver, engine_kw, args)
+
         return run_batch(read_case, run_case, row_tokens=8, run_ensemble=run_ensemble,
-                         profile=args.profile, multi=multi)
+                         run_serve=run_serve, profile=args.profile, multi=multi)
 
     try:
         s = solver(args.nx, args.ny, args.nz, args.nt, args.eps, args.k, args.dt, args.dh)
@@ -237,6 +262,8 @@ def main(argv=None) -> int:
     with trace(args.profile):
         s.do_work()
     elapsed = time.perf_counter() - t0
+    publish_solve_metrics("3d", elapsed, args.nx * args.ny * args.nz, args.nt,
+                          error_l2=s.error_l2 if args.test else None)
     if args.test:
         s.print_error(args.cmp)
 

@@ -20,8 +20,10 @@ the edge form's halo, ``--superstep K`` the offsets form's K-step schedule
 (refused where it cannot engage).  Under a multi-process launch
 (cli/solve2d_distributed.py) ``--devices N`` counts each rank's own
 devices, the operator is sharded over every rank's, rank 0 prints and
-writes.  The JAX CLI's observability flags and
-``--program-store`` are refused by name: they are not ported yet.
+writes.  ``--trace DIR``, ``--metrics-out FILE`` and ``--metrics-port PORT``
+are the observability flags (cli/common.obs_session).  The JAX CLI's
+``--flight-dir`` and ``--program-store`` are refused by name: they are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,19 +36,19 @@ import time
 import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
+    add_obs_flags,
     add_platform_flags,
     bool_flag,
     check_same_input_state,
     cli_startup,
     guard_multihost_stdin,
+    obs_session,
+    publish_solve_metrics,
+    validate_obs_args,
 )
 
 #: the JAX CLI's flags that the port does not have yet -> what they select
 NOT_PORTED = {
-    "--trace": "observability",
-    "--metrics-out": "observability",
-    "--metrics-port": "observability",
-    "--flight-dir": "observability",
     "--program-store": "the AOT program store",
 }
 
@@ -85,6 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
               "spatially compact")
     p.add_argument("--no-header", action="store_true", dest="no_header")
     add_platform_flags(p)
+    add_obs_flags(p)
     return p
 
 
@@ -96,7 +99,7 @@ def _refusal(args, rest) -> str | None:
             return f"{name} is not ported yet to nonlocalheatequation_torch ({NOT_PORTED[name]})"
     if args.devices < 1:
         return f"--devices must be >= 1, got {args.devices}"
-    return None
+    return validate_obs_args(args)
 
 
 def mesh_points(path: str) -> np.ndarray:
@@ -139,6 +142,11 @@ def main(argv=None) -> int:
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
+    with obs_session(args):
+        return _run(args, multi, kw)
+
+
+def _run(args, multi: bool, kw: dict) -> int:
     devs = None
     if multi or args.devices > 1:
         from nonlocalheatequation_torch.parallel.mesh import device_list
@@ -209,6 +217,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     s.do_work()
     elapsed = time.perf_counter() - t0
+    publish_solve_metrics("unstructured", elapsed, n, args.nt,
+                          error_l2=s.error_l2 if args.test else None)
 
     u_out = np.asarray(s.u) if inv is None else np.asarray(s.u)[inv]
     if args.test:

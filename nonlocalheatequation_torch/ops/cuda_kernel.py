@@ -143,11 +143,22 @@ def source_coefs(t: int, dt: float) -> tuple:
     return -TWO_PI * math.sin(ang), -math.cos(ang)
 
 
+def to_device(host: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``.  On the card the copy is non-blocking
+    from page-locked memory: a copy from pageable memory synchronises the
+    stream, so a table made while earlier chunks run would wait for their
+    kernels (the serving pipeline's overlap, serve/server.py).  PyTorch's
+    page-locked allocator keeps the buffer until the copy has run."""
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def case_params(scales, dts, dtype, device) -> torch.Tensor:
     """The ``(B, 2)`` table of each case's (scale, dt): the host floats
     rounded once to ``dtype``, as a kernel rounds a by-value argument."""
     pairs = [[float(s), float(d)] for s, d in zip(scales, dts, strict=True)]
-    return torch.tensor(pairs, dtype=torch.float64).to(device=device, dtype=dtype)
+    return to_device(torch.tensor(pairs, dtype=torch.float64).to(dtype), device)
 
 
 def source_coef_table(ts, dts, dtype, device) -> torch.Tensor:
@@ -155,8 +166,8 @@ def source_coef_table(ts, dts, dtype, device) -> torch.Tensor:
     (coef_g, coef_lg) at each integer step of ``ts``: ``source_coefs`` in
     float64 on the host, rounded once to ``dtype`` and copied once."""
     rows = [[list(source_coefs(t, float(dt))) for dt in dts] for t in ts]
-    return torch.tensor(rows, dtype=torch.float64).reshape(len(rows), len(dts), 2).to(
-        device=device, dtype=dtype)
+    return to_device(torch.tensor(rows, dtype=torch.float64).reshape(
+        len(rows), len(dts), 2).to(dtype), device)
 
 
 #: the solo step kernels' device tables, least recently used first; a

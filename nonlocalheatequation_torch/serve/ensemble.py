@@ -41,6 +41,13 @@ composition, ``stacked[{stepper}]`` (models/steppers
 lane b is bitwise the solo solve), and refuses the Euler-only variants
 (carried, superstep, vmap); mesh buckets stay Euler-only.  Not ported yet,
 and refused by name: the AOT program store.
+
+The serving pipeline (serve/server.py) reuses the chunk stages —
+:meth:`EnsembleEngine.pad_chunk`, :meth:`~EnsembleEngine.build_program`,
+:meth:`~EnsembleEngine.stage_inputs`, :meth:`~EnsembleEngine.dispatch_chunk`
+— and takes over the engine's counters through
+:meth:`~EnsembleEngine.adopt_report`; only the schedule changes, so served
+results are bitwise :meth:`EnsembleEngine.run`'s.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch
 
 from nonlocalheatequation_torch.obs import trace as obs_trace
 from nonlocalheatequation_torch.obs.metrics import MetricsRegistry, backed
+from nonlocalheatequation_torch.ops import cuda_kernel as ck
 from nonlocalheatequation_torch.utils.devices import resolve_device, resolve_dtype
 
 #: Allowed chunk sizes, ascending.  Buckets larger than the top size are
@@ -110,6 +118,7 @@ class EnsembleReport:
     buckets = backed("_m_buckets")
     dispatches = backed("_m_dispatches")
     programs_built = backed("_m_programs_built")
+    programs_loaded = backed("_m_programs_loaded")
     padded_cases = backed("_m_padded_cases")
     programs_evicted = backed("_m_programs_evicted")
     programs_resident = backed("_m_programs_resident")
@@ -121,18 +130,25 @@ class EnsembleReport:
         self._m_buckets = r.counter("/ensemble/buckets")
         self._m_dispatches = r.counter("/ensemble/dispatches")
         self._m_programs_built = r.counter("/ensemble/programs-built")
+        # programs materialized without a build: the JAX package's AOT store
+        # hits; always 0 until the store is ported, kept so the dumps' keys
+        # are the JAX package's
+        self._m_programs_loaded = r.counter("/ensemble/programs-loaded")
         self._m_padded_cases = r.counter("/ensemble/padded-cases")
         self._m_programs_evicted = r.counter("/store/evictions")
         self._m_programs_resident = r.gauge("/store/resident-programs")
         self.strategies: dict = {}
 
     def summary(self) -> str:
+        loaded = f" + {self.programs_loaded} loaded" if self.programs_loaded else ""
         return (f"{self.cases} cases -> {self.buckets} buckets, {self.dispatches} dispatches, "
-                f"{self.programs_built} programs built ({self.padded_cases} padding lanes)")
+                f"{self.programs_built} programs built{loaded} "
+                f"({self.padded_cases} padding lanes)")
 
     def metrics(self) -> dict:
         return {"cases": self.cases, "buckets": self.buckets, "dispatches": self.dispatches,
-                "programs_built": self.programs_built, "padded_cases": self.padded_cases,
+                "programs_built": self.programs_built,
+                "programs_loaded": self.programs_loaded, "padded_cases": self.padded_cases,
                 "strategies": {str(k): v for k, v in self.strategies.items()}}
 
     def metrics_json(self) -> str:
@@ -149,14 +165,15 @@ class EnsembleEngine:
     ``ksteps >= 2``), ``stacked`` (each case's solo loop in turn), ``vmap``
     (the parity oracle) or ``auto`` (see the module docstring).  A request
     that cannot engage — carried or superstep on another bucket, or on a
-    test bucket — is refused, never downgraded.
+    test bucket — is refused, never downgraded.  ``batch_sizes`` are the
+    allowed chunk sizes (:data:`BATCH_SIZES` by default).
     """
 
     VARIANTS = ("auto", "per-step", "carried", "superstep", "stacked", "vmap")
     COMMS = ("collective", "fused")
 
     def __init__(self, method: str = "auto", precision: str = "f32", dtype=None,
-                 variant: str = "auto", ksteps: int = 0,
+                 variant: str = "auto", ksteps: int = 0, batch_sizes=BATCH_SIZES,
                  comm: str = "collective", stepper: str = "euler", stages: int = 0,
                  program_store=None, program_cache_cap: int | None = None,
                  store_backend: str | None = None, device=None):
@@ -191,6 +208,9 @@ class EnsembleEngine:
         if program_store is not None or store_backend is not None:
             raise ValueError("the AOT program store (program_store, store_backend) is not "
                              "ported yet to nonlocalheatequation_torch")
+        sizes = tuple(sorted({int(b) for b in batch_sizes}))
+        if not sizes or sizes[0] < 1:
+            raise ValueError(f"bad batch_sizes {batch_sizes!r}")
         cap = program_cache_cap if program_cache_cap is not None else PROGRAM_CACHE_CAP
         if cap < 0:
             raise ValueError(f"program_cache_cap must be >= 0, got {cap}")
@@ -200,6 +220,7 @@ class EnsembleEngine:
         self.dtype = resolve_dtype(dtype, self.device)
         self.variant = variant
         self.ksteps = int(ksteps)
+        self.batch_sizes = sizes
         self.comm = comm
         self.stepper = stepper
         self.stages = int(stages)
@@ -215,7 +236,7 @@ class EnsembleEngine:
         """A fresh engine with this engine's settings except ``overrides``,
         with its own program cache and report."""
         kw = dict(method=self.method, precision=self.precision, dtype=self.dtype,
-                  variant=self.variant, ksteps=self.ksteps,
+                  variant=self.variant, ksteps=self.ksteps, batch_sizes=self.batch_sizes,
                   comm=self.comm, stepper=self.stepper, stages=self.stages,
                   program_cache_cap=self.program_cache_cap, device=self.device)
         kw.update(overrides)
@@ -268,17 +289,18 @@ class EnsembleEngine:
     # -- scheduling ---------------------------------------------------------
     def _chunks(self, idxs):
         """Split a bucket's case indices into top-batch-size runs."""
-        top = BATCH_SIZES[-1]
+        top = self.batch_sizes[-1]
         for start in range(0, len(idxs), top):
             yield idxs[start:start + top]
 
     def pad_chunk(self, chunk: list) -> list:
         """Pad a chunk UP to the smallest allowed batch size that fits by
         repeating its last case (callers drop the padding lanes)."""
-        if len(chunk) > BATCH_SIZES[-1]:
+        if len(chunk) > self.batch_sizes[-1]:
             raise ValueError(f"chunk of {len(chunk)} cases exceeds the top batch size "
-                             f"{BATCH_SIZES[-1]}; split it first (engine._chunks)")
-        B = next(b for b in BATCH_SIZES if b >= len(chunk))
+                             f"{self.batch_sizes[-1]}; split it first (engine._chunks / "
+                             "the serving window do)")
+        B = next(b for b in self.batch_sizes if b >= len(chunk))
         pad = B - len(chunk)
         if pad:
             self.report.padded_cases += pad
@@ -327,10 +349,19 @@ class EnsembleEngine:
             self._programs.move_to_end(prog_key)
         return multi
 
+    def adopt_report(self, report) -> None:
+        """Install a replacement report: the serving pipeline's ServeReport
+        takes over the engine's counters.  (The JAX engine also drops its
+        program store's binding here; the port has no store yet.)"""
+        self.report = report
+
     def stage_inputs(self, chunk) -> torch.Tensor:
-        """The stacked initial state, a fresh tensor on the engine's device."""
-        return torch.as_tensor(np.stack([self._u0(c) for c in chunk])).to(
-            device=self.device, dtype=self.dtype)
+        """The stacked initial state on the engine's device, copied without a
+        fence on the card (:func:`~nonlocalheatequation_torch.ops.cuda_kernel.to_device`):
+        a copy from pageable memory would make staging chunk N+1 wait for
+        chunk N's kernels."""
+        host = torch.from_numpy(np.stack([self._u0(c) for c in chunk])).to(self.dtype)
+        return ck.to_device(host, self.device)
 
     def dispatch_chunk(self, multi, U0):
         """Launch the chunk's program (asynchronous on the card)."""

@@ -237,19 +237,31 @@ def test_cli_single_solve_timing_row_and_failure(monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv,name", [
     (["--ncheckpoint", "3"], None), (["--listen-host=h"], "--listen-host"),
-    (["--serve-deadline-ms=5"], "--serve-deadline-ms"), (["--checkpoint", "x.npz"], None),
-    (["--resume"], None), (["--serve", "2"], "--serve"),
-    (["--serve-retries=1"], "--serve-retries"), (["--listen", "0"], "--listen"),
+    (["--serve-deadline-ms=5"], None), (["--checkpoint", "x.npz"], None),
+    (["--resume"], None), (["--serve", "2"], None),
+    (["--serve-retries=1"], None), (["--listen", "0"], "--listen"),
     (["--profile", "d"], None), (["--method", "fft"], None)])
 def test_cli_refuses_what_is_not_ported_by_name(capsys, tmp_path, monkeypatch, argv, name):
     if name is not None:
         assert solve3d.main(argv + ["--platform", "cpu"]) == 1
         assert capsys.readouterr().err.startswith(f"{name} is not ported yet")
         return
-    # ported since: the flag runs a single solve (rc 0) and writes its file
+    # ported since: the flag runs a single solve (rc 0) and writes its file;
+    # --serve on a single solve gets the JAX refusal, and the supervision
+    # flags alone are accepted (they wait for --serve)
     monkeypatch.chdir(tmp_path)
     base = ["--test", "--platform", "cpu", "--nx", "6", "--ny", "5", "--nz", "4", "--nt", "4",
             "--eps", "1"]
+    if argv == ["--serve", "2"]:
+        assert solve3d.main(base + argv) == 1
+        assert capsys.readouterr().err.strip() == \
+            "--serve streams batch-test cases; it requires --test_batch"
+        return
+    if argv[0].startswith("--serve-"):
+        assert solve3d.main(base + argv) == 0
+        assert "l2: " in capsys.readouterr().out
+        assert not list(tmp_path.iterdir())  # a solve, no file
+        return
     if argv == ["--resume"]:
         assert solve3d.main(base + ["--checkpoint", "x.npz", "--ncheckpoint", "2"]) == 0
         argv = ["--checkpoint", "x.npz", "--resume", "--nt", "6"]

@@ -39,7 +39,10 @@ float64; the sharded unstructured operator's halo forms are bitwise each
 other and its one-device form, and its offsets form and superstep the
 single-device offsets solve.  With a card a rank, the multi-process legs
 (tests/torch_multihost_child.py) run in an nccl group, each bitwise the
-rank's one-card solve.
+rank's one-card solve.  The serving pipeline (serve/server.py) serves
+lanes bitwise the offline engine run, dispatches two chunks with no fence
+between them (explicit or implicit: the staged copy goes through page-locked
+memory), and cycles its breaker through the CPU fallback and back.
 
 The CPU tests hold the plain versions against the JAX package
 (tests/test_torch_kernels.py, test_torch_multistep.py, test_torch_autotune.py,
@@ -47,7 +50,8 @@ test_torch_kernels3d.py, test_torch_3d.py, test_torch_batched_kernels.py,
 test_torch_ensemble.py, test_torch_unstructured.py, test_torch_windowed.py,
 test_torch_gather.py, test_torch_halo.py, test_torch_distributed.py,
 test_torch_steppers.py, test_torch_spectral.py, test_torch_distributed_rkc.py,
-test_torch_spectral_sharded.py, test_torch_unstructured_sharded.py).
+test_torch_spectral_sharded.py, test_torch_unstructured_sharded.py,
+test_torch_serve.py, test_torch_serve_faults.py).
 """
 
 import numpy as np
@@ -1298,3 +1302,170 @@ def test_multihost_legs_over_cards(card, tmp_path, counts):
     legs = 21 if sum(counts) == 4 else 20  # 8 devices: the K=2 superstep does not fit
     for r, out in enumerate(outs):
         assert sum(line.startswith(f"TMH-OK p{r} ") for line in out.splitlines()) == legs, out
+
+
+# -- the serving pipeline (serve/server.py) ---------------------------------------
+
+def _serve_cases(n, shape, nt, eps, seed, test=False):
+    rng = np.random.default_rng(seed)
+    physics = [(1.0, 2e-5, 0.02), (0.5, 3e-5, 0.02)]
+    return [EnsembleCase(shape=shape, nt=nt, eps=eps, k=k, dt=dt, dh=dh, test=test,
+                         u0=None if test else rng.standard_normal(shape))
+            for i in range(n) for k, dt, dh in [physics[i % 2]]]
+
+
+@pytest.mark.cuda
+def test_served_lanes_bitwise_the_offline_run_on_card(card):
+    """A production bucket and a test-form bucket, mixed physics, padding
+    engaged, through ServePipeline on the card: every lane bitwise the
+    offline EnsembleEngine.run(), the same batched_step2d launches, no
+    retry, no fallback chunk, the breaker closed."""
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+
+    cases = (_serve_cases(6, (96, 80), 12, 3, 41)
+             + _serve_cases(3, (64, 64), 10, 5, 42, test=True))
+    offline = EnsembleEngine(method="cuda", device=card, dtype=torch.float32).run(cases)
+    want = ck.launch_counts()["batched_step2d"]
+    ck.reset_launch_counts()
+    with ServePipeline(depth=3, window_ms=10_000.0, method="cuda",
+                       dtype=torch.float32) as pipe:
+        served = pipe.serve_cases(cases)
+    assert pipe.engine.device.type == "cuda"
+    assert ck.launch_counts()["batched_step2d"] == want == 12 + 10
+    for got, ref in zip(served, offline, strict=True):
+        assert np.array_equal(got, ref)
+    res = pipe.metrics()["resilience"]
+    assert (res["retries"], res["fallback_chunks"], res["breaker"]["state"]) == (0, 0, "closed")
+
+
+@pytest.mark.cuda
+def test_pipeline_dispatches_without_a_fence_on_card(card, monkeypatch):
+    """Two chunks in flight: no fence_scalar between their dispatches, one a
+    retire, and no implicit fence either — a spin kernel queued behind the
+    first chunk is still running when the second dispatch (its staging
+    through page-locked memory and its launches) returns, and the stream is
+    busy then.  The second pass, after a warm-up, reuses the programs and
+    the page-locked blocks, as a steady server does."""
+    from nonlocalheatequation_torch.serve import server as srv
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+
+    cases = _serve_cases(16, (512, 512), 20, 8, 43)
+    engine = EnsembleEngine(method="cuda", device=card, dtype=torch.float32)
+    with ServePipeline(engine=engine, depth=2, window_ms=10_000.0) as pipe:
+        warm = pipe.serve_cases(cases)
+    cycles = 10 ** 7
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    torch.cuda._sleep(cycles)
+    t1.record()
+    t1.synchronize()
+    cycles = int(cycles * 500.0 / max(t0.elapsed_time(t1), 1e-3))  # about 500 ms
+    events, probe = [], {}
+    real_fence, real_dispatch = srv.fence_scalar, engine.dispatch_chunk
+    monkeypatch.setattr(srv, "fence_scalar",
+                        lambda x: (events.append("fence"), real_fence(x))[1])
+
+    def dispatch(multi, U0):
+        out = real_dispatch(multi, U0)
+        events.append("dispatch")
+        if "spin" not in probe:
+            torch.cuda._sleep(cycles)
+            probe["spin"] = torch.cuda.Event()
+            probe["spin"].record()
+        else:
+            probe["done"] = probe["spin"].query()
+            probe["idle"] = torch.cuda.current_stream().query()
+        return out
+
+    monkeypatch.setattr(engine, "dispatch_chunk", dispatch)
+    with ServePipeline(engine=engine, depth=2, window_ms=10_000.0) as pipe:
+        served = pipe.serve_cases(cases)
+    assert events == ["dispatch", "dispatch", "fence", "fence"]
+    assert probe["done"] is False and probe["idle"] is False
+    assert pipe.report.max_inflight == 2
+    for got, ref in zip(served, warm, strict=True):
+        assert np.array_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_breaker_cycle_ends_closed_on_card(card):
+    """Two failed device attempts open a threshold-2 breaker; the CPU
+    fallback serves the open window within 1e-12 of the card's lanes (f64,
+    no launch); after the cooldown the half-open probe runs on the card
+    (bitwise, fetched by the deadline's watchdog thread) and closes the
+    breaker."""
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+    from nonlocalheatequation_torch.utils.faults import FaultPlan
+
+    cases = _serve_cases(6, (64, 48), 8, 4, 44)
+    offline = EnsembleEngine(method="cuda", device=card, dtype=torch.float64,
+                             batch_sizes=(2,)).run(cases)
+    ck.reset_launch_counts()
+    clock = [0.0]
+    with ServePipeline(depth=1, window_ms=10_000.0, clock=lambda: clock[0], retries=2,
+                       backoff_ms=0.0, breaker_threshold=2, breaker_cooldown_ms=1000.0,
+                       fetch_deadline_ms=5000.0,
+                       faults=FaultPlan.parse("raise@0x2"), method="cuda",
+                       dtype=torch.float64, batch_sizes=(2,)) as pipe:
+        handles = [pipe.submit(c) for c in cases[:4]]
+        pipe.drain()
+        assert pipe.metrics()["resilience"]["breaker"]["state"] == "open"
+        assert ck.launch_counts()["batched_step2d"] == 0  # the fallback launches nothing
+        clock[0] += 1.5
+        handles += [pipe.submit(c) for c in cases[4:]]
+        pipe.drain()
+    res = pipe.metrics()["resilience"]
+    assert [(t["from"], t["to"]) for t in res["breaker"]["transitions"]] == [
+        ("closed", "open"), ("open", "half-open"), ("half-open", "closed")]
+    assert res["fallback_chunks"] == 2 and res["faults"] == {"error": 2}
+    assert ck.launch_counts()["batched_step2d"] == 8  # the probe chunk
+    for h, ref in zip(handles[:4], offline[:4], strict=True):
+        assert np.abs(h.result - ref).max() <= 1e-12 * np.abs(ref).max()
+    for h, ref in zip(handles[4:], offline[4:], strict=True):
+        assert np.array_equal(h.result, ref)
+
+
+@pytest.mark.cuda
+def test_a_failed_launch_propagates_and_never_falls_back_on_card(card, monkeypatch):
+    """A launch that raises on the card (not an injected fault) is not
+    classified: it propagates out of the pipeline with no retry, no open
+    breaker and no chunk served by the CPU fallback."""
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+
+    engine = EnsembleEngine(method="cuda", device=card, dtype=torch.float64,
+                            batch_sizes=(2,))
+
+    def failed(multi, U0):
+        raise RuntimeError("CUDA error: unspecified launch failure")
+
+    monkeypatch.setattr(engine, "dispatch_chunk", failed)
+    pipe = ServePipeline(engine=engine, depth=2, window_ms=0.0, breaker_threshold=1)
+    assert pipe.on_card
+    with pytest.raises(RuntimeError, match="unspecified launch failure"):
+        with pipe:
+            pipe.serve_cases(_serve_cases(4, (64, 48), 8, 4, 45))
+    res = pipe.metrics()["resilience"]
+    assert (res["faults"], res["retries"], res["fallback_chunks"]) == ({}, 0, 0)
+    assert res["breaker"]["state"] == "closed"
+
+
+@pytest.mark.cuda
+def test_cli_serve_scores_the_fallback_as_failed_on_card(card, monkeypatch, capsys):
+    """solve2d --test_batch --serve on the card: cases the CPU fallback
+    served while the breaker was open are reported and fail the batch."""
+    import io
+    import sys
+
+    from nonlocalheatequation_torch.cli import solve2d
+
+    rows = [(40, 40, 20, 3, 0.2, 0.001, 0.02), (50, 50, 20, 5, 1.0, 0.0005, 0.02)]
+    monkeypatch.setenv("NLHEAT_FAULT_PLAN", "raise@0x3")
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        f"{len(rows)}\n" + "".join(" ".join(map(str, r)) + "\n" for r in rows)))
+    rc = solve2d.main(["--test_batch", "--serve", "1", "--serve-window-ms", "0",
+                       "--serve-retries", "3", "--x64", "1"])
+    out, err = capsys.readouterr()
+    assert rc == 1 and out.splitlines()[-1] == "Tests Failed"
+    for seq in range(len(rows)):
+        assert (f"serve: case {seq} served by the CPU fallback while the engine is on the "
+                "card: not the card's result") in err

@@ -7,13 +7,18 @@
   unstructured solve, a 2-case mesh-bucket ensemble, the distributed
   2D (fused) and 3D solves on meshes of virtual CPU devices, an elastic
   solve that rebalances over 2 virtual CPU devices, a throttled
-  Solver2D (``nd``), a checkpoint round trip and solve2d_async's batch.
+  Solver2D (``nd``), a checkpoint round trip, solve2d_async's batch, a
+  2-case stream through the serving pipeline (under a fault plan, with a
+  tracer and the event log) and solve2d's ``--serve``.
 * No source file of the port names either package in an import; the
-  distributed slice's modules (parallel/multihost.py among them) and the
-  multi-process test child are among them.
+  distributed slice's modules (parallel/multihost.py among them), the
+  serving slice's (serve/server.py, serve/resilience.py, utils/faults.py,
+  obs/export.py, obs/metrics.py, obs/trace.py) and the multi-process test
+  child are among them.
 * ``init_from_env`` with no launch signal never wires a process group.
 * The entry points default to the card: without one they raise (or the
-  CLIs exit 2), the distributed solvers, meshes and CLIs included.
+  CLIs exit 2), the distributed solvers, meshes and CLIs included, and so
+  do ``ServePipeline()`` and ``--serve`` on the batch CLIs.
 * chip_smoke.py on a host without a CUDA card exits non-zero and prints no
   result line.
 """
@@ -53,7 +58,7 @@ for kw in (dict(dt=1e-4, method="cuda", stepper="rkc", stages=4),
     s.test_init()
     s.do_work()
     assert s.error_l2 / 24**2 <= 1e-6, (kw, s.error_l2)
-from nonlocalheatequation_torch.serve.ensemble import run_test_cases, EnsembleCase
+from nonlocalheatequation_torch.serve.ensemble import run_test_cases, EnsembleCase, EnsembleEngine
 errs = run_test_cases([EnsembleCase(shape=(20, 18), nt=4, eps=3, k=k, dt=1e-4, dh=0.05)
                        for k in (1.0, 0.5)], method="cuda", device="cpu")
 assert all(e / n <= 1e-6 for e, n in errs), errs
@@ -110,6 +115,24 @@ import io
 from nonlocalheatequation_torch.cli import solve2d_async
 sys.stdin = io.StringIO("1\\n1 1 20 40 5 0.2 0.001 0.02\\n")
 assert solve2d_async.main(["--test_batch", "--platform", "cpu"]) == 0
+from nonlocalheatequation_torch.obs.trace import Tracer
+from nonlocalheatequation_torch.serve.server import ServePipeline
+from nonlocalheatequation_torch.utils.faults import FaultPlan
+os.environ["NLHEAT_EVENT_LOG"] = os.path.join(tempfile.mkdtemp(), "events.jsonl")
+cases = [EnsembleCase(shape=(16, 16), nt=3, eps=2, k=k, dt=1e-4, dh=0.05, test=False,
+                      u0=np.full((16, 16), 1.0)) for k in (1.0, 0.5)]
+tracer = Tracer()
+with ServePipeline(depth=2, window_ms=0.0, device="cpu", method="cuda", retries=1,
+                   backoff_ms=0.0, faults=FaultPlan.parse("raise@0"), tracer=tracer) as pipe:
+    served = pipe.serve_cases(cases)
+want = EnsembleEngine(device="cpu", method="cuda").run(cases)
+assert all(np.array_equal(a, b) for a, b in zip(served, want))
+assert pipe.report.retries == 1 and tracer.spans_total > 0
+assert pipe.registry.prometheus().startswith("# TYPE")
+del os.environ["NLHEAT_EVENT_LOG"]
+from nonlocalheatequation_torch.cli import solve2d
+sys.stdin = io.StringIO("2\\n20 20 5 3 1 0.0005 0.05\\n20 20 5 3 0.5 0.0005 0.05\\n")
+assert solve2d.main(["--test_batch", "--serve", "2", "--platform", "cpu"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "nonlocalheatequation_tpu"))
                for m, v in sys.modules.items() if v is not None)
 print("imported", len(names))
@@ -120,7 +143,7 @@ def test_port_imports_and_solves_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=REPO, capture_output=True,
                        text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 31
+    assert int(r.stdout.split()[-1]) >= 35
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -159,6 +182,56 @@ def test_the_distributed_slice_imports_neither_package():
         else:
             assert "nonlocalheatequation_torch" in roots or "torch" in roots, rel
         assert not roots & {"jax", "jaxlib", "nonlocalheatequation_tpu"}, (rel, roots)
+
+
+SERVING_SLICE = ("serve/server.py", "serve/resilience.py", "utils/faults.py", "obs/export.py",
+                 "obs/metrics.py", "obs/trace.py", "cli/common.py")
+#: the port's copies of JAX modules that need neither JAX nor torch
+STDLIB_NUMPY_ONLY = {"serve/resilience.py": {"__future__", "time", "collections"},
+                     "utils/faults.py": {"__future__", "os", "threading", "dataclasses", "numpy"},
+                     "obs/export.py": {"__future__", "heapq", "json", "os", "sys", "threading",
+                                       "time", "http"},
+                     "obs/metrics.py": {"__future__", "json", "re", "threading", "collections",
+                                        "numpy"},
+                     "obs/trace.py": {"__future__", "json", "os", "socket", "sys", "threading",
+                                      "time", "collections"}}
+
+
+def test_the_serving_slice_imports_neither_package():
+    for rel in SERVING_SLICE:
+        tree = ast.parse((PKG / rel).read_text(), rel)
+        roots = {(a.name if isinstance(node, ast.Import) else node.module or "").split(".")[0]
+                 for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+                 for a in (node.names if isinstance(node, ast.Import) else [node])}
+        assert not roots & {"jax", "jaxlib", "nonlocalheatequation_tpu"}, (rel, roots)
+        if rel in STDLIB_NUMPY_ONLY:
+            assert roots == STDLIB_NUMPY_ONLY[rel], (rel, roots)
+
+
+def test_serving_entry_points_default_to_the_card(monkeypatch, capsys):
+    import io
+
+    import torch
+
+    from nonlocalheatequation_torch.cli import solve1d, solve2d, solve3d
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+
+    if torch.cuda.is_available():
+        with ServePipeline(depth=1) as pipe:
+            assert pipe.engine.device.type == "cuda"
+        return
+    try:
+        ServePipeline(depth=2)
+    except RuntimeError as e:
+        assert "is_available() is false" in str(e)
+    else:
+        raise AssertionError("ServePipeline ran on the CPU without being asked to")
+    for main, row in ((solve1d.main, "50 45 5 1.0 0.001 0.02"),
+                      (solve2d.main, "50 50 45 5 1.0 0.0005 0.02"),
+                      (solve3d.main, "8 8 8 4 2 1.0 0.0005 0.1")):
+        monkeypatch.setattr("sys.stdin", io.StringIO(f"1\n{row}\n"))
+        assert main(["--test_batch", "--serve", "2"]) == 2
+        assert "is_available() is false" in capsys.readouterr().err
 
 
 def test_distributed_entry_points_default_to_the_card():

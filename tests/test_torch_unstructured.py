@@ -399,7 +399,7 @@ def test_cli_matches_the_jax_solve(name, layout, tmp_path):
     assert np.array_equal(data["Points"].reshape(-1, 3)[:, :2], op.points)
 
 
-def test_cli_results_input_and_refusals(monkeypatch):
+def test_cli_results_input_and_refusals(monkeypatch, tmp_path):
     op, _ = _jax_expected("10x10", "edges", nt=5)
     u0 = np.random.default_rng(3).normal(size=op.n)
     monkeypatch.setattr(sys, "stdin", io.StringIO(" ".join(f"{v:.17g}" for v in u0)))
@@ -412,13 +412,16 @@ def test_cli_results_input_and_refusals(monkeypatch):
     vals = [float(v) for v in out.splitlines()[2:2 + op.n]]
     assert np.allclose(vals, js.u, rtol=1e-5, atol=1e-6)  # printed with %g
     assert "OS_Threads" not in out
+    trace_dir = str(tmp_path)
     for argv, what in (
         (["--devices", "2", "--superstep", "2"], "does not fit the sharded offsets form"),
         (["--halo", "export", "--superstep", "2"], "on a ShardedUnstructuredOp"),
         (["--superstep", "2"], "on a ShardedUnstructuredOp (offsets layout)"),
-        (["--trace", "d"], "--trace is not ported yet"),
-        (["--metrics-out", "m.json"], "--metrics-out is not ported yet"),
-        (["--metrics-port", "0"], "--metrics-port is not ported yet"),
+        # ported since: --trace writes its host trace (rc 0), --metrics-out
+        # and --metrics-port get the JAX refusals of a bad value
+        (["--trace", trace_dir], f"-> {tmp_path / 'host_trace.json'}"),
+        (["--metrics-out", trace_dir], f"--metrics-out {trace_dir!r} is a directory"),
+        (["--metrics-port", "70000"], "--metrics-port must be in [0, 65535] (got 70000)"),
         (["--flight-dir", "d"], "--flight-dir is not ported yet"),
         (["--program-store", "d"], "--program-store is not ported yet"),
         (["--gang-order", "1", "--devices", "4", "--superstep", "2"],
@@ -427,4 +430,6 @@ def test_cli_results_input_and_refusals(monkeypatch):
         err = io.StringIO()
         monkeypatch.setattr(sys, "stderr", err)
         rc, _ = _run_cli(["--mesh", "data/10x10.msh", "--test", "--platform", "cpu", *argv])
-        assert rc == 1 and what in err.getvalue(), (argv, err.getvalue())
+        assert rc == (0 if argv[0] == "--trace" else 1), (argv, err.getvalue())
+        assert what in err.getvalue(), (argv, err.getvalue())
+    assert (tmp_path / "host_trace.json").exists()
