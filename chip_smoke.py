@@ -260,9 +260,32 @@ line is printed; the phase walls are printed at the end):
    torch.profiler trace); (d) two test-form cases on the shuffled 512^2
    cloud through the pipeline, bitwise the offline gather_L run.  Counted:
    every part.
+16. (Run after phase 15.) The leaves of the fleet (phase_fleet_leaves:
+   serve/program_store.py, obs/slo.py, serve/picker.py, obs/flightrec.py):
+   (a) with NLHEAT_PROGRAM_STORE on an empty store and NLHEAT_TUNE_BATCH=1,
+   phase 15's stream (16 x 1024^2 f32, 200 steps, depth 2) and a tuned
+   Solver2D at 512^2, eps=8, f32, 500 steps, cold: probes, misses, the
+   libraries and program entries saved; then a child process from a copy of
+   the package with no _build/, NLHEAT_AUTOTUNE_CACHE="" and no nvcc
+   reachable (PATH without it, CUDA_HOME empty) boots from the store: no
+   nvcc run, no probe, only the recorded winners' launches, programs
+   loaded, every state bitwise the cold boot's; its wall from spawn to the
+   first retired chunk beside phase 1's nvcc wall for the libraries it
+   restored; a program entry with a rewritten fingerprint is refused loudly
+   and rebuilt bitwise.  (b) The stream with every case picked
+   (pick_engine over record_rate_fn, a tight accuracy: Euler, 200 steps),
+   the SLO ledger off and on: the same dispatches and fences (spies), the
+   states bitwise, every promise resolved once, the live per-apply rate
+   written under the B6 key.  (c) The 1024^2 test form to the horizon of
+   500 Euler steps, picked over the live records and served: error_l2/#points
+   <= 1e-6 with the launches its stepper predicts; a mesh-axis pick on the
+   shuffled 512^2 cloud served through gather_L.  (d) solve2d --serve 2
+   --flight-dir under raise@1,stall@3,nan@c6x* writes a postmortem naming
+   case 6; a solve2d child SIGTERMed leaves a sigterm dump.  Counted: every
+   part, the child's launches too.
 9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10, 11,
-   12, 13 and 15, the other kernels' those of their phases and of phases
-   10-15), then {"ok": true, "device": {...}}.
+   12, 13, 15 and 16, the other kernels' those of their phases and of phases
+   10-16), then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -4574,6 +4597,417 @@ def phase_serve(torch, np, ck, cases_2d, cases_1d, l2_threshold) -> dict:
     return by
 
 
+# -- phase 16: the leaves of the fleet -----------------------------------------------
+
+FLEET_SOLO_STEPS = 500    # (a) the tuned solo leg: Solver2D at 512^2, eps=8, f32
+FLEET_HORIZON = 500       # (c) the test form's horizon: 500 Euler steps at 0.8x the bound
+FLEET_MESH_STEPS = 20     # (c) steps of the picked mesh case
+FLEET_CHILD_TIMEOUT = 300  # seconds the warm-boot child may run
+
+
+def fleet_stream(np, dt=None) -> list:
+    """Phase 15's stream made anew from the seed: SERVE_CASES production
+    cases of 1024^2, eps=8, two physics, SERVE_STEPS steps; with ``dt`` every
+    case steps at that dt (a picked schedule)."""
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
+
+    dh = 1.0 / SERVE_N
+    phys = [(k, euler_dt(dh, k, frac)) for k, frac in SERVE_PHYSICS]
+    rng = np.random.default_rng(SEED + 16)
+    return [EnsembleCase(shape=(SERVE_N, SERVE_N), nt=SERVE_STEPS, eps=EPS, k=phys[i % 2][0],
+                         dt=phys[i % 2][1] if dt is None else dt, dh=dh, test=False,
+                         u0=rng.standard_normal((SERVE_N, SERVE_N)))
+            for i in range(SERVE_CASES)]
+
+
+def sha16(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
+
+
+def fleet_boot(torch, np, ck) -> dict:
+    """One boot of phase 16 (a): the tuned stream through ServePipeline(depth
+    2) and the tuned solo Solver2D at 512^2, each leg's launches, states'
+    digests, programs and the tuner winners it ran; ``t_first`` is the wall
+    clock when the first chunk had retired."""
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleEngine
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+    from nonlocalheatequation_torch.utils import autotune
+
+    out = {}
+    cases = fleet_stream(np)
+    before = ck.launch_counts()
+    with ServePipeline(engine=EnsembleEngine(method="cuda", device="cuda",
+                                             dtype=torch.float32),
+                       depth=2, window_ms=5.0) as pipe:
+        handles = [pipe.submit(c) for c in cases]
+        handles[0].wait()
+        out["t_first"] = time.time()
+        pipe.drain()
+    out["stream_launches"] = {k: v - before[k] for k, v in ck.launch_counts().items()
+                              if v != before[k]}
+    out["stream"] = [sha16(h.result) for h in handles]
+    m = pipe.metrics()
+    out["programs"] = {"built": m["programs_built"], "loaded": m["programs_loaded"]}
+    out["strategies"] = sorted(set(pipe.report.strategies.values()))
+    out["store"] = {k: m["store"][k] for k in ("hits", "misses", "saves", "refusals")}
+    recs = autotune.records()
+    out["stream_winner"] = recs[autotune.batched_key(
+        [NonlocalOp2D(EPS, 1.0, 1.0, 1.0 / SERVE_N)] * ENS_B, (SERVE_N, SERVE_N),
+        torch.float32, "cuda")]["winner"]
+    dh = 1.0 / SMALL
+    s = Solver2D(SMALL, SMALL, FLEET_SOLO_STEPS, EPS, k=1.0, dt=euler_dt(dh), dh=dh,
+                 method="cuda", dtype=torch.float32, device="cuda")
+    s.input_init(np.random.default_rng(SEED + 161).standard_normal((SMALL, SMALL)))
+    before = ck.launch_counts()
+    u = s.do_work()
+    out["solo_launches"] = {k: v - before[k] for k, v in ck.launch_counts().items()
+                            if v != before[k]}
+    out["solo"] = sha16(u)
+    out["solo_winner"] = autotune.records()[autotune.tuning_key(
+        s.op, (SMALL, SMALL), torch.float32, "cuda")]["winner"]
+    return out
+
+
+def fleet_child_main(out_path: str) -> int:
+    """phase 16 (a)'s warm-boot child (``chip_smoke.py --fleet-child OUT``,
+    run from a copy of the package with no _build/): one fleet_boot, the
+    nvcc runs counted, its report written to OUT as JSON."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from nonlocalheatequation_torch.ops import _build
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+
+    had_build = _build.BUILD_DIR.exists()
+    nvcc = []
+    real = _build.find_nvcc
+    _build.find_nvcc = lambda: nvcc.append(1) or real()
+    rep = fleet_boot(torch, np, ck)
+    rep.update(nvcc_runs=len(nvcc), had_build=had_build,
+               restored=sorted(p.name for p in _build.BUILD_DIR.glob("*.so")))
+    Path(out_path).write_text(json.dumps(rep))
+    return 0
+
+
+def rewrite_fingerprint(path: Path, ps) -> None:
+    """Rewrite the torch version in a program store entry's header (the
+    payload and its CRC untouched): a load must then refuse it."""
+    raw = path.read_bytes()
+    body = raw[len(ps.MAGIC):]
+    hlen = int.from_bytes(body[:8], "little")
+    header = json.loads(body[8:8 + hlen])
+    header["fingerprint"]["torch"] = "0.0.0"
+    new = json.dumps(header).encode()
+    path.write_bytes(ps.MAGIC + len(new).to_bytes(8, "little") + new + body[8 + hlen:])
+
+
+def entry_key(path: Path, ps) -> str:
+    body = path.read_bytes()[len(ps.MAGIC):]
+    return json.loads(body[8:8 + int.from_bytes(body[:8], "little")])["key"]
+
+
+def phase_fleet_leaves(torch, np, ck, cases_2d, built) -> dict:
+    """Phase 16 (see the module docstring): the program store's warm boot,
+    the SLO ledger on the served stream, picked engines served, the flight
+    recorder's postmortems.  ``built`` is phase 1's nvcc walls by source.
+    Returns the launches by part."""
+    import shutil
+    import signal
+
+    from nonlocalheatequation_torch.cli import solve2d
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+    from nonlocalheatequation_torch.serve import program_store as ps
+    from nonlocalheatequation_torch.serve import server as srv
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase, EnsembleEngine
+    from nonlocalheatequation_torch.serve.meshes import MeshStore, get_mesh_op
+    from nonlocalheatequation_torch.serve.picker import (
+        ERR_SAFETY,
+        modeled_error,
+        pick_engine,
+        record_rate_fn,
+    )
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+    from nonlocalheatequation_torch.utils import autotune
+
+    card = nvidia_smi("name,power.limit")
+    name = torch.cuda.get_device_name(0)
+    f32 = torch.float32
+    by, walls = {}, {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="phase16-"))
+    saved_env = {k: os.environ.get(k) for k in ("NLHEAT_PROGRAM_STORE", "NLHEAT_TUNE_BATCH",
+                                                "NLHEAT_AUTOTUNE_CACHE", "NLHEAT_FAULT_PLAN",
+                                                "NLHEAT_MESH_DIR")}
+    # (d)'s SIGTERM child starts first: by (d) it blocks on its stdin, armed
+    sig_dir = tmp / "sigterm"
+    sig = subprocess.Popen([sys.executable, "-m", "nonlocalheatequation_torch.cli.solve2d",
+                            *CLI_ARGS, "--serve", "2", "--flight-dir", str(sig_dir)],
+                           cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    CHILDREN.append(sig)
+    try:
+        store_dir = tmp / "store"
+        os.environ.update(NLHEAT_PROGRAM_STORE=str(store_dir), NLHEAT_TUNE_BATCH="1",
+                          NLHEAT_AUTOTUNE_CACHE=str(tmp / "autotune.json"))
+        autotune.reset()
+        # (a) the cold boot, then the warm child
+        cold = launches_of(ck, by, "16a cold boot", lambda: fleet_boot(torch, np, ck))
+        by["16a cold stream"], by["16a cold solo"] = (cold.pop("stream_launches"),
+                                                      cold.pop("solo_launches"))
+        del by["16a cold boot"]
+        entries = sorted(store_dir.glob("*" + ps.PROGRAM_SUFFIX))
+        libs = sorted(store_dir.glob("*" + ps.LIBRARY_SUFFIX))
+        if cold["programs"] != {"built": 1, "loaded": 0} or len(entries) != 2 or not libs:
+            fail(f"phase 16 (a) cold boot: programs {cold['programs']}, {len(entries)} "
+                 f"program and {len(libs)} library entries, store {cold['store']}")
+        tree = tmp / "tree"
+        shutil.copytree(ROOT / "nonlocalheatequation_torch", tree / "nonlocalheatequation_torch",
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copy(ROOT / "chip_smoke.py", tree / "chip_smoke.py")
+        (tmp / "no_cuda").mkdir()
+        path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                               if d and not os.access(os.path.join(d, "nvcc"), os.X_OK))
+        env = dict(os.environ, NLHEAT_PROGRAM_STORE=str(store_dir), NLHEAT_AUTOTUNE_CACHE="",
+                   NLHEAT_TUNE_BATCH="1", PATH=path, CUDA_HOME=str(tmp / "no_cuda"),
+                   PYTHONPATH=str(tree))
+        report = tmp / "child.json"
+        t_spawn = time.time()
+        child = subprocess.Popen([sys.executable, "chip_smoke.py", "--fleet-child",
+                                  str(report)], cwd=tree, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(child)
+        try:
+            c_out, c_err = child.communicate(timeout=FLEET_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            c_out, c_err = child.communicate()
+            fail(f"phase 16 (a): the warm-boot child ran past {FLEET_CHILD_TIMEOUT} s: "
+                 f"{c_err[-3000:]}")
+        if child.returncode != 0 or not report.exists():
+            fail(f"phase 16 (a): the warm-boot child exited {child.returncode}: "
+                 f"{c_err[-4000:]}")
+        warm = json.loads(report.read_text())
+        by["16a warm child stream"] = warm["stream_launches"]
+        by["16a warm child solo"] = warm["solo_launches"]
+        chunks = SERVE_CASES // ENS_B
+        kernel, per = variant_launches(warm["stream_winner"], SERVE_STEPS)
+        want_stream = {kernel: per * chunks}
+        want_solo = dict([variant_launches(warm["solo_winner"], FLEET_SOLO_STEPS)])
+        bad = []
+        if warm["nvcc_runs"] or warm["had_build"]:
+            bad.append(f"nvcc runs {warm['nvcc_runs']}, _build present {warm['had_build']}")
+        if warm["stream_launches"] != want_stream or warm["solo_launches"] != want_solo:
+            bad.append(f"launches {warm['stream_launches']} / {warm['solo_launches']}, the "
+                       f"winners' {want_stream} / {want_solo}")
+        if warm["programs"]["loaded"] < 1 or warm["programs"]["built"] != 0:
+            bad.append(f"programs {warm['programs']}, strategies {warm['strategies']}")
+        if warm["stream"] != cold["stream"] or warm["solo"] != cold["solo"]:
+            bad.append("a state differs from the cold boot's")
+        if (warm["stream_winner"], warm["solo_winner"]) != (cold["stream_winner"],
+                                                            cold["solo_winner"]):
+            bad.append(f"winners {warm['stream_winner']}/{warm['solo_winner']}, cold "
+                       f"{cold['stream_winner']}/{cold['solo_winner']}")
+        if bad:
+            fail(f"phase 16 (a) warm boot: {'; '.join(bad)}\n{c_err[-2000:]}")
+        restored = [s for s in built if any(r.startswith(f"lib{Path(s).stem}-")
+                                            for r in warm["restored"])]
+        nvcc_wall = max(built[s] for s in restored) if restored else 0.0
+        say(f"{card}: phase 16 (a) cold boot (empty store): stream {by['16a cold stream']} "
+            f"(probes and winner {cold['stream_winner']}), solo 512^2 {by['16a cold solo']} "
+            f"(winner {cold['solo_winner']}), store {json.dumps(cold['store'])}, "
+            f"{len(entries)} program and {len(libs)} library entries; warm child (no _build, "
+            f"no nvcc, NLHEAT_AUTOTUNE_CACHE=''): nvcc runs {warm['nvcc_runs']}, stream "
+            f"{warm['stream_launches']}, solo {warm['solo_launches']}, programs "
+            f"{json.dumps(warm['programs'])}, strategies {warm['strategies']}, libraries "
+            f"restored {warm['restored']}, every state bitwise the cold boot's; wall from spawn "
+            f"to the first retired chunk {warm['t_first'] - t_spawn:.2f} s, phase 1's nvcc "
+            f"wall for {restored} {nvcc_wall:.1f} s")
+        # a program entry with a rewritten fingerprint: refused loudly, rebuilt bitwise
+        stream_entry = next(e for e in entries if f"({SERVE_N}, {SERVE_N})" in entry_key(e, ps))
+        rewrite_fingerprint(stream_entry, ps)
+        autotune.reset()
+        cases = fleet_stream(np)
+        reng = EnsembleEngine(method="cuda", device="cuda", dtype=f32)
+        with ServePipeline(engine=reng, depth=2, window_ms=5.0) as rpipe:
+            rstates = launches_of(ck, by, "16a refused entry", lambda: rpipe.serve_cases(cases))
+        rstore = rpipe.metrics()["store"]
+        if rstore["refusals"] != {ps.REFUSE_FINGERPRINT: 1} or rstore["hits"] != 0 \
+                or [sha16(u) for u in rstates] != cold["stream"]:
+            fail(f"phase 16 (a) rewritten fingerprint: store {json.dumps(rstore)}")
+        say(f"{card}: phase 16 (a) the stream's program entry with a rewritten fingerprint: "
+            f"refusals {rstore['refusals']}, rebuilt ({by['16a refused entry']}), bitwise the "
+            "cold boot")
+        walls["a"] = time.perf_counter() - t_phase
+        for k in ("NLHEAT_PROGRAM_STORE", "NLHEAT_TUNE_BATCH"):
+            del os.environ[k]
+
+        # (b) the SLO ledger on the picked stream
+        dh = 1.0 / SERVE_N
+        dt_t = euler_dt(dh, 1.0, 0.6)
+        T = SERVE_STEPS * dt_t
+        acc = ERR_SAFETY * modeled_error(2, T, dt_t) * (1.0 + 1e-9)
+        rate = record_rate_fn(name)
+        picks = [pick_engine((SERVE_N, SERVE_N), EPS, k, dh, T, acc, method="cuda",
+                             allow_fft=False, rate_fn=rate) for k, _ in SERVE_PHYSICS]
+        if {(p.stepper, p.stages, p.method, p.precision, p.steps) for p in picks} != {
+                ("euler", 0, "cuda", "f32", SERVE_STEPS)} or picks[0].dt != picks[1].dt:
+            fail(f"phase 16 (b): the picks {[p.wire() for p in picks]}")
+        pcases = fleet_stream(np, dt=picks[0].dt)
+
+        def slo_stream(slo):
+            eng = EnsembleEngine(method="cuda", device="cuda", dtype=f32)
+            events = []
+            real_fence, real_dispatch = srv.fence_scalar, eng.dispatch_chunk
+            srv.fence_scalar = lambda x: (events.append("fence"), real_fence(x))[1]
+            eng.dispatch_chunk = lambda m, U: (events.append("dispatch"),
+                                               real_dispatch(m, U))[1]
+            try:
+                with ServePipeline(engine=eng, depth=2, window_ms=5.0, slo=slo) as pipe:
+                    hs = [pipe.submit(c, engine=picks[i % 2]) for i, c in enumerate(pcases)]
+                    pipe.drain()
+            finally:
+                srv.fence_scalar = real_fence
+            return events, [h.result for h in hs], pipe.metrics()
+
+        off_events, off_states, _ = launches_of(ck, by, "16b stream, ledger off",
+                                                lambda: slo_stream(False))
+        on_events, on_states, on_m = launches_of(ck, by, "16b stream, ledger on",
+                                                 lambda: slo_stream(True))
+        s = on_m["slo"]
+        want_b6 = {"batched_step2d": chunks * SERVE_STEPS}
+        if on_events != off_events or on_events != ["dispatch"] * chunks + ["fence"] * chunks \
+                or by["16b stream, ledger on"] != want_b6 != by["16b stream, ledger off"] \
+                or any(not np.array_equal(a, b) for a, b in zip(on_states, off_states)):
+            fail(f"phase 16 (b): events {on_events} (off {off_events}), launches "
+                 f"{by['16b stream, ledger on']}, or a state not bitwise the ledger-off run")
+        if (s["promised"], s["resolved"], s["open"], s["duplicate"], s["unmatched"]) != (
+                SERVE_CASES, SERVE_CASES, 0, 0, 0):
+            fail(f"phase 16 (b): the ledger {json.dumps(s)}")
+        live_key = autotune.record_key(name, "cuda", (SERVE_N, SERVE_N), EPS, "float32")
+        live = (autotune._load_file_cache().get(live_key) or {}).get("live")
+        if not live or live.get("provenance") != "live":
+            fail(f"phase 16 (b): no live rate under {live_key}")
+        say(f"{card}: phase 16 (b) {SERVE_CASES} x {SERVE_N}^2 picked "
+            f"({picks[0].stepper}/{picks[0].method}/{picks[0].precision}, {picks[0].steps} "
+            f"steps at dt {picks[0].dt:.6e}, est {picks[0].est_ms:.1f} ms, {picks[0].rates} "
+            f"rates), ledger off and on: events {on_events} both, {want_b6} each, states "
+            f"bitwise; promised {s['promised']}, resolved {s['resolved']}, duplicate "
+            f"{s['duplicate']}, unmatched {s['unmatched']}, drift warnings "
+            f"{s['drift_warnings']}, cost ratio p50 {s['drift_ratio_p50']}; live per-apply "
+            f"{live['per-step']} ms a lane (x{ENS_B} = {live['per-step'] * ENS_B:.5f} ms a "
+            f"launch's worth, n {live['n']}) under {live_key}; PERF.md's B6 row: 0.0569 ms a "
+            f"launch at 8 x {SERVE_N}^2")
+        walls["b"] = time.perf_counter() - t_phase - sum(walls.values())
+
+        # (c) picked engines served: the test form to a horizon, a mesh case
+        rate = record_rate_fn(name)
+        T_h = FLEET_HORIZON * euler_dt(dh, 1.0, 0.8)
+        ch = pick_engine((SERVE_N, SERVE_N), EPS, 1.0, dh, T_h, 1e-6, method="cuda",
+                         rate_fn=rate)
+        case = EnsembleCase(shape=(SERVE_N, SERVE_N), nt=ch.steps, eps=EPS, k=1.0, dt=ch.dt,
+                            dh=dh, test=True)
+        with ServePipeline(engine=EnsembleEngine(method="cuda", device="cuda", dtype=f32),
+                           depth=2, window_ms=0.0) as pipe:
+            u = launches_of(ck, by, "16c picked engine",
+                            lambda: pipe.submit(case, engine=ch).wait())
+        want = NonlocalOp2D(EPS, 1.0, ch.dt, dh).manufactured_solution(SERVE_N, SERVE_N,
+                                                                      ch.steps)
+        err = float(np.sum((np.asarray(u, np.float64) - want) ** 2)) / SERVE_N ** 2
+        predicted = ({"nsum2d": ch.steps * ch.stages + 1} if ch.stepper == "rkc"
+                     else {"nsum2d": 1, "batched_step2d": ch.steps} if ch.stepper == "euler"
+                     else {})
+        if not err <= 1e-6 or by["16c picked engine"] != predicted:
+            fail(f"phase 16 (c) picked {ch.wire()}: error_l2/#points {err:.3e}, launches "
+                 f"{by['16c picked engine']}, predicted {predicted}")
+        pts, h = jittered_cloud(np, UN_M, 2, SEED + 9, shuffle=True)
+        mdir = tmp / "meshes"
+        os.environ["NLHEAT_MESH_DIR"] = str(mdir)
+        mhash = MeshStore(str(mdir)).put(pts, 3 * h, h * h)
+        host = get_mesh_op(mhash, 1.0, 1.0, device="cpu")
+        T_m = (FLEET_MESH_STEPS - 0.5) * 0.8 / float(np.max(host.c * host.wsum))
+        chm = pick_engine((1,), 0, 1.0, 1.0, T_m, 1e-6, mesh=mhash, rate_fn=rate)
+        mcase = EnsembleCase(shape=(host.n,), nt=chm.steps, eps=0, k=1.0, dt=chm.dt, dh=0.0,
+                             test=True, mesh=mhash)
+        with ServePipeline(engine=EnsembleEngine(device="cuda", dtype=f32), depth=2,
+                           window_ms=0.0) as mpipe:
+            um = launches_of(ck, by, "16c picked mesh case",
+                             lambda: mpipe.submit(mcase, engine=chm).wait())
+        wantm = get_mesh_op(mhash, 1.0, chm.dt, device="cpu").manufactured_solution(chm.steps)
+        errm = float(np.sum((np.asarray(um, np.float64) - wantm) ** 2)) / host.n
+        if (chm.method, chm.stepper) != ("gather", "euler") or not errm <= 1e-6 \
+                or by["16c picked mesh case"] != {"gather_L": chm.steps}:
+            fail(f"phase 16 (c) mesh pick {chm.wire()}: error {errm:.3e}, launches "
+                 f"{by['16c picked mesh case']}")
+        say(f"{card}: phase 16 (c) {SERVE_N}^2 test form to {FLEET_HORIZON} Euler steps' "
+            f"horizon: picked {ch.stepper}[s={ch.stages}]/{ch.method}/{ch.precision}, "
+            f"{ch.steps} steps, est {ch.est_ms:.4f} ms ({ch.rates} rates), served: "
+            f"error_l2/#points {err:.3e}, launches {by['16c picked engine']} as predicted; "
+            f"mesh pick on the shuffled {UN_M}^2 cloud ({host.n} nodes): {chm.stepper}/"
+            f"{chm.method}/{chm.precision}, {chm.steps} steps ({chm.rates} rates), served: "
+            f"error {errm:.3e}, {by['16c picked mesh case']}")
+        walls["c"] = time.perf_counter() - t_phase - sum(walls.values())
+
+        # (d) the flight recorder: a quarantine postmortem, a SIGTERM dump
+        fdir = tmp / "flight"
+        os.environ["NLHEAT_FAULT_PLAN"] = CHAOS_PLAN
+        import contextlib
+        import io
+
+        old_stdin, sys.stdin = sys.stdin, io.StringIO(batch_text(cases_2d))
+        out, errs = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(errs):
+                rc = launches_of(ck, by, "16d solve2d --serve 2 --flight-dir",
+                                 lambda: solve2d.main([*CLI_ARGS, "--serve", "2",
+                                                       "--flight-dir", str(fdir)]))
+        finally:
+            sys.stdin = old_stdin
+            del os.environ["NLHEAT_FAULT_PLAN"]
+        docs = [json.loads(p.read_text()) for p in sorted(fdir.glob("postmortem-*.json"))]
+        quarantines = [d for d in docs if d["postmortem"] == "quarantine"]
+        if rc != 1 or not out.getvalue().rstrip().endswith("Tests Failed") \
+                or [d["case"] for d in quarantines] != [6]:
+            fail(f"phase 16 (d) {CHAOS_PLAN}: rc {rc}, postmortems "
+                 f"{[(d['postmortem'], d.get('case')) for d in docs]}\n"
+                 f"{errs.getvalue()[-2000:]}")
+        deadline = time.monotonic() + 60
+        while not sig_dir.is_dir() and sig.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.5)
+        sig.send_signal(signal.SIGTERM)
+        _, sig_err = sig.communicate(timeout=60)
+        sdocs = [json.loads(p.read_text()) for p in sig_dir.glob("postmortem-*.json")] \
+            if sig_dir.is_dir() else []
+        if sig.returncode != -signal.SIGTERM or [d["postmortem"] for d in sdocs] != ["sigterm"]:
+            fail(f"phase 16 (d) SIGTERM: rc {sig.returncode}, dumps "
+                 f"{[d['postmortem'] for d in sdocs]}\n{sig_err[-2000:]}")
+        q = quarantines[0]
+        say(f"{card}: phase 16 (d) solve2d --serve 2 --flight-dir under {CHAOS_PLAN} over "
+            f"CASES_2D (f64): Tests Failed, postmortems {[d['postmortem'] for d in docs]}, the "
+            f"quarantine's case {q['case']} ({q['classification']}), in flight "
+            f"{q.get('inflight')}, {len(q['events'])} events; a solve2d child SIGTERMed: rc "
+            f"{sig.returncode}, dump {[d['postmortem'] for d in sdocs]}")
+        walls["d"] = time.perf_counter() - t_phase - sum(walls.values())
+    finally:
+        if sig.poll() is None:
+            sig.kill()
+            sig.communicate()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 16 part walls, s: {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    return by
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -5446,8 +5880,9 @@ def main() -> int:
                     l2_threshold)
     mh_by = timed("blocks owned by ranks", phase_multihost, torch, np, ck, l2_threshold)
     serve_by = timed("serving", phase_serve, torch, np, ck, cases_2d, cases_1d, l2_threshold)
-    for k in kernels:  # phases 10-15 launch the kernels of phases 4-8 again
-        for part in (async_by, elastic_by, stepper_by, dist_by, mh_by, serve_by):
+    fleet_by = timed("fleet leaves", phase_fleet_leaves, torch, np, ck, cases_2d, built)
+    for k in kernels:  # phases 10-16 launch the kernels of phases 4-8 again
+        for part in (async_by, elastic_by, stepper_by, dist_by, mh_by, serve_by, fleet_by):
             more = by_label(part, k["name"])
             if more:
                 k["launches"] += sum(more.values())
@@ -5470,4 +5905,6 @@ if __name__ == "__main__":
         sys.exit(mh_rank_main(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     if sys.argv[1:2] == ["--accept"]:
         sys.exit(accept_main(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--fleet-child"]:
+        sys.exit(fleet_child_main(sys.argv[2]))
     sys.exit(main())

@@ -9,11 +9,12 @@ engine, serve/ensemble.py) and ``--serve D`` (the streaming serving
 pipeline, serve/server.py, with its supervision flags), each under
 ``--profile``; the stepper flags (``--stepper``, ``--superstep-stages``);
 the observability flags ``--trace``, ``--metrics-out`` and
-``--metrics-port`` (:func:`obs_session`); and the multi-process launch
+``--metrics-port``, and the crash flight recorder ``--flight-dir``
+(:func:`obs_session`); the program store ``--program-store``
+(:func:`add_program_store_flag`); and the multi-process launch
 (:func:`cli_startup`: ``srun -n N``, every rank running the same binary,
 rank 0 owning the console and the files).  Not ported yet: the network
-front door (``--listen``), the AOT program store and the flight recorder
-(``--flight-dir``, refused by name).
+front door (``--listen``).
 """
 
 from __future__ import annotations
@@ -21,12 +22,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import signal
 import socket
 import sys
 
 import numpy as np
 import torch
 
+from nonlocalheatequation_torch.obs import flightrec
 from nonlocalheatequation_torch.utils.devices import resolve_device
 
 
@@ -216,6 +219,29 @@ def ensemble_runner(make_solver, **engine_kwargs):
     return run_ensemble
 
 
+def add_program_store_flag(p: argparse.ArgumentParser):
+    """--program-store: the program store (serve/program_store.py), the
+    CLI face of the warm-boot path.  The value lands in the
+    ``NLHEAT_PROGRAM_STORE`` env knob so every layer under the CLI (the
+    kernel build, the solo tuned path, the ensemble engine, the serving
+    pipeline and its CPU fallback siblings) resolves the same store."""
+    p.add_argument(
+        "--program-store", dest="program_store", default=None, metavar="DIR",
+        help="reuse built kernel libraries and tuned program recipes across sessions: a "
+             "warm boot restores them from DIR instead of re-paying nvcc and the tuner's "
+             "probes (bitwise the same results; loud refusal + fresh build on any "
+             "version/topology mismatch). DIR=1 selects the per-user default dir, 0 "
+             "disables; ambient NLHEAT_PROGRAM_STORE=DIR does the same")
+
+
+def apply_program_store(args) -> None:
+    """Publish --program-store into the env knob (before any solve or build
+    machinery constructs, so all layers agree)."""
+    ps = getattr(args, "program_store", None)
+    if ps is not None:
+        os.environ["NLHEAT_PROGRAM_STORE"] = ps
+
+
 def add_serve_flags(p: argparse.ArgumentParser):
     """--serve D: batch-test cases streamed through the async serving
     pipeline (serve/server.py) with D chunks in flight; the JAX CLIs'
@@ -341,8 +367,7 @@ def add_obs_flags(p: argparse.ArgumentParser):
     metrics file, one scrape port (the JAX CLIs' flags and help, the
     device capture a torch.profiler one).  All three are opt-in; with none
     given the observability subsystem stays on its zero-cost disabled path.
-    ``--flight-dir`` is parsed so that it is refused by name
-    (:func:`validate_obs_args`)."""
+    ``--flight-dir`` arms the crash flight recorder (obs/flightrec.py)."""
     p.add_argument(
         "--trace", default=None, metavar="DIR",
         help="capture the host-side span timeline (obs/trace.py) AND a torch.profiler "
@@ -361,8 +386,10 @@ def add_obs_flags(p: argparse.ArgumentParser):
              "printed to stderr); bound to the serving pipeline's registry during --serve")
     p.add_argument(
         "--flight-dir", dest="flight_dir", default=None, metavar="DIR",
-        help="not ported yet: the crash flight recorder (obs/flightrec.py of the JAX "
-             "package); refused")
+        help="arm the crash flight recorder (obs/flightrec.py): a bounded black box of "
+             "recent serve events, dumped to a timestamped postmortem JSON in DIR on "
+             "quarantine, breaker open, or SIGTERM (ambient NLHEAT_FLIGHT_DIR=DIR does "
+             "the same)")
 
 
 def validate_obs_args(args) -> str | None:
@@ -370,9 +397,6 @@ def validate_obs_args(args) -> str | None:
     message and exits 1).  The --metrics-out probe runs BEFORE the solve: a
     typo'd path must refuse up front, not discard an hour of work at the
     final write."""
-    if getattr(args, "flight_dir", None):
-        return ("--flight-dir is not ported yet to nonlocalheatequation_torch (the crash "
-                "flight recorder)")
     port = getattr(args, "metrics_port", None)
     if port is not None and not 0 <= port <= 65535:
         return f"--metrics-port must be in [0, 65535] (got {port})"
@@ -464,8 +488,8 @@ def _publish_batch_metrics(cases_n: int, failed: bool) -> None:
 def obs_session(args):
     """The observability lifecycle shared by the solve CLIs: install the
     span tracer and the torch.profiler capture under one ``--trace DIR``,
-    start the ``--metrics-port`` scrape endpoint, and persist
-    ``--metrics-out`` atomically on the way out.
+    start the ``--metrics-port`` scrape endpoint, arm the ``--flight-dir``
+    flight recorder, and persist ``--metrics-out`` atomically on the way out.
 
     ``--trace DIR`` captures BOTH timelines into the same directory — the
     host-side spans as ``DIR/host_trace.json`` (``host_trace.rank{r}.json``
@@ -503,6 +527,26 @@ def obs_session(args):
         except OSError as e:
             print(f"[obs] --metrics-port {port} cannot bind ({e}); "
                   "scrape endpoint disabled", file=sys.stderr)
+    # the crash flight recorder (obs/flightrec.py): installed process-wide so
+    # the serving pipeline picks it up at construction; SIGTERM dumps the
+    # black box before the previous handler runs.  The previous recorder
+    # and handler are restored on exit.
+    recorder = prev_rec = prev_sigterm = None
+    flight_dir = getattr(args, "flight_dir", None) or os.environ.get("NLHEAT_FLIGHT_DIR") or None
+    if flight_dir:
+        try:
+            recorder = flightrec.FlightRecorder(flight_dir)
+        except OSError as e:
+            print(f"[obs] --flight-dir {flight_dir!r} cannot be used ({e}); flight recorder "
+                  "disabled", file=sys.stderr)
+        else:
+            prev_rec = flightrec.set_recorder(recorder)
+            try:
+                prev_sigterm = signal.getsignal(signal.SIGTERM)
+            except (ValueError, OSError):
+                prev_sigterm = None
+            recorder.bind(registry=_scrape_registry)
+            flightrec.install_sigterm(recorder)
     body_raised = False
     try:
         with profiling.trace(trace_dir):
@@ -525,6 +569,13 @@ def obs_session(args):
                       file=sys.stderr)
         if server is not None:
             server.close()
+        if recorder is not None:
+            flightrec.set_recorder(prev_rec)
+            if prev_sigterm is not None:
+                try:  # the handler must not outlive its session
+                    signal.signal(signal.SIGTERM, prev_sigterm)
+                except (ValueError, OSError, TypeError):
+                    pass
         path = getattr(args, "metrics_out", None)
         if path:
             payload = _metrics_payload[0]

@@ -33,9 +33,11 @@ from nonlocalheatequation_torch.cli.common import (
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_program_store_flag,
     add_serve_flags,
     add_stepper_flags,
     announce_stable_dt,
+    apply_program_store,
     bool_flag,
     checkpoint_refusal,
     ensemble_refusal,
@@ -86,6 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_ensemble_flag(p)
     add_serve_flags(p)
     add_obs_flags(p)
+    add_program_store_flag(p)
     return p
 
 
@@ -111,6 +114,7 @@ def main(argv=None) -> int:
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
+    apply_program_store(args)
     with obs_session(args):
         return _run(args, kw, sk)
 

@@ -44,9 +44,11 @@ from nonlocalheatequation_torch.cli.common import (
     add_platform_flags,
     add_precision_flags,
     add_profile_flag,
+    add_program_store_flag,
     add_serve_flags,
     add_stepper_flags,
     announce_stable_dt,
+    apply_program_store,
     bool_flag,
     check_same_input_state,
     checkpoint_refusal,
@@ -112,6 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_ensemble_flag(p)
     add_serve_flags(p)
     add_obs_flags(p)
+    add_program_store_flag(p)
     return p
 
 
@@ -185,6 +188,7 @@ def main(argv=None) -> int:
         rc = announce_stable_dt(3, args.k, args.eps, args.dh, args.dt, **sk)
         if rc is not None:
             return rc
+    apply_program_store(args)
     with obs_session(args):
         return _run(args, multi, pkw, sk)
 

@@ -21,9 +21,9 @@ the edge form's halo, ``--superstep K`` the offsets form's K-step schedule
 (cli/solve2d_distributed.py) ``--devices N`` counts each rank's own
 devices, the operator is sharded over every rank's, rank 0 prints and
 writes.  ``--trace DIR``, ``--metrics-out FILE`` and ``--metrics-port PORT``
-are the observability flags (cli/common.obs_session).  The JAX CLI's
-``--flight-dir`` and ``--program-store`` are refused by name: they are not
-ported yet.
+are the observability flags and ``--flight-dir DIR`` the crash flight
+recorder (cli/common.obs_session); ``--program-store DIR`` the program
+store (serve/program_store.py).
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ import numpy as np
 from nonlocalheatequation_torch.cli.common import (
     add_obs_flags,
     add_platform_flags,
+    add_program_store_flag,
+    apply_program_store,
     bool_flag,
     check_same_input_state,
     cli_startup,
@@ -46,12 +48,6 @@ from nonlocalheatequation_torch.cli.common import (
     publish_solve_metrics,
     validate_obs_args,
 )
-
-#: the JAX CLI's flags that the port does not have yet -> what they select
-NOT_PORTED = {
-    "--program-store": "the AOT program store",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="nlheat_unstructured", add_help=True)
@@ -88,15 +84,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-header", action="store_true", dest="no_header")
     add_platform_flags(p)
     add_obs_flags(p)
+    add_program_store_flag(p)
     return p
 
 
-def _refusal(args, rest) -> str | None:
-    """The message refusing what the port does not have yet, or None."""
-    for tok in rest:
-        name = tok.split("=")[0]
-        if name in NOT_PORTED:
-            return f"{name} is not ported yet to nonlocalheatequation_torch ({NOT_PORTED[name]})"
+def _refusal(args) -> str | None:
+    """The message refusing these flags, or None."""
     if args.devices < 1:
         return f"--devices must be >= 1, got {args.devices}"
     return validate_obs_args(args)
@@ -128,20 +121,18 @@ def mean_spacing(pts: np.ndarray) -> float:
 
 
 def main(argv=None) -> int:
-    p = build_parser()
-    args, rest = p.parse_known_args(argv)
-    err = _refusal(args, rest)
+    args = build_parser().parse_args(argv)
+    err = _refusal(args)
     if err:
         print(err, file=sys.stderr)
         return 1
-    if rest:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
     # the srun analog: every rank runs this same CLI, rank 0 owns the console
     try:
         multi, kw = cli_startup(args, "nlheat_unstructured")
     except RuntimeError as e:  # no card for --platform gpu
         print(f"error: {e}", file=sys.stderr)
         return 2
+    apply_program_store(args)
     with obs_session(args):
         return _run(args, multi, kw)
 

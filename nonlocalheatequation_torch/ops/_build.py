@@ -6,7 +6,11 @@ The build happens at first use and is keyed on a hash of the source, the
 ``csrc/`` headers it includes and the flags, so ``python3 chip_smoke.py``
 in a fresh checkout builds it and a later process of the same checkout
 reuses it.  The libraries go to
-``nonlocalheatequation_torch/_build/`` (listed in ``.gitignore``).
+``nonlocalheatequation_torch/_build/`` (listed in ``.gitignore``).  With the
+program store on (``NLHEAT_PROGRAM_STORE``, serve/program_store.py) a
+missing library is restored from the store before ``nvcc`` starts, and a
+library built or found here is saved there; with it off nothing else is
+read or written.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on hosts that have no ``nvcc``.
@@ -92,12 +96,21 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{Path(source).stem}-{source_digest(source)}.so"
 
 
-def _start(source: str):
-    """Start nvcc for ``source`` unless its library exists, its output to a
-    file beside the library; returns ``(target, tmp, process)`` or
-    ``None``."""
+def _store():
+    """The program store that keeps built libraries, or None when it is off."""
+    from nonlocalheatequation_torch.serve.program_store import library_store
+
+    return library_store()
+
+
+def _start(source: str, store=None):
+    """Start nvcc for ``source`` unless its library exists or ``store``
+    restores it, its output to a file beside the library; returns ``(target,
+    tmp, process)`` or ``None``."""
     target = library_path(source)
     if target.exists():
+        return None
+    if store is not None and store.load_library(source):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -113,9 +126,12 @@ def build(sources=SOURCES) -> dict:
     start to that source's compiler exiting (0.0 when the library was
     already built).  The compiler's report (``-Xptxas -v``: registers,
     shared memory, spills) is kept beside each library as ``.log``.
-    Raises RuntimeError with the compiler output on failure."""
+    Raises RuntimeError with the compiler output on failure.  With the
+    program store on, a library it holds is restored instead of built (0.0
+    too), and every library is saved there."""
     t0 = time.perf_counter()
-    jobs = {s: _start(s) for s in sources}
+    store = _store()
+    jobs = {s: _start(s, store) for s in sources}
     out = {s: 0.0 for s, job in jobs.items() if job is None}
     pending = {s: job for s, job in jobs.items() if job is not None}
     try:
@@ -142,6 +158,9 @@ def build(sources=SOURCES) -> dict:
                 proc.wait()
             tmp.unlink(missing_ok=True)
             tmp.with_suffix(".out").unlink(missing_ok=True)
+    if store is not None:
+        for source in sources:
+            store.save_library(source)
     return {s: out[s] for s in sources}
 
 

@@ -75,6 +75,11 @@ LAUNCHES = {"nsum2d": 0, "step2d": 0, "carried2d": 0, "superstep2d": 0, "residen
             "batched_step2d": 0, "batched_carried2d": 0, "batched_superstep2d": 0,
             "windowed_matvec": 0, "gather_L": 0, "split_nsum2d": 0, "split_nsum3d": 0,
             "fused_nsum2d": 0, "fused_nsum3d": 0}
+#: kernel name of LAUNCHES -> the source in csrc/ whose library launches it
+#: (the program store names the libraries a program launched by it)
+LAUNCH_SOURCES = {name: f"{name}.cu" for name in LAUNCHES}
+LAUNCH_SOURCES.update({"step2d": "batched_step2d.cu", "carried2d": "batched_carried2d.cu",
+                       "step3d": "nsum3d.cu"})
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 

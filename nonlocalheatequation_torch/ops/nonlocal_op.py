@@ -63,7 +63,6 @@ from nonlocalheatequation_torch.ops.stencil import (
     influence_weights,
     sphere_column_heights,
 )
-from nonlocalheatequation_torch.utils import autotune
 
 TWO_PI = 2.0 * np.pi
 METHODS_1D = ("shift", "fft")
@@ -581,7 +580,8 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None):
     frame (``carried3d``) and the whole run in one launch (``resident3d``).
     On a CUDA tensor utils/autotune measures the candidates that fit once
     per (shape, dtype) and runs the fastest, as the JAX package's default
-    does on the TPU.
+    does on the TPU; with the program store on (serve/program_store.py) a
+    warm solve re-makes the stored winner without a probe.
 
     Everything else runs the per-step loop: a CPU tensor, the test form
     with its source, the 1D operator, a method that is not ``cuda``, and the
@@ -599,8 +599,11 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None):
     def variant(u):
         if u.device.type != "cuda" or op.resolve_method(u.device) != "cuda":
             return base
-        return autotune.pick_multi_step_fn(op, nsteps, tuple(u.shape), dtype or u.dtype,
-                                           u.device)[0]
+        # the tuner's pick, through the program store when it is on (a warm
+        # solve re-makes the stored winner and probes nothing)
+        from nonlocalheatequation_torch.serve.program_store import solo_pick
+
+        return solo_pick(op, nsteps, tuple(u.shape), dtype or u.dtype, u.device)
 
     built: dict = {}
 

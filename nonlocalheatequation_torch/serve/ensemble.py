@@ -39,8 +39,11 @@ the key, not the programs, as in the JAX package.  A non-Euler engine
 composition, ``stacked[{stepper}]`` (models/steppers
 .make_batched_multi_step_fn: each case's solo stepper loop in turn, so
 lane b is bitwise the solo solve), and refuses the Euler-only variants
-(carried, superstep, vmap); mesh buckets stay Euler-only.  Not ported yet,
-and refused by name: the AOT program store.
+(carried, superstep, vmap); mesh buckets stay Euler-only.  With a program
+store (``program_store=``, ``NLHEAT_PROGRAM_STORE``; serve/program_store.py) a
+cold program key first tries a stored recipe: a hit re-makes the program with
+no probe and no ``nvcc`` run (``programs_loaded``), a miss builds as always
+and stores its recipe.
 
 The serving pipeline (serve/server.py) reuses the chunk stages —
 :meth:`EnsembleEngine.pad_chunk`, :meth:`~EnsembleEngine.build_program`,
@@ -130,9 +133,7 @@ class EnsembleReport:
         self._m_buckets = r.counter("/ensemble/buckets")
         self._m_dispatches = r.counter("/ensemble/dispatches")
         self._m_programs_built = r.counter("/ensemble/programs-built")
-        # programs materialized without a build: the JAX package's AOT store
-        # hits; always 0 until the store is ported, kept so the dumps' keys
-        # are the JAX package's
+        # programs re-made from a program-store recipe without a build
         self._m_programs_loaded = r.counter("/ensemble/programs-loaded")
         self._m_padded_cases = r.counter("/ensemble/padded-cases")
         self._m_programs_evicted = r.counter("/store/evictions")
@@ -167,6 +168,10 @@ class EnsembleEngine:
     that cannot engage — carried or superstep on another bucket, or on a
     test bucket — is refused, never downgraded.  ``batch_sizes`` are the
     allowed chunk sizes (:data:`BATCH_SIZES` by default).
+    ``program_store`` is a :class:`~nonlocalheatequation_torch.serve.program_store.ProgramStore`,
+    a directory, or None (``NLHEAT_PROGRAM_STORE`` decides), resolved at the
+    first build; ``store_backend`` names the backend its entries are keyed
+    on (default: the engine's device, ``program_store.backend_name``).
     """
 
     VARIANTS = ("auto", "per-step", "carried", "superstep", "stacked", "vmap")
@@ -205,9 +210,6 @@ class EnsembleEngine:
             raise ValueError(
                 f"ensemble variant {variant!r} is Euler-only; stepper={stepper!r} buckets "
                 "run variant 'auto'/'per-step'/'stacked' (the stacked stepper composition)")
-        if program_store is not None or store_backend is not None:
-            raise ValueError("the AOT program store (program_store, store_backend) is not "
-                             "ported yet to nonlocalheatequation_torch")
         sizes = tuple(sorted({int(b) for b in batch_sizes}))
         if not sizes or sizes[0] < 1:
             raise ValueError(f"bad batch_sizes {batch_sizes!r}")
@@ -231,14 +233,25 @@ class EnsembleEngine:
         #: LRU program cache, bounded at ``program_cache_cap`` (0 = unbounded)
         self._programs: OrderedDict = OrderedDict()
         self.program_cache_cap = cap
+        # the program store: an explicit store or path, else the env knob,
+        # resolved at the first build and bound to the report's registry
+        self._program_store_arg = program_store
+        self.program_store = None
+        self._store_resolved = False
+        self.store_backend = store_backend
 
     def sibling(self, **overrides) -> "EnsembleEngine":
         """A fresh engine with this engine's settings except ``overrides``,
-        with its own program cache and report."""
+        with its own program cache and report, sharing the program store.  A
+        sibling on another device keys its store entries on that device's
+        backend unless ``store_backend`` is given."""
         kw = dict(method=self.method, precision=self.precision, dtype=self.dtype,
                   variant=self.variant, ksteps=self.ksteps, batch_sizes=self.batch_sizes,
                   comm=self.comm, stepper=self.stepper, stages=self.stages,
-                  program_cache_cap=self.program_cache_cap, device=self.device)
+                  program_cache_cap=self.program_cache_cap, device=self.device,
+                  program_store=(self.program_store if self._store_resolved
+                                 else self._program_store_arg),
+                  store_backend=None if "device" in overrides else self.store_backend)
         kw.update(overrides)
         return EnsembleEngine(**kw)
 
@@ -330,17 +343,48 @@ class EnsembleEngine:
     # -- one chunk = one program, one dispatch ------------------------------
     def build_program(self, key, chunk):
         """The chunk's multi-step callable, cached per (bucket, size,
-        variant, physics, dtype, stepper, stages, comm) in a bounded LRU."""
+        variant, physics, dtype, stepper, stages, comm) in a bounded LRU.
+        With a program store a cold key first tries a stored recipe
+        (counted in ``programs_loaded``, strategy ``"stored"``); a miss
+        builds and stores its recipe (``programs_built``)."""
         prog_key = (key, len(chunk), self.variant, tuple(c.physics() for c in chunk),
                     str(self.dtype), self.stepper, self.stages, self.comm)
         multi = self._programs.get(prog_key)
         if multi is None:
-            with obs_trace.span("ensemble.build", cat="ensemble", bucket=str(key),
-                                cases=len(chunk), variant=self.variant):
-                ops = [self._make_op(c) for c in chunk]
-                multi = self._build_program(key, chunk, ops, key[3])
+            def build():
+                with obs_trace.span("ensemble.build", cat="ensemble", bucket=str(key),
+                                    cases=len(chunk), variant=self.variant):
+                    ops = [self._make_op(c) for c in chunk]
+                    return self._build_program(key, chunk, ops, key[3]), ops
+
+            store = self._resolve_store()
+            loaded = False
+            if store is None:
+                multi = build()[0]
+            else:
+                from nonlocalheatequation_torch.serve.program_store import backend_name
+
+                def build_with_recipe():
+                    fn, ops = build()
+                    return fn, self._recipe(key, ops)
+
+                # the store is shared across engines and sessions, so its key
+                # carries the engine settings prog_key leaves out
+                store_key = repr((prog_key, self.method, self.precision, self.ksteps))
+                example = (torch.empty((len(chunk),) + tuple(key[0]), dtype=self.dtype,
+                                       device="meta"),)
+                multi, outcome = store.load_or_build(
+                    store_key, build_with_recipe, example,
+                    backend=self.store_backend or backend_name(self.device),
+                    materialize=lambda recipe: self._materialize(key, chunk, recipe))
+                loaded = outcome == "hit"
+                if loaded:
+                    self.report.strategies[key] = "stored"
             self._programs[prog_key] = multi
-            self.report.programs_built += 1
+            if loaded:
+                self.report.programs_loaded += 1
+            else:
+                self.report.programs_built += 1
             while self.program_cache_cap and len(self._programs) > self.program_cache_cap:
                 self._programs.popitem(last=False)
                 self.report.programs_evicted += 1
@@ -351,9 +395,50 @@ class EnsembleEngine:
 
     def adopt_report(self, report) -> None:
         """Install a replacement report: the serving pipeline's ServeReport
-        takes over the engine's counters.  (The JAX engine also drops its
-        program store's binding here; the port has no store yet.)"""
+        takes over the engine's counters.  A store resolved against the old
+        report's registry is dropped, so the next build binds ``/store/*`` to
+        the new one (an explicit ProgramStore keeps its own registry)."""
+        from nonlocalheatequation_torch.serve.program_store import ProgramStore
+
         self.report = report
+        if self._store_resolved and not isinstance(self._program_store_arg, ProgramStore):
+            self._store_resolved = False
+            self.program_store = None
+
+    def _resolve_store(self):
+        """The engine's program store (serve/program_store.py), or None;
+        resolved at the first build, bound to the report's registry."""
+        if not self._store_resolved:
+            from nonlocalheatequation_torch.serve.program_store import resolve_store
+
+            self.program_store = resolve_store(self._program_store_arg,
+                                               registry=self.report.registry)
+            self._store_resolved = True
+        return self.program_store
+
+    def _recipe(self, key, ops) -> dict:
+        """What fixed a freshly built program, for the store: its strategy,
+        and for a tuned bucket the winner and the tuner record behind it."""
+        label = self.report.strategies.get(key)
+        if not (label or "").startswith("tuned:"):
+            return {"strategy": label}
+        from nonlocalheatequation_torch.utils import autotune
+
+        bkey = autotune.batched_key(ops, key[0], self.dtype, self.device)
+        return {"strategy": label, "winner": label[len("tuned:"):],
+                "tuning": {bkey: autotune.records()[bkey]}}
+
+    def _materialize(self, key, chunk, recipe: dict):
+        """Re-make a stored program: a tuned bucket's recorded winner with
+        its record adopted (no probe); any other strategy is its own recipe,
+        built as always (it has no probe)."""
+        ops = [self._make_op(c) for c in chunk]
+        if recipe.get("winner") is None:
+            return self._build_program(key, chunk, ops, key[3])
+        from nonlocalheatequation_torch.utils import autotune
+
+        autotune.adopt_records(recipe["tuning"])
+        return autotune.batched_maker(recipe["winner"])(ops, key[1], self.dtype)
 
     def stage_inputs(self, chunk) -> torch.Tensor:
         """The stacked initial state on the engine's device, copied without a

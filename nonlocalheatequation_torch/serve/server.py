@@ -70,9 +70,14 @@ no-fence-between-dispatches discipline via spy counters).  The port's
 programs never write their input, so every attempt may re-stage freely
 (the JAX package's donation guard has no counterpart here).
 
-Not ported yet, and refused by name: an SLO ledger (``slo=``, the JAX
-package's obs/slo.py).  The JAX pipeline's flight-recorder taps
-(obs/flightrec.py) are absent.
+The SLO ledger (``slo=``, obs/slo.py) joins every submit's promise to its
+retire or quarantine outcome under ``/slo/*`` on the report's registry and
+feeds the device-routed chunks' per-apply times back into the tuner's
+records as live rates.  The flight recorder (obs/flightrec.py), when one is
+installed process-wide, mirrors every event into its ring, snapshots the
+in-flight ledger, and dumps a postmortem on quarantine and on a breaker
+opening.  Both take only timestamps the scheduler already took and add no
+fence; off, each tap is one attribute read.
 
 Threading note: the pipeline is single-threaded by design — the overlap
 lives in the card's stream (asynchronous launches), not in host threads.
@@ -97,6 +102,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nonlocalheatequation_torch.obs import flightrec
+from nonlocalheatequation_torch.obs import slo as obs_slo
 from nonlocalheatequation_torch.obs import trace as obs_trace
 from nonlocalheatequation_torch.obs.export import EventLog
 from nonlocalheatequation_torch.obs.metrics import MetricsRegistry, backed
@@ -277,10 +284,10 @@ class ServeReport(EnsembleReport):
 
     def store(self) -> dict:
         """The program-store block of :meth:`metrics`, under the JAX
-        package's keys: its AOT store's hit/miss/save counters, refusals
-        by reason and load/serialize-time percentiles (all zero: the store
-        is not ported yet), plus the engine's LRU program-cache occupancy
-        (resident gauge, lifetime evictions).  The keys are stable so
+        package's keys: the store's hit/miss/save counters, refusals by
+        reason and load/serialize-time percentiles (zero with the store
+        off), plus the engine's LRU program-cache occupancy (resident
+        gauge, lifetime evictions).  The keys are stable so
         dashboards need no existence checks."""
         r = self.registry
 
@@ -417,7 +424,9 @@ class ServePipeline:
     classified fault; "serve": a diverged solve is a legitimate result),
     ``faults`` (a deterministic
     :class:`~nonlocalheatequation_torch.utils.faults.FaultPlan`; defaults
-    to env ``NLHEAT_FAULT_PLAN`` when set).  With the engine on the card
+    to env ``NLHEAT_FAULT_PLAN`` when set).  ``slo``: an
+    :class:`~nonlocalheatequation_torch.obs.slo.SloLedger`, True (build
+    one), False (off) or None (``NLHEAT_SLO=1`` decides).  With the engine on the card
     only injected errors, hangs and corrupt buffers are classified; any
     other exception ends the pipeline (:meth:`close` then skips its
     drain) and propagates.  Remaining kwargs construct
@@ -437,9 +446,6 @@ class ServePipeline:
                  faults: FaultPlan | None = None, sleep=time.sleep,
                  registry: MetricsRegistry | None = None, tracer=None,
                  slo=None, **engine_kwargs):
-        if slo is not None:
-            raise ValueError("slo= (the SLO promise ledger, obs/slo.py) is not ported yet "
-                             "to nonlocalheatequation_torch")
         if engine is None:
             engine = EnsembleEngine(**engine_kwargs)
         elif engine_kwargs:
@@ -486,6 +492,19 @@ class ServePipeline:
                         else tracer if tracer is not None
                         else obs_trace.get_tracer())
         self._events = EventLog.from_env()
+        # the crash flight recorder (obs/flightrec.py): the process-global
+        # black box, bound to THIS pipeline's registry and in-flight ledger
+        # (later pipelines re-bind).  None when off: every tap is one
+        # attribute read.
+        self._flightrec = flightrec.get_recorder()
+        if self._flightrec is not None:
+            self._flightrec.bind(registry=report.registry, inflight=self._inflight_ledger)
+            if self._events is not None:
+                self._flightrec.add_flush(self._events.flush)
+        # the SLO promise-audit ledger (obs/slo.py): joins every submit's
+        # promise to its retire/quarantine outcome under /slo/* on this
+        # report's registry.  None when off.
+        self._slo = obs_slo.SloLedger.from_arg(slo, registry=report.registry, clock=clock)
         self.registry = report.registry
         if breaker is not None:
             # mirror the breaker's lifetime-exact transition count into
@@ -553,15 +572,38 @@ class ServePipeline:
             tr.counter("serve.inflight", ts=ts, inflight=n)
 
     def _event(self, kind: str, **fields) -> None:
-        """One discrete event to the JSONL event log (one attribute read
-        when off; never raises)."""
+        """One discrete event, mirrored to both sinks: the JSONL event log
+        and the flight recorder's ring.  One attribute read per sink when
+        off; never raises."""
         if self._events is not None:
             self._events.emit(event=kind, **fields)
+        fr = self._flightrec
+        if fr is not None:
+            fr.record(kind, **fields)
+
+    def _inflight_ledger(self) -> list:
+        """The flight recorder's in-flight snapshot: every chunk not yet
+        done, with its member case seqs.  Bounded by depth + ready."""
+        out = []
+        try:
+            for oc in self._open.values():
+                out.append({"state": "open", "cases": [r.seq for r in oc.requests]})
+            for ch in list(self._ready):
+                out.append({"state": "ready", "chunk": ch.chunk_id,
+                            "cases": [r.seq for r in ch.requests]})
+            for ch in list(self._inflight):
+                out.append({"state": "inflight", "chunk": ch.chunk_id,
+                            "cases": [r.seq for r in ch.requests]})
+        except Exception:  # noqa: BLE001 — a racing mutation costs the
+            pass  # remainder of the ledger, never the dump
+        return out
 
     def _breaker_moved(self, frm: str, to: str, t: float) -> None:
         """CircuitBreaker transition hook: mirror into the registry, the
         trace, and the event log (the trail itself lives on the breaker,
-        surfaced by :meth:`ServeReport.resilience`)."""
+        surfaced by :meth:`ServeReport.resilience`).  A closed -> open move
+        also dumps the flight recorder: the breaker opening is the device
+        path failing, and the black box should say why."""
         try:
             self.registry.counter("/breaker/transitions").inc()
             self._t_instant("breaker.transition", ts=t,
@@ -570,6 +612,9 @@ class ServePipeline:
             # (monotonic/injected) — the bare "t" stamp on every EventLog
             # line is the WALL clock the cross-process merge keys on
             self._event("breaker", breaker_t=t, frm=frm, to=to)
+            fr = self._flightrec
+            if fr is not None and to == "open":
+                fr.dump("breaker-open", frm=frm, breaker_t=t)
         except Exception:  # noqa: BLE001 — observability never raises
             pass
 
@@ -619,6 +664,12 @@ class ServePipeline:
             req.deadline_t = now + deadline_ms / 1e3
             oc.deadline_t = (req.deadline_t if oc.deadline_t is None
                              else min(oc.deadline_t, req.deadline_t))
+        if self._slo is not None:
+            # the promise half of the audit: the submit timestamp the
+            # scheduler already took, the pick's modeled cost when the
+            # caller picked (EngineChoice.est_ms), the axis either way
+            self._slo.promise(req.seq, engine=engine, engine_sel=sel,
+                              deadline_ms=deadline_ms, mesh=case.mesh, t=now)
         if len(oc.requests) >= self.window_size:
             self._close(okey, "size")
         self.pump()
@@ -1009,6 +1060,16 @@ class ServePipeline:
         self._event("quarantine", case=req.seq, chunk=chunk.chunk_id,
                     classification=classification,
                     attempts=chunk.attempts, detail=detail)
+        if self._slo is not None:
+            # the exceptional outcome resolves the promise too
+            self._slo.resolve(req.seq, latency_s=req.latency_s,
+                              queue_wait_s=req.queue_wait_s, error=classification)
+        fr = self._flightrec
+        if fr is not None:
+            # a typed ServeError quarantine is a black-box trigger: the
+            # postmortem names the poison case and what was in flight
+            fr.dump("quarantine", case=req.seq, classification=classification,
+                    detail=detail)
         chunk.state = "done"
 
     def _complete_attempt(self, chunk: _Chunk, outcome, t_fence,
@@ -1100,6 +1161,50 @@ class ServePipeline:
         }
         self.report.chunk_log.append(entry)
         self._event("chunk", **entry)
+        if self._slo is not None:
+            self._slo_retire(chunk, entry, t2)
+
+    def _slo_retire(self, chunk: _Chunk, entry: dict, t2) -> None:
+        """The outcome half of the audit (obs/slo.py): resolve every retired
+        request's promise from the timestamps the retire already took, then
+        feed the live rate recorder the chunk's per-apply milliseconds
+        (device-routed chunks only: CPU-fallback walls must not recalibrate
+        the card's picks).  Never raises."""
+        sl = self._slo
+        B = len(chunk.requests)
+        dev_ms = entry["device_ms"]
+        for r in chunk.requests:
+            sl.resolve(r.seq, latency_s=r.latency_s, queue_wait_s=r.queue_wait_s,
+                       device_ms=dev_ms / B, t=t2)
+        if chunk.route != "device" or dev_ms <= 0:
+            return
+        try:
+            case = chunk.requests[0].case
+            if case.mesh is not None:
+                # mesh-axis rate keys use the mesh's effective eps
+                # (serve/picker.py _mesh_eps_eff), which needs the cloud
+                return
+            engine = self._engine_for(chunk.engine_sel)
+            live = sl.ensure_live(self._device_kind(),
+                                  dtype_name=str(engine.dtype).replace("torch.", ""))
+            if live is None:
+                return
+            lanes = len(chunk.padded) if chunk.padded else B
+            applies = obs_slo.applies_per_step(engine.stepper, engine.stages)
+            per_apply = dev_ms / (lanes * max(1, int(case.nt)) * applies)
+            live.record(engine.method, case.shape, case.eps, engine.precision, per_apply)
+        except Exception:  # noqa: BLE001 — observability never raises
+            pass
+
+    def _device_kind(self) -> str:
+        """The live-rate key's card name (``autotune.card_name`` of the
+        engine's device), looked up once, after a chunk has retired."""
+        dk = getattr(self, "_device_kind_cached", None)
+        if dk is None:
+            from nonlocalheatequation_torch.utils.autotune import card_name
+
+            dk = self._device_kind_cached = card_name(self.engine.device)
+        return dk
 
     # -- completion ---------------------------------------------------------
     def wait(self, req: ServeRequest) -> np.ndarray:
@@ -1157,6 +1262,8 @@ class ServePipeline:
                     self.drain()
             finally:
                 self._release_stalls()
+                if self._slo is not None:
+                    self._slo.close()  # flush buffered live rates
                 if self._events is not None:
                     self._events.close()
                 self._closed = True
@@ -1169,7 +1276,10 @@ class ServePipeline:
 
     # -- observability ------------------------------------------------------
     def metrics(self) -> dict:
-        return self.report.metrics()
+        m = self.report.metrics()
+        if self._slo is not None:
+            m["slo"] = self._slo.summary()
+        return m
 
     def metrics_json(self) -> str:
         return json.dumps(self.metrics())

@@ -119,6 +119,32 @@ def reset() -> None:
     _memory_cache.clear()
 
 
+def solo_maker(name: str):
+    """The maker ``(op, nsteps, dtype) -> multi`` of the candidate ``name``
+    of :func:`candidates` (a ``+bf16`` name runs the op's bf16 twin),
+    without its fit gate: a recorded pick is re-made from its name alone
+    (serve/program_store.py)."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import make_multi_step_fn_base
+
+    if name.endswith("+bf16"):
+        inner = solo_maker(name[:-len("+bf16")])
+        return lambda o, n, d: inner(o.with_precision("bf16"), n, d)
+    if name == "per-step":
+        return lambda o, n, d: make_multi_step_fn_base(o, n, dtype=d)
+    if name == "carried":
+        return lambda o, n, d: cuda_kernel.make_carried_multi_step_fn(o, n, dtype=d)
+    if name in ("superstep2", "superstep3"):
+        k = int(name[-1])
+        return lambda o, n, d: cuda_kernel.make_superstep_multi_step_fn(o, n, ksteps=k, dtype=d)
+    if name == "resident":
+        return lambda o, n, d: cuda_kernel.make_resident_multi_step_fn(o, n, dtype=d)
+    if name == "carried3d":
+        return lambda o, n, d: cuda_kernel3d.make_carried_multi_step_fn_3d(o, n, dtype=d)
+    if name == "resident3d":
+        return lambda o, n, d: cuda_kernel3d.make_resident_multi_step_fn_3d(o, n, dtype=d)
+    raise KeyError(f"autotune: no solo candidate named {name!r}")
+
+
 def candidates(op, shape, nsteps: int, dtype, device):
     """[(name, maker(op, nsteps, dtype) -> multi)] that fit this shape.
 
@@ -127,34 +153,25 @@ def candidates(op, shape, nsteps: int, dtype, device):
     passes the card's gate; not in the bf16 tier).  3D: per-step, carried3d
     and resident3d (when the grid passes the card's gate); the bf16 tier
     gets per-step only, since the 3D frame kernels have no bf16 tier."""
-    from nonlocalheatequation_torch.ops.nonlocal_op import make_multi_step_fn_base
-
     if len(shape) not in (2, 3):
         raise ValueError(f"autotune: no {len(shape)}D branch (the tuner takes 2D and 3D "
                          "solves)")
     precision = op.precision
-    out = [("per-step", lambda o, n, d: make_multi_step_fn_base(o, n, dtype=d))]
+    names = ["per-step"]
     if len(shape) == 3:
         if precision != "bf16":
-            out.append(("carried3d", lambda o, n, d: cuda_kernel3d.make_carried_multi_step_fn_3d(
-                o, n, dtype=d)))
+            names.append("carried3d")
             if cuda_kernel3d.fits_resident_3d(*shape, op.eps, dtype, device):
-                out.append(("resident3d",
-                            lambda o, n, d: cuda_kernel3d.make_resident_multi_step_fn_3d(
-                                o, n, dtype=d)))
-        return out
-    out.append(("carried",
-                lambda o, n, d: cuda_kernel.make_carried_multi_step_fn(o, n, dtype=d)))
+                names.append("resident3d")
+        return [(n, solo_maker(n)) for n in names]
+    names.append("carried")
     for k in (2, 3):
         if cuda_kernel.superstep_k(k, nsteps) == k and cuda_kernel.fits_superstep(
                 *shape, op.eps, k, dtype, precision, device):
-            out.append((f"superstep{k}",
-                        lambda o, n, d, k=k: cuda_kernel.make_superstep_multi_step_fn(
-                            o, n, ksteps=k, dtype=d)))
+            names.append(f"superstep{k}")
     if precision != "bf16" and cuda_kernel.fits_resident(*shape, op.eps, dtype, device):
-        out.append(("resident",
-                    lambda o, n, d: cuda_kernel.make_resident_multi_step_fn(o, n, dtype=d)))
-    return out
+        names.append("resident")
+    return [(n, solo_maker(n)) for n in names]
 
 
 def _probe_state(shape, dtype, device) -> torch.Tensor:
@@ -200,16 +217,47 @@ def kernels_digest(ndim: int = 2) -> str:
     return hashlib.sha256(joined.encode()).hexdigest()[:16]
 
 
+def card_name(device) -> str:
+    """The card's name in the records' keys (``"cpu"`` off the card)."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def record_key(device_kind: str, method: str, shape, eps: int, dtype_name: str,
+               precision: str = "f32", version: str | None = None) -> str:
+    """The one key grammar of the records in the tuner's file:
+    ``k{kernels digest}/{card}/{method}/{shape}/eps{e}/{dtype}[/prec-...]``.
+    :func:`tuning_key` is it with the method ``cuda``; the serving
+    pipeline's live rates (obs/slo.LiveRateRecorder) and the picker's
+    ``record_rate_fn`` (serve/picker.py) build theirs here too.
+    ``version`` replaces the kernels' digest."""
+    shape = tuple(int(s) for s in shape)
+    if version is None:
+        version = kernels_digest(len(shape))
+    return "/".join([f"k{version}", str(device_kind), str(method), "x".join(map(str, shape)),
+                     f"eps{int(eps)}", str(dtype_name)]
+                    + ([f"prec-{precision}"] if precision != "f32" else []))
+
+
 def tuning_key(op, shape, dtype, device) -> str:
     """The record's key: the kernels' digest, the card's name, the shape,
     eps, dtype and any non-default precision tier.  nsteps is not in it:
     every candidate is timed on the same PROBE_STEPS program, so the rates
     do not depend on it."""
-    device = torch.device(device)
-    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    return "/".join([f"k{kernels_digest(len(shape))}", card, "cuda", "x".join(map(str, shape)),
-                     f"eps{op.eps}", str(dtype).replace("torch.", "")]
-                    + ([f"prec-{op.precision}"] if op.precision != "f32" else []))
+    return record_key(card_name(device), "cuda", shape, op.eps,
+                      str(dtype).replace("torch.", ""), op.precision)
+
+
+def batched_key(ops, shape, dtype, device) -> str:
+    """The batched tuner's record key: :func:`tuning_key` under ``batch{B}``."""
+    return f"{tuning_key(ops[0], shape, dtype, device)}/batch{len(ops)}"
+
+
+def adopt_records(recs: dict) -> None:
+    """Install tuning records (key -> record, as :func:`records` returns
+    them) in this process's cache: a program stored with its pick is
+    re-made without a probe (serve/program_store.py)."""
+    _memory_cache.update({k: dict(v) for k, v in recs.items()})
 
 
 def _winner(key: str, cands: dict, measure, default: str | None = None,
@@ -328,8 +376,7 @@ def pick_op_method(op, shape, dtype, device):
 
     device = torch.device(device)
     shape = tuple(shape)
-    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    key = "/".join([f"k{kernels_digest(len(shape))}", card, "method-ab",
+    key = "/".join([f"k{kernels_digest(len(shape))}", card_name(device), "method-ab",
                     f"{op.method}-vs-fft", "x".join(map(str, shape)), f"eps{op.eps}",
                     str(dtype).replace("torch.", "")]
                    + ([f"prec-{op.precision}"] if op.precision != "f32" else []))
@@ -338,6 +385,25 @@ def pick_op_method(op, shape, dtype, device):
     winner = _winner(key, cands, lambda name: _measure(
         lambda o, n, d: make_multi_step_fn_base(o, n, dtype=d), cands[name], probe()))
     return cands[winner]
+
+
+def batched_maker(name: str):
+    """The maker ``(ops, nsteps, dtype) -> multi`` of the batched candidate
+    ``name`` of :func:`batched_candidates`, without its fit gate (a
+    recorded pick re-made from its name, serve/program_store.py)."""
+    from nonlocalheatequation_torch.ops import cuda_batched as cb
+    from nonlocalheatequation_torch.ops.nonlocal_op import make_batched_multi_step_fn_vmap
+
+    if name == "batched-per-step":
+        return lambda o, n, d: cb.make_batched_cuda_multi_step_fn(o, n, dtype=d)
+    if name == "batched-carried":
+        return lambda o, n, d: cb.make_batched_carried_multi_step_fn(o, n, dtype=d)
+    if name.startswith("batched-superstep"):
+        k = int(name[len("batched-superstep"):])
+        return lambda o, n, d: cb.make_batched_superstep_multi_step_fn(o, n, ksteps=k, dtype=d)
+    if name == "vmap":
+        return lambda o, n, d: make_batched_multi_step_fn_vmap(o, n, dtype=d)
+    raise KeyError(f"autotune: no batched candidate named {name!r}")
 
 
 def batched_candidates(ops, shape, nsteps: int, dtype, device, ksteps: int = 0):
@@ -349,21 +415,15 @@ def batched_candidates(ops, shape, nsteps: int, dtype, device, ksteps: int = 0):
     uniform and mixed physics in one launch, so a mixed bucket probes the
     same programs it would run."""
     from nonlocalheatequation_torch.ops import cuda_batched as cb
-    from nonlocalheatequation_torch.ops.nonlocal_op import make_batched_multi_step_fn_vmap
 
     op0 = ops[0]
-    out = [("batched-per-step",
-            lambda o, n, d: cb.make_batched_cuda_multi_step_fn(o, n, dtype=d)),
-           ("batched-carried",
-            lambda o, n, d: cb.make_batched_carried_multi_step_fn(o, n, dtype=d))]
+    names = ["batched-per-step", "batched-carried"]
     for k in sorted({2, 3} | ({int(ksteps)} if ksteps >= 2 else set())):
         if cuda_kernel.superstep_k(k, nsteps) == k and cb.fits_batched_superstep(
                 op0.eps, k, dtype, op0.precision, device):
-            out.append((f"batched-superstep{k}",
-                        lambda o, n, d, k=k: cb.make_batched_superstep_multi_step_fn(
-                            o, n, ksteps=k, dtype=d)))
-    out.append(("vmap", lambda o, n, d: make_batched_multi_step_fn_vmap(o, n, dtype=d)))
-    return out
+            names.append(f"batched-superstep{k}")
+    names.append("vmap")
+    return [(n, batched_maker(n)) for n in names]
 
 
 def _measure_batched(maker, ops, shape, dtype, device) -> float:
@@ -391,7 +451,7 @@ def pick_batched_multi_step_fn(ops, nsteps: int, shape, dtype, device, ksteps: i
     device = torch.device(device)
     shape = tuple(shape)
     cands = dict(batched_candidates(ops, shape, nsteps, dtype, device, ksteps))
-    key = f"{tuning_key(ops[0], shape, dtype, device)}/batch{len(ops)}"
+    key = batched_key(ops, shape, dtype, device)
     best: dict = {}
 
     def measure(name):

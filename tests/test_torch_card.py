@@ -1469,3 +1469,73 @@ def test_cli_serve_scores_the_fallback_as_failed_on_card(card, monkeypatch, caps
     for seq in range(len(rows)):
         assert (f"serve: case {seq} served by the CPU fallback while the engine is on the "
                 "card: not the card's result") in err
+
+
+@pytest.mark.cuda
+def test_warm_boot_from_the_store_is_bitwise_and_probes_nothing_on_card(card, monkeypatch,
+                                                                        tmp_path):
+    """The program store (serve/program_store.py) on the card: a tuned
+    production bucket and a tuned solo solve, cold then warm from a fresh
+    tuner; the warm boot runs no probe, loads its programs, launches only
+    the recorded winners and is bitwise the cold boot."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D
+    from nonlocalheatequation_torch.serve import program_store as ps
+
+    monkeypatch.setenv("NLHEAT_PROGRAM_STORE", str(tmp_path / "store"))
+    monkeypatch.setenv("NLHEAT_TUNE_BATCH", "1")
+    probes = []
+    real = autotune._measure
+    monkeypatch.setattr(autotune, "_measure", lambda *a: probes.append(1) or real(*a))
+    cases = _serve_cases(8, (256, 256), 20, 8, 46)
+    op = NonlocalOp2D(8, 1.0, 2e-5, 1.0 / 256)
+    u = torch.as_tensor(np.random.default_rng(47).standard_normal((256, 256)),
+                        device=card, dtype=torch.float32)
+
+    def boot():
+        eng = EnsembleEngine(method="cuda", device=card, dtype=torch.float32)
+        states = eng.run(cases)
+        solo = ps.solo_pick(op, 50, (256, 256), torch.float32, card)(u, 0)
+        return eng, states, solo
+
+    cold_eng, cold, cold_solo = boot()
+    assert probes and cold_eng.report.programs_built == 1
+    autotune.reset()
+    n_probes = len(probes)
+    ck.reset_launch_counts()
+    warm_eng, warm, warm_solo = boot()
+    assert len(probes) == n_probes
+    assert (warm_eng.report.programs_loaded, warm_eng.report.programs_built) == (1, 0)
+    ran = {k for k, v in ck.launch_counts().items() if v}
+    assert ran <= {"batched_step2d", "batched_carried2d", "batched_superstep2d", "nsum2d",
+                   "step2d", "carried2d", "superstep2d", "resident2d"}
+    for a, b in zip(cold, warm, strict=True):
+        assert np.array_equal(a, b)
+    assert torch.equal(cold_solo, warm_solo)
+
+
+@pytest.mark.cuda
+def test_slo_taps_add_no_fence_on_card(card, monkeypatch):
+    """ServePipeline(slo=True) on the card: the same dispatches and fences
+    as the ledger off (no fence between the dispatches), every promise
+    resolved once, the lanes bitwise."""
+    from nonlocalheatequation_torch.serve import server as srv
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+
+    cases = _serve_cases(16, (256, 256), 20, 8, 48)
+    engine = EnsembleEngine(method="cuda", device=card, dtype=torch.float32)
+    real_fence, real_dispatch = srv.fence_scalar, engine.dispatch_chunk
+    runs = {}
+    for slo in (False, True):
+        events = []
+        monkeypatch.setattr(srv, "fence_scalar",
+                            lambda x, ev=events: (ev.append("fence"), real_fence(x))[1])
+        monkeypatch.setattr(engine, "dispatch_chunk",
+                            lambda m, U, ev=events: (ev.append("dispatch"),
+                                                     real_dispatch(m, U))[1])
+        with ServePipeline(engine=engine, depth=2, window_ms=10_000.0, slo=slo) as pipe:
+            runs[slo] = (events, pipe.serve_cases(cases), pipe.metrics())
+    assert runs[True][0] == runs[False][0] == ["dispatch", "dispatch", "fence", "fence"]
+    for a, b in zip(runs[True][1], runs[False][1], strict=True):
+        assert np.array_equal(a, b)
+    s = runs[True][2]["slo"]
+    assert (s["promised"], s["resolved"], s["duplicate"], s["open"]) == (16, 16, 0, 0)

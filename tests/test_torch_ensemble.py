@@ -233,10 +233,13 @@ def test_refusals(monkeypatch):
         EnsembleEngine(device=CPU, comm="fused")
     with pytest.raises(ValueError, match="unknown comm"):
         EnsembleEngine(device=CPU, comm="rdma")
-    with pytest.raises(ValueError, match="AOT program store .* is not ported yet"):
-        EnsembleEngine(device=CPU, program_store="/tmp/store")
-    with pytest.raises(ValueError, match="AOT program store"):
-        EnsembleEngine(device=CPU, store_backend="cpu")
+    # the program store (serve/program_store.py) is taken and resolved at the
+    # first build; a sibling on another device keys its own backend
+    stored = EnsembleEngine(device=CPU, program_store="/nonexistent/store",
+                            store_backend="cpu")
+    assert stored.program_store is None and stored.store_backend == "cpu"
+    assert stored.sibling(method="sat").store_backend == "cpu"
+    assert stored.sibling(device=CPU).store_backend is None
     with pytest.raises(ValueError, match="exceeds the top batch size"):
         EnsembleEngine(device=CPU).pad_chunk(prod * 9)
     if not torch.cuda.is_available():

@@ -13,8 +13,9 @@
 * No source file of the port names either package in an import; the
   distributed slice's modules (parallel/multihost.py among them), the
   serving slice's (serve/server.py, serve/resilience.py, utils/faults.py,
-  obs/export.py, obs/metrics.py, obs/trace.py) and the multi-process test
-  child are among them.
+  obs/export.py, obs/metrics.py, obs/trace.py), the fleet's leaves
+  (obs/flightrec.py, obs/slo.py, serve/picker.py, serve/program_store.py)
+  and the multi-process test child are among them.
 * ``init_from_env`` with no launch signal never wires a process group.
 * The entry points default to the card: without one they raise (or the
   CLIs exit 2), the distributed solvers, meshes and CLIs included, and so
@@ -206,6 +207,26 @@ def test_the_serving_slice_imports_neither_package():
         assert not roots & {"jax", "jaxlib", "nonlocalheatequation_tpu"}, (rel, roots)
         if rel in STDLIB_NUMPY_ONLY:
             assert roots == STDLIB_NUMPY_ONLY[rel], (rel, roots)
+
+
+FLEET_LEAVES = ("obs/flightrec.py", "obs/slo.py", "serve/picker.py", "serve/program_store.py")
+#: the leaves' own imports: the flight recorder is stdlib only, the picker
+#: imports no torch (it never touches the card)
+LEAF_ROOTS = {"obs/flightrec.py": {"__future__", "json", "os", "signal", "socket", "sys",
+                                   "threading", "time", "collections"},
+              "serve/picker.py": {"__future__", "math", "os", "dataclasses", "numpy",
+                                  "nonlocalheatequation_torch"}}
+
+
+def test_the_fleet_leaves_import_neither_package():
+    for rel in FLEET_LEAVES:
+        tree = ast.parse((PKG / rel).read_text(), rel)
+        roots = {(a.name if isinstance(node, ast.Import) else node.module or "").split(".")[0]
+                 for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+                 for a in (node.names if isinstance(node, ast.Import) else [node])}
+        assert not roots & {"jax", "jaxlib", "nonlocalheatequation_tpu"}, (rel, roots)
+        if rel in LEAF_ROOTS:
+            assert roots == LEAF_ROOTS[rel], (rel, roots)
 
 
 def test_serving_entry_points_default_to_the_card(monkeypatch, capsys):

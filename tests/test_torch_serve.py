@@ -266,8 +266,11 @@ def test_pipeline_validation_refusals():
         _pipe(window_ms=-1.0)
     with pytest.raises(ValueError, match="not both"):
         ServePipeline(_engine(), method="sat")
-    with pytest.raises(ValueError, match="slo= .* not ported yet"):
-        _pipe(slo=True)
+    # slo= builds the promise ledger (obs/slo.py); its summary joins metrics()
+    with _pipe(slo=True) as audited:
+        assert audited.metrics()["slo"]["promised"] == 0
+    with _pipe(slo=False, depth=1) as plain:
+        assert "slo" not in plain.metrics()
     pipe = _pipe(depth=1)
     pipe.close()
     with pytest.raises(RuntimeError, match="closed"):

@@ -183,9 +183,16 @@ def test_cli_refusals_print_the_jax_words(monkeypatch, capsys, tmp_path):
                     "1"]),
     (solve_unstructured.main, ["--mesh", "data/10x10.msh", "--test", "--nt", "2"]),
 ], ids=["solve1d", "solve2d", "solve3d", "solve_unstructured"])
-def test_flight_dir_is_refused_by_name(main, argv, capsys, tmp_path):
-    assert main([*argv, "--platform", "cpu", "--flight-dir", str(tmp_path)]) == 1
-    assert capsys.readouterr().err.startswith("--flight-dir is not ported yet")
+def test_flight_dir_is_refused_by_name(main, argv, monkeypatch, capsys, tmp_path):
+    # ported since: --flight-dir arms the flight recorder for the session
+    # (obs/flightrec.py) and restores the previous recorder on exit
+    from nonlocalheatequation_torch.obs import flightrec
+
+    monkeypatch.setattr(sys, "stdin", io.StringIO(_batch(CASES_2D[:1])))
+    box = tmp_path / "box"
+    assert main([*argv, "--platform", "cpu", "--flight-dir", str(box)]) == 0
+    assert "flight-dir" not in capsys.readouterr().err
+    assert box.is_dir() and flightrec.get_recorder() is None
 
 
 def test_metrics_out_writes_the_pipeline_metrics_line(monkeypatch, capsys, tmp_path):

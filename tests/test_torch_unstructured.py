@@ -413,6 +413,8 @@ def test_cli_results_input_and_refusals(monkeypatch, tmp_path):
     assert np.allclose(vals, js.u, rtol=1e-5, atol=1e-6)  # printed with %g
     assert "OS_Threads" not in out
     trace_dir = str(tmp_path)
+    # --program-store publishes its directory in the env; restored at teardown
+    monkeypatch.setenv("NLHEAT_PROGRAM_STORE", "0")
     for argv, what in (
         (["--devices", "2", "--superstep", "2"], "does not fit the sharded offsets form"),
         (["--halo", "export", "--superstep", "2"], "on a ShardedUnstructuredOp"),
@@ -422,14 +424,17 @@ def test_cli_results_input_and_refusals(monkeypatch, tmp_path):
         (["--trace", trace_dir], f"-> {tmp_path / 'host_trace.json'}"),
         (["--metrics-out", trace_dir], f"--metrics-out {trace_dir!r} is a directory"),
         (["--metrics-port", "70000"], "--metrics-port must be in [0, 65535] (got 70000)"),
-        (["--flight-dir", "d"], "--flight-dir is not ported yet"),
-        (["--program-store", "d"], "--program-store is not ported yet"),
+        # ported since: the flight recorder and the program store run (rc 0)
+        (["--flight-dir", str(tmp_path / "box")], "error_l2/N"),
+        (["--program-store", str(tmp_path / "store")], "error_l2/N"),
         (["--gang-order", "1", "--devices", "4", "--superstep", "2"],
          "does not fit the sharded offsets form"),
     ):
         err = io.StringIO()
         monkeypatch.setattr(sys, "stderr", err)
-        rc, _ = _run_cli(["--mesh", "data/10x10.msh", "--test", "--platform", "cpu", *argv])
-        assert rc == (0 if argv[0] == "--trace" else 1), (argv, err.getvalue())
-        assert what in err.getvalue(), (argv, err.getvalue())
+        rc, out = _run_cli(["--mesh", "data/10x10.msh", "--test", "--platform", "cpu", *argv])
+        runs = argv[0] in ("--trace", "--flight-dir", "--program-store")
+        assert rc == (0 if runs else 1), (argv, err.getvalue())
+        assert what in err.getvalue() + out, (argv, err.getvalue())
     assert (tmp_path / "host_trace.json").exists()
+    assert (tmp_path / "box").is_dir()
