@@ -283,9 +283,40 @@ line is printed; the phase walls are printed at the end):
    --flight-dir under raise@1,stall@3,nan@c6x* writes a postmortem naming
    case 6; a solve2d child SIGTERMed leaves a sigterm dump.  Counted: every
    part, the child's launches too.
+17. (Run after phase 16.) The fleet front door (phase_front_door:
+   serve/router.py, serve/transport.py, serve/http.py, parallel/gang.py's
+   solve_case_sharded, cli/common.run_listen).  Its workers are this
+   script's `--fleet-worker` children (the port's worker main; each writes
+   its launches and nvcc runs at exit).  (a) ReplicaRouter(replicas=2,
+   method="cuda", f32, batch_sizes=(8,), a shared program store, the gang
+   on 4 virtual devices): 16 x 1024^2 f32 over two buckets (nt 200 and
+   201, one physics each) bitwise the offline engine, one bucket a replica,
+   the /replica{r} scrape; die@5: one death, the cases re-routed bitwise,
+   a respawn to the floor; add_replica then drain_replica: the newcomer
+   serves the drained bucket from the store (programs built 0), no nvcc,
+   only batched_step2d.  (c) 4096^2, eps=8, f32, the test form, 100 steps
+   on the gang: "peer" (fused_nsum2d), bitwise solve_case_sharded and
+   Solver2DDistributed here; an rkc[8] EngineChoice bitwise; a gang
+   restarted under NLHEAT_FUSED_TRANSPORT=interp (split_nsum2d) bitwise the
+   peer run; the fused step timed by CUDA events.  On threads beside (a)
+   and (c): (b) the stream over TCP with a token, bitwise, a garbage
+   connection and a wrong-token hello dropped; (e) a worker whose dispatch
+   raises "CUDA error: unspecified launch failure" on a marked case ends
+   (no retry, no CPU route), the case retires bitwise from a healthy
+   replica; with the failure in every worker the case completes
+   exceptionally after MAX_REQUEUES and the others are served.  (d)
+   `solve2d --listen 0 --replicas 2 --shard-threshold 1048576
+   --gang-devices 4 --slo 1` and `solve3d --listen 0 --replicas 1`
+   children: an explicit 1024^2 case bitwise offline (?bin=1), a picked
+   case within 1e-6, 422 on an unmeetable deadline, 429 with Retry-After
+   on a burst, a mesh upload of the shuffled 512^2 cloud and a case on it
+   bitwise gather_L offline, the SLO block, both replica namespaces in
+   /metrics, /v1/sessions 404, rc 0 on EOF with --metrics-out; a 128^3
+   case bitwise offline.  Counted: the phase's own runs and every counted
+   worker's (the CLI children's workers are not counted).
 9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10, 11,
    12, 13, 15 and 16, the other kernels' those of their phases and of phases
-   10-16), then {"ok": true, "device": {...}}.
+   10-17), then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -771,11 +802,26 @@ def start_clis(cases_2d, cases_1d) -> tuple:
     return jobs, time.perf_counter()
 
 
+def end_child(proc):
+    """Kill a child that is still up, and its own children with it when it
+    leads a session of its own (a --listen CLI and its replica workers)."""
+    import signal
+
+    if proc.poll() is not None:
+        return
+    try:
+        if os.getpgid(proc.pid) == proc.pid:
+            os.killpg(proc.pid, signal.SIGKILL)
+        else:
+            proc.kill()
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
 def stop_children():
     for proc in CHILDREN:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        end_child(proc)
 
 
 def phase_main_path_tables(torch, clis, cases_2d, l2_threshold):
@@ -5008,6 +5054,662 @@ def phase_fleet_leaves(torch, np, ck, cases_2d, built) -> dict:
     return by
 
 
+# -- phase 17: the fleet front door ----------------------------------------------------
+
+FLEET_STEPS = (SERVE_STEPS, SERVE_STEPS + 1)  # (a) the two buckets' steps
+GANG_STEPS = 100        # (c) the gang's 4096^2 eps=8 f32 test form
+GANG_DEVICES = 4        # (c) the gang's devices: virtual devices of one card
+GANG_RKC = (8, 8)       # (c) the rkc EngineChoice: stages, dt in Euler bounds
+FAIL_NT = 77            # (e) the marked case's steps: its chunk fails on the card
+FAIL_N = 256            # (e) the grid of the failure leg's cases
+BURST = 192             # (d) POSTs of the burst past the ingress's cap of 2 x 64
+BURST_STEPS = 2000      # (d) steps of each burst case (1024^2 test form)
+FLEET_WAIT = 600        # seconds any fleet wait may take
+FLEET_TOKEN = "phase17-token"
+
+
+def fleet_worker_main(connect=None) -> int:
+    """A replica worker of phase 17 (``chip_smoke.py --fleet-worker
+    [HOST:PORT]``, started by fleet_transports): the port's worker main
+    (serve/router.py ``_worker_main``) behind the pipe worker's fd 1
+    hand-over, taken before torch is imported.  At exit it writes its
+    launches by kernel and its nvcc runs to NLHEAT_FLEET_COUNTS/worker-PID.
+    With NLHEAT_FLEET_FAIL_REPLICAS naming its replica id (or "*"), a chunk
+    holding a case of FAIL_NT steps raises "CUDA error: unspecified launch
+    failure" at dispatch, as a failed launch would."""
+    frame_fd = None
+    if connect is None:
+        frame_fd = os.dup(1)
+        os.dup2(2, 1)
+    sys.path.insert(0, str(ROOT))
+    from nonlocalheatequation_torch.ops import _build
+    from nonlocalheatequation_torch.ops import cuda_kernel as ck
+    from nonlocalheatequation_torch.serve import router
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleEngine
+
+    nvcc = []
+    real = _build.find_nvcc
+    _build.find_nvcc = lambda: nvcc.append(1) or real()
+    rid = os.environ.get("NLHEAT_REPLICA_ID")
+    failing = os.environ.get("NLHEAT_FLEET_FAIL_REPLICAS", "").split(",")
+    if "*" in failing or rid in failing:
+        stage, dispatch = EnsembleEngine.stage_inputs, EnsembleEngine.dispatch_chunk
+
+        def staged(self, chunk):
+            self.fleet_marked = any(c.nt == FAIL_NT for c in chunk)
+            return stage(self, chunk)
+
+        def dispatched(self, multi, U0):
+            if getattr(self, "fleet_marked", False):
+                raise RuntimeError("CUDA error: unspecified launch failure")
+            return dispatch(self, multi, U0)
+
+        EnsembleEngine.stage_inputs, EnsembleEngine.dispatch_chunk = staged, dispatched
+    out_dir = os.environ.get("NLHEAT_FLEET_COUNTS")
+
+    def report():
+        if out_dir:
+            Path(out_dir, f"worker-{os.getpid()}.json").write_text(json.dumps({
+                "leg": os.environ.get("NLHEAT_FLEET_LEG"), "replica": rid,
+                "transport": "tcp" if connect else "pipe",
+                "nvcc": len(nvcc), "launches": {k: v for k, v in ck.launch_counts().items()
+                                                if v}}))
+
+    atexit.register(report)
+    router._worker_main(connect=connect, frame_fd=frame_fd)
+    return 0
+
+
+def fleet_transports(counts_dir: Path):
+    """(pipe, tcp) transport objects whose workers are fleet_worker_main
+    children of this script, counting their launches into counts_dir."""
+    from nonlocalheatequation_torch.serve import transport as tr
+
+    def env_of(env):
+        return dict(env, NLHEAT_FLEET_COUNTS=str(counts_dir))
+
+    class Pipe(tr.PipeTransport):
+        def spawn(self, rid, env, timeout_s=180.0):
+            proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                     "--fleet-worker"], stdin=subprocess.PIPE,
+                                    stdout=subprocess.PIPE, env=env_of(env), cwd=ROOT)
+            CHILDREN.append(proc)
+            return tr.WorkerHandle(proc, proc.stdout, proc.stdin, transport=self.name)
+
+    class Tcp(tr.SocketTransport):
+        def spawn(self, rid, env, timeout_s=180.0):
+            env = env_of(env)
+            if self.token is not None:
+                env[tr.WORKER_TOKEN_ENV] = self.token
+            proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                     "--fleet-worker", self.connect_arg()],
+                                    stdin=subprocess.DEVNULL, env=env, cwd=ROOT)
+            CHILDREN.append(proc)
+            try:
+                conn = self._accept(rid, timeout_s, proc)
+            except BaseException:
+                proc.kill()
+                raise
+            return tr.WorkerHandle(proc, conn.makefile("rb"), conn.makefile("wb"), sock=conn,
+                                   transport=self.name)
+
+    return Pipe, Tcp
+
+
+def restart_gang(router, env: dict) -> None:
+    """Stop the router's gang replica cleanly (its launches reported at exit)
+    and start a new one with ``env`` added to its environment."""
+    rep = router._gang_rep()
+    rep.closing = True
+    rep.send({"op": "stop"})
+    rep.sendq.put(None)
+    rep.handle.reap(timeout_s=FLEET_WAIT)
+    router.child_env.update(env)
+    router._spawn(gang=True)
+
+
+def closed_by_peer(sock) -> bool:
+    """The listener closed this connection (EOF, or a reset when it left
+    bytes unread)."""
+    try:
+        return sock.recv(1) == b""
+    except ConnectionResetError:
+        return True
+
+
+def worker_counts(counts_dir: Path) -> list:
+    return [json.loads(p.read_text()) for p in sorted(counts_dir.glob("worker-*.json"))]
+
+
+def fleet_http(port: int, method: str, path: str, body=None, raw: bool = False):
+    """(status, JSON body or raw bytes, Retry-After) of one request to the
+    ingress on 127.0.0.1:port."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=FLEET_WAIT) as r:
+            code, payload, retry = r.status, r.read(), r.headers.get("Retry-After")
+    except urllib.error.HTTPError as e:
+        code, payload, retry = e.code, e.read(), e.headers.get("Retry-After")
+    return code, (payload if raw else json.loads(payload.decode())), retry
+
+
+def start_listen(module: str, argv, env) -> tuple:
+    """A --listen CLI child and a thread collecting its stderr lines.  The
+    child leads a session of its own, so that stop_children can end its
+    replica workers with it."""
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", module, "--listen", "0", *argv], cwd=ROOT,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    CHILDREN.append(proc)
+    lines: list = []
+    t = threading.Thread(target=lambda: lines.extend(iter(proc.stderr.readline, "")),
+                         daemon=True)
+    t.start()
+    return proc, lines, t
+
+
+def listen_port(proc, lines, what: str) -> int:
+    deadline = time.monotonic() + FLEET_WAIT
+    while time.monotonic() < deadline and proc.poll() is None:
+        for line in list(lines):
+            m = re.search(r"ingress: http://127.0.0.1:(\d+)/v1/cases", line)
+            if m:
+                return int(m.group(1))
+        time.sleep(0.2)
+    fail(f"phase 17 (d): {what} printed no ingress line (rc {proc.poll()}):\n"
+         + "".join(lines)[-4000:])
+
+
+def stop_listen(proc, lines, t, what: str) -> str:
+    proc.stdin.close()  # EOF = shutdown
+    try:
+        rc = proc.wait(timeout=FLEET_WAIT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"phase 17 (d): {what} did not stop on EOF")
+    t.join(timeout=30)
+    err = "".join(lines)
+    if rc != 0:
+        fail(f"phase 17 (d): {what} exited {rc}:\n{err[-4000:]}")
+    return err
+
+
+def fleet_latency(m: dict) -> str:
+    p = m.get("request_latency_ms") or {}
+    return f"p50 {p.get('p50', 0.0):.1f} ms, p99 {p.get('p99', 0.0):.1f} ms"
+
+
+def phase_front_door(torch, np, ck, l2_threshold) -> dict:
+    """Phase 17 (see the module docstring): the replica router's pipe and TCP
+    fleets, the gang replica, the --listen front door and a card failure in
+    a worker.  Legs (b) and (e) run on threads beside (a) and (c), and (d)'s
+    CLI children boot from the start: a worker takes seconds to be ready,
+    and the legs' spawns overlap.  Returns the launches by part: the phase
+    process's own runs and each counted worker's."""
+    import concurrent.futures
+    import io
+    import shutil
+    import socket
+
+    from nonlocalheatequation_torch.models.solver2d import Solver2D
+    from nonlocalheatequation_torch.parallel.distributed2d import (
+        Solver2DDistributed,
+        choose_mesh_for_grid,
+    )
+    from nonlocalheatequation_torch.parallel.gang import solve_case_sharded
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+    from nonlocalheatequation_torch.serve import router as router_mod
+    from nonlocalheatequation_torch.serve import transport as tr
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase, EnsembleEngine
+    from nonlocalheatequation_torch.serve.meshes import get_mesh_op
+    from nonlocalheatequation_torch.serve.picker import EngineChoice
+    from nonlocalheatequation_torch.serve.router import ReplicaRouter
+    from nonlocalheatequation_torch.utils.faults import FaultPlan
+
+    card = nvidia_smi("name,power.limit")
+    f32 = torch.float32
+    by, walls = {}, {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="phase17-"))
+    counts = tmp / "counts"
+    counts.mkdir()
+    Pipe, Tcp = fleet_transports(counts)
+    saved_mesh_dir = os.environ.get("NLHEAT_MESH_DIR")
+
+    def mark(part):
+        walls[part] = round(time.perf_counter() - t_phase, 1)
+
+    def same(got, want, what):
+        bad = [i for i, (a, b) in enumerate(zip(got, want, strict=True))
+               if a is None or not np.array_equal(a, b)]
+        if bad:
+            fail(f"phase 17 {what}: cases {bad} are not bitwise the offline run")
+
+    # (d)'s CLI children boot while the other legs run
+    mdir = tmp / "meshes"
+    cli_env = dict(os.environ, NLHEAT_MESH_DIR=str(mdir), PYTHONPATH=str(ROOT))
+    cli_env.pop("NLHEAT_PROGRAM_STORE", None)
+    metrics_out = tmp / "listen-metrics.json"
+    cli2 = start_listen("nonlocalheatequation_torch.cli.solve2d",
+                        ["--replicas", "2", "--shard-threshold", str(ENS_N * ENS_N),
+                         "--gang-devices", str(GANG_DEVICES), "--slo", "1",
+                         "--metrics-out", str(metrics_out)], cli_env)
+    cli3 = start_listen("nonlocalheatequation_torch.cli.solve3d", ["--replicas", "1"], cli_env)
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    try:
+        # the offline references, in this thread before the legs start (the
+        # launch counts of this process are read as differences)
+        dh = 1.0 / ENS_N
+        rng = np.random.default_rng(SEED + 17)
+        phys = [(k, euler_dt(dh, k, frac)) for k, frac in SERVE_PHYSICS]
+        # one physics a bucket: a chunk's program is keyed on its lanes'
+        # physics, so whatever the arrival timing splits, the padded chunk
+        # of a bucket keys one program (the warm newcomer finds it stored)
+        cases = [EnsembleCase(shape=(ENS_N, ENS_N), nt=FLEET_STEPS[i % 2], eps=EPS,
+                              k=phys[i % 2][0], dt=phys[i % 2][1], dh=dh, test=False,
+                              u0=rng.standard_normal((ENS_N, ENS_N)))
+                 for i in range(SERVE_CASES)]
+        offline = launches_of(ck, by, "17a offline", lambda: EnsembleEngine(
+            method="cuda", device="cuda", dtype=f32, batch_sizes=(ENS_B,)).run(cases))
+        fdh = 1.0 / FAIL_N
+        frng = np.random.default_rng(SEED + 171)
+        fcases = [EnsembleCase(shape=(FAIL_N, FAIL_N), nt=FAIL_NT if i == 0 else 20 + i % 2,
+                               eps=EPS, k=1.0, dt=euler_dt(fdh), dh=fdh, test=False,
+                               u0=frng.standard_normal((FAIL_N, FAIL_N))) for i in range(5)]
+        fwant = launches_of(ck, by, "17e offline", lambda: EnsembleEngine(
+            method="cuda", device="cuda", dtype=f32, batch_sizes=(ENS_B,)).run(fcases))
+
+        def leg_tcp() -> dict:
+            # (b) TCP with a token: the stream bitwise (a); a garbage
+            # connection and a wrong-token hello are dropped while it serves
+            t0 = time.perf_counter()
+            tcp = Tcp(token=FLEET_TOKEN)
+            with ReplicaRouter(replicas=2, transport=tcp, method="cuda", dtype=f32,
+                               batch_sizes=(ENS_B,), program_store=str(tmp / "store"),
+                               child_env={"NLHEAT_FLEET_LEG": "b"},
+                               spawn_timeout_s=FLEET_WAIT) as trouter:
+                spawn = time.perf_counter() - t0
+                same(trouter.serve_cases(cases), offline, "(b) TCP")
+                garbage = socket.create_connection(("127.0.0.1", tcp.port))
+                garbage.sendall(b"\xff" * 64)
+                wrong = socket.create_connection(("127.0.0.1", tcp.port))
+                tr.write_json_frame(wrong.makefile("wb"), {"op": "hello", "replica": 9,
+                                                           "token": "wrong"})
+                same(trouter.serve_cases(cases), offline, "(b) TCP beside the bad peers")
+                try:  # an accept round with no worker due reads and drops both
+                    tcp._accept(99, timeout_s=5.0)
+                except TimeoutError:
+                    pass
+                garbage.settimeout(30)
+                wrong.settimeout(30)
+                dropped = closed_by_peer(garbage) and closed_by_peer(wrong)
+                garbage.close()
+                wrong.close()
+                same(trouter.serve_cases(cases), offline, "(b) TCP after the drops")
+                m = trouter.metrics()
+            if not dropped or m["deaths"] != 0 or m["transport"] != "tcp":
+                fail(f"phase 17 (b): dropped {dropped}, {m}")
+            mark("b")
+            return {"spawn": spawn, "m": m}
+
+        def leg_failure_one() -> dict:
+            # (e) replica 0's dispatch fails on the marked case: it ends, the
+            # router counts a death, a healthy replica serves the case
+            ekw = dict(method="cuda", dtype=f32, batch_sizes=(ENS_B,), transport=Pipe(),
+                       spawn_timeout_s=FLEET_WAIT)
+            with ReplicaRouter(replicas=2, child_env={"NLHEAT_FLEET_FAIL_REPLICAS": "0",
+                                                      "NLHEAT_FLEET_LEG": "e1"},
+                               **ekw) as erouter:
+                hs = [erouter.submit(c) for c in fcases]  # the marked case first: replica 0
+                erouter.drain(timeout_s=FLEET_WAIT)
+                em = erouter.metrics()
+                if any(x.error is not None for x in hs) or em["deaths"] != 1 \
+                        or hs[0].replica == 0:
+                    fail(f"phase 17 (e): errors {[str(x.error) for x in hs if x.error]}, "
+                         f"{em}, marked case on replica {hs[0].replica}")
+                same([x.result for x in hs], fwant, "(e) the re-routed card failure")
+                pulled = erouter.refresh_stats()
+                res = [pulled[r]["metrics"]["resilience"] for r in em["live"]]
+                if any(d["fallback_chunks"] or d["retries"] for d in res):
+                    fail(f"phase 17 (e): a survivor retried or fell back: {res}")
+            mark("e1")
+            return {"m": em, "replica": hs[0].replica}
+
+        def leg_failure_every() -> dict:
+            # (e) the failure in every worker: the case completes
+            # exceptionally after MAX_REQUEUES, the other cases are served
+            ekw = dict(method="cuda", dtype=f32, batch_sizes=(ENS_B,), transport=Pipe(),
+                       spawn_timeout_s=FLEET_WAIT)
+            with ReplicaRouter(replicas=1, child_env={"NLHEAT_FLEET_FAIL_REPLICAS": "*",
+                                                      "NLHEAT_FLEET_LEG": "e2"},
+                               **ekw) as erouter:
+                others = [erouter.submit(c) for c in fcases[1:]]
+                erouter.drain(timeout_s=FLEET_WAIT)
+                marked = erouter.submit(fcases[0])
+                try:
+                    marked.wait(FLEET_WAIT)
+                    fail("phase 17 (e): the case that fails on every worker was served")
+                except router_mod.ServeError as e:
+                    why = str(e)
+                later = [erouter.submit(c) for c in fcases[1:]]
+                erouter.drain(timeout_s=FLEET_WAIT)
+                qm = erouter.metrics()
+            if "MAX_REQUEUES" not in why or qm["deaths"] != router_mod.MAX_REQUEUES + 1:
+                fail(f"phase 17 (e): {why}; {qm}")
+            same([x.result for x in others + later], fwant[1:] * 2, "(e) the other cases")
+            mark("e2")
+            return {"m": qm, "why": why}
+
+        legs = {"b": pool.submit(leg_tcp), "e1": pool.submit(leg_failure_one),
+                "e2": pool.submit(leg_failure_every)}
+
+        # (a) the pipe fleet: 2 replicas and the gang, one shared store
+        t0 = time.perf_counter()
+        router = ReplicaRouter(replicas=2, transport=Pipe(), method="cuda", dtype=f32,
+                               batch_sizes=(ENS_B,), program_store=str(tmp / "store"),
+                               shard_threshold=ENS_N * ENS_N, gang_devices=GANG_DEVICES,
+                               max_replicas=3, child_env={"NLHEAT_FLEET_LEG": "a"},
+                               spawn_timeout_s=FLEET_WAIT)
+        spawn_wall = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            got = router.serve_cases(cases)
+            serve_wall = time.perf_counter() - t0
+            same(got, offline, "(a) the pipe fleet")
+            owners = {k: router._owner[k] for k in {c.bucket_key() for c in cases}}
+            if sorted(owners.values()) != [0, 1]:
+                fail(f"phase 17 (a): bucket owners {owners}, not one bucket a replica")
+            stats = router.refresh_stats()
+            names = router.registry.names()
+            for rid in (0, 1):
+                if not any(n.startswith(f"/replica{{{rid}}}/serve/") for n in names):
+                    fail(f"phase 17 (a): no /replica{{{rid}}} namespace after refresh_stats")
+            busy = {rid: router.registry.get(f"/replica{{{rid}}}/busy-rate").value
+                    for rid in (0, 1)}
+            m = router.metrics()
+            say(f"{card}: phase 17 (a) ReplicaRouter(2 replicas + the gang, pipe): 3 workers "
+                f"ready in {spawn_wall:.2f} s; {SERVE_CASES} x {ENS_N}^2 f32 over buckets nt "
+                f"{FLEET_STEPS} served in {serve_wall:.2f} s, bitwise the offline run, owners "
+                f"{sorted(owners.values())}; busy rates (of 10000) {busy}; latency "
+                f"{fleet_latency(m)}; stats from {sorted(stats)}")
+            router._faults = FaultPlan.parse("die@5")
+            got = router.serve_cases(cases)
+            router._faults = None
+            same(got, offline, "(a) die@5")
+            m = router.metrics()
+            if m["deaths"] != 1 or m["requeued"] < 1 or m["replicas"] != 2 or m["spawns"] != 4 \
+                    or m["outstanding"] != 0:
+                fail(f"phase 17 (a) die@5: {m}")
+            say(f"{card}: phase 17 (a) die@5: deaths {m['deaths']}, requeued {m['requeued']}, "
+                f"respawned to {m['replicas']} replicas (spawns {m['spawns']}), every case once "
+                f"and bitwise; latency {fleet_latency(m)}")
+            # scale out, then in: the newcomer inherits the drained replica's
+            # bucket and boots it from the shared store
+            t0 = time.perf_counter()
+            new = router.add_replica()
+            add_wall = time.perf_counter() - t0
+            key = cases[0].bucket_key()
+            victim = router._owner[key]
+            router.drain_replica(victim)
+            got = router.serve_cases(cases)
+            same(got, offline, "(a) the added replica")
+            fresh = ReplicaRouter.refresh_stats(router)[new]["metrics"]
+            if router._owner.get(key) != new or fresh["cases"] < 1 \
+                    or fresh["programs_built"] != 0 or fresh["programs_loaded"] < 1:
+                fail(f"phase 17 (a) add_replica: owner {router._owner.get(key)}, "
+                     f"{fresh['cases']} cases, programs built {fresh['programs_built']}, "
+                     f"loaded {fresh['programs_loaded']}")
+            m = router.metrics()
+            say(f"{card}: phase 17 (a) add_replica: replica {new} ready in {add_wall:.2f} s; "
+                f"replica {victim} drained, its bucket served by the newcomer bitwise, programs "
+                f"built {fresh['programs_built']}, loaded {fresh['programs_loaded']} (store "
+                f"hits {fresh['store']['hits']}, misses {fresh['store']['misses']}); latency "
+                f"over the leg {fleet_latency(m)}")
+            mark("a")
+
+            # (c) the gang: 4096^2, eps=8, f32, the test form, GANG_STEPS steps
+            gdh = 1.0 / NX
+            gdt = euler_dt(gdh)
+            gcase = EnsembleCase(shape=(NX, NX), nt=GANG_STEPS, eps=EPS, k=1.0, dt=gdt, dh=gdh,
+                                 test=True)
+            gvals = router.submit(gcase).wait(FLEET_WAIT)
+            if router.metrics()["sharded_cases"] != 1:
+                fail(f"phase 17 (c): the {NX}^2 case did not go to the gang")
+            cache: dict = {}
+            want, ginfo = launches_of(ck, by, "17c offline solve_case_sharded",
+                                      lambda: solve_case_sharded(
+                                          gcase, ndevices=GANG_DEVICES, method="cuda",
+                                          dtype=f32, solver_cache=cache))
+            if not np.array_equal(gvals, want) or ginfo.get("transport") != "peer":
+                fail(f"phase 17 (c): the gang's {NX}^2 state bitwise the offline "
+                     f"solve_case_sharded: {np.array_equal(gvals, want)}; info {ginfo}")
+            mesh = choose_mesh_for_grid(NX, NX, device_list("cuda", GANG_DEVICES))
+            mx, my = mesh.shape["x"], mesh.shape["y"]
+            s = Solver2DDistributed(NX // mx, NX // my, mx, my, GANG_STEPS, EPS, k=1.0, dt=gdt,
+                                    dh=gdh, mesh=mesh, method="cuda", dtype=f32, comm="fused")
+            s.test_init()
+            direct = launches_of(ck, by, "17c offline Solver2DDistributed", s.do_work)
+            err = s.error_l2 / (NX * NX)
+            if not np.array_equal(np.asarray(direct, np.float64), gvals) or err > l2_threshold:
+                fail(f"phase 17 (c): Solver2DDistributed bitwise {np.array_equal(direct, gvals)}"
+                     f", error_l2/#points {err}")
+            stages, mult = GANG_RKC
+            rcase = EnsembleCase(shape=(NX, NX), nt=GANG_STEPS // mult, eps=EPS, k=1.0,
+                                 dt=mult * gdt, dh=gdh, test=True)
+            pick = EngineChoice("rkc", stages, "cuda", "f32", rcase.dt, rcase.nt, 0.0, 0.0,
+                                "analytic")
+            rvals = router.submit(rcase, engine=pick).wait(FLEET_WAIT)
+            rwant, rinfo = launches_of(ck, by, "17c offline rkc", lambda: solve_case_sharded(
+                rcase, ndevices=GANG_DEVICES, method="cuda", dtype=f32, stepper="rkc",
+                stages=stages))
+            if not np.array_equal(rvals, rwant) or rinfo.get("stepper") != "rkc":
+                fail(f"phase 17 (c): the rkc[{stages}] pick on the gang: bitwise "
+                     f"{np.array_equal(rvals, rwant)}, info {rinfo}")
+            # the interp repeat: the gang stops (its launches reported) and a
+            # new one starts under NLHEAT_FUSED_TRANSPORT=interp (split kernels)
+            restart_gang(router, {"NLHEAT_FUSED_TRANSPORT": "interp"})
+            ivals = router.submit(gcase).wait(FLEET_WAIT)
+            os.environ["NLHEAT_FUSED_TRANSPORT"] = "interp"
+            try:
+                iwant, iinfo = launches_of(ck, by, "17c offline interp", lambda:
+                                           solve_case_sharded(gcase, ndevices=GANG_DEVICES,
+                                                              method="cuda", dtype=f32))
+            finally:
+                os.environ.pop("NLHEAT_FUSED_TRANSPORT", None)
+            m = router.metrics()
+            if not np.array_equal(ivals, iwant) or not np.array_equal(ivals, gvals) \
+                    or iinfo.get("transport") != "interp" or m["deaths"] != 1 \
+                    or len(m["gang"]) != 1:
+                fail(f"phase 17 (c) interp: bitwise offline {np.array_equal(ivals, iwant)}, "
+                     f"bitwise peer {np.array_equal(ivals, gvals)}, info {iinfo}, "
+                     f"deaths {m['deaths']}, gang {m['gang']}")
+            if torch.cuda.device_count() >= GANG_DEVICES:
+                vwant, _ = solve_case_sharded(gcase, ndevices=GANG_DEVICES, method="cuda",
+                                              dtype=f32, device="cuda:0")
+                if not np.array_equal(vwant, gvals):
+                    fail("phase 17 (c): the gang on real cards is not bitwise the virtual run")
+                say(f"phase 17 (c) the gang on {GANG_DEVICES} real cards: bitwise the "
+                    "virtual run")
+            mark("c")
+        finally:
+            router.close()
+        b, e1, e2 = (legs[k].result() for k in ("b", "e1", "e2"))
+        say(f"{card}: phase 17 (b) TCP on 127.0.0.1 with a token: 2 workers dialed in in "
+            f"{b['spawn']:.2f} s, the stream bitwise (a); a garbage connection and a "
+            f"wrong-token hello dropped while serving, deaths 0; latency "
+            f"{fleet_latency(b['m'])}")
+        say(f"{card}: phase 17 (e) dispatch raising 'CUDA error: unspecified launch failure' "
+            f"on the marked case in replica 0: the worker ended, deaths {e1['m']['deaths']}, "
+            f"the case retired from replica {e1['replica']} bitwise, no survivor retried or "
+            f"fell back to the CPU; the failure in every worker: {e2['m']['deaths']} deaths, "
+            f"the case '{e2['why']}', the other cases served bitwise")
+
+        # the gang's step, timed alone on the card (CUDA events, the test form)
+        solver = next(iter(cache.values()))[0]
+        blocks, srcs = solver._device_state()
+        run = solver._make_runner(GANG_STEPS)
+        step_ms = launches_of(ck, by, "17c timed", lambda: [
+            cuda_ms(torch, lambda: run(blocks, 0, srcs), 1, 1) / GANG_STEPS for _ in range(3)])
+        say(f"{card}: phase 17 (c) the gang replica, {NX}^2 eps={EPS} f32 test form, "
+            f"{GANG_STEPS} steps over {GANG_DEVICES} virtual devices of the card: info "
+            f"{json.dumps(ginfo)}; bitwise solve_case_sharded and Solver2DDistributed "
+            f"(comm=fused); error_l2/#points {err:.3e}; an rkc[{stages}] EngineChoice "
+            f"({rcase.nt} steps of {mult} Euler bounds) bitwise offline, info "
+            f"{json.dumps(rinfo)}; a gang restarted under NLHEAT_FUSED_TRANSPORT=interp "
+            f"bitwise offline and the peer run; the fused test-form step "
+            f"{[round(x, 4) for x in step_ms]} ms (CUDA events over {GANG_STEPS}-step runs, "
+            f"mesh {mx}x{my})")
+
+        # (d) the CLI front door
+        port = listen_port(*cli2[:2], "solve2d --listen")
+        cdt = euler_dt(dh)
+        explicit = {"shape": [ENS_N, ENS_N], "nt": 20, "eps": EPS, "k": 1.0, "dt": cdt,
+                    "dh": dh, "test": True}
+        code, resp, _ = fleet_http(port, "POST", "/v1/cases", explicit)
+        code_w, done, _ = fleet_http(port, "GET", f"/v1/cases/{resp['id']}?wait=1")
+        code_r, raw, _ = fleet_http(port, "GET", f"/v1/cases/{resp['id']}/result?bin=1",
+                                    raw=True)
+        got = np.load(io.BytesIO(raw))
+        ecase = EnsembleCase(shape=(ENS_N, ENS_N), nt=20, eps=EPS, k=1.0, dt=cdt, dh=dh)
+        ewant = launches_of(ck, by, "17d offline", lambda: EnsembleEngine(
+            device="cuda").run([ecase])[0])
+        if (code, code_w, code_r) != (202, 200, 200) or done["status"] != "done" \
+                or not np.array_equal(got, ewant):
+            fail(f"phase 17 (d) explicit case: {code} {code_w} {code_r} {done}, bitwise "
+                 f"{np.array_equal(got, ewant)}")
+        T = 200 * cdt
+        picked = {"shape": [ENS_N, ENS_N], "eps": EPS, "k": 1.0, "dh": dh, "T_final": T,
+                  "accuracy": 1e-6, "test": True}
+        code, presp, _ = fleet_http(port, "POST", "/v1/cases", picked)
+        if code != 202:
+            fail(f"phase 17 (d) picked case: {code} {presp}")
+        fleet_http(port, "GET", f"/v1/cases/{presp['id']}?wait=1")
+        code, raw, _ = fleet_http(port, "GET", f"/v1/cases/{presp['id']}/result?bin=1",
+                                  raw=True)
+        ps_ = Solver2D(ENS_N, ENS_N, presp["nt"], EPS, k=1.0, dt=presp["dt"], dh=dh,
+                       method="cuda", dtype=f32, device="cuda")
+        ps_.test_init()
+        ps_.u = np.load(io.BytesIO(raw))
+        perr = ps_.compute_l2(ps_.nt) / (ENS_N * ENS_N)
+        if code != 200 or not perr <= 1e-6:
+            fail(f"phase 17 (d) picked case: {code}, error_l2/#points {perr}")
+        code422, body422, _ = fleet_http(port, "POST", "/v1/cases",
+                                         {**picked, "deadline_ms": 1e-9})
+        pts, hh = jittered_cloud(np, UN_M, 2, SEED + 9, shuffle=True)
+        t0 = time.perf_counter()
+        code, meta, _ = fleet_http(port, "POST", "/v1/meshes",
+                                   {"points": pts.tolist(), "eps": 3 * hh, "vol": hh * hh})
+        mesh_wall = time.perf_counter() - t0
+        if code != 201:
+            fail(f"phase 17 (d) mesh upload: {code} {meta}")
+        os.environ["NLHEAT_MESH_DIR"] = str(mdir)
+        mop = get_mesh_op(meta["hash"], 1.0, 1.0, device="cpu")
+        mdt = 0.8 / float(np.max(mop.c * mop.wsum))
+        mbody = {"mesh": meta["hash"], "nt": MESH_SERVE_STEPS, "k": 1.0, "dt": mdt,
+                 "test": True}
+        code, mresp, _ = fleet_http(port, "POST", "/v1/cases", mbody)
+        if code != 202:
+            fail(f"phase 17 (d) mesh case: {code} {mresp}")
+        fleet_http(port, "GET", f"/v1/cases/{mresp['id']}?wait=1")
+        code_m, raw, _ = fleet_http(port, "GET", f"/v1/cases/{mresp['id']}/result?bin=1",
+                                    raw=True)
+        mcase = EnsembleCase(shape=(mop.n,), nt=MESH_SERVE_STEPS, eps=0, k=1.0, dt=mdt, dh=0.0,
+                             test=True, mesh=meta["hash"])
+        mwant = launches_of(ck, by, "17d offline mesh", lambda: EnsembleEngine(
+            device="cuda").run([mcase])[0])
+        if (code, code_m) != (202, 200) or not np.array_equal(np.load(io.BytesIO(raw)), mwant):
+            fail(f"phase 17 (d) mesh case: {code} {code_m}")
+        burst = {"shape": [ENS_N, ENS_N], "nt": BURST_STEPS, "eps": EPS, "k": 1.0, "dt": cdt,
+                 "dh": dh, "test": True}
+        with concurrent.futures.ThreadPoolExecutor(16) as posters:
+            answers = list(posters.map(
+                lambda _: fleet_http(port, "POST", "/v1/cases", burst), range(BURST)))
+        shed = [a for a in answers if a[0] == 429]
+        accepted = [a for a in answers if a[0] == 202]
+        if code422 != 422 or body422.get("refused") != "picker" or not shed \
+                or not all(a[2] and int(a[2]) >= 1 for a in shed) \
+                or len(shed) + len(accepted) != BURST:
+            fail(f"phase 17 (d): 422 {code422} {body422}; burst {len(accepted)} accepted, "
+                 f"{len(shed)} shed ({shed[:1]})")
+        for _ in range(60):  # the fleet scrape: the stats loop runs every 10 s
+            text = fleet_http(port, "GET", "/metrics", raw=True)[1].decode()
+            if all(f'replica="{r}"' in text for r in (0, 1)):
+                break
+            time.sleep(0.5)
+        code_s, status, _ = fleet_http(port, "GET", "/v1/status")
+        code_x, sess, _ = fleet_http(port, "POST", "/v1/sessions", {})
+        if not all(f'nlheat_replica_serve_depth{{replica="{r}"}}' in text for r in (0, 1)) \
+                or code_s != 200 or "slo" not in status or code_x != 404 \
+                or "no session tier" not in sess.get("error", ""):
+            fail(f"phase 17 (d): /metrics replicas "
+                 f"{[r for r in (0, 1) if f'replica={r}' in text]}, status {code_s} "
+                 f"{sorted(status)}, sessions {code_x} {sess}")
+        err2 = stop_listen(*cli2, "solve2d --listen")
+        if "router:" not in err2:
+            fail("phase 17 (d): no router line at exit")
+        listen_m = json.loads(metrics_out.read_text())
+        # solve3d --listen: one 3D case bitwise the offline engine
+        port3 = listen_port(*cli3[:2], "solve3d --listen")
+        c3 = {"shape": [N3S, N3S, N3S], "nt": 10, "eps": 4, "k": 1.0, "dt": 1e-5,
+              "dh": 1.0 / N3S, "test": True}
+        code, r3, _ = fleet_http(port3, "POST", "/v1/cases", c3)
+        fleet_http(port3, "GET", f"/v1/cases/{r3['id']}?wait=1")
+        code3, raw, _ = fleet_http(port3, "GET", f"/v1/cases/{r3['id']}/result?bin=1",
+                                   raw=True)
+        w3 = launches_of(ck, by, "17d offline 3d", lambda: EnsembleEngine(device="cuda").run(
+            [EnsembleCase(shape=(N3S,) * 3, nt=10, eps=4, k=1.0, dt=1e-5, dh=1.0 / N3S)])[0])
+        stop_listen(*cli3, "solve3d --listen")
+        if code3 != 200 or not np.array_equal(np.load(io.BytesIO(raw)), w3):
+            fail(f"phase 17 (d) solve3d --listen: {code3}")
+        say(f"{card}: phase 17 (d) solve2d --listen 0 --replicas 2 --shard-threshold "
+            f"{ENS_N * ENS_N} --gang-devices {GANG_DEVICES} --slo 1: the explicit {ENS_N}^2 "
+            f"case bitwise the offline engine; the picked case {json.dumps(presp['engine'])} "
+            f"error_l2/#points {perr:.3e}; a 1e-9 ms deadline: 422 ({body422['refused']}); a "
+            f"burst of {BURST} x {BURST_STEPS} steps: {len(accepted)} accepted, {len(shed)} "
+            f"shed 429 (Retry-After {shed[0][2]} s); the shuffled {UN_M}^2 cloud uploaded in "
+            f"{mesh_wall:.2f} s ({meta['nodes']} nodes, {meta['edges']} edges) and a case on "
+            f"it bitwise gather_L offline; /v1/status SLO block promised "
+            f"{status['slo']['promised']}, open {status['slo']['open']}; both replica "
+            f"namespaces in /metrics; /v1/sessions 404; EOF: rc 0, --metrics-out cases "
+            f"{listen_m['cases']}, latency through HTTP {fleet_latency(listen_m)}; solve3d "
+            f"--listen {N3S}^3 bitwise offline (the CLI children's workers use the real pipe "
+            f"transport: their launches are not counted)")
+        mark("d")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        for proc, _, _ in (cli2, cli3):  # still up only when a leg failed
+            end_child(proc)
+        if saved_mesh_dir is None:
+            os.environ.pop("NLHEAT_MESH_DIR", None)
+        else:
+            os.environ["NLHEAT_MESH_DIR"] = saved_mesh_dir
+    workers = worker_counts(counts)
+    for w in workers:
+        if w["nvcc"]:
+            fail(f"phase 17: worker {w['leg']}/{w['replica']} ran nvcc {w['nvcc']} times")
+        by[f"17{w['leg']} worker r{w['replica']} {w['transport']}"] = w["launches"]
+    new_w = [w for w in workers if w["leg"] == "a" and w["replica"] == str(new)]
+    if len(new_w) != 1 or set(new_w[0]["launches"]) != {"batched_step2d"}:
+        fail(f"phase 17 (a): the added replica's launches {new_w}: a probe or another kernel")
+    if not any(w["launches"].get("fused_nsum2d") for w in workers) \
+            or not any(w["launches"].get("split_nsum2d") for w in workers):
+        fail(f"phase 17 (c): fused_nsum2d / split_nsum2d not launched in a gang worker: "
+             f"{workers}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    say(f"{card}: phase 17 workers: {len(workers)} reports (a SIGKILLed or failed worker "
+        f"writes none), nvcc runs 0; the added replica {new}: {new_w[0]['launches']} (no "
+        f"probe); add_replica wall {add_wall:.2f} s")
+    say(f"phase 17 legs end at, s: {json.dumps(walls)}")
+    return by
+
+
 def variant_launches(name: str, nsteps: int, ndim: int = 2) -> tuple:
     """(kernel, launches) of an nsteps run of the tuner's candidate ``name``
     for an ``ndim``-D solve."""
@@ -5881,8 +6583,10 @@ def main() -> int:
     mh_by = timed("blocks owned by ranks", phase_multihost, torch, np, ck, l2_threshold)
     serve_by = timed("serving", phase_serve, torch, np, ck, cases_2d, cases_1d, l2_threshold)
     fleet_by = timed("fleet leaves", phase_fleet_leaves, torch, np, ck, cases_2d, built)
-    for k in kernels:  # phases 10-16 launch the kernels of phases 4-8 again
-        for part in (async_by, elastic_by, stepper_by, dist_by, mh_by, serve_by, fleet_by):
+    front_by = timed("fleet front door", phase_front_door, torch, np, ck, l2_threshold)
+    for k in kernels:  # phases 10-17 launch the kernels of phases 4-8 again
+        for part in (async_by, elastic_by, stepper_by, dist_by, mh_by, serve_by, fleet_by,
+                     front_by):
             more = by_label(part, k["name"])
             if more:
                 k["launches"] += sum(more.values())
@@ -5907,4 +6611,6 @@ if __name__ == "__main__":
         sys.exit(accept_main(int(sys.argv[2])))
     if sys.argv[1:2] == ["--fleet-child"]:
         sys.exit(fleet_child_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker_main(sys.argv[2] if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -13,8 +13,12 @@ the observability flags ``--trace``, ``--metrics-out`` and
 (:func:`obs_session`); the program store ``--program-store``
 (:func:`add_program_store_flag`); and the multi-process launch
 (:func:`cli_startup`: ``srun -n N``, every rank running the same binary,
-rank 0 owning the console and the files).  Not ported yet: the network
-front door (``--listen``).
+rank 0 owning the console and the files); and the network front door
+(``--listen`` with ``--replicas``, ``--transport``, ``--worker-token``,
+``--shard-threshold``, ``--gang-devices`` and ``--slo``: :func:`run_listen`,
+a replica fleet behind the HTTP tier).  The ``--session-*`` flags are parsed
+and refused by name under ``--listen``: the session tier (serve/sessions.py)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -360,6 +364,217 @@ def serve_batch(case_iter, make_solver, engine_kwargs, args):
             s.u = h.result
             out.append((s.compute_l2(s.nt), int(np.prod(h.case.shape))))
         return out
+
+
+def add_listen_flags(p: argparse.ArgumentParser):
+    """--listen/--replicas: the network front door (serve/http.py +
+    serve/router.py) — the CLI stops reading cases from stdin and serves
+    them over HTTP from a replica fleet instead; the JAX CLIs' flags,
+    defaults and help (the six ``--session-*`` flags are parsed as there
+    and refused under --listen until serve/sessions.py is ported)."""
+    p.add_argument(
+        "--listen", type=int, default=None, metavar="PORT",
+        help="serve cases over HTTP on 127.0.0.1:PORT (0 picks a free port, printed to "
+             "stderr): POST /v1/cases submits, GET /v1/cases/<id>[?wait=1] polls/waits, "
+             ".../result fetches, /healthz and /metrics expose the fleet.  Admission "
+             "control sheds with 429 + Retry-After before any queue can grow without "
+             "bound.  The process serves until stdin reaches EOF, then drains and exits.")
+    p.add_argument(
+        "--replicas", type=int, default=1, metavar="N",
+        help="--listen: size of the replica fleet — N ServePipeline worker processes "
+             "behind a sticky bucket-key router (serve/router.py); all replicas share one "
+             "program store (--program-store/NLHEAT_PROGRAM_STORE) so added or respawned "
+             "workers boot with no nvcc run and no probe")
+    p.add_argument(
+        "--transport", default=None, choices=("pipe", "tcp"),
+        help="--listen: how the router reaches its workers — 'pipe' (default: "
+             "stdin/stdout frames, one host) or 'tcp' (serve/transport.py: workers dial a "
+             "loopback listener with --worker-connect and speak the identical frames)")
+    p.add_argument(
+        "--worker-token", default=None, metavar="SECRET",
+        help="--transport tcp: shared secret checked on each worker's hello frame "
+             "(required before a SocketTransport may bind non-loopback — the frames are "
+             "pickle; see serve/transport.py trust boundary)")
+    p.add_argument(
+        "--shard-threshold", type=int, default=None, metavar="POINTS",
+        help="--listen (2D): grids with MORE than POINTS cells are dispatched to the gang "
+             "replica — one worker owning an N-device mesh that solves each such case as a "
+             "space-parallel distributed run (comm=fused where the halo kernels serve it), "
+             "bitwise the offline distributed solver.  0/unset = off")
+    p.add_argument(
+        "--gang-devices", type=int, default=None, metavar="N",
+        help="--shard-threshold: devices in the gang replica's mesh (default: every card "
+             "the gang worker sees; more than there are = virtual devices)")
+    p.add_argument(
+        "--slo", type=int, default=None, choices=(0, 1), metavar="0|1",
+        help="--listen: the SLO promise-audit ledger (obs/slo.py) — 1 joins every "
+             "accepted request's promise (picked engine, modeled cost, deadline) to its "
+             "observed outcome: /slo/* metrics, the GET /v1/status burn/drift block, and "
+             "per-worker live rate recalibration back into the tuner records; 0 forces "
+             "off; unset defers to NLHEAT_SLO=1")
+    for name, kind, metavar, help_ in SESSION_FLAGS:
+        p.add_argument(name, type=kind, default=None, metavar=metavar, help=help_)
+
+
+#: the live-session tier's flags (serve/sessions.py, not ported yet): parsed
+#: as the JAX CLIs parse them, refused by name under --listen
+SESSION_FLAGS = (
+    ("--session-chunk", int, "STEPS",
+     "--listen: default steps per session chunk (serve/sessions.py; not ported yet)"),
+    ("--session-budget", int, "STEPS",
+     "--listen: per-session step budget per second (serve/sessions.py; not ported yet)"),
+    ("--session-rate", float, "STEPS_PER_S",
+     "--listen: fleet-wide session step-rate cap (serve/sessions.py; not ported yet)"),
+    ("--session-checkpoint-dir", str, "DIR",
+     "--listen: crash-safe session checkpoints (serve/sessions.py; not ported yet)"),
+    ("--session-checkpoint-every", int, "CHUNKS",
+     "--listen: session checkpoint cadence in chunks (serve/sessions.py; not ported yet)"),
+    ("--session-preview", int, "STRIDE",
+     "--listen: preview-frame downsample stride (serve/sessions.py; not ported yet)"),
+)
+
+
+def validate_listen_args(args, dim: int | None = None) -> str | None:
+    """The front-door flags' checks in the JAX words (the caller prints and
+    exits 1).  ``dim`` is the calling CLI's grid rank: the sharded case
+    class is the 2D flagship tier, so solve1d/solve3d refuse
+    --shard-threshold.  A ``--session-*`` flag with --listen is refused by
+    name: the session tier (serve/sessions.py) is not ported yet."""
+    sessions = [(getattr(args, name[2:].replace("-", "_"), None), name)
+                for name, *_ in SESSION_FLAGS]
+    if args.listen is None:
+        if getattr(args, "replicas", 1) != 1:
+            return "--replicas configures the --listen fleet; add --listen"
+        for flag, name in [(getattr(args, "transport", None), "--transport"),
+                           (getattr(args, "worker_token", None), "--worker-token"),
+                           (getattr(args, "shard_threshold", None), "--shard-threshold"),
+                           (getattr(args, "gang_devices", None), "--gang-devices"),
+                           (getattr(args, "slo", None), "--slo")] + sessions:
+            if flag is not None:
+                return f"{name} configures the --listen fleet; add --listen"
+        return None
+    if not 0 <= args.listen <= 65535:
+        return f"--listen must be in [0, 65535] (got {args.listen})"
+    for flag, name in sessions:
+        if flag is not None:
+            return f"{name} is not ported yet to nonlocalheatequation_torch (serve/sessions.py)"
+    if args.replicas < 1:
+        return f"--replicas needs N >= 1 (got {args.replicas})"
+    if getattr(args, "worker_token", None) is not None \
+            and (getattr(args, "transport", None) or "pipe") != "tcp":
+        return ("--worker-token authenticates --transport tcp workers; "
+                "the pipe transport is the same process tree")
+    shard = getattr(args, "shard_threshold", None)
+    if shard is not None and shard < 0:
+        return f"--shard-threshold needs POINTS >= 0 (got {shard})"
+    if shard and dim is not None and dim != 2:
+        return ("--shard-threshold dispatches big 2D grids to the gang "
+                f"replica; this CLI serves {dim}D cases — drop the flag "
+                "or use solve2d")
+    if getattr(args, "gang_devices", None) is not None and not shard:
+        return "--gang-devices sizes the gang mesh; add --shard-threshold"
+    for flag, name in ((getattr(args, "test", False), "--test"),
+                       (getattr(args, "test_batch", False), "--test_batch"),
+                       (getattr(args, "ensemble", False), "--ensemble"),
+                       (getattr(args, "serve", 0), "--serve"),
+                       (getattr(args, "checkpoint", None), "--checkpoint"),
+                       (getattr(args, "resume", False), "--resume"),
+                       (getattr(args, "results", False), "--results"),
+                       (getattr(args, "log", False), "--log")):
+        if flag:
+            return (f"--listen serves cases over HTTP; {name} belongs to "
+                    "the stdin-driven modes — drop one of them")
+    if getattr(args, "resync", 0):
+        return ("--resync is not supported with --listen (the batched "
+                "paths have no per-step precision switch)")
+    return None
+
+
+def run_listen(args, engine_kwargs) -> int:
+    """The --listen driver shared by the solve CLIs: a replica fleet
+    (serve/router.py) behind the HTTP ingestion tier (serve/http.py),
+    serving until stdin reaches EOF — the stdin-as-lifetime contract lets a
+    supervisor stop the server by closing the pipe.  ``engine_kwargs``
+    carry the engine's ``device``/``dtype`` (``--platform``, ``--x64``) to
+    every worker; on the card the router builds the kernel libraries once
+    before the first spawn.  The router registry backs --metrics-port and
+    the final metrics dump becomes the --metrics-out payload.  The session
+    tier (serve/sessions.py) is not ported yet: /v1/sessions* answer 404."""
+    import json as _json
+    import threading
+
+    from nonlocalheatequation_torch.serve.http import AdmissionController, IngressServer
+    from nonlocalheatequation_torch.serve.router import ReplicaRouter
+
+    serve_kwargs = {
+        "retries": args.serve_retries,
+        "fallback": args.serve_fallback,
+        "fetch_deadline_ms": args.serve_deadline_ms or None,
+        "nan_policy": args.serve_nan_policy,
+    }
+    # --trace DIR extends to the FLEET here: the router runs its own
+    # tracer, every worker traces too, and shutdown dumps ONE merged
+    # timeline next to the per-process artifacts
+    trace_dir = getattr(args, "trace", None) or os.environ.get("NLHEAT_TRACE") or None
+    # --slo pins the env so the WORKERS inherit it (the router's spawns
+    # copy os.environ): one flag audits the whole fleet
+    slo = getattr(args, "slo", None)
+    if slo is not None:
+        os.environ["NLHEAT_SLO"] = str(int(slo))
+    # depth 1 per worker: the overlap a --serve depth buys in-process is
+    # the fleet's job here (N workers ARE the in-flight chunks)
+    with ReplicaRouter(replicas=args.replicas,
+                       slo=(bool(slo) if slo is not None else None),
+                       depth=1, window_ms=args.serve_window_ms,
+                       serve_kwargs=serve_kwargs, trace_dir=trace_dir,
+                       transport=getattr(args, "transport", None) or "pipe",
+                       worker_token=getattr(args, "worker_token", None),
+                       shard_threshold=getattr(args, "shard_threshold", None),
+                       gang_devices=getattr(args, "gang_devices", None),
+                       **engine_kwargs) as router:
+        set_live_registry(router.registry)
+        # the elastic loop: pull per-replica stats (absorbing each worker's
+        # registry under /replica{r} for the scrape) and run the busy-rate
+        # add/drain policy on a fixed cadence
+        stop_scaling = threading.Event()
+
+        def _scale_loop():
+            while not stop_scaling.wait(10.0):
+                try:
+                    decision = router.maybe_scale()
+                    if decision:
+                        print(f"router: elastic {decision} -> "
+                              f"{router.live_count()} replica(s)", file=sys.stderr)
+                except Exception as e:  # noqa: BLE001 — scaling is advisory
+                    print(f"router: stats/scale pull failed ({e})", file=sys.stderr)
+
+        scaler = threading.Thread(target=_scale_loop, daemon=True,
+                                  name="nlheat-router-scaler")
+        scaler.start()
+        try:
+            with IngressServer(args.listen, router,
+                               admission=AdmissionController(router)) as ingress:
+                print(f"ingress: http://127.0.0.1:{ingress.port}/v1/cases "
+                      f"({args.replicas} replica(s); POST to submit, /healthz, "
+                      "/v1/status, /metrics; EOF on stdin stops the server)",
+                      file=sys.stderr, flush=True)
+                for _line in sys.stdin:  # lifetime = stdin
+                    pass
+            # the ingress is CLOSED before the drain: new submissions must
+            # stop landing or the shutdown drain could chase them forever
+        finally:
+            stop_scaling.set()
+        router.drain()
+        if trace_dir:
+            merged = router.dump_fleet_trace(os.path.join(trace_dir, "fleet_trace.json"))
+            if merged:
+                print(f"fleet trace: {merged['events']} event(s) from "
+                      f"{merged['processes']} process(es) -> {merged['path']}",
+                      file=sys.stderr)
+        line = _json.dumps(router.metrics())
+        print(f"router: {line}", file=sys.stderr)
+        set_metrics_payload(line)
+    return 0
 
 
 def add_obs_flags(p: argparse.ArgumentParser):

@@ -11,7 +11,8 @@ euler|rkc|expo`` (with ``--superstep-stages``) the time integrator, in every
 mode.  ``--test_batch --serve D`` streams the rows through the serving
 pipeline (serve/server.py) with D chunks in flight; ``--trace DIR``,
 ``--metrics-out FILE`` and ``--metrics-port PORT`` are the observability
-flags (cli/common.obs_session).
+flags (cli/common.obs_session).  ``--listen PORT`` serves cases over HTTP from
+a replica fleet instead (cli/common.run_listen).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 
 from nonlocalheatequation_torch.cli.common import (
     add_ensemble_flag,
+    add_listen_flags,
     add_obs_flags,
     add_platform_flags,
     add_precision_flags,
@@ -42,8 +44,10 @@ from nonlocalheatequation_torch.cli.common import (
     precision_kwargs,
     publish_solve_metrics,
     run_batch,
+    run_listen,
     serve_batch,
     stepper_kwargs,
+    validate_listen_args,
     validate_obs_args,
     validate_serve_args,
     validate_stepper_args,
@@ -79,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_precision_flags(p)
     add_ensemble_flag(p)
     add_serve_flags(p)
+    add_listen_flags(p)
     add_obs_flags(p)
     add_program_store_flag(p)
     return p
@@ -87,13 +92,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     err = (ensemble_refusal(args) or validate_stepper_args(args) or validate_serve_args(args)
-           or validate_obs_args(args))
+           or validate_listen_args(args, dim=1) or validate_obs_args(args))
     if err:
         print(err, file=sys.stderr)
         return 1
     version_banner("1d_nonlocal")
     sk = stepper_kwargs(args)
-    if not args.test_batch:
+    if not args.test_batch and args.listen is None:
         rc = announce_stable_dt(1, args.k, args.eps, args.dx, args.dt, **sk)
         if rc is not None:
             return rc
@@ -114,6 +119,11 @@ def _run(args, kw, sk) -> int:
     engine_kw = {"method": "fft" if args.method == "fft" else "auto",
                  "precision": args.precision, "device": kw["device"], "dtype": kw["dtype"],
                  **sk}
+    if args.listen is not None:
+        # the network front door (serve/http.py + serve/router.py): a
+        # replica fleet over the same engine settings --serve would use
+        return run_listen(args, engine_kw)
+
     if args.test_batch:
         # row: nx nt eps k dt dx  (tests/1d.txt)
         def read_case(toks, pos):

@@ -14,7 +14,9 @@ euler|rkc|expo`` (with ``--superstep-stages``) picks the time integrator and
 ``--method fft`` the spectral apply, in every mode.  ``--test_batch --serve D``
 streams the rows through the serving pipeline (serve/server.py) with D chunks
 in flight; ``--trace DIR``, ``--metrics-out FILE`` and ``--metrics-port PORT``
-are the observability flags (cli/common.obs_session).
+are the observability flags (cli/common.obs_session).  ``--listen PORT`` serves
+cases over HTTP from a replica fleet instead (cli/common.run_listen; grids above
+``--shard-threshold`` go to the gang replica).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 from nonlocalheatequation_torch.cli.common import (
     add_checkpoint_flags,
     add_ensemble_flag,
+    add_listen_flags,
     add_obs_flags,
     add_platform_flags,
     add_precision_flags,
@@ -47,8 +50,10 @@ from nonlocalheatequation_torch.cli.common import (
     precision_kwargs,
     publish_solve_metrics,
     run_batch,
+    run_listen,
     serve_batch,
     stepper_kwargs,
+    validate_listen_args,
     validate_obs_args,
     validate_serve_args,
     validate_stepper_args,
@@ -87,6 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_precision_flags(p)
     add_ensemble_flag(p)
     add_serve_flags(p)
+    add_listen_flags(p)
     add_obs_flags(p)
     add_program_store_flag(p)
     return p
@@ -98,13 +104,13 @@ def main(argv=None) -> int:
            or validate_serve_args(args, [
                (args.serve and (args.checkpoint or args.resume),
                 "--checkpoint/--resume cannot be combined with --serve")])
-           or validate_obs_args(args))
+           or validate_listen_args(args, dim=2) or validate_obs_args(args))
     if err:
         print(err, file=sys.stderr)
         return 1
     version_banner("2d_nonlocal")
     sk = stepper_kwargs(args)
-    if not args.test_batch:
+    if not args.test_batch and args.listen is None:
         rc = announce_stable_dt(2, args.k, args.eps, args.dh, args.dt, **sk)
         if rc is not None:
             return rc
@@ -124,6 +130,11 @@ def _run(args, kw, sk) -> int:
 
     engine_kw = {"method": args.method, "precision": args.precision, "device": kw["device"],
                  "dtype": kw["dtype"], **sk}
+    if args.listen is not None:
+        # the network front door (serve/http.py + serve/router.py): a
+        # replica fleet over the same engine settings --serve would use
+        return run_listen(args, engine_kw)
+
     if args.test_batch:
         # row: nx ny nt eps k dt dh  (tests/2d.txt)
         def read_case(toks, pos):

@@ -24,8 +24,9 @@ in the JAX words).  ``--test_batch --serve D`` streams the rows through the
 serving pipeline (serve/server.py) with D chunks in flight (refused with
 ``--distributed``, as the JAX CLI refuses it); ``--trace DIR``,
 ``--metrics-out FILE`` and ``--metrics-port PORT`` are the observability
-flags (cli/common.obs_session).  Refused by name, not ported yet: the JAX
-CLI's network front door (``--listen``).
+flags (cli/common.obs_session).  ``--listen PORT`` serves cases over HTTP
+from a replica fleet (cli/common.run_listen; refused with ``--distributed``,
+as the JAX CLI refuses it).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import numpy as np
 from nonlocalheatequation_torch.cli.common import (
     add_checkpoint_flags,
     add_ensemble_flag,
+    add_listen_flags,
     add_obs_flags,
     add_platform_flags,
     add_precision_flags,
@@ -60,18 +62,14 @@ from nonlocalheatequation_torch.cli.common import (
     precision_kwargs,
     publish_solve_metrics,
     run_batch,
+    run_listen,
     serve_batch,
     stepper_kwargs,
+    validate_listen_args,
     validate_obs_args,
     validate_serve_args,
     validate_stepper_args,
 )
-
-#: the JAX CLI's flags that the port does not have yet -> what they select
-NOT_PORTED = {
-    "--listen": "the network front door",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="3d_nonlocal", add_help=True)
@@ -113,19 +111,14 @@ def build_parser() -> argparse.ArgumentParser:
     add_precision_flags(p)
     add_ensemble_flag(p)
     add_serve_flags(p)
+    add_listen_flags(p)
     add_obs_flags(p)
     add_program_store_flag(p)
     return p
 
 
-def _refusal(args, rest) -> str | None:
-    """The message refusing a flag the port does not have yet, or None."""
-    for tok in rest:
-        name = tok.split("=")[0]
-        what = NOT_PORTED.get(name) or next(
-            (v for k, v in NOT_PORTED.items() if name.startswith(k + "-")), None)
-        if what is not None:
-            return f"{name} is not ported yet to nonlocalheatequation_torch ({what})"
+def _refusal(args) -> str | None:
+    """The JAX CLI's checks of the spectral and distributed flags, or None."""
     if args.method == "fft" and args.distributed and args.comm == "fused":
         return ("--method fft runs on the collective all-to-all pencil transposes; --comm "
                 "fused is a stencil-halo transport — drop one of them")
@@ -157,19 +150,20 @@ def _distributed_refusal(args) -> str | None:
 
 
 def main(argv=None) -> int:
-    p = build_parser()
-    args, rest = p.parse_known_args(argv)
-    err = (_refusal(args, rest) or checkpoint_refusal(args) or ensemble_refusal(args)
+    args = build_parser().parse_args(argv)
+    err = (_refusal(args) or checkpoint_refusal(args) or ensemble_refusal(args)
            or validate_serve_args(args, [
                (args.serve and args.distributed,
                 "--serve runs the serial batched engine; it cannot be combined "
                 "with --distributed")])
+           or validate_listen_args(args, dim=3)
+           or (args.listen is not None and args.distributed
+               and "--listen runs the serial batched engine; it cannot be "
+                   "combined with --distributed")
            or validate_obs_args(args))
     if err:
         print(err, file=sys.stderr)
         return 1
-    if rest:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
 
     def _need_distributed(multi):
         if multi and not args.distributed:
@@ -184,7 +178,7 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     sk = stepper_kwargs(args)
-    if not args.test_batch:
+    if not args.test_batch and args.listen is None:
         rc = announce_stable_dt(3, args.k, args.eps, args.dh, args.dt, **sk)
         if rc is not None:
             return rc
@@ -207,6 +201,12 @@ def _run(args, multi: bool, pkw: dict, sk: dict) -> int:
     devices = device_list(kw["device"], args.devices) if args.distributed else None
 
     ckpt = {"checkpoint_path": args.checkpoint, "ncheckpoint": args.ncheckpoint}
+    engine_kw = {"method": args.method, "precision": args.precision,
+                 "device": kw["device"], "dtype": kw["dtype"], **sk}
+    if args.listen is not None:
+        # the network front door (serve/http.py + serve/router.py): a
+        # replica fleet over the same engine settings --serve would use
+        return run_listen(args, engine_kw)
 
     def solver(nx, ny, nz, nt, eps, k, dt, dh):
         if args.distributed:
@@ -234,8 +234,6 @@ def _run(args, multi: bool, pkw: dict, sk: dict) -> int:
             s.do_work()
             return s.error_l2, int(np.prod(s._grid_shape))
 
-        engine_kw = {"method": args.method, "precision": args.precision,
-                     "device": kw["device"], "dtype": kw["dtype"], **sk}
         run_ensemble = ensemble_runner(make_solver, **engine_kw) if args.ensemble else None
         run_serve = None
         if args.serve:

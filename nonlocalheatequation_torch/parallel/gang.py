@@ -1,7 +1,7 @@
 """Gang-scheduled elastic execution, the fast path for arbitrary placement —
-counterpart of ``nonlocalheatequation_tpu/parallel/gang.py`` (less
-``solve_case_sharded``, the router's sharded case class, which is not
-ported).
+counterpart of ``nonlocalheatequation_tpu/parallel/gang.py``, with
+:func:`solve_case_sharded`, the replica router's sharded case class
+(serve/router.py).
 
 The elastic executor (parallel/elastic.py) runs every step outside a
 measurement window here, over whole stretches of steps from fixed slot
@@ -28,6 +28,8 @@ them; pad slots are never assembled nor summed, and stay zero.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -277,6 +279,140 @@ def make_gang_run_general(op, npx: int, npy: int, nx: int, ny: int, test: bool, 
         return out
 
     return _make_run_driver(step_all, test)
+
+
+#: Default bound on a gang worker's solver memo (solve_case_sharded's
+#: ``solver_cache``): each entry pins the solver's full-grid state and its
+#: blocks on the devices, so a long-lived gang replica serving varied case
+#: signatures must evict.  Eviction never changes results — an evicted
+#: signature simply reconstructs on next touch.  ``NLHEAT_GANG_SOLVER_CAP``
+#: overrides; 0 = unbounded (the 0-knob convention for cache caps).
+GANG_SOLVER_CACHE_CAP = 8
+
+
+def solve_case_sharded(case, *, ndevices: int | None = None, comm: str = "fused",
+                       method: str = "auto", precision: str = "f32", dtype=None,
+                       stepper: str = "euler", stages: int = 0, superstep: int = 1,
+                       solver_cache: dict | None = None, cache_cap: int | None = None,
+                       device=None):
+    """Solve ONE big ensemble case as a space-parallel distributed run over
+    an N-device mesh — the router's sharded case class.
+
+    ``case`` is an :class:`~nonlocalheatequation_torch.serve.ensemble.
+    EnsembleCase`-shaped object (shape/nt/eps/k/dt/dh/test/u0).  The gang
+    replica worker (serve/router.py ``_gang_loop``) and the offline oracle
+    both call THIS function, so the streamed-back fleet result is bitwise
+    the offline :class:`~nonlocalheatequation_torch.parallel.distributed2d.
+    Solver2DDistributed` run by construction.
+
+    The devices: ``mesh.device_list(device, count=ndevices)`` — the cards of
+    ``device`` (None: the CUDA cards), named again in turn when there are
+    fewer than ``ndevices`` (virtual devices: ``ndevices=4`` on one card is
+    a 2x2 mesh of one card), ``None`` every card — picked whole granule
+    first (parallel/mesh_axes.py :func:`pick_gang_devices`), shaped by
+    ``choose_mesh_for_grid`` (the largest (mx, my) dividing the grid).
+    ``comm='fused'`` runs the halo kernels where ``require_fused`` accepts
+    the configuration and FALLS BACK to the collective transport where it
+    refuses (a method other than cuda, fft picks) — recorded in the
+    returned info dict, numerics-neutral either way.
+
+    ``stepper``/``stages``/``superstep`` thread the stepper tier through
+    (rkc's stage loop above the exchange, parallel/stepper_halo.py);
+    ``method='fft'`` (and with it ``stepper='expo'``) runs the sharded
+    spectral tier on the collective transposes.
+
+    ``solver_cache`` (a plain dict the caller owns) memoizes the constructed
+    solver per full case signature, a bounded LRU (``cache_cap``, default
+    :data:`GANG_SOLVER_CACHE_CAP` / ``NLHEAT_GANG_SOLVER_CAP``; 0 =
+    unbounded).  Returns ``(values, info)``: ``values`` the final state as
+    a host NumPy float64 array (fetched from the blocks by
+    ``fetch_global``), ``info`` the mesh/comm evidence."""
+    from nonlocalheatequation_torch.parallel.distributed2d import (
+        Solver2DDistributed,
+        choose_mesh_for_grid,
+    )
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+    from nonlocalheatequation_torch.parallel.mesh_axes import (
+        mesh_axis_network,
+        pick_gang_devices,
+    )
+
+    shape = tuple(int(s) for s in case.shape)
+    if len(shape) != 2:
+        raise ValueError(
+            f"the sharded case class solves 2D grids (the reference's "
+            f"flagship distributed tier); got rank {len(shape)}")
+    if comm not in ("fused", "collective"):
+        raise ValueError(f"comm must be 'fused' or 'collective', got {comm!r}")
+    NX, NY = shape
+    all_devs = device_list(device, count=int(ndevices) if ndevices else 0)
+    devs = pick_gang_devices(int(ndevices), all_devs) if ndevices else all_devs
+    key = (shape, int(case.nt), int(case.eps), float(case.k), float(case.dt),
+           float(case.dh), bool(case.test), comm, method, precision,
+           str(dtype).removeprefix("torch.") if dtype is not None else None,
+           len(devs), stepper, int(stages), int(superstep))
+    if cache_cap is None:
+        cache_cap = int(os.environ.get("NLHEAT_GANG_SOLVER_CAP") or GANG_SOLVER_CACHE_CAP)
+    if cache_cap < 0:
+        raise ValueError(f"cache_cap must be >= 0, got {cache_cap}")
+    entry = solver_cache.get(key) if solver_cache is not None else None
+    if entry is not None:
+        # LRU recency on hit (plain dicts are insertion-ordered)
+        solver_cache[key] = solver_cache.pop(key)
+    if entry is None:
+        mesh = choose_mesh_for_grid(NX, NY, devs)
+        mx, my = mesh.shape["x"], mesh.shape["y"]
+        kw = dict(nx=NX // mx, ny=NY // my, npx=mx, npy=my, nt=int(case.nt),
+                  eps=int(case.eps), k=float(case.k), dt=float(case.dt), dh=float(case.dh),
+                  mesh=mesh, method=method, precision=precision, dtype=dtype,
+                  stepper=stepper, stages=int(stages), superstep=int(superstep))
+        used = comm
+        try:
+            solver = Solver2DDistributed(comm=comm, **kw)
+        except ValueError:
+            if comm != "fused":
+                raise
+            # require_fused refused this configuration: the collective
+            # transport serves it with identical numerics
+            used = "collective"
+            solver = Solver2DDistributed(comm="collective", **kw)
+        entry = (solver, used)
+        if solver_cache is not None:
+            solver_cache[key] = entry
+            if cache_cap:  # 0 = unbounded (the 0-knob convention)
+                while len(solver_cache) > cache_cap:
+                    solver_cache.pop(next(iter(solver_cache)))
+    solver, used = entry
+    if case.test:
+        if case.u0 is not None:
+            raise ValueError(
+                "a sharded test case runs the manufactured profile; "
+                "custom u0 belongs to production (test=False) cases")
+        solver.test_init()
+    else:
+        if case.u0 is None:
+            raise ValueError("a production (test=False) sharded case needs an initial state u0")
+        solver.input_init(case.u0)
+    values = np.asarray(solver.do_work(), np.float64)
+    info = {
+        "comm": used,
+        "mesh": [int(solver.mesh.shape["x"]), int(solver.mesh.shape["y"])],
+        "devices": len(devs),
+        "axes": mesh_axis_network(solver.mesh),
+    }
+    if used == "fused":
+        # which kernels the fused transport runs: "peer" (the in-kernel
+        # exchange) or "interp" (band copies, then the split kernels)
+        from nonlocalheatequation_torch.ops.cuda_halo import fused_transport
+
+        info["transport"] = fused_transport(list(solver.mesh.devices.flat))
+    if stepper != "euler":
+        # stepper evidence for the fleet telemetry
+        info["stepper"] = stepper
+        info["stages"] = int(stages)
+    if case.test:
+        info["error_l2"] = float(solver.error_l2)
+    return values, info
 
 
 class GangExecutor:

@@ -1,7 +1,8 @@
 """Device meshes and the block scatter and gather — counterpart of
-``nonlocalheatequation_tpu/parallel/mesh.py`` (with the single-granule part
-of ``parallel/mesh_axes.py``) and of ``put_global``/``fetch_global``
-(``parallel/multihost.py``).
+``nonlocalheatequation_tpu/parallel/mesh.py`` and of
+``put_global``/``fetch_global`` (``parallel/multihost.py``).  The axis rules
+and the hybrid (multi-granule) placement are parallel/mesh_axes.py's;
+:func:`create_mesh` is its single-granule path.
 
 The JAX package places tile (i, j) of the global grid on mesh position
 (i, j) of a ``jax.sharding.Mesh`` and runs one SPMD program over it.  Here

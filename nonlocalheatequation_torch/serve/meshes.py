@@ -28,8 +28,10 @@ MESH_DIR_ENV = "NLHEAT_MESH_DIR"
 
 DEFAULT_DIR = os.path.join(os.path.expanduser("~"), ".cache", "nlheat", "meshes")
 
-#: Upload bound on the node count (``NLHEAT_MESH_MAX_NODES`` overrides).
+#: Upload bounds: the node count (``NLHEAT_MESH_MAX_NODES`` overrides) and
+#: the request size the HTTP front door reads (serve/http.py).
 MAX_NODES = 4_000_000
+MAX_BODY_BYTES = 256 << 20
 
 
 def mesh_dir_from_env() -> str | None:

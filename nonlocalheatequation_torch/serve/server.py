@@ -633,8 +633,8 @@ class ServePipeline:
         :meth:`EnsembleEngine.engine_for`: the case is served by that
         sibling from the pipeline's engine pool, with the same supervision
         and schedule and its own programs; None (the default) is the
-        pipeline's engine.  ``sticky_key`` is the routing identity a
-        replica router honors in the JAX package; accepted here so the
+        pipeline's engine.  ``sticky_key`` is the routing identity the
+        replica router (serve/router.py) honors; accepted here so the
         submit surface is the same, and deliberately inert: an in-process
         pipeline owns every bucket."""
         del sticky_key

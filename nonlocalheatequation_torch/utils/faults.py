@@ -53,9 +53,9 @@ Fault semantics at the pipeline's stages:
 * ``nan`` fires in the FETCH stage: the fetched buffer's lane for the
   targeted case (lane 0 for attempt-indexed entries) is overwritten
   with NaN before the supervisor's finite scan sees it.
-* ``die`` is the FLEET-level kind: in the JAX package the replica router
-  (serve/router.py, not ported yet) fires it at its case-forward events
-  and kills the worker process the case was routed to.  The in-process
+* ``die`` is the FLEET-level kind: the replica router (serve/router.py)
+  fires it at its case-forward events and kills the worker process the
+  case was routed to.  The in-process
   pipeline ignores armed ``die`` entries, as the JAX one does: a worker
   killing itself from inside its own scheduler would race the router's
   reader thread.

@@ -242,9 +242,26 @@ def test_cli_single_solve_timing_row_and_failure(monkeypatch, capsys):
     (["--serve-retries=1"], None), (["--listen", "0"], "--listen"),
     (["--profile", "d"], None), (["--method", "fft"], None)])
 def test_cli_refuses_what_is_not_ported_by_name(capsys, tmp_path, monkeypatch, argv, name):
-    if name is not None:
-        assert solve3d.main(argv + ["--platform", "cpu"]) == 1
-        assert capsys.readouterr().err.startswith(f"{name} is not ported yet")
+    if name == "--listen-host":
+        # no such flag in either package: argparse's unrecognized-argument
+        # exit (rc 2), as the JAX CLI gives
+        with pytest.raises(SystemExit) as e:
+            solve3d.main(argv + ["--platform", "cpu"])
+        assert e.value.code == 2
+        assert "unrecognized arguments: --listen-host=h" in capsys.readouterr().err
+        return
+    if name == "--listen":
+        # ported since: accepted and validated as the JAX CLI validates it
+        assert solve3d.main(argv + ["--test", "--platform", "cpu"]) == 1
+        assert capsys.readouterr().err.strip() == (
+            "--listen serves cases over HTTP; --test belongs to the stdin-driven modes — "
+            "drop one of them")
+        assert solve3d.main(argv + ["--distributed", "--platform", "cpu"]) == 1
+        assert capsys.readouterr().err.strip() == (
+            "--listen runs the serial batched engine; it cannot be combined with "
+            "--distributed")
+        assert solve3d.main(argv + ["--shard-threshold", "64", "--platform", "cpu"]) == 1
+        assert "use solve2d" in capsys.readouterr().err
         return
     # ported since: the flag runs a single solve (rc 0) and writes its file;
     # --serve on a single solve gets the JAX refusal, and the supervision

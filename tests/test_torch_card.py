@@ -1539,3 +1539,152 @@ def test_slo_taps_add_no_fence_on_card(card, monkeypatch):
         assert np.array_equal(a, b)
     s = runs[True][2]["slo"]
     assert (s["promised"], s["resolved"], s["duplicate"], s["open"]) == (16, 16, 0, 0)
+
+
+# -- the fleet front door (serve/router.py) on the card ---------------------------------
+
+#: a router child: the fleet's results saved beside whether its own process
+#: ever made a CUDA context (the router must not: workers are exec'd)
+ROUTER_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
+from nonlocalheatequation_torch.serve.router import ReplicaRouter
+out, seed = sys.argv[1], int(sys.argv[2])
+rng = np.random.default_rng(seed)
+cases = [EnsembleCase(shape=(256, 256), nt=20 + i % 2, eps=8, k=1.0, dt=2e-5, dh=0.02,
+                      test=False, u0=rng.standard_normal((256, 256))) for i in range(8)]
+with ReplicaRouter(replicas=2, method="cuda", dtype=torch.float32, batch_sizes=(8,)) as r:
+    got = r.serve_cases(cases)
+    owners = sorted(set(r._owner.values()))
+np.save(out, np.stack(got))
+print(json.dumps({"cuda": torch.cuda.is_initialized(), "owners": owners}))
+"""
+
+#: a worker whose chunk holding a case of 77 steps raises at dispatch, as a
+#: failed launch on the card would, when its replica id is listed
+FAILING_WORKER = r"""
+import os, sys
+fd = os.dup(1)
+os.dup2(2, 1)
+from nonlocalheatequation_torch.serve import router
+from nonlocalheatequation_torch.serve.ensemble import EnsembleEngine
+failing = os.environ["FAILING_REPLICAS"].split(",")
+if "*" in failing or os.environ.get("NLHEAT_REPLICA_ID") in failing:
+    stage, dispatch = EnsembleEngine.stage_inputs, EnsembleEngine.dispatch_chunk
+    def staged(self, chunk):
+        self.marked = any(c.nt == 77 for c in chunk)
+        return stage(self, chunk)
+    def dispatched(self, multi, U0):
+        if getattr(self, "marked", False):
+            raise RuntimeError("CUDA error: unspecified launch failure")
+        return dispatch(self, multi, U0)
+    EnsembleEngine.stage_inputs, EnsembleEngine.dispatch_chunk = staged, dispatched
+router._worker_main(frame_fd=fd)
+"""
+
+
+@pytest.mark.cuda
+def test_pipe_fleet_bitwise_offline_and_the_router_makes_no_context(card, tmp_path):
+    """A 2-replica pipe fleet on the card (a router in a child process):
+    every lane bitwise the offline engine, one bucket a replica, and the
+    router's process never made a CUDA context."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    out = tmp_path / "fleet.npy"
+    r = subprocess.run([sys.executable, "-c", ROUTER_CHILD, str(out), "49"],
+                       capture_output=True, text=True, timeout=900,
+                       cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert r.returncode == 0, r.stderr[-4000:]
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rep == {"cuda": False, "owners": [0, 1]}
+    rng = np.random.default_rng(49)
+    cases = [EnsembleCase(shape=(256, 256), nt=20 + i % 2, eps=8, k=1.0, dt=2e-5, dh=0.02,
+                          test=False, u0=rng.standard_normal((256, 256))) for i in range(8)]
+    want = EnsembleEngine(method="cuda", device=card, dtype=torch.float32,
+                          batch_sizes=(8,)).run(cases)
+    got = np.load(out)
+    for a, b in zip(got, want, strict=True):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gang_replica_bitwise_the_distributed_solve_on_card(card):
+    """The gang replica on 4 virtual devices of the card: the fused
+    in-kernel exchange ('peer'), bitwise solve_case_sharded and
+    Solver2DDistributed in this process."""
+    from nonlocalheatequation_torch.parallel.distributed2d import (
+        Solver2DDistributed,
+        choose_mesh_for_grid,
+    )
+    from nonlocalheatequation_torch.parallel.gang import solve_case_sharded
+    from nonlocalheatequation_torch.parallel.mesh import device_list
+    from nonlocalheatequation_torch.serve.router import ReplicaRouter
+
+    case = EnsembleCase(shape=(512, 512), nt=20, eps=8, k=1.0, dt=2e-6, dh=1 / 512,
+                        test=True)
+    with ReplicaRouter(replicas=1, method="cuda", dtype=torch.float32,
+                       shard_threshold=256 * 256, gang_devices=4) as router:
+        got = router.submit(case).wait(600)
+        assert router.metrics()["sharded_cases"] == 1
+    want, info = solve_case_sharded(case, ndevices=4, method="cuda", dtype=torch.float32)
+    assert info["comm"] == "fused" and info["transport"] == "peer"
+    assert np.array_equal(got, want)
+    mesh = choose_mesh_for_grid(512, 512, device_list(card, 4))
+    mx, my = mesh.shape["x"], mesh.shape["y"]
+    s = Solver2DDistributed(512 // mx, 512 // my, mx, my, 20, 8, k=1.0, dt=2e-6, dh=1 / 512,
+                            mesh=mesh, method="cuda", dtype=torch.float32, comm="fused")
+    s.test_init()
+    assert np.array_equal(np.asarray(s.do_work(), np.float64), got)
+    assert s.error_l2 / 512 ** 2 <= 1e-6
+
+
+@pytest.mark.cuda
+def test_a_failed_launch_in_a_worker_ends_it_and_never_falls_back(card):
+    """A worker whose dispatch raises a CUDA error on a marked case ends
+    (no retry, no breaker, no CPU route); the router counts a death and a
+    healthy replica serves the case bitwise.  With the failure in every
+    worker the case completes exceptionally after MAX_REQUEUES."""
+    import subprocess
+    import sys
+
+    from nonlocalheatequation_torch.serve import router as router_mod
+    from nonlocalheatequation_torch.serve import transport as tr
+    from nonlocalheatequation_torch.serve.router import ReplicaRouter
+
+    class Failing(tr.PipeTransport):
+        def __init__(self, which):
+            self.which = which
+
+        def spawn(self, rid, env, timeout_s=180.0):
+            proc = subprocess.Popen([sys.executable, "-c", FAILING_WORKER],
+                                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                    env=dict(env, FAILING_REPLICAS=self.which))
+            return tr.WorkerHandle(proc, proc.stdout, proc.stdin)
+
+    rng = np.random.default_rng(50)
+    cases = [EnsembleCase(shape=(128, 128), nt=77 if i == 0 else 10, eps=8, k=1.0, dt=2e-5,
+                          dh=0.02, test=False, u0=rng.standard_normal((128, 128)))
+             for i in range(3)]
+    want = EnsembleEngine(method="cuda", device=card, dtype=torch.float32,
+                          batch_sizes=(8,)).run(cases)
+    kw = dict(method="cuda", dtype=torch.float32, batch_sizes=(8,))
+    with ReplicaRouter(replicas=2, transport=Failing("0"), **kw) as router:
+        hs = [router.submit(c) for c in cases]
+        router.drain(timeout_s=600)
+        assert router.metrics()["deaths"] == 1
+        for h, w in zip(hs, want, strict=True):
+            assert h.error is None and h.replica != 0 and np.array_equal(h.result, w)
+        for frame in router.refresh_stats().values():
+            res = frame["metrics"]["resilience"]
+            assert (res["retries"], res["fallback_chunks"]) == (0, 0)
+    with ReplicaRouter(replicas=1, transport=Failing("*"), **kw) as router:
+        h = router.submit(cases[0])
+        with pytest.raises(Exception, match="MAX_REQUEUES"):
+            h.wait(600)
+        assert router.metrics()["deaths"] == router_mod.MAX_REQUEUES + 1
+        assert np.array_equal(router.submit(cases[1]).wait(600), want[1])

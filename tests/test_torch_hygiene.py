@@ -14,8 +14,10 @@
   distributed slice's modules (parallel/multihost.py among them), the
   serving slice's (serve/server.py, serve/resilience.py, utils/faults.py,
   obs/export.py, obs/metrics.py, obs/trace.py), the fleet's leaves
-  (obs/flightrec.py, obs/slo.py, serve/picker.py, serve/program_store.py)
-  and the multi-process test child are among them.
+  (obs/flightrec.py, obs/slo.py, serve/picker.py, serve/program_store.py),
+  the fleet's front door (serve/transport.py, serve/router.py,
+  serve/http.py, parallel/mesh_axes.py; the transport stdlib only) and the
+  multi-process test child are among them.
 * ``init_from_env`` with no launch signal never wires a process group.
 * The entry points default to the card: without one they raise (or the
   CLIs exit 2), the distributed solvers, meshes and CLIs included, and so
@@ -229,6 +231,28 @@ def test_the_fleet_leaves_import_neither_package():
             assert roots == LEAF_ROOTS[rel], (rel, roots)
 
 
+FRONT_DOOR = ("serve/transport.py", "serve/router.py", "serve/http.py",
+              "parallel/mesh_axes.py")
+#: the transport is stdlib only: the frame protocol never needs torch
+FRONT_DOOR_ROOTS = {"serve/transport.py": {"__future__", "hmac", "ipaddress", "json", "pickle",
+                                           "signal", "socket", "struct", "subprocess", "sys",
+                                           "threading", "time"}}
+
+
+def test_the_fleet_front_door_imports_neither_package():
+    for rel in FRONT_DOOR:
+        tree = ast.parse((PKG / rel).read_text(), rel)
+        roots = {(a.name if isinstance(node, ast.Import) else node.module or "").split(".")[0]
+                 for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+                 for a in (node.names if isinstance(node, ast.Import) else [node])}
+        assert not roots & {"jax", "jaxlib", "nonlocalheatequation_tpu"}, (rel, roots)
+        if rel in FRONT_DOOR_ROOTS:
+            assert roots == FRONT_DOOR_ROOTS[rel], (rel, roots)
+    from nonlocalheatequation_torch.serve import transport
+
+    assert transport.WORKER_MODULE == "nonlocalheatequation_torch.serve.router"
+
+
 def test_serving_entry_points_default_to_the_card(monkeypatch, capsys):
     import io
 
@@ -253,6 +277,33 @@ def test_serving_entry_points_default_to_the_card(monkeypatch, capsys):
         monkeypatch.setattr("sys.stdin", io.StringIO(f"1\n{row}\n"))
         assert main(["--test_batch", "--serve", "2"]) == 2
         assert "is_available() is false" in capsys.readouterr().err
+
+
+def test_the_front_door_defaults_to_the_card(monkeypatch, capsys):
+    """ReplicaRouter() and --listen take the card: without one they refuse
+    before any worker is spawned (the router builds the kernels once, on the
+    card's behalf, and never on the CPU's)."""
+    import io
+
+    import torch
+
+    from nonlocalheatequation_torch.cli import solve2d
+    from nonlocalheatequation_torch.serve.router import ReplicaRouter
+
+    if torch.cuda.is_available():
+        return
+    spawned = []
+    monkeypatch.setattr(ReplicaRouter, "_spawn", lambda self, gang=False: spawned.append(1))
+    try:
+        ReplicaRouter(replicas=2)
+    except RuntimeError as e:
+        assert "is_available() is false" in str(e)
+    else:
+        raise AssertionError("ReplicaRouter ran on the CPU without being asked to")
+    assert spawned == []
+    monkeypatch.setattr("sys.stdin", io.StringIO(""))
+    assert solve2d.main(["--listen", "0", "--replicas", "2"]) == 2
+    assert "is_available() is false" in capsys.readouterr().err
 
 
 def test_distributed_entry_points_default_to_the_card():
