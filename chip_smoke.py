@@ -311,12 +311,40 @@ line is printed; the phase walls are printed at the end):
    case within 1e-6, 422 on an unmeetable deadline, 429 with Retry-After
    on a burst, a mesh upload of the shuffled 512^2 cloud and a case on it
    bitwise gather_L offline, the SLO block, both replica namespaces in
-   /metrics, /v1/sessions 404, rc 0 on EOF with --metrics-out; a 128^3
-   case bitwise offline.  Counted: the phase's own runs and every counted
-   worker's (the CLI children's workers are not counted).
+   /metrics, /v1/status with its session count, POST /v1/sessions with an
+   empty body 400, rc 0 on EOF with --metrics-out; a 128^3 case bitwise
+   offline.  Counted: the phase's own runs and every counted worker's (the
+   CLI children's workers are not counted).
+18. (Run after phase 17.) Live sessions (phase_sessions: serve/sessions.py,
+   the session checkpoints of utils/checkpoint.py, the /v1/sessions* routes
+   of serve/http.py, the --session-* flags of cli/common.run_listen).  Each
+   leg holds the session against its chunked oracle: the chunk-by-chunk
+   composition through an EnsembleEngine on the card, the source added on
+   the host in f64 at each chunk's end.  (a) A 4096^2, eps=8, f32 session
+   over ServePipeline(depth=1), nt 200 in chunks of 50, preview stride 4, a
+   checkpoint a chunk, a retarget of k and a source field (a heater disc)
+   queued during chunk 1: every preview and the final f64 field bitwise, the retarget
+   applied at step 100; fork(step=100) bitwise the parent's frames; a
+   manager closed after chunk 2 and a fresh manager's resume: the frames,
+   deduped by (step, kind), bitwise the uninterrupted stream; the chunk log
+   (staging, card) and one chunk under torch.profiler; a 1024^2 100-step
+   session with NLHEAT_TUNE_BATCH=1 (the batched tuner's pick) bitwise.  (d) A
+   128^3, eps=4, f32 session: bitwise, launching nsum3d or step3d.  On
+   threads: (b) `solve2d --listen 0 --replicas 2 --session-checkpoint-dir
+   D --session-checkpoint-every 2 --session-rate 50`: two 1024^2 sessions
+   (nt 200, chunks of 25) over HTTP with a retarget of k, a fork from the
+   step-100 checkpoint and a third session closed, one replica worker
+   SIGKILLed mid-session (the CLI takes no fault plan; the kill is what a
+   die@ plan does) and a paced batch load beside: every SSE stream complete,
+   in step order and without a duplicate, every preview and result?bin=1
+   bitwise; the batch tier's shed count and p99 and the sessions' deferrals
+   recorded, not gated.  (c) A session over a shuffled jittered 256^2 cloud
+   registered by POST /v1/meshes on an in-process front door whose counted
+   worker launches gather_L: bitwise.  Counted: the phase's own runs and
+   (c)'s worker.
 9. The kernels' JSON line (nsum2d's launches those of phases 4, 8, 10, 11,
    12, 13, 15 and 16, the other kernels' those of their phases and of phases
-   10-17), then {"ok": true, "device": {...}}.
+   10-18), then {"ok": true, "device": {...}}.
 
 Exits non-zero and prints no result when torch.cuda.is_available() is false
 or when the port package is not beside this script.
@@ -5223,7 +5251,7 @@ def listen_port(proc, lines, what: str) -> int:
             if m:
                 return int(m.group(1))
         time.sleep(0.2)
-    fail(f"phase 17 (d): {what} printed no ingress line (rc {proc.poll()}):\n"
+    fail(f"{what} printed no ingress line (rc {proc.poll()}):\n"
          + "".join(lines)[-4000:])
 
 
@@ -5233,11 +5261,11 @@ def stop_listen(proc, lines, t, what: str) -> str:
         rc = proc.wait(timeout=FLEET_WAIT)
     except subprocess.TimeoutExpired:
         proc.kill()
-        fail(f"phase 17 (d): {what} did not stop on EOF")
+        fail(f"{what} did not stop on EOF")
     t.join(timeout=30)
     err = "".join(lines)
     if rc != 0:
-        fail(f"phase 17 (d): {what} exited {rc}:\n{err[-4000:]}")
+        fail(f"{what} exited {rc}:\n{err[-4000:]}")
     return err
 
 
@@ -5568,7 +5596,7 @@ def phase_front_door(torch, np, ck, l2_threshold) -> dict:
             f"mesh {mx}x{my})")
 
         # (d) the CLI front door
-        port = listen_port(*cli2[:2], "solve2d --listen")
+        port = listen_port(*cli2[:2], "phase 17 (d): solve2d --listen")
         cdt = euler_dt(dh)
         explicit = {"shape": [ENS_N, ENS_N], "nt": 20, "eps": EPS, "k": 1.0, "dt": cdt,
                     "dh": dh, "test": True}
@@ -5646,17 +5674,18 @@ def phase_front_door(torch, np, ck, l2_threshold) -> dict:
         code_s, status, _ = fleet_http(port, "GET", "/v1/status")
         code_x, sess, _ = fleet_http(port, "POST", "/v1/sessions", {})
         if not all(f'nlheat_replica_serve_depth{{replica="{r}"}}' in text for r in (0, 1)) \
-                or code_s != 200 or "slo" not in status or code_x != 404 \
-                or "no session tier" not in sess.get("error", ""):
+                or code_s != 200 or "slo" not in status or code_x != 400 \
+                or "missing case field" not in sess.get("error", "") \
+                or status.get("sessions") != 0:
             fail(f"phase 17 (d): /metrics replicas "
                  f"{[r for r in (0, 1) if f'replica={r}' in text]}, status {code_s} "
                  f"{sorted(status)}, sessions {code_x} {sess}")
-        err2 = stop_listen(*cli2, "solve2d --listen")
+        err2 = stop_listen(*cli2, "phase 17 (d): solve2d --listen")
         if "router:" not in err2:
             fail("phase 17 (d): no router line at exit")
         listen_m = json.loads(metrics_out.read_text())
         # solve3d --listen: one 3D case bitwise the offline engine
-        port3 = listen_port(*cli3[:2], "solve3d --listen")
+        port3 = listen_port(*cli3[:2], "phase 17 (d): solve3d --listen")
         c3 = {"shape": [N3S, N3S, N3S], "nt": 10, "eps": 4, "k": 1.0, "dt": 1e-5,
               "dh": 1.0 / N3S, "test": True}
         code, r3, _ = fleet_http(port3, "POST", "/v1/cases", c3)
@@ -5665,7 +5694,7 @@ def phase_front_door(torch, np, ck, l2_threshold) -> dict:
                                    raw=True)
         w3 = launches_of(ck, by, "17d offline 3d", lambda: EnsembleEngine(device="cuda").run(
             [EnsembleCase(shape=(N3S,) * 3, nt=10, eps=4, k=1.0, dt=1e-5, dh=1.0 / N3S)])[0])
-        stop_listen(*cli3, "solve3d --listen")
+        stop_listen(*cli3, "phase 17 (d): solve3d --listen")
         if code3 != 200 or not np.array_equal(np.load(io.BytesIO(raw)), w3):
             fail(f"phase 17 (d) solve3d --listen: {code3}")
         say(f"{card}: phase 17 (d) solve2d --listen 0 --replicas 2 --shard-threshold "
@@ -5677,7 +5706,7 @@ def phase_front_door(torch, np, ck, l2_threshold) -> dict:
             f"{mesh_wall:.2f} s ({meta['nodes']} nodes, {meta['edges']} edges) and a case on "
             f"it bitwise gather_L offline; /v1/status SLO block promised "
             f"{status['slo']['promised']}, open {status['slo']['open']}; both replica "
-            f"namespaces in /metrics; /v1/sessions 404; EOF: rc 0, --metrics-out cases "
+            f"namespaces in /metrics; /v1/sessions 400 on an empty body; EOF: rc 0, --metrics-out cases "
             f"{listen_m['cases']}, latency through HTTP {fleet_latency(listen_m)}; solve3d "
             f"--listen {N3S}^3 bitwise offline (the CLI children's workers use the real pipe "
             f"transport: their launches are not counted)")
@@ -5707,6 +5736,554 @@ def phase_front_door(torch, np, ck, l2_threshold) -> dict:
         f"writes none), nvcc runs 0; the added replica {new}: {new_w[0]['launches']} (no "
         f"probe); add_replica wall {add_wall:.2f} s")
     say(f"phase 17 legs end at, s: {json.dumps(walls)}")
+    return by
+
+
+SESSION_NT, SESSION_CHUNK = 200, 50   # (a) the 4096^2 session: 4 chunks, one bucket key
+SESSION_STRIDE = 4                    # (a) the preview downsample
+FLEET_SESSION_CHUNK = 25              # (b) the 1024^2 sessions' chunks (nt SESSION_NT)
+FLEET_SESSION_RATE = 50.0             # (b) --session-rate: steps/s across the fleet (the
+                                      # sessions then last seconds: the verbs land mid-session)
+FLEET_BATCH = 16                      # (b) paced batch cases beside the sessions
+FLEET_BATCH_HZ = 8.0                  # (b) their pace, cases/s
+FLEET_BATCH_STEPS = 100               # (b) steps of each batch case (1024^2 test form)
+MESH_SESSION = (256, 40, 10)          # (c) the 256^2-node cloud, nt, chunk
+SESSION3D = (128, 4, 40, 10)          # (d) 128^3, eps, nt, chunk
+
+
+def session_oracle(np, eng, case_kw: dict, u0, plan) -> list:
+    """The chunked oracle of a session: ``plan`` is a list of (steps, k,
+    source) chunks, each one EnsembleEngine run from the last boundary (the
+    state staged from f64, as the session stages it) with the source added
+    on the host in f64 at the chunk's end.  Every boundary state, the initial
+    one first."""
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase
+
+    states = [np.asarray(u0, np.float64)]
+    for n, k, source in plan:
+        u = np.asarray(eng.run([EnsembleCase(nt=n, k=k, test=False, u0=states[-1],
+                                             **case_kw)])[0], np.float64)
+        if source is not None:
+            u = u + (n * case_kw["dt"]) * source
+        states.append(u)
+    return states
+
+
+def session_plan(nt: int, chunk: int, k0: float, changes=()) -> list:
+    """(steps, k, source) chunks of an nt-step session whose retargets
+    ``changes`` = [(applied_at_step, k, source)] apply at boundaries."""
+    plan, k, src, t = [], k0, None, 0
+    pending = sorted(changes, key=lambda c: c[0])
+    while t < nt:
+        while pending and pending[0][0] <= t:
+            _, k, src = pending.pop(0)
+        n = min(chunk, nt - t)
+        plan.append((n, k, src))
+        t += n
+    return plan
+
+
+def frames_ok(frames, steps, what: str) -> None:
+    """SSE (or buffered) frames: previews at each boundary of ``steps`` in
+    order, then one final at the last, with no duplicate."""
+    keys = [(f["step"], f["kind"]) if isinstance(f, dict) else (f.step, f.kind)
+            for f in frames]
+    want = [(t, "preview") for t in steps] + [(steps[-1], "final")]
+    if keys != want:
+        fail(f"phase 18 {what}: frames {keys}, not {want}")
+
+
+def sse_frames(port: int, path: str) -> tuple:
+    """(data frames, the end event's status) of one SSE stream read to its end."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=FLEET_WAIT) as r:
+        raw = r.read().decode()
+    frames, end = [], None
+    for block in raw.split("\n\n"):
+        if block.startswith("event: end\ndata: "):
+            end = json.loads(block[len("event: end\ndata: "):])
+        elif block.startswith("data: "):
+            frames.append(json.loads(block[len("data: "):]))
+    return frames, end
+
+
+def worker_pids(pid: int) -> list:
+    """The replica workers among a --listen CLI's children (read from /proc)."""
+    out = []
+    try:
+        kids = Path(f"/proc/{pid}/task/{pid}/children").read_text().split()
+    except OSError:
+        return out
+    for kid in kids:
+        try:
+            cmd = Path(f"/proc/{kid}/cmdline").read_bytes().replace(b"\0", b" ").decode()
+        except OSError:
+            continue
+        if "serve.router" in cmd:
+            out.append(int(kid))
+    return out
+
+
+def phase_sessions(torch, np, ck, device: str = "cuda") -> dict:
+    """Phase 18 (see the module docstring): the live-session tier.  (b)'s
+    CLI child and (c)'s counted worker boot while (a) and (d) run in this
+    process; (b) and (c) then run on threads beside each other.  Returns
+    the launches by part: this process's runs and (c)'s worker's."""
+    import concurrent.futures
+    import io
+    import shutil
+    import signal
+    import threading
+
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp3D
+    from nonlocalheatequation_torch.serve.ensemble import EnsembleCase, EnsembleEngine
+    from nonlocalheatequation_torch.serve.http import IngressServer
+    from nonlocalheatequation_torch.serve.meshes import get_mesh_op
+    from nonlocalheatequation_torch.serve.router import ReplicaRouter
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+    from nonlocalheatequation_torch.serve.sessions import SessionManager
+
+    card = nvidia_smi("name,power.limit") if device == "cuda" else "cpu"
+    f32 = torch.float32
+    by, walls = {}, {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="phase18-"))
+    counts = tmp / "counts"
+    counts.mkdir()
+    Pipe, _ = fleet_transports(counts)
+    rng = np.random.default_rng(SEED + 18)
+
+    def mark(part):
+        walls[part] = round(time.perf_counter() - t_phase, 1)
+
+    def same(got, want, what):
+        if got is None or not np.array_equal(got, want):
+            fail(f"phase 18 {what}: not bitwise the chunked oracle")
+
+    def engine(**kw):
+        return EnsembleEngine(method="cuda", device=device, dtype=f32, batch_sizes=(1,), **kw)
+
+    # (b)'s CLI child and (c)'s counted worker boot first
+    n_b, dh_b = ENS_N, 1.0 / ENS_N
+    cli_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cli_env.pop("NLHEAT_PROGRAM_STORE", None)
+    sess_dir, metrics_out = tmp / "sessions-b", tmp / "listen-metrics.json"
+    cli = start_listen("nonlocalheatequation_torch.cli.solve2d",
+                       ["--replicas", "2", "--platform", "gpu" if device == "cuda" else "cpu",
+                        "--session-checkpoint-dir", str(sess_dir),
+                        "--session-checkpoint-every", "2",
+                        "--session-rate", str(FLEET_SESSION_RATE),
+                        "--metrics-out", str(metrics_out)], cli_env)
+    mdir = tmp / "meshes"
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    boot_c = pool.submit(lambda: ReplicaRouter(
+        replicas=1, transport=Pipe(), device=device, dtype=f32, batch_sizes=(1,),
+        mesh_dir=str(mdir), child_env={"NLHEAT_FLEET_LEG": "18c"}, spawn_timeout_s=FLEET_WAIT))
+    router_c = None
+    try:
+        # (a) the main path's width in process: 4096^2, eps=8, f32
+        n, dh = NX, 1.0 / NX
+        dt = euler_dt(dh)
+        kw = dict(shape=(n, n), eps=EPS, dt=dt, dh=dh)
+        u0 = rng.standard_normal((n, n))
+        # a heater: 1 on a disc of radius n/8 at the centre, 0 elsewhere (the
+        # checkpoint keeps the source as a JSON list: short values keep it cheap)
+        yy, xx = np.mgrid[0:n, 0:n]
+        src = ((xx - n / 2) ** 2 + (yy - n / 2) ** 2 <= (n / 8) ** 2).astype(np.float64)
+        ckpt_a, ckpt_b = tmp / "ckpt-a", tmp / "ckpt-b"
+        t0 = time.perf_counter()
+
+        def pipe():
+            return ServePipeline(depth=1, window_ms=0.0, method="cuda", device=device,
+                                 dtype=f32, batch_sizes=(1,))
+
+        def open_a(mgr):
+            return mgr.open(u0=u0, nt=SESSION_NT, k=1.0, preview_stride=SESSION_STRIDE,
+                            checkpoint_every=1, **kw)
+
+        def drive_to(mgr, s, step):
+            while s.step < step:
+                if s.state != "running":
+                    fail(f"phase 18 (a): session {s.state} at step {s.step}: "
+                         f"{s.status()['error']}")
+                mgr.pump(block=True)
+
+        def retarget_in_chunk_1(mgr, s):
+            drive_to(mgr, s, SESSION_CHUNK)
+            mgr.pump()  # chunk 1 (steps 50-100) in flight
+            if s.inflight is None:
+                fail("phase 18 (a): chunk 1 not in flight when the retarget was queued")
+            mgr.retarget(s.sid, k=0.5, source=src)
+
+        def session_a():
+            with pipe() as p, SessionManager(p, checkpoint_dir=str(ckpt_a),
+                                             chunk_steps=SESSION_CHUNK) as mgr:
+                s = open_a(mgr)
+                retarget_in_chunk_1(mgr, s)
+                mgr.drive(timeout_s=FLEET_WAIT)
+                frames = s.frames_after(-1)
+                fork = mgr.fork(s.sid, step=2 * SESSION_CHUNK)
+                mgr.drive(timeout_s=FLEET_WAIT)
+                return s, frames, fork, fork.frames_after(-1), mgr.metrics(), p.metrics()
+
+        s, frames, fork, fork_frames, sm, pm = launches_of(ck, by, "18a session", session_a)
+        wall_a = time.perf_counter() - t0
+        want_launches = {"batched_step2d": (SESSION_NT + 2 * SESSION_CHUNK)}
+        if device == "cuda" and by["18a session"] != want_launches:
+            fail(f"phase 18 (a): the session and its fork launched {by['18a session']}, not "
+                 f"{want_launches}")
+        audit = s.status()["audit"]
+        if s.state != "done" or audit != [{"verb": "retarget", "applied_at_step": 100,
+                                           "requested_at_step": SESSION_CHUNK, "k": 0.5,
+                                           "source": "set"}]:
+            fail(f"phase 18 (a): state {s.state}, audit {audit}")
+        eng_a = engine()
+        plan = session_plan(SESSION_NT, SESSION_CHUNK, 1.0, [(100, 0.5, src)])
+        states = launches_of(ck, by, "18a oracle", lambda: session_oracle(
+            np, eng_a, kw, u0, plan))
+        frames_ok(frames, list(range(0, SESSION_NT + 1, SESSION_CHUNK)), "(a)")
+        for f, u in zip(frames[:-1], states, strict=True):
+            same(f.values, u[::SESSION_STRIDE, ::SESSION_STRIDE].astype(np.float32),
+                 f"(a) preview at step {f.step}")
+        same(frames[-1].values, states[-1], "(a) final")
+        # the fork from the step-100 checkpoint (its state, k and source)
+        # continues the parent's physics: bitwise its frames
+        frames_ok(fork_frames, list(range(100, SESSION_NT + 1, SESSION_CHUNK)), "(a) fork")
+        for f in fork_frames:
+            same(f.values, next(g.values for g in frames if (g.step, g.kind) == (f.step, f.kind)),
+                 f"(a) fork frame {f.step} {f.kind}")
+        # the manager dies after chunk 2; a fresh manager resumes
+        t0 = time.perf_counter()
+
+        def session_b():
+            with pipe() as p:
+                mgr = SessionManager(p, checkpoint_dir=str(ckpt_b), chunk_steps=SESSION_CHUNK)
+                s = open_a(mgr)
+                retarget_in_chunk_1(mgr, s)
+                drive_to(mgr, s, 2 * SESSION_CHUNK)
+                pre = s.frames_after(-1)
+                mgr.close()
+            t_resume = time.perf_counter()
+            with pipe() as p, SessionManager(p, checkpoint_dir=str(ckpt_b)) as mgr2:
+                r = mgr2.resume(s.sid)
+                resumed = (r.resumed_from, r.step)
+                mgr2.drive(timeout_s=FLEET_WAIT)
+                return pre, r.frames_after(-1), resumed, time.perf_counter() - t_resume
+
+        pre, post, resumed, resume_wall = launches_of(ck, by, "18a resume", session_b)
+        wall_b = time.perf_counter() - t0
+        got = {(f.step, f.kind): f.values for f in pre}
+        dupes = sum((f.step, f.kind) in got for f in post)
+        got.update({(f.step, f.kind): f.values for f in post})
+        want = {(f.step, f.kind): f.values for f in frames}
+        if resumed != (100, 100) or set(got) != set(want) or dupes < 1 \
+                or not all(np.array_equal(got[key], want[key]) for key in want):
+            fail(f"phase 18 (a) resume: from {resumed}, keys {sorted(got)}, dupes {dupes}, "
+                 f"bitwise {[key for key in want if not np.array_equal(got[key], want[key])]}")
+        # the chunks' host and card times: the pipeline's chunk log, the
+        # session histogram, and one chunk under the profiler
+        log = pm["chunk_log"]
+        prof = launches_of(ck, by, "18a profiled chunk", lambda: device_profile(
+            torch, lambda: eng_a.run([EnsembleCase(nt=SESSION_CHUNK, k=1.0, test=False, u0=u0,
+                                                   **kw)]),
+            SESSION_CHUNK)) if device == "cuda" else {}
+        card_ms = (f"{prof['device_busy_ms_per_step'] * SESSION_CHUNK:.3f} ms a chunk, idle "
+                   f"share {prof['idle_share']:.3f} of its {prof['window_ms_per_step'] * SESSION_CHUNK:.1f} ms"
+                   if "device_busy_ms_per_step" in prof else prof.get("device_time", "not measured"))
+        say(
+            f"{card}: phase 18 (a) a {n}^2 eps={EPS} f32 session, nt {SESSION_NT} in chunks of "
+            f"{SESSION_CHUNK}, preview stride {SESSION_STRIDE}, a checkpoint a chunk, over "
+            f"ServePipeline(depth=1): every preview and the final f64 field bitwise the chunked "
+            f"oracle; the retarget (k and a source) queued in chunk 1 applied at step 100; the "
+            f"fork from step 100 bitwise the parent's frames; a manager closed after chunk 2 "
+            f"and resumed by a fresh one: the frames, deduped by (step, kind), bitwise the "
+            f"uninterrupted stream ({dupes} re-emitted); walls: session + fork "
+            f"{wall_a:.2f} s, the killed and resumed run {wall_b:.2f} s (resume to done "
+            f"{resume_wall:.2f} s); chunk ms (submit to retire) {json.dumps(sm['chunk_ms'])}; "
+            f"the pipeline's chunk log (build = staging, device = dispatch to fence) "
+            f"{json.dumps([{k: c[k] for k in ('build_ms', 'device_ms', 'fetch_ms')} for c in log])}; "
+            f"one {SESSION_CHUNK}-step chunk under torch.profiler: {card_ms}; launches "
+            f"{json.dumps(by['18a session'])}")
+        # a tuned engine (NLHEAT_TUNE_BATCH=1) at the fleet's 1024^2: the
+        # batched tuner's pick among B6, B7 and B8 serves the chunks, bitwise
+        # the per-step chunked oracle (the kernels are bitwise each other)
+        kw_t = dict(shape=(ENS_N, ENS_N), eps=EPS, dt=euler_dt(1.0 / ENS_N), dh=1.0 / ENS_N)
+        u_t = rng.standard_normal((ENS_N, ENS_N))
+        os.environ["NLHEAT_TUNE_BATCH"] = "1"
+        try:
+            def tuned():
+                with ServePipeline(engine=engine(), depth=1, window_ms=0.0) as p, \
+                        SessionManager(p, chunk_steps=SESSION_CHUNK) as mgr:
+                    t = mgr.open(u0=u_t, nt=2 * SESSION_CHUNK, k=1.0, checkpoint_every=0,
+                                 **kw_t)
+                    mgr.drive(timeout_s=FLEET_WAIT)
+                    return t.result(), dict(p.engine.report.strategies)
+
+            tres, strategies = launches_of(ck, by, "18a tuned session", tuned)
+        finally:
+            del os.environ["NLHEAT_TUNE_BATCH"]
+        same(tres, session_oracle(np, engine(), kw_t, u_t,
+                                  session_plan(2 * SESSION_CHUNK, SESSION_CHUNK, 1.0))[-1],
+             "(a) tuned")
+        say(f"{card}: phase 18 (a) a {ENS_N}^2 session with NLHEAT_TUNE_BATCH=1: strategies "
+                            f"{sorted(set(strategies.values()))}, launches "
+                            f"{json.dumps(by['18a tuned session'])} (probes and winner), the "
+                            f"session bitwise the per-step oracle")
+        mark("a")
+
+        # (d) a 3D session, 128^3, eps=4, in process
+        n3, e3, nt3, c3 = SESSION3D
+        dh3 = 1.0 / n3
+        probe = NonlocalOp3D(e3, 1.0, 1.0, dh3)
+        kw3 = dict(shape=(n3,) * 3, eps=e3, dt=0.8 / (probe.c * dh3 ** 3 * probe.wsum), dh=dh3)
+        u3 = rng.standard_normal((n3,) * 3)
+
+        def session_3d():
+            with pipe() as p, SessionManager(p, chunk_steps=c3) as mgr:
+                s3 = mgr.open(u0=u3, nt=nt3, k=1.0, preview_stride=SESSION_STRIDE,
+                              checkpoint_every=0, **kw3)
+                mgr.drive(timeout_s=FLEET_WAIT)
+                return s3.frames_after(-1)
+
+        frames3 = launches_of(ck, by, "18d session", session_3d)
+        states3 = launches_of(ck, by, "18d oracle", lambda: session_oracle(
+            np, engine(), kw3, u3, session_plan(nt3, c3, 1.0)))
+        frames_ok(frames3, list(range(0, nt3 + 1, c3)), "(d)")
+        for f, u in zip(frames3[:-1], states3, strict=True):
+            same(f.values, u[::SESSION_STRIDE, ::SESSION_STRIDE, ::SESSION_STRIDE].astype(
+                np.float32), f"(d) preview at step {f.step}")
+        same(frames3[-1].values, states3[-1], "(d) final")
+        if device == "cuda" and not (by["18d session"].get("nsum3d")
+                                     or by["18d session"].get("step3d")):
+            fail(f"phase 18 (d): the 3D session launched {by['18d session']}, no B9")
+        say(f"{card}: phase 18 (d) a {n3}^3 eps={e3} f32 session, nt {nt3} in chunks "
+                      f"of {c3}: bitwise the chunked oracle, launches "
+                      f"{json.dumps(by['18d session'])}")
+        mark("d")
+
+        # the oracles of (b) and (c) in this process, before their legs start
+        port = listen_port(*cli[:2], "phase 18 (b): solve2d --listen")
+        router_c = boot_c.result()
+        kw_b = dict(shape=(n_b, n_b), eps=EPS, dt=euler_dt(dh_b), dh=dh_b)
+        ub = [rng.standard_normal((n_b, n_b)) for _ in range(3)]
+        eng_b = EnsembleEngine(device=device)
+        pool_b = concurrent.futures.ThreadPoolExecutor(4)
+        pts, hh = jittered_cloud(np, MESH_SESSION[0], 2, SEED + 18, shuffle=True)
+        mesh_body = {"points": pts.tolist(), "eps": 3 * hh, "vol": hh * hh}
+
+        def leg_fleet() -> dict:
+            # (b) sessions over the CLI's HTTP with a retarget, a fork and a
+            # close, a worker SIGKILLed mid-session, a paced batch load beside
+            body = lambda u: dict(shape=[n_b, n_b], nt=SESSION_NT, k=1.0, u0=u.tolist(),
+                                  chunk_steps=FLEET_SESSION_CHUNK, preview_stride=SESSION_STRIDE,
+                                  eps=EPS, dt=kw_b["dt"], dh=dh_b)
+            out = {"batch": []}
+            t0 = time.perf_counter()
+            streams = {}
+
+            def open_session(u, **more):
+                code, r, _ = fleet_http(port, "POST", "/v1/sessions", dict(body(u), **more))
+                if code != 201:
+                    fail(f"phase 18 (b): open {code} {r}")
+                streams[r["session"]] = pool_b.submit(
+                    sse_frames, port, f"/v1/sessions/{r['session']}/stream"
+                    f"?timeout_s={FLEET_WAIT}")
+                return r["session"]
+
+            def status(sid):
+                return fleet_http(port, "GET", f"/v1/sessions/{sid}")[1]
+
+            def wait_step(sid, step):
+                deadline = time.monotonic() + FLEET_WAIT
+                while (now := status(sid)["step"]) < step:
+                    if time.monotonic() > deadline:
+                        fail(f"phase 18 (b): session {sid} stuck before step {step}")
+                    time.sleep(0.02)
+                return now
+
+            # session A: a retarget queued before its first chunk retires, and
+            # one replica worker SIGKILLed while A runs (the rate gate paces it)
+            a_sid = open_session(ub[0])
+            out["ticket"] = fleet_http(port, "POST", f"/v1/sessions/{a_sid}/retarget",
+                                       {"k": 0.75})[:2]
+            out["killed_at"] = wait_step(a_sid, 2 * FLEET_SESSION_CHUNK)
+            workers = worker_pids(cli[0].pid)
+            if not workers:
+                fail("phase 18 (b): no replica worker found under the CLI")
+            os.kill(workers[0], signal.SIGKILL)
+            b_sid = open_session(ub[1])
+            closing = open_session(ub[2], nt=10 ** 6)
+            opened = [a_sid, b_sid]
+
+            def batch_load():
+                case = {"shape": [n_b, n_b], "nt": FLEET_BATCH_STEPS, "eps": EPS, "k": 1.0,
+                        "dt": kw_b["dt"], "dh": dh_b, "test": True}
+                for i in range(FLEET_BATCH):
+                    t = time.perf_counter()
+                    code, r, _ = fleet_http(port, "POST", "/v1/cases", case)
+                    if code == 202:
+                        fleet_http(port, "GET", f"/v1/cases/{r['id']}?wait=1")
+                    out["batch"].append((code, time.perf_counter() - t))
+                    time.sleep(max(0.0, 1.0 / FLEET_BATCH_HZ - (time.perf_counter() - t)))
+
+            loader = threading.Thread(target=batch_load, daemon=True)
+            loader.start()
+            wait_step(b_sid, 100)
+            code_f, forked, _ = fleet_http(port, "POST", f"/v1/sessions/{b_sid}/fork",
+                                           {"step": 100})
+            if code_f != 201:
+                fail(f"phase 18 (b): fork {code_f} {forked}")
+            streams[forked["session"]] = pool_b.submit(
+                sse_frames, port, f"/v1/sessions/{forked['session']}/stream"
+                f"?timeout_s={FLEET_WAIT}")
+            wait_step(closing, FLEET_SESSION_CHUNK)
+            code_c, closed, _ = fleet_http(port, "POST", f"/v1/sessions/{closing}/close", {})
+            out["streams"] = {sid: f.result() for sid, f in streams.items()}
+            out["closed_frames"] = out["streams"].pop(closing)
+            loader.join(timeout=FLEET_WAIT)
+            out["wall"] = time.perf_counter() - t0
+            out.update(closed=(code_c, closed), opened=opened,
+                       forked=forked, closing=closing)
+            out["status"] = {sid: status(sid) for sid in opened + [forked["session"], closing]}
+            out["bin"] = {sid: np.load(io.BytesIO(fleet_http(
+                port, "GET", f"/v1/sessions/{sid}/result?bin=1", raw=True)[1]))
+                for sid in out["status"]}
+            out["health"] = fleet_http(port, "GET", "/healthz")[1]
+            snap = fleet_http(port, "GET", "/metrics.json")[1]
+            out["session_metrics"] = {k: v for k, v in snap.items() if k.startswith("/session/")}
+            return out
+
+        def leg_mesh() -> dict:
+            # (c) a mesh session over an in-process front door whose worker counts
+            t0 = time.perf_counter()
+            with SessionManager(router_c, chunk_steps=MESH_SESSION[2]) as mgr:
+                mgr.start_driver()
+                with IngressServer(0, router_c, sessions=mgr, mesh_dir=str(mdir)) as ing:
+                    code, meta, _ = fleet_http(ing.port, "POST", "/v1/meshes", mesh_body)
+                    if code != 201:
+                        fail(f"phase 18 (c): mesh upload {code} {meta}")
+                    os.environ["NLHEAT_MESH_DIR"] = str(mdir)
+                    try:
+                        mop = get_mesh_op(meta["hash"], 1.0, 1.0, device="cpu")
+                    finally:
+                        del os.environ["NLHEAT_MESH_DIR"]
+                    mdt = 0.8 / float(np.max(mop.c * mop.wsum))
+                    um = np.random.default_rng(SEED + 181).standard_normal(mop.n)
+                    code, r, _ = fleet_http(ing.port, "POST", "/v1/sessions", {
+                        "mesh": meta["hash"], "nt": MESH_SESSION[1], "k": 1.0, "dt": mdt,
+                        "u0": um.tolist(), "preview_stride": SESSION_STRIDE})
+                    if code != 201:
+                        fail(f"phase 18 (c): open {code} {r}")
+                    frames, end = sse_frames(ing.port, f"/v1/sessions/{r['session']}/stream"
+                                             f"?timeout_s={FLEET_WAIT}")
+                    raw = fleet_http(ing.port, "GET", f"/v1/sessions/{r['session']}/result"
+                                     "?bin=1", raw=True)[1]
+            return {"meta": meta, "dt": mdt, "u0": um, "frames": frames, "end": end,
+                    "result": np.load(io.BytesIO(raw)), "wall": time.perf_counter() - t0}
+
+        legs = {"b": pool.submit(leg_fleet), "c": pool.submit(leg_mesh)}
+        b, c = legs["b"].result(), legs["c"].result()
+        pool_b.shutdown(wait=True)
+        mark("b, c")
+
+        # (b) against its chunked oracles
+        a_sid, b_sid = b["opened"]
+        fork_sid, c_sid = b["forked"]["session"], b["closing"]
+        applied = [e["applied_at_step"] for e in b["status"][a_sid]["audit"]
+                   if e["verb"] == "retarget"]
+        if b["ticket"][0] != 202 or len(applied) != 1 or not b["killed_at"] < SESSION_NT:
+            fail(f"phase 18 (b): the retarget {b['ticket']}, applied at {applied}; the kill "
+                 f"at step {b['killed_at']} of {SESSION_NT}")
+        at = applied[0]
+        boundaries = list(range(0, SESSION_NT + 1, FLEET_SESSION_CHUNK))
+        plan_a = session_plan(SESSION_NT, FLEET_SESSION_CHUNK, 1.0, [(at, 0.75, None)])
+        want_a = launches_of(ck, by, "18b oracle", lambda: session_oracle(
+            np, eng_b, kw_b, ub[0], plan_a))
+        want_b = launches_of(ck, by, "18b oracle b", lambda: session_oracle(
+            np, eng_b, kw_b, ub[1], session_plan(SESSION_NT, FLEET_SESSION_CHUNK, 1.0)))
+        c_step = b["status"][c_sid]["step"]
+        want_c = launches_of(ck, by, "18b oracle closed", lambda: session_oracle(
+            np, eng_b, kw_b, ub[2], session_plan(c_step, FLEET_SESSION_CHUNK, 1.0)))
+        for sid, want, steps in ((a_sid, want_a, boundaries), (b_sid, want_b, boundaries),
+                                 (fork_sid, want_b[4:], boundaries[4:])):
+            frames, end = b["streams"][sid]
+            frames_ok(frames, steps, f"(b) SSE of {sid}")
+            if end is None or end["state"] != "done":
+                fail(f"phase 18 (b): {sid}'s stream ended {end}")
+            for f, u in zip(frames[:-1], want, strict=True):
+                same(np.asarray(f["values"], np.float32).reshape(f["shape"]),
+                     u[::SESSION_STRIDE, ::SESSION_STRIDE].astype(np.float32),
+                     f"(b) {sid} preview at step {f['step']}")
+            same(b["bin"][sid], want[-1], f"(b) {sid} result?bin=1")
+        same(b["bin"][c_sid], want_c[-1], f"(b) the closed session at step {c_step}")
+        frames, end = b["closed_frames"]
+        frames_ok(frames, list(range(0, c_step + 1, FLEET_SESSION_CHUNK)), "(b) SSE closed")
+        if end is None or end["state"] != "closed" or frames[-1]["step"] != c_step:
+            fail(f"phase 18 (b): the closed session's stream ended {end}")
+        stop_listen(*cli, "phase 18 (b): solve2d --listen")
+        lm = json.loads(metrics_out.read_text())
+        ckpts = sorted(p.name for p in sess_dir.iterdir())
+        shed = sum(1 for code, _ in b["batch"] if code == 429)
+        lat = sorted(t for code, t in b["batch"] if code == 202)
+        p99 = float(np.percentile(lat, 99)) * 1e3 if lat else float("nan")
+        deferrals = {sid: b["status"][sid]["deferrals"] for sid in b["status"]}
+        if b["closed"][0] != 200 or b["closed"][1]["state"] != "closed" \
+                or lm["deaths"] < 1 or f"{b_sid}@100.ckpt.npz" not in ckpts \
+                or "sessions" not in b["health"]:
+            fail(f"phase 18 (b): retarget {b['ticket']}, close {b['closed'][0]}, deaths "
+                 f"{lm['deaths']}, checkpoints {ckpts}, health {b['health']}")
+        say(
+            f"{card}: phase 18 (b) solve2d --listen 0 --replicas 2 --session-checkpoint-every "
+            f"2 --session-rate {FLEET_SESSION_RATE:g}: two {n_b}^2 eps={EPS} f32 sessions "
+            f"(nt {SESSION_NT}, chunks of {FLEET_SESSION_CHUNK}) over HTTP, a retarget of k "
+            f"applied at step {at}, a fork from the step-100 checkpoint, a third session "
+            f"closed at step {c_step}; a worker SIGKILLed at step {b['killed_at']} (deaths "
+            f"{lm['deaths']}, requeued {lm.get('requeued')}): every SSE stream complete, in "
+            f"step order, no duplicate, every preview and result?bin=1 bitwise the chunked "
+            f"oracle; deferrals {json.dumps(deferrals)}; the paced batch load "
+            f"({FLEET_BATCH} x {FLEET_BATCH_STEPS} steps at {FLEET_BATCH_HZ:g}/s): shed "
+            f"{shed}, p99 {p99:.1f} ms (client, POST to done); the CLI's session metrics "
+            f"{json.dumps(b['session_metrics'])}; wall {b['wall']:.2f} s; "
+            f"checkpoints {len(ckpts)} files; router cases {lm['cases']}")
+        # (c) against its chunked oracle
+        meta = c["meta"]
+        mkw = dict(shape=(meta["nodes"],), eps=0, dt=c["dt"], dh=0.0, mesh=meta["hash"])
+        os.environ["NLHEAT_MESH_DIR"] = str(mdir)
+        try:
+            want_m = launches_of(ck, by, "18c oracle", lambda: session_oracle(
+                np, EnsembleEngine(device=device, dtype=f32), mkw, c["u0"],
+                session_plan(MESH_SESSION[1], MESH_SESSION[2], 1.0)))
+        finally:
+            del os.environ["NLHEAT_MESH_DIR"]
+        frames_ok(c["frames"], list(range(0, MESH_SESSION[1] + 1, MESH_SESSION[2])), "(c)")
+        for f, u in zip(c["frames"][:-1], want_m, strict=True):
+            same(np.asarray(f["values"], np.float32), u[::SESSION_STRIDE].astype(np.float32),
+                 f"(c) preview at step {f['step']}")
+        same(c["result"], want_m[-1], "(c) result?bin=1")
+        mark("c checked")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        if router_c is None and boot_c.done() and boot_c.exception() is None:
+            router_c = boot_c.result()
+        if router_c is not None:
+            router_c.close()
+        end_child(cli[0])
+    workers = worker_counts(counts)
+    for w in workers:
+        if w["nvcc"]:
+            fail(f"phase 18: worker {w['leg']}/{w['replica']} ran nvcc {w['nvcc']} times")
+        by[f"{w['leg']} worker r{w['replica']} {w['transport']}"] = w["launches"]
+    if device == "cuda" and not any(w["launches"].get("gather_L") for w in workers):
+        fail(f"phase 18 (c): the mesh session's worker launched no gather_L: {workers}")
+    say(f"{card}: phase 18 (c) a session over the shuffled {MESH_SESSION[0]}^2 "
+                  f"cloud ({meta['nodes']} nodes, {meta['edges']} edges) registered by POST "
+                  f"/v1/meshes, nt {MESH_SESSION[1]} in chunks of {MESH_SESSION[2]}, over an "
+                  f"in-process front door: the SSE stream and result?bin=1 bitwise the chunked "
+                  f"oracle; its worker's launches {json.dumps([w['launches'] for w in workers])}; "
+                  f"wall {c['wall']:.2f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 18 legs end at, s: {json.dumps(walls)}")
     return by
 
 
@@ -6584,9 +7161,10 @@ def main() -> int:
     serve_by = timed("serving", phase_serve, torch, np, ck, cases_2d, cases_1d, l2_threshold)
     fleet_by = timed("fleet leaves", phase_fleet_leaves, torch, np, ck, cases_2d, built)
     front_by = timed("fleet front door", phase_front_door, torch, np, ck, l2_threshold)
-    for k in kernels:  # phases 10-17 launch the kernels of phases 4-8 again
+    sess_by = timed("sessions", phase_sessions, torch, np, ck)
+    for k in kernels:  # phases 10-18 launch the kernels of phases 4-8 again
         for part in (async_by, elastic_by, stepper_by, dist_by, mh_by, serve_by, fleet_by,
-                     front_by):
+                     front_by, sess_by):
             more = by_label(part, k["name"])
             if more:
                 k["launches"] += sum(more.values())

@@ -16,9 +16,8 @@ the observability flags ``--trace``, ``--metrics-out`` and
 rank 0 owning the console and the files); and the network front door
 (``--listen`` with ``--replicas``, ``--transport``, ``--worker-token``,
 ``--shard-threshold``, ``--gang-devices`` and ``--slo``: :func:`run_listen`,
-a replica fleet behind the HTTP tier).  The ``--session-*`` flags are parsed
-and refused by name under ``--listen``: the session tier (serve/sessions.py)
-is not ported yet.
+a replica fleet behind the HTTP tier, with the live-session tier's six
+``--session-*`` flags: serve/sessions.py over the same fleet).
 """
 
 from __future__ import annotations
@@ -370,8 +369,8 @@ def add_listen_flags(p: argparse.ArgumentParser):
     """--listen/--replicas: the network front door (serve/http.py +
     serve/router.py) — the CLI stops reading cases from stdin and serves
     them over HTTP from a replica fleet instead; the JAX CLIs' flags,
-    defaults and help (the six ``--session-*`` flags are parsed as there
-    and refused under --listen until serve/sessions.py is ported)."""
+    defaults and help, the six ``--session-*`` flags of the live-session
+    tier (serve/sessions.py) included."""
     p.add_argument(
         "--listen", type=int, default=None, metavar="PORT",
         help="serve cases over HTTP on 127.0.0.1:PORT (0 picks a free port, printed to "
@@ -412,36 +411,44 @@ def add_listen_flags(p: argparse.ArgumentParser):
              "observed outcome: /slo/* metrics, the GET /v1/status burn/drift block, and "
              "per-worker live rate recalibration back into the tuner records; 0 forces "
              "off; unset defers to NLHEAT_SLO=1")
-    for name, kind, metavar, help_ in SESSION_FLAGS:
-        p.add_argument(name, type=kind, default=None, metavar=metavar, help=help_)
-
-
-#: the live-session tier's flags (serve/sessions.py, not ported yet): parsed
-#: as the JAX CLIs parse them, refused by name under --listen
-SESSION_FLAGS = (
-    ("--session-chunk", int, "STEPS",
-     "--listen: default steps per session chunk (serve/sessions.py; not ported yet)"),
-    ("--session-budget", int, "STEPS",
-     "--listen: per-session step budget per second (serve/sessions.py; not ported yet)"),
-    ("--session-rate", float, "STEPS_PER_S",
-     "--listen: fleet-wide session step-rate cap (serve/sessions.py; not ported yet)"),
-    ("--session-checkpoint-dir", str, "DIR",
-     "--listen: crash-safe session checkpoints (serve/sessions.py; not ported yet)"),
-    ("--session-checkpoint-every", int, "CHUNKS",
-     "--listen: session checkpoint cadence in chunks (serve/sessions.py; not ported yet)"),
-    ("--session-preview", int, "STRIDE",
-     "--listen: preview-frame downsample stride (serve/sessions.py; not ported yet)"),
-)
+    # the live-session tier (serve/sessions.py): POST /v1/sessions opens a
+    # stateful streaming simulation on the same fleet; these knobs configure
+    # its budgets and crash-safety
+    p.add_argument(
+        "--session-chunk", type=int, default=None, metavar="STEPS",
+        help="--listen: default steps per session chunk (one chunk = one dispatched "
+             "program = one preview frame; per-session override via the POST body's "
+             "chunk_steps)")
+    p.add_argument(
+        "--session-budget", type=int, default=None, metavar="STEPS",
+        help="--listen: per-session step budget per second (0 = unlimited; env "
+             "NLHEAT_SESSION_BUDGET) — a greedy stream DEFERS at chunk granularity instead "
+             "of starving batch")
+    p.add_argument(
+        "--session-rate", type=float, default=None, metavar="STEPS_PER_S",
+        help="--listen: FLEET-wide session step-rate cap through the admission "
+             "controller's token bucket (unset = no cap; session chunks always defer while "
+             "batch admission sheds)")
+    p.add_argument(
+        "--session-checkpoint-dir", default=None, metavar="DIR",
+        help="--listen: crash-safe session checkpoints land here (utils/checkpoint.py, "
+             "atomic+CRC, keyed session id + step) — enables resume after a front-door "
+             "death and fork-from-checkpoint; unset = live-state forks only")
+    p.add_argument(
+        "--session-checkpoint-every", type=int, default=None, metavar="CHUNKS",
+        help="--listen: checkpoint cadence in chunks (0 = off; env "
+             "NLHEAT_SESSION_CKPT_EVERY)")
+    p.add_argument(
+        "--session-preview", type=int, default=None, metavar="STRIDE",
+        help="--listen: preview-frame downsample stride (f32 u[::STRIDE] per chunk "
+             "boundary; env NLHEAT_SESSION_PREVIEW, default 4)")
 
 
 def validate_listen_args(args, dim: int | None = None) -> str | None:
     """The front-door flags' checks in the JAX words (the caller prints and
     exits 1).  ``dim`` is the calling CLI's grid rank: the sharded case
     class is the 2D flagship tier, so solve1d/solve3d refuse
-    --shard-threshold.  A ``--session-*`` flag with --listen is refused by
-    name: the session tier (serve/sessions.py) is not ported yet."""
-    sessions = [(getattr(args, name[2:].replace("-", "_"), None), name)
-                for name, *_ in SESSION_FLAGS]
+    --shard-threshold."""
     if args.listen is None:
         if getattr(args, "replicas", 1) != 1:
             return "--replicas configures the --listen fleet; add --listen"
@@ -449,15 +456,20 @@ def validate_listen_args(args, dim: int | None = None) -> str | None:
                            (getattr(args, "worker_token", None), "--worker-token"),
                            (getattr(args, "shard_threshold", None), "--shard-threshold"),
                            (getattr(args, "gang_devices", None), "--gang-devices"),
-                           (getattr(args, "slo", None), "--slo")] + sessions:
+                           (getattr(args, "slo", None), "--slo"),
+                           (getattr(args, "session_chunk", None), "--session-chunk"),
+                           (getattr(args, "session_budget", None), "--session-budget"),
+                           (getattr(args, "session_rate", None), "--session-rate"),
+                           (getattr(args, "session_checkpoint_dir", None),
+                            "--session-checkpoint-dir"),
+                           (getattr(args, "session_checkpoint_every", None),
+                            "--session-checkpoint-every"),
+                           (getattr(args, "session_preview", None), "--session-preview")]:
             if flag is not None:
                 return f"{name} configures the --listen fleet; add --listen"
         return None
     if not 0 <= args.listen <= 65535:
         return f"--listen must be in [0, 65535] (got {args.listen})"
-    for flag, name in sessions:
-        if flag is not None:
-            return f"{name} is not ported yet to nonlocalheatequation_torch (serve/sessions.py)"
     if args.replicas < 1:
         return f"--replicas needs N >= 1 (got {args.replicas})"
     if getattr(args, "worker_token", None) is not None \
@@ -473,6 +485,20 @@ def validate_listen_args(args, dim: int | None = None) -> str | None:
                 "or use solve2d")
     if getattr(args, "gang_devices", None) is not None and not shard:
         return "--gang-devices sizes the gang mesh; add --shard-threshold"
+    for val, name in ((getattr(args, "session_chunk", None), "--session-chunk"),
+                      (getattr(args, "session_preview", None), "--session-preview")):
+        if val is not None and val < 1:
+            return f"{name} needs a value >= 1 (got {val})"
+    for val, name in ((getattr(args, "session_budget", None), "--session-budget"),
+                      (getattr(args, "session_rate", None), "--session-rate"),
+                      (getattr(args, "session_checkpoint_every", None),
+                       "--session-checkpoint-every")):
+        if val is not None and val < 0:
+            return f"{name} needs a value >= 0 (0 = off; got {val})"
+    if getattr(args, "session_checkpoint_every", None) \
+            and not getattr(args, "session_checkpoint_dir", None):
+        return ("--session-checkpoint-every needs a place to write; "
+                "add --session-checkpoint-dir")
     for flag, name in ((getattr(args, "test", False), "--test"),
                        (getattr(args, "test_batch", False), "--test_batch"),
                        (getattr(args, "ensemble", False), "--ensemble"),
@@ -498,13 +524,28 @@ def run_listen(args, engine_kwargs) -> int:
     carry the engine's ``device``/``dtype`` (``--platform``, ``--x64``) to
     every worker; on the card the router builds the kernel libraries once
     before the first spawn.  The router registry backs --metrics-port and
-    the final metrics dump becomes the --metrics-out payload.  The session
-    tier (serve/sessions.py) is not ported yet: /v1/sessions* answer 404."""
+    the final metrics dump becomes the --metrics-out payload.  One
+    SessionManager (serve/sessions.py) over the same fleet serves
+    /v1/sessions*, sharing the ingress's admission controller."""
     import json as _json
     import threading
 
     from nonlocalheatequation_torch.serve.http import AdmissionController, IngressServer
     from nonlocalheatequation_torch.serve.router import ReplicaRouter
+    from nonlocalheatequation_torch.serve.sessions import (
+        SESSION_BUDGET_ENV,
+        SESSION_CKPT_ENV,
+        SESSION_PREVIEW_ENV,
+        SessionManager,
+    )
+
+    # the session knobs are env-backed per-session defaults
+    # (SessionSpec.validate); the CLI flags pin the env for this server
+    for flag, env_name in ((getattr(args, "session_budget", None), SESSION_BUDGET_ENV),
+                           (getattr(args, "session_checkpoint_every", None), SESSION_CKPT_ENV),
+                           (getattr(args, "session_preview", None), SESSION_PREVIEW_ENV)):
+        if flag is not None:
+            os.environ[env_name] = str(flag)
 
     serve_kwargs = {
         "retries": args.serve_retries,
@@ -551,19 +592,30 @@ def run_listen(args, engine_kwargs) -> int:
         scaler = threading.Thread(target=_scale_loop, daemon=True,
                                   name="nlheat-router-scaler")
         scaler.start()
+        # the session tier: one SessionManager over the same fleet, sharing
+        # ONE admission controller with the ingress so the batch gate and
+        # the session gate read the same budgets
+        admission = AdmissionController(
+            router, session_steps_per_s=getattr(args, "session_rate", None))
+        sessions = SessionManager(
+            router, admission=admission,
+            checkpoint_dir=getattr(args, "session_checkpoint_dir", None),
+            chunk_steps=getattr(args, "session_chunk", None) or 16)
+        sessions.start_driver()
         try:
-            with IngressServer(args.listen, router,
-                               admission=AdmissionController(router)) as ingress:
+            with IngressServer(args.listen, router, admission=admission,
+                               sessions=sessions) as ingress:
                 print(f"ingress: http://127.0.0.1:{ingress.port}/v1/cases "
-                      f"({args.replicas} replica(s); POST to submit, /healthz, "
-                      "/v1/status, /metrics; EOF on stdin stops the server)",
-                      file=sys.stderr, flush=True)
+                      f"({args.replicas} replica(s); POST to submit, /v1/sessions opens "
+                      "a live stream, /healthz, /v1/status, /metrics; EOF on stdin stops "
+                      "the server)", file=sys.stderr, flush=True)
                 for _line in sys.stdin:  # lifetime = stdin
                     pass
             # the ingress is CLOSED before the drain: new submissions must
             # stop landing or the shutdown drain could chase them forever
         finally:
             stop_scaling.set()
+            sessions.close()
         router.drain()
         if trace_dir:
             merged = router.dump_fleet_trace(os.path.join(trace_dir, "fleet_trace.json"))

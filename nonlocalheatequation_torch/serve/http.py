@@ -26,10 +26,23 @@ anything with ``submit``/``outstanding_total``/``retry_after_s``):
 * ``GET /v1/cases/<id>/result`` — the solved state: JSON
   ``{"shape": ..., "values": [...]}`` by default (f64 round-trip-exact),
   or raw ``.npy`` bytes with ``?bin=1``.
-* **Sessions** (``/v1/sessions*``): the live-session tier
-  (serve/sessions.py) is not ported yet; every session route answers 404
-  ``{"error": "no session tier on this server ..."}``, the JAX package's
-  body for a server built without a session manager.
+* **Sessions** (serve/sessions.py — present when the server is built
+  with a :class:`~nonlocalheatequation_torch.serve.sessions.SessionManager`;
+  without one every session route answers 404):
+  ``POST /v1/sessions`` opens a live simulation (case fields + ``nt``
+  total steps + ``chunk_steps``/``preview_stride``/``budget_steps``/
+  ``checkpoint_every``), 429-shedding exactly like cases;
+  ``GET /v1/sessions/<id>`` is the status+audit document;
+  ``GET /v1/sessions/<id>/stream[?from_step=N]`` streams frames as
+  Server-Sent Events (``data: {...}\\n\\n`` per chunk boundary — coarse
+  f32 previews, then the final full-f64 frame; the ``from_step``
+  cursor makes a reconnect lossless and duplicate-free);
+  ``POST /v1/sessions/<id>/retarget`` queues a mid-flight source/k
+  change (applied at the next chunk boundary, step recorded);
+  ``POST /v1/sessions/<id>/fork`` branches a what-if session from a
+  checkpoint; ``POST /v1/sessions/<id>/close`` ends the stream;
+  ``GET /v1/sessions/<id>/result`` fetches the final f64 field
+  (``?bin=1`` for raw .npy bytes).
 * **Meshes** (serve/meshes.py — present when a mesh registry
   is configured via ``mesh_dir`` or ``NLHEAT_MESH_DIR``):
   ``POST /v1/meshes`` uploads a point cloud ONCE (JSON ``points`` +
@@ -109,8 +122,8 @@ class AdmissionController:
     form of the same promise: a request we cannot serve inside the
     bound is refused NOW with a retry hint, not parked.
 
-    The SESSION tier's fleet-wide gate lives here too (serve/sessions.py,
-    not ported yet; the gate is the controller's own): ``session_steps_per_s`` rate-limits the
+    The SESSION tier's fleet-wide gate lives here too (serve/sessions.py):
+    ``session_steps_per_s`` rate-limits the
     aggregate step rate streaming sessions may draw (a token bucket on
     the injected ``clock``; burst = one second's tokens), and every
     session chunk additionally clears :meth:`check` — so a saturated
@@ -342,14 +355,9 @@ class IngressServer:
         self.admission = admission if admission is not None else \
             AdmissionController(backend, max_pending=max_pending,
                                 max_queue_wait_ms=max_queue_wait_ms)
-        #: the session tier (serve/sessions.py SessionManager) is not
-        #: ported yet: session endpoints answer the JAX package's 404
-        if sessions is not None:
-            raise ValueError(
-                "the session tier is not ported yet to "
-                "nonlocalheatequation_torch (serve/sessions.py); build the "
-                "ingress with sessions=None")
-        self.sessions = None
+        #: the session tier (serve/sessions.py SessionManager), owned by
+        #: the caller like the backend; None = session endpoints 404
+        self.sessions = sessions
         self._requests: dict[int, object] = {}
         self._done: dict[int, None] = {}  # insertion-ordered: FIFO aging
         self._lock = threading.Lock()
@@ -625,14 +633,162 @@ class IngressServer:
         except ValueError as e:
             h._json(400, {"error": str(e)})
 
-    # -- the session tier (serve/sessions.py, not ported yet) ----------------
+    # -- the session tier (serve/sessions.py) --------------------------------
+    def _read_body(self, h) -> dict:
+        n = int(h.headers.get("Content-Length") or 0)
+        body = json.loads(h.rfile.read(n).decode() or "{}")
+        if not isinstance(body, dict):
+            raise ValueError(
+                f"body must be a JSON object, got {type(body).__name__}")
+        return body
+
     def _post_session(self, h, path: str) -> None:
-        h._json(404, {"error": "no session tier on this server "
-                               "(serve/sessions.py SessionManager "
-                               "not configured)"})
+        if self.sessions is None:
+            h._json(404, {"error": "no session tier on this server "
+                                   "(serve/sessions.py SessionManager "
+                                   "not configured)"})
+            return
+        if path == "/v1/sessions":
+            self._open_session(h)
+            return
+        rest = path[len("/v1/sessions/"):]
+        sid, _, verb = rest.partition("/")
+        try:
+            body = self._read_body(h)
+            if verb == "retarget":
+                out = self.sessions.retarget(
+                    sid, k=body.get("k"), source=body.get("source"),
+                    clear_source=bool(body.get("clear_source")))
+                h._json(202, dict(out, session=sid))
+            elif verb == "fork":
+                child = self.sessions.fork(sid, step=body.get("step"))
+                h._json(201, {"session": child.sid,
+                              "parent": sid,
+                              "from_step": child.step})
+            elif verb == "close":
+                h._json(200, self.sessions.close_session(sid))
+            else:
+                h._json(404, {"error": f"no session verb {verb!r}"})
+        except KeyError as e:
+            h._json(404, {"error": str(e.args[0]) if e.args else str(e)})
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            h._json(400, {"error": str(e)})
+
+    def _open_session(self, h) -> None:
+        from nonlocalheatequation_torch.serve.sessions import SessionSpec
+
+        try:
+            body = self._read_body(h)
+            # ONE validator with the case form: every shared field
+            # (shape/eps/k/dh rules, u0 size, production-needs-u0)
+            # refuses exactly as POST /v1/cases would; nt is the
+            # session's TOTAL steps
+            case = parse_case({k2: v for k2, v in body.items()
+                               if k2 in ("shape", "nt", "eps", "k", "dt",
+                                         "dh", "u0", "test", "mesh")},
+                              meshes=self._meshes())
+            if case.test:
+                raise ValueError(
+                    "sessions are production solves (test=false with "
+                    "u0); the manufactured-source test path cannot be "
+                    "chunked")
+            spec = SessionSpec(
+                shape=case.shape, eps=case.eps, k=case.k, dt=case.dt,
+                dh=case.dh, u0=case.u0, nt=case.nt, mesh=case.mesh,
+                chunk_steps=int(body.get("chunk_steps",
+                                         self.sessions.default_chunk_steps)),
+                preview_stride=body.get("preview_stride"),
+                budget_steps=body.get("budget_steps"),
+                checkpoint_every=body.get("checkpoint_every"))
+        except UnknownMesh as e:
+            h._json(404, {"error": str(e)})
+            return
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            h._json(400, {"error": str(e)})
+            return
+        # open-admission mirrors case admission: a saturated fleet
+        # sheds the OPEN (429 + Retry-After); a live session's chunks
+        # then defer through the session gate instead of shedding
+        retry = self.admission.check()
+        if retry is not None:
+            h._json(429, {"error": "overloaded",
+                          "retry_after_s": round(retry, 3)},
+                    headers=[("Retry-After",
+                              str(max(1, int(np.ceil(retry)))))])
+            return
+        try:
+            s = self.sessions.open(spec)
+        except (ValueError, TypeError, RuntimeError) as e:
+            h._json(400, {"error": str(e)})
+            return
+        h._json(201, {"session": s.sid, "status": "running",
+                      "step": s.step, "nt": spec.nt,
+                      "chunk_steps": spec.chunk_steps,
+                      "stream": f"/v1/sessions/{s.sid}/stream"})
 
     def _get_session(self, h, path: str, params: dict) -> None:
-        h._json(404, {"error": "no session tier on this server"})
+        if self.sessions is None:
+            h._json(404, {"error": "no session tier on this server"})
+            return
+        rest = path[len("/v1/sessions/"):]
+        sid, _, verb = rest.partition("/")
+        try:
+            s = self.sessions.get(sid)
+        except KeyError:
+            h._json(404, {"error": f"no live session {sid!r}"})
+            return
+        if verb == "":
+            h._json(200, s.status())
+            return
+        if verb == "result":
+            out = s.result()
+            if out is None:
+                h._json(409, {"error": f"session {sid!r} is "
+                                       f"{s.status()['state']}; the "
+                                       "final field exists once done/"
+                                       "closed"})
+                return
+            if params.get("bin") in ("1", "true"):
+                bio = io.BytesIO()
+                np.save(bio, out)
+                h._reply(200, bio.getvalue(),
+                         ctype="application/octet-stream")
+            else:
+                h._json(200, {"session": sid,
+                              "step": s.status()["step"],
+                              "shape": list(out.shape),
+                              "values": out.ravel().tolist()})
+            return
+        if verb != "stream":
+            h._json(404, {"error": f"no session endpoint {verb!r}"})
+            return
+        try:
+            from_step = int(params.get("from_step", -1))
+            timeout = float(params.get("timeout_s") or WAIT_TIMEOUT_S)
+        except ValueError:
+            h._json(400, {"error": "bad from_step/timeout_s"})
+            return
+        # Server-Sent Events over a close-delimited HTTP/1.1 response:
+        # no Content-Length, so the connection closes when the stream
+        # ends — every frame is one `data:` line, flushed immediately
+        h.send_response(200)
+        h.send_header("Content-Type", "text/event-stream")
+        h.send_header("Cache-Control", "no-store")
+        h.send_header("Connection", "close")
+        h.end_headers()
+        try:
+            for fr in self.sessions.stream(sid, from_step=from_step,
+                                           timeout_s=timeout):
+                h.wfile.write(b"data: " + json.dumps(fr.wire()).encode()
+                              + b"\n\n")
+                h.wfile.flush()
+            h.wfile.write(b"event: end\ndata: " +
+                          json.dumps(s.status()).encode() + b"\n\n")
+            h.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            pass  # the client hung up: its cursor makes reconnect lossless
+        finally:
+            h.close_connection = True
 
     def _get(self, h) -> None:
         path, _, query = h.path.partition("?")
@@ -661,6 +817,9 @@ class IngressServer:
             if m.get("shard_threshold") is not None:
                 body["gang"] = len(m.get("gang") or [])
                 body["sharded_cases"] = m.get("sharded_cases", 0)
+            if self.sessions is not None:
+                # session-tier liveness rides the same health document
+                body["sessions"] = self.sessions._active_count()
             h._json(200, body)
             return
         if path == "/v1/status":
@@ -790,6 +949,8 @@ class IngressServer:
             per[str(rid)] = row
         if per:
             body["per_replica"] = per
+        if self.sessions is not None:
+            body["sessions"] = self.sessions._active_count()
         if m.get("slo") is not None:
             body["slo"] = m["slo"]
         h._json(200, body)

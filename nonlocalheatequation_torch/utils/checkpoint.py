@@ -12,8 +12,10 @@ trajectory.  A file written by either package resumes in the other.
 :class:`CheckpointMixin` gives every solver the same canonical parameters
 (the GLOBAL grid shape, eps, k, dt, dh and the test flag), so a checkpoint
 written by the single-device solver resumes in the distributed one on the
-same global grid, and the reverse.  The session checkpoints of the JAX
-module (``serve/sessions.py``) are not ported.
+same global grid, and the reverse.  The session checkpoints
+(:func:`save_session_checkpoint` and its readers, for serve/sessions.py)
+are the same files under the same names, so a session saved by either
+package resumes in the other.
 """
 
 from __future__ import annotations
@@ -277,3 +279,92 @@ class CheckpointMixin:
             if _process_index() != 0:
                 return
             save_state(self.checkpoint_path, state, t + 1, self._ckpt_params())
+
+
+# -- session checkpoints (serve/sessions.py) ---------------------------------
+# The live-session tier checkpoints long-running cases keyed by session id
+# and step: one .npz per (session, chunk-boundary step), each written
+# through save_state's atomic+CRC discipline, so a front-door death resumes
+# from the newest UNCORRUPTED boundary and a fork can branch from ANY
+# retained boundary.  Files are ``<dir>/<sid>@<step>.ckpt.npz``: the step
+# in the name lets list/load work without opening every archive.
+
+
+def session_checkpoint_path(ckpt_dir: str, sid: str, step: int) -> str:
+    sid = str(sid)
+    if "@" in sid or "/" in sid or sid != os.path.basename(sid):
+        raise ValueError(f"bad session id {sid!r} for a checkpoint name")
+    return os.path.join(ckpt_dir, f"{sid}@{int(step)}.ckpt.npz")
+
+
+def save_session_checkpoint(ckpt_dir: str, sid: str, step: int,
+                            u: np.ndarray, params: dict | None = None,
+                            keep: int = 0) -> str:
+    """Atomically write one session checkpoint at ``step`` (u = state at
+    that chunk boundary).  ``keep`` > 0 prunes to the newest ``keep``
+    boundaries AFTER the new file lands (never before: a crash mid-save
+    must leave the previous boundary resumable).  Returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = session_checkpoint_path(ckpt_dir, sid, step)
+    save_state(path, u, step, dict(params or {}, session=str(sid)))
+    if keep > 0:
+        for old in list_session_checkpoints(ckpt_dir, sid)[:-keep]:
+            try:
+                os.unlink(session_checkpoint_path(ckpt_dir, sid, old))
+            except OSError:
+                pass  # pruning is best-effort; resume scans survivors
+    return path
+
+
+def list_session_checkpoints(ckpt_dir: str, sid: str) -> list:
+    """Retained boundary steps for ``sid``, ascending (empty when none)."""
+    prefix = f"{sid}@"
+    steps = []
+    try:
+        names = os.listdir(ckpt_dir)
+    except OSError:
+        return []
+    for name in names:
+        if name.startswith(prefix) and name.endswith(".ckpt.npz"):
+            try:
+                steps.append(int(name[len(prefix):-len(".ckpt.npz")]))
+            except ValueError:
+                continue  # foreign file wearing the prefix
+    return sorted(steps)
+
+
+def load_session_checkpoint(ckpt_dir: str, sid: str,
+                            step: int | None = None):
+    """-> (u, step, params) for ``sid``.  ``step`` None loads the newest
+    UNCORRUPTED boundary, falling back past torn files loudly (stderr):
+    the resume path's half of the CORRUPT_HINT contract.  An explicit
+    ``step`` refuses on corruption instead (the caller named the exact
+    evidence it wants).  FileNotFoundError when nothing is retained."""
+    import sys
+
+    steps = list_session_checkpoints(ckpt_dir, sid)
+    if not steps:
+        raise FileNotFoundError(
+            f"no checkpoints for session {sid!r} under {ckpt_dir!r}")
+    if step is not None:
+        if int(step) not in steps:
+            raise ValueError(
+                f"session {sid!r} has no checkpoint at step {step} "
+                f"(retained: {steps})")
+        return load_state(session_checkpoint_path(ckpt_dir, sid, int(step)))
+    last_err = None
+    for t in reversed(steps):
+        try:
+            u, got_t, params = load_state(
+                session_checkpoint_path(ckpt_dir, sid, t))
+            if last_err is not None:
+                print(f"session {sid}: newest checkpoint unreadable "
+                      f"({last_err}); resumed from step {got_t} instead",
+                      file=sys.stderr)
+            return u, got_t, params
+        except ValueError as e:
+            last_err = e
+            continue
+    raise ValueError(
+        f"every retained checkpoint for session {sid!r} is corrupt "
+        f"(steps {steps}); " + CORRUPT_HINT)

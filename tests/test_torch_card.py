@@ -1688,3 +1688,89 @@ def test_a_failed_launch_in_a_worker_ends_it_and_never_falls_back(card):
             h.wait(600)
         assert router.metrics()["deaths"] == router_mod.MAX_REQUEUES + 1
         assert np.array_equal(router.submit(cases[1]).wait(600), want[1])
+
+
+def _session_case(n, eps, seed):
+    """(u0, physics) of an n^2 session at 0.8x the Euler bound."""
+    from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D as Op
+
+    dh = 1.0 / n
+    probe = Op(eps, 1.0, 1.0, dh)
+    dt = 0.8 / (probe.c * dh * dh * probe.wsum)
+    u0 = np.random.default_rng(seed).standard_normal((n, n))
+    return u0, dict(eps=eps, k=1.0, dt=dt, dh=dh)
+
+
+@pytest.mark.cuda
+def test_session_bitwise_its_chunked_oracle_on_card(card):
+    """A 256^2 eps=8 f32 session through ServePipeline on the card, with a
+    retarget of k and a source queued during chunk 1 and a final partial
+    chunk: every preview and the final f64 field bitwise the chunk-by-chunk
+    composition through an EnsembleEngine on the card (the source added on
+    the host in f64 at each chunk's end), the retarget applied at step 8,
+    and every chunk served by the card (no retry, no fallback chunk)."""
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+    from nonlocalheatequation_torch.serve.sessions import SessionManager
+
+    n, chunk, nt = 256, 8, 30
+    u0, phys = _session_case(n, 8, 60)
+    src = np.linspace(-1.0, 1.0, n * n).reshape(n, n)
+    kw = dict(method="cuda", dtype=torch.float32, batch_sizes=(1,))
+    with ServePipeline(depth=1, window_ms=0.0, **kw) as pipe:
+        with SessionManager(pipe, chunk_steps=chunk) as mgr:
+            s = mgr.open(shape=(n, n), u0=u0, nt=nt, preview_stride=4, **phys)
+            mgr.pump()  # chunk 1 in flight
+            mgr.retarget(s.sid, k=0.5, source=src)
+            mgr.drive(timeout_s=600)
+            frames = s.frames_after(-1)
+    assert s.state == "done" and s.status()["audit"][0]["applied_at_step"] == chunk
+    res = pipe.metrics()["resilience"]
+    assert (res["retries"], res["fallback_chunks"]) == (0, 0)
+    eng = EnsembleEngine(device=card, **kw)
+    u, states, k, source = np.asarray(u0, np.float64), [np.asarray(u0, np.float64)], 1.0, None
+    for start in range(0, nt, chunk):
+        m = min(chunk, nt - start)
+        u = np.asarray(eng.run([EnsembleCase(shape=(n, n), nt=m, eps=phys["eps"], k=k,
+                                             dt=phys["dt"], dh=phys["dh"], test=False,
+                                             u0=u)])[0], np.float64)
+        if source is not None:
+            u = u + (m * phys["dt"]) * source
+        states.append(u)
+        k, source = 0.5, src
+    assert [(f.step, f.kind) for f in frames] == \
+        [(t, "preview") for t in (0, 8, 16, 24, 30)] + [(30, "final")]
+    for f, want in zip(frames[:-1], states, strict=True):
+        assert np.array_equal(f.values, want[::4, ::4].astype(np.float32))
+    assert np.array_equal(frames[-1].values, states[-1]) and np.isfinite(states[-1]).all()
+
+
+@pytest.mark.cuda
+def test_a_failed_launch_fails_the_session_and_never_falls_back_on_card(card, monkeypatch):
+    """A launch that raises on the card inside a session's second chunk
+    fails the session (the error kept, the step at the last boundary) and
+    propagates out of the drive: no retry, no chunk served by the CPU."""
+    from nonlocalheatequation_torch.serve.server import ServePipeline
+    from nonlocalheatequation_torch.serve.sessions import SessionManager
+
+    engine = EnsembleEngine(method="cuda", device=card, dtype=torch.float64, batch_sizes=(1,))
+    real, calls = engine.dispatch_chunk, []
+
+    def dispatch(multi, U0):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("CUDA error: unspecified launch failure")
+        return real(multi, U0)
+
+    monkeypatch.setattr(engine, "dispatch_chunk", dispatch)
+    u0, phys = _session_case(64, 4, 61)
+    pipe = ServePipeline(engine=engine, depth=1, window_ms=0.0, breaker_threshold=1)
+    mgr = SessionManager(pipe, chunk_steps=4)
+    s = mgr.open(shape=(64, 64), u0=u0, nt=12, **phys)
+    with pytest.raises(RuntimeError, match="unspecified launch failure"):
+        mgr.drive(timeout_s=600)
+    assert s.state == "failed" and s.step == 4 and "launch failure" in str(s.error)
+    assert mgr.metrics()["failed"] == 1
+    res = pipe.metrics()["resilience"]
+    assert (res["faults"], res["retries"], res["fallback_chunks"]) == ({}, 0, 0)
+    mgr.close()
+    pipe.close()

@@ -11,10 +11,18 @@ the ``--listen`` CLI on the CPU, held against the JAX package.
   JSON bodies and Retry-After headers request by request: 202, 400, 404,
   409, 410, 429, the picked form's engine evidence and its 422, the sharded
   fft pick's 422 (test_spectral_sharded.py::test_http_sharded_fft_pick_and_422_body),
-  the sessions 404 and /v1/status (::test_http_ingress_end_to_end_over_stub).
+  the sessions 404 of a server built without a session manager and
+  /v1/status (::test_http_ingress_end_to_end_over_stub).
+* ``IngressServer(sessions=...)`` over twin stub backends and each
+  package's SessionManager gives the JAX status codes and bodies on every
+  ``/v1/sessions*`` route: 201, 202, 400, 404 (an unknown mesh too), 409,
+  429 with Retry-After, the status document, the JSON and ``?bin=1``
+  results, the SSE stream ending in ``event: end``, and the ``"sessions"``
+  count of /healthz and /v1/status
+  (test_sessions.py::test_http_session_endpoints_end_to_end).
 * ``validate_listen_args`` gives the JAX message for each bad argv on the
-  three solve CLIs; a ``--session-*`` flag is refused by name under
-  --listen.
+  three solve CLIs, the six ``--session-*`` flags' range checks and
+  "needs a place to write" included.
 * A traced, black-boxed, SLO-audited fleet behind the ingress under a
   worker-side injected retry and a ``die`` kill: served bitwise, one merged
   multi-process timeline whose flows cross processes, the postmortem, the
@@ -331,8 +339,96 @@ def test_ingress_answers_as_the_jax_ingress(monkeypatch):
     sessions = [o for o in mine if isinstance(o, tuple) and o[0] == 404
                 and "no session tier" in str(o[1])]
     assert len(sessions) == 4
-    with pytest.raises(ValueError, match="session tier is not ported yet"):
-        thttp.IngressServer(0, make_backend(PORT_SIDE), sessions=object())
+    # a server built with a session manager serves the routes (held against
+    # the JAX routes by test_session_routes_answer_as_the_jax_routes)
+    from nonlocalheatequation_torch.serve.sessions import SessionManager
+
+    backend = make_backend(PORT_SIDE)
+    with SessionManager(backend) as mgr, thttp.IngressServer(0, backend, sessions=mgr) as ing:
+        assert ing.sessions is mgr
+        code, body, _ = _request(ing.port, "GET", "/v1/sessions/s0")
+        assert (code, body) == (404, {"error": "no live session 's0'"})
+
+
+def _drive_sessions(side, tmp):
+    """Every /v1/sessions* route of an IngressServer over a stub backend and
+    the side's SessionManager (no driver: the test pumps and completes the
+    chunks), answer by answer."""
+    from nonlocalheatequation_torch.serve import sessions as tsessions
+    from nonlocalheatequation_tpu.serve import sessions as jsessions
+
+    mod = side[0]
+    smod = tsessions if mod is thttp else jsessions
+    backend = make_backend(side, max_outstanding=8)
+    mgr = smod.SessionManager(backend, checkpoint_dir=tmp, chunk_steps=2)
+    ing = mod.IngressServer(0, backend, sessions=mgr, max_pending=4)
+    out = []
+    try:
+        p = ing.port
+        u0 = np.random.default_rng(4).normal(size=(4, 4))
+        body = dict(shape=[4, 4], nt=4, eps=1, k=1.0, dt=1e-5, dh=0.25, u0=u0.tolist(),
+                    chunk_steps=2, checkpoint_every=1, preview_stride=2)
+        out.append(_request(p, "POST", "/v1/sessions", body))
+        for bad in ({"shape": [4, 4]}, {**body, "test": True}, {**body, "chunk_steps": 0},
+                    {**body, "preview_stride": "x"}, {**body, "u0": [1.0]},
+                    {"mesh": "deadbeefdeadbeef", "nt": 2, "k": 1.0, "dt": 1e-4, "u0": [1.0]},
+                    [1, 2], b"{not json"):
+            out.append(_request(p, "POST", "/v1/sessions", bad))
+        out.append(_request(p, "GET", "/v1/sessions/s0"))
+        out.append(_request(p, "GET", "/v1/sessions/s0/result"))
+        out.append(_request(p, "POST", "/v1/sessions/s0/retarget", {"k": 0.5}))
+        out.append(_request(p, "POST", "/v1/sessions/s0/retarget", {}))
+        out.append(_request(p, "POST", "/v1/sessions/s0/retarget", {"source": [1.0]}))
+        out.append(_request(p, "POST", "/v1/sessions/s0/retarget",
+                            {"source": np.full(16, 0.5).tolist()}))
+        out.append(_request(p, "POST", "/v1/sessions/nope/retarget", {"k": 1.0}))
+        out.append(_request(p, "POST", "/v1/sessions/s0/explode", {}))
+        out.append(_request(p, "POST", "/v1/sessions/s0/fork", {"step": 2}))
+        for _ in range(2):  # two chunks: submit, complete, retire
+            mgr.pump()
+            backend.finish(1)
+            mgr.pump()
+        out.append(_request(p, "POST", "/v1/sessions/s0/fork", {"step": 3}))
+        out.append(_request(p, "POST", "/v1/sessions/s0/fork", {"step": 2}))
+        out.append(_request(p, "GET", "/v1/sessions/s0"))
+        out.append(_request(p, "GET", "/healthz"))
+        code, status, _ = _request(p, "GET", "/v1/status")
+        out.append((code, status.get("sessions")))
+        out.append(_request(p, "POST", "/v1/sessions/s1/close", {}))
+        out.append(_request(p, "POST", "/v1/sessions/s1/close", {}))
+        out.append(_request(p, "GET", "/v1/sessions/s1/result"))
+        out.append(_request(p, "GET", "/v1/sessions/s0/stream?from_step=abc"))
+        out.append(_request(p, "GET", "/v1/sessions/s0/nope"))
+        out.append(_request(p, "GET", "/v1/sessions/zzz"))
+        code, raw = _request(p, "GET", "/v1/sessions/s1/stream?from_step=0", raw=True)
+        out.append((code, raw.decode()))
+        out.append(_request(p, "POST", "/v1/sessions/s0/close", {}))
+        out.append(_request(p, "GET", "/v1/sessions/s0/result"))
+        code, raw = _request(p, "GET", "/v1/sessions/s0/result?bin=1", raw=True)
+        out.append((code, np.load(io.BytesIO(raw)).tolist()))
+        code, raw = _request(p, "GET", "/v1/sessions/s0/stream?from_step=-1", raw=True)
+        out.append((code, raw.decode()))
+        # admission: a saturated backend sheds the OPEN with 429 + Retry-After
+        backend.pending.extend([None] * 8)
+        out.append(_request(p, "POST", "/v1/sessions", body))
+        out.append(_request(p, "GET", "/healthz"))
+    finally:
+        ing.close()
+        mgr.close()
+    return out
+
+
+def test_session_routes_answer_as_the_jax_routes(tmp_path):
+    dirs = str(tmp_path / "mine"), str(tmp_path / "theirs")
+    mine, theirs = _drive_sessions(PORT_SIDE, dirs[0]), _drive_sessions(JAX_SIDE, dirs[1])
+    assert len(mine) == len(theirs)
+    for i, (a, b) in enumerate(zip(mine, theirs, strict=True)):
+        assert repr(a).replace(dirs[0], "<dir>") == repr(b).replace(dirs[1], "<dir>"), (i, a, b)
+    codes = {o[0] for o in mine if isinstance(o, tuple) and isinstance(o[0], int)}
+    assert {200, 201, 202, 400, 404, 409, 429} <= codes
+    assert mine[0][0] == 201 and mine[0][1]["stream"] == "/v1/sessions/s0/stream"
+    assert mine[-2][0] == 429 and int(mine[-2][2]) >= 1
+    assert "event: end" in mine[-3][1]
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +449,18 @@ LISTEN_ARGV = [
     ["--listen", "0", "--log"], ["--listen", "0", "--results"],
     ["--listen", "0", "--checkpoint", "x.npz"], ["--listen", "0", "--resume"],
     ["--listen", "0", "--replicas", "3", "--transport", "tcp", "--slo", "0"], [],
+    ["--session-budget", "0"], ["--session-checkpoint-every", "1"], ["--session-preview", "2"],
+    ["--listen", "0", "--session-chunk", "0"], ["--listen", "0", "--session-chunk", "-3"],
+    ["--listen", "0", "--session-preview", "0"], ["--listen", "0", "--session-budget", "-1"],
+    ["--listen", "0", "--session-rate", "-0.5"],
+    ["--listen", "0", "--session-checkpoint-every", "-1"],
+    ["--listen", "0", "--session-checkpoint-every", "2"],
+    ["--listen", "0", "--session-checkpoint-every", "0"],
+    ["--listen", "0", "--session-checkpoint-every", "2", "--session-checkpoint-dir", "d"],
+    ["--listen", "0", "--session-chunk", "8", "--session-budget", "0", "--session-rate", "0",
+     "--session-preview", "1", "--session-checkpoint-dir", "d"],
+    ["--listen", "0", "--session-chunk", "0", "--replicas", "0"],
+    ["--listen", "0", "--session-preview", "0", "--test"],
 ]
 
 
@@ -372,15 +480,21 @@ def test_validate_listen_args_matches_jax(cli):
     for name in ("--session-chunk", "--session-budget", "--session-rate",
                  "--session-checkpoint-dir", "--session-checkpoint-every",
                  "--session-preview"):
-        b = mine_p.parse_args(["--listen", "0", name, "2"])
-        assert validate_listen_args(b, dim=dim) == \
-            f"{name} is not ported yet to nonlocalheatequation_torch (serve/sessions.py)"
+        for value in ("2", "0", "-1"):
+            argv = ["--listen", "0", name, value]
+            b, a = mine_p.parse_args(argv), their_p.parse_args(argv)
+            assert validate_listen_args(b, dim=dim) == \
+                jcommon.validate_listen_args(a, dim=dim), (cli, argv)
 
 
 def test_session_flags_refused_by_name_on_the_cli(capsys):
-    assert solve2d.main(["--listen", "0", "--session-chunk", "4", "--platform", "cpu"]) == 1
+    # the JAX checks, by name: a range, a missing place to write, no --listen
+    assert solve2d.main(["--listen", "0", "--session-chunk", "0", "--platform", "cpu"]) == 1
+    assert capsys.readouterr().err.strip() == "--session-chunk needs a value >= 1 (got 0)"
+    assert solve2d.main(["--listen", "0", "--session-checkpoint-every", "4",
+                         "--platform", "cpu"]) == 1
     assert capsys.readouterr().err.strip() == (
-        "--session-chunk is not ported yet to nonlocalheatequation_torch (serve/sessions.py)")
+        "--session-checkpoint-every needs a place to write; add --session-checkpoint-dir")
     assert solve2d.main(["--session-preview", "4", "--platform", "cpu"]) == 1
     assert capsys.readouterr().err.strip() == \
         "--session-preview configures the --listen fleet; add --listen"
@@ -522,11 +636,14 @@ def test_solve2d_listen_serves_meshes_scrapes_and_stops_on_eof(tmp_path):
                         u0=u0)
     want = EnsembleEngine(device="cpu").run([case])[0]
     mdir, out = str(tmp_path / "meshes"), str(tmp_path / "m.json")
+    sdir = str(tmp_path / "sessions")
     env = dict(os.environ, NLHEAT_MESH_DIR=mdir, OMP_NUM_THREADS="1")
     env.pop("NLHEAT_PROGRAM_STORE", None)
     proc = subprocess.Popen(
         [sys.executable, "-m", "nonlocalheatequation_torch.cli.solve2d", "--listen", "0",
-         "--replicas", "2", "--platform", "cpu", "--metrics-out", out],
+         "--replicas", "2", "--platform", "cpu", "--metrics-out", out,
+         "--session-checkpoint-dir", sdir, "--session-checkpoint-every", "1",
+         "--session-chunk", "2", "--session-preview", "5", "--session-rate", "1000000"],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=REPO, env=env)
     lines: list = []
@@ -582,7 +699,30 @@ def test_solve2d_listen_serves_meshes_scrapes_and_stops_on_eof(tmp_path):
             del os.environ["NLHEAT_MESH_DIR"]
         assert np.array_equal(np.asarray(res["values"]), direct)
         assert _request(port, "POST", "/v1/cases", dict(mcase, shape=[144]))[0] == 400
-        assert _request(port, "POST", "/v1/sessions", {})[0] == 404
+        # a live session through the CLI's session tier: the SSE stream,
+        # bitwise the chunk-by-chunk composition, a checkpoint a boundary
+        code, body, _ = _request(port, "POST", "/v1/sessions", {})
+        assert code == 400 and "missing case field" in body["error"]
+        code, opened, _ = _request(port, "POST", "/v1/sessions",
+                                   dict(shape=[12, 12], nt=4, eps=2, k=1.0, dt=1e-5,
+                                        dh=1.0 / 12, u0=u0.tolist()))
+        assert code == 201 and opened["chunk_steps"] == 2
+        code, raw = _request(port, "GET", opened["stream"] + "?timeout_s=120", raw=True)
+        frames = [json.loads(ln[len("data: "):]) for ln in raw.decode().splitlines()
+                  if ln.startswith("data: ")]
+        assert [(f.get("step"), f.get("kind")) for f in frames] == [
+            (0, "preview"), (2, "preview"), (4, "preview"), (4, "final"), (4, None)]
+        assert frames[0]["shape"] == [3, 3] and frames[-1]["state"] == "done"
+        half = EnsembleEngine(device="cpu").run([EnsembleCase(
+            shape=(12, 12), nt=2, eps=2, k=1.0, dt=1e-5, dh=1.0 / 12, test=False, u0=u0)])[0]
+        whole = EnsembleEngine(device="cpu").run([EnsembleCase(
+            shape=(12, 12), nt=2, eps=2, k=1.0, dt=1e-5, dh=1.0 / 12, test=False,
+            u0=half)])[0]
+        assert np.array_equal(np.asarray(frames[3]["values"]).reshape(12, 12), whole)
+        assert sorted(os.listdir(sdir)) == [f"{opened['session']}@2.ckpt.npz",
+                                           f"{opened['session']}@4.ckpt.npz"]
+        code, health, _ = _request(port, "GET", "/healthz")
+        assert code == 200 and health["sessions"] == 0
         # the fleet scrape (the router's stats loop runs every 10 s)
         text = ""
         for _ in range(60):
@@ -598,6 +738,7 @@ def test_solve2d_listen_serves_meshes_scrapes_and_stops_on_eof(tmp_path):
         reader.join(timeout=10)
     err = "".join(lines)
     assert rc == 0, err
-    assert "router:" in err and '"cases": 2' in err
+    # the router served the two cases and the session's two chunks
+    assert "router:" in err and '"cases": 4' in err
     payload = json.loads(Path(out).read_text())
-    assert payload["cases"] == 2 and payload["deaths"] == 0
+    assert payload["cases"] == 4 and payload["deaths"] == 0

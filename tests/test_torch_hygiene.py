@@ -16,8 +16,9 @@
   obs/export.py, obs/metrics.py, obs/trace.py), the fleet's leaves
   (obs/flightrec.py, obs/slo.py, serve/picker.py, serve/program_store.py),
   the fleet's front door (serve/transport.py, serve/router.py,
-  serve/http.py, parallel/mesh_axes.py; the transport stdlib only) and the
-  multi-process test child are among them.
+  serve/http.py, parallel/mesh_axes.py; the transport stdlib only), the
+  live-session tier (serve/sessions.py) and the multi-process test child
+  are among them.
 * ``init_from_env`` with no launch signal never wires a process group.
 * The entry points default to the card: without one they raise (or the
   CLIs exit 2), the distributed solvers, meshes and CLIs included, and so
@@ -232,7 +233,7 @@ def test_the_fleet_leaves_import_neither_package():
 
 
 FRONT_DOOR = ("serve/transport.py", "serve/router.py", "serve/http.py",
-              "parallel/mesh_axes.py")
+              "parallel/mesh_axes.py", "serve/sessions.py")
 #: the transport is stdlib only: the frame protocol never needs torch
 FRONT_DOOR_ROOTS = {"serve/transport.py": {"__future__", "hmac", "ipaddress", "json", "pickle",
                                            "signal", "socket", "struct", "subprocess", "sys",
@@ -282,7 +283,8 @@ def test_serving_entry_points_default_to_the_card(monkeypatch, capsys):
 def test_the_front_door_defaults_to_the_card(monkeypatch, capsys):
     """ReplicaRouter() and --listen take the card: without one they refuse
     before any worker is spawned (the router builds the kernels once, on the
-    card's behalf, and never on the CPU's)."""
+    card's behalf, and never on the CPU's), the session tier's flags
+    included."""
     import io
 
     import torch
@@ -304,6 +306,12 @@ def test_the_front_door_defaults_to_the_card(monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin", io.StringIO(""))
     assert solve2d.main(["--listen", "0", "--replicas", "2"]) == 2
     assert "is_available() is false" in capsys.readouterr().err
+    monkeypatch.setattr("sys.stdin", io.StringIO(""))
+    assert solve2d.main(["--listen", "0", "--session-chunk", "4", "--session-rate", "100",
+                         "--session-checkpoint-dir", "unused", "--session-checkpoint-every",
+                         "2", "--session-preview", "2", "--session-budget", "8"]) == 2
+    assert "is_available() is false" in capsys.readouterr().err
+    assert spawned == []
 
 
 def test_distributed_entry_points_default_to_the_card():
