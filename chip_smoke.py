@@ -108,21 +108,25 @@ line is printed; the phase walls are printed at the end):
    windowed_matvec (f64, f32) and gather_L (f64, f32, bf16 operand) held to
    their plain versions on small clouds (2D jittered and shuffled, 3D, 1D,
    n not a multiple of 128, a forced residual, a self-only horizon, a hub
-   node), the windowed operator to the NumPy oracle, and stacked gather
-   lanes bitwise their solo runs.  Then the shuffled jittered 512^2 cloud
-   (262,144 nodes, eps = 3h, f32): the host walls of the edge and plan
-   builds, the card memory of building the windowed exec (its packed
-   in-window entries; it must not allocate the dense strips), both kernels
+   node), gather_L at every group width in row order and in the table's
+   visit order bitwise the table's own, the windowed operator to the NumPy
+   oracle, and stacked gather lanes bitwise their solo runs.  Then the
+   shuffled jittered 512^2 cloud (262,144 nodes, eps = 3h, f32): the host
+   walls of the edge and plan builds, the card memory of building the
+   windowed exec (its packed in-window entries; it must not allocate the
+   dense strips), both kernels
    held and timed beside their plain versions, their bounds and
    torch.sparse.mm of a CSR matrix of the same entries (in turns, in CUDA
-   graphs and in loops of launches), one L(u) per layout and one
+   graphs and in loops of launches), gather_L at the table's width and
+   visit order beside torch's gather u[col] of its columns alone (in row
+   order and in the kernel's visit order), one L(u) per layout and one
    auto-picked L(u) (counted: one windowed_matvec).  The CLI on the card:
    data/*.msh with --layout auto and windowed in f64 (error_l2/N <= 1e-6;
    started with phase 3's CLIs and collected after them), then, counted, the 512^2 cloud from a 2.2 .msh
    with --layout auto, which must choose windowed and launch
    windowed_matvec once per step.  Last, bench.py's graded cloud at nm=256
    (65,536 nodes) in a throwaway mesh registry: gather_L held and timed at
-   its shape, then, counted, an 8-case bucket and a mixed-physics 8-case
+   its shape (and u[col] alone), then, counted, an 8-case bucket and a mixed-physics 8-case
    bucket through EnsembleEngine, each 8 x MESH_STEPS gather_L launches, every
    lane bitwise its solo gather loop and within the manufactured contract.
 8. The distributed grid solves (phase_halo_checks, phase_distributed):
@@ -356,8 +360,11 @@ lattice sweep, the tuned and per-step solves; the 3D kernels at 256^3; the
 the 3D ones at the 128^3 block, with their outputs' digests; the 4096^2 2x2
 and 256^3 2x2x2 distributed steps; the resident kernels against carried2d/carried3d
 in CUDA graphs, resident2d's RUN sweep and its step without the barrier on
-scratch builds, the tuned 512^2 and 128^3 eps=6 solves); run it on a parent tree and on this one in turns,
-in one call, to compare them on one card.
+scratch builds, the tuned 512^2 and 128^3 eps=6 solves; B12 gather_L
+against this tree's kernel, bitwise, at every width and visit order, on
+phase 7's two clouds and the tables that set a band of gather_width); run
+it on a parent tree and on this one in turns, in one call, to compare them
+on one card.
 """
 
 from __future__ import annotations
@@ -2030,6 +2037,63 @@ def small_clouds(np):
     return out
 
 
+def table_gather(cu, table, u, precision: str = "f32", width=None):
+    """gather_L over a GatherTable at its width (or ``width``), in its visit
+    order: the launch the gather tier makes (ops/gather.build_gather_L)."""
+    return cu.gather_L(table.rowptr, table.col, table.w, u, precision,
+                       table.width if width is None else width, table.order)
+
+
+def visit_order(table) -> str:
+    return "row order" if table.order is None else "Morton order"
+
+
+def visit_columns(torch, table):
+    """The table's columns in the order the kernel visits them: its rows in
+    the table's visit order, each row's entries in order."""
+    if table.order is None:
+        return table.col
+    perm = table.order.perm.long()
+    lens = table.rowptr.diff()[perm]
+    shift = table.rowptr[:-1][perm] - (torch.cumsum(lens, 0) - lens)
+    idx = torch.repeat_interleave(shift, lens) + torch.arange(table.nnz, device=lens.device)
+    return table.col[idx]
+
+
+def gather_timings(torch, cu, table, u, lib, reps: int, lib_reps: int) -> dict:
+    """gather_L over ``table`` (its width and visit order) beside ``lib``
+    (torch.sparse.mm of the table): ``ms`` and ``library_ms`` in a loop of
+    ``reps`` and ``lib_reps`` wrapper calls, as phase 7 has timed them since
+    PR 5; ``ms_graph`` and ``library_ms_graph`` in turns (library, kernel,
+    kernel, library) in a replayed CUDA graph, without the wrapper's host
+    cost; torch's gather of the table's columns alone (torch.index_select,
+    not the same function and no floor of the kernel's): ``gather_only_ms``
+    in row order, ``gather_only_visit_ms`` in the kernel's visit order; the
+    plain version in a loop."""
+    k = lambda: table_gather(cu, table, u)  # noqa: E731
+    lb = lambda: lib(u)  # noqa: E731
+    turns = [graph_ms(torch, f) for f in (lb, k, k, lb)]
+    cols = visit_columns(torch, table)
+    return {"ms": cuda_ms(torch, k, reps), "library_ms": cuda_ms(torch, lb, lib_reps),
+            "ms_graph": (turns[1] + turns[2]) / 2,
+            "library_ms_graph": (turns[0] + turns[3]) / 2, "turns": turns,
+            "gather_only_ms": graph_ms(torch, lambda: torch.index_select(u, 0, table.col)),
+            "gather_only_visit_ms": graph_ms(torch, lambda: torch.index_select(u, 0, cols)),
+            "plain_ms": cuda_ms(torch, lambda: cu.gather_L_plain(table.rowptr, table.col,
+                                                                 table.w, u), 5, 1)}
+
+
+def gather_line(t: dict) -> str:
+    return (f"kernel {t['ms']:.4f} ms in a loop of wrapper calls ({t['ms_graph']:.4f} in a "
+            f"CUDA graph), plain {t['plain_ms']:.3f} ms, torch.sparse.mm "
+            f"{t['library_ms']:.4f} ms in a loop ({t['library_ms_graph']:.4f} in a graph; "
+            f"turns library, kernel, kernel, library "
+            f"{json.dumps([round(x, 5) for x in t['turns']])}), u[col] alone "
+            f"(torch.index_select of the same columns, not the same function) "
+            f"{t['gather_only_ms']:.4f} ms in row order and {t['gather_only_visit_ms']:.4f} "
+            f"in the kernel's visit order, in a graph")
+
+
 def phase_unstructured_checks(torch, np) -> dict:
     """Phase 7a: windowed_matvec (f64, f32) and gather_L (f64, f32, bf16
     operand) against their plain versions on small clouds, the windowed
@@ -2068,14 +2132,19 @@ def phase_unstructured_checks(torch, np) -> dict:
             n["windowed_matvec"] += 1
             table = GatherTable(op, dtype, "cuda")
             for prec in ("f32", "bf16"):
-                got = cu.gather_L(table.rowptr, table.col, table.w, u, prec)
+                got = table_gather(cu, table, u, prec)
                 held(f"gather_L/{tname}/{prec}", got,
                      cu.gather_L_plain(table.rowptr, table.col, table.w, u, prec), tol)
-                if not torch.equal(got, cu.gather_L(table.rowptr, table.col, table.w, u, prec)):
-                    fail(f"gather_L {name} {tname} {prec}: two launches differ")
+                for width in cu.GATHER_WIDTHS:  # every width and order gives the same bits
+                    if not (torch.equal(got, table_gather(cu, table, u, prec, width))
+                            and torch.equal(got, cu.gather_L(table.rowptr, table.col, table.w,
+                                                             u, prec, width))):
+                        fail(f"gather_L {name} {tname} {prec}: width {width} differs from "
+                             f"width {table.width} in {visit_order(table)}")
                 n["gather_L"] += 1
         say(f"  {name}: {op.n} nodes, {len(op.tgt)} edges, kmax {op.kmax}, windows "
-            f"{plan.R} x {plan.we}, coverage {plan.coverage:.4f}")
+            f"{plan.R} x {plan.we}, coverage {plan.coverage:.4f}; gather width {table.width}, "
+            f"{visit_order(table)}")
     # a stacked chunk of three physics: every lane bitwise its solo run
     pts, h = jittered_cloud(np, 30, 2, SEED + 7)
     ops = [UnstructuredNonlocalOp(pts, 3 * h, k=k, dt=dt, vol=h * h, device="cuda")
@@ -2283,15 +2352,12 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
     del lib13
     # B12 at the same cloud (original order)
     table = GatherTable(op, f32, "cuda")
-    g = cu.gather_L(table.rowptr, table.col, table.w, u)
+    width12s, order12s = table.width, visit_order(table)
+    g = table_gather(cu, table, u)
     hold("gather_L", f"float32 shuffled {UN_M}^2", g,
          cu.gather_L_plain(table.rowptr, table.col, table.w, u), tol32)
     lib12 = csr_library(torch, table.rowptr, table.col, table.w, n)
-    out12s = {"ms": cuda_ms(torch, lambda: cu.gather_L(table.rowptr, table.col, table.w, u),
-                            50),
-              "plain_ms": cuda_ms(torch, lambda: cu.gather_L_plain(table.rowptr, table.col,
-                                                                   table.w, u), 5, 1),
-              "library_ms": cuda_ms(torch, lambda: lib12(u), 20)}
+    out12s = gather_timings(torch, cu, table, u, lib12, 50, 20)
     b12s = bound(table.nnz * (isz + 4) + (n + 1) * 8 + 2 * n * isz, 2 * table.nnz)
     del lib12, table
     say(f"B13 windowed_matvec {UN_M}^2 f32: kernel {out13['ms']:.4f} ms in a CUDA graph "
@@ -2302,9 +2368,9 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
         f"graph {json.dumps([round(t, 5) for t in t13])}, loop "
         f"{json.dumps([round(t, 5) for t in t13_loop])}), bound {b13[0]:.4f} ms ({b13[1]}: "
         f"{b13_bytes} B = the packed entries at {isz + 2} B, rowptr, s128, u, out)")
-    say(f"B12 gather_L {UN_M}^2 f32 (CSR, {len(op.tgt) + n} entries with the centres): kernel "
-        f"{out12s['ms']:.4f} ms, plain {out12s['plain_ms']:.3f} ms, torch.sparse.mm "
-        f"{out12s['library_ms']:.4f} ms, bound {b12s[0]:.4f} ms ({b12s[1]})")
+    say(f"B12 gather_L {UN_M}^2 f32 (CSR, {len(op.tgt) + n} entries with the centres, width "
+        f"{width12s} lanes a row, {order12s}): {gather_line(out12s)}, bound {b12s[0]:.4f} ms "
+        f"({b12s[1]})")
     # one L(u) per layout, each held to the float64 NumPy oracle (a random
     # state: a smooth one cancels in L and leaves float32 noise in its place)
     steps = {}
@@ -2384,31 +2450,27 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
                 ud = u.to(dtype)
                 for prec in ("f32", "bf16"):
                     hold("gather_L", f"{tname} {prec} graded nm={MESH_NM}",
-                         cu.gather_L(table.rowptr, table.col, table.w, ud, prec),
+                         table_gather(cu, table, ud, prec),
                          cu.gather_L_plain(table.rowptr, table.col, table.w, ud, prec),
                          TOL[tname])
             gp = torch.tensor(mop.spatial_profile(), device="cuda", dtype=f32)
-            smooth = rel_err(torch, cu.gather_L(table.rowptr, table.col, table.w, gp),
+            width12, order12 = table.width, visit_order(table)
+            smooth = rel_err(torch, table_gather(cu, table, gp),
                              cu.gather_L_plain(table.rowptr, table.col, table.w, gp))[1]
             lib12 = csr_library(torch, table.rowptr, table.col, table.w, nm)
-            lib_err = rel_err(torch, lib12(u), cu.gather_L(table.rowptr, table.col, table.w,
-                                                           u))[1]
+            lib_err = rel_err(torch, lib12(u), table_gather(cu, table, u))[1]
             if not lib_err <= tol32:
                 fail(f"torch.sparse.mm of the baked table differs from gather_L: {lib_err:.3e}")
-            out12 = {"ms": cuda_ms(torch, lambda: cu.gather_L(table.rowptr, table.col,
-                                                              table.w, u), 100),
-                     "plain_ms": cuda_ms(torch, lambda: cu.gather_L_plain(
-                         table.rowptr, table.col, table.w, u), 5, 1),
-                     "library_ms": cuda_ms(torch, lambda: lib12(u), 50)}
+            out12 = gather_timings(torch, cu, table, u, lib12, 100, 50)
             b12 = bound(table.nnz * (isz + 4) + (nm + 1) * 8 + 2 * nm * isz, 2 * table.nnz)
             kpad = -(-(mop.kmax + 1) // 128) * 128
             say(f"graded cloud nm={MESH_NM}: {nm} nodes, {len(mop.tgt)} edges, kmax "
                 f"{mop.kmax} (strips kpad {kpad}; CSR {table.nnz} entries with the centres); "
                 f"host walls: MeshStore.put {put_wall:.2f} s, get_mesh_op {op_wall:.2f} s; "
-                f"B12 gather_L f32: kernel {out12['ms']:.4f} ms, plain {out12['plain_ms']:.3f} "
-                f"ms, torch.sparse.mm {out12['library_ms']:.4f} ms, bound {b12[0]:.4f} ms "
-                f"({b12[1]}); on the smooth profile G (not held: cancellation) the float32 "
-                f"|kernel-plain| / max|plain| is {smooth:.3e}")
+                f"B12 gather_L f32 (width {width12} lanes a row, {order12}): "
+                f"{gather_line(out12)}, bound {b12[0]:.4f} ms ({b12[1]}); on the smooth "
+                f"profile G (not held: cancellation) the float32 |kernel-plain| / max|plain| "
+                f"is {smooth:.3e}")
             del lib12, table
             mixed_phys = [(1.0, 0.8), (0.5, 0.6), (2.0, 0.7), (1.0, 0.4), (0.2, 0.8),
                           (1.5, 0.5), (0.7, 0.5), (3.0, 0.3)]
@@ -2487,10 +2549,25 @@ def phase_unstructured(torch, np, ck, l2_threshold) -> list:
         row("gather_L", "gather_L.cu", "nonlocalheatequation_tpu/ops/pallas_gather.py:144",
             ms=out12["ms"], plain_ms=out12["plain_ms"], bound_ms=b12[0], bound_by=b12[1],
             library_ms=out12["library_ms"],
-            library_note="torch.sparse.mm of the baked table as one CSR matrix",
+            library_note="torch.sparse.mm of the baked table as one CSR matrix; ms and "
+                         "library_ms in a loop of wrapper calls (as since PR 5), *_graph in a "
+                         "replayed CUDA graph",
             shape=f"graded nm={MESH_NM} ({nm} nodes, kpad {kpad})",
+            width=width12, order=order12, ms_graph=out12["ms_graph"],
+            library_ms_graph=out12["library_ms_graph"],
+            gather_only_ms=out12["gather_only_ms"],
+            gather_only_visit_ms=out12["gather_only_visit_ms"],
+            gather_only_note="torch.index_select(u, 0, col) alone in a replayed CUDA graph, "
+                             "the columns in row order (gather_only_ms) and in the kernel's "
+                             "visit order (gather_only_visit_ms): the gathers alone, not the "
+                             "same function and no floor of the kernel's",
             ms_shuffled=out12s["ms"], plain_ms_shuffled=out12s["plain_ms"],
             bound_ms_shuffled=b12s[0], library_ms_shuffled=out12s["library_ms"],
+            ms_graph_shuffled=out12s["ms_graph"],
+            library_ms_graph_shuffled=out12s["library_ms_graph"],
+            width_shuffled=width12s, order_shuffled=order12s,
+            gather_only_ms_shuffled=out12s["gather_only_ms"],
+            gather_only_visit_ms_shuffled=out12s["gather_only_visit_ms"],
             bucket_ms=dev_ms, bucket_wall_s=run_wall),
     ]
 
@@ -7008,7 +7085,161 @@ def resident_ab(torch, np, reps: int = 5) -> dict:
     return out
 
 
-AB_SECTIONS = ("2d", "3d", "halo2d", "dist2d", "halo3d", "dist3d", "resident")
+# -- the unstructured section of --ab: B12 gather_L ------------------------------------
+
+AB_GATHER_3D = 64  # the 3D clouds of --ab unstructured: 64^3 nodes
+AB_GATHER_3D_EPS = (2.2, 2.5)  # their horizons in h: about 46 and 65 entries a row
+AB_GATHER_ROWS = (64, 128)  # entries a row of the random tables (UN_M^2 rows)
+GATHER_WIDTHS = (4, 8, 16, 32)  # the kernel's lanes a row (csrc/gather_L.cu)
+
+
+def own_gather_L(build):
+    """This tree's csrc/gather_L.cu (beside this script), whatever the
+    package under test: one nvcc into the package's build directory, its
+    nlheat_gather_L entry through ctypes."""
+    import ctypes
+
+    src = ROOT / "nonlocalheatequation_torch" / "csrc" / "gather_L.cu"
+    lib = build.BUILD_DIR / "ab_gather_L.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        fail(f"this tree's gather_L.cu did not build:\n{proc.stdout[-3000:]}")
+    fn = ctypes.CDLL(str(lib)).nlheat_gather_L
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_tables(torch, np, GatherTable, own_rule):
+    """--ab unstructured's tables, float32 on the card: {name: (rowptr, col,
+    w, orders, pick)}.  Phase 7's two clouds (the shuffled UN_M^2 cloud at
+    eps = 3h, 28 entries a row, and bench.py's graded cloud at MESH_NM, 223)
+    and the tables that set a band of this tree's gather_width: the 512^2
+    points in lattice order (28 a row, where the rule keeps row order), the
+    shuffled 512^2 cloud at eps = 4h (about 51 a row), jittered
+    AB_GATHER_3D^3 clouds at each of AB_GATHER_3D_EPS in lattice order and
+    shuffled; each with its visit orders (row order, None; the Morton order
+    of its points in cells of the largest horizon, as int32) and the name of
+    the one this tree's rule picks (own_rule.gather_order).  Last, tables of
+    UN_M^2 rows of AB_GATHER_ROWS entries at uniform random columns, with
+    no points to order them by (row order)."""
+    from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp
+
+    def of(op):
+        t = GatherTable(op, torch.float32, "cuda")
+        perm = own_rule.morton_perm(op.points, float(op.eps.max()))
+        orders = {"row order": None,
+                  "Morton order": torch.as_tensor(perm.astype(np.int32), device="cuda")}
+        pick = "row order" if own_rule.gather_order(op) is None else "Morton order"
+        return t.rowptr, t.col, t.w, orders, pick
+
+    out = {}
+    for name, shuffle, f in ((f"shuffled {UN_M}^2", True, 3),
+                             (f"lattice-order {UN_M}^2", False, 3),
+                             (f"shuffled {UN_M}^2 eps 4h", True, 4)):
+        pts, h = jittered_cloud(np, UN_M, 2, SEED + 9, shuffle=shuffle)
+        out[name] = of(UnstructuredNonlocalOp(pts, f * h, k=1.0, dt=1.0, vol=h * h,
+                                              device="cuda"))
+    mpts, meps, mvol = graded_cloud(np, MESH_NM)
+    out[f"graded nm={MESH_NM}"] = of(UnstructuredNonlocalOp(mpts, meps, k=1.0, dt=1.0,
+                                                            vol=mvol, device="cuda"))
+    m = AB_GATHER_3D
+    for f in AB_GATHER_3D_EPS:
+        for order, shuffle in (("lattice-order", False), ("shuffled", True)):
+            pts, h = jittered_cloud(np, m, 3, SEED + 42, shuffle=shuffle)
+            out[f"{order} {m}^3 eps {f}h"] = of(UnstructuredNonlocalOp(
+                pts, f * h, k=1.0, dt=1.0, vol=h ** 3, device="cuda"))
+    rng = np.random.default_rng(SEED + 40)
+    n = UN_M * UN_M
+    for rows in AB_GATHER_ROWS:
+        rowptr = torch.arange(0, n * rows + 1, rows, device="cuda", dtype=torch.int64)
+        col = torch.as_tensor(rng.integers(0, n, n * rows, dtype=np.int32), device="cuda")
+        w = torch.as_tensor(rng.standard_normal(n * rows), device="cuda", dtype=torch.float32)
+        out[f"random {rows} a row"] = (rowptr, col, w, {"row order": None}, "row order")
+    return out
+
+
+def unstructured_ab(torch, np) -> dict:
+    """B12 gather_L of the package under test against this tree's kernel
+    (own_gather_L), on the tables of gather_tables, float32: the package's
+    wrapper at the width this tree picks (a parent tree's takes none) and
+    this tree's kernel at that width and in the visit order this tree picks,
+    in turns in a CUDA graph and in a loop (package, this, this, package);
+    then this tree's kernel at every width, in every visit order of the
+    table, in a CUDA graph.  Every output, of every width and order, in
+    float32, the bf16 operand tier and float64, must be bitwise the
+    package's, or the run fails.  Beside them, per table: the byte bound,
+    torch's gather of the same columns alone (torch.index_select(u, 0, col),
+    in row order: not the same function) and torch.sparse.mm of the table
+    as one CSR matrix."""
+    from nonlocalheatequation_torch.ops import _build as build
+    from nonlocalheatequation_torch.ops import cuda_unstructured as cu
+    from nonlocalheatequation_torch.ops.gather import GatherTable
+
+    fn = own_gather_L(build)
+    # this tree's rule: its ops/gather.py, whatever the package
+    spec = importlib.util.spec_from_file_location(
+        "nlheat_own_gather", ROOT / "nonlocalheatequation_torch" / "ops" / "gather.py")
+    own_rule = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own_rule)
+    res = {}
+    rng = np.random.default_rng(SEED + 41)
+    takes_width = hasattr(cu, "GATHER_WIDTHS")
+    tables = gather_tables(torch, np, GatherTable, own_rule)
+    for name, (rowptr, col, w32, orders, pick) in tables.items():
+        n, nnz = rowptr.numel() - 1, col.numel()
+        width = own_rule.gather_width(nnz, n)
+        kw = {"width": width} if takes_width else {}
+        u32 = torch.tensor(rng.standard_normal(n), device="cuda", dtype=torch.float32)
+
+        def pkg(w, u, prec, kw=kw, rowptr=rowptr, col=col):
+            return cu.gather_L(rowptr, col, w, u, prec, **kw)
+
+        def own_call(w, u, bf16, g, out, order, n=n, rowptr=rowptr, col=col):
+            code = 0 if u.dtype == torch.float32 else 1
+            optr = None if order is None else order.data_ptr()
+            return lambda: fn(code, bf16, rowptr.data_ptr(), col.data_ptr(), w.data_ptr(),
+                              u.data_ptr(), out.data_ptr(), n, g, optr,
+                              torch.cuda.current_stream().cuda_stream)
+
+        digests = {}
+        for form, (w, u, bf16) in {"f32": (w32, u32, 0), "bf16": (w32, u32, 1),
+                                   "float64": (w32.double(), u32.double(), 0)}.items():
+            want = pkg(w, u, "bf16" if bf16 else "f32")
+            digests[form] = digest(want)
+            for oname, o in orders.items():
+                for g in GATHER_WIDTHS:
+                    out = torch.empty_like(u)
+                    rc = own_call(w, u, bf16, g, out, o)()
+                    torch.cuda.synchronize()
+                    if rc or not torch.equal(out, want):
+                        fail(f"--ab unstructured {name} {form}: this tree's kernel in {oname} "
+                             f"at width {g} (rc {rc}) is not bitwise the package's gather_L")
+        w, u = w32, u32
+        out = torch.empty_like(u)
+        runs = {"package": lambda: pkg(w, u, "f32"),
+                "this": own_call(w, u, 0, width, out, orders[pick])}
+        entry = {"n": n, "nnz": nnz, "entries a row": nnz / n, "width": width, "order": pick,
+                 "package takes width": takes_width,
+                 "bound_ms": bound(nnz * 8 + (n + 1) * 8 + 2 * n * 4, 2 * nnz)[0],
+                 "turns": ab_turns(torch, runs, 50), "digests": digests}
+        entry["widths"] = {oname: {g: graph_ms(torch, own_call(w, u, 0, g, out, o), 20)
+                                   for g in GATHER_WIDTHS} for oname, o in orders.items()}
+        entry["gather_only_ms"] = graph_ms(torch, lambda: torch.index_select(u, 0, col), 20)
+        lib = csr_library(torch, rowptr, col, w, n)
+        entry["library_ms"] = graph_ms(torch, lambda: lib(u), 20)
+        say(f"ab unstructured {name}: {json.dumps(entry)}")
+        res[name] = entry
+        del lib
+        torch.cuda.empty_cache()
+    return res
+
+
+AB_SECTIONS = ("2d", "3d", "halo2d", "dist2d", "halo3d", "dist3d", "resident",
+               "unstructured")
 
 
 def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
@@ -7023,7 +7254,9 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
     blocks (halo2d_ab); "dist2d" the 4096^2 2x2 steps (dist2d_ab); "halo3d"
     the 3D halo kernels at the 128^3 block (halo3d_ab); "dist3d" the 256^3
     2x2x2 steps (dist3d_ab); "resident" the resident kernels against carried2d/carried3d
-    and the tuned 512^2 and 128^3 eps=6 solves (resident_ab).  Run it for
+    and the tuned 512^2 and 128^3 eps=6 solves (resident_ab); "unstructured"
+    B12 gather_L against this tree's kernel, bitwise, at every group width
+    on the shuffled 512^2 and graded nm=256 clouds (unstructured_ab).  Run it for
     two trees in turns in one call (parent, this, this, parent) to compare
     them on one card."""
     import numpy as np
@@ -7050,7 +7283,8 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
     sources = (_build.SOURCES_2D if {"2d", "halo2d", "dist2d", "resident"} & set(sections)
                else ()) + (
         _build.SOURCES_3D if {"3d", "halo3d", "dist3d", "resident"} & set(sections) else ()) + (
-        _build.SOURCES_HALO if {"halo2d", "dist2d", "halo3d", "dist3d"} & set(sections) else ())
+        _build.SOURCES_HALO if {"halo2d", "dist2d", "halo3d", "dist3d"} & set(sections) else ()
+    ) + (("gather_L.cu",) if "unstructured" in sections else ())
     built = _build.build(sources)
     res = {"package": root, "card": card, "build_s": built}
     if "2d" in sections:
@@ -7074,6 +7308,8 @@ def ab_main(package_root: str, sections=AB_SECTIONS) -> int:
         res["dist3d"] = dist3d_ab(torch, np)
     if "resident" in sections:
         res["resident"] = resident_ab(torch, np)
+    if "unstructured" in sections:
+        res["unstructured"] = unstructured_ab(torch, np)
     res["wall_s"] = time.perf_counter() - t0
     say(f"ab: {json.dumps(res)}")
     return 0

@@ -109,7 +109,7 @@ _ENTRIES = {
     "nlheat_batched_superstep2d_fits": ("batched_superstep2d.cu", [_I, _I, _I, _I]),
     "nlheat_windowed_matvec": ("windowed_matvec.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                                       _I, _P]),
-    "nlheat_gather_L": ("gather_L.cu", [_I, _I, _P, _P, _P, _P, _P, _I, _P]),
+    "nlheat_gather_L": ("gather_L.cu", [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P]),
     "nlheat_split_nsum2d": ("split_nsum2d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _P]),
     "nlheat_split_nsum3d": ("split_nsum3d.cu", [_I, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
     "nlheat_fused_nsum2d": ("fused_nsum2d.cu", [_I, _I, _P, _I, _I, _P, _I, _I, _I, _P]),

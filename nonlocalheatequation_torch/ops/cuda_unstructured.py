@@ -139,7 +139,41 @@ def windowed_matvec(rowptr: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor
 
 # -- CSR strip gather (B12) ------------------------------------------------------
 
-def _check_gather(rowptr, col, w, u):
+#: the group widths the kernel takes: lanes a row (csrc/gather_L.cu)
+GATHER_WIDTHS = (4, 8, 16, 32)
+
+
+class VisitOrder:
+    """A permutation of a table's rows, the order in which the ``gather_L``
+    kernel visits them: ``perm`` (n,) int32, checked once here to hold each
+    of ``0 .. n-1`` once (the kernel reads ``rowptr[perm[i]]`` and writes
+    ``out[perm[i]]``, so an entry out of range would read past the table and
+    a repeated one would leave a row unwritten)."""
+
+    def __init__(self, perm: torch.Tensor):
+        if not isinstance(perm, torch.Tensor) or perm.dtype != torch.int32 or perm.dim() != 1:
+            raise ValueError(f"gather_L: a visit order needs a 1-D int32 tensor, got "
+                             f"{getattr(perm, 'dtype', type(perm))}")
+        n = perm.shape[0]
+        if not torch.equal(torch.sort(perm).values,
+                           torch.arange(n, dtype=torch.int32, device=perm.device)):
+            raise ValueError(f"gather_L: a visit order must be a permutation of the "
+                             f"{n} rows, each once")
+        self.perm = perm.contiguous()
+
+
+def _check_gather(rowptr, col, w, u, width, order):
+    if width not in GATHER_WIDTHS:
+        raise ValueError(f"gather_L: width {width!r} lanes a row is not one of "
+                         f"{GATHER_WIDTHS}")
+    if order is not None:
+        if not isinstance(order, VisitOrder):
+            raise TypeError(f"gather_L: order must be a VisitOrder (a checked permutation), "
+                            f"got {type(order).__name__}")
+        _check("gather_L order", order.perm, torch.int32, u, 1)
+        if order.perm.shape != u.shape:
+            raise ValueError(f"gather_L: a visit order of {tuple(order.perm.shape)} rows for "
+                             f"a state of {u.shape[0]} nodes")
     if u.dtype not in _DTYPE_CODE or u.dim() != 1:
         raise TypeError(f"gather_L: u must be a 1-D float32/float64 tensor, got "
                         f"{tuple(u.shape)} {u.dtype}")
@@ -163,13 +197,18 @@ def gather_L_plain(rowptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
 
 
 def gather_L(rowptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
-             precision: str = "f32") -> torch.Tensor:
+             precision: str = "f32", width: int = 32,
+             order: torch.Tensor | None = None) -> torch.Tensor:
     """``out[i] = sum_{k in row i} w[k] * u[col[k]]`` over a CSR table:
     ``rowptr`` (n+1,) int64, ``col`` int32 and ``w`` in u's dtype.
     ``precision="bf16"`` rounds each gathered value of u to bfloat16 (through
-    float32) before the multiply; weights and sum stay in u's dtype."""
+    float32) before the multiply; weights and sum stay in u's dtype.
+    ``width`` is the kernel's lanes a row, one of :data:`GATHER_WIDTHS`, and
+    ``order`` a :class:`VisitOrder`, the order in which the kernel visits
+    the rows (None: row order); ops/gather.py picks both for a table.
+    Neither changes a bit of the result."""
     validate_precision(precision)
-    _check_gather(rowptr, col, w, u)
+    _check_gather(rowptr, col, w, u, width, order)
     if u.device.type == "cpu":
         return gather_L_plain(rowptr, col, w, u, precision)
     _check_device(u)
@@ -182,8 +221,9 @@ def gather_L(rowptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, u: torch.
     with torch.cuda.device(u.device):
         rc = _entry("nlheat_gather_L")(
             _DTYPE_CODE[u.dtype], int(precision == "bf16"), rowptr.data_ptr(),
-            col.data_ptr(), w.data_ptr(), u.data_ptr(), out.data_ptr(), n,
+            col.data_ptr(), w.data_ptr(), u.data_ptr(), out.data_ptr(), n, width,
+            None if order is None else order.perm.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_status(rc, "gather_L", f"a {u.dtype} state")
+    _raise_status(rc, "gather_L", f"a {u.dtype} state at {width} lanes a row")
     LAUNCHES["gather_L"] += 1
     return out

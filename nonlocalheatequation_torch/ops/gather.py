@@ -12,9 +12,10 @@ gives that table in the JAX package's strip form (rows padded with zero
 weights to a 128-lane quantum); :func:`csr_table` gives the same baked
 entries in CSR form (row pointers, no padding), which the ``gather_L``
 kernel reads (ops/cuda_unstructured.py, csrc/gather_L.cu; it replaces the
-Pallas ``build_gather_L``).  ``precision="bf16"`` rounds each gathered
-value of the state once to bfloat16; the weights and the sum stay in the
-state dtype.
+Pallas ``build_gather_L``) at the lanes a row :func:`gather_width` picks and
+in the visit order :func:`gather_order` picks.  ``precision="bf16"`` rounds
+each gathered value of the state once to bfloat16; the weights and the sum
+stay in the state dtype.
 
 The step makers mirror the JAX package's: per-step, multi-step, and the
 stacked ensemble form, whose lane b is bitwise the solo run (the kernel's
@@ -29,6 +30,7 @@ import torch
 
 from nonlocalheatequation_torch.ops import cuda_unstructured
 from nonlocalheatequation_torch.ops.nonlocal_op import source_at
+from nonlocalheatequation_torch.ops.windowed import morton_perm
 from nonlocalheatequation_torch.utils.devices import resolve_dtype
 
 #: lane quantum of the strip width (the JAX package's f32 tile lane count)
@@ -98,8 +100,64 @@ def csr_table(op):
     return rowptr, col, wc
 
 
+def gather_width(nnz: int, n: int) -> int:
+    """The ``gather_L`` kernel's lanes a row for a table of ``nnz`` entries
+    over ``n`` rows: the smallest width whose iteration (8 entries a lane)
+    covers a row of the mean length, 4 up to 32 entries a row, 8 up to 64,
+    16 up to 128, else 32; 32 for an empty table.  A lane issues its 8
+    column and weight loads before its first gather of u, so a narrow group
+    keeps a short row's loads in flight in one iteration, where the first
+    form (32 lanes, one entry a lane) waited on one chain of loads a row;
+    every width gives the same bits (csrc/gather_L.cu).  The rule is the
+    fastest width, or level with it, at every point cloud that
+    ``chip_smoke.py --ab DIR unstructured`` times on an H100 (80GB HBM3,
+    700 W, ms a launch in a CUDA graph, in the visit order
+    :func:`gather_order` picks): 4 at 28 entries a row (lattice-order 512^2
+    0.0254 against 0.0298 at 8; shuffled 512^2 0.0386 against 0.0428), 8
+    at 42-50 (64^3 at eps 2.2h 0.0384 against 0.0434 at 4 and 0.0498 at
+    16, shuffled 0.0553 against 0.0581 at 4; shuffled 512^2 at eps 4h
+    0.0549 against 0.0574 at 4 and 0.0641 at 16), 16 at the 68 of 64^3 at eps 2.5h (0.0582 against
+    0.0602 at 8; shuffled 0.0790 at 8 and 16), 32 at the 223 of the graded
+    cloud (0.0429 against 0.0441 at 16).  Tables of random columns with no
+    points to order them by are not what a cloud gives and run best at 32
+    from 64 entries a row (0.1379 ms against the rule's 0.1553 at 64 a row,
+    0.2647 against 0.2849 at 128); no caller builds one."""
+    if n <= 0:
+        return 32
+    mean = -(-nnz // n)
+    for width in (4, 8, 16):
+        if mean <= 8 * width:
+            return width
+    return 32
+
+
+def gather_order(op):
+    """The order in which the ``gather_L`` kernel visits the op's rows, as
+    int32, or None for row order.  Where a row's columns lie near it (the
+    mean ``|col - row|`` at most n/4, where a random numbering gives n/3: a
+    lattice-ordered or meshed numbering) consecutive rows gather the same
+    lines of u, and row order keeps that.  Where they lie far (a shuffled
+    numbering), consecutive rows share nothing and every gathered value
+    costs a sector from L2; visiting the rows in the Morton order of their
+    points (ops/windowed.morton_perm, cells of the largest horizon) makes
+    the rows a block visits neighbours, so their gathers share lines in L1.
+    The table and the numbering stay as they are: the order changes no bit.
+    On an H100 (``chip_smoke.py --ab DIR unstructured``) the shuffled 512^2
+    cloud takes 0.039 ms in this order against 0.071 in row order, and the
+    lattice-ordered one 0.025 in row order against 0.028 in this one."""
+    n = op.n
+    if n == 0 or len(op.tgt) == 0:
+        return None
+    if np.abs(op.src.astype(np.int64) - op.tgt).mean() <= n / 4:
+        return None
+    cell = max(float(np.max(op.eps)), np.finfo(np.float64).tiny)
+    return morton_perm(op.points, cell).astype(np.int32)
+
+
 class GatherTable:
-    """One operator's baked CSR table as tensors in ``dtype`` on ``device``."""
+    """One operator's baked CSR table as tensors in ``dtype`` on ``device``,
+    the kernel's lanes a row for it (:func:`gather_width`) and the order in
+    which it visits the rows (:func:`gather_order`)."""
 
     def __init__(self, op, dtype: torch.dtype, device):
         rowptr, col, w = csr_table(op)
@@ -107,6 +165,10 @@ class GatherTable:
         self.rowptr = torch.as_tensor(rowptr).to(device)
         self.col = torch.as_tensor(col).to(device)
         self.w = torch.as_tensor(w).to(device=device, dtype=dtype)
+        self.width = gather_width(len(col), op.n)
+        order = gather_order(op)
+        self.order = (None if order is None else
+                      cuda_unstructured.VisitOrder(torch.as_tensor(order).to(device)))
 
     @property
     def nnz(self) -> int:
@@ -138,7 +200,8 @@ def build_gather_L(op, dtype=None, precision: str = "f32", device=None):
 
     def L(u):
         return cuda_unstructured.gather_L(table.rowptr, table.col, table.w,
-                                          u.to(dtype).contiguous(), precision)
+                                          u.to(dtype).contiguous(), precision, table.width,
+                                          table.order)
 
     L.table = table
     return L

@@ -744,6 +744,89 @@ def test_unstructured_kernels_match_plain_on_card(card, dtype, tol):
                                                                  "gather_L": 16}
 
 
+def _rows_table(lengths, n, rng):
+    """A raw CSR table over ``n`` nodes whose rows have the given lengths,
+    at random columns (rowptr int64, col int32, w float64)."""
+    rowptr = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=rowptr[1:])
+    col = rng.integers(0, n, int(rowptr[-1])).astype(np.int32)
+    return rowptr, col, rng.standard_normal(int(rowptr[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_gather_L_every_width_is_bitwise_width_32_on_card(card, dtype, tol, precision):
+    # every group width and visit order of the redesigned kernel keeps the
+    # first form's order of adds: each result is torch.equal to width 32 in
+    # row order, on the clouds above and on rows of 0, 1, 31, 32, 33, 64, 65
+    # and 300 entries and a hub row of every node, in row order, in a random
+    # visit order and (the shuffled cloud) in the table's Morton order
+    from nonlocalheatequation_torch.ops import cuda_unstructured as cu
+    from nonlocalheatequation_torch.ops.gather import GatherTable
+    from nonlocalheatequation_torch.ops.unstructured import UnstructuredNonlocalOp
+
+    rng = np.random.default_rng(25)
+    tables = []
+    for m, d, shuffle in [(40, 2, False), (40, 2, True), (10, 3, False), (300, 1, False)]:
+        pts, eps, vol = _cloud(m, d, seed=m + d, shuffle=shuffle)
+        op = UnstructuredNonlocalOp(pts, eps, k=1.0, dt=1e-6, vol=vol, device=card)
+        t = GatherTable(op, dtype, card)
+        assert (t.order is not None) == shuffle  # a Morton visit order where shuffled
+        tables.append((t.rowptr, t.col, t.w, t.order))
+    n = 2000
+    lengths = [0, 1, 31, 32, 33, 64, 65, 300, n] + [0, 1, 31, 32, 33, 64, 65, 300] * 4
+    lengths += list(rng.integers(0, 40, n - len(lengths)))
+    rowptr, col, w = _rows_table(lengths, n, rng)
+    tables.append((torch.as_tensor(rowptr, device=card), torch.as_tensor(col, device=card),
+                   torch.as_tensor(w, device=card, dtype=dtype),
+                   cu.VisitOrder(torch.as_tensor(rng.permutation(n).astype(np.int32),
+                                                 device=card))))
+    launches = 0
+    for rowptr, col, w, order in tables:
+        u = torch.tensor(rng.standard_normal(rowptr.numel() - 1), device=card, dtype=dtype)
+        want = cu.gather_L(rowptr, col, w, u, precision, width=32)
+        plain = cu.gather_L_plain(rowptr, col, w, u, precision)
+        assert float((want - plain).abs().max() / plain.abs().max()) <= tol
+        for o in {"row": None, "visit": order}.values():
+            for width in cu.GATHER_WIDTHS:
+                assert torch.equal(cu.gather_L(rowptr, col, w, u, precision, width, o), want)
+                launches += 1
+        launches += 1
+    assert ck.launch_counts()["gather_L"] == launches
+    # the empty rows sum to zero at every width
+    empty = torch.as_tensor(np.diff(rowptr.cpu().numpy()) == 0, device=card)
+    for width in cu.GATHER_WIDTHS:
+        got = cu.gather_L(rowptr, col, w, u, precision, width)
+        assert not got[empty].any()
+    # an unsupported width, an unchecked order, an order of another length,
+    # or one that is not a permutation of the rows (an entry past n, a
+    # repeated entry) raises before any launch
+    before = ck.launch_counts()["gather_L"]
+    for width in (0, 2, 3, 64):
+        with pytest.raises(ValueError, match="lanes a row"):
+            cu.gather_L(rowptr, col, w, u, precision, width)
+    with pytest.raises(TypeError, match="VisitOrder"):
+        cu.gather_L(rowptr, col, w, u, precision, 4, order.perm)
+    with pytest.raises(ValueError, match="visit order"):
+        cu.gather_L(rowptr, col, w, u, precision, 4, cu.VisitOrder(torch.arange(
+            n - 1, dtype=torch.int32, device=card)))
+    past, twice = order.perm.clone(), order.perm.clone()
+    past[0], twice[0] = n, twice[1]
+    for bad in (past, twice):
+        with pytest.raises(ValueError, match="permutation"):
+            cu.VisitOrder(bad)
+    assert ck.launch_counts()["gather_L"] == before
+    # and the C entry refuses it too, launching nothing
+    out = torch.zeros_like(u)
+    rc = ck._entry("nlheat_gather_L")(
+        ck._DTYPE_CODE[dtype], int(precision == "bf16"), rowptr.data_ptr(), col.data_ptr(),
+        w.data_ptr(), u.data_ptr(), out.data_ptr(), u.numel(), 64, None,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == -1 and not out.any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 def test_packed_windowed_matvec_edge_cases_on_card(card, dtype, tol):

@@ -160,6 +160,106 @@ def test_gather_refusals():
         cu.gather_L(t.rowptr, t.col, t.w, u, "fp8")
 
 
+# -- the kernel's width and visit order (ops/gather.py) ------------------------------
+
+
+def jittered(m, d, seed, shuffle=False):
+    """An m^d lattice on [0, 1)^d jittered by +/-0.2 spacings, optionally
+    shuffled (chip_smoke.py's clouds); (points, spacing)."""
+    rng = np.random.default_rng(seed)
+    h = 1.0 / m
+    grids = np.meshgrid(*([np.arange(m) * h] * d), indexing="ij")
+    pts = np.stack([g.ravel() for g in grids], axis=1)
+    pts += rng.uniform(-0.2 * h, 0.2 * h, pts.shape)
+    return (pts[rng.permutation(len(pts))] if shuffle else pts), h
+
+
+def graded(nm, a=0.6):
+    """bench.py's graded cloud: spacing (1 -/+ a)/nm, eps = 8 local spacings."""
+    xi = (np.arange(nm) + 0.5) / nm
+    gp = 1 + a * np.cos(2 * np.pi * xi)
+    X, Y = np.meshgrid(xi + a * np.sin(2 * np.pi * xi) / (2 * np.pi),
+                       xi + a * np.sin(2 * np.pi * xi) / (2 * np.pi), indexing="ij")
+    HX, HY = np.meshgrid(gp / nm, gp / nm, indexing="ij")
+    return np.stack([X.ravel(), Y.ravel()], 1), 4.0 * (HX + HY).ravel(), (HX * HY).ravel()
+
+
+def _cloud_op(name):
+    if name == "graded":
+        pts, eps, vol = graded(32)
+    else:
+        m, d, f, shuffle = {"shuffled": (40, 2, 3.0, True), "lattice": (40, 2, 3.0, False),
+                            "1D": (700, 1, 4.0, False), "3D": (12, 3, 2.5, False)}[name]
+        pts, h = jittered(m, d, 5, shuffle)
+        eps, vol = f * h, h ** d
+    return tun.UnstructuredNonlocalOp(pts, eps, k=1.0, dt=1e-6, vol=vol, device=CPU)
+
+
+# (cloud, entries a row with the centres, width, visited in Morton order)
+CLOUD_WIDTHS = [("shuffled", 28, 4, True), ("lattice", 28, 4, False), ("1D", 9, 4, False),
+                ("3D", 57, 8, False), ("graded", 208, 32, False)]
+
+
+@pytest.mark.parametrize("name,mean,width,morton", CLOUD_WIDTHS)
+def test_gather_width_and_order_of_the_clouds(name, mean, width, morton):
+    op = _cloud_op(name)
+    rowptr, col, _ = tg.csr_table(op)
+    assert -(-len(col) // op.n) == mean
+    assert tg.gather_width(len(col), op.n) == width
+    table = tg.GatherTable(op, torch.float64, CPU)
+    assert table.width == width and (table.order is not None) == morton
+    if morton:  # the rows in the Morton order of their points, each once
+        assert isinstance(table.order, cu.VisitOrder)
+        order = table.order.perm.numpy()
+        assert table.order.perm.dtype == torch.int32
+        assert np.array_equal(np.sort(order), np.arange(op.n))
+        from nonlocalheatequation_torch.ops.windowed import morton_perm
+        assert np.array_equal(order, morton_perm(op.points, float(op.eps.max())))
+    L = tg.build_gather_L(op, torch.float64, device=CPU)
+    assert L.table is tg.GatherTable.of(op, torch.float64, CPU)
+    u = torch.tensor(np.random.default_rng(6).normal(size=op.n))
+    # the plain version computes the same function whatever the order
+    want = cu.gather_L_plain(table.rowptr, table.col, table.w, u)
+    assert torch.equal(L(u), want)
+
+
+@pytest.mark.parametrize("n,nnz,width", [(0, 0, 32), (5, 0, 4), (10, 320, 4), (10, 321, 8),
+                                         (10, 640, 8), (10, 641, 16), (10, 1280, 16),
+                                         (10, 1281, 32), (3, 10**6, 32)])
+def test_gather_width_rule(n, nnz, width):
+    # the smallest width whose iteration (8 entries a lane) covers a row of
+    # the mean length; 32 for an empty table
+    assert tg.gather_width(nnz, n) == width
+
+
+def test_gather_width_and_order_refusals():
+    _, top = _ops(n=24, seed=4)
+    t = tg.GatherTable(top, torch.float64, CPU)
+    u = torch.zeros(top.n, dtype=torch.float64)
+    ck.reset_launch_counts()
+    for width in (0, 2, 5, 64, None):
+        with pytest.raises(ValueError, match="lanes a row"):
+            cu.gather_L(t.rowptr, t.col, t.w, u, "f32", width)
+    order = torch.arange(top.n, dtype=torch.int32)
+    # a visit order is a permutation of the rows, checked once where it is
+    # made: not int32, an entry out of range, a repeated entry
+    with pytest.raises(ValueError, match="int32"):
+        cu.VisitOrder(order.long())
+    for bad in (order + 1, torch.cat([order[:-1], order[:1]]), order - 1):
+        with pytest.raises(ValueError, match="permutation"):
+            cu.VisitOrder(bad)
+    # gather_L takes only a checked order, of the state's length
+    with pytest.raises(TypeError, match="VisitOrder"):
+        cu.gather_L(t.rowptr, t.col, t.w, u, "f32", 4, order)
+    with pytest.raises(ValueError, match="visit order"):
+        cu.gather_L(t.rowptr, t.col, t.w, u, "f32", 4, cu.VisitOrder(order[:-1]))
+    assert ck.launch_counts()["gather_L"] == 0
+    # a good width and order take the plain version on the CPU
+    got = cu.gather_L(t.rowptr, t.col, t.w, u + 1.0, "f32", 4, cu.VisitOrder(order.flip(0)))
+    assert torch.equal(got, cu.gather_L_plain(t.rowptr, t.col, t.w, u + 1.0))
+    assert ck.launch_counts()["gather_L"] == 0
+
+
 # -- step forms -------------------------------------------------------------------
 
 
