@@ -23,6 +23,16 @@ The device path has three forms, as the JAX package's ``_run_jit``:
   recorded after each step and the oldest is waited on once more than
   ``nd`` are outstanding.
 
+Every device form runs in the same three steps around its loop, each in an
+obs/trace.py span (with ``--profile DIR`` a ``nlheat.solve.*`` range in the
+capture): ``solve.upload`` (u0 converted to the solve's dtype on the host,
+then copied to the device), the program's making (``solve.program``, where
+the multi-step program first meets its shape: ops/nonlocal_op.py,
+models/steppers.py) and ``solve.fetch`` (the wait for the loop and the copy
+back).  ``obs.metrics.REGISTRY`` counts ``/solver/solves`` (one a
+``do_work``) and the bytes of the two copies where they cross to or from a
+device that is not the CPU (``/solver/h2d-bytes``, ``/solver/d2h-bytes``).
+
 ``stepper``/``stages`` pick the time integrator (models/steppers.py: euler,
 rkc, expo) in each form; an rkc or expo solve steps its own loop (each rkc
 stage one ``op.apply``: on ``cuda`` one ``nsum2d`` launch), and the
@@ -44,6 +54,8 @@ from nonlocalheatequation_torch.models.steppers import (
     make_step_fn,
     validate_solver_stepper,
 )
+from nonlocalheatequation_torch.obs import trace as obs_trace
+from nonlocalheatequation_torch.obs.metrics import REGISTRY
 from nonlocalheatequation_torch.ops.nonlocal_op import NonlocalOp2D, source_at
 from nonlocalheatequation_torch.utils.checkpoint import CheckpointMixin, fetch_state
 from nonlocalheatequation_torch.utils.devices import resolve_device, resolve_dtype
@@ -107,6 +119,7 @@ class GridSolver(CheckpointMixin, ManufacturedMetrics2D):
 
     # -- time loop (2d_nonlocal_serial.cpp:273-303) ---------------------------
     def do_work(self) -> np.ndarray:
+        REGISTRY.counter("/solver/solves").inc()
         if self.backend == "oracle":
             u = self._run_oracle()
         else:
@@ -133,19 +146,37 @@ class GridSolver(CheckpointMixin, ManufacturedMetrics2D):
     def _run_torch(self):
         g, lg = (self.op.source_parts_on(*self._grid_shape, self.device)
                  if self.test else (None, None))
-        # a copy: the throttled loop steps into this buffer, and u0 (or the
-        # caller's input_init array) must not change
-        u = torch.tensor(self.u0, device=self.device, dtype=self.dtype)
+        u = self._upload()
         kw = dict(stepper=self.stepper, stages=self.stages)
         checkpointing = bool(self.checkpoint_path and self.ncheckpoint)
         if self.logger is None and self.nd is None and not checkpointing:
             multi = make_multi_step_fn(self.op, self.nt - self.t0, g, lg, self.dtype, **kw)
-            return multi(u, self.t0).cpu().numpy()
+            return self._fetch(multi(u, self.t0))
         if self.nd is None:
             # one multi-step program per segment; barriers = log and checkpoint steps
-            return self._run_chunked(u, lambda count: make_multi_step_fn(
-                self.op, count, g, lg, self.dtype, **kw)).cpu().numpy()
+            return self._fetch(self._run_chunked(u, lambda count: make_multi_step_fn(
+                self.op, count, g, lg, self.dtype, **kw)))
         return self._run_throttled(u, make_step_fn(self.op, g, lg, self.dtype, **kw))
+
+    def _upload(self):
+        """u0 on the device in the solve's dtype.  Toward a card torch
+        converts on the host first, so the copy moves ``u.nbytes``.  A
+        copy on the CPU too: the throttled loop steps into this buffer, and
+        u0 (or the caller's input_init array) must not change."""
+        with obs_trace.span("solve.upload"):
+            u = torch.tensor(self.u0, device=self.device, dtype=self.dtype)
+            if u.device.type != "cpu":
+                REGISTRY.counter("/solver/h2d-bytes").inc(u.nbytes)
+            return u
+
+    def _fetch(self, u) -> np.ndarray:
+        """The final state on the host: the wait for the loop and the copy
+        back (its bytes counted)."""
+        with obs_trace.span("solve.fetch"):
+            out = u.cpu().numpy()
+            if u.device.type != "cpu":
+                REGISTRY.counter("/solver/d2h-bytes").inc(out.nbytes)
+            return out
 
     def _run_throttled(self, u, step):
         """The per-step loop under the ``nd`` sliding semaphore.  Steps go
@@ -176,7 +207,7 @@ class GridSolver(CheckpointMixin, ManufacturedMetrics2D):
                 if on_card:
                     oldest.synchronize()
             self.max_inflight_ = max(self.max_inflight_, len(inflight))
-        return u.cpu().numpy()
+        return self._fetch(u)
 
 
 class Solver2D(GridSolver):

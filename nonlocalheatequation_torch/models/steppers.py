@@ -320,8 +320,10 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None,
     ``euler`` is ops/nonlocal_op.make_multi_step_fn (the kernel variants and
     the tuner, unchanged) unless ``NLHEAT_TUNE_METHOD=1`` swaps in the fft
     twin.  ``rkc``/``expo`` loop their step, set the ``/stepper/stages`` and
-    ``/stepper/eff-dt`` gauges when built, and run each call in a
-    ``stepper.superstep`` span (one attribute read with no tracer)."""
+    ``/stepper/eff-dt`` gauges when built, make the loop on a key's first
+    call in a ``solve.program`` span and run each call in a
+    ``stepper.superstep`` span (obs/trace.py: free with no tracer and no
+    profiler capture)."""
     tune = _maybe_tune_method(op, g)
     if stepper == "euler" and tune is None:
         return _euler_multi_step_fn(op, nsteps, g, lg, dtype)
@@ -342,7 +344,8 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None,
         key = (tuple(u.shape), dtype or u.dtype, u.device)
         fn = built.get(key)
         if fn is None:
-            fn = built[key] = build(*key)
+            with obs_trace.span("solve.program"):
+                fn = built[key] = build(*key)
         with obs_trace.span("stepper.superstep", cat="stepper", stepper=stepper,
                             stages=stages, steps=nsteps, eff_dt=op.dt):
             return fn(u, t0)

@@ -24,8 +24,22 @@ Hard rules:
 * **bounded** — a ring buffer of ``capacity`` events (oldest evicted),
   with a lifetime-exact ``spans_total``;
 * **zero-cost when off** — the module-level :func:`span`/:func:`instant`
-  helpers are no-ops (one attribute read) until :func:`set_tracer`
-  installs a tracer.
+  helpers are no-ops (an attribute read, and for :func:`span` a
+  ``sys.modules`` lookup and the profiler's flag) until :func:`set_tracer`
+  installs a tracer or a ``torch.profiler`` capture starts.
+
+While a ``torch.profiler`` capture records in this process (the CLIs'
+``--profile DIR``, a benchmark's traced window), every span, with or
+without a tracer, also records a host range named ``nlheat.<span name>``
+for its extent: the span then lands in the profiler's own record, on its
+clock, beside the operators and the card's kernels and copies.  The range
+is a function-scope record (``torch._C._profiler._RecordFunctionFast``, a
+``cpu_op`` in the record), not a ``record_function`` user annotation: the
+profiler gives each user annotation a ``gpu_user_annotation`` twin on the
+card's timeline that spans the device work launched inside it, and a
+reader that tells device events apart by name alone (portbench/devtrace.py
+on torch 2.11) counts such a twin as a kernel.  Torch is reached through
+``sys.modules`` only: a process that never imported it records no capture.
 
 The clock is injectable: tests drive a virtual clock and assert golden
 span sequences deterministically (tests/test_torch_obs.py).
@@ -71,6 +85,23 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+#: Prefix of a span's range in a ``torch.profiler`` capture.
+PROFILER_PREFIX = "nlheat."
+
+
+def _profiler_range(name: str):
+    """A host range named ``nlheat.<name>`` while a ``torch.profiler``
+    capture records in this process, else None."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
+    try:
+        if not torch._C._autograd._profiler_enabled():
+            return None
+        return torch._C._profiler._RecordFunctionFast(PROFILER_PREFIX + name)
+    except Exception:  # noqa: BLE001 — observability never raises
+        return None
 
 
 class TraceContext:
@@ -174,30 +205,45 @@ TRACE_OFF = _NullSpan()
 
 
 class _Span:
-    """Context manager recording one complete ('X') event on exit."""
+    """Context manager recording one complete ('X') event on exit (with a
+    tracer) and holding the profiler's range ``rng`` open for its extent
+    (while a capture records)."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_tid", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_tid", "_args", "_t0", "_range")
 
-    def __init__(self, tracer, name, cat, tid, args):
+    def __init__(self, tracer, name, cat, tid, args, rng=None):
         self._tracer = tracer
         self._name = name
         self._cat = cat
         self._tid = tid
         self._args = args
+        self._range = rng
 
     def __enter__(self):
-        try:
-            self._t0 = self._tracer._clock()
-        except Exception:  # noqa: BLE001 — observability never raises
-            self._t0 = 0.0
+        if self._range is not None:
+            try:
+                self._range.__enter__()
+            except Exception:  # noqa: BLE001 — observability never raises
+                self._range = None
+        if self._tracer is not None:
+            try:
+                self._t0 = self._tracer._clock()
+            except Exception:  # noqa: BLE001
+                self._t0 = 0.0
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        args = self._args
-        if exc_type is not None:
-            args = {**args, "error": exc_type.__name__}
-        self._tracer.complete(self._name, self._t0, cat=self._cat,
-                              tid=self._tid, **args)
+        if self._tracer is not None:
+            args = self._args
+            if exc_type is not None:
+                args = {**args, "error": exc_type.__name__}
+            self._tracer.complete(self._name, self._t0, cat=self._cat,
+                                  tid=self._tid, **args)
+        if self._range is not None:
+            try:
+                self._range.__exit__(None, None, None)
+            except Exception:  # noqa: BLE001
+                pass
         return False
 
 
@@ -332,7 +378,7 @@ class Tracer:
             pass
 
     def span(self, name: str, cat: str = "", tid: int = 0, **args) -> _Span:
-        return _Span(self, name, cat, tid, args)
+        return _Span(self, name, cat, tid, args, _profiler_range(name))
 
     def __len__(self) -> int:
         return len(self.events)
@@ -380,13 +426,16 @@ def set_tracer(tracer: Tracer | None) -> Tracer | None:
 
 
 def span(name: str, cat: str = "", **args):
-    """Module-level span helper: a real span under the global tracer,
-    the shared no-op context otherwise (one attribute read — the
-    zero-cost disabled path)."""
+    """Module-level span helper: a real span under the global tracer, the
+    profiler's range alone while a capture records with no tracer, the
+    shared no-op context otherwise (the zero-cost disabled path)."""
     t = _tracer
-    if t is None:
+    if t is not None:
+        return t.span(name, cat=cat, **args)
+    rng = _profiler_range(name)
+    if rng is None:
         return NULL_SPAN
-    return t.span(name, cat=cat, **args)
+    return _Span(None, name, cat, 0, args, rng)
 
 
 def instant(name: str, cat: str = "", **args) -> None:

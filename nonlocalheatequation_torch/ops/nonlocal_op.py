@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nonlocalheatequation_torch.obs import trace as obs_trace
 from nonlocalheatequation_torch.ops import cuda_kernel, cuda_kernel3d, spectral
 from nonlocalheatequation_torch.ops.constants import c_1d, c_2d, c_3d, validate_precision
 from nonlocalheatequation_torch.ops.cuda_kernel import bf16_round
@@ -581,7 +582,8 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None):
     On a CUDA tensor utils/autotune measures the candidates that fit once
     per (shape, dtype) and runs the fastest, as the JAX package's default
     does on the TPU; with the program store on (serve/program_store.py) a
-    warm solve re-makes the stored winner without a probe.
+    warm solve re-makes the stored winner without a probe.  The making (a
+    key's first call) runs in a ``solve.program`` span (obs/trace.py).
 
     Everything else runs the per-step loop: a CPU tensor, the test form
     with its source, the 1D operator, a method that is not ``cuda``, and the
@@ -611,7 +613,8 @@ def make_multi_step_fn(op, nsteps: int, g=None, lg=None, dtype=None):
         key = (tuple(u.shape), dtype or u.dtype, u.device)
         fn = built.get(key)
         if fn is None:
-            fn = built[key] = variant(u)
+            with obs_trace.span("solve.program"):
+                fn = built[key] = variant(u)
         return fn(u, t0)
 
     return multi

@@ -13,6 +13,11 @@ imports JAX, so on such a machine run it without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
 
+A solve counts its state's bytes each way (``/solver/h2d-bytes``,
+``/solver/d2h-bytes``) and a profiled solve holds its ``nlheat.solve.*``
+ranges on the host, none of which portbench/devtrace.py counts as device
+work (the one test here that imports the benchmark's module).
+
 The batched kernels (ops/cuda_batched.py) are held per lane, bitwise, to the
 solo kernels (``batched_step2d`` and ``batched_superstep2d`` also bitwise to
 their plain versions, in their register designs and their tile bodies), and
@@ -284,6 +289,40 @@ def test_solver2d_production_solve_is_tuned_on_card(card, monkeypatch):
     assert len(probed) == 5
     ref = make_multi_step_fn_base(op, nt)(torch.as_tensor(u0, device=card).float(), 0)
     assert np.array_equal(got, ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_solve_spans_and_copy_bytes_on_card(card):
+    """A 1024² f32 solve counts its state's 4 MiB each way, and a profiled
+    solve holds the three ``nlheat.solve.*`` ranges on the host, none of
+    which the benchmark's trace arithmetic (portbench/devtrace.py) counts as
+    device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nonlocalheatequation_torch.obs.metrics import REGISTRY
+    from portbench import devtrace
+
+    n, nt, eps = 1024, 5, 8
+    op = _op(n, eps)
+    s = Solver2D(n, n, nt, eps, k=1.0, dt=op.dt, dh=op.dh, method="cuda",
+                 dtype=torch.float32, device=card)
+    s.input_init(np.random.default_rng(9).standard_normal((n, n)))
+    s.do_work()  # the tuner's probes, outside the capture
+    names = ("/solver/solves", "/solver/h2d-bytes", "/solver/d2h-bytes")
+    before = [REGISTRY.counter(k).value for k in names]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s.do_work()
+        torch.cuda.synchronize()
+    after = [REGISTRY.counter(k).value for k in names]
+    assert [a - b for a, b in zip(after, before, strict=True)] == [1, 4 << 20, 4 << 20]
+    trace = devtrace.parse(prof.profiler.kineto_results.events())
+    host = sorted((h for h in trace.host if h[0].startswith("nlheat.")), key=lambda h: h[1])
+    assert [h[0] for h in host] == ["nlheat.solve.upload", "nlheat.solve.program",
+                                    "nlheat.solve.fetch"]
+    # merged_busy and kernel_seconds read trace.device alone
+    assert not any(d[0].startswith("nlheat.") for d in trace.device)
+    assert devtrace.kernel_seconds(trace) > 0
+    assert devtrace.busy_ns(devtrace.merged_busy(trace)) > 0
 
 
 def _op3(n, eps, precision="f32"):
